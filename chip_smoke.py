@@ -1,0 +1,421 @@
+#!/usr/bin/env python
+"""Smoke test of the PyTorch/CUDA port on one GPU: the quickest proof that
+the port still builds, starts and trains on the card.
+
+Phases (any failure raises, and the exit status is non-zero):
+1. card: require CUDA; print the card's name and power limit.
+2. build: compile the hand-written CUDA sketch kernels from the checkout.
+3. kernel vs plain: each kernel must equal its plain PyTorch version on the
+   card (torch.equal: bitwise, up to the sign of zero) at the ResNet-9
+   slice's shapes and at small edge shapes.
+4. times: each kernel's median over CUDA-event-timed launches (L2 flushed
+   before each), its plain version's, and its bound from the bytes it must
+   move at the H100's 3.35 TB/s (or its float32 operations at 67 TFLOP/s,
+   whichever is larger).
+5. main path: ``commefficient_tpu_torch.cv_train.main`` runs 5 FetchSGD
+   rounds of full-width ResNet-9 and an eval, with the launch counts zeroed
+   just before; every logged loss must be finite, each kernel must have
+   launched at least once per round, and the params must have moved in at
+   most k coordinates per round.
+6. checked rounds: one more FetchSGD round, and one uncompressed round
+   after the control's first, both at lr 0.1 through ``run_round``; their
+   new params are held against the step recomputed on the card from the
+   same cohort's reduced gradient (the sketch round through the plain
+   sketch and query, the control as ``p - lr * (0.9 V + g)``).
+7. card vs CPU: the kernels again on a real reduced gradient and error
+   table, and the client reduction of a few cohorts on the card held
+   against the same reduction on the CPU; every reading is printed.
+8. profile: a torch.profiler window over two more rounds prints the device's
+   busy time, idle share and top kernels per round.
+
+Prints one JSON line with the kernels' numbers, then as its last line
+``{"ok": true, "device": {...}}``. Run from the repository root:
+    python3 chip_smoke.py
+``--kernels-only`` stops after phase 4 (a short first check of a new kernel);
+``--cohorts N`` sets the number of cohorts phase 7 compares (default 4).
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import re
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+FP32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+SLICE = dict(d=6_573_130, c=524_288, r=5)
+EDGE_SHAPES = [(3000, 1024, 3), (700, 1024, 3), (1500, 1000, 4), (2048, 1024, 3)]
+SLICE_ARGS = ["--dataset", "cifar10", "--mode", "sketch", "--hash_family", "rotation",
+              "--num_clients", "100", "--num_workers", "8", "--local_batch_size", "8",
+              "--k", "50000", "--num_rows", "5", "--num_cols", "524288",
+              "--device", "cuda"]
+ROUNDS = 5
+TIMED_LAUNCHES = 30
+COHORTS = 4
+CHECK_LR = 0.1
+# a checked round's new params against the step recomputed on the card from
+# the same cohort's reduced gradient: the two gradients differ only by the
+# card's nondeterministic convolution reductions, so the params may differ
+# by a sliver of the step; a missing, scaled or mis-signed step is O(1)
+STEP_REL = 1e-3
+# the sketch round's top-k against the plain recomputation: coordinates at
+# the k-th |estimate| may swap with that same sliver
+TOPK_AGREE = 0.99
+# card vs CPU on the same cohort (float32, TF32 off). The forward values
+# (loss sums, new batch-norm statistics) are continuous in rounding noise
+# and must agree to 1e-5. The gradient is not continuous: rounding moves a
+# few ReLU/max-pool branch decisions among the ~24M activations of a 64-row
+# cohort, and a decision moved late in the network changes the backward
+# signal of every layer before it. Over 16 cohorts (``--cohorts 16``) an
+# H100 read relative L2 differences from 1.1e-4 to 2.7e-3, while two
+# reductions of one cohort on the card moved the params by a few 1e-6 of
+# the step apart (phase 6). So the gradient
+# gets a bound of 3x the largest of those readings, which a layout, sign or
+# scaling fault (an O(1) difference) cannot pass; its arithmetic is held
+# tightly against the JAX package on the CPU (tests/test_torch_*.py).
+FWD_REL = 1e-5
+GRAD_REL_L2 = 8e-3
+
+
+def fail(msg: str):
+    print(f"chip_smoke: FAILED: {msg}", flush=True)
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
+    """Median device time of fn over `iters` launches. Reading `flush`
+    (larger than the 50 MB L2) before each launch evicts the L2 and leaves
+    it clean, and keeps the stream busy while the host records the start
+    event and launches, so the events time the device work alone."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        flush.sum()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    if got.shape != want.shape or not torch.equal(got, want):
+        err = (got - want).abs().max().item() if got.shape == want.shape else math.inf
+        fail(f"{name}: kernel disagrees with the plain version (max abs err {err})")
+    return (got - want).abs().max().item()
+
+
+def check_kernels(csvec, spec, v: torch.Tensor, table: torch.Tensor | None = None) -> tuple:
+    """(accumulate err, query err) of the kernels against the plain versions
+    on the card. The query is checked on `table` (default: v's sketch)."""
+    acc = compare(f"sketch_accumulate {spec}", csvec.sketch_vec(spec, v),
+                  csvec._sketch_vec_rotation(spec, v))
+    if table is None:
+        table = csvec._sketch_vec_rotation(spec, v)
+    qry = compare(f"sketch_query {spec}", csvec.query_all(spec, table),
+                  csvec._query_all_rotation(spec, table))
+    return acc, qry
+
+
+def ptxas_summary(log: str) -> str:
+    """One line from nvcc's ``-Xptxas -v`` report: registers and spill
+    stores of each kernel entry."""
+    out, name = [], "?"
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            q = re.search(r"query_kernelILi(\d+)E", entry.group(1))
+            name = f"query<{q.group(1)}>" if q else (
+                "accumulate" if "accumulate" in entry.group(1) else entry.group(1)[:32])
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if spill:
+            out.append([name, None, int(spill.group(1))])
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and out:
+            out[-1][1] = int(regs.group(1))
+    return "; ".join(f"{n} {r} regs {s} B spilled" for n, r, s in out)
+
+
+def checked_round(session, engine, lr: float):
+    """Run one round of ``session`` at ``lr`` through ``run_round`` and
+    return (state before, the round cohort's reduced gradient on the card,
+    new params). The cohort is drawn first, and the host RNG rewound so
+    that ``run_round`` draws the same one."""
+    rng_state = session.rng.get_state()
+    batch = session.prepare_round().batch
+    session.rng.set_state(rng_state)
+    before = {"params": session.state["params"].clone(),
+              **{k: v.clone() for k, v in session.state["mode_state"].items()}}
+    g, _, _ = engine.reduce_clients(session.train_loss_fn, session.cfg, session.layout,
+                                    session.state, session._to_device(batch))
+    session.run_round(lr)
+    return before, g, session.state["params"]
+
+
+def check_sketch_round(session, engine, csvec) -> str:
+    """FetchSGD Alg. 1 recomputed with the plain sketch and query."""
+    mcfg = session.cfg.mode
+    spec, k = mcfg.sketch_spec, mcfg.k
+    before, g, new = checked_round(session, engine, CHECK_LR)
+    V = mcfg.momentum * before["Vvelocity"] + csvec._sketch_vec_rotation(spec, g)
+    est = csvec._query_all_rotation(spec, before["Verror"] + CHECK_LR * V)
+    idx = torch.topk(est.abs(), k).indices
+    moved = new != before["params"]
+    n_moved, agree = int(moved.sum()), moved[idx].float().mean().item()
+    common = idx[moved[idx]]
+    want = before["params"][common] - est[common]
+    rel = ((new[common] - want).abs().max() / est[idx].abs().max()).item() if n_moved else math.inf
+    verdict = (f"checked sketch round at lr {CHECK_LR}: {n_moved} params moved (k {k}), "
+               f"top-k agreement with the plain recomputation {agree:.6f}, "
+               f"value error / largest step {rel:.3e}")
+    if not (0 < n_moved <= k and agree >= TOPK_AGREE and rel < STEP_REL):
+        fail(verdict)
+    return verdict
+
+
+def check_control_round(session, engine) -> str:
+    """The uncompressed control: p - lr * (momentum * V + g)."""
+    before, g, new = checked_round(session, engine, CHECK_LR)
+    lr_t = torch.tensor(CHECK_LR, dtype=torch.float32, device=g.device)
+    want = before["params"] - lr_t * (session.cfg.mode.momentum * before["Vvelocity"] + g)
+    step = (want - before["params"]).abs().max().item()
+    rel = (new - want).abs().max().item() / step if step > 0 else math.inf
+    verdict = (f"checked uncompressed round at lr {CHECK_LR}: largest step {step:.3e}, "
+               f"error / largest step {rel:.3e}")
+    if not rel < STEP_REL:
+        fail(verdict)
+    return verdict
+
+
+def card_vs_cpu(session, engine, csvec, cohorts: int, errs: dict) -> None:
+    """The kernels on a real round's reduced gradient and error table, and
+    the client reduction of ``cohorts`` cohorts on the card against the same
+    reduction on the CPU; prints every reading."""
+    spec = session.cfg.mode.sketch_spec
+    cpu_state = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict)
+                     else v.cpu() if torch.is_tensor(v) else v)
+                 for k, v in session.state.items()}
+    readings = []
+    for i in range(cohorts):
+        batch = session.prepare_round().batch
+        weighted, stats, metrics = engine.reduce_clients(
+            session.train_loss_fn, session.cfg, session.layout, session.state,
+            session._to_device(batch))
+        if i == 0:
+            a, q = check_kernels(csvec, spec, weighted, session.state["mode_state"]["Verror"])
+            errs["sketch_accumulate"] = max(errs["sketch_accumulate"], a)
+            errs["sketch_query"] = max(errs["sketch_query"], q)
+            print("real round: kernels == plain on its reduced gradient and error table",
+                  flush=True)
+        cpu_batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+        w_cpu, stats_cpu, metrics_cpu = engine.reduce_clients(
+            session.train_loss_fn, session.cfg, session.layout, cpu_state, cpu_batch)
+        loss_rel = abs(metrics["loss_sum"].item() / metrics_cpu["loss_sum"].item() - 1)
+        stats_rel = max(((stats[k].cpu() - v).abs().max() / v.abs().max()).item()
+                        for k, v in stats_cpu.items())
+        diff = (weighted.cpu() - w_cpu).abs()
+        grad_rel = (diff.norm() / w_cpu.norm()).item()
+        live = w_cpu.abs() > 1e-6 * w_cpu.abs().max()
+        grad_median = (diff[live] / w_cpu.abs()[live]).median().item()
+        print(f"card vs CPU, cohort {i}: loss sum rel {loss_rel:.3e}, batch-norm stats rel "
+              f"{stats_rel:.3e}, reduced gradient median rel {grad_median:.3e}, "
+              f"rel L2 {grad_rel:.3e}", flush=True)
+        readings.append((loss_rel, stats_rel, grad_rel))
+    worst = [max(r[j] for r in readings) for j in range(3)]
+    if not (worst[0] < FWD_REL and worst[1] < FWD_REL and worst[2] < GRAD_REL_L2):
+        fail(f"card vs CPU over {cohorts} cohorts: worst loss sum rel {worst[0]:.3e}, "
+             f"stats rel {worst[1]:.3e} (bound {FWD_REL}), gradient rel L2 "
+             f"{worst[2]:.3e} (bound {GRAD_REL_L2})")
+
+
+def profile_rounds(session, rounds: int = 2, top: int = 12) -> None:
+    """Where a steady round's time goes: a torch.profiler window over
+    `rounds` more sketch rounds; prints the device's busy time and idle
+    share per round and the kernels that took most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            session.run_round(0.01)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / rounds
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / rounds
+    if busy_ms <= 0:
+        print("profile: the profiler recorded no device time (not measured)", flush=True)
+        return
+    print(f"profile: {rounds} rounds, wall {wall_ms:.2f} ms/round (profiled), device busy "
+          f"{busy_ms:.2f} ms/round, idle share {1 - busy_ms / wall_ms:.3f}", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        ms = e.self_device_time_total / 1e3 / rounds
+        print(f"  {ms:8.3f} ms/round  {e.count // rounds:5d}x  {e.key[:110]}", flush=True)
+
+
+def main(argv: list[str]) -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from commefficient_tpu_torch import cv_train
+    from commefficient_tpu_torch.federated import engine
+    from commefficient_tpu_torch.models.convert import FlatLayout
+    from commefficient_tpu_torch.models.resnet9 import ResNet9, init_weights
+    from commefficient_tpu_torch.sketch import _build, csvec, kernels
+
+    cohorts = int(argv[argv.index("--cohorts") + 1]) if "--cohorts" in argv else COHORTS
+
+    # 1. card
+    print(f"card: {card_line()}", flush=True)
+    dev = torch.device("cuda")
+    print(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
+          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
+
+    # 2. build
+    t0 = time.perf_counter()
+    _build.load()
+    print(f"build: {time.perf_counter() - t0:.2f} s  ({_build.library_path().name})", flush=True)
+    if _build.build_log:
+        print(f"ptxas: {ptxas_summary(_build.build_log)}", flush=True)
+
+    # 3. kernel vs plain
+    gen = torch.Generator(device=dev).manual_seed(0)
+    errs = {"sketch_accumulate": 0.0, "sketch_query": 0.0}
+    for d, c, r in [(SLICE["d"], SLICE["c"], SLICE["r"]), *EDGE_SHAPES]:
+        spec = csvec.CSVecSpec(d=d, c=c, r=r, seed=42, family="rotation")
+        v = torch.randn(d, generator=gen, device=dev)
+        a, q = check_kernels(csvec, spec, v)
+        errs["sketch_accumulate"] = max(errs["sketch_accumulate"], a)
+        errs["sketch_query"] = max(errs["sketch_query"], q)
+        print(f"kernel == plain at d={d} c={c} r={r}", flush=True)
+
+    # 4. times at the slice's shapes
+    d, c, r = SLICE["d"], SLICE["c"], SLICE["r"]
+    spec = csvec.CSVecSpec(d=d, c=c, r=r, seed=42, family="rotation")
+    S = spec.num_slabs
+    v = torch.randn(d, generator=gen, device=dev)
+    table = csvec._sketch_vec_rotation(spec, v)
+    shifts, ks = csvec._rotation_keys(spec, dev)
+    flush = torch.ones(64 * 2**20, dtype=torch.float32, device=dev)  # 256 MB
+    hash_bytes = 4 * (r * S + r)
+    work = {
+        # bytes: v read once, table written once (query: the reverse)
+        "sketch_accumulate": dict(
+            fn=lambda: kernels.accumulate(v, shifts, ks, c),
+            plain=lambda: csvec._sketch_vec_rotation(spec, v),
+            bytes=4 * d + 4 * r * c + hash_bytes,
+            ops=2 * r * d,  # a +-1 multiply and an add per (row, coordinate)
+            replaces="commefficient_tpu/sketch/pallas_kernels.py:135"),
+        "sketch_query": dict(
+            fn=lambda: kernels.query(table, shifts, ks, d),
+            plain=lambda: csvec._query_all_rotation(spec, table),
+            bytes=4 * r * c + 4 * d + hash_bytes,
+            # r multiplies and the odd-even network's min and max per coordinate
+            ops=(r + 2 * sum((r - p % 2) // 2 for p in range(r))) * d,
+            replaces="commefficient_tpu/sketch/pallas_kernels.py:211"),
+    }
+    rows = {}
+    for name, w in work.items():
+        ms = time_ms(w["fn"], TIMED_LAUNCHES, flush)
+        plain_ms = time_ms(w["plain"], 5, flush)
+        bytes_ms = w["bytes"] / HBM_BYTES_PER_S * 1e3
+        ops_ms = w["ops"] / FP32_OPS_PER_S * 1e3
+        rows[name] = {
+            "name": name, "route": "cuda",
+            "source": "commefficient_tpu_torch/sketch/csrc/sketch_kernels.cu",
+            "replaces": w["replaces"], "launches": 0,
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,
+        }
+        print(f"{name}: {ms:.4f} ms (L2 flushed; median of {TIMED_LAUNCHES})  "
+              f"plain {plain_ms:.3f} ms  bound {rows[name]['bound_ms']:.4f} ms "
+              f"({rows[name]['bound_by']}: {w['bytes'] / 1e6:.1f} MB)", flush=True)
+    del flush
+    if "--kernels-only" in argv:
+        print("chip_smoke: kernels-only run done", flush=True)
+        return 0
+
+    # 5. main path
+    out_dir = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    log = os.path.join(out_dir, "sketch_rows.jsonl")
+    if os.path.exists(log):
+        os.remove(log)
+    model = ResNet9()
+    init_weights(model, 42)  # the parser's default --seed: the run's initial params
+    p0 = FlatLayout(model).flatten(dict(model.named_parameters())).to(dev)
+    kernels.reset_launch_counts()
+    session = cv_train.main(SLICE_ARGS + ["--num_rounds", str(ROUNDS), "--log_jsonl", log])
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    with open(log) as f:
+        logged = [json.loads(line) for line in f]
+    for row in logged:
+        for key in ("train_loss", "test_loss"):
+            if not math.isfinite(row[key]):
+                fail(f"non-finite {key} in {row}")
+    if len(logged) != 1 or logged[0]["round"] != ROUNDS:
+        fail(f"expected one eval row at round {ROUNDS}, got {logged}")
+    for name, n in launches.items():
+        if n < ROUNDS:
+            fail(f"{name} launched {n} times in {ROUNDS} sketch rounds")
+        rows[name]["launches"] = n
+    pflat = session.state["params"]
+    if tuple(pflat.shape) != (SLICE["d"],) or not torch.isfinite(pflat).all():
+        fail("params are not finite [d]")
+    # round 1 runs at lr 0 (the triangular schedule starts there); each
+    # later round moves at most k coordinates
+    moved = int((pflat != p0).sum())
+    if not 0 < moved <= ROUNDS * session.cfg.mode.k:
+        fail(f"{moved} params moved in {ROUNDS} rounds of k={session.cfg.mode.k}")
+    print(f"main path: {ROUNDS} sketch rounds, launches {launches}, {moved} params moved, "
+          f"round ms {[round(t, 2) for t in session.round_ms]}, "
+          f"median round ms {statistics.median(session.round_ms):.2f}", flush=True)
+
+    # 6. checked rounds
+    print(check_sketch_round(session, engine, csvec), flush=True)
+    uncompressed = cv_train.main(SLICE_ARGS + ["--mode", "uncompressed", "--num_rounds", "1"])
+    if not torch.isfinite(uncompressed.state["params"]).all():
+        fail("uncompressed round produced non-finite params")
+    print(f"uncompressed: 1 round (lr 0), {uncompressed.round_ms[0]:.2f} ms", flush=True)
+    print(check_control_round(uncompressed, engine), flush=True)
+
+    # 7. card vs CPU
+    card_vs_cpu(session, engine, csvec, cohorts, errs)
+
+    profile_rounds(session)
+
+    for name in rows:
+        rows[name]["max_abs_err"] = errs[name]
+    print(json.dumps({"kernels": list(rows.values())}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

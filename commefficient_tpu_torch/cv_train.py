@@ -1,0 +1,105 @@
+"""CV federated training CLI of the port: the twin of the repository's
+``cv_train.py``, reduced to the synchronous round loop on CIFAR ResNet-9.
+
+FetchSGD on the GPU (the slice's configuration):
+    python -m commefficient_tpu_torch.cv_train --dataset cifar10 --mode sketch \
+        --hash_family rotation --num_clients 100 --num_workers 8 \
+        --local_batch_size 8 --k 50000 --num_rows 5 --num_cols 524288 \
+        --num_rounds 5
+On the CPU (small and slow; for checking the path): add --device cpu.
+
+Without the CIFAR-10 pickles under --data_root the deterministic synthetic
+CIFAR-shaped set is used.
+"""
+
+from __future__ import annotations
+
+import collections
+import math
+import sys
+
+from .data.cifar import load_cifar_fed
+from .federated.api import FederatedSession, FedModel, FedOptimizer
+from .models.convert import FlatLayout
+from .models.losses import make_classification_loss
+from .models.resnet9 import ResNet9, init_weights
+from .utils.config import make_parser, mode_config_from_args, resolve_defaults
+from .utils.device import resolve_device
+from .utils.logging import TableLogger, Timer
+from .utils.schedules import triangular
+
+
+def build(args):
+    device = resolve_device(args.device)
+    train_set, test_set, num_classes = load_cifar_fed(
+        args.dataset, args.num_clients, args.iid, args.data_root, args.seed,
+        synthetic_separation=args.synthetic_separation,
+        synthetic_train=args.synthetic_train,
+    )
+    args.num_clients = train_set.num_clients  # actual shard count
+    model = ResNet9(num_classes=num_classes)
+    init_weights(model, args.seed)
+    model.to(device)
+    layout = FlatLayout(model)
+    print(f"model: {type(model).__name__}  d={layout.d:,}  clients={train_set.num_clients}  "
+          f"mode={args.mode}  device={device}", flush=True)
+    session = FederatedSession(
+        train_loss_fn=make_classification_loss(model, train=True),
+        eval_loss_fn=make_classification_loss(model, train=False),
+        params=dict(model.named_parameters()),
+        net_state=dict(model.named_buffers()),
+        layout=layout,
+        mode_cfg=mode_config_from_args(args, layout.d),
+        train_set=train_set,
+        num_workers=args.num_workers,
+        local_batch_size=args.local_batch_size,
+        weight_decay=args.weight_decay,
+        seed=args.seed,
+        on_nonfinite=args.on_nonfinite,
+        device=device,
+    )
+    return session, test_set
+
+
+def main(argv=None):
+    args = resolve_defaults(make_parser().parse_args(argv))
+    session, test_set = build(args)
+    rounds_per_epoch = max(1, math.ceil(args.num_clients / session.num_workers))
+    total_rounds = args.num_rounds or int(args.num_epochs * rounds_per_epoch)
+    eval_every = max(args.eval_every or rounds_per_epoch, 1)
+    opt = FedOptimizer(triangular(args.lr_scale, args.pivot_epoch, args.num_epochs),
+                       rounds_per_epoch)
+    model = FedModel(session)
+    logger = TableLogger(args.log_jsonl or None)
+    timer = Timer()
+    totals: collections.defaultdict = collections.defaultdict(float)
+    nonfinite_total = 0.0
+    try:
+        for rnd in range(1, total_rounds + 1):
+            m = model(opt.lr)
+            opt.step()
+            for k, v in m.items():
+                totals[k] += v
+            nonfinite_total += m.get("nonfinite_rounds", 0.0)
+            if rnd % eval_every == 0 or rnd == total_rounds:
+                ev = model.eval(test_set, args.eval_batch_size)
+                logger.append({
+                    "round": rnd,
+                    "epoch": rnd / rounds_per_epoch,
+                    "lr": m["lr"],
+                    "train_loss": totals["loss_sum"] / max(totals["count"], 1),
+                    "train_acc": totals["correct"] / max(totals["count"], 1),
+                    "test_loss": ev["loss_sum"] / max(ev["count"], 1),
+                    "test_acc": ev["correct"] / max(ev["count"], 1),
+                    "comm_mb": session.comm_mb_total,
+                    "time_s": timer(),
+                    "nonfinite_rounds": nonfinite_total,
+                })
+                totals.clear()
+    finally:
+        logger.close()
+    return session
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
