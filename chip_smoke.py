@@ -7,11 +7,13 @@ Phases (any failure raises, and the exit status is non-zero):
 2. build: compile the hand-written CUDA sketch kernels from the checkout.
 3. kernel vs plain: each kernel must equal its plain PyTorch version on the
    card (torch.equal: bitwise, up to the sign of zero) at the ResNet-9
-   slice's shapes and at small edge shapes.
-4. times: each kernel's median over CUDA-event-timed launches (L2 flushed
-   before each), its plain version's, and its bound from the bytes it must
-   move at the H100's 3.35 TB/s (or its float32 operations at 67 TFLOP/s,
-   whichever is larger).
+   slice's shapes and at small edge shapes (c not a multiple of 4, c below
+   the kernels' 2048-item tile, d < c, r = 1 and r = 16).
+4. times: each kernel's median over CUDA-event-timed launches, cold (L2
+   flushed before each) and warm (its input rewritten just before each, as
+   a round finds it), its plain version's, and its bound from the bytes it
+   must move at the H100's 3.35 TB/s (or its float32 operations at 67
+   TFLOP/s, whichever is larger).
 5. main path: ``commefficient_tpu_torch.cv_train.main`` runs 5 FetchSGD
    rounds of full-width ResNet-9 and an eval, with the launch counts zeroed
    just before; every logged loss must be finite, each kernel must have
@@ -40,9 +42,7 @@ from __future__ import annotations
 import json
 import math
 import os
-import re
 import statistics
-import subprocess
 import sys
 import time
 
@@ -52,7 +52,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 SLICE = dict(d=6_573_130, c=524_288, r=5)
-EDGE_SHAPES = [(3000, 1024, 3), (700, 1024, 3), (1500, 1000, 4), (2048, 1024, 3)]
+# (d, c, r): ragged last slab; d < c; c < the 2048-item tile; whole slabs;
+# c not a multiple of 4 at r = 1; r = 16; c far below the tile, many slabs
+EDGE_SHAPES = [(3000, 1024, 3), (700, 1024, 3), (1500, 1000, 4), (2048, 1024, 3),
+               (5000, 777, 1), (40000, 4096, 16), (2500, 300, 2)]
 SLICE_ARGS = ["--dataset", "cifar10", "--mode", "sketch", "--hash_family", "rotation",
               "--num_clients", "100", "--num_workers", "8", "--local_batch_size", "8",
               "--k", "50000", "--num_rows", "5", "--num_cols", "524288",
@@ -90,34 +93,6 @@ def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    if out.returncode != 0:
-        fail(f"nvidia-smi: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
-    """Median device time of fn over `iters` launches. Reading `flush`
-    (larger than the 50 MB L2) before each launch evicts the L2 and leaves
-    it clean, and keeps the stream busy while the host records the start
-    event and launches, so the events time the device work alone."""
-    fn()
-    torch.cuda.synchronize()
-    pairs = []
-    for _ in range(iters):
-        flush.sum()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        pairs.append((start, end))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
-
-
 def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     if got.shape != want.shape or not torch.equal(got, want):
         err = (got - want).abs().max().item() if got.shape == want.shape else math.inf
@@ -135,25 +110,6 @@ def check_kernels(csvec, spec, v: torch.Tensor, table: torch.Tensor | None = Non
     qry = compare(f"sketch_query {spec}", csvec.query_all(spec, table),
                   csvec._query_all_rotation(spec, table))
     return acc, qry
-
-
-def ptxas_summary(log: str) -> str:
-    """One line from nvcc's ``-Xptxas -v`` report: registers and spill
-    stores of each kernel entry."""
-    out, name = [], "?"
-    for line in log.splitlines():
-        entry = re.search(r"Compiling entry function '(\S+)'", line)
-        if entry:
-            q = re.search(r"query_kernelILi(\d+)E", entry.group(1))
-            name = f"query<{q.group(1)}>" if q else (
-                "accumulate" if "accumulate" in entry.group(1) else entry.group(1)[:32])
-        spill = re.search(r"(\d+) bytes spill stores", line)
-        if spill:
-            out.append([name, None, int(spill.group(1))])
-        regs = re.search(r"Used (\d+) registers", line)
-        if regs and out:
-            out[-1][1] = int(regs.group(1))
-    return "; ".join(f"{n} {r} regs {s} B spilled" for n, r, s in out)
 
 
 def checked_round(session, engine, lr: float):
@@ -283,6 +239,7 @@ def main(argv: list[str]) -> int:
     from commefficient_tpu_torch.models.convert import FlatLayout
     from commefficient_tpu_torch.models.resnet9 import ResNet9, init_weights
     from commefficient_tpu_torch.sketch import _build, csvec, kernels
+    from commefficient_tpu_torch.sketch.time_kernels import card_line, ptxas_summary, time_ms
 
     cohorts = int(argv[argv.index("--cohorts") + 1]) if "--cohorts" in argv else COHORTS
 
@@ -316,19 +273,19 @@ def main(argv: list[str]) -> int:
     S = spec.num_slabs
     v = torch.randn(d, generator=gen, device=dev)
     table = csvec._sketch_vec_rotation(spec, v)
-    shifts, ks = csvec._rotation_keys(spec, dev)
+    shifts, ks = csvec._rotation_keys(spec, v.device)
     flush = torch.ones(64 * 2**20, dtype=torch.float32, device=dev)  # 256 MB
     hash_bytes = 4 * (r * S + r)
     work = {
         # bytes: v read once, table written once (query: the reverse)
         "sketch_accumulate": dict(
-            fn=lambda: kernels.accumulate(v, shifts, ks, c),
+            fn=lambda: kernels.accumulate(v, shifts, ks, c), input=v,
             plain=lambda: csvec._sketch_vec_rotation(spec, v),
             bytes=4 * d + 4 * r * c + hash_bytes,
             ops=2 * r * d,  # a +-1 multiply and an add per (row, coordinate)
             replaces="commefficient_tpu/sketch/pallas_kernels.py:135"),
         "sketch_query": dict(
-            fn=lambda: kernels.query(table, shifts, ks, d),
+            fn=lambda: kernels.query(table, shifts, ks, d), input=table,
             plain=lambda: csvec._query_all_rotation(spec, table),
             bytes=4 * r * c + 4 * d + hash_bytes,
             # r multiplies and the odd-even network's min and max per coordinate
@@ -337,21 +294,23 @@ def main(argv: list[str]) -> int:
     }
     rows = {}
     for name, w in work.items():
-        ms = time_ms(w["fn"], TIMED_LAUNCHES, flush)
-        plain_ms = time_ms(w["plain"], 5, flush)
+        ms = time_ms(w["fn"], TIMED_LAUNCHES, flush.sum)
+        # warm: the input just written, and read from L2 as far as it fits
+        warm_ms = time_ms(w["fn"], TIMED_LAUNCHES, lambda: w["input"].mul_(1.0))
+        plain_ms = time_ms(w["plain"], 5, flush.sum)
         bytes_ms = w["bytes"] / HBM_BYTES_PER_S * 1e3
         ops_ms = w["ops"] / FP32_OPS_PER_S * 1e3
         rows[name] = {
             "name": name, "route": "cuda",
             "source": "commefficient_tpu_torch/sketch/csrc/sketch_kernels.cu",
             "replaces": w["replaces"], "launches": 0,
-            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": 0.0, "ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None,
         }
         print(f"{name}: {ms:.4f} ms (L2 flushed; median of {TIMED_LAUNCHES})  "
-              f"plain {plain_ms:.3f} ms  bound {rows[name]['bound_ms']:.4f} ms "
+              f"warm {warm_ms:.4f} ms  plain {plain_ms:.3f} ms  bound {rows[name]['bound_ms']:.4f} ms "
               f"({rows[name]['bound_by']}: {w['bytes'] / 1e6:.1f} MB)", flush=True)
     del flush
     if "--kernels-only" in argv:

@@ -19,6 +19,7 @@ Estimate semantics: the estimate of coordinate ``i`` is the lower median
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -100,9 +101,11 @@ def _pad_to_slabs(spec: CSVecSpec, v: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(v, (0, pad)).reshape(spec.num_slabs, spec.c)
 
 
+@functools.lru_cache(maxsize=64)
 def _rotation_keys(spec: CSVecSpec, device) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernels' hash inputs: shifts int32 [r, S] and sign keys as int32
-    [r] holding the uint32 bit patterns."""
+    [r] holding the uint32 bit patterns. Computed once per (spec, device):
+    the kernels only read them, and callers must not write them."""
     _, ks = row_keys(spec.seed, spec.r, device)
     shifts = slab_shifts(spec.seed, spec.r, spec.num_slabs, spec.c, device)
     ks32 = torch.where(ks >= 2**31, ks - 2**32, ks).to(torch.int32)

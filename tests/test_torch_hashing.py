@@ -8,6 +8,8 @@ import pytest
 import torch
 
 from commefficient_tpu.sketch import hashing as jh
+from commefficient_tpu.sketch import pallas_kernels as pk
+from commefficient_tpu_torch.sketch import csvec as tcs
 from commefficient_tpu_torch.sketch import hashing as th
 
 torch.set_num_threads(2)
@@ -69,3 +71,21 @@ def test_slab_shifts_integer_exact(seed, r):
         want = _j(jh.slab_shifts(seed, r, num_slabs, c))
         got = _t(th.slab_shifts(seed, r, num_slabs, c))
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("d,c,r", [(6_573_130, 524_288, 5), (5000, 777, 1), (40000, 4096, 16)])
+def test_cached_kernel_keys_equal_the_pallas_kernels_inputs(seed, d, c, r):
+    """The CUDA kernels' hash inputs, computed once per (spec, device), are
+    bit for bit the Pallas kernels' scalar-prefetch inputs: int32 shifts and
+    the uint32 sign keys (held as int32 bit patterns)."""
+    spec = tcs.CSVecSpec(d=d, c=c, r=r, seed=seed, family="rotation")
+    shifts, ks = tcs._rotation_keys(spec, torch.device("cpu"))
+    again = tcs._rotation_keys(spec, torch.device("cpu"))
+    assert again[0] is shifts and again[1] is ks
+    assert shifts.dtype == ks.dtype == torch.int32
+    want_shifts = np.asarray(pk.slab_shifts(seed, r, spec.num_slabs, c).astype(jnp.int32))
+    want_ks = np.asarray(pk.row_keys(seed, r)[1])
+    np.testing.assert_array_equal(shifts.numpy(), want_shifts)
+    assert want_ks.dtype == np.uint32
+    np.testing.assert_array_equal(ks.numpy().view(np.uint32), want_ks)
