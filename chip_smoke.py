@@ -15,7 +15,8 @@ Phases (any failure raises, and the exit status is non-zero):
    must move at the H100's 3.35 TB/s (or its float32 operations at 67
    TFLOP/s, whichever is larger).
 5. main path: ``commefficient_tpu_torch.cv_train.main`` runs 5 FetchSGD
-   rounds of full-width ResNet-9 and an eval, with the launch counts zeroed
+   rounds of full-width ResNet-9 through its default (async) run loop and
+   an eval, with the launch counts zeroed
    just before; every logged loss must be finite, each kernel must have
    launched at least once per round, and the params must have moved in at
    most k coordinates per round.
@@ -27,14 +28,38 @@ Phases (any failure raises, and the exit status is non-zero):
 7. card vs CPU: the kernels again on a real reduced gradient and error
    table, and the client reduction of a few cohorts on the card held
    against the same reduction on the CPU; every reading is printed.
-8. profile: a torch.profiler window over two more rounds prints the device's
+8. run loop: the slice through ``cv_train.main``'s run loop (async by
+   default), with the launch counts zeroed just before:
+   a. the sync loop twice, 6 rounds each: are the final states bitwise
+      equal on the card? If not, the phase sets cuDNN deterministic for
+      its own runs and tries again; if still not, every comparison below
+      is held at a tolerance of TOL_FACTOR times the measured sync-vs-sync
+      spread (relative L2; both are printed), else bitwise;
+   b. the async loop with --checkpoint_every 3 (both checkpoints must land
+      and verify) and c. with --rounds_per_dispatch 3, each held against
+      the sync run (params, Vvelocity, Verror, eval row);
+   d. --fault_plan preempt@2 exits 75 with an emergency checkpoint at
+      round 3; --resume to round 6 is held against the uninterrupted run;
+   e. --fault_plan ckpt_corrupt@3: the resume falls back past the damaged
+      round-3 checkpoint to round 2, sets it aside, and ends as (a);
+   f. the uncompressed control, 2 rounds, async against sync;
+   g. --pairs N alternating sync/async timing pairs (default 3);
+   h. the round path between two drains makes no host sync: four
+      dispatches run under ``torch.cuda.set_sync_debug_mode("error")``, and
+      a profiler window over them and their drain counts the synchronize
+      calls.
+   Each kernel must have launched exactly once per sketch round of the
+   phase; every time is printed beside the card's name and power limit.
+9. profile: a torch.profiler window over two more rounds prints the device's
    busy time, idle share and top kernels per round.
 
-Prints one JSON line with the kernels' numbers, then as its last line
+Prints one JSON line with the kernels' numbers (launches counted over
+phase 8), then as its last line
 ``{"ok": true, "device": {...}}``. Run from the repository root:
     python3 chip_smoke.py
 ``--kernels-only`` stops after phase 4 (a short first check of a new kernel);
-``--cohorts N`` sets the number of cohorts phase 7 compares (default 4).
+``--cohorts N`` sets the number of cohorts phase 7 compares (default 4);
+``--pairs N`` the sync/async timing pairs of phase 8 (default 3).
 """
 
 from __future__ import annotations
@@ -86,6 +111,14 @@ TOPK_AGREE = 0.99
 # tightly against the JAX package on the CPU (tests/test_torch_*.py).
 FWD_REL = 1e-5
 GRAD_REL_L2 = 8e-3
+# run-loop phase: runs of LOOP_ROUNDS rounds; when two sync runs of the same
+# seed differ on the card, async runs are held at TOL_FACTOR times that
+# spread (relative L2). A wrong cohort, lr or a skipped round moves the
+# params by O(1) of their movement; the card's nondeterministic reductions
+# move them by the spread
+LOOP_ROUNDS = 6
+TOL_FACTOR = 10.0
+PAIRS = 3
 
 
 def fail(msg: str):
@@ -183,7 +216,7 @@ def card_vs_cpu(session, engine, csvec, cohorts: int, errs: dict) -> None:
             errs["sketch_query"] = max(errs["sketch_query"], q)
             print("real round: kernels == plain on its reduced gradient and error table",
                   flush=True)
-        cpu_batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+        cpu_batch = dict(batch)  # host tensors already
         w_cpu, stats_cpu, metrics_cpu = engine.reduce_clients(
             session.train_loss_fn, session.cfg, session.layout, cpu_state, cpu_batch)
         loss_rel = abs(metrics["loss_sum"].item() / metrics_cpu["loss_sum"].item() - 1)
@@ -229,6 +262,222 @@ def profile_rounds(session, rounds: int = 2, top: int = 12) -> None:
         print(f"  {ms:8.3f} ms/round  {e.count // rounds:5d}x  {e.key[:110]}", flush=True)
 
 
+def _state(session) -> dict:
+    return {"params": session.state["params"],
+            "Vvelocity": session.state["mode_state"]["Vvelocity"],
+            "Verror": session.state["mode_state"]["Verror"]}
+
+
+def _rel(a: dict, b: dict, p0: torch.Tensor) -> float:
+    """Largest relative L2 difference of two runs' states: params against
+    their movement from p0, the tables against their own norm."""
+    out = 0.0
+    for k in a:
+        ref = (b[k] - p0) if k == "params" else b[k]
+        den = ref.norm().item()
+        diff = (a[k] - b[k]).norm().item()
+        out = max(out, diff / den if den > 0 else (0.0 if diff == 0 else math.inf))
+    return out
+
+
+def _equal(a: dict, b: dict) -> bool:
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _steady_ms(stats) -> float:
+    """Median per-round ms over a run's drain windows, the first (which
+    carries the first round's start-up) left out."""
+    ms = stats.round_ms[1:] or stats.round_ms
+    return statistics.median(ms)
+
+
+def _times(label: str, stats, card: str) -> str:
+    ck = "; ".join(f"save copy {t['copy_ms']:.1f} write {t['write_ms']:.1f} verify "
+                   f"{t['verify_ms']:.1f} ms" for t in stats.checkpoints)
+    return (f"  {label}: per-round ms {[round(t, 2) for t in stats.round_ms]} "
+            f"(rounds per drain {stats.window_rounds}), steady median {_steady_ms(stats):.2f}, "
+            f"in-flight depth {stats.max_inflight_used}, rtt {stats.rtt_ms:.4f} ms, host ms "
+            f"prepare {stats.prepare_ms:.1f} dispatch {stats.dispatch_ms:.1f} drain "
+            f"{stats.drain_ms:.1f}{'; checkpoints: ' + ck if ck else ''} [{card}]")
+
+
+def run_loop_phase(cv_train, kernels, card: str, pairs: int) -> dict:
+    """Phase 8: the run loop at full width; returns the launch counts."""
+    import shutil
+
+    from commefficient_tpu_torch.utils import checkpoint as ckpt
+
+    base = os.path.join(ROOT, "build", "chip_smoke", "loop")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    rounds = 0  # sketch rounds committed in this phase
+
+    def run(extra, label, mode="sketch"):
+        nonlocal rounds
+        log = os.path.join(base, f"{label}.jsonl")
+        argv = SLICE_ARGS + ["--num_rounds", str(LOOP_ROUNDS), "--log_jsonl", log,
+                             "--mode", mode] + list(extra)
+        s = cv_train.main(argv)
+        torch.cuda.synchronize()
+        if mode == "sketch":
+            rounds += s.run_stats.rounds
+        with open(log) as f:
+            row = [json.loads(line) for line in f][-1]
+        print(_times(label, s.run_stats, card), flush=True)
+        return s, row
+
+    kernels.reset_launch_counts()
+    cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    a, row_a = run(["--sync_loop"], "sync_a")
+    b, _ = run(["--sync_loop"], "sync_b")
+    from commefficient_tpu_torch.models.convert import FlatLayout
+    from commefficient_tpu_torch.models.resnet9 import ResNet9, init_weights
+    model0 = ResNet9()
+    init_weights(model0, 42)
+    p0 = FlatLayout(model0).flatten(dict(model0.named_parameters())).to(a.state["params"].device)
+    equal = _equal(_state(a), _state(b))
+    spread = _rel(_state(a), _state(b), p0)
+    print(f"run loop: two sync runs bitwise equal: {equal} (spread, relative L2 {spread:.3e})",
+          flush=True)
+    if not equal:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        a, row_a = run(["--sync_loop"], "sync_a_det")
+        b, _ = run(["--sync_loop"], "sync_b_det")
+        equal = _equal(_state(a), _state(b))
+        spread = _rel(_state(a), _state(b), p0)
+        print(f"run loop: with cudnn.deterministic for this phase's runs: bitwise equal "
+              f"{equal} (spread {spread:.3e})", flush=True)
+    tol = 0.0 if equal else TOL_FACTOR * spread
+    print(f"run loop: holding async runs {'bitwise' if equal else f'at relative L2 <= {tol:.3e}'}"
+          f" (cudnn.deterministic {torch.backends.cudnn.deterministic})", flush=True)
+
+    def hold(label, s, row, ref=a, ref_row=row_a, keys=("train_loss", "train_acc",
+                                                          "test_loss", "test_acc", "comm_mb")):
+        """``keys`` of the eval rows must agree too (a resumed run's train
+        columns sum only the rounds it ran, so it is held on the rest)."""
+        got = _rel(_state(s), _state(ref), p0)
+        ok = _equal(_state(s), _state(ref)) if equal else got <= tol
+        loss_rel = abs(row["test_loss"] / ref_row["test_loss"] - 1)
+        if equal:
+            ok = ok and all(row[k] == ref_row[k] for k in keys)
+        msg = (f"run loop: {label} vs sync: relative L2 {got:.3e}, eval loss rel "
+               f"{loss_rel:.3e}")
+        if not ok:
+            fail(msg)
+        print(msg + " - held", flush=True)
+
+    ck1 = os.path.join(base, "ck_async")
+    c, row_c = run(["--checkpoint_every", "3", "--checkpoint_dir", ck1], "async")
+    names = sorted(d for d in os.listdir(ck1) if d.startswith("round_"))
+    if names != ["round_00000003", "round_00000006"] or \
+            not all(ckpt.verify(os.path.join(ck1, n)) is True for n in names):
+        fail(f"async checkpoints: {names}")
+    hold("async, checkpoint every 3", c, row_c)
+    d, row_d = run(["--rounds_per_dispatch", "3"], "async_blocks")
+    hold("async, 3 rounds per dispatch", d, row_d)
+
+    ck2 = os.path.join(base, "ck_preempt")
+    try:
+        run(["--checkpoint_dir", ck2, "--fault_plan", "preempt@2"], "preempted")
+        fail("preempt@2 did not exit")
+    except SystemExit as e:
+        if e.code != 75:
+            raise
+    names = sorted(d for d in os.listdir(ck2) if d.startswith("round_"))
+    if names[-1:] != ["round_00000003"] or ckpt.verify(os.path.join(ck2, names[-1])) is not True:
+        fail(f"preemption checkpoint: {names}")
+    rounds += 3
+    print("run loop: preempt@2 exited 75 with a verified emergency checkpoint at round 3",
+          flush=True)
+    e, row_e = run(["--checkpoint_dir", ck2, "--fault_plan", "preempt@2", "--resume"],
+                   "resumed")
+    if e.run_stats.rounds != 3:
+        fail(f"resume ran {e.run_stats.rounds} rounds, not 3")
+    hold("preempt -> resume", e, row_e, ref=c, ref_row=row_c,
+         keys=("test_loss", "test_acc", "comm_mb"))
+
+    ck3 = os.path.join(base, "ck_corrupt")
+    run(["--checkpoint_dir", ck3, "--checkpoint_every", "2", "--fault_plan", "ckpt_corrupt@3",
+         "--num_rounds", "3"], "corrupted")
+    f_, row_f = run(["--checkpoint_dir", ck3, "--resume"], "fallback")
+    damaged = sorted(x for x in os.listdir(ck3) if x.endswith(".damaged"))
+    if damaged != ["round_00000003.damaged"] or f_.run_stats.rounds != 4:
+        fail(f"ckpt_corrupt@3: damaged {damaged}, resumed run ran {f_.run_stats.rounds}")
+    print("run loop: the resume fell back past the damaged round-3 checkpoint to round 2",
+          flush=True)
+    hold("corrupt -> fallback resume", f_, row_f, keys=("test_loss", "test_acc", "comm_mb"))
+    launches = dict(kernels.launch_counts)
+    for name, n in launches.items():
+        if n != rounds:
+            fail(f"{name} launched {n} times in {rounds} sketch rounds of the run-loop phase")
+    print(f"run loop: launches {launches} in {rounds} sketch rounds (one per round)", flush=True)
+
+    ua, urow_a = run(["--sync_loop", "--num_rounds", "2"], "control_sync_a", "uncompressed")
+    ub, _ = run(["--sync_loop", "--num_rounds", "2"], "control_sync_b", "uncompressed")
+    uc, urow_c = run(["--num_rounds", "2"], "control_async", "uncompressed")
+    u_equal = _equal(_state(ua), _state(ub))
+    u_tol = 0.0 if u_equal else TOL_FACTOR * _rel(_state(ua), _state(ub), p0)
+    got = _rel(_state(uc), _state(ua), p0)
+    verdict = (f"run loop: control, two sync runs bitwise equal {u_equal}, async vs sync "
+               f"relative L2 {got:.3e} (bound {u_tol:.3e})")
+    if not (_equal(_state(uc), _state(ua)) if u_equal else got <= u_tol):
+        fail(verdict)
+    print(verdict + " - held", flush=True)
+
+    sync_ms, async_ms = [], []
+    for i in range(pairs):
+        order = [True, False] if i % 2 == 0 else [False, True]
+        for sync in order:
+            s, _ = run(["--num_rounds", str(2 * LOOP_ROUNDS)] + (["--sync_loop"] if sync else []),
+                       f"pair{i}_{'sync' if sync else 'async'}")
+            (sync_ms if sync else async_ms).append(_steady_ms(s.run_stats))
+    print(f"run loop: {pairs} alternating pairs, steady per-round ms: sync "
+          f"{[round(t, 2) for t in sync_ms]}, async {[round(t, 2) for t in async_ms]} [{card}]",
+          flush=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+    return launches
+
+
+def sync_probe(cv_train, slice_args) -> None:
+    """Between two drains the round path must not sync the host. Four
+    prefetched dispatches run under ``torch.cuda.set_sync_debug_mode("error")``,
+    which raises at any synchronizing CUDA call; the drain's copy, run under
+    it first, must raise (the detector works). A profiler window over the
+    dispatches and their drain also counts the synchronize calls: the
+    drain's and the profiler's own at its exit, no more."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from commefficient_tpu_torch.runner import RoundPrefetcher
+    from commefficient_tpu_torch.utils.config import make_parser, resolve_defaults
+
+    session, _ = cv_train.build(resolve_defaults(make_parser().parse_args(slice_args)))
+    src = RoundPrefetcher(session, 0, depth=4)
+    try:
+        session.commit_round(session.dispatch_round(src.next(), 0.01))  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                pending = [session.dispatch_round(src.next(), 0.01) for _ in range(4)]
+                try:
+                    session.fetch_metrics(pending)
+                    fail("sync probe: the drain's copy did not register as a sync")
+                except RuntimeError:
+                    pass
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            session.commit_rounds(pending, session.fetch_metrics(pending))
+    finally:
+        src.stop()
+    syncs = [e.name for e in prof.events()
+             if e.name.startswith("cuda") and "Synchronize" in e.name]
+    print(f"sync probe: 4 dispatches ran with no synchronizing call; the profiler window "
+          f"(dispatches, drain, its own exit) holds {len(syncs)} synchronize call(s) "
+          f"{syncs}", flush=True)
+    if len(syncs) > 2:
+        fail(f"sync probe: {len(syncs)} synchronize calls, more than the drain's and the "
+             "profiler's")
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -242,6 +491,7 @@ def main(argv: list[str]) -> int:
     from commefficient_tpu_torch.sketch.time_kernels import card_line, ptxas_summary, time_ms
 
     cohorts = int(argv[argv.index("--cohorts") + 1]) if "--cohorts" in argv else COHORTS
+    pairs = int(argv[argv.index("--pairs") + 1]) if "--pairs" in argv else PAIRS
 
     # 1. card
     print(f"card: {card_line()}", flush=True)
@@ -350,21 +600,36 @@ def main(argv: list[str]) -> int:
     moved = int((pflat != p0).sum())
     if not 0 < moved <= ROUNDS * session.cfg.mode.k:
         fail(f"{moved} params moved in {ROUNDS} rounds of k={session.cfg.mode.k}")
-    print(f"main path: {ROUNDS} sketch rounds, launches {launches}, {moved} params moved, "
-          f"round ms {[round(t, 2) for t in session.round_ms]}, "
-          f"median round ms {statistics.median(session.round_ms):.2f}", flush=True)
+    window_ms = session.run_stats.round_ms
+    print(f"main path: {ROUNDS} sketch rounds (async loop), launches {launches}, {moved} "
+          f"params moved, per-round ms from drains {[round(t, 2) for t in window_ms]} "
+          f"(rounds per drain {session.run_stats.window_rounds}), rtt "
+          f"{session.run_stats.rtt_ms:.3f} ms, in-flight depth "
+          f"{session.run_stats.max_inflight_used}", flush=True)
 
     # 6. checked rounds
     print(check_sketch_round(session, engine, csvec), flush=True)
     uncompressed = cv_train.main(SLICE_ARGS + ["--mode", "uncompressed", "--num_rounds", "1"])
     if not torch.isfinite(uncompressed.state["params"]).all():
         fail("uncompressed round produced non-finite params")
-    print(f"uncompressed: 1 round (lr 0), {uncompressed.round_ms[0]:.2f} ms", flush=True)
+    print(f"uncompressed: 1 round (lr 0), {uncompressed.run_stats.round_ms[0]:.2f} ms",
+          flush=True)
     print(check_control_round(uncompressed, engine), flush=True)
 
     # 7. card vs CPU
     card_vs_cpu(session, engine, csvec, cohorts, errs)
 
+    # 8. run loop
+    card = card_line()
+    launches = run_loop_phase(cv_train, kernels, card, pairs)
+    for name, n in launches.items():
+        rows[name]["launches"] = n
+    sync_probe(cv_train, SLICE_ARGS)
+    check_kernels(csvec, session.cfg.mode.sketch_spec, session.state["params"],
+                  session.state["mode_state"]["Verror"])
+    print("run loop: kernels == plain on the run's params and error table", flush=True)
+
+    # 9. profile
     profile_rounds(session)
 
     for name in rows:

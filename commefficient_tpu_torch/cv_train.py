@@ -1,5 +1,6 @@
 """CV federated training CLI of the port: the twin of the repository's
-``cv_train.py``, reduced to the synchronous round loop on CIFAR ResNet-9.
+``cv_train.py`` on CIFAR ResNet-9, driven through the run loop
+(``runner/``): async by default, ``--sync_loop`` for the serial path.
 
 FetchSGD on the GPU (the slice's configuration):
     python -m commefficient_tpu_torch.cv_train --dataset cifar10 --mode sketch \
@@ -7,6 +8,10 @@ FetchSGD on the GPU (the slice's configuration):
         --local_batch_size 8 --k 50000 --num_rows 5 --num_cols 524288 \
         --num_rounds 5
 On the CPU (small and slow; for checking the path): add --device cpu.
+With --checkpoint_dir the run saves verified checkpoints (every
+--checkpoint_every rounds and at the end); a SIGTERM makes it finish the
+rounds in flight, save and exit 75, and --resume continues from the newest
+checkpoint that verifies.
 
 Without the CIFAR-10 pickles under --data_root the deterministic synthetic
 CIFAR-shaped set is used.
@@ -14,7 +19,6 @@ CIFAR-shaped set is used.
 
 from __future__ import annotations
 
-import collections
 import math
 import sys
 
@@ -23,13 +27,17 @@ from .federated.api import FederatedSession, FedModel, FedOptimizer
 from .models.convert import FlatLayout
 from .models.losses import make_classification_loss
 from .models.resnet9 import ResNet9, init_weights
+from .resilience import FaultPlan, RetryPolicy
+from .runner import RunnerConfig, run_loop
+from .utils import checkpoint as ckpt
 from .utils.config import make_parser, mode_config_from_args, resolve_defaults
 from .utils.device import resolve_device
-from .utils.logging import TableLogger, Timer
+from .utils.logging import TableLogger
 from .utils.schedules import triangular
 
 
 def build(args):
+    fault_plan = FaultPlan.parse(args.fault_plan)  # refuses an unported kind first
     device = resolve_device(args.device)
     train_set, test_set, num_classes = load_cifar_fed(
         args.dataset, args.num_clients, args.iid, args.data_root, args.seed,
@@ -56,6 +64,8 @@ def build(args):
         weight_decay=args.weight_decay,
         seed=args.seed,
         on_nonfinite=args.on_nonfinite,
+        fault_plan=fault_plan,
+        retry_policy=RetryPolicy(max_retries=args.max_retries),
         device=device,
     )
     return session, test_set
@@ -66,36 +76,38 @@ def main(argv=None):
     session, test_set = build(args)
     rounds_per_epoch = max(1, math.ceil(args.num_clients / session.num_workers))
     total_rounds = args.num_rounds or int(args.num_epochs * rounds_per_epoch)
-    eval_every = max(args.eval_every or rounds_per_epoch, 1)
     opt = FedOptimizer(triangular(args.lr_scale, args.pivot_epoch, args.num_epochs),
                        rounds_per_epoch)
     model = FedModel(session)
+
+    if args.resume and args.checkpoint_dir:
+        # newest verified checkpoint; falls back loudly past damaged ones
+        path = ckpt.restore_latest(args.checkpoint_dir, session)
+        if path:
+            opt.round = session.round
+            print(f"resumed from {path} at round {session.round}", flush=True)
+
     logger = TableLogger(args.log_jsonl or None)
-    timer = Timer()
-    totals: collections.defaultdict = collections.defaultdict(float)
-    nonfinite_total = 0.0
+
+    def build_row(rnd, m, totals, ev, time_s, nonfinite_total):
+        return {
+            "round": rnd,
+            "epoch": rnd / rounds_per_epoch,
+            "lr": m["lr"],
+            "train_loss": totals.get("loss_sum", 0.0) / max(totals.get("count", 0.0), 1),
+            "train_acc": totals.get("correct", 0.0) / max(totals.get("count", 0.0), 1),
+            "test_loss": ev["loss_sum"] / max(ev["count"], 1),
+            "test_acc": ev["correct"] / max(ev["count"], 1),
+            "comm_mb": session.comm_mb_total,
+            "time_s": time_s,
+            "nonfinite_rounds": nonfinite_total,
+        }
+
     try:
-        for rnd in range(1, total_rounds + 1):
-            m = model(opt.lr)
-            opt.step()
-            for k, v in m.items():
-                totals[k] += v
-            nonfinite_total += m.get("nonfinite_rounds", 0.0)
-            if rnd % eval_every == 0 or rnd == total_rounds:
-                ev = model.eval(test_set, args.eval_batch_size)
-                logger.append({
-                    "round": rnd,
-                    "epoch": rnd / rounds_per_epoch,
-                    "lr": m["lr"],
-                    "train_loss": totals["loss_sum"] / max(totals["count"], 1),
-                    "train_acc": totals["correct"] / max(totals["count"], 1),
-                    "test_loss": ev["loss_sum"] / max(ev["count"], 1),
-                    "test_acc": ev["correct"] / max(ev["count"], 1),
-                    "comm_mb": session.comm_mb_total,
-                    "time_s": timer(),
-                    "nonfinite_rounds": nonfinite_total,
-                })
-                totals.clear()
+        run_loop(session, opt,
+                 RunnerConfig.from_args(args, total_rounds, args.eval_every or rounds_per_epoch),
+                 eval_fn=lambda: model.eval(test_set, args.eval_batch_size),
+                 build_row=build_row, logger=logger)
     finally:
         logger.close()
     return session

@@ -6,11 +6,118 @@ owns a slice of indices into (x, y). Per round the session samples W clients
 and assembles a fixed-shape [W, B, ...] batch with a validity mask, so
 unequal shard sizes become padding, never dynamic shapes. Batches are
 gathered with numpy on the host.
+
+The rows a client contributes are drawn as the reference's native batch
+assembly draws them (``native/batch_assembly.cpp``): one splitmix64 stream
+per client slot, seeded from one ``randint(1 << 62)`` of the session's
+sampling stream, and Floyd's algorithm for the k distinct picks. Both
+packages therefore train on the same cohorts and rows from the same seed.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
+
 import numpy as np
+
+_M64 = (1 << 64) - 1
+_GOLDEN = 0x9E3779B97F4A7C15
+
+
+class ThreadedPrefetcher:
+    """Bounded background producer over any iterator: one daemon thread
+    pulls items in order into a depth-bounded queue, so host work overlaps
+    whatever the consumer blocks on. Puts give up when stopped, the end is a
+    sentinel, a producer exception is parked and re-raised by ``next()``,
+    and ``stop()`` joins the thread. The runner's ``RoundPrefetcher`` is
+    built on it."""
+
+    _DONE = object()
+
+    def __init__(self, it, depth: int = 2, name: str = "prefetch"):
+        self._q: queue.Queue = queue.Queue(maxsize=max(depth, 1))
+        self._stop = threading.Event()
+        self._exc: BaseException | None = None
+        self._thread = threading.Thread(target=self._produce, args=(it,), name=name,
+                                        daemon=True)
+        self._thread.start()
+
+    def _put(self, item) -> bool:
+        """Stop-responsive bounded put; False when stopped while full."""
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _produce(self, it):
+        try:
+            for item in it:
+                if not self._put(item):
+                    return
+        except BaseException as e:  # noqa: BLE001 — re-raised at next()
+            self._exc = e
+        self._put(self._DONE)
+
+    def next(self):
+        """Next item in order; re-raises a parked producer exception;
+        StopIteration when the source is exhausted."""
+        item = self._q.get()
+        if item is self._DONE:
+            if self._exc is not None:
+                raise self._exc
+            raise StopIteration
+        return item
+
+    def stop(self):
+        """Halt and join the producer (unblocking it if the queue is full).
+        Safe to call twice."""
+        self._stop.set()
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=10.0)
+
+
+class _SplitMix64:
+    """The reference's per-slot row sampler (``batch_assembly.cpp``), on
+    Python integers masked to 64 bits."""
+
+    def __init__(self, seed: int):
+        self.s = seed & _M64
+
+    def next(self) -> int:
+        self.s = (self.s + _GOLDEN) & _M64
+        z = self.s
+        z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+        return z ^ (z >> 31)
+
+    def below(self, n: int) -> int:
+        """Uniform in [0, n) by rejection, as the reference draws it."""
+        while True:
+            x = self.next()
+            r = x % n
+            if x - r <= _M64 - (n - 1):
+                return r
+
+
+def _sample_distinct(rng: _SplitMix64, n: int, k: int) -> list[int]:
+    """Floyd's algorithm: k distinct values of [0, n), in the reference's
+    order."""
+    out, seen = [], set()
+    for j in range(n - k, n):
+        t = rng.below(j + 1)
+        if t in seen:
+            t = j
+        seen.add(t)
+        out.append(t)
+    return out
 
 
 class FedDataset:
@@ -39,17 +146,22 @@ class FedDataset:
                      batch_size: int) -> dict:
         """Fixed-shape per-round batch {"x": [W, B, ...], "y": [W, B],
         "mask": [W, B]}: a client with more than B examples contributes B
-        drawn without replacement, one with fewer contributes all of them
-        and zero padding behind a 0 mask."""
+        drawn without replacement (splitmix64 + Floyd, see the module
+        docstring), one with fewer contributes all of them and zero padding
+        behind a 0 mask."""
         W, n = len(client_ids), batch_size
         xs = np.zeros((W, n) + self.x.shape[1:], dtype=self.x.dtype)
         ys = np.zeros((W, n) + self.y.shape[1:], dtype=self.y.dtype)
         mask = np.zeros((W, n), dtype=np.float32)
-        sub = np.random.RandomState(int(rng.randint(1 << 31)))
+        seed = int(rng.randint(1 << 62))
         for wi, cid in enumerate(client_ids):
             shard = self.client_indices[int(cid)]
             k = min(len(shard), n)
-            take = shard if len(shard) <= n else sub.choice(shard, size=k, replace=False)
+            if len(shard) <= n:
+                take = shard
+            else:
+                slot_rng = _SplitMix64(seed ^ ((_GOLDEN * (wi + 1)) & _M64))
+                take = shard[_sample_distinct(slot_rng, len(shard), k)]
             xs[wi, :k] = self.x[take]
             ys[wi, :k] = self.y[take]
             mask[wi, :k] = 1.0

@@ -18,7 +18,9 @@ One round, given the flat [d] params (ravel_pytree order, see
    releases the delta, which ``modes.apply_delta`` subtracts.
 
 PyTorch runs eagerly, so the step is a plain function; nothing is
-compiled. State is a dict {"params": flat [d], "net_state": {buffer name:
+compiled. It makes new tensors and updates none in place, so a state once
+returned is never written again (checkpoints read committed states while
+later rounds run). State is a dict {"params": flat [d], "net_state": {buffer name:
 tensor}, "mode_state": {"Vvelocity", "Verror"}, "round": int}.
 """
 
@@ -161,8 +163,10 @@ def _guard_nonfinite(cfg: EngineConfig, agg: dict, new_net_state: dict,
 def make_round_step(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout) -> Callable:
     """step(state, batch, lr) -> (state', metrics). ``batch`` holds tensors
     with leading axis W (the sampled clients), optionally with the
-    ``VALID_KEY`` mask; ``lr`` is the round's learning rate; metrics are
-    device tensors summed over clients."""
+    ``VALID_KEY`` mask; ``lr`` is the round's learning rate, a float32 0-d
+    tensor on the state's device (the session copies it there without a
+    host sync) or a Python float; metrics are device tensors summed over
+    clients."""
     mcfg = cfg.mode
 
     def step(state: dict, batch: dict, lr: float):
@@ -173,7 +177,8 @@ def make_round_step(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout) ->
         agg, new_net_state, metrics = _guard_nonfinite(
             cfg, agg, new_net_state, state["net_state"], metrics)
         pflat = state["params"]
-        lr_t = torch.tensor(lr, dtype=torch.float32, device=pflat.device)
+        lr_t = lr if torch.is_tensor(lr) else torch.tensor(lr, dtype=torch.float32,
+                                                           device=pflat.device)
         delta, mode_state = modes.server_step_sparse(mcfg, agg, state["mode_state"], lr_t)
         new_state = {
             "params": modes.apply_delta(pflat, delta),
@@ -184,6 +189,28 @@ def make_round_step(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout) ->
         return new_state, metrics
 
     return step
+
+
+def make_multi_round_step(loss_fn: Callable, cfg: EngineConfig,
+                          layout: FlatLayout) -> Callable:
+    """K rounds in one call, the twin of the reference's
+    ``make_multi_round_step``: multi(state, batches, lrs) -> (state',
+    metrics) with every batch leaf [K, W, ...], ``lrs`` a float32 [K]
+    tensor and every metric stacked to [K]. The reference scans the round
+    step in one compiled program; eager PyTorch has no scan, so this is a
+    loop over the same step, which keeps it bitwise equal to K single
+    rounds. Both ported modes are stateless per client, so any block of
+    rounds can run this way."""
+    step = make_round_step(loss_fn, cfg, layout)
+
+    def multi(state: dict, batches: dict, lrs: torch.Tensor):
+        per_round = []
+        for i in range(lrs.shape[0]):
+            state, metrics = step(state, {k: v[i] for k, v in batches.items()}, lrs[i])
+            per_round.append(metrics)
+        return state, {k: torch.stack([m[k] for m in per_round]) for k in per_round[0]}
+
+    return multi
 
 
 def make_eval_step(loss_fn: Callable, layout: FlatLayout) -> Callable:

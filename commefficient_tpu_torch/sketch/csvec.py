@@ -159,12 +159,15 @@ def _accumulate(spec: CSVecSpec, vals: torch.Tensor, idx: torch.Tensor,
                 valid: torch.Tensor) -> torch.Tensor:
     """Scatter (idx, vals) masked by ``valid`` into a fresh [r, c] table: the
     one scatter path shared by the random family's dense accumulate and by
-    sparse sketching."""
+    sparse sketching. ``index_put_(accumulate=True)`` sums colliding entries
+    in a fixed order on the GPU too (it sorts by bucket), where
+    ``index_add_`` adds them with atomics in whatever order they land, so
+    two runs of one seed would differ."""
     buckets, signs = _block_hashes(spec, idx, vals.dtype)
     contrib = signs * (vals * valid.to(vals.dtype))[None, :]  # [r, n]
     table = torch.zeros(spec.table_shape, dtype=vals.dtype, device=vals.device)
     for j in range(spec.r):
-        table[j].index_add_(0, buckets[j], contrib[j])
+        table[j].index_put_((buckets[j],), contrib[j], accumulate=True)
     return table
 
 
@@ -243,12 +246,21 @@ def query_all(spec: CSVecSpec, table: torch.Tensor) -> torch.Tensor:
 
 
 def topk_abs(x: torch.Tensor, k: int, impl: str = "exact") -> torch.Tensor:
-    """Indices of the k largest-|.| entries. Only the exact selection is
-    ported; "approx" and "oversample" raise."""
+    """Indices of the k largest-|.| entries, in descending |x| with ties
+    broken toward the lower index, as the reference's ``lax.top_k`` orders
+    them (``torch.topk`` leaves ties unordered, and FetchSGD's first round,
+    at lr 0, selects among d exact zeros). Each entry gets the unique int64
+    key (bits of |x|) * 2**32 + (2**32 - 1 - index): the bits of a
+    non-negative float32 order as the float does. Only the exact selection
+    is ported; "approx" and "oversample" raise."""
     if impl != "exact":
         raise NotImplementedError(
             f"topk_impl={impl!r} is not ported; only 'exact' is")
-    return torch.topk(x.abs(), k).indices
+    if x.numel() >= 1 << 32:
+        raise ValueError(f"topk_abs takes fewer than 2**32 entries, got {x.numel()}")
+    bits = x.abs().contiguous().view(torch.int32).to(torch.int64)
+    low = (1 << 32) - 1 - torch.arange(x.numel(), dtype=torch.int64, device=x.device)
+    return torch.topk((bits << 32) | low, k).indices
 
 
 # Single-shot unsketch ceiling: the [d] estimates transient is materialized

@@ -6,8 +6,8 @@ import torch
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
-    """The device an entry point runs on: the GPU unless the caller asks for
-    the CPU. Asking for CUDA without a usable GPU raises; nothing carries on
+    """The device an entry point runs on (with its index, for a GPU): the
+    GPU unless the caller asks for the CPU. Asking for CUDA without a usable GPU raises; nothing carries on
     silently on the CPU.
 
     Also turns TF32 off for convolutions and matrix products: the reference
@@ -18,6 +18,9 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' (--device cpu) "
             "to run on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        # an indexed device: threads of the run loop select it by index
+        dev = torch.device("cuda", torch.cuda.current_device())
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return dev

@@ -1,0 +1,209 @@
+"""Hung-round detection and escalation: the port's copy of the JAX
+package's ``utils/watchdog.py``.
+
+A ``RoundWatchdog`` wraps the host loop's guarded segments. It learns the
+typical round wall time online (median of completed rounds) and, from a
+daemon timer thread, walks an escalation ladder while a segment stays
+stuck (stages at growing multiples of the stall threshold
+``factor x median``, with an absolute floor so slow first rounds don't trip
+it):
+
+    1x  warn       one attributable alert: round number, stall duration
+    2x  stacks     dump every Python thread's stack
+    3x  checkpoint call ``on_emergency`` (the run loop wires a checkpoint
+                   save that reads the committed state on its own CUDA
+                   stream) so a later kill loses nothing
+    4x  abort      call ``on_abort`` (opt-in; the run loop wires
+                   ``os._exit(75)`` so a supervisor relaunches with
+                   --resume)
+
+In the async loop a dispatch returns once the host has launched the round's
+kernels; it does not wait for the device, so the loop guards dispatches
+with ``record=False`` and only synced segments feed the median.
+
+Thread-safety: stage timers re-arm under a lock that ``round()``'s exit
+takes to disarm, and a generation counter keeps a stale stage from firing
+against a later round.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import sys
+import threading
+import time
+import traceback
+
+
+def dump_all_stacks() -> str:
+    """Every Python thread's current stack, formatted — the "where is it
+    stuck" payload of escalation stage 2. Pure-Python (sys._current_frames),
+    so it works from the timer thread while the main thread is blocked."""
+    names = {t.ident: t.name for t in threading.enumerate()}
+    out = []
+    for tid, frame in sys._current_frames().items():
+        out.append(f"--- thread {names.get(tid, '?')} ({tid}) ---")
+        out.extend(line.rstrip() for line in traceback.format_stack(frame))
+    return "\n".join(out)
+
+
+class RoundWatchdog:
+    # stage multipliers on the stall threshold, in firing order
+    LADDER = (1.0, 2.0, 3.0, 4.0)
+    STAGES = ("warn", "stacks", "checkpoint", "abort")
+
+    def __init__(
+        self,
+        factor: float = 10.0,
+        min_history: int = 3,
+        floor_s: float = 120.0,
+        alert=None,
+        on_emergency=None,
+        on_abort=None,
+    ) -> None:
+        """factor: stall threshold as a multiple of the median round time.
+        min_history: completed rounds before the watchdog arms (first rounds
+        include compiles). floor_s: never alert before this many seconds,
+        whatever the median says. alert: callable(str) (default: stderr).
+        on_emergency: zero-arg emergency-checkpoint callback (stage 3;
+        skipped with a note when None). on_abort: zero-arg abort callback
+        (stage 4; opt-in — None means the ladder ends with a final
+        diagnosis instead of killing the job)."""
+        self.factor = factor
+        self.min_history = min_history
+        self.floor_s = floor_s
+        self.alert = alert or (
+            lambda msg: print(msg, file=sys.stderr, flush=True)
+        )
+        self.on_emergency = on_emergency
+        self.on_abort = on_abort
+        self._times: list[float] = []
+        self._timer: threading.Timer | None = None
+        self._lock = threading.Lock()
+        self._armed = False
+        # generation counter: Timer.cancel() cannot stop a callback that has
+        # already started and is blocked on self._lock, so a stale stage from
+        # round N could otherwise see round N+1's _armed=True and replay the
+        # ladder (stale start -> zero delays) against a healthy round
+        self._gen = 0
+        self.stalls_detected = 0
+        self.stages_fired: list[str] = []
+
+    def _median(self) -> float:
+        s = sorted(self._times)
+        return s[len(s) // 2]
+
+    def threshold_s(self) -> float | None:
+        """Current stall threshold (ladder stage 1), or None while unarmed."""
+        if len(self._times) < self.min_history:
+            return None
+        return max(self.factor * self._median(), self.floor_s)
+
+    def _arm_stage(self, round_index: int, thr: float, start: float,
+                   stage: int, gen: int) -> None:
+        """Caller holds self._lock."""
+        delay = max(thr * self.LADDER[stage] - (time.monotonic() - start), 0.0)
+        self._timer = threading.Timer(
+            delay, self._fire, args=(round_index, thr, start, stage, gen)
+        )
+        self._timer.daemon = True
+        self._timer.start()
+
+    def _fire(self, round_index: int, thr: float, start: float, stage: int,
+              gen: int) -> None:
+        with self._lock:
+            # the round can complete in the instant between this timer
+            # expiring and round()'s cancel() — and cancel() cannot stop a
+            # callback already blocked on this lock, so the generation check
+            # is load-bearing: without it a stale stage from round N would
+            # see round N+1's _armed=True, replay the ladder with round N's
+            # start (delays clamp to 0), and could abort a healthy run
+            if not self._armed or gen != self._gen:
+                return
+            # arm the NEXT stage BEFORE running this one's action: stage 3's
+            # emergency checkpoint blocks forever when the device op is the
+            # thing that is hung (the copy never returns), and the abort
+            # stage must still fire in exactly that scenario
+            if stage + 1 < len(self.LADDER):
+                self._arm_stage(round_index, thr, start, stage + 1, gen)
+        elapsed = time.monotonic() - start
+        name = self.STAGES[stage]
+        self.stages_fired.append(name)
+        if stage == 0:
+            self.stalls_detected += 1
+            self.alert(
+                f"WATCHDOG: round {round_index} has run {elapsed:.0f}s, > "
+                f"{thr:.0f}s (median round {self._median():.1f}s x "
+                f"{self.factor}). The device op may be hung (dead "
+                "interconnect / wedged device claim / stalled loader); "
+                "escalation ladder armed (stacks -> emergency checkpoint -> "
+                "abort)."
+            )
+        elif stage == 1:
+            self.alert(
+                f"WATCHDOG: stacks at {elapsed:.0f}s stall (round "
+                f"{round_index}):\n{dump_all_stacks()}"
+            )
+        elif stage == 2:
+            if self.on_emergency is None:
+                self.alert(
+                    "WATCHDOG: no emergency-checkpoint callback configured; "
+                    "skipping the checkpoint stage"
+                )
+            else:
+                self.alert(
+                    f"WATCHDOG: taking emergency checkpoint at {elapsed:.0f}s "
+                    f"stall (round {round_index}); best-effort — succeeds "
+                    "only if the host side is stuck, not the device op"
+                )
+                try:
+                    self.on_emergency()
+                except Exception as e:  # noqa: BLE001 — never kill the timer
+                    self.alert(
+                        f"WATCHDOG: emergency checkpoint failed "
+                        f"({type(e).__name__}: {e})"
+                    )
+        elif stage == 3:
+            if self.on_abort is None:
+                self.alert(
+                    f"WATCHDOG: round {round_index} still stuck after "
+                    f"{elapsed:.0f}s; abort disabled (no on_abort) — the "
+                    "loop cannot be interrupted from Python; investigate or "
+                    "kill the job"
+                )
+            else:
+                self.alert(
+                    f"WATCHDOG: aborting the stalled run (round "
+                    f"{round_index}, {elapsed:.0f}s) for a resumable restart"
+                )
+                self.on_abort()
+
+    @contextlib.contextmanager
+    def round(self, round_index: int, rounds: int = 1, record: bool = True):
+        """Time one guarded segment. `rounds` > 1 marks a segment that
+        legitimately spans that many rounds (the async runner's boundary
+        drain waits out every queued dispatch): the stall threshold scales
+        by `rounds` and the completion time is recorded PER ROUND, so the
+        learned median stays a true round time. `record=False` guards a
+        segment without feeding the median at all — the async runner's
+        dispatch segments return in ~ms (no host sync) and would otherwise
+        drag the median to ~0, collapsing every threshold to the floor and
+        false-firing the ladder on healthy boundary drains."""
+        rounds = max(rounds, 1)
+        thr = self.threshold_s()
+        start = time.monotonic()
+        if thr is not None:
+            with self._lock:
+                self._armed = True
+                self._gen += 1
+                self._arm_stage(round_index, thr * rounds, start, 0, self._gen)
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._armed = False
+                if self._timer is not None:
+                    self._timer.cancel()
+                    self._timer = None
+            if record:
+                self._times.append((time.monotonic() - start) / rounds)

@@ -6,9 +6,11 @@ they are also held within 1e-5 of the Pallas TPU kernels run in interpret
 mode (as tests/test_pallas.py runs them), at the shapes those kernels take
 (c a multiple of 128). The random family's dense accumulate scatters in
 another order, so it gets 1e-6. The sparse scatter, point query and masking
-tail are bitwise; ``unsketch_topk`` is compared as an index set (ties may
-order differently) with equal values."""
+tail are bitwise; ``unsketch_topk`` is compared as an index set with equal
+values, and ``topk_abs`` index for index (ties go to the lower index, as
+``lax.top_k`` orders them)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -107,6 +109,21 @@ def test_unsketch_topk_same_set_and_values(family):
     jo, to = np.argsort(np.asarray(ji)), np.argsort(ti.numpy())
     np.testing.assert_array_equal(ti.numpy()[to], np.asarray(ji)[jo])
     np.testing.assert_array_equal(tv.numpy()[to], np.asarray(jv)[jo])
+
+
+@pytest.mark.parametrize("case", ["zeros", "rounded", "distinct", "signed_ties_and_inf"])
+def test_topk_abs_orders_like_lax_top_k(case):
+    """The same indices in the same order as ``lax.top_k`` of |x|, ties
+    included: FetchSGD's first round (lr 0) selects among exact zeros."""
+    rng = np.random.RandomState(3)
+    x = {"zeros": np.zeros(1000, np.float32),
+         "rounded": np.round(3 * rng.standard_normal(5000)).astype(np.float32),
+         "distinct": rng.standard_normal(20000).astype(np.float32),
+         "signed_ties_and_inf": np.array([0.0, -0.0, 1.0, -1.0, 1.0, np.inf, -np.inf, 2.0],
+                                         np.float32)}[case]
+    for k in (1, 7, len(x) // 2, len(x)):
+        want = np.asarray(jax.lax.top_k(jnp.abs(jnp.asarray(x)), k)[1])
+        np.testing.assert_array_equal(tcs.topk_abs(torch.from_numpy(x), k).numpy(), want)
 
 
 def test_to_dense_ignores_out_of_range():
