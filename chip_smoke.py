@@ -30,11 +30,10 @@ Phases (any failure raises, and the exit status is non-zero):
    against the same reduction on the CPU; every reading is printed.
 8. run loop: the slice through ``cv_train.main``'s run loop (async by
    default), with the launch counts zeroed just before:
-   a. the sync loop twice, 6 rounds each: are the final states bitwise
-      equal on the card? If not, the phase sets cuDNN deterministic for
-      its own runs and tries again; if still not, every comparison below
-      is held at a tolerance of TOL_FACTOR times the measured sync-vs-sync
-      spread (relative L2; both are printed), else bitwise;
+   a. the sync loop twice, 6 rounds each, under the entry point's own
+      switches (``resolve_device`` makes cuDNN and every other operation
+      deterministic): the final states must be bitwise equal, and every
+      comparison below is bitwise;
    b. the async loop with --checkpoint_every 3 (both checkpoints must land
       and verify) and c. with --rounds_per_dispatch 3, each held against
       the sync run (params, Vvelocity, Verror, eval row);
@@ -51,13 +50,33 @@ Phases (any failure raises, and the exit status is non-zero):
    Each kernel must have launched exactly once per sketch round of the
    phase; every time is printed beside the card's name and power limit.
 9. profile: a torch.profiler window over two more rounds prints the device's
-   busy time, idle share and top kernels per round.
+   busy time, idle share and top kernels per round, first under the entry
+   point's reproducibility switches, then (for this window only) under
+   cuDNN's and PyTorch's defaults: the cost of determinism.
+10. baselines: ``cv_train.main`` at full width in FetchSGD's baselines, with
+   the launch counts zeroed just before each run:
+   a. FEMNIST true_topk, 3,550 synthetic writers, 8 sampled, k = 50,000;
+   b. FEMNIST local_topk with virtual momentum and virtual error (no
+      client state: 3,550 writers' state would not fit on one card);
+   c. ResNet-9 local_topk with the reference's defaults (local momentum and
+      local error, 100 clients: 5.3 GB of client state), sync and async
+      (with its checkpoint timed) held bitwise, and preempt -> resume
+      held bitwise against the uninterrupted run;
+   d. ResNet-9 fedavg with 5 local iterations;
+   e. ResNet-9 true_topk with --server_state sketch (r = 5, c = 524,288):
+      each kernel must launch exactly once per round (the dense-state runs
+      must launch none).
+   Every logged loss must be finite, and a mode that releases k moves the
+   params in at most k coordinates a round. After each run one more round
+   at lr 0.1 through ``run_round`` is held against the mode's algebra
+   recomputed on the card from the same cohort's per-client updates.
 
 Prints one JSON line with the kernels' numbers (launches counted over
 phase 8), then as its last line
 ``{"ok": true, "device": {...}}``. Run from the repository root:
     python3 chip_smoke.py
-``--kernels-only`` stops after phase 4 (a short first check of a new kernel);
+``--kernels-only`` stops after phase 4 (a short first check of a new kernel),
+``--baselines-only`` runs phases 1-3 and 10;
 ``--cohorts N`` sets the number of cohorts phase 7 compares (default 4);
 ``--pairs N`` the sync/async timing pairs of phase 8 (default 3).
 """
@@ -90,9 +109,9 @@ TIMED_LAUNCHES = 30
 COHORTS = 4
 CHECK_LR = 0.1
 # a checked round's new params against the step recomputed on the card from
-# the same cohort's reduced gradient: the two gradients differ only by the
-# card's nondeterministic convolution reductions, so the params may differ
-# by a sliver of the step; a missing, scaled or mis-signed step is O(1)
+# the same cohort's gradients: the two differ only in the order the card
+# sums them, so the params may differ by a sliver of the step; a missing,
+# scaled or mis-signed step is O(1)
 STEP_REL = 1e-3
 # the sketch round's top-k against the plain recomputation: coordinates at
 # the k-th |estimate| may swap with that same sliver
@@ -111,14 +130,16 @@ TOPK_AGREE = 0.99
 # tightly against the JAX package on the CPU (tests/test_torch_*.py).
 FWD_REL = 1e-5
 GRAD_REL_L2 = 8e-3
-# run-loop phase: runs of LOOP_ROUNDS rounds; when two sync runs of the same
-# seed differ on the card, async runs are held at TOL_FACTOR times that
-# spread (relative L2). A wrong cohort, lr or a skipped round moves the
-# params by O(1) of their movement; the card's nondeterministic reductions
-# move them by the spread
+# run-loop phase: runs of LOOP_ROUNDS rounds, held bitwise
 LOOP_ROUNDS = 6
-TOL_FACTOR = 10.0
 PAIRS = 3
+# baselines phase: rounds per run
+BASE_ROUNDS = 4
+FEMNIST_ARGS = ["--dataset", "femnist", "--num_clients", "3550", "--num_workers", "8",
+                "--local_batch_size", "8", "--k", "50000", "--device", "cuda"]
+RESNET_ARGS = ["--dataset", "cifar10", "--hash_family", "rotation", "--num_clients", "100",
+               "--num_workers", "8", "--local_batch_size", "8", "--k", "50000",
+               "--device", "cuda"]
 
 
 def fail(msg: str):
@@ -237,10 +258,11 @@ def card_vs_cpu(session, engine, csvec, cohorts: int, errs: dict) -> None:
              f"{worst[2]:.3e} (bound {GRAD_REL_L2})")
 
 
-def profile_rounds(session, rounds: int = 2, top: int = 12) -> None:
+def profile_rounds(session, rounds: int = 2, top: int = 12, label: str = "") -> float:
     """Where a steady round's time goes: a torch.profiler window over
-    `rounds` more sketch rounds; prints the device's busy time and idle
-    share per round and the kernels that took most device time."""
+    `rounds` more rounds; prints the device's busy time and idle share per
+    round and the kernels that took most device time, and returns the busy
+    ms per round (0.0: not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -253,13 +275,36 @@ def profile_rounds(session, rounds: int = 2, top: int = 12) -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / rounds
     if busy_ms <= 0:
-        print("profile: the profiler recorded no device time (not measured)", flush=True)
-        return
-    print(f"profile: {rounds} rounds, wall {wall_ms:.2f} ms/round (profiled), device busy "
-          f"{busy_ms:.2f} ms/round, idle share {1 - busy_ms / wall_ms:.3f}", flush=True)
+        print(f"profile{label}: the profiler recorded no device time (not measured)",
+              flush=True)
+        return 0.0
+    print(f"profile{label}: {rounds} rounds, wall {wall_ms:.2f} ms/round (profiled), device "
+          f"busy {busy_ms:.2f} ms/round, idle share {1 - busy_ms / wall_ms:.3f}", flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         ms = e.self_device_time_total / 1e3 / rounds
         print(f"  {ms:8.3f} ms/round  {e.count // rounds:5d}x  {e.key[:110]}", flush=True)
+    return busy_ms
+
+
+def determinism_cost(session, card: str) -> None:
+    """Device busy per round under the entry point's reproducibility
+    switches and, for these windows only, under cuDNN's and PyTorch's
+    defaults (the port's behaviour before the switches), in turns."""
+    on = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+          torch.are_deterministic_algorithms_enabled())
+    busy = {"switches on": [], "defaults": []}
+    try:
+        for turn in range(4):
+            det = turn % 2 == 0
+            torch.backends.cudnn.deterministic = on[0] if det else False
+            torch.use_deterministic_algorithms(on[2] if det else False)
+            label = "switches on" if det else "defaults"
+            busy[label].append(profile_rounds(session, top=0, label=f" ({label})"))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = on[0], on[1]
+        torch.use_deterministic_algorithms(on[2])
+    print(f"determinism cost: device busy ms/round with the switches {busy['switches on']}, "
+          f"with the defaults {busy['defaults']} [{card}]", flush=True)
 
 
 def _state(session) -> dict:
@@ -327,7 +372,6 @@ def run_loop_phase(cv_train, kernels, card: str, pairs: int) -> dict:
         return s, row
 
     kernels.reset_launch_counts()
-    cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
     a, row_a = run(["--sync_loop"], "sync_a")
     b, _ = run(["--sync_loop"], "sync_b")
     from commefficient_tpu_torch.models.convert import FlatLayout
@@ -335,36 +379,26 @@ def run_loop_phase(cv_train, kernels, card: str, pairs: int) -> dict:
     model0 = ResNet9()
     init_weights(model0, 42)
     p0 = FlatLayout(model0).flatten(dict(model0.named_parameters())).to(a.state["params"].device)
-    equal = _equal(_state(a), _state(b))
     spread = _rel(_state(a), _state(b), p0)
-    print(f"run loop: two sync runs bitwise equal: {equal} (spread, relative L2 {spread:.3e})",
-          flush=True)
-    if not equal:
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-        a, row_a = run(["--sync_loop"], "sync_a_det")
-        b, _ = run(["--sync_loop"], "sync_b_det")
-        equal = _equal(_state(a), _state(b))
-        spread = _rel(_state(a), _state(b), p0)
-        print(f"run loop: with cudnn.deterministic for this phase's runs: bitwise equal "
-              f"{equal} (spread {spread:.3e})", flush=True)
-    tol = 0.0 if equal else TOL_FACTOR * spread
-    print(f"run loop: holding async runs {'bitwise' if equal else f'at relative L2 <= {tol:.3e}'}"
-          f" (cudnn.deterministic {torch.backends.cudnn.deterministic})", flush=True)
+    verdict = (f"run loop: two sync runs of one seed under the entry point's switches "
+               f"(cudnn.deterministic {torch.backends.cudnn.deterministic}, deterministic "
+               f"algorithms {torch.are_deterministic_algorithms_enabled()}): relative L2 "
+               f"{spread:.3e}")
+    if not _equal(_state(a), _state(b)):
+        fail(verdict + ", not bitwise equal")
+    print(verdict + ", bitwise equal - held", flush=True)
 
     def hold(label, s, row, ref=a, ref_row=row_a, keys=("train_loss", "train_acc",
                                                           "test_loss", "test_acc", "comm_mb")):
-        """``keys`` of the eval rows must agree too (a resumed run's train
-        columns sum only the rounds it ran, so it is held on the rest)."""
+        """Bitwise, and ``keys`` of the eval rows equal too (a resumed run's
+        train columns sum only the rounds it ran, so it is held on the
+        rest)."""
         got = _rel(_state(s), _state(ref), p0)
-        ok = _equal(_state(s), _state(ref)) if equal else got <= tol
-        loss_rel = abs(row["test_loss"] / ref_row["test_loss"] - 1)
-        if equal:
-            ok = ok and all(row[k] == ref_row[k] for k in keys)
-        msg = (f"run loop: {label} vs sync: relative L2 {got:.3e}, eval loss rel "
-               f"{loss_rel:.3e}")
+        ok = _equal(_state(s), _state(ref)) and all(row[k] == ref_row[k] for k in keys)
+        msg = f"run loop: {label} vs sync: relative L2 {got:.3e}"
         if not ok:
-            fail(msg)
-        print(msg + " - held", flush=True)
+            fail(msg + ", not bitwise equal")
+        print(msg + " - held bitwise", flush=True)
 
     ck1 = os.path.join(base, "ck_async")
     c, row_c = run(["--checkpoint_every", "3", "--checkpoint_dir", ck1], "async")
@@ -412,17 +446,15 @@ def run_loop_phase(cv_train, kernels, card: str, pairs: int) -> dict:
             fail(f"{name} launched {n} times in {rounds} sketch rounds of the run-loop phase")
     print(f"run loop: launches {launches} in {rounds} sketch rounds (one per round)", flush=True)
 
-    ua, urow_a = run(["--sync_loop", "--num_rounds", "2"], "control_sync_a", "uncompressed")
+    ua, _ = run(["--sync_loop", "--num_rounds", "2"], "control_sync_a", "uncompressed")
     ub, _ = run(["--sync_loop", "--num_rounds", "2"], "control_sync_b", "uncompressed")
-    uc, urow_c = run(["--num_rounds", "2"], "control_async", "uncompressed")
-    u_equal = _equal(_state(ua), _state(ub))
-    u_tol = 0.0 if u_equal else TOL_FACTOR * _rel(_state(ua), _state(ub), p0)
-    got = _rel(_state(uc), _state(ua), p0)
-    verdict = (f"run loop: control, two sync runs bitwise equal {u_equal}, async vs sync "
-               f"relative L2 {got:.3e} (bound {u_tol:.3e})")
-    if not (_equal(_state(uc), _state(ua)) if u_equal else got <= u_tol):
-        fail(verdict)
-    print(verdict + " - held", flush=True)
+    uc, _ = run(["--num_rounds", "2"], "control_async", "uncompressed")
+    verdict = (f"run loop: control, sync vs sync relative L2 "
+               f"{_rel(_state(ua), _state(ub), p0):.3e}, async vs sync "
+               f"{_rel(_state(uc), _state(ua), p0):.3e}")
+    if not (_equal(_state(ua), _state(ub)) and _equal(_state(uc), _state(ua))):
+        fail(verdict + ", not bitwise equal")
+    print(verdict + " - held bitwise", flush=True)
 
     sync_ms, async_ms = [], []
     for i in range(pairs):
@@ -434,7 +466,6 @@ def run_loop_phase(cv_train, kernels, card: str, pairs: int) -> dict:
     print(f"run loop: {pairs} alternating pairs, steady per-round ms: sync "
           f"{[round(t, 2) for t in sync_ms]}, async {[round(t, 2) for t in async_ms]} [{card}]",
           flush=True)
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
     return launches
 
 
@@ -478,6 +509,240 @@ def sync_probe(cv_train, slice_args) -> None:
         fail(f"sync probe: {len(syncs)} synchronize calls, more than the drain's and the "
              "profiler's")
 
+def _initial_params(dataset: str, dev) -> torch.Tensor:
+    """The CLI's initial flat params at the parser's default --seed."""
+    from commefficient_tpu_torch.cv_train import init_weights
+    from commefficient_tpu_torch.models.convert import FlatLayout
+    from commefficient_tpu_torch.models.femnist_cnn import FEMNISTCNN
+    from commefficient_tpu_torch.models.resnet9 import ResNet9
+
+    model = FEMNISTCNN() if dataset == "femnist" else ResNet9()
+    init_weights(model, 42)
+    return FlatLayout(model).flatten(dict(model.named_parameters())).to(dev)
+
+
+def _releases_k(mcfg) -> bool:
+    return mcfg.mode == "true_topk" or (mcfg.mode == "local_topk"
+                                        and mcfg.error_type == "virtual")
+
+
+def check_baseline_round(session, engine, csvec) -> str:
+    """One round at lr CHECK_LR through ``run_round``, held against the
+    mode's algebra recomputed on the card from the same cohort's per-client
+    updates (the engine's ``make_client_update``: gradient plus weight
+    decay, or the local-SGD weight delta): per-client top-k with torch.topk
+    and the client rows for local_topk, the survivor mean, server momentum
+    and error, the plain sketch and query for sketched state."""
+    mcfg = session.cfg.mode
+    rng_state = session.rng.get_state()
+    prep = session.prepare_round()
+    session.rng.set_state(rng_state)
+    batch = session._to_device(prep.batch)
+    batch.pop(engine.VALID_KEY)
+    state = session.state
+    dev = state["params"].device
+    lr = torch.tensor(CHECK_LR, dtype=torch.float32, device=dev)
+    p0 = state["params"].clone()
+    V0, E0 = (state["mode_state"][k].clone() for k in ("Vvelocity", "Verror"))
+    ids = torch.from_numpy(prep.ids.astype("int64")).to(dev)
+    rows0 = ({k: v[ids] for k, v in session.client_state.items()}
+             if session.client_state is not None else {})
+    update = engine.make_client_update(session.train_loss_fn, session.cfg, session.layout)
+    W, k = len(prep.ids), mcfg.k
+    ups = [update(state, {key: v[w] for key, v in batch.items()}, lr)[0] for w in range(W)]
+    want_rows = {}
+    if mcfg.mode == "local_topk":
+        dense = []
+        for w, u in enumerate(ups):
+            acc = u
+            if mcfg.momentum_type == "local":
+                acc = mcfg.momentum * rows0["momentum"][w] + u
+                want_rows.setdefault("momentum", []).append(acc)
+            if mcfg.error_type == "local":
+                acc = rows0["error"][w] + acc
+            idx = torch.topk(acc.abs(), k).indices
+            d_w = torch.zeros_like(acc)
+            d_w[idx] = acc[idx]
+            dense.append(d_w)
+            if mcfg.error_type == "local":
+                want_rows.setdefault("error", []).append(acc - d_w)
+        ups = dense
+    g = sum(ups) / W
+    rho = mcfg.momentum if mcfg.momentum_type == "virtual" else 0.0
+    session.run_round(CHECK_LR)
+    new = session.state["params"]
+    if _releases_k(mcfg):
+        if mcfg.server_state == "sketch":
+            spec = mcfg.sketch_spec
+            V = rho * V0 + csvec._sketch_vec_rotation(spec, g)
+            est = csvec._query_all_rotation(spec, E0 + lr * V)
+        else:
+            V = rho * V0 + g
+            est = (E0 if mcfg.error_type != "none" else 0.0) + lr * V
+        idx = torch.topk(est.abs(), k).indices
+        moved = new != p0
+        n_moved, agree = int(moved.sum()), moved[idx].float().mean().item()
+        common = idx[moved[idx]]
+        err = (new[common] - (p0[common] - est[common])).abs().max().item() if n_moved else 0.0
+        rel = err / est[idx].abs().max().item() if n_moved else math.inf
+        verdict = (f"checked {mcfg.mode} round at lr {CHECK_LR}: {n_moved} params moved "
+                   f"(k {k}), top-k agreement {agree:.6f}, value error / largest step "
+                   f"{rel:.3e}")
+        ok = 0 < n_moved <= k and agree >= TOPK_AGREE and rel < STEP_REL
+    else:
+        rate = mcfg.server_lr if mcfg.uses_weight_delta else lr
+        want = p0 - rate * (rho * V0 + g)
+        step = (want - p0).abs().max().item()
+        rel = (new - want).abs().max().item() / step if step > 0 else math.inf
+        verdict = (f"checked {mcfg.mode} round at lr {CHECK_LR}: largest step {step:.3e}, "
+                   f"error / largest step {rel:.3e}")
+        ok = rel < STEP_REL
+    for key, rows in want_rows.items():
+        want_r = torch.stack(rows)
+        got_r = session.client_state[key][ids]
+        rel_r = ((got_r - want_r).norm() / want_r.norm()).item()
+        verdict += f"; client {key} rows rel L2 {rel_r:.3e}"
+        ok = ok and rel_r < STEP_REL
+    if not ok:
+        fail(verdict)
+    return verdict
+
+
+def client_state_ms(session, time_ms, card: str) -> str:
+    """Device ms of one round's client-state traffic as ``dispatch_round``
+    runs it (median of 5 CUDA-event-timed launches each): the gather of the
+    cohort's rows, and the out-of-place scatter of the new rows into new
+    [num_clients, d] tensors, beside its byte bound (the old state read and
+    the new one written once, at 3.35 TB/s)."""
+    cs = session.client_state
+    ids = torch.arange(session.num_workers, device=session.device) * 7 % len(
+        next(iter(cs.values())))
+    rows = {k: v.index_select(0, ids) + 1.0 for k, v in cs.items()}
+    gather = time_ms(lambda: {k: v.index_select(0, ids) for k, v in cs.items()}, 5,
+                     lambda: None)
+    scatter = time_ms(lambda: {k: v.index_copy(0, ids, rows[k]) for k, v in cs.items()}, 5,
+                      lambda: None)
+    nbytes = sum(2 * v.numel() * 4 for v in cs.values())
+    return (f"client state {nbytes / 2e9:.2f} GB: gather {gather:.3f} ms, out-of-place "
+            f"scatter {scatter:.3f} ms (byte bound {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms) "
+            f"[{card}]")
+
+
+def baselines_phase(cv_train, engine, csvec, kernels, card: str) -> None:
+    """Phase 10: FetchSGD's baselines at full width through
+    ``cv_train.main``."""
+    import shutil
+
+    from commefficient_tpu_torch.utils import checkpoint as ckpt
+
+    base = os.path.join(ROOT, "build", "chip_smoke", "baselines")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    dev = torch.device("cuda")
+    p0s, launch_log = {}, {}
+
+    def run(args, label, sketch_launches=0, extra=()):
+        log = os.path.join(base, f"{label}.jsonl")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        s = cv_train.main(list(args) + ["--num_rounds", str(BASE_ROUNDS), "--log_jsonl", log,
+                                        *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launch_counts)
+        if any(n != sketch_launches * s.run_stats.rounds for n in launches.values()):
+            fail(f"{label}: launches {launches} in {s.run_stats.rounds} rounds, expected "
+                 f"{sketch_launches} per round")
+        with open(log) as f:
+            rows = [json.loads(line) for line in f]
+        if not rows or not all(math.isfinite(r[key]) for r in rows
+                               for key in ("train_loss", "test_loss")):
+            fail(f"{label}: non-finite or missing loss in {rows}")
+        mcfg = s.cfg.mode
+        dataset = args[args.index("--dataset") + 1]
+        if dataset not in p0s:
+            p0s[dataset] = _initial_params(dataset, dev)
+        moved = int((s.state["params"] != p0s[dataset]).sum())
+        bound = (mcfg.k if _releases_k(mcfg) else
+                 s.num_workers * mcfg.k if mcfg.mode == "local_topk" else mcfg.d)
+        if not 0 < moved <= s.round * bound:
+            fail(f"{label}: {moved} params moved in {s.round} rounds (bound {bound} a round)")
+        launch_log[label] = launches
+        print(f"baselines {label}: d={mcfg.d:,} {s.run_stats.rounds} rounds in {wall:.1f} s, "
+              f"launches {launches}, {moved} params moved, final test loss "
+              f"{rows[-1]['test_loss']:.4f}, comm {rows[-1]['comm_mb']:.3f} MB", flush=True)
+        print(_times(label, s.run_stats, card), flush=True)
+        return s, rows[-1]
+
+    def checked(s, label):
+        print(f"baselines {label}: " + check_baseline_round(s, engine, csvec), flush=True)
+        profile_rounds(s, top=4, label=f" {label} [{card}]")
+
+    topk = ["--mode", "true_topk"]
+    s, _ = run(FEMNIST_ARGS + topk, "femnist_true_topk")
+    checked(s, "femnist_true_topk")
+    virt = ["--mode", "local_topk", "--error_type", "virtual", "--momentum_type", "virtual"]
+    s, _ = run(FEMNIST_ARGS + virt, "femnist_local_topk_virtual")
+    checked(s, "femnist_local_topk_virtual")
+    del s
+
+    local = RESNET_ARGS + ["--mode", "local_topk"]
+    a, row_a = run(local + ["--sync_loop"], "resnet9_local_topk_sync")
+    gb = sum(v.numel() * 4 for v in a.client_state.values()) / 1e9
+    ck = os.path.join(base, "ck_local")
+    c, row_c = run(local, "resnet9_local_topk_async", extra=["--checkpoint_dir", ck])
+
+    def same(x, y):
+        return (_equal(_state(x), _state(y)) and x.client_state.keys() == y.client_state.keys()
+                and all(torch.equal(x.client_state[k], y.client_state[k])
+                        for k in x.client_state))
+
+    if not (same(a, c) and row_a["test_loss"] == row_c["test_loss"]):
+        fail("resnet9 local_topk: async run differs from the sync run")
+    print(f"baselines: resnet9 local_topk async == sync bitwise, client state "
+          f"{sorted(a.client_state)} ({gb:.2f} GB) included", flush=True)
+    path = ckpt.latest(ck)
+    t0 = time.perf_counter()
+    ckpt.restore(path, c)
+    torch.cuda.synchronize()
+    print(f"baselines: checkpoint of the {gb:.2f} GB client state: "
+          + "; ".join(f"copy {t['copy_ms']:.0f} write {t['write_ms']:.0f} verify "
+                      f"{t['verify_ms']:.0f} ms" for t in c.run_stats.checkpoints)
+          + f"; restore {1e3 * (time.perf_counter() - t0):.0f} ms [{card}]", flush=True)
+    del c
+    shutil.rmtree(ck, ignore_errors=True)
+    ck2 = os.path.join(base, "ck_preempt")
+    try:
+        run(local, "resnet9_local_topk_preempted",
+            extra=["--checkpoint_dir", ck2, "--fault_plan", "preempt@1"])
+        fail("preempt@1 did not exit")
+    except SystemExit as e:
+        if e.code != 75:
+            raise
+    e_, row_e = run(local, "resnet9_local_topk_resumed",
+                    extra=["--checkpoint_dir", ck2, "--fault_plan", "preempt@1", "--resume"])
+    if not (e_.run_stats.rounds == BASE_ROUNDS - 2 and same(a, e_)
+            and row_a["test_loss"] == row_e["test_loss"] and row_a["comm_mb"] == row_e["comm_mb"]):
+        fail("resnet9 local_topk: preempt -> resume differs from the uninterrupted run")
+    print("baselines: resnet9 local_topk preempt@1 -> exit 75 -> resume == uninterrupted, "
+          "bitwise, client state included", flush=True)
+    del e_
+    shutil.rmtree(ck2, ignore_errors=True)
+    from commefficient_tpu_torch.sketch.time_kernels import time_ms
+    print("baselines: " + client_state_ms(a, time_ms, card), flush=True)
+    checked(a, "resnet9_local_topk")
+    del a
+
+    s, _ = run(RESNET_ARGS + ["--mode", "fedavg", "--num_local_iters", "5"], "resnet9_fedavg")
+    checked(s, "resnet9_fedavg")
+    del s
+    sk = RESNET_ARGS + ["--mode", "true_topk", "--server_state", "sketch", "--num_rows", "5",
+                        "--num_cols", "524288"]
+    s, _ = run(sk, "resnet9_true_topk_sketch_state", sketch_launches=1)
+    checked(s, "resnet9_true_topk_sketch_state")
+    return launch_log["resnet9_true_topk_sketch_state"]
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -492,6 +757,10 @@ def main(argv: list[str]) -> int:
 
     cohorts = int(argv[argv.index("--cohorts") + 1]) if "--cohorts" in argv else COHORTS
     pairs = int(argv[argv.index("--pairs") + 1]) if "--pairs" in argv else PAIRS
+    t_start = time.perf_counter()
+
+    def phase(name: str) -> None:
+        print(f"== phase {name} at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # 1. card
     print(f"card: {card_line()}", flush=True)
@@ -517,7 +786,16 @@ def main(argv: list[str]) -> int:
         errs["sketch_query"] = max(errs["sketch_query"], q)
         print(f"kernel == plain at d={d} c={c} r={r}", flush=True)
 
+    if "--baselines-only" in argv:
+        phase("10 (baselines)")
+        launches = baselines_phase(cv_train, engine, csvec, kernels, card_line())
+        print(f"baselines: sketched server state launches {launches} in {BASE_ROUNDS} rounds",
+              flush=True)
+        print("chip_smoke: baselines-only run done", flush=True)
+        return 0
+
     # 4. times at the slice's shapes
+    phase("4 (times)")
     d, c, r = SLICE["d"], SLICE["c"], SLICE["r"]
     spec = csvec.CSVecSpec(d=d, c=c, r=r, seed=42, family="rotation")
     S = spec.num_slabs
@@ -568,6 +846,7 @@ def main(argv: list[str]) -> int:
         return 0
 
     # 5. main path
+    phase("5 (main path)")
     out_dir = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
     log = os.path.join(out_dir, "sketch_rows.jsonl")
@@ -608,6 +887,7 @@ def main(argv: list[str]) -> int:
           f"{session.run_stats.max_inflight_used}", flush=True)
 
     # 6. checked rounds
+    phase("6 (checked rounds)")
     print(check_sketch_round(session, engine, csvec), flush=True)
     uncompressed = cv_train.main(SLICE_ARGS + ["--mode", "uncompressed", "--num_rounds", "1"])
     if not torch.isfinite(uncompressed.state["params"]).all():
@@ -617,9 +897,11 @@ def main(argv: list[str]) -> int:
     print(check_control_round(uncompressed, engine), flush=True)
 
     # 7. card vs CPU
+    phase("7 (card vs CPU)")
     card_vs_cpu(session, engine, csvec, cohorts, errs)
 
     # 8. run loop
+    phase("8 (run loop)")
     card = card_line()
     launches = run_loop_phase(cv_train, kernels, card, pairs)
     for name, n in launches.items():
@@ -630,7 +912,16 @@ def main(argv: list[str]) -> int:
     print("run loop: kernels == plain on the run's params and error table", flush=True)
 
     # 9. profile
+    phase("9 (profile)")
     profile_rounds(session)
+    determinism_cost(session, card)
+
+    # 10. baselines
+    phase("10 (baselines)")
+    sketch_state = baselines_phase(cv_train, engine, csvec, kernels, card)
+    print(f"baselines: the sketched server state launched {sketch_state} in {BASE_ROUNDS} "
+          "rounds (one per round)", flush=True)
+    phase("end")
 
     for name in rows:
         rows[name]["max_abs_err"] = errs[name]

@@ -1,6 +1,8 @@
 """CV federated training CLI of the port: the twin of the repository's
-``cv_train.py`` on CIFAR ResNet-9, driven through the run loop
-(``runner/``): async by default, ``--sync_loop`` for the serial path.
+``cv_train.py`` on CIFAR ResNet-9 and the FEMNIST CNN, in every mode
+(sketch, true_topk, local_topk, fedavg, localSGD, uncompressed), driven
+through the run loop (``runner/``): async by default, ``--sync_loop`` for
+the serial path.
 
 FetchSGD on the GPU (the slice's configuration):
     python -m commefficient_tpu_torch.cv_train --dataset cifar10 --mode sketch \
@@ -13,8 +15,14 @@ With --checkpoint_dir the run saves verified checkpoints (every
 rounds in flight, save and exit 75, and --resume continues from the newest
 checkpoint that verifies.
 
-Without the CIFAR-10 pickles under --data_root the deterministic synthetic
-CIFAR-shaped set is used.
+A baseline, e.g. local top-k over 3,550 FEMNIST writers with server-side
+(virtual) momentum and error:
+    python -m commefficient_tpu_torch.cv_train --dataset femnist --mode local_topk \
+        --num_clients 3550 --error_type virtual --momentum_type virtual --k 50000
+
+Without the CIFAR-10 pickles (or LEAF's FEMNIST json under
+--data_root/femnist) the deterministic synthetic set of the same shape is
+used.
 """
 
 from __future__ import annotations
@@ -23,8 +31,10 @@ import math
 import sys
 
 from .data.cifar import load_cifar_fed
+from .data.femnist import load_femnist_fed
 from .federated.api import FederatedSession, FedModel, FedOptimizer
 from .models.convert import FlatLayout
+from .models.femnist_cnn import FEMNISTCNN
 from .models.losses import make_classification_loss
 from .models.resnet9 import ResNet9, init_weights
 from .resilience import FaultPlan, RetryPolicy
@@ -39,13 +49,18 @@ from .utils.schedules import triangular
 def build(args):
     fault_plan = FaultPlan.parse(args.fault_plan)  # refuses an unported kind first
     device = resolve_device(args.device)
-    train_set, test_set, num_classes = load_cifar_fed(
-        args.dataset, args.num_clients, args.iid, args.data_root, args.seed,
-        synthetic_separation=args.synthetic_separation,
-        synthetic_train=args.synthetic_train,
-    )
+    if args.dataset == "femnist":
+        train_set, test_set, num_classes = load_femnist_fed(
+            args.data_root, args.num_clients, args.seed)
+        model = FEMNISTCNN(num_classes=num_classes)
+    else:
+        train_set, test_set, num_classes = load_cifar_fed(
+            args.dataset, args.num_clients, args.iid, args.data_root, args.seed,
+            synthetic_separation=args.synthetic_separation,
+            synthetic_train=args.synthetic_train,
+        )
+        model = ResNet9(num_classes=num_classes)
     args.num_clients = train_set.num_clients  # actual shard count
-    model = ResNet9(num_classes=num_classes)
     init_weights(model, args.seed)
     model.to(device)
     layout = FlatLayout(model)

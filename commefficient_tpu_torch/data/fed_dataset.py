@@ -9,9 +9,10 @@ gathered with numpy on the host.
 
 The rows a client contributes are drawn as the reference's native batch
 assembly draws them (``native/batch_assembly.cpp``): one splitmix64 stream
-per client slot, seeded from one ``randint(1 << 62)`` of the session's
-sampling stream, and Floyd's algorithm for the k distinct picks. Both
-packages therefore train on the same cohorts and rows from the same seed.
+per client slot and local iteration, seeded from one ``randint(1 << 62)``
+of the session's sampling stream, and Floyd's algorithm for the k distinct
+picks. Both packages therefore train on the same cohorts and rows from the
+same seed.
 """
 
 from __future__ import annotations
@@ -143,28 +144,35 @@ class FedDataset:
         return rng.choice(self.num_clients, size=min(num, self.num_clients), replace=False)
 
     def client_batch(self, rng: np.random.RandomState, client_ids: np.ndarray,
-                     batch_size: int) -> dict:
+                     batch_size: int, local_iters: int = 1) -> dict:
         """Fixed-shape per-round batch {"x": [W, B, ...], "y": [W, B],
-        "mask": [W, B]}: a client with more than B examples contributes B
-        drawn without replacement (splitmix64 + Floyd, see the module
-        docstring), one with fewer contributes all of them and zero padding
-        behind a 0 mask."""
-        W, n = len(client_ids), batch_size
-        xs = np.zeros((W, n) + self.x.shape[1:], dtype=self.x.dtype)
-        ys = np.zeros((W, n) + self.y.shape[1:], dtype=self.y.dtype)
-        mask = np.zeros((W, n), dtype=np.float32)
+        "mask": [W, B]}, or with a [local_iters] axis after W when
+        local_iters > 1 (the microbatches of fedavg/localSGD's local steps).
+        Per (client slot w, local iteration l) a client with more than B
+        examples contributes B drawn without replacement from the splitmix64
+        stream of slot w * local_iters + l (see the module docstring); one
+        with fewer contributes all of them and zero padding behind a 0
+        mask."""
+        W, L, n = len(client_ids), local_iters, batch_size
+        xs = np.zeros((W, L, n) + self.x.shape[1:], dtype=self.x.dtype)
+        ys = np.zeros((W, L, n) + self.y.shape[1:], dtype=self.y.dtype)
+        mask = np.zeros((W, L, n), dtype=np.float32)
         seed = int(rng.randint(1 << 62))
         for wi, cid in enumerate(client_ids):
             shard = self.client_indices[int(cid)]
             k = min(len(shard), n)
-            if len(shard) <= n:
-                take = shard
-            else:
-                slot_rng = _SplitMix64(seed ^ ((_GOLDEN * (wi + 1)) & _M64))
-                take = shard[_sample_distinct(slot_rng, len(shard), k)]
-            xs[wi, :k] = self.x[take]
-            ys[wi, :k] = self.y[take]
-            mask[wi, :k] = 1.0
+            for li in range(L):
+                if len(shard) <= n:
+                    take = shard
+                else:
+                    slot = wi * L + li + 1
+                    slot_rng = _SplitMix64(seed ^ ((_GOLDEN * slot) & _M64))
+                    take = shard[_sample_distinct(slot_rng, len(shard), k)]
+                xs[wi, li, :k] = self.x[take]
+                ys[wi, li, :k] = self.y[take]
+                mask[wi, li, :k] = 1.0
+        if L == 1:
+            return {"x": xs[:, 0], "y": ys[:, 0], "mask": mask[:, 0]}
         return {"x": xs, "y": ys, "mask": mask}
 
     def eval_batches(self, batch_size: int):

@@ -2,18 +2,24 @@
 ``federated/api.py`` for the single-device round.
 
 ``FederatedSession`` owns the server state (flat params, batch-norm
-statistics, Vvelocity/Verror), the host sampling stream and the
-communication accounting. A round runs in three steps, so the run loop
-(``runner/``) can overlap them:
+statistics, Vvelocity/Verror), the client state (local_topk's
+[num_clients, d] local error and momentum, when the mode keeps any), the
+host sampling stream and the communication accounting. A round runs in
+three steps, so the run loop (``runner/``) can overlap them:
 
 - ``prepare_round``: sample the cohort and assemble its batch on the host
   (pinned host tensors when the session runs on the GPU); any thread, one
   at a time, in round order.
 - ``dispatch_round`` / ``dispatch_block``: copy the batch to the device
   without a host sync and launch the round's work, chained on the newest
-  dispatched state; returns device metrics.
-- ``commit_rounds``: publish state, round counter, communication totals
-  and the host-RNG snapshot, in dispatch order, under ``mutate_lock``.
+  dispatched state; returns device metrics. A round of a mode with client
+  state gathers the cohort's rows before its step and scatters the new
+  rows after it, out of place: a new [num_clients, d] tensor per key, so a
+  committed client state is never written again (checkpoints copy it while
+  later rounds run).
+- ``commit_rounds``: publish state, client state, round counter,
+  communication totals and the host-RNG snapshot, in dispatch order, under
+  ``mutate_lock``.
 
 ``FedModel`` and ``FedOptimizer`` mirror the reference's
 ``FedModel(model, loss_fn, args)`` / ``FedOptimizer(opt, args)`` surface.
@@ -31,9 +37,10 @@ import torch
 
 from ..data.fed_dataset import FedDataset
 from ..models.convert import FlatLayout
+from ..modes import modes
 from ..modes.config import ModeConfig
 from ..resilience import retry as rtry
-from ..utils.comm import round_comm_mb
+from ..utils.comm import BYTES_F32, BYTES_PAIR, round_comm_mb
 from ..utils.device import resolve_device
 from . import engine
 
@@ -56,13 +63,15 @@ class PreparedRound:
 
 @dataclasses.dataclass
 class InFlightRound:
-    """A dispatched, uncommitted round or block of rounds. ``metrics`` stay
-    device tensors until the run loop drains them. ``done`` is the CUDA
-    event recorded after the dispatch (None on the CPU): a checkpoint of
-    this state waits for it alone. ``host_batch`` keeps the pinned source of
+    """A dispatched, uncommitted round or block of rounds, with the server
+    state and client state (None when the mode keeps none) it produced.
+    ``metrics`` stay device tensors until the run loop drains them.
+    ``done`` is the CUDA event recorded after the dispatch (None on the
+    CPU): a checkpoint of this state waits for it alone. ``host_batch`` keeps the pinned source of
     the non-blocking copy referenced until commit."""
 
     new_state: dict | None
+    new_client_state: dict | None
     metrics: dict
     lrs: list
     snapshot: tuple
@@ -75,11 +84,12 @@ class InFlightRound:
         return len(self.lrs)
 
     def release_state(self):
-        """Drop the server-state reference. The run loop calls this when a
-        newer dispatch supersedes this one: only the newest pending state is
-        published at a batch commit. (The port's states are about 47 MB;
-        this keeps the reference's discipline, not memory.)"""
+        """Drop the state references. The run loop calls this when a newer
+        dispatch supersedes this one: only the newest pending state is
+        published at a batch commit, and a superseded client state (5.3 GB
+        for ResNet-9 local_topk at 100 clients) is freed."""
         self.new_state = None
+        self.new_client_state = None
 
 
 class FederatedSession:
@@ -118,9 +128,13 @@ class FederatedSession:
         pflat = layout.flatten({k: v.detach().to(self.device) for k, v in params.items()})
         self.state = engine.init_server_state(
             self.cfg, pflat, {k: v.detach().to(self.device).clone() for k, v in net_state.items()})
+        # [num_clients, d] per key, or None
+        self.client_state = modes.init_client_state(mode_cfg, train_set.num_clients,
+                                                    self.device)
         self.train_loss_fn = train_loss_fn
         self._step = engine.make_round_step(train_loss_fn, self.cfg, layout)
-        self._multi = engine.make_multi_round_step(train_loss_fn, self.cfg, layout)
+        self._multi = (None if mode_cfg.needs_local_state
+                       else engine.make_multi_round_step(train_loss_fn, self.cfg, layout))
         self._eval = engine.make_eval_step(eval_loss_fn, layout)
         self.fault_plan = fault_plan
         self.retry_policy = retry_policy or rtry.RetryPolicy()
@@ -139,6 +153,7 @@ class FederatedSession:
         self._inflight = 0
         self._inflight_rounds = 0
         self._head_state = None
+        self._head_client_state = None
         self._copy_stream = None
         self.round = 0
         self.comm_per_round = round_comm_mb(mode_cfg, self.num_workers)
@@ -195,7 +210,8 @@ class FederatedSession:
             try:
                 if self.fault_plan is not None:
                     self.fault_plan.data_load(rnd)
-                return self.train_set.client_batch(self.rng, ids, self.local_batch_size)
+                return self.train_set.client_batch(self.rng, ids, self.local_batch_size,
+                                                   self.cfg.mode.num_local_iters)
             except Exception:
                 self.rng.set_state(rng_state)
                 raise
@@ -221,6 +237,10 @@ class FederatedSession:
     def _head(self) -> dict:
         return self._head_state if self._head_state is not None else self.state
 
+    def _head_clients(self) -> dict | None:
+        return (self._head_client_state if self._head_client_state is not None
+                else self.client_state)
+
     def dispatch_round(self, prep: PreparedRound, lr: float) -> InFlightRound:
         """Launch one round without a host sync, chained on the newest
         dispatched state. The caller commits in dispatch order."""
@@ -229,13 +249,24 @@ class FederatedSession:
             # drain -> emergency checkpoint -> resumable exit
             self.fault_plan.preempt(prep.rnd)
         lr_host = self._host(np.asarray(lr, np.float32))
-        new_state, metrics = self._step(self._head(), self._to_device(prep.batch),
-                                        lr_host.to(self.device, non_blocking=True))
+        cstate = self._head_clients()
+        rows, ids = {}, None
+        if cstate is not None:
+            ids = self._host(prep.ids.astype(np.int64)).to(self.device, non_blocking=True)
+            rows = {k: v.index_select(0, ids) for k, v in cstate.items()}
+        new_state, new_rows, metrics = self._step(
+            self._head(), self._to_device(prep.batch), rows,
+            lr_host.to(self.device, non_blocking=True))
+        new_cstate = None
+        if cstate is not None:
+            # out of place: the committed client state stays as it was
+            new_cstate = {k: v.index_copy(0, ids, new_rows[k]) for k, v in cstate.items()}
+            self._head_client_state = new_cstate
         self._head_state = new_state
         self._inflight += 1
         self._inflight_rounds += 1
-        return InFlightRound(new_state, metrics, [lr], prep.snapshot, stacked=False,
-                             done=self._record(), host_batch=prep.batch)
+        return InFlightRound(new_state, new_cstate, metrics, [lr], prep.snapshot,
+                             stacked=False, done=self._record(), host_batch=prep.batch)
 
     def dispatch_block(self, preps: list[PreparedRound], lrs) -> InFlightRound:
         """Launch K rounds in one call (``engine.make_multi_round_step``)
@@ -250,7 +281,7 @@ class FederatedSession:
         self._head_state = new_state
         self._inflight += 1
         self._inflight_rounds += len(lrs)
-        return InFlightRound(new_state, metrics, lrs, preps[-1].snapshot, stacked=True,
+        return InFlightRound(new_state, None, metrics, lrs, preps[-1].snapshot, stacked=True,
                              done=self._record(), host_batch=host)
 
     def _stack(self, xs: list) -> torch.Tensor:
@@ -304,10 +335,13 @@ class FederatedSession:
                 raise RuntimeError("commit_rounds: the newest in-flight dispatch has no state "
                                    "(release_state must only be called on superseded entries)")
             self.state = last.new_state
+            if last.new_client_state is not None:
+                self.client_state = last.new_client_state
             self.committed_event = last.done
             self.rng_snapshot = last.snapshot
             if self._inflight == 0:
                 self._head_state = None
+                self._head_client_state = None
         return out
 
     def run_round(self, lr: float) -> dict:
@@ -316,10 +350,11 @@ class FederatedSession:
 
     @property
     def supports_block_dispatch(self) -> bool:
-        """Whether a block of rounds can run in one dispatch. Both ported
-        modes keep no per-client state, so yes, unless a fault plan is set:
-        its sites are scheduled by round, which a block cannot honour."""
-        return self.fault_plan is None
+        """Whether a block of rounds can run in one dispatch: not for a mode
+        with client state (its rows are gathered and scattered around each
+        round), nor with a fault plan (its sites are scheduled by round,
+        which a block cannot honour)."""
+        return self.client_state is None and self.fault_plan is None
 
     def run_rounds(self, lrs) -> list[dict]:
         """len(lrs) rounds in one dispatch and one sync, with the same host
@@ -334,6 +369,13 @@ class FederatedSession:
         m = {k: float(v) for k, v in m.items()}
         m["lr"] = float(lr)
         m.update(self.comm_per_round)
+        if "down_support" in m:
+            # local_topk: the round's measured broadcast support replaces the
+            # static worst case; past the sparse/dense crossover a server
+            # would send dense floats, so the cost is capped there
+            per_client = min(m.pop("down_support") * BYTES_PAIR, self.cfg.mode.d * BYTES_F32)
+            m["comm_down_mb"] = per_client * self.num_workers / 1e6
+            m["comm_total_mb"] = m["comm_up_mb"] + m["comm_down_mb"]
         self.comm_mb_total += m["comm_total_mb"]
         self.round += 1
         return m

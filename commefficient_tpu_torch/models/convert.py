@@ -1,14 +1,17 @@
-"""Carry ResNet-9 weights between the JAX package's flax layout and the
-port's, and define the port's flat parameter vector.
+"""Carry model weights between the JAX package's flax layout and the port's,
+and define the port's flat parameter vector, for ResNet-9 and the FEMNIST
+CNN.
 
 The sketch hashes coordinate *indices*, so the flat [d] vector the port
 sketches must be exactly ``jax.flatten_util.ravel_pytree``'s: leaves in
-sorted-key order of the flax parameter tree (``ConvBN_0/BatchNorm_0/bias``,
-``.../scale``, ``ConvBN_0/Conv_0/kernel``, ..., ``Dense_0``, ``Residual_0``,
-``Residual_1``), each leaf flattened row-major in flax's layout: conv
-kernels HWIO, dense kernels [in, out]. A wrong order would silently change
-every top-k. ``FlatLayout`` holds that order and converts between the
-flat vector and the port's parameters (OIHW convs, [out, in] linear).
+sorted-key order of the flax parameter tree (ResNet-9:
+``ConvBN_0/BatchNorm_0/bias``, ``.../scale``, ``ConvBN_0/Conv_0/kernel``,
+..., ``Dense_0``, ``Residual_0``, ``Residual_1``; FEMNIST: ``Conv_0/bias``,
+``Conv_0/kernel``, ``Conv_1``, ``Dense_0``, ``Dense_1``), each leaf
+flattened row-major in flax's layout: conv kernels HWIO, dense kernels
+[in, out]. A wrong order would silently change every top-k. ``FlatLayout``
+holds that order and converts between the flat vector and the port's
+parameters (OIHW convs, [out, in] linear).
 """
 
 from __future__ import annotations
@@ -19,16 +22,21 @@ import numpy as np
 import torch
 from torch import nn
 
-# port module name -> flax submodule name
+# port module name -> flax submodule name (ResNet-9, then the FEMNIST CNN)
 _MODULE_NAMES = {
     "prep": "ConvBN_0", "layer1": "ConvBN_1", "res1": "Residual_0",
     "layer2": "ConvBN_2", "layer3": "ConvBN_3", "res2": "Residual_1",
     "linear": "Dense_0", "a": "ConvBN_0", "b": "ConvBN_1",
     "conv": "Conv_0", "bn": "BatchNorm_0",
+    "conv1": "Conv_0", "conv2": "Conv_1", "dense1": "Dense_0", "dense2": "Dense_1",
 }
-# (owning module kind, port leaf name) -> flax leaf name
+# the kind of layer a port module is
+_KINDS = {"conv": "conv", "conv1": "conv", "conv2": "conv", "bn": "bn",
+          "linear": "linear", "dense1": "linear", "dense2": "linear"}
+# (layer kind, port leaf name) -> flax leaf name
 _LEAF_NAMES = {
-    ("conv", "weight"): "kernel", ("bn", "weight"): "scale", ("bn", "bias"): "bias",
+    ("conv", "weight"): "kernel", ("conv", "bias"): "bias",
+    ("bn", "weight"): "scale", ("bn", "bias"): "bias",
     ("bn", "running_mean"): "mean", ("bn", "running_var"): "var",
     ("linear", "weight"): "kernel", ("linear", "bias"): "bias",
 }
@@ -36,10 +44,11 @@ _LEAF_NAMES = {
 
 def flax_path(name: str) -> tuple[str, ...]:
     """Port parameter/buffer name -> flax path, e.g.
-    "res1.a.conv.weight" -> ("Residual_0", "ConvBN_0", "Conv_0", "kernel")."""
+    "res1.a.conv.weight" -> ("Residual_0", "ConvBN_0", "Conv_0", "kernel"),
+    "dense1.bias" -> ("Dense_0", "bias")."""
     parts = name.split(".")
     return (*(_MODULE_NAMES[p] for p in parts[:-1]),
-            _LEAF_NAMES[(parts[-2], parts[-1])])
+            _LEAF_NAMES[(_KINDS[parts[-2]], parts[-1])])
 
 
 def _to_flax_perm(shape: tuple[int, ...]) -> tuple[int, ...] | None:
@@ -117,9 +126,10 @@ def _lookup(tree: dict, path: tuple[str, ...]) -> np.ndarray:
 def params_from_flax(model: nn.Module, params_np: dict, batch_stats_np: dict,
                      device: torch.device | str = "cpu"
                      ) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
-    """The JAX package's ResNet-9 ``params`` and ``batch_stats`` (nested
-    dicts of numpy arrays) -> the port's (params, net_state) dicts keyed by
-    the model's parameter and buffer names, in the port's layouts."""
+    """The JAX package's ``params`` and ``batch_stats`` (nested dicts of
+    numpy arrays; ``{}`` for a model without batch norm) -> the port's
+    (params, net_state) dicts keyed by the model's parameter and buffer
+    names, in the port's layouts."""
     params = {}
     for name, p in model.named_parameters():
         a = _lookup(params_np, flax_path(name))

@@ -2,8 +2,9 @@
 semantics: the port's copy of the JAX package's ``modes/config.py``.
 
 The whole ``ModeConfig`` is copied, validation included, so a configuration
-means the same thing in both packages; the modes and options the port does
-not run yet raise where they would be used (``modes.py``, ``csvec.py``).
+means the same thing in both packages; the options the port does not run
+yet (``topk_impl`` approx and oversample) raise where they would be used
+(``csvec.topk_abs``).
 """
 
 from __future__ import annotations

@@ -2,10 +2,13 @@
 ``utils/checkpoint.py``, written with ``torch.save`` in place of orbax.
 
 A checkpoint is a directory ``round_XXXXXXXX`` holding ``state.pt`` (params,
-batch-norm statistics, Vvelocity/Verror), ``meta.json`` (the round, the
-measured ``comm_mb_total``, the cohort size, and the host sampling RNG as
-plain ints and lists, so ``torch.load(weights_only=True)`` never meets a
-numpy object) and ``manifest.json``.
+batch-norm statistics, Vvelocity/Verror, and the [num_clients, d] client
+state of a mode that keeps one), ``meta.json`` (the round, the measured
+``comm_mb_total``, the cohort size, the mode and client count, and the host
+sampling RNG as plain ints and lists, so ``torch.load(weights_only=True)``
+never meets a numpy object) and ``manifest.json``. A checkpoint of another
+mode or client count is refused (``CheckpointMismatchError``), not set
+aside as damaged.
 
 - **Atomic commit**: everything is written into a ``.tmp_round_*`` staging
   directory and ``os.rename``d to its final name. A crash mid-write leaves
@@ -65,6 +68,12 @@ class CheckpointVerifyError(RuntimeError):
     manifest. Raised inside the retry wrapper so the write is retried."""
 
 
+class CheckpointMismatchError(ValueError):
+    """A sound checkpoint of another mode or client count than the
+    session's. ``restore_latest`` raises it rather than falling back: the
+    checkpoint is not damaged, the run is misconfigured."""
+
+
 def _round_dirs(ckpt_dir: str) -> list[str]:
     """Restore candidates, sorted: round_* (including .displaced copies of
     the same round) minus damaged ones."""
@@ -110,17 +119,21 @@ def verify(path: str) -> bool | None:
     return True
 
 
-def _state_to_host(session, state: dict, ready) -> dict:
-    """Host copy of the server state's tensors. On the GPU the copy runs on
-    the session's copy stream after ``ready`` (the CUDA event recorded when
-    the state's round was dispatched), so it waits for that round alone."""
+def _state_to_host(session, state: dict, client_state: dict | None, ready) -> dict:
+    """Host copy of the server state's and the client state's tensors. On
+    the GPU the copy runs on the session's copy stream after ``ready`` (the
+    CUDA event recorded when the state's round was dispatched), so it waits
+    for that round alone."""
     tree = {"params": state["params"], "net_state": dict(state["net_state"]),
             "mode_state": dict(state["mode_state"])}
 
     def host(fn):
-        return {"params": fn(tree["params"]),
-                "net_state": {k: fn(v) for k, v in tree["net_state"].items()},
-                "mode_state": {k: fn(v) for k, v in tree["mode_state"].items()}}
+        out = {"params": fn(tree["params"]),
+               "net_state": {k: fn(v) for k, v in tree["net_state"].items()},
+               "mode_state": {k: fn(v) for k, v in tree["mode_state"].items()}}
+        if client_state is not None:
+            out["client_state"] = {k: fn(v) for k, v in client_state.items()}
+        return out
 
     if session.device.type != "cuda":
         return host(lambda t: t.detach().clone())
@@ -154,6 +167,7 @@ def save(ckpt_dir: str, session, keep: int = 3, fault_plan=None,
     with session.mutate_lock:
         rnd = session.round
         state_ref = session.state
+        client_ref = session.client_state
         ready = session.committed_event
         rng_state = session.rng_snapshot
         comm_mb_total = float(session.comm_mb_total)
@@ -163,9 +177,10 @@ def save(ckpt_dir: str, session, keep: int = 3, fault_plan=None,
     t0 = time.perf_counter()
     # copied once, outside the retry closure: the state is the same on
     # every attempt
-    payload = _state_to_host(session, state_ref, ready)
-    del state_ref
+    payload = _state_to_host(session, state_ref, client_ref, ready)
+    del state_ref, client_ref
     meta = {"round": rnd, "comm_mb_total": comm_mb_total, "num_workers": num_workers,
+            "mode": session.cfg.mode.mode, "num_clients": session.train_set.num_clients,
             "host_rng": _rng_to_json(rng_state)}
     times = {"copy_ms": (time.perf_counter() - t0) * 1e3, "write_ms": 0.0, "verify_ms": 0.0}
 
@@ -233,11 +248,19 @@ def latest(ckpt_dir: str) -> str | None:
 def restore(path: str, session) -> None:
     """Load the checkpoint at ``path`` into ``session`` (on the session's
     device): state, round counter, host RNG and its round-boundary
-    snapshot, and the measured communication total."""
+    snapshot, and the measured communication total. Raises
+    ``CheckpointMismatchError`` for a checkpoint of another mode or client
+    count."""
     if session.inflight_rounds:
         raise RuntimeError("restore() with rounds in flight: drain the pipeline first")
     with open(os.path.join(path, META_FILE)) as f:
         meta = json.load(f)
+    want = {"mode": session.cfg.mode.mode, "num_clients": session.train_set.num_clients}
+    differ = {k: meta[k] for k in want if k in meta and meta[k] != want[k]}
+    if differ:
+        raise CheckpointMismatchError(
+            f"checkpoint {path} was written by a session with {differ}; this session has "
+            f"{want}")
     payload = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
                          weights_only=True)
     dev = session.device
@@ -245,12 +268,17 @@ def restore(path: str, session) -> None:
              "net_state": {k: v.to(dev) for k, v in payload["net_state"].items()},
              "mode_state": {k: v.to(dev) for k, v in payload["mode_state"].items()},
              "round": int(meta["round"])}
+    client_state = payload.get("client_state")
+    if client_state is not None:
+        client_state = {k: v.to(dev) for k, v in client_state.items()}
     if state["params"].shape != session.state["params"].shape or \
             state["net_state"].keys() != session.state["net_state"].keys() or \
-            state["mode_state"].keys() != session.state["mode_state"].keys():
+            state["mode_state"].keys() != session.state["mode_state"].keys() or \
+            _shapes(client_state) != _shapes(session.client_state):
         raise ValueError(f"checkpoint {path} does not fit this session's model and mode")
     with session.mutate_lock:
         session.state = state
+        session.client_state = client_state
         session.committed_event = None
         session.round = int(meta["round"])
         session.rng.set_state(_rng_from_json(meta["host_rng"]))
@@ -261,6 +289,10 @@ def restore(path: str, session) -> None:
         print(f"warning: checkpoint {path} was written with num_workers={saved_w} but "
               f"this session runs {session.num_workers}; the resumed run will NOT replay "
               "the uninterrupted client sequence exactly", flush=True)
+
+
+def _shapes(tree: dict | None) -> dict | None:
+    return None if tree is None else {k: tuple(v.shape) for k, v in tree.items()}
 
 
 def _set_aside_damaged(ckpt_dir: str, name: str) -> None:
@@ -317,6 +349,8 @@ def restore_latest(ckpt_dir: str, session) -> str | None:
             continue
         try:
             restore(path, session)
+        except CheckpointMismatchError:
+            raise
         except Exception as e:  # noqa: BLE001 — fall back past broken trees
             print(f"ERROR: checkpoint {path} failed to restore ({type(e).__name__}: {e}); "
                   "falling back to the previous verified-good checkpoint",

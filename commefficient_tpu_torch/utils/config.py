@@ -7,23 +7,31 @@ from __future__ import annotations
 
 import argparse
 
-from ..modes.config import ModeConfig
-from ..modes.modes import PORTED_MODES
+from ..modes.config import MODES, ModeConfig
 
 
 def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="commefficient_tpu_torch cv training")
     # compression / update mode
-    p.add_argument("--mode", default="uncompressed", choices=list(PORTED_MODES))
+    p.add_argument("--mode", default="uncompressed", choices=list(MODES))
     p.add_argument("--error_type", default=None, choices=["none", "local", "virtual"],
-                   help="default: virtual for sketch, else none")
+                   help="default: virtual for sketch/true_topk, local for local_topk, "
+                        "else none")
     p.add_argument("--momentum_type", default=None, choices=["none", "virtual", "local"],
-                   help="default: virtual when --momentum > 0, else none")
+                   help="default with --momentum > 0: local for local_topk, else "
+                        "virtual; none otherwise")
     p.add_argument("--momentum", type=float, default=0.9)
     p.add_argument("--k", type=int, default=50000)
     p.add_argument("--num_rows", type=int, default=5)
     p.add_argument("--num_cols", type=int, default=500000)
     p.add_argument("--num_blocks", type=int, default=1)
+    p.add_argument("--topk_impl", default="exact", choices=["exact", "approx", "oversample"],
+                   help="top-k selection; the port runs exact only (approx and "
+                        "oversample raise)")
+    p.add_argument("--server_state", default="dense", choices=["dense", "sketch"],
+                   help="server optimizer state: dense [d] Vvelocity/Verror, or "
+                        "r x c Count-Sketch tables (true_topk, and local_topk with "
+                        "virtual error; mode=sketch is sketch-state either way)")
     p.add_argument("--hash_family", default="rotation", choices=["rotation", "random"],
                    help="sketch bucket-hash family: rotation (the CUDA kernels' "
                         "family, default) or random (per-coordinate hashing)")
@@ -35,6 +43,11 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_workers", type=int, default=8,
                    help="clients sampled (simulated) per round")
     p.add_argument("--local_batch_size", type=int, default=8)
+    p.add_argument("--num_local_iters", type=int, default=1,
+                   help="fedavg/localSGD: local SGD steps per round")
+    p.add_argument("--server_lr", type=float, default=1.0,
+                   help="fedavg/localSGD: server rate on the averaged weight delta "
+                        "(with --momentum_type virtual this is slowmo)")
     p.add_argument("--iid", action="store_true")
     # optimisation
     p.add_argument("--num_epochs", type=float, default=24)
@@ -54,7 +67,7 @@ def make_parser() -> argparse.ArgumentParser:
                    help="hard round cap (0 = derive from epochs)")
     p.add_argument("--data_root", default="./data")
     p.add_argument("--log_jsonl", default="")
-    p.add_argument("--dataset", default="cifar10", choices=["cifar10", "cifar100"])
+    p.add_argument("--dataset", default="cifar10", choices=["cifar10", "cifar100", "femnist"])
     p.add_argument("--synthetic_separation", type=float, default=1.0,
                    help="class-prototype scale for the synthetic CIFAR fallback")
     p.add_argument("--synthetic_train", type=int, default=10000,
@@ -98,12 +111,19 @@ def make_parser() -> argparse.ArgumentParser:
 
 
 def resolve_defaults(args: argparse.Namespace) -> argparse.Namespace:
-    """Fill the mode-dependent momentum/error defaults and refuse
-    contradictory flags."""
+    """Fill the mode-dependent defaults as the reference does, so every flag
+    combination maps onto a ModeConfig the mode library implements, and
+    refuse contradictory flags."""
     if args.momentum_type is None:
-        args.momentum_type = "virtual" if args.momentum and args.momentum > 0 else "none"
+        if args.momentum and args.momentum > 0:
+            args.momentum_type = "local" if args.mode == "local_topk" else "virtual"
+        else:
+            args.momentum_type = "none"
     if args.error_type is None:
-        args.error_type = "virtual" if args.mode == "sketch" else "none"
+        args.error_type = {"sketch": "virtual", "true_topk": "virtual",
+                           "local_topk": "local"}.get(args.mode, "none")
+    if args.mode in ("fedavg", "localSGD") and args.num_local_iters < 1:
+        args.num_local_iters = 1
     if args.watchdog_abort and not args.checkpoint_dir:
         raise SystemExit("--watchdog_abort needs --checkpoint_dir: aborting without an "
                          "emergency checkpoint would lose the run instead of resuming it")
@@ -122,7 +142,11 @@ def mode_config_from_args(args: argparse.Namespace, d: int) -> ModeConfig:
         momentum=args.momentum if args.momentum_type != "none" else 0.0,
         momentum_type=args.momentum_type,
         error_type=args.error_type,
+        num_local_iters=args.num_local_iters if args.mode in ("fedavg", "localSGD") else 1,
+        server_lr=args.server_lr if args.mode in ("fedavg", "localSGD") else 1.0,
         num_clients=args.num_clients,
         hash_family=args.hash_family,
         agg_op=args.agg_op,
+        topk_impl=args.topk_impl,
+        server_state=args.server_state,
     )

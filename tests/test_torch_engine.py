@@ -68,7 +68,7 @@ def test_nonfinite_round_is_skipped():
     v0 = torch.randn(layout.d, generator=torch.Generator().manual_seed(1))
     state["mode_state"]["Vvelocity"] = v0.clone()
     batch["x"][1, 0, 0, 0, 0] = float("nan")
-    new, metrics = engine.make_round_step(loss_fn, cfg, layout)(state, batch, 0.1)
+    new, _, metrics = engine.make_round_step(loss_fn, cfg, layout)(state, batch, {}, 0.1)
     assert metrics["nonfinite_rounds"].item() == 1.0
     assert metrics["loss_sum"].item() == 0.0 and metrics["participants"].item() == 2.0
     assert torch.equal(new["mode_state"]["Vvelocity"], 0.9 * v0)

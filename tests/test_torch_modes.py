@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from commefficient_tpu.modes import config as jmodes_config
 from commefficient_tpu.modes import modes as jmodes
 from commefficient_tpu.modes.config import ModeConfig as JModeConfig
 from commefficient_tpu_torch.modes import modes as tmodes
@@ -93,5 +94,27 @@ def test_aggregate_survivor_mean_matches_reference():
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tmodes.init_server_state(TModeConfig(mode="true_topk", d=10, k=2), "cpu")
+    """Every mode is ported; what is not (the approximate top-k selections,
+    DP, the cohort-fault kinds) raises by name, never runs as something
+    else."""
+    from commefficient_tpu_torch.resilience import FaultPlan
+    from commefficient_tpu_torch.sketch import csvec
+    from commefficient_tpu_torch.utils.config import make_parser
+
+    assert make_parser().parse_args([]).mode == "uncompressed"
+    for mode in jmodes_config.MODES:
+        assert make_parser().parse_args(["--mode", mode]).mode == mode
+    x = torch.arange(10, dtype=torch.float32)
+    for impl in ("approx", "oversample"):
+        cfg = TModeConfig(mode="true_topk", d=10, k=2, topk_impl=impl)
+        with pytest.raises(NotImplementedError, match=f"topk_impl='{impl}' is not ported"):
+            tmodes.server_step_sparse(cfg, {"dense": x}, tmodes.init_server_state(cfg, "cpu"),
+                                      0.1)
+        with pytest.raises(NotImplementedError, match=impl):
+            csvec.topk_abs(x, 2, impl=impl)
+    for flag in ("--dp_noise", "--dp_clip"):
+        with pytest.raises(SystemExit):
+            make_parser().parse_args([flag, "1.0"])
+    for kind in ("client_drop", "client_straggle", "client_poison"):
+        with pytest.raises(ValueError, match=kind):
+            FaultPlan.parse(f"{kind}@1")

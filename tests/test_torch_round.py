@@ -78,7 +78,8 @@ def _run_both(setup, mode_kw, mode_state_np):
     tstate0 = tengine.init_server_state(tcfg, layout.flatten(tparams), dict(tstate))
     tstate0["mode_state"] = {k: torch.from_numpy(v.copy()) for k, v in mode_state_np.items()}
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
-    tnew, tm = tengine.make_round_step(tloss(tmodel, True), tcfg, layout)(tstate0, tb, LR)
+    tstep = tengine.make_round_step(tloss(tmodel, True), tcfg, layout)
+    tnew, _, tm = tstep(tstate0, tb, {}, LR)
 
     p0 = np.asarray(ravel_pytree(params)[0])
     jp = np.asarray(ravel_pytree(jnew["params"])[0])
@@ -149,7 +150,7 @@ def test_uncompressed_rounds_equal_plain_sgd_with_momentum(setup):
     p = layout.flatten(tparams)
     v = torch.zeros_like(p)
     for _ in range(2):
-        state, _ = step(state, tb, LR)
+        state, _, _ = step(state, tb, {}, LR)
         grads = []
         for w in range(W):
             leaves = {k: t.clone().requires_grad_(True) for k, t in layout.unflatten(p).items()}
