@@ -31,8 +31,8 @@ Phases (any failure raises, and the exit status is non-zero):
 8. run loop: the slice through ``cv_train.main``'s run loop (async by
    default), with the launch counts zeroed just before:
    a. the sync loop twice, 6 rounds each, under the entry point's own
-      switches (``resolve_device`` makes cuDNN and every other operation
-      deterministic): the final states must be bitwise equal, and every
+      switches (``cv_train.build`` calls ``utils.device.make_reproducible``,
+      which makes cuDNN and every other operation deterministic): the final states must be bitwise equal, and every
       comparison below is bitwise;
    b. the async loop with --checkpoint_every 3 (both checkpoints must land
       and verify) and c. with --rounds_per_dispatch 3, each held against
@@ -76,7 +76,6 @@ phase 8), then as its last line
 ``{"ok": true, "device": {...}}``. Run from the repository root:
     python3 chip_smoke.py
 ``--kernels-only`` stops after phase 4 (a short first check of a new kernel),
-``--baselines-only`` runs phases 1-3 and 10;
 ``--cohorts N`` sets the number of cohorts phase 7 compares (default 4);
 ``--pairs N`` the sync/async timing pairs of phase 8 (default 3).
 """
@@ -785,14 +784,6 @@ def main(argv: list[str]) -> int:
         errs["sketch_accumulate"] = max(errs["sketch_accumulate"], a)
         errs["sketch_query"] = max(errs["sketch_query"], q)
         print(f"kernel == plain at d={d} c={c} r={r}", flush=True)
-
-    if "--baselines-only" in argv:
-        phase("10 (baselines)")
-        launches = baselines_phase(cv_train, engine, csvec, kernels, card_line())
-        print(f"baselines: sketched server state launches {launches} in {BASE_ROUNDS} rounds",
-              flush=True)
-        print("chip_smoke: baselines-only run done", flush=True)
-        return 0
 
     # 4. times at the slice's shapes
     phase("4 (times)")

@@ -30,6 +30,8 @@ from __future__ import annotations
 import math
 import sys
 
+import torch
+
 from .data.cifar import load_cifar_fed
 from .data.femnist import load_femnist_fed
 from .federated.api import FederatedSession, FedModel, FedOptimizer
@@ -41,13 +43,15 @@ from .resilience import FaultPlan, RetryPolicy
 from .runner import RunnerConfig, run_loop
 from .utils import checkpoint as ckpt
 from .utils.config import make_parser, mode_config_from_args, resolve_defaults
-from .utils.device import resolve_device
+from .utils.device import make_reproducible, resolve_device
 from .utils.logging import TableLogger
 from .utils.schedules import triangular
 
 
 def build(args):
     fault_plan = FaultPlan.parse(args.fault_plan)  # refuses an unported kind first
+    if torch.device(args.device).type == "cuda":
+        make_reproducible()  # before any CUDA work of the run
     device = resolve_device(args.device)
     if args.dataset == "femnist":
         train_set, test_set, num_classes = load_femnist_fed(

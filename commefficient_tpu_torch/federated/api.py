@@ -210,8 +210,14 @@ class FederatedSession:
             try:
                 if self.fault_plan is not None:
                     self.fault_plan.data_load(rnd)
-                return self.train_set.client_batch(self.rng, ids, self.local_batch_size,
-                                                   self.cfg.mode.num_local_iters)
+                mcfg = self.cfg.mode
+                batch = self.train_set.client_batch(self.rng, ids, self.local_batch_size,
+                                                    mcfg.num_local_iters)
+                if mcfg.uses_weight_delta and mcfg.num_local_iters == 1:
+                    # the sampler drops the [L] axis at L = 1; the local-SGD
+                    # loop reads microbatches off it
+                    batch = {k: v[:, None] for k, v in batch.items()}
+                return batch
             except Exception:
                 self.rng.set_state(rng_state)
                 raise

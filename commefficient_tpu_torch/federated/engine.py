@@ -18,10 +18,9 @@ One round, given the flat [d] params (ravel_pytree order, see
    the survivor mean. The reference vmaps the clients and reduces them in
    one XLA sum: with more than two clients the two packages add in another
    order (float32 rounding, about 1e-7 relative);
-3. the linear grad modes (sketch, true_topk, uncompressed) take the
-   shortcut: compressing commutes with the mean, so the reduced update is
-   compressed once (``modes.client_compress``) and lifted to the aggregate
-   wire;
+3. every mode but local_topk is linear and takes the shortcut:
+   compressing commutes with the mean, so the reduced update is compressed
+   once (``modes.client_compress``) and lifted to the aggregate wire;
 4. ``modes.server_step_sparse`` runs momentum and error feedback and
    releases the delta, which ``modes.apply_delta`` subtracts.
 
@@ -133,18 +132,17 @@ def make_client_update(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout)
     return local_sgd_update if mcfg.uses_weight_delta else grad_update
 
 
-def _weighted_client_fold(client_fn: Callable, batch: dict, part: torch.Tensor,
-                          nan_safe: bool):
+def _weighted_client_fold(client_fn: Callable, batch: dict, part: torch.Tensor):
     """Participation-weighted SUMS over the sampled clients of the update,
     statistics and metrics that ``client_fn(w, cbatch) -> (update,
     statistics, metrics, row)`` returns, folded client by client in cohort
     order: one client's [d] update is live at a time. Also returns the list
-    of rows. nan_safe weights like ``modes.mask_rows``, so a masked client's
-    NaN contributes an exact zero."""
+    of rows. Weighs like ``modes.mask_rows``, so a masked client's NaN
+    contributes an exact zero."""
 
     def weigh(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         w = w.to(x.dtype)
-        return torch.where(w > 0, x * w, torch.zeros_like(x)) if nan_safe else x * w
+        return torch.where(w > 0, x * w, torch.zeros_like(x))
 
     totals, rows = None, []
     for w in range(part.shape[0]):
@@ -159,63 +157,52 @@ def _weighted_client_fold(client_fn: Callable, batch: dict, part: torch.Tensor,
     return totals[0]["u"], totals[1], totals[2], rows
 
 
-def _participation(batch: dict, device: torch.device):
-    """(batch without the mask, [W] float 0/1 participation, whether a mask
-    was given)."""
+def _client_phase(update: Callable, mcfg: ModeConfig, layout: FlatLayout, state: dict,
+                  batch: dict, client_rows: dict, lr):
+    """The client phase of a round: each client's update (local_topk: its
+    densified top-k wire, compressed with its rows of the client state)
+    folded into participation-weighted sums. Returns the reduced update [d]
+    (the survivor mean unless agg_op=sum), the survivor mean of the
+    batch-norm statistics (the previous ones when nobody survived), the
+    metric sums with the participants count and the cohort's new rows ([W,
+    d] per key; a client that did not take part keeps its row)."""
+    pflat = state["params"]
     batch, valid = split_valid(batch)
     part = (valid.to(torch.float32) if valid is not None
-            else torch.ones(batch["x"].shape[0], dtype=torch.float32, device=device))
-    return batch, part, valid is not None
-
-
-def _survivor_finalize(mcfg: ModeConfig, wsum, ns_sum, m_sum, net_state, part):
-    """The reduced update (survivor mean unless agg_op=sum), the survivor
-    mean of the batch-norm statistics (the previous ones when nobody
-    survived) and the metric sums with the participants count."""
-    n_live = part.sum().clamp_min(1.0)
-    weighted = wsum if mcfg.agg_op == "sum" else wsum / n_live
-    alive = part.sum() > 0
-    new_net_state = {k: torch.where(alive, s / n_live, net_state[k]) for k, s in ns_sum.items()}
-    metrics = dict(m_sum)
-    metrics["participants"] = part.sum()
-    return weighted, new_net_state, metrics
-
-
-def reduce_clients(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout,
-                   state: dict, batch: dict) -> tuple[torch.Tensor, dict, dict]:
-    """The client phase of a linear grad-mode round: (reduced gradient [d],
-    survivor-mean batch-norm statistics, metric sums with the participants
-    count)."""
-    batch, part, nan_safe = _participation(batch, state["params"].device)
-    update = make_client_update(loss_fn, cfg, layout)
-    params = {k: v.requires_grad_(True) for k, v in layout.unflatten(state["params"]).items()}
-    wsum, ns_sum, m_sum, _ = _weighted_client_fold(
-        lambda w, cb: (*update(state, cb, None, params), None), batch, part, nan_safe)
-    return _survivor_finalize(cfg.mode, wsum, ns_sum, m_sum, state["net_state"], part)
-
-
-def _per_client_round(update: Callable, mcfg: ModeConfig, state: dict, batch: dict,
-                      client_rows: dict, part: torch.Tensor, lr: torch.Tensor):
-    """The client phase of local_topk and of the weight-delta modes: each
-    client's update (local_topk: its densified top-k wire, compressed with
-    its rows of the client state) folded into survivor sums. Returns the
-    aggregate wire, the new statistics, the metrics and the cohort's new
-    rows ([W, d] per key; a client that did not take part keeps its row)."""
+            else torch.ones(batch["x"].shape[0], dtype=torch.float32, device=pflat.device))
+    # the grad modes' clients share one set of leaves requiring grad
+    params = (None if mcfg.uses_weight_delta else
+              {k: v.requires_grad_(True) for k, v in layout.unflatten(pflat).items()})
 
     def client(w: int, cb: dict):
-        u, stats, metrics = update(state, cb, lr)
-        if mcfg.mode != "local_topk":
+        u, stats, metrics = update(state, cb, lr, params)
+        if modes.is_linear(mcfg):
             return u, stats, metrics, {}
         row = {k: v[w] for k, v in client_rows.items()}
         wire, new_row = modes.client_compress(mcfg, u, row)
         new_row = {k: torch.where(part[w] > 0, v, row[k]) for k, v in new_row.items()}
         return csvec.to_dense(mcfg.d, wire["idx"], wire["vals"]), stats, metrics, new_row
 
-    wsum, ns_sum, m_sum, rows = _weighted_client_fold(client, batch, part, nan_safe=True)
-    weighted, new_net_state, metrics = _survivor_finalize(
-        mcfg, wsum, ns_sum, m_sum, state["net_state"], part)
+    wsum, ns_sum, m_sum, rows = _weighted_client_fold(client, batch, part)
+    n_live = part.sum().clamp_min(1.0)
+    weighted = wsum if mcfg.agg_op == "sum" else wsum / n_live
+    alive = part.sum() > 0
+    new_net_state = {k: torch.where(alive, v / n_live, state["net_state"][k])
+                     for k, v in ns_sum.items()}
+    metrics = dict(m_sum)
+    metrics["participants"] = part.sum()
     new_rows = {k: torch.stack([r[k] for r in rows]) for k in client_rows}
-    return {"dense": weighted}, new_net_state, metrics, new_rows
+    return weighted, new_net_state, metrics, new_rows
+
+
+def reduce_clients(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout,
+                   state: dict, batch: dict) -> tuple[torch.Tensor, dict, dict]:
+    """The client phase of a round of a mode without client state: (reduced
+    update [d], survivor-mean batch-norm statistics, metric sums with the
+    participants count)."""
+    weighted, new_net_state, metrics, _ = _client_phase(
+        make_client_update(loss_fn, cfg, layout), cfg.mode, layout, state, batch, {}, None)
+    return weighted, new_net_state, metrics
 
 
 def _all_finite(tensors) -> torch.Tensor:
@@ -260,23 +247,19 @@ def make_round_step(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout) ->
     clients (and local steps)."""
     mcfg = cfg.mode
     update = make_client_update(loss_fn, cfg, layout)
-    shortcut = (modes.is_linear(mcfg) and not mcfg.needs_local_state
-                and not mcfg.uses_weight_delta)
 
     def step(state: dict, batch: dict, client_rows: dict, lr):
         pflat = state["params"]
         lr_t = lr if torch.is_tensor(lr) else torch.tensor(lr, dtype=torch.float32,
                                                            device=pflat.device)
-        if shortcut:
-            weighted, new_net_state, metrics = reduce_clients(loss_fn, cfg, layout, state, batch)
+        weighted, new_net_state, metrics, new_rows = _client_phase(
+            update, mcfg, layout, state, batch, client_rows, lr_t)
+        if modes.is_linear(mcfg):
             # linearity shortcut: compress the reduced update once
             wire, _ = modes.client_compress(mcfg, weighted, {})
             agg = modes.aggregate(mcfg, {k: v[None] for k, v in wire.items()})
-            new_rows = client_rows
         else:
-            batch, part, _ = _participation(batch, pflat.device)
-            agg, new_net_state, metrics, new_rows = _per_client_round(
-                update, mcfg, state, batch, client_rows, part, lr_t)
+            agg = {"dense": weighted}
         agg, new_net_state, new_rows, metrics = _guard_nonfinite(
             cfg, agg, new_net_state, state["net_state"], new_rows, client_rows, metrics)
         # the weight-delta modes' local steps consumed lr; the server applies

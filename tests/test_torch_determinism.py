@@ -6,7 +6,7 @@ the client fold, the per-client top-k and the client-state scatter are all
 in it.
 
 On the GPU the entry point makes the same promise with its own switches
-(``utils/device.py::resolve_device``); the unit check of those switches
+(``utils/device.py::make_reproducible``, which the CLI's ``build`` calls); the unit check of those switches
 needs a card and skips here. Its card counterpart is ``chip_smoke.py``
 phase 8a, which holds two sync runs bitwise equal."""
 
@@ -51,10 +51,15 @@ def test_same_seed_two_processes_bit_identical(tmp_path):
 def test_resolve_device_cuda_sets_the_reproducibility_switches():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the switches are set for the GPU only")
-    from commefficient_tpu_torch.utils.device import resolve_device
+    from commefficient_tpu_torch import cv_train
+    from commefficient_tpu_torch.utils.device import make_reproducible, resolve_device
 
     was = torch.are_deterministic_algorithms_enabled()
     try:
+        # the CLI's build turns them on; a second call changes nothing
+        assert cv_train.make_reproducible is make_reproducible
+        make_reproducible()
+        make_reproducible()
         dev = resolve_device("cuda")
         assert dev.type == "cuda" and dev.index is not None
         assert torch.backends.cudnn.deterministic and not torch.backends.cudnn.benchmark
