@@ -71,8 +71,29 @@ Phases (any failure raises, and the exit status is non-zero):
    at lr 0.1 through ``run_round`` is held against the mode's algebra
    recomputed on the card from the same cohort's per-client updates.
 
+11. GPT-2: ``gpt2_train.main`` fine-tunes GPT-2 small (byte vocabulary
+   261, seq_len 256, dropout 0.1, d = 85,453,056) over 17,500 synthetic
+   personas with FetchSGD (r = 5, c = 1,000,000, k = 50,000, 4 clients of 8
+   rows a round), with the launch counts zeroed before each run:
+   a. 4 rounds through the sync loop, with --eval_f1 4; d and the flat
+      layout's first and last leaves, peak device memory;
+   b. both kernels at this shape bitwise against their plain versions (on a
+      random vector and on the run's params and error table) and timed
+      cold and warm beside their bound;
+   c. the async loop held bitwise against (a), eval row included;
+   d. --fault_plan preempt@2 exits 75, and --resume is held bitwise against
+      (a), with dropout on;
+   e. one round at lr 0.1 held against FetchSGD's algebra on the card;
+   g. two greedy decodes of the 4 validation prompts bitwise equal, F1;
+   h. a profiler window over 2 rounds, with the host operations that take
+      most host time;
+   f. the uncompressed control, 2 rounds, async against sync.
+   Every logged NLL must be finite, and each kernel must launch once per
+   sketch round of every run (none in the control's).
+
 Prints one JSON line with the kernels' numbers (launches counted over
-phase 8), then as its last line
+phase 8; under "gpt2" each kernel's numbers at the GPT-2 shape, launches
+counted over phase 11a), then as its last line
 ``{"ok": true, "device": {...}}``. Run from the repository root:
     python3 chip_smoke.py
 ``--kernels-only`` stops after phase 4 (a short first check of a new kernel),
@@ -136,6 +157,14 @@ PAIRS = 3
 BASE_ROUNDS = 4
 FEMNIST_ARGS = ["--dataset", "femnist", "--num_clients", "3550", "--num_workers", "8",
                 "--local_batch_size", "8", "--k", "50000", "--device", "cuda"]
+# phase 11: GPT-2 small (byte vocabulary 261, seq_len 256, dropout 0.1) over
+# 17,500 synthetic personas, the paper's configuration #4
+GPT2_ARGS = ["--mode", "sketch", "--hash_family", "rotation", "--num_clients", "17500",
+             "--num_workers", "4", "--local_batch_size", "8", "--k", "50000",
+             "--num_rows", "5", "--num_cols", "1000000", "--num_blocks", "20",
+             "--device", "cuda"]
+GPT2_D = 85_453_056
+GPT2_ROUNDS = 4
 RESNET_ARGS = ["--dataset", "cifar10", "--hash_family", "rotation", "--num_clients", "100",
                "--num_workers", "8", "--local_batch_size", "8", "--k", "50000",
                "--device", "cuda"]
@@ -257,11 +286,13 @@ def card_vs_cpu(session, engine, csvec, cohorts: int, errs: dict) -> None:
              f"{worst[2]:.3e} (bound {GRAD_REL_L2})")
 
 
-def profile_rounds(session, rounds: int = 2, top: int = 12, label: str = "") -> float:
+def profile_rounds(session, rounds: int = 2, top: int = 12, label: str = "",
+                   host_top: int = 0) -> float:
     """Where a steady round's time goes: a torch.profiler window over
     `rounds` more rounds; prints the device's busy time and idle share per
-    round and the kernels that took most device time, and returns the busy
-    ms per round (0.0: not measured)."""
+    round, the kernels that took most device time and the ``host_top`` host
+    operations that took most host time, and returns the busy ms per round
+    (0.0: not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -282,6 +313,12 @@ def profile_rounds(session, rounds: int = 2, top: int = 12, label: str = "") -> 
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         ms = e.self_device_time_total / 1e3 / rounds
         print(f"  {ms:8.3f} ms/round  {e.count // rounds:5d}x  {e.key[:110]}", flush=True)
+    if host_top:
+        ops = [e for e in prof.key_averages() if e.self_cpu_time_total > 0]
+        print(f"profile{label}: host operations by self host time", flush=True)
+        for e in sorted(ops, key=lambda e: -e.self_cpu_time_total)[:host_top]:
+            ms = e.self_cpu_time_total / 1e3 / rounds
+            print(f"  {ms:8.3f} ms/round  {e.count // rounds:5d}x  {e.key[:110]}", flush=True)
     return busy_ms
 
 
@@ -548,7 +585,7 @@ def check_baseline_round(session, engine, csvec) -> str:
              if session.client_state is not None else {})
     update = engine.make_client_update(session.train_loss_fn, session.cfg, session.layout)
     W, k = len(prep.ids), mcfg.k
-    ups = [update(state, {key: v[w] for key, v in batch.items()}, lr)[0] for w in range(W)]
+    ups = [update(state, {key: v[w] for key, v in batch.items()}, lr, w)[0] for w in range(W)]
     want_rows = {}
     if mcfg.mode == "local_topk":
         dense = []
@@ -742,6 +779,191 @@ def baselines_phase(cv_train, engine, csvec, kernels, card: str) -> None:
     return launch_log["resnet9_true_topk_sketch_state"]
 
 
+def gpt2_phase(kernels, csvec, engine, time_ms, gen: torch.Generator, card: str) -> dict:
+    """Phase 11: GPT-2 small PersonaChat fine-tuning through
+    ``gpt2_train.main``; returns the kernels' fields at the GPT-2 shape."""
+    import shutil
+
+    from commefficient_tpu_torch import gpt2_train
+    from commefficient_tpu_torch.data.personachat import load_personachat_fed
+    from commefficient_tpu_torch.utils import checkpoint as ckpt
+    from commefficient_tpu_torch.utils.config import make_parser, resolve_defaults
+
+    base = os.path.join(ROOT, "build", "chip_smoke", "gpt2")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    args0 = resolve_defaults(make_parser("gpt2").parse_args(GPT2_ARGS))
+    t0 = time.perf_counter()
+    load_personachat_fed(args0.data_root, args0.num_clients, args0.seq_len, args0.seed)
+    print(f"gpt2: synthetic corpus of {args0.num_clients:,} personas at seq_len "
+          f"{args0.seq_len} built in {time.perf_counter() - t0:.1f} s (host)", flush=True)
+
+    launch_log = {}
+
+    def run(extra, label, mode="sketch"):
+        log = os.path.join(base, f"{label}.jsonl")
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        s = gpt2_train.main(GPT2_ARGS + ["--num_rounds", str(GPT2_ROUNDS), "--log_jsonl", log,
+                                         "--mode", mode, *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launch_counts)
+        per_round = 1 if mode == "sketch" else 0
+        if any(n != per_round * s.run_stats.rounds for n in launches.values()):
+            fail(f"gpt2 {label}: launches {launches} in {s.run_stats.rounds} {mode} rounds, "
+                 f"expected {per_round} per round")
+        launch_log[label] = launches
+        with open(log) as f:
+            rows = [json.loads(line) for line in f]
+        if not rows or not all(math.isfinite(r[k]) for r in rows
+                               for k in ("train_nll", "val_nll")):
+            fail(f"gpt2 {label}: non-finite or missing NLL in {rows}")
+        print(f"gpt2 {label}: {s.run_stats.rounds} {mode} rounds in {wall:.1f} s (with start-up "
+              f"and eval), launches {launches}, final row {rows[-1]}, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+        print(_times(f"gpt2 {label}", s.run_stats, card), flush=True)
+        return s, rows[-1]
+
+    def same(a, b):
+        return _equal(_state(a), _state(b))
+
+    def rows_equal(x, y, keys=("train_nll", "val_nll", "val_f1", "comm_mb")):
+        return all(x[k] == y[k] for k in keys if k in x or k in y)
+
+    # a. the model and its flat vector
+    phase_t = time.perf_counter()
+    f1 = ["--eval_f1", "4"]
+    a, row_a = run(f1 + ["--sync_loop"], "sync")
+    layout = a.layout
+    vocab = next(leaf.shape[0] for leaf in layout.leaves if leaf.name == "wte")
+    print(f"gpt2: d={layout.d:,} (first leaf {layout.leaves[0].name}, last "
+          f"{layout.leaves[-1].name}), vocabulary {vocab}, {a.num_workers} clients of "
+          f"{a.local_batch_size} rows a round", flush=True)
+    if layout.d != GPT2_D:
+        fail(f"gpt2: d={layout.d}, expected {GPT2_D}")
+
+    # b. both kernels at this shape, bitwise and timed
+    spec = a.cfg.mode.sketch_spec
+    v = torch.randn(spec.d, generator=gen, device="cuda")
+    errs = [max(e) for e in zip(check_kernels(csvec, spec, v),
+                                check_kernels(csvec, spec, a.state["params"],
+                                              a.state["mode_state"]["Verror"]))]
+    print(f"gpt2: kernels == plain at d={spec.d} c={spec.c} r={spec.r} "
+          f"({spec.num_slabs} slabs), on a random vector and on the run's params and error "
+          "table", flush=True)
+    times = time_kernels(csvec, kernels, time_ms, spec, gen)
+    del v
+
+    # c. sync against async, bitwise, with dropout on
+    b, row_b = run(f1, "async")
+    if not (same(a, b) and rows_equal(row_a, row_b)):
+        fail("gpt2: the async run differs from the sync run")
+    print(f"gpt2: async == sync bitwise over {GPT2_ROUNDS} rounds (params, Vvelocity, Verror; "
+          f"eval row incl. val_f1 {row_b['val_f1']})", flush=True)
+
+    # d. preempt -> exit 75 -> resume, bitwise against the uninterrupted run
+    ck = os.path.join(base, "ck_preempt")
+    chaos = ["--checkpoint_dir", ck, "--fault_plan", "preempt@2"]
+    try:
+        run(f1 + chaos, "preempted")
+        fail("gpt2: preempt@2 did not exit")
+    except SystemExit as e:
+        if e.code != 75:
+            raise
+    if ckpt.latest(ck) is None or not ckpt.latest(ck).endswith("round_00000003"):
+        fail(f"gpt2: preemption checkpoint {ckpt.latest(ck)}")
+    r_, row_r = run(f1 + chaos + ["--resume"], "resumed")
+    if not (r_.run_stats.rounds == GPT2_ROUNDS - 3 and same(a, r_)
+            and rows_equal(row_a, row_r, ("val_nll", "val_f1", "comm_mb"))):
+        fail("gpt2: preempt -> resume differs from the uninterrupted run")
+    print("gpt2: preempt@2 -> exit 75 -> resume == uninterrupted, bitwise, dropout on",
+          flush=True)
+    del r_
+    shutil.rmtree(ck, ignore_errors=True)
+
+    # e. one round at lr 0.1 against FetchSGD's algebra on the card
+    print("gpt2: " + check_sketch_round(b, engine, csvec), flush=True)
+
+    # g. greedy decodes of --eval_f1 4: bitwise equal in two calls
+    args = resolve_defaults(make_parser("gpt2").parse_args(GPT2_ARGS + f1))
+    _, valid_set, extras = gpt2_train.build(args)
+    f1_eval = gpt2_train.F1Eval(args, extras["model"], extras["tok"], valid_set, b.device)
+    (ids1, len1), (ids2, len2) = (f1_eval.decode(b.params(), 0) for _ in range(2))
+    if not ((ids1 == ids2).all() and (len1 == len2).all()):
+        fail("gpt2: two greedy decodes differ")
+    print(f"gpt2: greedy decodes of {len(len1)} validation prompts bitwise equal in two calls "
+          f"(generated lengths {(len1 - f1_eval.prompt_len).tolist()}), val_f1 "
+          f"{f1_eval(b.params(), 0):.4f}", flush=True)
+    del f1_eval, extras, valid_set
+
+    # h. where a round's time goes
+    busy = profile_rounds(b, top=10, label=f" gpt2 [{card}]", host_top=12)
+    del a, b
+
+    # f. the uncompressed control, async against sync
+    ua, row_ua = run(["--sync_loop", "--num_rounds", "2"], "control_sync", "uncompressed")
+    ub, row_ub = run(["--num_rounds", "2"], "control_async", "uncompressed")
+    if not (same(ua, ub) and rows_equal(row_ua, row_ub)):
+        fail("gpt2: the uncompressed control's async run differs from its sync run")
+    print("gpt2: uncompressed control, async == sync bitwise over 2 rounds", flush=True)
+    print(f"gpt2: phase took {time.perf_counter() - phase_t:.1f} s; device busy {busy:.2f} "
+          f"ms/round [{card}]", flush=True)
+    return {name: {**times[name], "launches": launch_log["sync"][name],
+                   "max_abs_err": errs[i], "d": spec.d, "c": spec.c, "r": spec.r}
+            for i, name in enumerate(("sketch_accumulate", "sketch_query"))}
+
+
+REPLACES = {"sketch_accumulate": "commefficient_tpu/sketch/pallas_kernels.py:135",
+            "sketch_query": "commefficient_tpu/sketch/pallas_kernels.py:211"}
+
+
+def time_kernels(csvec, kernels, time_ms, spec, gen: torch.Generator) -> dict:
+    """Each kernel's median over CUDA-event-timed launches at ``spec``'s
+    shape, cold (L2 flushed before each) and warm (its input just
+    rewritten), its plain version's time and its bound: the bytes it must
+    move at 3.35 TB/s or its float32 operations at 67 TFLOP/s, whichever
+    is larger. Prints one line per kernel."""
+    d, c, r = spec.d, spec.c, spec.r
+    v = torch.randn(d, generator=gen, device="cuda")
+    table = csvec._sketch_vec_rotation(spec, v)
+    shifts, ks = csvec._rotation_keys(spec, v.device)
+    flush = torch.ones(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB
+    hash_bytes = 4 * (r * spec.num_slabs + r)
+    work = {
+        # bytes: v read once, table written once (query: the reverse)
+        "sketch_accumulate": dict(
+            fn=lambda: kernels.accumulate(v, shifts, ks, c), input=v,
+            plain=lambda: csvec._sketch_vec_rotation(spec, v),
+            bytes=4 * d + 4 * r * c + hash_bytes,
+            ops=2 * r * d),  # a +-1 multiply and an add per (row, coordinate)
+        "sketch_query": dict(
+            fn=lambda: kernels.query(table, shifts, ks, d), input=table,
+            plain=lambda: csvec._query_all_rotation(spec, table),
+            bytes=4 * r * c + 4 * d + hash_bytes,
+            # r multiplies and the odd-even network's min and max per coordinate
+            ops=(r + 2 * sum((r - p % 2) // 2 for p in range(r))) * d),
+    }
+    out = {}
+    for name, w in work.items():
+        ms = time_ms(w["fn"], TIMED_LAUNCHES, flush.sum)
+        # warm: the input just written, and read from L2 as far as it fits
+        warm_ms = time_ms(w["fn"], TIMED_LAUNCHES, lambda: w["input"].mul_(1.0))
+        plain_ms = time_ms(w["plain"], 5, flush.sum)
+        bytes_ms = w["bytes"] / HBM_BYTES_PER_S * 1e3
+        ops_ms = w["ops"] / FP32_OPS_PER_S * 1e3
+        out[name] = {"ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms,
+                     "bound_ms": max(bytes_ms, ops_ms),
+                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                     "mb": w["bytes"] / 1e6}
+        print(f"{name} at d={d} c={c} r={r}: {ms:.4f} ms (L2 flushed; median of "
+              f"{TIMED_LAUNCHES})  warm {warm_ms:.4f} ms  plain {plain_ms:.3f} ms  bound "
+              f"{out[name]['bound_ms']:.4f} ms ({out[name]['bound_by']}: "
+              f"{w['bytes'] / 1e6:.1f} MB)", flush=True)
+    return out
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -787,51 +1009,17 @@ def main(argv: list[str]) -> int:
 
     # 4. times at the slice's shapes
     phase("4 (times)")
-    d, c, r = SLICE["d"], SLICE["c"], SLICE["r"]
-    spec = csvec.CSVecSpec(d=d, c=c, r=r, seed=42, family="rotation")
-    S = spec.num_slabs
-    v = torch.randn(d, generator=gen, device=dev)
-    table = csvec._sketch_vec_rotation(spec, v)
-    shifts, ks = csvec._rotation_keys(spec, v.device)
-    flush = torch.ones(64 * 2**20, dtype=torch.float32, device=dev)  # 256 MB
-    hash_bytes = 4 * (r * S + r)
-    work = {
-        # bytes: v read once, table written once (query: the reverse)
-        "sketch_accumulate": dict(
-            fn=lambda: kernels.accumulate(v, shifts, ks, c), input=v,
-            plain=lambda: csvec._sketch_vec_rotation(spec, v),
-            bytes=4 * d + 4 * r * c + hash_bytes,
-            ops=2 * r * d,  # a +-1 multiply and an add per (row, coordinate)
-            replaces="commefficient_tpu/sketch/pallas_kernels.py:135"),
-        "sketch_query": dict(
-            fn=lambda: kernels.query(table, shifts, ks, d), input=table,
-            plain=lambda: csvec._query_all_rotation(spec, table),
-            bytes=4 * r * c + 4 * d + hash_bytes,
-            # r multiplies and the odd-even network's min and max per coordinate
-            ops=(r + 2 * sum((r - p % 2) // 2 for p in range(r))) * d,
-            replaces="commefficient_tpu/sketch/pallas_kernels.py:211"),
-    }
+    spec = csvec.CSVecSpec(d=SLICE["d"], c=SLICE["c"], r=SLICE["r"], seed=42,
+                           family="rotation")
     rows = {}
-    for name, w in work.items():
-        ms = time_ms(w["fn"], TIMED_LAUNCHES, flush.sum)
-        # warm: the input just written, and read from L2 as far as it fits
-        warm_ms = time_ms(w["fn"], TIMED_LAUNCHES, lambda: w["input"].mul_(1.0))
-        plain_ms = time_ms(w["plain"], 5, flush.sum)
-        bytes_ms = w["bytes"] / HBM_BYTES_PER_S * 1e3
-        ops_ms = w["ops"] / FP32_OPS_PER_S * 1e3
+    for name, t in time_kernels(csvec, kernels, time_ms, spec, gen).items():
         rows[name] = {
             "name": name, "route": "cuda",
             "source": "commefficient_tpu_torch/sketch/csrc/sketch_kernels.cu",
-            "replaces": w["replaces"], "launches": 0,
-            "max_abs_err": 0.0, "ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "replaces": REPLACES[name], "launches": 0, "max_abs_err": 0.0,
+            **{k: t[k] for k in ("ms", "warm_ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
         }
-        print(f"{name}: {ms:.4f} ms (L2 flushed; median of {TIMED_LAUNCHES})  "
-              f"warm {warm_ms:.4f} ms  plain {plain_ms:.3f} ms  bound {rows[name]['bound_ms']:.4f} ms "
-              f"({rows[name]['bound_by']}: {w['bytes'] / 1e6:.1f} MB)", flush=True)
-    del flush
     if "--kernels-only" in argv:
         print("chip_smoke: kernels-only run done", flush=True)
         return 0
@@ -912,10 +1100,15 @@ def main(argv: list[str]) -> int:
     sketch_state = baselines_phase(cv_train, engine, csvec, kernels, card)
     print(f"baselines: the sketched server state launched {sketch_state} in {BASE_ROUNDS} "
           "rounds (one per round)", flush=True)
+
+    # 11. GPT-2
+    phase("11 (gpt2)")
+    gpt2 = gpt2_phase(kernels, csvec, engine, time_ms, gen, card)
     phase("end")
 
     for name in rows:
         rows[name]["max_abs_err"] = errs[name]
+        rows[name]["gpt2"] = gpt2[name]
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

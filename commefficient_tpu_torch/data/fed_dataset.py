@@ -85,6 +85,15 @@ class ThreadedPrefetcher:
         self._thread.join(timeout=10.0)
 
 
+def splitmix64(state: int) -> int:
+    """splitmix64's output for ``state`` (advanced by the golden gamma, then
+    mixed): a bijective mix of 64-bit words."""
+    z = (state + _GOLDEN) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return z ^ (z >> 31)
+
+
 class _SplitMix64:
     """The reference's per-slot row sampler (``batch_assembly.cpp``), on
     Python integers masked to 64 bits."""
@@ -93,11 +102,9 @@ class _SplitMix64:
         self.s = seed & _M64
 
     def next(self) -> int:
+        out = splitmix64(self.s)
         self.s = (self.s + _GOLDEN) & _M64
-        z = self.s
-        z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
-        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
-        return z ^ (z >> 31)
+        return out
 
     def below(self, n: int) -> int:
         """Uniform in [0, n) by rejection, as the reference draws it."""
@@ -157,6 +164,20 @@ class FedDataset:
         xs = np.zeros((W, L, n) + self.x.shape[1:], dtype=self.x.dtype)
         ys = np.zeros((W, L, n) + self.y.shape[1:], dtype=self.y.dtype)
         mask = np.zeros((W, L, n), dtype=np.float32)
+        self._fill_rows(rng, client_ids, n, L, xs, ys, mask)
+        if L == 1:
+            return {"x": xs[:, 0], "y": ys[:, 0], "mask": mask[:, 0]}
+        return {"x": xs, "y": ys, "mask": mask}
+
+    def _fill_rows(self, rng: np.random.RandomState, client_ids: np.ndarray,
+                   batch_size: int, local_iters: int, out_x: np.ndarray,
+                   out_y: np.ndarray, out_mask: np.ndarray | None) -> None:
+        """Fill [W, L, B, ...] buffers that already hold their padding with
+        the sampled rows (one ``randint(1 << 62)`` of ``rng``, then the
+        per-slot splitmix64 streams), as the reference's native
+        ``assemble_rows`` does; rows past a short shard keep the padding,
+        and the mask (if any) is 1 on the filled rows."""
+        n, L = batch_size, local_iters
         seed = int(rng.randint(1 << 62))
         for wi, cid in enumerate(client_ids):
             shard = self.client_indices[int(cid)]
@@ -168,12 +189,10 @@ class FedDataset:
                     slot = wi * L + li + 1
                     slot_rng = _SplitMix64(seed ^ ((_GOLDEN * slot) & _M64))
                     take = shard[_sample_distinct(slot_rng, len(shard), k)]
-                xs[wi, li, :k] = self.x[take]
-                ys[wi, li, :k] = self.y[take]
-                mask[wi, li, :k] = 1.0
-        if L == 1:
-            return {"x": xs[:, 0], "y": ys[:, 0], "mask": mask[:, 0]}
-        return {"x": xs, "y": ys, "mask": mask}
+                out_x[wi, li, :k] = self.x[take]
+                out_y[wi, li, :k] = self.y[take]
+                if out_mask is not None:
+                    out_mask[wi, li, :k] = 1.0
 
     def eval_batches(self, batch_size: int):
         """Fixed-shape eval iterator over the whole set (pads the tail)."""

@@ -23,7 +23,10 @@ three steps, so the run loop (``runner/``) can overlap them:
 
 ``FedModel`` and ``FedOptimizer`` mirror the reference's
 ``FedModel(model, loss_fn, args)`` / ``FedOptimizer(opt, args)`` surface.
-The session runs on the GPU unless ``device="cpu"`` is passed.
+The session runs on the GPU unless ``device="cpu"`` is passed. Batches are
+dicts of host arrays with leading axis W, images (float32, with labels and
+a mask) or token rows (int32 ``input_ids``, ``token_type_ids``,
+``labels``); a model without batch norm has an empty ``net_state``.
 """
 
 from __future__ import annotations
@@ -123,7 +126,7 @@ class FederatedSession:
         # "halt" is the run loop's policy on top of the step's "skip"
         self.cfg = engine.EngineConfig(
             mode=mode_cfg, weight_decay=weight_decay,
-            on_nonfinite="skip" if on_nonfinite == "halt" else on_nonfinite)
+            on_nonfinite="skip" if on_nonfinite == "halt" else on_nonfinite, seed=seed)
         self.layout = layout
         pflat = layout.flatten({k: v.detach().to(self.device) for k, v in params.items()})
         self.state = engine.init_server_state(
@@ -172,8 +175,9 @@ class FederatedSession:
 
     def _snapshot_rng(self):
         """Capture the host sampling RNG as of the last committed round. The
-        port's path draws nothing on the device (no dropout, no DP noise), so
-        the host RandomState is the whole RNG state of a round boundary."""
+        device draws only dropout masks, from generators seeded by the round
+        index (``engine.dropout_seed``), so the host RandomState is the whole
+        RNG state of a round boundary."""
         self.rng_snapshot = self.rng.get_state()
 
     def _host(self, a: np.ndarray) -> torch.Tensor:

@@ -24,6 +24,14 @@ One round, given the flat [d] params (ravel_pytree order, see
 4. ``modes.server_step_sparse`` runs momentum and error feedback and
    releases the delta, which ``modes.apply_delta`` subtracts.
 
+A training forward that draws randomness (GPT-2's dropout) takes a
+``torch.Generator`` as the loss's fourth argument: one per (round, client
+slot, local step), seeded by ``dropout_seed`` from the engine's seed and
+those three indices. The seeds are a pure function of the round, so the
+async and sync loops, and a run resumed from a checkpoint, draw the same
+masks with no generator state to carry. The classification losses ignore
+it.
+
 PyTorch runs eagerly, so the step is a plain function; nothing is
 compiled. It makes new tensors and updates none in place, so a state once
 returned is never written again (checkpoints read committed states while
@@ -40,6 +48,7 @@ from typing import Callable
 
 import torch
 
+from ..data.fed_dataset import splitmix64
 from ..models.convert import FlatLayout
 from ..modes import modes
 from ..modes.config import ModeConfig
@@ -47,6 +56,15 @@ from ..sketch import csvec
 
 # reserved batch key: the [W] 0/1 validity mask of the sampled clients
 VALID_KEY = "_valid"
+
+def dropout_seed(seed: int, rnd: int, slot: int, step: int) -> int:
+    """The seed of the generator a client's training forward draws from:
+    splitmix64 folded over (seed, round, client slot, local step), below
+    2**63 (what ``torch.Generator.manual_seed`` takes)."""
+    x = 0
+    for word in (seed, rnd, slot, step):
+        x = splitmix64(x ^ (word & ((1 << 64) - 1)))
+    return x >> 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +77,17 @@ class EngineConfig:
     # finite aggregates to zero and keeps the previous statistics (momentum
     # decays, state stays clean); "off" lets the poison through
     on_nonfinite: str = "off"
+    # the run's seed, from which every training forward's generator is
+    # derived (dropout_seed)
+    seed: int = 0
+
+    def generator(self, rnd: int, slot: int, step: int,
+                  device: torch.device) -> torch.Generator:
+        """The generator of client slot ``slot``'s local step ``step`` in
+        round ``rnd``, on ``device``."""
+        gen = torch.Generator(device=device)
+        gen.manual_seed(dropout_seed(self.seed, rnd, slot, step))
+        return gen
 
     def __post_init__(self):
         if self.on_nonfinite not in ("off", "skip"):
@@ -87,41 +116,48 @@ def _detach(tree: dict) -> dict:
 
 
 def _flat_grad(loss_fn: Callable, layout: FlatLayout, pflat: torch.Tensor,
-               net_state: dict, cbatch: dict, params: dict | None = None):
-    """(flat gradient, loss aux) of one batch at the flat params ``pflat``.
-    ``params`` may pass ``pflat``'s unflattened leaves, already requiring
-    grad, so that a cohort shares them."""
+               net_state: dict, cbatch: dict, gen: torch.Generator,
+               params: dict | None = None):
+    """(flat gradient, loss aux) of one batch at the flat params ``pflat``,
+    the forward drawing from ``gen``. ``params`` may pass ``pflat``'s
+    unflattened leaves, already requiring grad, so that a cohort shares
+    them."""
     if params is None:
         params = {k: v.requires_grad_(True) for k, v in layout.unflatten(pflat).items()}
-    loss, aux = loss_fn(params, net_state, cbatch)
+    loss, aux = loss_fn(params, net_state, cbatch, gen)
     grads = torch.autograd.grad(loss, list(params.values()))
     return layout.flatten(dict(zip(params, grads))), aux
 
 
 def make_client_update(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout) -> Callable:
-    """update(state, cbatch, lr, params=None) -> (flat [d] update, new
-    batch-norm statistics, metric sums) of one client, before compression:
+    """update(state, cbatch, lr, slot, params=None) -> (flat [d] update, new
+    batch-norm statistics, metric sums) of the client in cohort slot
+    ``slot``, before compression:
     its gradient plus weight decay, or for fedavg/localSGD the weight delta
     ``p0 - p_final`` of ``num_local_iters`` local SGD steps at ``lr`` over
     the microbatches ``cbatch[key][i]``, with weight decay inside the loop,
     local momentum only for momentum_type="local", the batch-norm
     statistics carried from step to step and the metrics summed over the
-    steps."""
+    steps. Each forward draws from ``cfg.generator(state["round"], slot,
+    step)``."""
     mcfg = cfg.mode
     wd = cfg.weight_decay
 
-    def grad_update(state, cbatch, lr, params=None):
+    def grad_update(state, cbatch, lr, slot, params=None):
         pflat = state["params"]
-        gflat, aux = _flat_grad(loss_fn, layout, pflat, state["net_state"], cbatch, params)
+        gen = cfg.generator(state["round"], slot, 0, pflat.device)
+        gflat, aux = _flat_grad(loss_fn, layout, pflat, state["net_state"], cbatch, gen,
+                                params)
         return gflat + wd * pflat, _detach(aux["net_state"]), _detach(aux["metrics"])
 
-    def local_sgd_update(state, cbatch, lr, params=None):
+    def local_sgd_update(state, cbatch, lr, slot, params=None):
         mu = mcfg.momentum if mcfg.momentum_type == "local" else 0.0
         p0 = state["params"]
         p_cur, nstate, mom, msum = p0, state["net_state"], torch.zeros_like(p0), None
         for i in range(mcfg.num_local_iters):
             micro = {k: v[i] for k, v in cbatch.items()}
-            gflat, aux = _flat_grad(loss_fn, layout, p_cur, nstate, micro)
+            gen = cfg.generator(state["round"], slot, i, p0.device)
+            gflat, aux = _flat_grad(loss_fn, layout, p_cur, nstate, micro, gen)
             mom = mu * mom + (gflat + wd * p_cur)
             p_cur = p_cur - lr * mom
             nstate = _detach(aux["net_state"])
@@ -168,14 +204,16 @@ def _client_phase(update: Callable, mcfg: ModeConfig, layout: FlatLayout, state:
     d] per key; a client that did not take part keeps its row)."""
     pflat = state["params"]
     batch, valid = split_valid(batch)
+    # W: the leading dimension every leaf shares (an LM batch has no "x")
+    n_clients = next(iter(batch.values())).shape[0]
     part = (valid.to(torch.float32) if valid is not None
-            else torch.ones(batch["x"].shape[0], dtype=torch.float32, device=pflat.device))
+            else torch.ones(n_clients, dtype=torch.float32, device=pflat.device))
     # the grad modes' clients share one set of leaves requiring grad
     params = (None if mcfg.uses_weight_delta else
               {k: v.requires_grad_(True) for k, v in layout.unflatten(pflat).items()})
 
     def client(w: int, cb: dict):
-        u, stats, metrics = update(state, cb, lr, params)
+        u, stats, metrics = update(state, cb, lr, w, params)
         if modes.is_linear(mcfg):
             return u, stats, metrics, {}
         row = {k: v[w] for k, v in client_rows.items()}
@@ -312,7 +350,7 @@ def make_eval_step(loss_fn: Callable, layout: FlatLayout) -> Callable:
 
     def evaluate(pflat: torch.Tensor, net_state: dict, batch: dict) -> dict:
         with torch.no_grad():
-            _, aux = loss_fn(layout.unflatten(pflat), net_state, batch)
+            _, aux = loss_fn(layout.unflatten(pflat), net_state, batch, None)
         return aux["metrics"]
 
     return evaluate

@@ -1,6 +1,8 @@
 """Loss functions binding a model to the engine's protocol:
-``loss_fn(params, net_state, batch) -> (loss, aux)``, the twin of the JAX
-package's ``models/losses.py``."""
+``loss_fn(params, net_state, batch, gen=None) -> (loss, aux)``, the twin of
+the JAX package's ``models/losses.py``. ``gen`` is the ``torch.Generator``
+a training forward draws its dropout masks from (None in eval); the
+classification losses ignore it."""
 
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ def make_classification_loss(model: nn.Module, train: bool):
     and batches. In train mode ``aux["net_state"]`` holds the updated
     running statistics; in eval mode it is ``net_state`` unchanged."""
 
-    def loss_fn(params: dict, net_state: dict, batch: dict):
+    def loss_fn(params: dict, net_state: dict, batch: dict, gen=None):
         logits, new_stats = functional_call(
             model, {**params, **net_state}, (batch["x"],), {"train": train})
         new_net_state = new_stats if train else net_state
@@ -30,6 +32,40 @@ def make_classification_loss(model: nn.Module, train: bool):
         correct = ((logits.argmax(-1) == batch["y"]).to(mask.dtype) * mask).sum()
         return loss, {
             "net_state": new_net_state,
+            "metrics": {"loss_sum": loss_sum, "count": mask.sum(), "correct": correct},
+        }
+
+    return loss_fn
+
+
+def make_lm_loss(model: nn.Module, train: bool):
+    """Next-token cross-entropy for a causal LM (``models/gpt2.py``).
+
+    batch = {"input_ids": [B, T] int, "labels": [B, T] int with -100 =
+    ignore, optionally "token_type_ids": [B, T] int}. The logits at t
+    predict the label at t + 1. Per-token losses come from ``log_softmax``
+    and a gather: CUDA's ``nll_loss`` has no deterministic kernel and raises
+    under ``torch.use_deterministic_algorithms``, which the entry point
+    sets. Metrics are sums (loss_sum, count, correct) over the labelled
+    tokens, so perplexity is exp(loss_sum / count) across clients and
+    batches. There is no model state: ``aux["net_state"]`` is
+    ``net_state``."""
+
+    def loss_fn(params: dict, net_state: dict, batch: dict, gen=None):
+        logits = functional_call(
+            model, params, (batch["input_ids"],),
+            {"train": train, "token_type_ids": batch.get("token_type_ids"), "gen": gen})
+        logits = logits[:, :-1]
+        labels = batch["labels"][:, 1:].long()
+        mask = (labels != -100).to(logits.dtype)
+        safe_labels = labels.clamp_min(0)
+        logp = F.log_softmax(logits, dim=-1)
+        per_tok = -logp.gather(-1, safe_labels[..., None])[..., 0]
+        loss_sum = (per_tok * mask).sum()
+        loss = loss_sum / mask.sum().clamp_min(1.0)
+        correct = ((logits.argmax(-1) == safe_labels).to(mask.dtype) * mask).sum()
+        return loss, {
+            "net_state": net_state,
             "metrics": {"loss_sum": loss_sum, "count": mask.sum(), "correct": correct},
         }
 

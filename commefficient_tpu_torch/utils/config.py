@@ -1,7 +1,12 @@
 """The port's command-line flags: the subset of the JAX package's
 ``utils/config.py`` parser that the port honours, with the same names and
 defaults, plus ``--device``. A flag of the reference that is not here is not
-accepted (argparse rejects it) rather than accepted and ignored."""
+accepted (argparse rejects it) rather than accepted and ignored. The GPT-2
+task's flags for features the port lacks (``--init_from``, ``--mc_coef``,
+``--attn_impl ring``, ``--model_parallel``, ``--seq_parallel``,
+``--moe_experts``, ``--dtype bfloat16``) parse with the reference's
+defaults, and ``resolve_defaults`` refuses a value that asks for one by
+name."""
 
 from __future__ import annotations
 
@@ -10,8 +15,8 @@ import argparse
 from ..modes.config import MODES, ModeConfig
 
 
-def make_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="commefficient_tpu_torch cv training")
+def make_parser(task: str = "cv") -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=f"commefficient_tpu_torch {task} training")
     # compression / update mode
     p.add_argument("--mode", default="uncompressed", choices=list(MODES))
     p.add_argument("--error_type", default=None, choices=["none", "local", "virtual"],
@@ -67,11 +72,6 @@ def make_parser() -> argparse.ArgumentParser:
                    help="hard round cap (0 = derive from epochs)")
     p.add_argument("--data_root", default="./data")
     p.add_argument("--log_jsonl", default="")
-    p.add_argument("--dataset", default="cifar10", choices=["cifar10", "cifar100", "femnist"])
-    p.add_argument("--synthetic_separation", type=float, default=1.0,
-                   help="class-prototype scale for the synthetic CIFAR fallback")
-    p.add_argument("--synthetic_train", type=int, default=10000,
-                   help="synthetic-CIFAR fallback train-set size")
     # the run loop (runner/)
     p.add_argument("--rounds_per_dispatch", type=int, default=1,
                    help="> 1 runs this many rounds per dispatch with one host-to-"
@@ -107,7 +107,57 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint_every", type=int, default=0, help="rounds; 0 = never")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on: cuda (default) or cpu")
+    if task == "cv":
+        p.add_argument("--dataset", default="cifar10",
+                       choices=["cifar10", "cifar100", "femnist"])
+        p.add_argument("--synthetic_separation", type=float, default=1.0,
+                       help="class-prototype scale for the synthetic CIFAR fallback")
+        p.add_argument("--synthetic_train", type=int, default=10000,
+                       help="synthetic-CIFAR fallback train-set size")
+    else:  # gpt2
+        p.add_argument("--dataset", default="personachat", choices=["personachat"])
+        p.add_argument("--seq_len", type=int, default=256)
+        p.add_argument("--model_size", default="small", choices=["tiny", "small"])
+        p.add_argument("--eval_f1", type=int, default=0,
+                       help="> 0 decodes this many validation dialogs at every eval "
+                            "and logs val_f1 (word-level F1 of the generated reply "
+                            "against the gold one)")
+        p.add_argument("--decode_max_new", type=int, default=32,
+                       help="max generated tokens per reply for --eval_f1")
+        p.add_argument("--decode_temperature", type=float, default=0.0,
+                       help="0 = greedy; > 0 samples with nucleus top-p")
+        p.add_argument("--decode_top_p", type=float, default=0.9)
+        # the reference's flags for what the port does not run: refused by
+        # resolve_defaults unless left at these defaults
+        p.add_argument("--init_from", default="",
+                       help="not ported: fine-tuning from a HuggingFace GPT-2 "
+                            "checkpoint waits for checkpoint and tokenizer files")
+        p.add_argument("--mc_coef", type=float, default=0.0,
+                       help="not ported: the next-utterance-classification head")
+        p.add_argument("--attn_impl", default="dense", choices=["dense", "ring"],
+                       help="dense only; ring attention is not ported")
+        p.add_argument("--model_parallel", type=int, default=1,
+                       help="1 only; tensor parallelism is not ported")
+        p.add_argument("--seq_parallel", type=int, default=1,
+                       help="1 only; sequence parallelism is not ported")
+        p.add_argument("--moe_experts", type=int, default=0,
+                       help="0 only; mixture of experts is not ported")
+        p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                       help="float32 only; bfloat16 compute is not ported")
     return p
+
+
+# (flag, value the port runs, why another value is refused)
+_UNPORTED_GPT2 = (
+    ("init_from", "", "fine-tuning from a HuggingFace GPT-2 checkpoint waits for "
+                      "checkpoint and tokenizer files in the repository"),
+    ("mc_coef", 0.0, "the next-utterance-classification head is not ported"),
+    ("attn_impl", "dense", "ring attention is not ported"),
+    ("model_parallel", 1, "tensor parallelism is not ported"),
+    ("seq_parallel", 1, "sequence parallelism is not ported"),
+    ("moe_experts", 0, "mixture of experts is not ported"),
+    ("dtype", "float32", "bfloat16 compute is not ported"),
+)
 
 
 def resolve_defaults(args: argparse.Namespace) -> argparse.Namespace:
@@ -124,6 +174,9 @@ def resolve_defaults(args: argparse.Namespace) -> argparse.Namespace:
                            "local_topk": "local"}.get(args.mode, "none")
     if args.mode in ("fedavg", "localSGD") and args.num_local_iters < 1:
         args.num_local_iters = 1
+    for flag, ported, why in _UNPORTED_GPT2:
+        if hasattr(args, flag) and getattr(args, flag) != ported:
+            raise SystemExit(f"--{flag} {getattr(args, flag)}: {why}")
     if args.watchdog_abort and not args.checkpoint_dir:
         raise SystemExit("--watchdog_abort needs --checkpoint_dir: aborting without an "
                          "emergency checkpoint would lose the run instead of resuming it")
