@@ -42,7 +42,7 @@ Phases (any failure raises, and the exit status is non-zero):
    e. --fault_plan ckpt_corrupt@3: the resume falls back past the damaged
       round-3 checkpoint to round 2, sets it aside, and ends as (a);
    f. the uncompressed control, 2 rounds, async against sync;
-   g. --pairs N alternating sync/async timing pairs (default 3);
+   g. --pairs N alternating sync/async timing pairs (default 2);
    h. the round path between two drains makes no host sync: four
       dispatches run under ``torch.cuda.set_sync_debug_mode("error")``, and
       a profiler window over them and their drain counts the synchronize
@@ -90,19 +90,47 @@ Phases (any failure raises, and the exit status is non-zero):
    f. the uncompressed control, 2 rounds, async against sync.
    Every logged NLL must be finite, and each kernel must launch once per
    sketch round of every run (none in the control's).
+12. cohort: client participation on the slice (ResNet-9 FetchSGD at full
+   width, 6-round runs through ``cv_train.main``):
+   a. --fault_plan with a drop of positions 0 and 3 at round 1, a
+      straggler and a NaN-poisoned client at round 2, and a data load
+      failing past its retries at round 3, sync then async: round 1 has 6
+      participants and its dropped ids are in round 2's cohort, round 2 is
+      skipped as non-finite and keeps its batch-norm statistics, round 3
+      degrades (0 participants, its 8 clients queued, a line on stderr);
+      each kernel launches once a round (counts zeroed just before the
+      sync run), and async == sync bitwise, per-round metrics and the
+      committed queue included;
+   b. --client_dropout 0.25 --dp_clip 5 --requeue_policy aged with
+      drops: async == sync bitwise; preempt@3 exits 75 with a non-empty
+      queue in meta.json, and --resume lands bitwise on the uninterrupted
+      run, queue and ages included;
+   c. one round with positions {0, 3} masked against the same round over
+      the 6 survivors alone: bitwise;
+   d. both kernels bitwise against their plain versions on (c)'s reduced
+      gradient and error table;
+   f. round time (sync, async) and device busy a round beside a clean run
+      of the same shape;
+   e. FEMNIST true_topk with --dp_clip 1 --dp_noise 1: the noise on a
+      round's aggregate has std dp_noise * dp_clip / participants within
+      1%, a fully masked round releases nothing, async == sync bitwise;
+   g. phase 8h's sync probe with (b)'s dropout and clip, and with (e)'s
+      noise: no host sync between drains.
 
 Prints one JSON line with the kernels' numbers (launches counted over
 phase 8; under "gpt2" each kernel's numbers at the GPT-2 shape, launches
-counted over phase 11a), then as its last line
+counted over phase 11a; "launches_cohort" counted over phase 12a's sync
+run), then as its last line
 ``{"ok": true, "device": {...}}``. Run from the repository root:
     python3 chip_smoke.py
 ``--kernels-only`` stops after phase 4 (a short first check of a new kernel),
 ``--cohorts N`` sets the number of cohorts phase 7 compares (default 4);
-``--pairs N`` the sync/async timing pairs of phase 8 (default 3).
+``--pairs N`` the sync/async timing pairs of phase 8 (default 2).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -152,7 +180,7 @@ FWD_REL = 1e-5
 GRAD_REL_L2 = 8e-3
 # run-loop phase: runs of LOOP_ROUNDS rounds, held bitwise
 LOOP_ROUNDS = 6
-PAIRS = 3
+PAIRS = 2
 # baselines phase: rounds per run
 BASE_ROUNDS = 4
 FEMNIST_ARGS = ["--dataset", "femnist", "--num_clients", "3550", "--num_workers", "8",
@@ -168,6 +196,14 @@ GPT2_ROUNDS = 4
 RESNET_ARGS = ["--dataset", "cifar10", "--hash_family", "rotation", "--num_clients", "100",
                "--num_workers", "8", "--local_batch_size", "8", "--k", "50000",
                "--device", "cuda"]
+# phase 12: client participation on the main path, runs of COHORT_ROUNDS
+COHORT_ROUNDS = 6
+COHORT_PLAN = ("client_drop@1:clients=0+3;client_straggle@2:clients=1,secs=0.2;"
+               "client_poison@2:clients=5,value=nan;data_fail@3:times=4")
+DROPOUT_ARGS = ["--client_dropout", "0.25", "--dp_clip", "5.0", "--requeue_policy", "aged"]
+DROPOUT_PLAN = "client_drop@1:clients=2+5;client_drop@3:clients=0+4"
+# the DP noise's measured std against dp_noise * dp_clip / participants
+NOISE_REL = 0.01
 
 
 def fail(msg: str):
@@ -779,6 +815,249 @@ def baselines_phase(cv_train, engine, csvec, kernels, card: str) -> None:
     return launch_log["resnet9_true_topk_sketch_state"]
 
 
+class _Tee:
+    """A text stream that writes through to another and keeps a copy."""
+
+    def __init__(self, stream):
+        self.stream, self.parts = stream, []
+
+    def write(self, text: str) -> int:
+        self.parts.append(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+@contextlib.contextmanager
+def recording_rounds():
+    """Inside the block, every session records each committed round's host
+    metrics and the batch-norm statistics as committed, and each round's
+    first preparation: (cohort ids, the queue after it)."""
+    from commefficient_tpu_torch.federated.api import FederatedSession
+
+    rec = {"metrics": [], "net_state": [], "cohorts": {}}
+    commit, prepare = FederatedSession.commit_rounds, FederatedSession.prepare_round
+
+    def commit_rec(self, infls, hosts):
+        out = commit(self, infls, hosts)
+        rec["metrics"].extend(out)
+        rec["net_state"].append({k: v.clone() for k, v in self.state["net_state"].items()})
+        return out
+
+    def prepare_rec(self, rnd=None):
+        prep = prepare(self, rnd)
+        rec["cohorts"].setdefault(prep.rnd, ([int(i) for i in prep.ids], prep.requeue))
+        return prep
+
+    FederatedSession.commit_rounds, FederatedSession.prepare_round = commit_rec, prepare_rec
+    try:
+        yield rec
+    finally:
+        FederatedSession.commit_rounds, FederatedSession.prepare_round = commit, prepare
+
+
+def _full_state(s) -> dict:
+    return {**_state(s), **{f"bn:{k}": v for k, v in s.state["net_state"].items()}}
+
+
+def _same_run(a, b, rec_a, rec_b) -> bool:
+    """Bitwise: params, mode state, batch-norm statistics, every round's
+    metrics, the committed queue and its ages."""
+    return (_equal(_full_state(a), _full_state(b)) and rec_a["metrics"] == rec_b["metrics"]
+            and a._requeue_committed == b._requeue_committed
+            and a._requeue_ages_committed == b._requeue_ages_committed)
+
+
+def cohort_phase(cv_train, engine, csvec, kernels, card: str) -> dict:
+    """Phase 12: client participation on ResNet-9 FetchSGD at full width
+    (and DP on the FEMNIST CNN); returns each kernel's launches over the
+    sync run of 12a."""
+    import shutil
+
+    from commefficient_tpu_torch.utils import checkpoint as ckpt
+    from commefficient_tpu_torch.utils.config import make_parser, resolve_defaults
+
+    base = os.path.join(ROOT, "build", "chip_smoke", "cohort")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    times = {}
+
+    def run(extra, label):
+        argv = SLICE_ARGS + ["--num_rounds", str(COHORT_ROUNDS), "--log_jsonl",
+                             os.path.join(base, f"{label}.jsonl")] + list(extra)
+        with recording_rounds() as rec:
+            s = cv_train.main(argv)
+        torch.cuda.synchronize()
+        times[label] = _steady_ms(s.run_stats)
+        print(_times(label, s.run_stats, card), flush=True)
+        return s, rec
+
+    # a. scheduled faults, sync and async
+    faults = ["--fault_plan", COHORT_PLAN, "--on_nonfinite", "skip", "--requeue_policy", "fifo"]
+    tee = _Tee(sys.stderr)
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stderr(tee):
+        a, rec_a = run(faults + ["--sync_loop"], "faults_sync")
+    launches = dict(kernels.launch_counts)
+    m = rec_a["metrics"]
+    cols = {k: [x.get(k) for x in m] for k in ("participants", "clients_dropped",
+                                               "requeue_depth", "nonfinite_rounds")}
+    print(f"cohort a: per round {json.dumps(cols)}", flush=True)
+    cohorts = rec_a["cohorts"]
+    gone = {cohorts[1][0][0], cohorts[1][0][3]}
+    checks = {
+        "round 1: 6 participants, 2 dropped": (cols["participants"][1], cols["clients_dropped"][1])
+        == (6.0, 2.0),
+        "round 1's dropped ids in round 2's cohort": gone <= set(cohorts[2][0]),
+        "round 2 skipped as non-finite": cols["nonfinite_rounds"][2] == 1.0,
+        "round 2 keeps round 1's batch-norm statistics": all(
+            torch.equal(rec_a["net_state"][2][k], rec_a["net_state"][1][k])
+            for k in rec_a["net_state"][1]),
+        "round 3 degraded: 0 participants, 8 dropped, 8 queued": (
+            cols["participants"][3], cols["clients_dropped"][3], cols["requeue_depth"][3])
+        == (0.0, 8.0, 8.0),
+        "round 3's whole cohort queued": set(cohorts[3][1]) == set(cohorts[3][0]),
+        "round 3's degradation on stderr": "round 3 batch load failed after retries"
+        in tee.text(),
+        "one launch of each kernel a round": all(n == COHORT_ROUNDS
+                                                 for n in launches.values()),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"cohort a: {bad}; launches {launches}")
+    print(f"cohort a: held: {'; '.join(checks)} (launches {launches}) [{card}]", flush=True)
+    b, rec_b = run(faults, "faults_async")
+    if not _same_run(a, b, rec_a, rec_b):
+        fail("cohort a: the async run differs from the sync run")
+    print("cohort a: async == sync bitwise (params, Vvelocity, Verror, batch-norm statistics, "
+          "per-round metrics, committed queue)", flush=True)
+    del b
+
+    # b. random dropout and the clip, then preempt -> resume with a queue
+    drop = DROPOUT_ARGS + ["--fault_plan", DROPOUT_PLAN]
+    c, rec_c = run(drop + ["--sync_loop"], "dropout_sync")
+    d, rec_d = run(drop, "dropout_async")
+    parts = [x["participants"] for x in rec_c["metrics"]]
+    # rounds 0, 2, 4 and 5 drop clients only at random
+    if not _same_run(c, d, rec_c, rec_d) or min(parts[i] for i in (0, 2, 4, 5)) == 8.0:
+        fail(f"cohort b: async differs from sync, or dropout dropped nobody ({parts})")
+    print(f"cohort b: participants a round {parts}; async == sync bitwise", flush=True)
+    del d
+    ck = os.path.join(base, "ck")
+    preempt = DROPOUT_ARGS + ["--fault_plan", DROPOUT_PLAN + ";preempt@3",
+                              "--checkpoint_dir", ck]
+    try:
+        run(preempt, "dropout_preempted")
+        fail("cohort b: preempt@3 did not exit")
+    except SystemExit as e:
+        if e.code != 75:
+            raise
+    path = ckpt.latest(ck)
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    if not path.endswith("round_00000004") or not meta["requeued"]:
+        fail(f"cohort b: checkpoint {path} with queue {meta['requeued']}")
+    e_, rec_e = run(preempt + ["--resume"], "dropout_resumed")
+    if not (e_.run_stats.rounds == 2 and _equal(_full_state(c), _full_state(e_))
+            and rec_e["metrics"] == rec_c["metrics"][4:]
+            and e_._requeue_committed == c._requeue_committed
+            and e_._requeue_ages_committed == c._requeue_ages_committed):
+        fail("cohort b: preempt -> resume differs from the uninterrupted run")
+    print(f"cohort b: preempt@3 -> exit 75 with queue {meta['requeued']} (ages "
+          f"{meta['requeue_ages']}) in meta.json -> resume == uninterrupted, bitwise", flush=True)
+    del e_
+
+    # c. masked == surviving cohort, one round on the card
+    args = resolve_defaults(make_parser().parse_args(SLICE_ARGS))
+    s, _ = cv_train.build(args)
+    batch = s.prepare_round(0).batch
+    masked = dict(batch, _valid=batch["_valid"].clone())
+    masked["_valid"][[0, 3]] = 0.0
+    surv = [1, 2, 4, 5, 6, 7]
+    alone = {k: v[surv] for k, v in batch.items()}
+    lr = torch.tensor(CHECK_LR, device=s.device)
+    out_m = s._step(s.state, s._to_device(masked), {}, lr)
+    out_s = s._step(s.state, s._to_device(alone), {}, lr)
+    diffs = {"params": (out_m[0]["params"] - out_s[0]["params"]).abs().max().item()}
+    for k in out_m[0]["mode_state"]:
+        diffs[k] = (out_m[0]["mode_state"][k] - out_s[0]["mode_state"][k]).abs().max().item()
+    same = (torch.equal(out_m[0]["params"], out_s[0]["params"])
+            and all(torch.equal(out_m[0][p][k], out_s[0][p][k])
+                    for p in ("mode_state", "net_state") for k in out_m[0][p])
+            and all(torch.equal(out_m[2][k], out_s[2][k]) for k in out_m[2]))
+    print(f"cohort c: positions {{0, 3}} masked vs the 6 survivors alone: max abs differences "
+          f"{diffs}", flush=True)
+    if not same:
+        fail("cohort c: the masked round is not bitwise the surviving cohort's round")
+    print("cohort c: masked round == surviving cohort's round, bitwise (params, Vvelocity, "
+          "Verror, batch-norm statistics, metrics)", flush=True)
+
+    # d. the kernels on the masked round's reduced gradient and error table
+    g, _, _ = engine.reduce_clients(s.train_loss_fn, s.cfg, s.layout, s.state,
+                                    s._to_device(masked))
+    check_kernels(csvec, s.cfg.mode.sketch_spec, g, out_m[0]["mode_state"]["Verror"])
+    print("cohort d: kernels == plain on the masked round's gradient and error table",
+          flush=True)
+    del s, out_m, out_s
+
+    # f. round time and device busy beside a clean run of the same shape
+    e, _ = run(["--sync_loop"], "clean_sync")
+    run([], "clean_async")
+    busy_clean = profile_rounds(e, top=3, label=f" clean [{card}]")
+    busy_cohort = profile_rounds(c, top=3, label=f" dropout+clip [{card}]")
+    print(f"cohort f: steady round ms {json.dumps({k: round(v, 2) for k, v in times.items()})}; "
+          f"device busy ms a round: clean {busy_clean:.2f}, dropout+clip {busy_cohort:.2f} "
+          f"[{card}]", flush=True)
+    del a, c, e
+
+    # e. DP noise on FEMNIST true_topk (no batch norm)
+    fem = FEMNIST_ARGS + ["--mode", "true_topk", "--dp_clip", "1.0", "--dp_noise", "1.0",
+                          "--num_rounds", str(BASE_ROUNDS)]
+    s, _ = cv_train.build(resolve_defaults(make_parser().parse_args(fem)))
+    batch = s._to_device(s.prepare_round(0).batch)
+    weighted, _, met = engine.reduce_clients(s.train_loss_fn, s.cfg, s.layout, s.state, batch)
+    noised = engine._dp_noise_agg(s.cfg, {"dense": weighted}, met["participants"], 0)["dense"]
+    noise = (noised - weighted).double()
+    n_live = met["participants"].item()
+    want = s.cfg.dp_noise * s.cfg.dp_clip / n_live
+    std = noise.std().item()
+    empty = engine._dp_noise_agg(s.cfg, {"dense": weighted}, met["participants"] * 0, 0)
+    print(f"cohort e: FEMNIST d={noise.numel():,}, {n_live:.0f} participants: noise std "
+          f"{std:.6e} against {want:.6e} ({std / want - 1:+.4%}), mean {noise.mean().item():.3e}",
+          flush=True)
+    if abs(std / want - 1) > NOISE_REL or not torch.equal(empty["dense"], weighted):
+        fail("cohort e: DP noise std off, or noise released with no participant")
+    del s, batch, weighted, noised, noise
+    s, _ = cv_train.build(resolve_defaults(make_parser().parse_args(
+        fem + ["--fault_plan", "data_fail@0:times=9", "--max_retries", "0"])))
+    p0 = s.state["params"].clone()
+    mh = s.run_round(CHECK_LR)
+    ms = s.state["mode_state"]
+    if not (mh["participants"] == 0.0 and torch.equal(s.state["params"], p0)
+            and not torch.count_nonzero(ms["Vvelocity"]) and not torch.count_nonzero(ms["Verror"])):
+        fail("cohort e: a fully masked round with DP noise released something")
+    print("cohort e: a fully masked round with DP noise on released nothing (params unchanged, "
+          "Vvelocity and Verror exactly zero)", flush=True)
+    del s
+    fs = cv_train.main(fem + ["--sync_loop"])
+    fa = cv_train.main(fem)
+    if not _equal(_state(fs), _state(fa)):
+        fail("cohort e: FEMNIST DP async differs from sync")
+    print("cohort e: FEMNIST true_topk with DP clip and noise, async == sync bitwise", flush=True)
+    del fs, fa
+    shutil.rmtree(ck, ignore_errors=True)
+
+    # g. the participation mask, the clip and the noise sync nothing
+    for label, argv in (("dropout+clip", SLICE_ARGS + DROPOUT_ARGS), ("DP noise", fem)):
+        print(f"cohort g: {label}:", end=" ", flush=True)
+        sync_probe(cv_train, argv)
+    return launches
+
+
 def gpt2_phase(kernels, csvec, engine, time_ms, gen: torch.Generator, card: str) -> dict:
     """Phase 11: GPT-2 small PersonaChat fine-tuning through
     ``gpt2_train.main``; returns the kernels' fields at the GPT-2 shape."""
@@ -1104,11 +1383,16 @@ def main(argv: list[str]) -> int:
     # 11. GPT-2
     phase("11 (gpt2)")
     gpt2 = gpt2_phase(kernels, csvec, engine, time_ms, gen, card)
+
+    # 12. client participation
+    phase("12 (cohort)")
+    cohort = cohort_phase(cv_train, engine, csvec, kernels, card)
     phase("end")
 
     for name in rows:
         rows[name]["max_abs_err"] = errs[name]
         rows[name]["gpt2"] = gpt2[name]
+        rows[name]["launches_cohort"] = cohort[name]
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -86,6 +86,10 @@ def build(args):
         fault_plan=fault_plan,
         retry_policy=RetryPolicy(max_retries=args.max_retries),
         device=device,
+        client_dropout=args.client_dropout,
+        dp_clip=args.dp_clip,
+        dp_noise=args.dp_noise,
+        requeue_policy=args.requeue_policy,
     )
     return session, test_set
 
@@ -95,6 +99,9 @@ def main(argv=None):
     session, test_set = build(args)
     rounds_per_epoch = max(1, math.ceil(args.num_clients / session.num_workers))
     total_rounds = args.num_rounds or int(args.num_epochs * rounds_per_epoch)
+    if session.fault_plan is not None:
+        # a client_* site at a round the run never reaches is refused now
+        session.fault_plan.validate_rounds(total_rounds)
     opt = FedOptimizer(triangular(args.lr_scale, args.pivot_epoch, args.num_epochs),
                        rounds_per_epoch)
     model = FedModel(session)

@@ -194,6 +194,16 @@ class FedDataset:
                 if out_mask is not None:
                     out_mask[wi, li, :k] = 1.0
 
+    def empty_batch(self, num: int, batch_size: int, local_iters: int = 1) -> dict:
+        """Stand-in batch of a degraded cohort, whose data failed to load
+        after its retries: the keys and shapes ``client_batch`` returns (for
+        a subclass too, which is why it assembles a real batch) from a
+        private ``RandomState(0)`` and client 0, so the session's sampling
+        stream does not advance. Every row sits behind a zero validity
+        mask, so its content never trains."""
+        return self.client_batch(np.random.RandomState(0), np.zeros(num, dtype=np.int64),
+                                 batch_size, local_iters)
+
     def eval_batches(self, batch_size: int):
         """Fixed-shape eval iterator over the whole set (pads the tail)."""
         n = len(self.x)

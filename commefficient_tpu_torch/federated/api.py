@@ -7,9 +7,12 @@ statistics, Vvelocity/Verror), the client state (local_topk's
 host sampling stream and the communication accounting. A round runs in
 three steps, so the run loop (``runner/``) can overlap them:
 
-- ``prepare_round``: sample the cohort and assemble its batch on the host
-  (pinned host tensors when the session runs on the GPU); any thread, one
-  at a time, in round order.
+- ``prepare_round``: sample the cohort (queued clients that were dropped
+  earlier take the place of sampled ones), assemble its batch on the host
+  with the round's fault sites (pinned host tensors when the session runs
+  on the GPU); any thread, one at a time, in round order. A load that
+  still fails after its retries degrades the round to a fully masked
+  cohort, whose clients are queued.
 - ``dispatch_round`` / ``dispatch_block``: copy the batch to the device
   without a host sync and launch the round's work, chained on the newest
   dispatched state; returns device metrics. A round of a mode with client
@@ -18,8 +21,8 @@ three steps, so the run loop (``runner/``) can overlap them:
   committed client state is never written again (checkpoints copy it while
   later rounds run).
 - ``commit_rounds``: publish state, client state, round counter,
-  communication totals and the host-RNG snapshot, in dispatch order, under
-  ``mutate_lock``.
+  communication totals and the host-RNG and requeue snapshots, in dispatch
+  order, under ``mutate_lock``.
 
 ``FedModel`` and ``FedOptimizer`` mirror the reference's
 ``FedModel(model, loss_fn, args)`` / ``FedOptimizer(opt, args)`` surface.
@@ -31,7 +34,9 @@ a mask) or token rows (int32 ``input_ids``, ``token_type_ids``,
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import sys
 import threading
 from typing import Any, Callable
 
@@ -56,12 +61,19 @@ class PreparedRound:
     ``snapshot``, the host RNG state right after this round's draws.
     Committing the round publishes the snapshot as the session's
     round-boundary state, so a checkpoint stays replay-consistent while a
-    prefetcher has already advanced the live stream."""
+    prefetcher has already advanced the live stream. ``masked`` counts the
+    clients the validity mask killed (dropped, or a degraded load);
+    ``requeue`` and ``requeue_ages`` ((client id, round queued) pairs) are
+    the dropped-client queue as of this preparation, published at commit
+    like the snapshot."""
 
     rnd: int
     ids: np.ndarray
     batch: dict
     snapshot: tuple
+    masked: int = 0
+    requeue: tuple = ()
+    requeue_ages: tuple = ()
 
 
 @dataclasses.dataclass
@@ -71,7 +83,9 @@ class InFlightRound:
     ``metrics`` stay device tensors until the run loop drains them.
     ``done`` is the CUDA event recorded after the dispatch (None on the
     CPU): a checkpoint of this state waits for it alone. ``host_batch`` keeps the pinned source of
-    the non-blocking copy referenced until commit."""
+    the non-blocking copy referenced until commit. ``masked`` and
+    ``requeue_depths`` hold each round's counts (aligned with ``lrs``),
+    ``requeue``/``requeue_ages`` the newest preparation's queue."""
 
     new_state: dict | None
     new_client_state: dict | None
@@ -81,6 +95,10 @@ class InFlightRound:
     stacked: bool  # block dispatch: every metric has a leading [K] axis
     done: Any = None
     host_batch: dict | None = None
+    masked: list = dataclasses.field(default_factory=list)
+    requeue_depths: list = dataclasses.field(default_factory=list)
+    requeue: tuple = ()
+    requeue_ages: tuple = ()
 
     @property
     def num_rounds(self) -> int:
@@ -113,6 +131,10 @@ class FederatedSession:
         fault_plan=None,
         retry_policy: rtry.RetryPolicy | None = None,
         device: str | torch.device = "cuda",
+        client_dropout: float = 0.0,
+        dp_clip: float = 0.0,
+        dp_noise: float = 0.0,
+        requeue_policy: str = "fifo",
     ):
         self.device = resolve_device(device)
         if layout.d != mode_cfg.d:
@@ -120,13 +142,16 @@ class FederatedSession:
         if on_nonfinite not in ("off", "skip", "halt"):
             raise ValueError(f"on_nonfinite must be 'off', 'skip' or 'halt', got "
                              f"{on_nonfinite!r}")
+        if requeue_policy not in ("fifo", "aged"):
+            raise ValueError(f"requeue_policy must be 'fifo' or 'aged', got {requeue_policy!r}")
         self.train_set = train_set
         self.num_workers = min(num_workers, train_set.num_clients)
         self.local_batch_size = local_batch_size
         # "halt" is the run loop's policy on top of the step's "skip"
         self.cfg = engine.EngineConfig(
             mode=mode_cfg, weight_decay=weight_decay,
-            on_nonfinite="skip" if on_nonfinite == "halt" else on_nonfinite, seed=seed)
+            on_nonfinite="skip" if on_nonfinite == "halt" else on_nonfinite, seed=seed,
+            client_dropout=client_dropout, dp_clip=dp_clip, dp_noise=dp_noise)
         self.layout = layout
         pflat = layout.flatten({k: v.detach().to(self.device) for k, v in params.items()})
         self.state = engine.init_server_state(
@@ -143,6 +168,21 @@ class FederatedSession:
         self.retry_policy = retry_policy or rtry.RetryPolicy()
         self.rng = np.random.RandomState(seed)
         self._snapshot_rng()
+        self._seed = seed
+        # the dropped-client queue: ids whose batch was dropped or failed to
+        # load wait here and take the place of sampled ids in a later
+        # round, so their data is delayed, not lost. _requeue is the live
+        # queue (one producer: prepare_round), _requeue_enqueued maps a
+        # queued id to the round it was queued (the aged policy's weights),
+        # and the *_committed pair is the round-boundary snapshot that
+        # checkpoints write (a prefetcher may have served the live queue for
+        # rounds that never commit). Serving order: "fifo", or "aged" (a
+        # weighted draw by rounds waiting from a RandomState of its own).
+        self._requeue_policy = requeue_policy
+        self._requeue: collections.deque = collections.deque()
+        self._requeue_enqueued: dict[int, int] = {}
+        self._requeue_committed: tuple = ()
+        self._requeue_ages_committed: tuple = ()
         # guards the publication of (state, round, RNG snapshot, comm
         # totals) against a checkpoint taken from another thread (the
         # watchdog's emergency save, the async writer)
@@ -199,35 +239,106 @@ class FederatedSession:
         return ev
 
     def sample_cohort(self, rnd: int) -> np.ndarray:
-        """Draw the round's cohort from the host sampling stream."""
-        return self.train_set.sample_clients(self.rng, self.num_workers)
+        """Draw the round's cohort from the host sampling stream and put
+        queued (earlier dropped) clients in. The substitution draws nothing
+        from the stream, so only the cohort's membership changes."""
+        ids = self.train_set.sample_clients(self.rng, self.num_workers)
+        if self._requeue:
+            ids = self._serve_requeue(ids, rnd)
+        return ids
 
-    def _load_client_batch(self, ids: np.ndarray, rnd: int) -> dict:
-        """Batch assembly behind the retry wrapper. The fault site fires
-        before any host RNG is drawn and a failed attempt restores the RNG,
-        so a retried load replays the identical batch. A load that still
-        fails after the retries raises (the reference instead degrades the
-        round to a masked cohort and re-queues it; requeue is not ported)."""
+    def _serve_requeue(self, ids: np.ndarray, rnd: int) -> np.ndarray:
+        """Substitute queued client ids into a sampled cohort in
+        ``requeue_policy`` order, from slot 0 on, skipping ids the sample
+        already holds (they count as served). What finds no slot stays
+        queued."""
+        ids = np.array(ids, copy=True)
+        in_cohort = {int(i) for i in ids}
+        order = list(self._requeue)
+        if self._requeue_policy == "aged" and len(order) > 1:
+            order = self._aged_order(order, rnd)
+        slot, served, leftover = 0, [], []
+        for cid in order:
+            if slot >= len(ids):
+                leftover.append(cid)
+                continue
+            if cid in in_cohort:
+                self._requeue_enqueued.pop(cid, None)
+                continue
+            in_cohort.discard(int(ids[slot]))
+            ids[slot] = cid
+            in_cohort.add(cid)
+            served.append(cid)
+            self._requeue_enqueued.pop(cid, None)
+            slot += 1
+        self._requeue = collections.deque(leftover)
+        if served:
+            print(f"requeue: serving previously-dropped client(s) {served} "
+                  f"({len(self._requeue)} still queued)", file=sys.stderr, flush=True)
+        return ids
+
+    def _aged_order(self, queue: list, rnd: int) -> list:
+        """requeue_policy="aged": Efraimidis-Spirakis weighted sampling
+        without replacement, weight = rounds waiting + 1, from a RandomState
+        of its own pinned to (seed, round), so the host sampling stream is
+        the same under either policy."""
+        rs = np.random.RandomState((self._seed * 1_000_003 + rnd) % (2**32))
+        ages = np.array([rnd - self._requeue_enqueued.get(int(c), rnd) + 1 for c in queue],
+                        np.float64)
+        keys = rs.random_sample(len(queue)) ** (1.0 / ages)
+        return [queue[i] for i in np.argsort(-keys, kind="stable")]
+
+    def _queue(self, cid: int, rnd: int):
+        """Queue a dropped client once: overlapping drop specs can name the
+        same position twice, and a doubly queued id would displace two
+        sampled clients later."""
+        if cid not in self._requeue:
+            self._requeue.append(cid)
+            self._requeue_enqueued.setdefault(cid, rnd)
+
+    def _with_local_axis(self, batch: dict) -> dict:
+        mcfg = self.cfg.mode
+        if mcfg.uses_weight_delta and mcfg.num_local_iters == 1:
+            # the sampler drops the [L] axis at L = 1; the local-SGD loop
+            # reads microbatches off it
+            return {k: v[:, None] for k, v in batch.items()}
+        return batch
+
+    def _load_client_batch(self, ids: np.ndarray, rnd: int):
+        """Batch assembly behind the retry wrapper; returns (batch, valid or
+        None). The fault site fires before any host RNG is drawn and a
+        failed attempt restores the RNG, so a retried load replays the
+        identical batch. A load that still fails after the retries degrades
+        the round instead of ending the run: an ``empty_batch`` behind an
+        all-zero validity mask (the engine's fully masked cohort: momentum
+        decays, state stays as it was), its clients queued for later
+        rounds, and a line on stderr. Such a round draws no batch RNG."""
+        mcfg = self.cfg.mode
 
         def attempt():
             rng_state = self.rng.get_state()
             try:
                 if self.fault_plan is not None:
                     self.fault_plan.data_load(rnd)
-                mcfg = self.cfg.mode
-                batch = self.train_set.client_batch(self.rng, ids, self.local_batch_size,
-                                                    mcfg.num_local_iters)
-                if mcfg.uses_weight_delta and mcfg.num_local_iters == 1:
-                    # the sampler drops the [L] axis at L = 1; the local-SGD
-                    # loop reads microbatches off it
-                    batch = {k: v[:, None] for k, v in batch.items()}
-                return batch
+                return self.train_set.client_batch(self.rng, ids, self.local_batch_size,
+                                                   mcfg.num_local_iters)
             except Exception:
                 self.rng.set_state(rng_state)
                 raise
 
-        return rtry.with_retries(attempt, site="data_load", policy=self.retry_policy,
-                                 seed=rnd)
+        try:
+            batch = rtry.with_retries(attempt, site="data_load", policy=self.retry_policy,
+                                      seed=rnd)
+            return self._with_local_axis(batch), None
+        except Exception as e:  # noqa: BLE001 — degrade the round, do not end the run
+            print(f"ERROR: round {rnd} batch load failed after retries ({type(e).__name__}: "
+                  f"{e}); degrading to a fully-masked cohort and re-queuing its {len(ids)} "
+                  "client(s)", file=sys.stderr, flush=True)
+            for i in ids:
+                self._queue(int(i), rnd)
+            batch = self.train_set.empty_batch(len(ids), self.local_batch_size,
+                                               mcfg.num_local_iters)
+            return self._with_local_axis(batch), np.zeros(len(ids), np.float32)
 
     def prepare_round(self, rnd: int | None = None) -> PreparedRound:
         """Host half of a round: sample the cohort, assemble the batch (fault
@@ -236,13 +347,21 @@ class FederatedSession:
         if rnd is None:
             rnd = self.round + self._inflight_rounds
         ids = self.sample_cohort(rnd)
-        batch = self._load_client_batch(ids, rnd)
+        batch, valid = self._load_client_batch(ids, rnd)
         if self.fault_plan is not None:
+            # the nonfinite burst, then the cohort faults; preempt stays a
+            # dispatch-time site, so the SIGTERM lands when the round runs
             batch = self.fault_plan.poison(rnd, batch)
-        # the validity mask always rides the batch (all ones here)
-        batch[engine.VALID_KEY] = np.ones(len(ids), np.float32)
+            batch, valid, dropped = self.fault_plan.client_faults(rnd, batch, valid, len(ids))
+            for p in dropped:
+                self._queue(int(ids[p]), rnd)
+        masked = int(len(ids) - valid.sum()) if valid is not None else 0
+        # the validity mask always rides the batch (all ones when clean)
+        batch = dict(batch)
+        batch[engine.VALID_KEY] = valid if valid is not None else np.ones(len(ids), np.float32)
         return PreparedRound(rnd, ids, {k: self._host(v) for k, v in batch.items()},
-                             self.rng.get_state())
+                             self.rng.get_state(), masked=masked, requeue=tuple(self._requeue),
+                             requeue_ages=tuple(self._requeue_enqueued.items()))
 
     def _head(self) -> dict:
         return self._head_state if self._head_state is not None else self.state
@@ -276,7 +395,9 @@ class FederatedSession:
         self._inflight += 1
         self._inflight_rounds += 1
         return InFlightRound(new_state, new_cstate, metrics, [lr], prep.snapshot,
-                             stacked=False, done=self._record(), host_batch=prep.batch)
+                             stacked=False, done=self._record(), host_batch=prep.batch,
+                             masked=[prep.masked], requeue_depths=[len(prep.requeue)],
+                             requeue=prep.requeue, requeue_ages=prep.requeue_ages)
 
     def dispatch_block(self, preps: list[PreparedRound], lrs) -> InFlightRound:
         """Launch K rounds in one call (``engine.make_multi_round_step``)
@@ -292,7 +413,10 @@ class FederatedSession:
         self._inflight += 1
         self._inflight_rounds += len(lrs)
         return InFlightRound(new_state, None, metrics, lrs, preps[-1].snapshot, stacked=True,
-                             done=self._record(), host_batch=host)
+                             done=self._record(), host_batch=host,
+                             masked=[p.masked for p in preps],
+                             requeue_depths=[len(p.requeue) for p in preps],
+                             requeue=preps[-1].requeue, requeue_ages=preps[-1].requeue_ages)
 
     def _stack(self, xs: list) -> torch.Tensor:
         if self.device.type != "cuda":
@@ -333,11 +457,10 @@ class FederatedSession:
         out = []
         with self.mutate_lock:
             for infl, mh in zip(infls, metrics_hosts):
-                if infl.stacked:
-                    for i, lr in enumerate(infl.lrs):
-                        out.append(self._finalize_metrics({k: v[i] for k, v in mh.items()}, lr))
-                else:
-                    out.append(self._finalize_metrics(mh, infl.lrs[0]))
+                for i, lr in enumerate(infl.lrs):
+                    m = {k: v[i] for k, v in mh.items()} if infl.stacked else mh
+                    out.append(self._finalize_metrics(m, lr, infl.masked[i],
+                                                      infl.requeue_depths[i]))
                 self._inflight -= 1
                 self._inflight_rounds -= infl.num_rounds
             last = infls[-1]
@@ -349,6 +472,8 @@ class FederatedSession:
                 self.client_state = last.new_client_state
             self.committed_event = last.done
             self.rng_snapshot = last.snapshot
+            self._requeue_committed = last.requeue
+            self._requeue_ages_committed = last.requeue_ages
             if self._inflight == 0:
                 self._head_state = None
                 self._head_client_state = None
@@ -375,10 +500,23 @@ class FederatedSession:
         preps = [self.prepare_round(self.round + i) for i in range(len(lrs))]
         return self.commit_round(self.dispatch_block(preps, lrs))
 
-    def _finalize_metrics(self, m: dict, lr: float) -> dict:
+    def _finalize_metrics(self, m: dict, lr: float, masked: int = 0,
+                          requeue_depth: int = 0) -> dict:
+        """Host bookkeeping of a committed round: the cohort counters (how
+        many clients the validity mask killed, how deep the queue ran at
+        preparation), communication (uplink charged for the clients that
+        uploaded, the measured local_topk down-link), totals and the round
+        counter."""
         m = {k: float(v) for k, v in m.items()}
         m["lr"] = float(lr)
+        m["clients_dropped"] = float(masked)
+        m["requeue_depth"] = float(requeue_depth)
         m.update(self.comm_per_round)
+        if (self.cfg.client_dropout > 0 or masked) and "participants" in m:
+            # a dropped or masked client never transmits; the broadcast
+            # still reaches the whole cohort
+            m["comm_up_mb"] *= m["participants"] / self.num_workers
+            m["comm_total_mb"] = m["comm_up_mb"] + m["comm_down_mb"]
         if "down_support" in m:
             # local_topk: the round's measured broadcast support replaces the
             # static worst case; past the sparse/dense crossover a server

@@ -24,13 +24,28 @@ One round, given the flat [d] params (ravel_pytree order, see
 4. ``modes.server_step_sparse`` runs momentum and error feedback and
    releases the delta, which ``modes.apply_delta`` subtracts.
 
-A training forward that draws randomness (GPT-2's dropout) takes a
+Client participation: a client takes part in a round when the batch's
+validity mask (``VALID_KEY``: a dropped client, a failed data load) says
+so and it survives ``client_dropout``. Every fold, normalisation,
+batch-norm merge and client-row select reads that one [W] weight, so a
+client that does not take part adds exact zeros, and a round where nobody
+does aggregates zero (momentum still decays) and keeps its batch-norm
+statistics and client rows. With ``dp_clip`` each client's update is
+clipped to that L2 norm before the fold; with ``dp_noise`` the aggregate
+gets central Gaussian noise scaled to the survivors (none when nobody
+took part).
+
+Randomness: a training forward that draws (GPT-2's dropout) takes a
 ``torch.Generator`` as the loss's fourth argument: one per (round, client
 slot, local step), seeded by ``dropout_seed`` from the engine's seed and
-those three indices. The seeds are a pure function of the round, so the
-async and sync loops, and a run resumed from a checkpoint, draw the same
-masks with no generator state to carry. The classification losses ignore
-it.
+those three indices. The participation mask and the DP noise come from
+generators seeded the same way under tags of their own
+(``PARTICIPATION_TAG``, ``NOISE_TAG``), so no stream collides with
+another. Every seed is a pure function of the round, so the async and sync
+loops, and a run resumed from a checkpoint, draw the same values with no
+generator state to carry. The classification losses ignore the generator.
+The reference draws its mask and noise from JAX's threefry keys, which
+torch cannot reproduce: parity with it is distributional.
 
 PyTorch runs eagerly, so the step is a plain function; nothing is
 compiled. It makes new tensors and updates none in place, so a state once
@@ -56,6 +71,12 @@ from ..sketch import csvec
 
 # reserved batch key: the [W] 0/1 validity mask of the sampled clients
 VALID_KEY = "_valid"
+# the client-slot words of the participation mask's and the DP noise's
+# seeds: far above any cohort position, so neither stream meets a
+# client's dropout stream
+PARTICIPATION_TAG = 0x5041525449434950
+NOISE_TAG = 0x44504E4F495345
+
 
 def dropout_seed(seed: int, rnd: int, slot: int, step: int) -> int:
     """The seed of the generator a client's training forward draws from:
@@ -65,6 +86,23 @@ def dropout_seed(seed: int, rnd: int, slot: int, step: int) -> int:
     for word in (seed, rnd, slot, step):
         x = splitmix64(x ^ (word & ((1 << 64) - 1)))
     return x >> 1
+
+
+def participation_mask(seed: int, rnd: int, num_sampled: int, dropout: float,
+                       device: torch.device | str = "cpu") -> torch.Tensor:
+    """[W] float32 0/1 survivor mask of round ``rnd``: each sampled client
+    independently drops with probability ``dropout``. A pure function of
+    (seed, round, W, dropout): drawn on the host from a CPU generator
+    seeded ``dropout_seed(seed, rnd, PARTICIPATION_TAG, 0)``, so the CPU and
+    the card get the same mask, and copied to a GPU from pinned memory
+    without a host sync."""
+    if dropout <= 0.0:
+        return torch.ones(num_sampled, dtype=torch.float32, device=device)
+    gen = torch.Generator().manual_seed(dropout_seed(seed, rnd, PARTICIPATION_TAG, 0))
+    mask = (torch.rand(num_sampled, generator=gen) >= dropout).to(torch.float32)
+    if torch.device(device).type == "cuda":
+        return mask.pin_memory().to(device, non_blocking=True)
+    return mask
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,9 +115,18 @@ class EngineConfig:
     # finite aggregates to zero and keeps the previous statistics (momentum
     # decays, state stays clean); "off" lets the poison through
     on_nonfinite: str = "off"
-    # the run's seed, from which every training forward's generator is
-    # derived (dropout_seed)
+    # the run's seed, from which every training forward's generator, the
+    # participation mask and the DP noise are derived (dropout_seed)
     seed: int = 0
+    # each sampled client independently drops before aggregation with this
+    # probability (participation_mask)
+    client_dropout: float = 0.0
+    # differential privacy: dp_clip > 0 clips each client's update to that
+    # L2 norm before the fold; dp_noise > 0 adds N(0, (dp_noise * sens)^2)
+    # to every aggregate entry, sens = dp_clip for agg_op="sum" and
+    # dp_clip / participants for the mean
+    dp_clip: float = 0.0
+    dp_noise: float = 0.0
 
     def generator(self, rnd: int, slot: int, step: int,
                   device: torch.device) -> torch.Generator:
@@ -92,9 +139,36 @@ class EngineConfig:
     def __post_init__(self):
         if self.on_nonfinite not in ("off", "skip"):
             raise ValueError(f"on_nonfinite must be 'off' or 'skip', got {self.on_nonfinite!r}")
+        if not 0.0 <= self.client_dropout < 1.0:
+            raise ValueError(f"client_dropout must be in [0, 1), got {self.client_dropout}")
+        if self.dp_clip < 0 or self.dp_noise < 0:
+            raise ValueError(f"dp_clip and dp_noise must be >= 0, got {self.dp_clip} and "
+                             f"{self.dp_noise}")
+        if self.dp_noise > 0 and self.dp_clip <= 0:
+            raise ValueError("dp_noise > 0 requires dp_clip > 0 (unbounded sensitivity has no "
+                             "meaningful noise scale)")
+        if self.dp_noise > 0 and self.mode.needs_local_state:
+            raise ValueError(
+                "dp_noise with client-local error/momentum state is unsound: the transmitted "
+                "wire is topk(error_accumulator + update), whose norm is unbounded across "
+                "rounds, so dp_clip does not bound sensitivity. Use local_topk with "
+                "error_type=none and momentum_type=none/virtual, or a mode without "
+                "client-local state.")
+        if self.dp_noise > 0 and self.mode.mode == "sketch":
+            raise ValueError(
+                "dp_noise with mode=sketch is unsound: a count-sketch table's worst-case L2 "
+                "sensitivity under an L2 clip is l1-scale, so dp_clip-calibrated Gaussian "
+                "noise on the table under-delivers the configured privacy. Use a dense-wire "
+                "mode (uncompressed/true_topk/fedavg/localSGD) or local_topk without local "
+                "state.")
 
 
 def init_server_state(cfg: EngineConfig, pflat: torch.Tensor, net_state: dict) -> dict:
+    if cfg.dp_noise > 0 and net_state:
+        raise ValueError(
+            "dp_noise with mutable model collections (e.g. BatchNorm batch_stats) is unsound: "
+            "per-client statistics are averaged into the released model without clipping or "
+            "noise, bypassing the DP mechanism. Use a normalization-free model for DP runs.")
     return {
         "params": pflat,
         "net_state": net_state,
@@ -193,27 +267,45 @@ def _weighted_client_fold(client_fn: Callable, batch: dict, part: torch.Tensor):
     return totals[0]["u"], totals[1], totals[2], rows
 
 
-def _client_phase(update: Callable, mcfg: ModeConfig, layout: FlatLayout, state: dict,
+def clip_factor(u: torch.Tensor, clip: float) -> torch.Tensor:
+    """The DP clip's factor of one client's update: min(1, clip / max(||u||,
+    1e-12)), the L2 norm in float32."""
+    nrm = torch.linalg.vector_norm(u.to(torch.float32))
+    return torch.clamp(clip / torch.clamp(nrm, min=1e-12), max=1.0)
+
+
+def _client_phase(update: Callable, cfg: EngineConfig, layout: FlatLayout, state: dict,
                   batch: dict, client_rows: dict, lr):
-    """The client phase of a round: each client's update (local_topk: its
-    densified top-k wire, compressed with its rows of the client state)
-    folded into participation-weighted sums. Returns the reduced update [d]
-    (the survivor mean unless agg_op=sum), the survivor mean of the
-    batch-norm statistics (the previous ones when nobody survived), the
-    metric sums with the participants count and the cohort's new rows ([W,
-    d] per key; a client that did not take part keeps its row)."""
+    """The client phase of a round: each client's update (clipped to
+    ``dp_clip``; local_topk: then its densified top-k wire, compressed with
+    its rows of the client state) folded into participation-weighted sums.
+    The participation weight is the batch's validity mask times the
+    round's ``participation_mask``. Returns the reduced update [d] (the
+    survivor mean unless agg_op=sum), the survivor mean of the batch-norm
+    statistics (the previous ones when nobody survived), the metric sums
+    with the participants count and the cohort's new rows ([W, d] per key;
+    a client that did not take part keeps its row)."""
+    mcfg = cfg.mode
     pflat = state["params"]
     batch, valid = split_valid(batch)
     # W: the leading dimension every leaf shares (an LM batch has no "x")
     n_clients = next(iter(batch.values())).shape[0]
     part = (valid.to(torch.float32) if valid is not None
             else torch.ones(n_clients, dtype=torch.float32, device=pflat.device))
+    if cfg.client_dropout > 0:
+        part = part * participation_mask(cfg.seed, state["round"], n_clients,
+                                          cfg.client_dropout, pflat.device)
     # the grad modes' clients share one set of leaves requiring grad
     params = (None if mcfg.uses_weight_delta else
               {k: v.requires_grad_(True) for k, v in layout.unflatten(pflat).items()})
 
     def client(w: int, cb: dict):
         u, stats, metrics = update(state, cb, lr, w, params)
+        if cfg.dp_clip > 0:
+            # a client that does not take part keeps factor 1: its update
+            # (NaN behind a mask, say) is weighed to an exact zero below
+            u = u * torch.where(part[w] > 0, clip_factor(u, cfg.dp_clip),
+                                torch.ones((), device=u.device))
         if modes.is_linear(mcfg):
             return u, stats, metrics, {}
         row = {k: v[w] for k, v in client_rows.items()}
@@ -239,7 +331,7 @@ def reduce_clients(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout,
     update [d], survivor-mean batch-norm statistics, metric sums with the
     participants count)."""
     weighted, new_net_state, metrics, _ = _client_phase(
-        make_client_update(loss_fn, cfg, layout), cfg.mode, layout, state, batch, {}, None)
+        make_client_update(loss_fn, cfg, layout), cfg, layout, state, batch, {}, None)
     return weighted, new_net_state, metrics
 
 
@@ -257,9 +349,9 @@ def _guard_nonfinite(cfg: EngineConfig, agg: dict, new_net_state: dict, net_stat
     """on_nonfinite="skip": zero a non-finite aggregate, keep the previous
     batch-norm statistics and client rows, zero the round's training sums
     and flag it in ``nonfinite_rounds``. On finite data every select keeps
-    its input."""
+    its input. Also returns the round's finite flag (None with "off")."""
     if cfg.on_nonfinite != "skip":
-        return agg, new_net_state, new_rows, metrics
+        return agg, new_net_state, new_rows, metrics, None
     ok = _all_finite([*agg.values(), *new_net_state.values(), *new_rows.values()])
     agg = {k: torch.where(ok, v, torch.zeros_like(v)) if v.is_floating_point() else v
            for k, v in agg.items()}
@@ -268,12 +360,32 @@ def _guard_nonfinite(cfg: EngineConfig, agg: dict, new_net_state: dict, net_stat
     metrics = {k: v if k == "participants" else torch.where(ok, v, torch.zeros_like(v))
                for k, v in metrics.items()}
     metrics["nonfinite_rounds"] = (~ok).to(torch.float32)
-    return agg, new_net_state, new_rows, metrics
+    return agg, new_net_state, new_rows, metrics, ok
+
+
+def _dp_noise_agg(cfg: EngineConfig, agg: dict, participants: torch.Tensor, rnd: int) -> dict:
+    """Central DP on the aggregate: N(0, std^2) on every entry, std =
+    dp_noise * sens * (participants > 0), sens = dp_clip for agg_op="sum"
+    and dp_clip / max(participants, 1) for the mean (the mean divides by
+    the survivors, so its sensitivity does too). An empty round transmits
+    nothing and releases nothing. One generator per aggregate key, in
+    sorted key order, seeded ``dropout_seed(seed, rnd, NOISE_TAG, i)`` on
+    the aggregate's device."""
+    n_live = participants.clamp_min(1.0)
+    sens = cfg.dp_clip if cfg.mode.agg_op == "sum" else cfg.dp_clip / n_live
+    std = cfg.dp_noise * sens * (participants > 0).to(torch.float32)
+    out = {}
+    for i, (k, v) in enumerate(sorted(agg.items())):
+        gen = torch.Generator(device=v.device)
+        gen.manual_seed(dropout_seed(cfg.seed, rnd, NOISE_TAG, i))
+        out[k] = v + std * torch.randn(v.shape, generator=gen, device=v.device, dtype=v.dtype)
+    return out
 
 
 def make_round_step(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout) -> Callable:
     """step(state, batch, client_rows, lr) -> (state', client_rows',
-    metrics): the reference's step without its device RNG. ``batch`` holds
+    metrics): the reference's step, its device RNG replaced by generators
+    seeded from (cfg.seed, state["round"]). ``batch`` holds
     tensors with leading axis W (the sampled clients; fedavg/localSGD add a
     [num_local_iters] axis after it), optionally with the ``VALID_KEY``
     mask; ``client_rows`` is {key: [W, d]} of the cohort's client state ({}
@@ -291,15 +403,21 @@ def make_round_step(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout) ->
         lr_t = lr if torch.is_tensor(lr) else torch.tensor(lr, dtype=torch.float32,
                                                            device=pflat.device)
         weighted, new_net_state, metrics, new_rows = _client_phase(
-            update, mcfg, layout, state, batch, client_rows, lr_t)
+            update, cfg, layout, state, batch, client_rows, lr_t)
         if modes.is_linear(mcfg):
             # linearity shortcut: compress the reduced update once
             wire, _ = modes.client_compress(mcfg, weighted, {})
             agg = modes.aggregate(mcfg, {k: v[None] for k, v in wire.items()})
         else:
             agg = {"dense": weighted}
-        agg, new_net_state, new_rows, metrics = _guard_nonfinite(
+        agg, new_net_state, new_rows, metrics, fin_ok = _guard_nonfinite(
             cfg, agg, new_net_state, state["net_state"], new_rows, client_rows, metrics)
+        if cfg.dp_noise > 0:
+            # a skipped round is an empty cohort: it releases no noise
+            live = metrics["participants"]
+            if fin_ok is not None:
+                live = live * fin_ok.to(live.dtype)
+            agg = _dp_noise_agg(cfg, agg, live, state["round"])
         # the weight-delta modes' local steps consumed lr; the server applies
         # the averaged delta at server_lr
         server_lr = mcfg.server_lr if mcfg.uses_weight_delta else lr_t

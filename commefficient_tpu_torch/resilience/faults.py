@@ -25,6 +25,20 @@ A plan is parsed from a compact CLI string (``--fault_plan``) of
                                 at restore)
     ckpt_partial@2              truncate a round-2 checkpoint file
                                 (simulated partial write)
+    client_drop@2:clients=0+3   kill cohort positions 0 and 3 inside round 2:
+                                their batch rows zero, their validity mask
+                                goes 0 (the engine treats them as masked
+                                clients), and the session re-queues their
+                                client ids for a later round
+    client_straggle@2:clients=1,secs=0.5
+                                position 1's batch assembly stalls 0.5 s in
+                                round 2 (a slow client; the round still
+                                completes)
+    client_poison@2:clients=1,value=big
+                                fill position 1's batch rows so its update
+                                goes large (value=big, finite) or
+                                non-finite (nan/inf) through the real
+                                gradient path
     seed=7                      recorded on the plan for reporting
 
 Round numbers are global round indices (session.round), so a plan replays
@@ -32,10 +46,11 @@ correctly across checkpoint resume: ``preempt@3`` does not fire again in a
 resumed run that starts at round 4. ``FaultPlan.parse("")`` is None: no
 plan, no change.
 
-The reference's other kinds (cohort faults, wire faults, Byzantine
-clients, distributed bootstrap, edge and shard kills) need sites the port
-does not have yet. They are refused at parse with a message that names
-them, never accepted and ignored.
+The reference's other kinds (wire faults, Byzantine clients, distributed
+bootstrap and one-host preemption, edge and shard kills) need sites the
+port does not have yet. They are refused at parse with a message that
+names them and the ROADMAP item that brings them, never accepted and
+ignored.
 """
 
 from __future__ import annotations
@@ -59,14 +74,27 @@ KINDS = {
     "ckpt_fail": ("times",),
     "ckpt_corrupt": (),
     "ckpt_partial": (),
+    # cohort sites: target cohort positions 0..W-1, "+"-separated (","
+    # separates params)
+    "client_drop": ("clients",),
+    "client_straggle": ("clients", "secs"),
+    "client_poison": ("clients", "value"),
 }
 
-# the reference's kinds whose sites the port does not have yet
-NOT_PORTED = ("dist_init", "client_drop", "client_straggle", "client_poison",
-              "host_preempt", "wire_corrupt", "wire_truncate", "wire_dup",
-              "wire_delay", "conn_drop", "client_signflip", "client_scale",
-              "client_collude", "client_normride", "client_stale_poison",
-              "edge_kill", "shard_kill")
+# the client_* sites fire inside a round's preparation: scheduled at or past
+# the run's last round they would never inject, so validate_rounds rejects
+# them at launch (the run length is not known at parse time)
+CLIENT_KINDS = ("client_drop", "client_straggle", "client_poison")
+
+# the reference's kinds whose sites the port does not have yet, with the
+# ROADMAP Queue 1 item that brings each
+NOT_PORTED = {
+    "dist_init": 7, "host_preempt": 7,
+    "wire_corrupt": 9, "wire_truncate": 9, "wire_dup": 9, "wire_delay": 9,
+    "conn_drop": 9, "edge_kill": 9, "shard_kill": 9,
+    "client_signflip": 10, "client_scale": 10, "client_collude": 10,
+    "client_normride": 10, "client_stale_poison": 10,
+}
 
 
 class InjectedFault(RuntimeError):
@@ -94,7 +122,8 @@ def _parse_entry(entry: str) -> FaultSpec:
     if kind in NOT_PORTED:
         raise ValueError(
             f"fault kind {kind!r} in --fault_plan entry {entry!r} is not ported: the "
-            f"port has no site for it yet (it runs: {', '.join(KINDS)})")
+            f"port has no site for it yet (ROADMAP Queue 1 item {NOT_PORTED[kind]}; it "
+            f"runs: {', '.join(KINDS)})")
     if kind not in KINDS:
         raise ValueError(f"unknown fault kind {kind!r} in --fault_plan entry {entry!r} "
                          f"(known: {', '.join(KINDS)})")
@@ -121,9 +150,15 @@ def _parse_entry(entry: str) -> FaultSpec:
                     params[k] = int(v)
                 elif k == "secs":
                     params[k] = float(v)
+                elif k == "clients":
+                    pos = tuple(int(p) for p in v.split("+") if p.strip())
+                    if not pos or any(p < 0 for p in pos):
+                        raise ValueError("expected '+'-separated non-negative positions")
+                    params[k] = pos
                 elif k == "value":
-                    if v not in ("nan", "inf"):
-                        raise ValueError("expected one of nan/inf")
+                    allowed = ("nan", "inf", "big") if kind == "client_poison" else ("nan", "inf")
+                    if v not in allowed:
+                        raise ValueError(f"expected one of {'/'.join(allowed)}")
                     params[k] = v
             except ValueError as e:
                 raise ValueError(f"bad value {v!r} for param {k!r} in --fault_plan entry "
@@ -172,6 +207,24 @@ class FaultPlan:
             if s.kind == kind and s.matches(rnd):
                 return s
         return None
+
+    def specs_for(self, kind: str, rnd: int | None = None) -> list[FaultSpec]:
+        """Every matching spec (a client_* site may have several entries in
+        one round, e.g. one drop list and one poison list)."""
+        return [s for s in self.specs if s.kind == kind and s.matches(rnd)]
+
+    def validate_rounds(self, total_rounds: int) -> None:
+        """Launch-time check against the run's length: a client_* site
+        scheduled at a round >= total_rounds can never fire, and is refused
+        rather than let a chaos run pass without its fault."""
+        for s in self.specs:
+            if s.kind in CLIENT_KINDS and s.rounds:
+                dead = [r for r in s.rounds if r >= total_rounds]
+                if dead:
+                    raise ValueError(
+                        f"--fault_plan: {s.kind}@{','.join(map(str, dead))} can never fire "
+                        f"- the run ends at round {total_rounds} (rounds are 0-based global "
+                        "indices)")
 
     def _log(self, msg: str):
         print(f"fault-injection: {msg}", file=sys.stderr, flush=True)
@@ -236,6 +289,68 @@ class FaultPlan:
                for k, v in batch.items()}
         self._log(f"poisoning round {rnd} client batch with {val}")
         return out
+
+    @staticmethod
+    def _positions(s: FaultSpec, num_workers: int, rnd: int) -> tuple:
+        pos = s.params.get("clients", (0,))
+        bad = [p for p in pos if not 0 <= p < num_workers]
+        if bad:
+            raise ValueError(f"fault {s.kind}@{rnd}: cohort positions {bad} out of range for "
+                             f"num_workers={num_workers}")
+        return pos
+
+    def client_faults(self, rnd: int, batch: dict, valid, num_workers: int):
+        """Cohort faults inside round ``rnd``'s preparation, after the batch
+        is assembled: client_straggle sleeps, client_poison fills the
+        positions' float rows (nan/inf: a non-finite update; big: 1e6, a
+        large finite one), client_drop zeroes the positions' rows and their
+        validity. Returns (batch, valid, dropped positions); ``valid`` stays
+        None when nothing dropped. Each fires once per (kind, round,
+        positions); keys starting with "_" are control rows and stay."""
+        for s in self.specs_for("client_straggle", rnd):
+            key = ("client_straggle", rnd, s.params.get("clients", (0,)))
+            if key in self._fired:
+                continue
+            self._fired.add(key)
+            pos = self._positions(s, num_workers, rnd)
+            secs = float(s.params.get("secs", 1.0))
+            self._log(f"clients {list(pos)} straggling {secs}s (round {rnd})")
+            time.sleep(secs)
+
+        poison_specs = self.specs_for("client_poison", rnd)
+        drop_specs = self.specs_for("client_drop", rnd)
+        if not poison_specs and not drop_specs:
+            return batch, valid, []
+        batch = {k: (v if k.startswith("_") else np.array(v, copy=True))
+                 for k, v in batch.items()}
+        for s in poison_specs:
+            key = ("client_poison", rnd, s.params.get("clients", (0,)))
+            if key in self._fired:
+                continue
+            self._fired.add(key)
+            pos = list(self._positions(s, num_workers, rnd))
+            val = s.params.get("value", "nan")
+            fill = {"nan": np.nan, "inf": np.inf, "big": 1e6}[val]
+            for k, v in batch.items():
+                if not k.startswith("_") and np.issubdtype(v.dtype, np.floating):
+                    v[pos] = fill
+            self._log(f"poisoning clients {pos} with {val} (round {rnd})")
+        dropped: list[int] = []
+        for s in drop_specs:
+            key = ("client_drop", rnd, s.params.get("clients", (0,)))
+            if key in self._fired:
+                continue
+            self._fired.add(key)
+            pos = list(self._positions(s, num_workers, rnd))
+            valid = (np.ones(num_workers, np.float32) if valid is None
+                     else np.array(valid, copy=True))
+            for k, v in batch.items():
+                if not k.startswith("_"):
+                    v[pos] = 0
+            valid[pos] = 0.0
+            dropped.extend(pos)
+            self._log(f"dropping clients {pos} (round {rnd}; masked + re-queued)")
+        return batch, valid, dropped
 
     def preempt(self, rnd: int):
         """Simulated preemption: deliver a real SIGTERM to this process as

@@ -152,6 +152,11 @@ class RunStats:
     # per checkpoint saved by the loop's own save closure: copy_ms,
     # write_ms, verify_ms (utils.checkpoint.save)
     checkpoints: list = dataclasses.field(default_factory=list)
+    # cohort degradation: clients the validity mask killed (dropped or a
+    # degraded load), summed over the run, and the deepest the
+    # dropped-client queue ran at a round's preparation
+    clients_dropped: int = 0
+    requeue_depth_max: int = 0
 
 
 def make_save_ckpt(session: FederatedSession, checkpoint_dir: str, timings: list | None = None):
@@ -247,6 +252,9 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
         for m in session.commit_rounds(list(pending), hosts):
             last_m = m
             nonfinite_total += int(m.get("nonfinite_rounds", 0))
+            stats.clients_dropped += int(m.get("clients_dropped", 0))
+            stats.requeue_depth_max = max(stats.requeue_depth_max,
+                                          int(m.get("requeue_depth", 0)))
             for k, v in m.items():
                 if isinstance(v, (int, float)):
                     totals[k] += v
@@ -362,11 +370,14 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
                     totals.clear()
     finally:
         src.stop()
-        # the prefetcher may have drawn host RNG for rounds never
-        # dispatched: rewind the live stream to the committed boundary so a
-        # caller reusing the session stays on the sync loop's sequence
+        # the prefetcher may have drawn host RNG, and served or grown the
+        # dropped-client queue, for rounds never dispatched: rewind both
+        # (the queue with its ages) to the committed boundary so a caller
+        # reusing the session stays on the sync loop's sequence
         with session.mutate_lock:
             session.rng.set_state(session.rng_snapshot)
+            session._requeue = collections.deque(session._requeue_committed)
+            session._requeue_enqueued = dict(session._requeue_ages_committed)
     # a stored async-save failure must not block the final save below,
     # the corrective action (with its own retries)
     shutdown()

@@ -4,9 +4,11 @@
 A checkpoint is a directory ``round_XXXXXXXX`` holding ``state.pt`` (params,
 batch-norm statistics, Vvelocity/Verror, and the [num_clients, d] client
 state of a mode that keeps one), ``meta.json`` (the round, the measured
-``comm_mb_total``, the cohort size, the mode and client count, and the host
+``comm_mb_total``, the cohort size, the mode and client count, the host
 sampling RNG as plain ints and lists, so ``torch.load(weights_only=True)``
-never meets a numpy object) and ``manifest.json``. A checkpoint of another
+never meets a numpy object, and the committed dropped-client queue,
+``requeued``, with each entry's queued round, ``requeue_ages``) and
+``manifest.json``. A checkpoint of another
 mode or client count is refused (``CheckpointMismatchError``), not set
 aside as damaged.
 
@@ -33,6 +35,7 @@ aside as damaged.
 
 from __future__ import annotations
 
+import collections
 import hashlib
 import json
 import os
@@ -172,6 +175,11 @@ def save(ckpt_dir: str, session, keep: int = 3, fault_plan=None,
         rng_state = session.rng_snapshot
         comm_mb_total = float(session.comm_mb_total)
         num_workers = session.num_workers
+        # the committed queue, like the RNG snapshot: a prefetcher may have
+        # served the live one for rounds that never commit. The queued
+        # rounds ride along, so a restored aged queue keeps its real ages
+        requeued = [int(i) for i in session._requeue_committed]
+        requeue_ages = [[int(c), int(r)] for c, r in session._requeue_ages_committed]
     final = os.path.abspath(os.path.join(ckpt_dir, f"round_{rnd:08d}"))
     staging = os.path.abspath(os.path.join(ckpt_dir, f"{_TMP_PREFIX}{rnd:08d}"))
     t0 = time.perf_counter()
@@ -181,7 +189,8 @@ def save(ckpt_dir: str, session, keep: int = 3, fault_plan=None,
     del state_ref, client_ref
     meta = {"round": rnd, "comm_mb_total": comm_mb_total, "num_workers": num_workers,
             "mode": session.cfg.mode.mode, "num_clients": session.train_set.num_clients,
-            "host_rng": _rng_to_json(rng_state)}
+            "host_rng": _rng_to_json(rng_state), "requeued": requeued,
+            "requeue_ages": requeue_ages}
     times = {"copy_ms": (time.perf_counter() - t0) * 1e3, "write_ms": 0.0, "verify_ms": 0.0}
 
     def attempt():
@@ -248,7 +257,9 @@ def latest(ckpt_dir: str) -> str | None:
 def restore(path: str, session) -> None:
     """Load the checkpoint at ``path`` into ``session`` (on the session's
     device): state, round counter, host RNG and its round-boundary
-    snapshot, and the measured communication total. Raises
+    snapshot, the measured communication total and the dropped-client
+    queue with its ages (an entry without one restarts at the restored
+    round). Raises
     ``CheckpointMismatchError`` for a checkpoint of another mode or client
     count."""
     if session.inflight_rounds:
@@ -284,6 +295,12 @@ def restore(path: str, session) -> None:
         session.rng.set_state(_rng_from_json(meta["host_rng"]))
         session.rng_snapshot = session.rng.get_state()
         session.comm_mb_total = float(meta["comm_mb_total"])
+        requeued = [int(i) for i in meta.get("requeued", [])]
+        ages = {int(c): int(r) for c, r in meta.get("requeue_ages", [])}
+        session._requeue = collections.deque(requeued)
+        session._requeue_committed = tuple(requeued)
+        session._requeue_enqueued = {cid: ages.get(cid, session.round) for cid in requeued}
+        session._requeue_ages_committed = tuple(session._requeue_enqueued.items())
     saved_w = meta.get("num_workers")
     if saved_w is not None and saved_w != session.num_workers:
         print(f"warning: checkpoint {path} was written with num_workers={saved_w} but "

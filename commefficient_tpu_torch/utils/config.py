@@ -1,18 +1,107 @@
-"""The port's command-line flags: the subset of the JAX package's
-``utils/config.py`` parser that the port honours, with the same names and
-defaults, plus ``--device``. A flag of the reference that is not here is not
-accepted (argparse rejects it) rather than accepted and ignored. The GPT-2
-task's flags for features the port lacks (``--init_from``, ``--mc_coef``,
-``--attn_impl ring``, ``--model_parallel``, ``--seq_parallel``,
-``--moe_experts``, ``--dtype bfloat16``) parse with the reference's
-defaults, and ``resolve_defaults`` refuses a value that asks for one by
-name."""
+"""The port's command-line flags: every option of the JAX package's
+``utils/config.py`` parser, with the same names, types, choices and
+defaults, plus ``--device``, so a launch command of the reference parses
+here. The flags of features the port does not run yet (``_UNPORTED``:
+the layerwise sketch path, robust merges and the quarantine, serving,
+batched clients, meshes and processes, observability, bfloat16, and
+GPT-2's classification head, HuggingFace init and parallelism) parse at
+the reference's defaults, and ``resolve_defaults`` refuses any other value
+by name, with the ROADMAP Queue 1 item that brings the feature: accepted
+and ignored is never an outcome. ``--share_ps_gpu`` and ``--port`` are the
+reference's own no-ops, and ``--topk_recall`` matters only to the top-k
+selections the port refuses (``--topk_impl approx|oversample``)."""
 
 from __future__ import annotations
 
 import argparse
 
 from ..modes.config import MODES, ModeConfig
+
+
+# the reference's flags for what the port does not run: (flag, its
+# add_argument keywords as in the reference, the values the port runs, why
+# another value is refused, the ROADMAP Queue 1 item that brings it or None
+# when none is queued)
+_SERVE = "serving (the streaming aggregation service) is not ported"
+_ROBUST = "robust merges and the sketch-space quarantine are not ported"
+_MULTI = "the port runs one process on one device"
+_OBS = "the observability layer (tracer, profiler window, health, ledger, SLO) is not ported"
+_UNPORTED = (
+    ("sketch_path", dict(default="ravel", choices=["ravel", "layerwise"]), ("ravel",),
+     "the layerwise sketch path is not ported", 8),
+    ("client_update_clip", dict(type=float, default=0.0), (0.0,), _ROBUST, 10),
+    ("merge_policy", dict(default="sum", choices=["sum", "trimmed", "median"]), ("sum",),
+     _ROBUST, 10),
+    ("merge_trim", dict(type=int, default=0), (0,), _ROBUST, 10),
+    ("robust_residual", dict(default="off", choices=["off", "on"]), ("off",), _ROBUST, 10),
+    ("quarantine_scope", dict(default="cohort", choices=["cohort", "layer"]), ("cohort",),
+     _ROBUST, 10),
+    ("quarantine_window", dict(type=int, default=1), (1,), _ROBUST, 10),
+    ("serve", dict(default="off", choices=["off", "inproc", "socket"]), ("off",), _SERVE, 9),
+    ("serve_quorum", dict(type=int, default=0), (0,), _SERVE, 9),
+    ("serve_deadline", dict(type=float, default=4.0), (4.0,), _SERVE, 9),
+    ("serve_trace", dict(default=""), ("",), _SERVE, 9),
+    ("serve_payload", dict(default="announce", choices=["announce", "sketch"]), ("announce",),
+     _SERVE, 9),
+    ("serve_shed_watermark", dict(type=float, default=0.0), (0.0,), _SERVE, 9),
+    ("serve_pipeline", dict(action="store_true"), (False,), _SERVE, 9),
+    ("serve_async", dict(action="store_true"), (False,), _SERVE, 9),
+    ("serve_buffer", dict(type=int, default=0), (0,), _SERVE, 9),
+    ("serve_staleness", dict(type=float, default=0.5), (0.5,), _SERVE, 9),
+    ("serve_stale_rounds", dict(type=int, default=1), (1,), _SERVE, 9),
+    ("serve_transport", dict(default="eventloop", choices=["threaded", "eventloop"]),
+     ("eventloop",), _SERVE, 9),
+    ("serve_shards", dict(type=int, default=0), (0,), _SERVE, 9),
+    ("serve_shard_mode", dict(default="thread", choices=["thread", "process"]), ("thread",),
+     _SERVE, 9),
+    ("serve_edges", dict(type=int, default=0), (0,), _SERVE, 9),
+    ("serve_fastpath", dict(action="store_true"), (False,), _SERVE, 9),
+    ("serve_gauntlet_workers", dict(type=int, default=2), (2,), _SERVE, 9),
+    ("serve_max_conns", dict(type=int, default=0), (0,), _SERVE, 9),
+    ("serve_port", dict(type=int, default=0), (0,), _SERVE, 9),
+    ("serve_metrics_port", dict(type=int, default=-1), (-1,), _SERVE, 9),
+    ("client_chunk", dict(type=int, default=0), (0,),
+     "batched clients are not ported (the port folds one client at a time)", 3),
+    ("split_compile", dict(action="store_true"), (False,),
+     "the port runs eagerly and compiles no program to split", None),
+    ("multihost", dict(action="store_true"), (False,), _MULTI, 7),
+    ("coordinator_address", dict(default=None), (None,), _MULTI, 7),
+    ("num_processes", dict(type=int, default=None), (None,), _MULTI, 7),
+    ("process_id", dict(type=int, default=None), (None,), _MULTI, 7),
+    ("num_devices", dict(type=int, default=0, help="0 = all visible; the port runs one"),
+     (0, 1), _MULTI, 7),
+    ("mesh", dict(default=""), ("",), _MULTI, 7),
+    ("trace", dict(default=""), ("",), _OBS, 13),
+    ("trace_events", dict(default=""), ("",), _OBS, 13),
+    ("profile_rounds", dict(default=""), ("",), _OBS, 13),
+    ("profile_dir", dict(default=""), ("",), _OBS, 13),
+    ("health_every", dict(type=int, default=0), (0,), _OBS, 13),
+    ("ledger", dict(default=""), ("",), _OBS, 13),
+    ("slo", dict(default="off", choices=["off", "warn", "halt"]), ("off",), _OBS, 13),
+    ("slo_rules", dict(default=""), ("",), _OBS, 13),
+    ("dtype", dict(default="float32", choices=["float32", "bfloat16"]), ("float32",),
+     "bfloat16 compute is not ported", 6),
+)
+_HEAD = "the next-utterance-classification head is not ported"
+_PARALLEL = "tensor, sequence and expert parallelism are not ported"
+_UNPORTED_GPT2 = (
+    ("init_from", dict(default=""), ("",),
+     "fine-tuning from a HuggingFace GPT-2 checkpoint is not ported", 5),
+    ("mc_coef", dict(type=float, default=0.0), (0.0,), _HEAD, 5),
+    ("num_candidates", dict(type=int, default=2), (2,), _HEAD, 5),
+    ("mc_hard_negatives", dict(action="store_true"), (False,), _HEAD, 5),
+    ("attn_impl", dict(default="dense", choices=["dense", "ring"]), ("dense",),
+     "ring attention is not ported", 14),
+    ("model_parallel", dict(type=int, default=1), (1,), _PARALLEL, 14),
+    ("seq_parallel", dict(type=int, default=1), (1,), _PARALLEL, 14),
+    ("moe_experts", dict(type=int, default=0), (0,), "mixture of experts is not ported", 14),
+    ("moe_aux_coef", dict(type=float, default=0.01), (0.01,),
+     "mixture of experts is not ported", 14),
+)
+
+
+def _unported(task: str) -> tuple:
+    return _UNPORTED + (_UNPORTED_GPT2 if task == "gpt2" else ())
 
 
 def make_parser(task: str = "cv") -> argparse.ArgumentParser:
@@ -33,6 +122,9 @@ def make_parser(task: str = "cv") -> argparse.ArgumentParser:
     p.add_argument("--topk_impl", default="exact", choices=["exact", "approx", "oversample"],
                    help="top-k selection; the port runs exact only (approx and "
                         "oversample raise)")
+    p.add_argument("--topk_recall", type=float, default=0.95,
+                   help="recall target of --topk_impl approx/oversample; accepted "
+                        "at any value (exact top-k does not read it)")
     p.add_argument("--server_state", default="dense", choices=["dense", "sketch"],
                    help="server optimizer state: dense [d] Vvelocity/Verror, or "
                         "r x c Count-Sketch tables (true_topk, and local_topk with "
@@ -59,6 +151,21 @@ def make_parser(task: str = "cv") -> argparse.ArgumentParser:
     p.add_argument("--lr_scale", type=float, default=0.4)
     p.add_argument("--pivot_epoch", type=float, default=5)
     p.add_argument("--weight_decay", type=float, default=5e-4)
+    # differential privacy
+    p.add_argument("--dp_clip", type=float, default=0.0,
+                   help="L2 clip of each client's update (0 = off)")
+    p.add_argument("--dp_noise", type=float, default=0.0,
+                   help="central-DP noise multiplier on the aggregate (needs "
+                        "--dp_clip; refused with mode=sketch, client-local state "
+                        "and batch-norm models)")
+    # client participation
+    p.add_argument("--client_dropout", type=float, default=0.0,
+                   help="per-round probability that each sampled client drops "
+                        "before aggregation (straggler simulation)")
+    p.add_argument("--requeue_policy", default="fifo", choices=["fifo", "aged"],
+                   help="serving order of the dropped-client queue: fifo (drop "
+                        "order) or aged (weighted by rounds waiting); neither "
+                        "draws from the host sampling stream")
     # run plumbing
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--on_nonfinite", default="skip", choices=["off", "skip", "halt"],
@@ -93,7 +200,10 @@ def make_parser(task: str = "cv") -> argparse.ArgumentParser:
                         "kind[@round,...][:key=val,...] entries; kinds: preempt, "
                         "stall:secs=S, eval_stall:secs=S, data_fail:times=N, "
                         "nonfinite[:value=inf], ckpt_fail:times=N, ckpt_corrupt, "
-                        "ckpt_partial; seed=N. Unset = no injection")
+                        "ckpt_partial, client_drop:clients=I+J, "
+                        "client_straggle:clients=I,secs=S, "
+                        "client_poison:clients=I,value=nan|inf|big; seed=N. Unset "
+                        "= no injection")
     p.add_argument("--max_retries", type=int, default=3,
                    help="bounded retries (exponential backoff + jitter) for "
                         "checkpoint IO and data loading")
@@ -107,6 +217,11 @@ def make_parser(task: str = "cv") -> argparse.ArgumentParser:
     p.add_argument("--checkpoint_every", type=int, default=0, help="rounds; 0 = never")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on: cuda (default) or cpu")
+    # the reference's CLI-compatibility no-ops
+    p.add_argument("--share_ps_gpu", action="store_true",
+                   help="accepted for reference-CLI compatibility; no-op")
+    p.add_argument("--port", type=int, default=0,
+                   help="accepted for reference-CLI compatibility; no-op")
     if task == "cv":
         p.add_argument("--dataset", default="cifar10",
                        choices=["cifar10", "cifar100", "femnist"])
@@ -127,37 +242,12 @@ def make_parser(task: str = "cv") -> argparse.ArgumentParser:
         p.add_argument("--decode_temperature", type=float, default=0.0,
                        help="0 = greedy; > 0 samples with nucleus top-p")
         p.add_argument("--decode_top_p", type=float, default=0.9)
-        # the reference's flags for what the port does not run: refused by
-        # resolve_defaults unless left at these defaults
-        p.add_argument("--init_from", default="",
-                       help="not ported: fine-tuning from a HuggingFace GPT-2 "
-                            "checkpoint waits for checkpoint and tokenizer files")
-        p.add_argument("--mc_coef", type=float, default=0.0,
-                       help="not ported: the next-utterance-classification head")
-        p.add_argument("--attn_impl", default="dense", choices=["dense", "ring"],
-                       help="dense only; ring attention is not ported")
-        p.add_argument("--model_parallel", type=int, default=1,
-                       help="1 only; tensor parallelism is not ported")
-        p.add_argument("--seq_parallel", type=int, default=1,
-                       help="1 only; sequence parallelism is not ported")
-        p.add_argument("--moe_experts", type=int, default=0,
-                       help="0 only; mixture of experts is not ported")
-        p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
-                       help="float32 only; bfloat16 compute is not ported")
+    # the reference's flags for what the port does not run: refused by
+    # resolve_defaults unless left at the values the port runs
+    for flag, kw, ok, why, item in _unported(task):
+        p.add_argument(f"--{flag}", **kw, **({} if "help" in kw else {
+            "help": f"not ported ({why}); accepted at {ok[0]!r} only"}))
     return p
-
-
-# (flag, value the port runs, why another value is refused)
-_UNPORTED_GPT2 = (
-    ("init_from", "", "fine-tuning from a HuggingFace GPT-2 checkpoint waits for "
-                      "checkpoint and tokenizer files in the repository"),
-    ("mc_coef", 0.0, "the next-utterance-classification head is not ported"),
-    ("attn_impl", "dense", "ring attention is not ported"),
-    ("model_parallel", 1, "tensor parallelism is not ported"),
-    ("seq_parallel", 1, "sequence parallelism is not ported"),
-    ("moe_experts", 0, "mixture of experts is not ported"),
-    ("dtype", "float32", "bfloat16 compute is not ported"),
-)
 
 
 def resolve_defaults(args: argparse.Namespace) -> argparse.Namespace:
@@ -174,9 +264,14 @@ def resolve_defaults(args: argparse.Namespace) -> argparse.Namespace:
                            "local_topk": "local"}.get(args.mode, "none")
     if args.mode in ("fedavg", "localSGD") and args.num_local_iters < 1:
         args.num_local_iters = 1
-    for flag, ported, why in _UNPORTED_GPT2:
-        if hasattr(args, flag) and getattr(args, flag) != ported:
-            raise SystemExit(f"--{flag} {getattr(args, flag)}: {why}")
+    for flag, _, ok, why, item in _unported("gpt2"):
+        if hasattr(args, flag) and getattr(args, flag) not in ok:
+            where = (f"ROADMAP Queue 1 item {item}" if item is not None
+                     else "not queued in ROADMAP Queue 1")
+            raise SystemExit(f"--{flag} {getattr(args, flag)}: {why} ({where})")
+    if args.share_ps_gpu or args.port:
+        print("note: --share_ps_gpu/--port are reference-CLI compatibility no-ops (the port "
+              "has no worker processes)", flush=True)
     if args.watchdog_abort and not args.checkpoint_dir:
         raise SystemExit("--watchdog_abort needs --checkpoint_dir: aborting without an "
                          "emergency checkpoint would lose the run instead of resuming it")

@@ -82,10 +82,11 @@ def test_nonfinite_round_is_skipped():
 @pytest.mark.parametrize("flag", [["--dtype", "bfloat16"], ["--client_chunk", "4"],
                                   ["--sketch_path", "layerwise"]])
 def test_cli_rejects_reference_flags_the_port_does_not_honour(flag):
-    """A flag of the JAX CLI that the port does not run is refused, not
-    accepted and ignored."""
-    with pytest.raises(SystemExit):
-        cv_train.make_parser().parse_args(["--device", "cpu", *flag])
+    """A flag of the JAX CLI that the port does not run parses, and a value
+    that asks for the feature is refused by name, not accepted and
+    ignored."""
+    with pytest.raises(SystemExit, match=flag[0]):
+        cv_train.resolve_defaults(cv_train.make_parser().parse_args(["--device", "cpu", *flag]))
 
 
 @pytest.mark.parametrize("valid", [[1.0, 1.0], [1.0, 0.0], [0.0, 0.0]],

@@ -4,7 +4,8 @@ inputs go through both and the results are compared.
 - ``plan_block`` over a grid of (round, total, eval_every,
   checkpoint_every, K): identical lr lists (exact).
 - ``auto_inflight`` over a grid: identical depths (exact).
-- ``FaultPlan.parse`` of every ported kind: identical specs (exact).
+- ``FaultPlan.parse`` of every ported kind, the cohort kinds included:
+  identical specs (exact).
 - Round-batch assembly: identical cohorts and batches (bitwise); the
   reference draws rows with its native splitmix64/Floyd sampler.
 - The JAX ``cv_train.main`` (sync loop, the tests' flax ``_TinyNet``)
@@ -76,7 +77,9 @@ def test_auto_inflight_matches_jax():
 
 PLANS = ["preempt@3", "stall@2:secs=1.5", "eval_stall@4:secs=0.5", "data_fail@1,2:times=2",
          "nonfinite@4", "nonfinite@4:value=inf", "ckpt_fail@2:times=1", "ckpt_corrupt@2",
-         "ckpt_partial@2,5", "ckpt_fail:times=3", "preempt@1;stall@0:secs=0.1;seed=7"]
+         "ckpt_partial@2,5", "ckpt_fail:times=3", "preempt@1;stall@0:secs=0.1;seed=7",
+         "client_drop@2:clients=0+3", "client_straggle@1:clients=2,secs=0.01",
+         "client_poison@2:clients=1,value=big;client_poison:clients=0"]
 
 
 @pytest.mark.parametrize("text", PLANS)

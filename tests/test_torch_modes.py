@@ -95,8 +95,8 @@ def test_aggregate_survivor_mean_matches_reference():
 
 def test_unported_modes_raise():
     """Every mode is ported; what is not (the approximate top-k selections,
-    DP, the cohort-fault kinds) raises by name, never runs as something
-    else."""
+    the wire and one-host-preemption fault kinds) raises by name, never runs
+    as something else; DP's flags parse."""
     from commefficient_tpu_torch.resilience import FaultPlan
     from commefficient_tpu_torch.sketch import csvec
     from commefficient_tpu_torch.utils.config import make_parser
@@ -113,8 +113,7 @@ def test_unported_modes_raise():
         with pytest.raises(NotImplementedError, match=impl):
             csvec.topk_abs(x, 2, impl=impl)
     for flag in ("--dp_noise", "--dp_clip"):
-        with pytest.raises(SystemExit):
-            make_parser().parse_args([flag, "1.0"])
-    for kind in ("client_drop", "client_straggle", "client_poison"):
+        assert getattr(make_parser().parse_args([flag, "1.0"]), flag[2:]) == 1.0
+    for kind in ("host_preempt", "wire_corrupt"):
         with pytest.raises(ValueError, match=kind):
             FaultPlan.parse(f"{kind}@1")
