@@ -116,11 +116,30 @@ Phases (any failure raises, and the exit status is non-zero):
       1%, a fully masked round releases nothing, async == sync bitwise;
    g. phase 8h's sync probe with (b)'s dropout and clip, and with (e)'s
       noise: no host sync between drains.
+13. bfloat16, the double head and --init_from, through the entry points,
+   with the launch counts zeroed before each run:
+   a. ResNet-9 FetchSGD (phase 5's flags) with --dtype bfloat16, 6 rounds
+      sync and async: bitwise equal, one launch of each kernel a round,
+      the kernels == plain on the run's params and error table; a cohort's
+      reduced gradient on the card against the CPU port's in bfloat16
+      (bound: the card's own bfloat16-vs-float32 gap on that cohort) and
+      its loss sum (1e-2); device busy a round beside phase 9's float32;
+   b. GPT-2 small (phase 11's flags) with --mc_coef 1 --num_candidates 2
+      --dtype bfloat16 --eval_f1 4, 4 rounds sync and async: d =
+      85,453,824, bitwise equal rows (mc_acc, val_mc_acc, val_f1
+      included), one launch of each kernel a round, both kernels bitwise
+      against their plain versions at this d and timed; cuBLAS's reduced-
+      precision bfloat16 reductions timed on and off; device busy and
+      matrix-product time a round beside phase 11's float32, peak memory;
+   c. a GPT-2-small-shaped checkpoint in HuggingFace's layout (vocabulary
+      256, 1,024 positions) written with torch.save; --init_from loads it
+      bitwise (the grown rows by the reference's formula) and 2 rounds run.
 
 Prints one JSON line with the kernels' numbers (launches counted over
 phase 8; under "gpt2" each kernel's numbers at the GPT-2 shape, launches
 counted over phase 11a; "launches_cohort" counted over phase 12a's sync
-run), then as its last line
+run; "launches_bf16" over each run of phase 13 and under "gpt2_mc_bf16"
+the numbers at phase 13b's shape), then as its last line
 ``{"ok": true, "device": {...}}``. Run from the repository root:
     python3 chip_smoke.py
 ``--kernels-only`` stops after phase 4 (a short first check of a new kernel),
@@ -204,6 +223,14 @@ DROPOUT_ARGS = ["--client_dropout", "0.25", "--dp_clip", "5.0", "--requeue_polic
 DROPOUT_PLAN = "client_drop@1:clients=2+5;client_drop@3:clients=0+4"
 # the DP noise's measured std against dp_noise * dp_clip / participants
 NOISE_REL = 0.01
+# phase 13: bfloat16, the double head and --init_from. A cohort's bf16 loss
+# sum on the card against the CPU port's: bf16 rounding moves it by parts
+# in 1e4; a fault moves it by O(1)
+BF16_ROUNDS = 6
+BF16_LOSS_REL = 1e-2
+GPT2_MC_D = GPT2_D + 768  # the mc head: one n_embd vector
+INIT_VOCAB = 256  # the written checkpoint's vocabulary, grown to the byte tokenizer's 261
+INIT_ROUNDS = 2
 
 
 def fail(msg: str):
@@ -322,13 +349,20 @@ def card_vs_cpu(session, engine, csvec, cohorts: int, errs: dict) -> None:
              f"{worst[2]:.3e} (bound {GRAD_REL_L2})")
 
 
+def _is_gemm(kernel_name: str) -> bool:
+    """A cuBLAS/CUTLASS matrix-product kernel, by its name."""
+    name = kernel_name.lower()
+    return any(tag in name for tag in ("gemm", "nvjet", "xmma", "cutlass"))
+
+
 def profile_rounds(session, rounds: int = 2, top: int = 12, label: str = "",
-                   host_top: int = 0) -> float:
+                   host_top: int = 0, out: dict | None = None) -> float:
     """Where a steady round's time goes: a torch.profiler window over
     `rounds` more rounds; prints the device's busy time and idle share per
     round, the kernels that took most device time and the ``host_top`` host
     operations that took most host time, and returns the busy ms per round
-    (0.0: not measured)."""
+    (0.0: not measured). ``out``, if given, receives "busy_ms", "wall_ms"
+    and "gemm_ms" (the matrix-product kernels' ms a round, ``_is_gemm``)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -344,8 +378,13 @@ def profile_rounds(session, rounds: int = 2, top: int = 12, label: str = "",
         print(f"profile{label}: the profiler recorded no device time (not measured)",
               flush=True)
         return 0.0
+    gemms = [e for e in kernels if _is_gemm(e.key)]
+    gemm_ms = sum(e.self_device_time_total for e in gemms) / 1e3 / rounds
     print(f"profile{label}: {rounds} rounds, wall {wall_ms:.2f} ms/round (profiled), device "
-          f"busy {busy_ms:.2f} ms/round, idle share {1 - busy_ms / wall_ms:.3f}", flush=True)
+          f"busy {busy_ms:.2f} ms/round, idle share {1 - busy_ms / wall_ms:.3f}, matrix "
+          f"products {gemm_ms:.2f} ms/round in {len(gemms)} kernels", flush=True)
+    if out is not None:
+        out.update(busy_ms=busy_ms, wall_ms=wall_ms, gemm_ms=gemm_ms)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         ms = e.self_device_time_total / 1e3 / rounds
         print(f"  {ms:8.3f} ms/round  {e.count // rounds:5d}x  {e.key[:110]}", flush=True)
@@ -1058,9 +1097,11 @@ def cohort_phase(cv_train, engine, csvec, kernels, card: str) -> dict:
     return launches
 
 
-def gpt2_phase(kernels, csvec, engine, time_ms, gen: torch.Generator, card: str) -> dict:
+def gpt2_phase(kernels, csvec, engine, time_ms, gen: torch.Generator, card: str,
+               prof: dict) -> dict:
     """Phase 11: GPT-2 small PersonaChat fine-tuning through
-    ``gpt2_train.main``; returns the kernels' fields at the GPT-2 shape."""
+    ``gpt2_train.main``; returns the kernels' fields at the GPT-2 shape and
+    fills ``prof`` with its profile window's numbers."""
     import shutil
 
     from commefficient_tpu_torch import gpt2_train
@@ -1178,7 +1219,7 @@ def gpt2_phase(kernels, csvec, engine, time_ms, gen: torch.Generator, card: str)
     del f1_eval, extras, valid_set
 
     # h. where a round's time goes
-    busy = profile_rounds(b, top=10, label=f" gpt2 [{card}]", host_top=12)
+    busy = profile_rounds(b, top=10, label=f" gpt2 [{card}]", host_top=12, out=prof)
     del a, b
 
     # f. the uncompressed control, async against sync
@@ -1192,6 +1233,255 @@ def gpt2_phase(kernels, csvec, engine, time_ms, gen: torch.Generator, card: str)
     return {name: {**times[name], "launches": launch_log["sync"][name],
                    "max_abs_err": errs[i], "d": spec.d, "c": spec.c, "r": spec.r}
             for i, name in enumerate(("sketch_accumulate", "sketch_query"))}
+
+
+def write_hf_checkpoint(path: str, n_layer: int, n_embd: int, n_head: int, vocab: int,
+                        positions: int, gen: torch.Generator) -> dict:
+    """A GPT-2 checkpoint in HuggingFace's layout (``transformer.`` names,
+    Conv1D weights [in, out], a tied ``lm_head``), random normal(0.02)
+    weights and unit LayerNorm scales from ``gen``, written with
+    ``torch.save`` beside its ``config.json``; returns the state dict."""
+    def normal(*shape):
+        return 0.02 * torch.randn(shape, generator=gen)
+
+    sd = {"transformer.wte.weight": normal(vocab, n_embd),
+          "transformer.wpe.weight": normal(positions, n_embd),
+          "transformer.ln_f.weight": 1.0 + normal(n_embd), "transformer.ln_f.bias": normal(n_embd)}
+    for i in range(n_layer):
+        h = f"transformer.h.{i}."
+        for ln in ("ln_1", "ln_2"):
+            sd[h + ln + ".weight"], sd[h + ln + ".bias"] = 1.0 + normal(n_embd), normal(n_embd)
+        for name, (fan_in, fan_out) in (("attn.c_attn", (n_embd, 3 * n_embd)),
+                                        ("attn.c_proj", (n_embd, n_embd)),
+                                        ("mlp.c_fc", (n_embd, 4 * n_embd)),
+                                        ("mlp.c_proj", (4 * n_embd, n_embd))):
+            sd[h + name + ".weight"] = normal(fan_in, fan_out)
+            sd[h + name + ".bias"] = normal(fan_out)
+    sd["lm_head.weight"] = sd["transformer.wte.weight"]
+    os.makedirs(path, exist_ok=True)
+    torch.save(sd, os.path.join(path, "pytorch_model.bin"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"n_head": n_head, "n_layer": n_layer, "n_embd": n_embd,
+                   "layer_norm_epsilon": 1e-5}, f)
+    return sd
+
+
+def check_loaded(params: dict, sd: dict, vocab: int) -> str:
+    """The port's parameters loaded from ``sd`` against it, bitwise: every
+    linear weight transposed back ([out, in] -> HF's [in, out]), ``wte``'s
+    first ``vocab`` rows as written and the rows past them the mean row plus
+    0.02 x ``RandomState(0)`` normals (the reference's formula, in numpy),
+    ``wpe`` sliced to the run's positions. Returns a verdict; calls
+    ``fail`` on any difference."""
+    import numpy as np
+
+    bad = []
+    for name, p in params.items():
+        if name == "mc_head":
+            continue
+        p = p.detach().cpu()
+        if name == "wte":
+            wte = sd["transformer.wte.weight"].numpy()
+            extra = p.shape[0] - vocab
+            grown = wte.mean(axis=0, keepdims=True) + 0.02 * np.random.RandomState(
+                0).standard_normal((extra, wte.shape[1])).astype(np.float32)
+            ok = (torch.equal(p[:vocab], torch.from_numpy(wte))
+                  and torch.equal(p[vocab:], torch.from_numpy(grown)))
+        elif name == "wpe":
+            ok = torch.equal(p, sd["transformer.wpe.weight"][:p.shape[0]])
+        else:
+            hf = "transformer." + name.replace("h_", "h.", 1)
+            want = sd[hf]
+            ok = torch.equal(p.t() if p.dim() == 2 else p, want)
+        if not ok:
+            bad.append(name)
+    if bad:
+        fail(f"init_from: loaded params differ from the written checkpoint: {bad[:8]}")
+    return (f"init_from: {len(params) - 1} loaded leaves equal the written checkpoint bitwise "
+            f"(wte rows 0-{vocab - 1} as written, rows {vocab}-{params['wte'].shape[0] - 1} "
+            "the reference's mean + RandomState(0) formula)")
+
+
+def gemm_flag_ms(time_ms, card: str) -> str:
+    """cuBLAS's reduced-precision reductions of bfloat16 products, on
+    (torch's default) against off (the entry point's setting), in turns on
+    the GPT-2 small MLP's widest product: [4096, 768] x [768, 3072], the
+    rows of one client (8 sets of 2 candidates x 256 tokens)."""
+    a = torch.randn(4096, 768, device="cuda", dtype=torch.bfloat16)
+    b = torch.randn(768, 3072, device="cuda", dtype=torch.bfloat16)
+    flag = torch.backends.cuda.matmul
+    was = flag.allow_bf16_reduced_precision_reduction
+    ms = {True: [], False: []}
+    try:
+        for turn in range(4):
+            on = turn % 2 == 0
+            flag.allow_bf16_reduced_precision_reduction = on
+            ms[on].append(time_ms(lambda: a @ b, 20, lambda: None))
+        flag.allow_bf16_reduced_precision_reduction = True
+        c_on = a @ b
+        flag.allow_bf16_reduced_precision_reduction = False
+        c_off = a @ b
+    finally:
+        flag.allow_bf16_reduced_precision_reduction = was
+    exact = (a.double() @ b.double())
+    err = {k: ((c.double() - exact).norm() / exact.norm()).item()
+           for k, c in (("on", c_on), ("off", c_off))}
+    tflops = 2 * 4096 * 768 * 3072 / (min(ms[False]) * 1e-3) / 1e12
+    return (f"bf16 reduced-precision reductions: [4096, 768] x [768, 3072] ms on "
+            f"{[round(t, 4) for t in ms[True]]}, off {[round(t, 4) for t in ms[False]]} "
+            f"({tflops:.0f} TFLOP/s off); relative L2 error against float64: on "
+            f"{err['on']:.3e}, off {err['off']:.3e} [{card}]")
+
+
+def bf16_phase(cv_train, engine, csvec, kernels, time_ms, gen: torch.Generator, card: str,
+               f32: dict) -> dict:
+    """Phase 13: bfloat16 compute, the double head and --init_from through
+    the entry points; ``f32`` holds this run's float32 readings (phase 9's
+    and 11's profile windows). Returns the kernels' launch counts and their
+    fields at the MC GPT-2 shape."""
+    import shutil
+
+    from commefficient_tpu_torch import gpt2_train
+    from commefficient_tpu_torch.data.personachat import load_personachat_fed
+    from commefficient_tpu_torch.utils.config import make_parser, resolve_defaults
+
+    base = os.path.join(ROOT, "build", "chip_smoke", "bf16")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    launches = {}
+
+    def counted(label, fn, rounds_per_run=1):
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        s = fn()
+        torch.cuda.synchronize()
+        got = dict(kernels.launch_counts)
+        if any(n != rounds_per_run * s.run_stats.rounds for n in got.values()):
+            fail(f"bf16 {label}: launches {got} in {s.run_stats.rounds} rounds, expected "
+                 f"{rounds_per_run} per round")
+        launches[label] = got
+        print(f"bf16 {label}: {s.run_stats.rounds} rounds in {time.perf_counter() - t0:.1f} s "
+              f"(with start-up and eval), launches {got}, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+        print(_times(f"bf16 {label}", s.run_stats, card), flush=True)
+        return s
+
+    def rows_of(log):
+        with open(log) as f:
+            return [json.loads(line) for line in f]
+
+    # a. ResNet-9 FetchSGD in bfloat16, sync and async
+    res_args = SLICE_ARGS + ["--dtype", "bfloat16", "--num_rounds", str(BF16_ROUNDS)]
+    logs = {k: os.path.join(base, f"resnet9_{k}.jsonl") for k in ("sync", "async")}
+    a = counted("resnet9_sync", lambda: cv_train.main(
+        res_args + ["--sync_loop", "--log_jsonl", logs["sync"]]))
+    b = counted("resnet9_async", lambda: cv_train.main(res_args + ["--log_jsonl", logs["async"]]))
+    ra, rb = rows_of(logs["sync"])[-1], rows_of(logs["async"])[-1]
+    if not (_equal(_full_state(a), _full_state(b))
+            and all(ra[k] == rb[k] for k in ("train_loss", "test_loss", "test_acc", "comm_mb"))):
+        fail("bf16 resnet9: the async run differs from the sync run")
+    if not all(math.isfinite(ra[k]) for k in ("train_loss", "test_loss")):
+        fail(f"bf16 resnet9: non-finite loss in {ra}")
+    print(f"bf16 resnet9: async == sync bitwise over {BF16_ROUNDS} rounds (params, Vvelocity, "
+          f"Verror, batch-norm statistics, eval row {ra})", flush=True)
+    del b
+    check_kernels(csvec, a.cfg.mode.sketch_spec, a.state["params"], a.state["mode_state"]["Verror"])
+    print("bf16 resnet9: kernels == plain on the run's params and error table", flush=True)
+    # the card's bf16 gradient against the CPU port's, and against float32
+    batch = a.prepare_round().batch
+    g_card, _, m_card = engine.reduce_clients(a.train_loss_fn, a.cfg, a.layout, a.state,
+                                              a._to_device(batch))
+    cpu_state = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict)
+                     else v.cpu() if torch.is_tensor(v) else v) for k, v in a.state.items()}
+    g_cpu, _, m_cpu = engine.reduce_clients(a.train_loss_fn, a.cfg, a.layout, cpu_state,
+                                            dict(batch))
+    f32_session, _ = cv_train.build(resolve_defaults(make_parser().parse_args(SLICE_ARGS)))
+    g_f32, _, _ = engine.reduce_clients(f32_session.train_loss_fn, f32_session.cfg,
+                                        f32_session.layout, a.state, a._to_device(batch))
+    del f32_session
+    cpu_rel = ((g_card.cpu() - g_cpu).norm() / g_cpu.norm()).item()
+    gap = ((g_card - g_f32).norm() / g_f32.norm()).item()
+    loss_rel = abs(m_card["loss_sum"].item() / m_cpu["loss_sum"].item() - 1)
+    verdict = (f"bf16 resnet9: reduced gradient, card bf16 vs CPU bf16 relative L2 {cpu_rel:.3e} "
+               f"(bound: the card's own bf16-vs-float32 gap {gap:.3e}; phase 7's float32 card "
+               f"vs CPU bound {GRAD_REL_L2}), loss sum rel {loss_rel:.3e} (bound {BF16_LOSS_REL})")
+    if not (cpu_rel < gap and loss_rel < BF16_LOSS_REL):
+        fail(verdict)
+    print(verdict, flush=True)
+    prof_res = {}
+    profile_rounds(a, top=6, label=f" bf16 resnet9 [{card}]", out=prof_res)
+    print(f"bf16 resnet9: device busy {prof_res.get('busy_ms', 0.0):.2f} ms/round against "
+          f"float32's {f32.get('resnet9_busy_ms', 0.0):.2f} (phase 9) [{card}]", flush=True)
+    del a
+
+    # b. GPT-2 small, the double head in bfloat16
+    print(gemm_flag_ms(time_ms, card), flush=True)
+    mc = GPT2_ARGS + ["--mc_coef", "1", "--num_candidates", "2", "--dtype", "bfloat16",
+                      "--num_rounds", str(GPT2_ROUNDS)]
+    args0 = resolve_defaults(make_parser("gpt2").parse_args(mc))
+    t0 = time.perf_counter()
+    load_personachat_fed(args0.data_root, args0.num_clients, args0.seq_len, args0.seed,
+                         num_candidates=2)
+    print(f"bf16 gpt2: MC corpus of {args0.num_clients:,} personas x 2 candidates at seq_len "
+          f"{args0.seq_len} built in {time.perf_counter() - t0:.1f} s (host)", flush=True)
+    logs = {k: os.path.join(base, f"gpt2_{k}.jsonl") for k in ("sync", "async", "init")}
+    s = counted("gpt2_mc_sync", lambda: gpt2_train.main(
+        mc + ["--sync_loop", "--eval_f1", "4", "--log_jsonl", logs["sync"]]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if s.layout.d != GPT2_MC_D:
+        fail(f"bf16 gpt2: d={s.layout.d}, expected {GPT2_MC_D}")
+    t = counted("gpt2_mc_async", lambda: gpt2_train.main(
+        mc + ["--eval_f1", "4", "--log_jsonl", logs["async"]]))
+    rs, rt = rows_of(logs["sync"])[-1], rows_of(logs["async"])[-1]
+    keys = ("train_nll", "val_nll", "mc_acc", "val_mc_acc", "val_f1", "comm_mb")
+    if not all(math.isfinite(rs[k]) for k in keys):
+        fail(f"bf16 gpt2: non-finite value in {rs}")
+    if not (_equal(_state(s), _state(t)) and all(rs[k] == rt[k] for k in keys)):
+        fail("bf16 gpt2: the async run differs from the sync run")
+    print(f"bf16 gpt2: d={s.layout.d:,} (mc_head at {[l.name for l in s.layout.leaves][-3]}), "
+          f"async == sync bitwise over {GPT2_ROUNDS} rounds; final row {rs}", flush=True)
+    del t
+    spec = s.cfg.mode.sketch_spec
+    v = torch.randn(spec.d, generator=gen, device="cuda")
+    errs = [max(e) for e in zip(check_kernels(csvec, spec, v),
+                                check_kernels(csvec, spec, s.state["params"],
+                                              s.state["mode_state"]["Verror"]))]
+    del v
+    print(f"bf16 gpt2: kernels == plain at d={spec.d} c={spec.c} r={spec.r} "
+          f"({spec.num_slabs} slabs), on a random vector and on the run's params and error "
+          "table", flush=True)
+    times = time_kernels(csvec, kernels, time_ms, spec, gen)
+    prof = {}
+    profile_rounds(s, top=12, label=f" bf16 gpt2 mc [{card}]", host_top=8, out=prof)
+    print(f"bf16 gpt2: device busy {prof.get('busy_ms', 0.0):.2f} ms/round, matrix products "
+          f"{prof.get('gemm_ms', 0.0):.2f}, peak device memory {peak_gb:.2f} GB; float32 LM "
+          f"(phase 11): busy {f32.get('gpt2_busy_ms', 0.0):.2f}, matrix products "
+          f"{f32.get('gpt2_gemm_ms', 0.0):.2f} [{card}]", flush=True)
+    del s
+
+    # c. --init_from a checkpoint in HuggingFace's layout
+    ckpt_dir = os.path.join(base, "hf_gpt2_small")
+    t0 = time.perf_counter()
+    sd = write_hf_checkpoint(ckpt_dir, 12, 768, 12, INIT_VOCAB, 1024,
+                             torch.Generator().manual_seed(0))
+    init = mc[:mc.index("--num_rounds")] + ["--num_rounds", str(INIT_ROUNDS), "--init_from",
+                                            ckpt_dir]
+    session, _, _ = gpt2_train.build(resolve_defaults(make_parser("gpt2").parse_args(init)))
+    print(check_loaded(session.params(), sd, INIT_VOCAB) + f" ({time.perf_counter() - t0:.1f} s "
+          "to write and load)", flush=True)
+    del session
+    u = counted("init_from", lambda: gpt2_train.main(init + ["--log_jsonl", logs["init"]]))
+    ru = rows_of(logs["init"])[-1]
+    if not all(math.isfinite(ru[k]) for k in ("train_nll", "val_nll", "mc_acc")):
+        fail(f"bf16 init_from: non-finite value in {ru}")
+    print(f"bf16 init_from: {INIT_ROUNDS} rounds from the checkpoint, final row {ru}", flush=True)
+    del u, sd
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return {"launches": launches,
+            "gpt2_mc": {name: {**times[name], "launches": launches["gpt2_mc_sync"][name],
+                               "max_abs_err": errs[i], "d": spec.d, "c": spec.c, "r": spec.r}
+                        for i, name in enumerate(("sketch_accumulate", "sketch_query"))}}
 
 
 REPLACES = {"sketch_accumulate": "commefficient_tpu/sketch/pallas_kernels.py:135",
@@ -1371,7 +1661,7 @@ def main(argv: list[str]) -> int:
 
     # 9. profile
     phase("9 (profile)")
-    profile_rounds(session)
+    f32 = {"resnet9_busy_ms": profile_rounds(session)}
     determinism_cost(session, card)
 
     # 10. baselines
@@ -1382,17 +1672,25 @@ def main(argv: list[str]) -> int:
 
     # 11. GPT-2
     phase("11 (gpt2)")
-    gpt2 = gpt2_phase(kernels, csvec, engine, time_ms, gen, card)
+    prof = {}
+    gpt2 = gpt2_phase(kernels, csvec, engine, time_ms, gen, card, prof)
+    f32.update(gpt2_busy_ms=prof.get("busy_ms", 0.0), gpt2_gemm_ms=prof.get("gemm_ms", 0.0))
 
     # 12. client participation
     phase("12 (cohort)")
     cohort = cohort_phase(cv_train, engine, csvec, kernels, card)
+
+    # 13. bfloat16, the double head, --init_from
+    phase("13 (bf16, double head, init_from)")
+    bf16 = bf16_phase(cv_train, engine, csvec, kernels, time_ms, gen, card, f32)
     phase("end")
 
     for name in rows:
-        rows[name]["max_abs_err"] = errs[name]
+        rows[name]["max_abs_err"] = max(errs[name], bf16["gpt2_mc"][name]["max_abs_err"])
         rows[name]["gpt2"] = gpt2[name]
         rows[name]["launches_cohort"] = cohort[name]
+        rows[name]["gpt2_mc_bf16"] = bf16["gpt2_mc"][name]
+        rows[name]["launches_bf16"] = {run: n[name] for run, n in bf16["launches"].items()}
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -20,6 +20,9 @@ A baseline, e.g. local top-k over 3,550 FEMNIST writers with server-side
     python -m commefficient_tpu_torch.cv_train --dataset femnist --mode local_topk \
         --num_clients 3550 --error_type virtual --momentum_type virtual --k 50000
 
+--dtype bfloat16 computes in bfloat16 as the reference does (parameters,
+batch-norm statistics, logits and the sketched gradient stay float32).
+
 Without the CIFAR-10 pickles (or LEAF's FEMNIST json under
 --data_root/femnist) the deterministic synthetic set of the same shape is
 used.
@@ -56,20 +59,20 @@ def build(args):
     if args.dataset == "femnist":
         train_set, test_set, num_classes = load_femnist_fed(
             args.data_root, args.num_clients, args.seed)
-        model = FEMNISTCNN(num_classes=num_classes)
+        model = FEMNISTCNN(num_classes=num_classes, dtype=args.dtype)
     else:
         train_set, test_set, num_classes = load_cifar_fed(
             args.dataset, args.num_clients, args.iid, args.data_root, args.seed,
             synthetic_separation=args.synthetic_separation,
             synthetic_train=args.synthetic_train,
         )
-        model = ResNet9(num_classes=num_classes)
+        model = ResNet9(num_classes=num_classes, dtype=args.dtype)
     args.num_clients = train_set.num_clients  # actual shard count
     init_weights(model, args.seed)
     model.to(device)
     layout = FlatLayout(model)
     print(f"model: {type(model).__name__}  d={layout.d:,}  clients={train_set.num_clients}  "
-          f"mode={args.mode}  device={device}", flush=True)
+          f"mode={args.mode}  dtype={args.dtype}  device={device}", flush=True)
     session = FederatedSession(
         train_loss_fn=make_classification_loss(model, train=True),
         eval_loss_fn=make_classification_loss(model, train=False),

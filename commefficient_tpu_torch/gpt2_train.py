@@ -1,5 +1,6 @@
 """GPT-2 PersonaChat federated fine-tuning CLI of the port: the twin of the
-repository's ``gpt2_train.py`` (one client per persona, the GPT-2 LM loss,
+repository's ``gpt2_train.py`` (one client per persona, the GPT-2 LM loss
+or with ``--mc_coef > 0`` the double-head LM + next-utterance objective,
 validation NLL and perplexity), driven through the run loop (``runner/``):
 async by default, ``--sync_loop`` for the serial path.
 
@@ -9,15 +10,20 @@ FetchSGD on the GPU (the paper's configuration, at GPT-2 small's widths):
 On the CPU (small and slow; for checking the path):
     python -m commefficient_tpu_torch.gpt2_train --device cpu --model_size tiny \
         --num_clients 50 --num_workers 4 --num_rounds 10 --mode uncompressed
---checkpoint_dir, --resume and the preemption exit 75 work as in
-``cv_train``.
+The double head in bfloat16 (the mc head adds n_embd parameters):
+    python -m commefficient_tpu_torch.gpt2_train --mode sketch --num_clients 17500 \
+        --num_workers 4 --k 50000 --num_cols 1000000 --num_rows 5 --num_blocks 20 \
+        --mc_coef 1 --num_candidates 2 --dtype bfloat16
+--init_from DIR starts from a HuggingFace GPT-2 checkpoint (``models/
+gpt2_loader.py``) instead of a random init. --checkpoint_dir, --resume and
+the preemption exit 75 work as in ``cv_train``.
 
 The port runs the byte-level tokenizer (vocabulary 261) and, without
 ``personachat_self_original.json`` under --data_root, the deterministic
 synthetic persona-grouped corpus, with GPT-2 randomly initialised from
---seed. Refused by name: --init_from (waits for checkpoint and tokenizer
-files), --mc_coef > 0, --attn_impl ring, --model_parallel or
---seq_parallel > 1, --moe_experts > 0 and --dtype bfloat16.
+--seed unless --init_from names a checkpoint. Refused by name:
+--attn_impl ring, --model_parallel or --seq_parallel > 1 and
+--moe_experts > 0.
 """
 
 from __future__ import annotations
@@ -34,7 +40,8 @@ from .federated.api import FederatedSession, FedModel, FedOptimizer
 from .models.convert import FlatLayout
 from .models.generate import decode_reply, make_generate, word_f1
 from .models.gpt2 import SMALL, TINY, GPT2LMHead, init_weights
-from .models.losses import make_lm_loss
+from .models.gpt2_loader import load_hf_gpt2
+from .models.losses import make_lm_loss, make_lm_mc_loss
 from .resilience import FaultPlan, RetryPolicy
 from .runner import RunnerConfig, run_loop
 from .utils import checkpoint as ckpt
@@ -44,28 +51,66 @@ from .utils.logging import TableLogger
 from .utils.schedules import triangular
 
 
+def _from_checkpoint(args, tok, with_mc_head: bool) -> tuple[GPT2LMHead, dict, str]:
+    """(model, its initial parameters, a note for the start-up line) of
+    --init_from: the checkpoint's GPT-2 with the vocabulary grown to the
+    tokenizer's and the positions sliced to --seq_len, and with the mc head
+    a fresh normal(0.02) ``mc_head`` from a generator seeded --seed."""
+    params, cfg = load_hf_gpt2(args.init_from, target_vocab_size=tok.vocab_size,
+                               n_positions=max(args.seq_len, 1), dtype=args.dtype)
+    cfg = dataclasses.replace(cfg, with_mc_head=with_mc_head)
+    model = GPT2LMHead(cfg)
+    if with_mc_head:
+        gen = torch.Generator().manual_seed(args.seed)
+        params["mc_head"] = torch.empty(cfg.n_embd).normal_(0.0, 0.02, generator=gen)
+    # structural check: the loaded tree must be the one the model builds
+    want = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    if {k: tuple(p.shape) for k, p in params.items()} != want:
+        raise ValueError(f"checkpoint {args.init_from} does not match the model tree")
+    return model, params, f"  init_from={args.init_from}"
+
+
 def build(args):
     """(session, validation set, {"model", "tok"}) of the parsed flags. The
     model module stays on the host: every forward gets its parameters from
     the session's flat vector (``functional_call``)."""
     fault_plan = FaultPlan.parse(args.fault_plan)  # refuses an unported kind first
+    if args.mc_coef > 0 and args.num_candidates < 2:
+        raise SystemExit("--mc_coef > 0 needs --num_candidates >= 2 (the MC head scores "
+                         "a gold reply against at least one distractor)")
+    with_mc_head = args.mc_coef > 0
     if torch.device(args.device).type == "cuda":
         make_reproducible()  # before any CUDA work of the run
     device = resolve_device(args.device)
     train_set, valid_set, tok = load_personachat_fed(
-        args.data_root, args.num_clients, args.seq_len, args.seed)
+        args.data_root, args.num_clients, args.seq_len, args.seed,
+        num_candidates=args.num_candidates if with_mc_head else 1,
+        mc_hard_negatives=args.mc_hard_negatives)
     args.num_clients = train_set.num_clients
-    base = TINY if args.model_size == "tiny" else SMALL
-    cfg = dataclasses.replace(base, vocab_size=tok.vocab_size, n_positions=max(args.seq_len, 1))
-    model = GPT2LMHead(cfg)
-    init_weights(model, args.seed)
+    if args.init_from:
+        model, params, init_note = _from_checkpoint(args, tok, with_mc_head)
+    else:
+        base = TINY if args.model_size == "tiny" else SMALL
+        cfg = dataclasses.replace(base, vocab_size=tok.vocab_size,
+                                  n_positions=max(args.seq_len, 1), with_mc_head=with_mc_head,
+                                  dtype=args.dtype)
+        model = GPT2LMHead(cfg)
+        init_weights(model, args.seed)
+        params, init_note = dict(model.named_parameters()), ""
+    cfg = model.cfg
     layout = FlatLayout(model)
     print(f"model: GPT2({args.model_size})  d={layout.d:,}  vocab={cfg.vocab_size}  "
-          f"clients={train_set.num_clients}  mode={args.mode}  device={device}", flush=True)
+          f"clients={train_set.num_clients}  mode={args.mode}  dtype={cfg.dtype}  "
+          f"device={device}{init_note}", flush=True)
+    if with_mc_head:
+        train_loss = make_lm_mc_loss(model, True, args.mc_coef, tok.pad_id)
+        eval_loss = make_lm_mc_loss(model, False, args.mc_coef, tok.pad_id)
+    else:
+        train_loss, eval_loss = make_lm_loss(model, train=True), make_lm_loss(model, train=False)
     session = FederatedSession(
-        train_loss_fn=make_lm_loss(model, train=True),
-        eval_loss_fn=make_lm_loss(model, train=False),
-        params=dict(model.named_parameters()),
+        train_loss_fn=train_loss,
+        eval_loss_fn=eval_loss,
+        params=params,
         net_state={},
         layout=layout,
         mode_cfg=mode_config_from_args(args, layout.d),
@@ -165,6 +210,10 @@ def main(argv=None):
             "time_s": time_s,
             "nonfinite_rounds": nonfinite_total,
         }
+        if args.mc_coef > 0:
+            # present from the first row: TableLogger freezes its columns
+            row["mc_acc"] = totals.get("mc_correct", 0.0) / max(totals.get("mc_count", 0.0), 1)
+            row["val_mc_acc"] = ev.get("mc_correct", 0.0) / max(ev.get("mc_count", 0.0), 1)
         if f1_eval is not None:
             row["val_f1"] = f1_eval(model.params, rnd)
         return row

@@ -8,7 +8,8 @@ sorted-key order of the flax parameter tree (ResNet-9:
 ``ConvBN_0/BatchNorm_0/bias``, ``.../scale``, ``ConvBN_0/Conv_0/kernel``,
 ..., ``Dense_0``, ``Residual_0``, ``Residual_1``; FEMNIST: ``Conv_0/bias``,
 ``Conv_0/kernel``, ``Conv_1``, ``Dense_0``, ``Dense_1``; GPT-2: ``h_0``,
-``h_1``, ``h_10``, ``h_11``, ``h_2``, ..., ``ln_f``, ``wpe``, ``wte``), each
+``h_1``, ``h_10``, ``h_11``, ``h_2``, ..., ``ln_f``, then ``mc_head`` when
+the model has the classification head, ``wpe``, ``wte``), each
 leaf flattened row-major in flax's layout: conv kernels HWIO, dense kernels
 [in, out]. A wrong order would silently change every top-k. ``FlatLayout``
 holds that order and converts between the flat vector and the port's
@@ -50,7 +51,7 @@ _LEAF_NAMES = {
     ("bn", "running_mean"): "mean", ("bn", "running_var"): "var",
     ("linear", "weight"): "kernel", ("linear", "bias"): "bias",
     ("ln", "weight"): "scale", ("ln", "bias"): "bias",
-    ("raw", "wte"): "wte", ("raw", "wpe"): "wpe",
+    ("raw", "wte"): "wte", ("raw", "wpe"): "wpe", ("raw", "mc_head"): "mc_head",
 }
 # the axis permutation taking the kernel of a conv or dense layer (flax leaf
 # "kernel") from the port's layout to flax's, by its rank; every other leaf

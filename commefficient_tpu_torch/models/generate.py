@@ -5,7 +5,10 @@ The decode loop runs a fixed number of steps on a fixed [B, T] token buffer:
 each step runs a forward over the whole buffer and reads the logits at every
 row's own current position (the model's ``logit_positions`` fast path);
 positions past a finished row (<eos> emitted) keep <pad>. There is no KV
-cache, as in the reference: eval decodes a handful of examples.
+cache, as in the reference: eval decodes a handful of examples. The model
+may compute in bfloat16 (its logits are float32 either way) and may carry
+the mc head, which a forward without ``mc_positions`` leaves out; an MC
+dataset hands the decoder its gold candidates (``decode_examples``).
 
 Temperature 0 is greedy (argmax, the lowest index on ties, as
 ``jnp.argmax``). Otherwise nucleus (top-p) sampling in sorted-logit space

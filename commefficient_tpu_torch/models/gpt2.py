@@ -1,5 +1,6 @@
-"""GPT-2 (LM head, tied embeddings): the port's twin of the JAX package's
-``models/gpt2.py``, dense attention in float32.
+"""GPT-2 (LM head, tied embeddings, optional next-utterance-classification
+head): the port's twin of the JAX package's ``models/gpt2.py``, dense
+attention in float32 or bfloat16.
 
 The modules carry flax's names (``h_{i}``, ``attn/c_attn``, ``attn/c_proj``,
 ``ln_1``, ``ln_2``, ``mlp/c_fc``, ``mlp/c_proj``, ``ln_f``, ``wte``, ``wpe``)
@@ -16,16 +17,29 @@ randomness is a function of the round alone. The masks differ from the
 reference's (threefry is not ported): parity with dropout on is
 distributional.
 
+``dtype="bfloat16"`` computes as the reference does, cast for cast:
+parameters stay float32; the embeddings are summed in float32 and the
+residual stream is then bfloat16; every LayerNorm normalises in float32 and
+returns float32 (flax promotes to its float32 parameters); each dense layer
+casts its input, kernel and bias to bfloat16 and returns bfloat16; the
+attention scale 1/sqrt(head_dim) is rounded in bfloat16, the mask fill is
+bfloat16's lowest value, and the softmax runs in float32 and is cast back
+before dropout and the second product. The LM logits, and the mc head's
+scores, are float32 products of the float32 final LayerNorm.
+
+With ``with_mc_head`` the model owns a raw ``mc_head`` [n_embd] parameter;
+given ``mc_positions`` [B] the forward returns ``(lm_logits, scores)``,
+scores[b] the float32 hidden state at mc_positions[b] dotted with it.
+
 Not ported (a config asking for them raises): ring attention, mixture of
-experts, rematerialisation, the next-utterance-classification head and
-bfloat16 compute.
+experts and rematerialisation.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -68,9 +82,9 @@ def check_ported(cfg: GPT2Config) -> None:
         ("attn_impl='ring' (ring attention)", cfg.attn_impl != "dense"),
         ("moe_experts > 0 (mixture of experts)", cfg.moe_experts > 0),
         ("remat (rematerialisation)", cfg.remat),
-        ("with_mc_head (next-utterance-classification head)", cfg.with_mc_head),
-        ("dtype='bfloat16'", cfg.dtype != "float32"),
     ) if on]
+    if cfg.dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"dtype must be 'float32' or 'bfloat16', got {cfg.dtype!r}")
     if unported:
         raise NotImplementedError(f"GPT-2 {', '.join(unported)}: not ported")
 
@@ -87,8 +101,72 @@ def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None) -> torch.
 
 
 def gather_at(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    """[B, ...rest] rows of x[B, T, ...rest] at per-row positions pos[B]."""
-    return x[torch.arange(x.shape[0], device=x.device), pos.long()]
+    """[B, C] rows of x[B, T, C] at per-row positions pos[B], as
+    ``take_along_axis`` (``torch.gather``, whose backward is deterministic
+    on CUDA)."""
+    idx = pos.long().reshape(-1, 1, 1).expand(-1, 1, x.shape[-1])
+    return x.gather(1, idx)[:, 0]
+
+
+def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax's ``nn.Dense(dtype=dtype)``: input, kernel and bias cast to
+    ``dtype``, the product returned in ``dtype``. In bfloat16 the product
+    is rounded before the bias is added, as flax adds it (a bias fused into
+    the GEMM rounds once, and then differs in about 3 elements of 10)."""
+    w, b = layer.weight.to(dtype), layer.bias.to(dtype)
+    if dtype == torch.float32:
+        return F.linear(x, w, b)
+    return F.linear(x.to(dtype), w) + b
+
+
+def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """flax's ``nn.LayerNorm`` (float32 parameters) of ``x``, in float32.
+    For a bfloat16 ``x`` as flax computes it: the statistics from one cast
+    of x (mean and E[x^2] - mean^2, clamped at 0), the normalisation from
+    another, so that the backward rounds each cast's cotangent to bfloat16
+    on its own before adding them, as JAX's does."""
+    if x.dtype == torch.float32:
+        return ln(x)
+    xs = x.float()
+    mu = xs.mean(-1, keepdim=True)
+    var = ((xs * xs).mean(-1, keepdim=True) - mu * mu).clamp_min(0.0)
+    return (x.float() - mu) * (torch.rsqrt(var + ln.eps) * ln.weight) + ln.bias
+
+
+class _GeluBF16(torch.autograd.Function):
+    """``jax.nn.gelu(approximate=True)`` of a bfloat16 tensor, forward and
+    backward, with the primitives JAX's autodiff emits, each result rounded
+    to bfloat16 and the constants rounded first (sqrt(2/pi) -> 0.796875,
+    0.044715 -> 0.044677734375)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        k0, k1 = (torch.tensor(c, dtype=x.dtype).item()
+                  for c in (math.sqrt(2.0 / math.pi), 0.044715))
+        t = torch.tanh(k0 * (x + k1 * x ** 3))
+        half = 0.5 * (1.0 + t)
+        ctx.save_for_backward(x, t, half)
+        ctx.k = (k0, k1)
+        return x * half
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        x, t, half = ctx.saved_tensors
+        k0, k1 = ctx.k
+        p = (0.5 * (x * g)) * (1.0 - t)  # through x * half, then tanh
+        s = k0 * (p + p * t)
+        return (g * half + s) + (k1 * s) * (3.0 * x ** 2)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh-approximated GELU as ``jax.nn.gelu(approximate=True)``
+    computes it: ``F.gelu`` in float32; in bfloat16 op by op, each result
+    rounded, forward and backward (``_GeluBF16``). ``F.gelu`` would round
+    once and then differ in about 4 elements of 10, and its backward in
+    about 2 of 10."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+    return _GeluBF16.apply(x)
 
 
 class Attention(nn.Module):
@@ -100,17 +178,19 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, gen: torch.Generator | None) -> torch.Tensor:
         cfg = self.cfg
+        dt = cfg.compute_dtype
         B, T, C = x.shape
-        q, k, v = self.c_attn(x).split(C, dim=-1)
+        q, k, v = dense(self.c_attn, x, dt).split(C, dim=-1)
         q, k, v = (t.reshape(B, T, cfg.n_head, cfg.head_dim).transpose(1, 2) for t in (q, k, v))
-        # 1 / sqrt(head_dim) rounded in float32 as the reference computes it
-        scale = float(np.float32(1.0) / np.sqrt(np.float32(cfg.head_dim)))
+        # 1 / sqrt(head_dim) rounded in the compute dtype, as the reference
+        # computes it; a Python float of that value scales without a copy
+        scale = (1.0 / torch.sqrt(torch.tensor(float(cfg.head_dim), dtype=dt))).item()
         att = torch.matmul(q, k.transpose(-1, -2)) * scale
         causal = torch.ones((T, T), dtype=torch.bool, device=x.device).tril()
         att = att.masked_fill(~causal, torch.finfo(att.dtype).min)
-        att = dropout(torch.softmax(att.float(), dim=-1), cfg.dropout, gen)
+        att = dropout(torch.softmax(att.float(), dim=-1).to(dt), cfg.dropout, gen)
         y = torch.matmul(att, v).transpose(1, 2).reshape(B, T, C)
-        return dropout(self.c_proj(y), cfg.dropout, gen)
+        return dropout(dense(self.c_proj, y, dt), cfg.dropout, gen)
 
 
 class MLP(nn.Module):
@@ -121,8 +201,9 @@ class MLP(nn.Module):
         self.c_proj = nn.Linear(4 * cfg.n_embd, cfg.n_embd)
 
     def forward(self, x: torch.Tensor, gen: torch.Generator | None) -> torch.Tensor:
-        h = F.gelu(self.c_fc(x), approximate="tanh")
-        return dropout(self.c_proj(h), self.cfg.dropout, gen)
+        dt = self.cfg.compute_dtype
+        h = gelu(dense(self.c_fc, x, dt))
+        return dropout(dense(self.c_proj, h, dt), self.cfg.dropout, gen)
 
 
 class Block(nn.Module):
@@ -134,12 +215,15 @@ class Block(nn.Module):
         self.mlp = MLP(cfg)
 
     def forward(self, x: torch.Tensor, gen: torch.Generator | None) -> torch.Tensor:
-        x = x + self.attn(self.ln_1(x), gen)
-        return x + self.mlp(self.ln_2(x), gen)
+        # the norms return float32 (flax promotes); the sublayers return the
+        # compute dtype, which the residual stream keeps
+        x = x + self.attn(layer_norm(self.ln_1, x), gen)
+        return x + self.mlp(layer_norm(self.ln_2, x), gen)
 
 
 class GPT2LMHead(nn.Module):
-    """Causal LM with tied input/output embeddings."""
+    """Causal LM with tied input/output embeddings; optional
+    next-utterance-classification head (``cfg.with_mc_head``)."""
 
     def __init__(self, cfg: GPT2Config):
         super().__init__()
@@ -150,14 +234,19 @@ class GPT2LMHead(nn.Module):
         for i in range(cfg.n_layer):
             self.add_module(f"h_{i}", Block(cfg))
         self.ln_f = nn.LayerNorm(cfg.n_embd, eps=cfg.ln_eps)
+        if cfg.with_mc_head:
+            self.mc_head = nn.Parameter(torch.empty(cfg.n_embd))
 
     def forward(self, input_ids: torch.Tensor, train: bool = True,
                 token_type_ids: torch.Tensor | None = None,
                 logit_positions: torch.Tensor | None = None,
-                gen: torch.Generator | None = None) -> torch.Tensor:
+                gen: torch.Generator | None = None,
+                mc_positions: torch.Tensor | None = None):
         """Logits [B, T, V] (float32), or [B, V] at one position per row
-        with ``logit_positions`` [B] (the decode fast path). Dropout runs
-        when ``train`` and draws from ``gen``, which it then needs."""
+        with ``logit_positions`` [B] (the decode fast path), or with the mc
+        head and ``mc_positions`` [B] the pair (logits [B, T, V], scores
+        [B]). Dropout runs when ``train`` and draws from ``gen``, which it
+        then needs."""
         cfg = self.cfg
         if train and cfg.dropout > 0 and gen is None:
             raise ValueError("a training forward with dropout needs a generator")
@@ -166,25 +255,29 @@ class GPT2LMHead(nn.Module):
         x = F.embedding(input_ids.long(), self.wte) + self.wpe[:T][None]
         if token_type_ids is not None:
             x = x + F.embedding(token_type_ids.long(), self.wte)
-        x = dropout(x, cfg.dropout, gen)
+        x = dropout(x.to(cfg.compute_dtype), cfg.dropout, gen)
         for i in range(cfg.n_layer):
             x = getattr(self, f"h_{i}")(x, gen)
-        x = self.ln_f(x)
+        x = layer_norm(self.ln_f, x)
         if logit_positions is not None:
-            x = gather_at(x, logit_positions)
-        return torch.matmul(x.float(), self.wte.t())
+            return torch.matmul(gather_at(x, logit_positions), self.wte.t())
+        lm_logits = torch.matmul(x, self.wte.t())
+        if not cfg.with_mc_head or mc_positions is None:
+            return lm_logits
+        return lm_logits, gather_at(x, mc_positions) @ self.mc_head
 
 
 def init_weights(model: GPT2LMHead, seed: int) -> None:
     """Initialise in place like the reference's flax init, from an explicit
     generator: ``wte`` normal(0.02), ``wpe`` normal(0.01), Dense kernels
     lecun-normal (normal truncated at two standard deviations, variance
-    1 / fan_in), biases 0, LayerNorm scales 1. The distributions match the
-    reference's, not the draws."""
+    1 / fan_in), biases 0, LayerNorm scales 1, ``mc_head`` normal(0.02)
+    (drawn last, so the head changes no other draw). The distributions
+    match the reference's, not the draws."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name == "wte":
+            if name in ("wte", "mc_head"):
                 p.normal_(0.0, 0.02, generator=gen)
             elif name == "wpe":
                 p.normal_(0.0, 0.01, generator=gen)

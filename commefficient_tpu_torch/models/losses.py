@@ -2,7 +2,8 @@
 ``loss_fn(params, net_state, batch, gen=None) -> (loss, aux)``, the twin of
 the JAX package's ``models/losses.py``. ``gen`` is the ``torch.Generator``
 a training forward draws its dropout masks from (None in eval); the
-classification losses ignore it."""
+classification losses ignore it. The LM losses are ``make_lm_loss`` and,
+for the double-head objective, ``make_lm_mc_loss``."""
 
 from __future__ import annotations
 
@@ -67,6 +68,63 @@ def make_lm_loss(model: nn.Module, train: bool):
         return loss, {
             "net_state": net_state,
             "metrics": {"loss_sum": loss_sum, "count": mask.sum(), "correct": correct},
+        }
+
+    return loss_fn
+
+
+def make_lm_mc_loss(model: nn.Module, train: bool, mc_coef: float = 1.0, pad_id: int = 0):
+    """The double-head objective of transfer-learning-conv-ai (LM plus
+    next-utterance classification), the twin of the reference's
+    ``make_lm_mc_loss``, for a ``GPT2LMHead`` with ``with_mc_head``.
+
+    batch = {"input_ids", "token_type_ids", "labels": [B, C, T] (only the
+    gold candidate carries reply labels; -100 = ignore), "mc_label": [B]
+    (the gold candidate's index; -100 = a padded example)}. Every candidate
+    runs through the transformer, flattened to [B*C, T]; the mc head scores
+    each candidate at its last non-pad token (pad is only ever a tail). The
+    LM term gathers the gold candidate's logits before the vocabulary
+    softmax; the MC term is a softmax cross-entropy over the C candidates,
+    added with weight ``mc_coef``. Per-token and per-example losses come
+    from ``log_softmax`` and a gather (CUDA's ``nll_loss`` raises under
+    deterministic mode). Metrics add ``mc_loss_sum``, ``mc_count`` and
+    ``mc_correct`` to the LM sums."""
+
+    def loss_fn(params: dict, net_state: dict, batch: dict, gen=None):
+        ids = batch["input_ids"]
+        B, C, T = ids.shape
+        flat = ids.reshape(B * C, T)
+        lengths = (flat != pad_id).sum(-1).clamp_min(1)
+        lm_logits, mc_logits = functional_call(
+            model, params, (flat,),
+            {"train": train, "token_type_ids": batch["token_type_ids"].reshape(B * C, T),
+             "gen": gen, "mc_positions": lengths - 1})
+        mc_label = batch["mc_label"].long()
+        gold = mc_label.clamp_min(0)  # padded examples read candidate 0, masked below
+        V = lm_logits.shape[-1]
+        lm_lgt = lm_logits.reshape(B, C, T, V).gather(
+            1, gold.reshape(B, 1, 1, 1).expand(B, 1, T, V))[:, 0, :-1]
+        labels = batch["labels"].long().gather(
+            1, gold.reshape(B, 1, 1).expand(B, 1, T))[:, 0, 1:]
+        mask = (labels != -100).to(lm_lgt.dtype)
+        safe = labels.clamp_min(0)
+        logp = F.log_softmax(lm_lgt, dim=-1)
+        per_tok = -logp.gather(-1, safe[..., None])[..., 0]
+        loss_sum = (per_tok * mask).sum()
+        lm_loss = loss_sum / mask.sum().clamp_min(1.0)
+        correct = ((lm_lgt.argmax(-1) == safe).to(mask.dtype) * mask).sum()
+
+        scores = mc_logits.reshape(B, C)
+        mc_mask = (mc_label >= 0).to(scores.dtype)
+        per_ex = -F.log_softmax(scores, dim=-1).gather(1, gold[:, None])[:, 0]
+        mc_loss_sum = (per_ex * mc_mask).sum()
+        mc_loss = mc_loss_sum / mc_mask.sum().clamp_min(1.0)
+        mc_correct = ((scores.argmax(-1) == gold).to(mc_mask.dtype) * mc_mask).sum()
+        return lm_loss + mc_coef * mc_loss, {
+            "net_state": net_state,
+            "metrics": {"loss_sum": loss_sum, "count": mask.sum(), "correct": correct,
+                        "mc_loss_sum": mc_loss_sum, "mc_count": mc_mask.sum(),
+                        "mc_correct": mc_correct},
         }
 
     return loss_fn

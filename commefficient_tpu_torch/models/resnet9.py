@@ -19,7 +19,13 @@ variance, computed as E[x^2] - E[x]^2 clamped at zero, over all B rows
 (masked padding included), and the output is
 ``(x - mean) * (rsqrt(var + eps) * scale) + bias``.
 
-Everything runs in float32 (the reference's default ``--dtype``).
+``dtype="bfloat16"`` computes as the reference does: the input is cast to
+bfloat16 and each convolution runs in it; batch norm computes its
+statistics and its output in float32 from the bfloat16 input; relu, then a
+cast back to bfloat16, in which the residual adds and the max pools run;
+the linear layer runs in bfloat16 and its output is cast to float32 before
+the 0.125 scale. Parameters and running statistics stay float32. The
+default, float32, is the reference's default ``--dtype``.
 """
 
 from __future__ import annotations
@@ -42,17 +48,24 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor, train: bool):
+        """(float32 output, new running statistics) of ``x`` in any float
+        dtype: the statistics and the output are computed in float32, as
+        flax's ``BatchNorm(dtype=float32)`` does, the statistics from one
+        cast of x and the normalisation from another (so that in bfloat16
+        the backward rounds each cast's cotangent on its own, as JAX's
+        does)."""
         new = {}
         if train:
-            mean = x.mean((0, 2, 3))
-            var = ((x * x).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+            xs = x.float()
+            mean = xs.mean((0, 2, 3))
+            var = ((xs * xs).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
             m = self.momentum
             new = {"running_mean": m * self.running_mean + (1 - m) * mean,
                    "running_var": m * self.running_var + (1 - m) * var}
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        y = (x.float() - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y, new
 
 
@@ -61,14 +74,18 @@ def _prefixed(prefix: str, stats: dict) -> dict:
 
 
 class ConvBN(nn.Module):
+    """Convolution in the input's dtype, batch norm in float32, relu, and
+    the output back in the input's dtype."""
+
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, 3, padding=1, bias=False)
         self.bn = BatchNorm(cout)
 
     def forward(self, x: torch.Tensor, train: bool):
-        y, stats = self.bn(self.conv(x), train)
-        return F.relu(y), _prefixed("bn", stats)
+        y = F.conv2d(x, self.conv.weight.to(x.dtype), padding=1)
+        y, stats = self.bn(y, train)
+        return F.relu(y).to(x.dtype), _prefixed("bn", stats)
 
 
 class Residual(nn.Module):
@@ -84,9 +101,13 @@ class Residual(nn.Module):
 
 
 class ResNet9(nn.Module):
-    def __init__(self, num_classes: int = 10, logit_scale: float = 0.125):
+    def __init__(self, num_classes: int = 10, logit_scale: float = 0.125,
+                 dtype: str = "float32"):
         super().__init__()
+        if dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"dtype must be 'float32' or 'bfloat16', got {dtype!r}")
         self.logit_scale = logit_scale
+        self.compute_dtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
         self.prep = ConvBN(3, 64)
         self.layer1 = ConvBN(64, 128)
         self.res1 = Residual(128)
@@ -96,8 +117,9 @@ class ResNet9(nn.Module):
         self.linear = nn.Linear(512, num_classes)
 
     def forward(self, x_nhwc: torch.Tensor, train: bool = True):
-        """NHWC images -> (logits [B, classes], new running stats)."""
-        x = x_nhwc.permute(0, 3, 1, 2)
+        """NHWC images -> (float32 logits [B, classes], new running stats)."""
+        dt = self.compute_dtype
+        x = x_nhwc.permute(0, 3, 1, 2).to(dt)
         stats = {}
         for name, pool in (("prep", 0), ("layer1", 2), ("res1", 0),
                            ("layer2", 2), ("layer3", 2), ("res2", 4)):
@@ -106,7 +128,8 @@ class ResNet9(nn.Module):
             if pool:
                 x = F.max_pool2d(x, pool)
         x = x.reshape(x.shape[0], -1)
-        return self.linear(x) * self.logit_scale, stats
+        logits = F.linear(x, self.linear.weight.to(dt), self.linear.bias.to(dt))
+        return logits.float() * self.logit_scale, stats
 
 
 def init_weights(model: nn.Module, seed: int) -> None:

@@ -3,9 +3,9 @@
 defaults, plus ``--device``, so a launch command of the reference parses
 here. The flags of features the port does not run yet (``_UNPORTED``:
 the layerwise sketch path, robust merges and the quarantine, serving,
-batched clients, meshes and processes, observability, bfloat16, and
-GPT-2's classification head, HuggingFace init and parallelism) parse at
-the reference's defaults, and ``resolve_defaults`` refuses any other value
+batched clients, meshes and processes, observability, and GPT-2's ring
+attention, mixture of experts and parallelism) parse at the reference's
+defaults, and ``resolve_defaults`` refuses any other value
 by name, with the ROADMAP Queue 1 item that brings the feature: accepted
 and ignored is never an outcome. ``--share_ps_gpu`` and ``--port`` are the
 reference's own no-ops, and ``--topk_recall`` matters only to the top-k
@@ -79,17 +79,9 @@ _UNPORTED = (
     ("ledger", dict(default=""), ("",), _OBS, 13),
     ("slo", dict(default="off", choices=["off", "warn", "halt"]), ("off",), _OBS, 13),
     ("slo_rules", dict(default=""), ("",), _OBS, 13),
-    ("dtype", dict(default="float32", choices=["float32", "bfloat16"]), ("float32",),
-     "bfloat16 compute is not ported", 6),
 )
-_HEAD = "the next-utterance-classification head is not ported"
 _PARALLEL = "tensor, sequence and expert parallelism are not ported"
 _UNPORTED_GPT2 = (
-    ("init_from", dict(default=""), ("",),
-     "fine-tuning from a HuggingFace GPT-2 checkpoint is not ported", 5),
-    ("mc_coef", dict(type=float, default=0.0), (0.0,), _HEAD, 5),
-    ("num_candidates", dict(type=int, default=2), (2,), _HEAD, 5),
-    ("mc_hard_negatives", dict(action="store_true"), (False,), _HEAD, 5),
     ("attn_impl", dict(default="dense", choices=["dense", "ring"]), ("dense",),
      "ring attention is not ported", 14),
     ("model_parallel", dict(type=int, default=1), (1,), _PARALLEL, 14),
@@ -217,6 +209,9 @@ def make_parser(task: str = "cv") -> argparse.ArgumentParser:
     p.add_argument("--checkpoint_every", type=int, default=0, help="rounds; 0 = never")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on: cuda (default) or cpu")
+    p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                   help="model compute dtype (params, batch-norm statistics, logits "
+                        "and the sketched gradient stay float32)")
     # the reference's CLI-compatibility no-ops
     p.add_argument("--share_ps_gpu", action="store_true",
                    help="accepted for reference-CLI compatibility; no-op")
@@ -242,6 +237,21 @@ def make_parser(task: str = "cv") -> argparse.ArgumentParser:
         p.add_argument("--decode_temperature", type=float, default=0.0,
                        help="0 = greedy; > 0 samples with nucleus top-p")
         p.add_argument("--decode_top_p", type=float, default=0.9)
+        p.add_argument("--init_from", default="",
+                       help="HF GPT-2 checkpoint dir (config.json + pytorch_model.bin "
+                            "or model.safetensors) to fine-tune from; the wte is grown "
+                            "for the dialog special tokens")
+        p.add_argument("--mc_coef", type=float, default=0.0,
+                       help="> 0 enables the next-utterance-classification head: joint "
+                            "loss lm + mc_coef * mc over --num_candidates candidate "
+                            "replies (transfer-learning-conv-ai double head)")
+        p.add_argument("--num_candidates", type=int, default=2,
+                       help="candidates per example (gold + distractors) when "
+                            "--mc_coef > 0")
+        p.add_argument("--mc_hard_negatives", action="store_true",
+                       help="synthetic corpus only: draw MC distractors from other "
+                            "personas' replies (same word pool) instead of a reserved "
+                            "vocabulary half")
     # the reference's flags for what the port does not run: refused by
     # resolve_defaults unless left at the values the port runs
     for flag, kw, ok, why, item in _unported(task):

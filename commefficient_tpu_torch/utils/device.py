@@ -21,7 +21,12 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
 
     Also turns TF32 off for convolutions and matrix products: the reference
     computes in full float32, and cuDNN would otherwise run float32
-    convolutions in TF32 (about three decimal digits)."""
+    convolutions in TF32 (about three decimal digits). And it turns off
+    cuBLAS's reduced-precision reductions of bfloat16 products (on by
+    default: a split-K GEMM may then add its partial sums in bfloat16): the
+    reference's bfloat16 products (``--dtype bfloat16``) accumulate in
+    float32 and round once, and on an H100 at GPT-2's widths the switch
+    changed neither the time nor the error of a product (PERF.md, PR 7)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -32,6 +37,7 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
         dev = torch.device("cuda", torch.cuda.current_device())
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return dev
 
 

@@ -79,8 +79,7 @@ def test_nonfinite_round_is_skipped():
 
 
 
-@pytest.mark.parametrize("flag", [["--dtype", "bfloat16"], ["--client_chunk", "4"],
-                                  ["--sketch_path", "layerwise"]])
+@pytest.mark.parametrize("flag", [["--client_chunk", "4"], ["--sketch_path", "layerwise"]])
 def test_cli_rejects_reference_flags_the_port_does_not_honour(flag):
     """A flag of the JAX CLI that the port does not run parses, and a value
     that asks for the feature is refused by name, not accepted and

@@ -238,8 +238,7 @@ def test_training_forward_draws_from_its_generator(models):
 
 
 @pytest.mark.parametrize("field,value", [("attn_impl", "ring"), ("moe_experts", 4),
-                                         ("remat", True), ("with_mc_head", True),
-                                         ("dtype", "bfloat16")])
+                                         ("remat", True)])
 def test_unported_configs_raise(field, value):
     with pytest.raises(NotImplementedError, match="not ported"):
         tgpt2.GPT2LMHead(dataclasses.replace(TCFG, **{field: value}))

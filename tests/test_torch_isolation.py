@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of ``commefficient_tpu_torch``,
-and not ``chip_smoke.py``, imports JAX, flax, optax, orbax or anything of
-the JAX package; importing the port pulls none of them in; and its entry
+and not ``chip_smoke.py``, imports JAX, flax, optax, orbax, anything of
+the JAX package, ``transformers`` or ``safetensors`` (the GPU machine has
+neither); importing the port pulls none of them in; and its entry
 points run on the GPU unless told otherwise, raising when there is none."""
 
 import ast
@@ -15,7 +16,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "commefficient_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "commefficient_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "commefficient_tpu", "transformers",
+             "safetensors")
 PORT_FILES = sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"]
 
 torch.set_num_threads(2)
