@@ -135,11 +135,34 @@ Phases (any failure raises, and the exit status is non-zero):
       256, 1,024 positions) written with torch.save; --init_from loads it
       bitwise (the grown rows by the reference's formula) and 2 rounds run.
 
+14. serving: the streaming aggregation service on the slice (phase 5's
+   flags, 4-round sync runs through ``cv_train.main``), with the launch
+   counts zeroed before (a) and (b):
+   a. --serve inproc, announce payloads, quorum 6 of 8 within 1 s: every
+      round has casualties; held bitwise (params, mode state, batch-norm
+      statistics, eval row, queue and ages) against the batch round with
+      the same drops as a client_drop plan; one launch of each kernel a
+      round;
+   b. --serve_payload sketch (quorum 6 within 30 s, trace seed 3) with a
+      corrupt frame, a duplicated frame and a NaN-poisoned client: each
+      rejection class counted, the accumulate launched W = 8 times and the
+      query once a round, held bitwise against the batch payload round
+      (``engine.compose_payload``) with the same drops; every client's
+      table of a round == the plain sketch of its update, bitwise;
+   c. (b) over the loopback socket, event loop and threaded, == (b)
+      bitwise, with one GET /metrics over HTTP;
+   d. (b) with preempt@2: exit 75, a ``serve`` block in meta.json, and
+      --resume == (b) bitwise;
+   e. stage ms, round ms beside the batch twins', the [W, r, c] stack's
+      D2H and H2D bytes and ms, socket bytes a round, device busy of the
+      payload and announce rounds.
+
 Prints one JSON line with the kernels' numbers (launches counted over
 phase 8; under "gpt2" each kernel's numbers at the GPT-2 shape, launches
 counted over phase 11a; "launches_cohort" counted over phase 12a's sync
 run; "launches_bf16" over each run of phase 13 and under "gpt2_mc_bf16"
-the numbers at phase 13b's shape), then as its last line
+the numbers at phase 13b's shape; "launches_serve" over phase 14a's and
+14b's served runs), then as its last line
 ``{"ok": true, "device": {...}}``. Run from the repository root:
     python3 chip_smoke.py
 ``--kernels-only`` stops after phase 4 (a short first check of a new kernel),
@@ -157,6 +180,7 @@ import statistics
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -231,6 +255,16 @@ BF16_LOSS_REL = 1e-2
 GPT2_MC_D = GPT2_D + 768  # the mc head: one n_embd vector
 INIT_VOCAB = 256  # the written checkpoint's vocabulary, grown to the byte tokenizer's 261
 INIT_ROUNDS = 2
+# phase 14: serving, runs of SERVE_ROUNDS rounds of phase 5's flags through
+# the sync loop. (a) closes at 6 of 8 with a 1 s deadline, so every round
+# has casualties; (b)-(d) close at 6 of 8 within 30 s (only no-shows miss
+# it), on a trace seed whose clients at the faulted positions submit
+SERVE_ROUNDS = 4
+SERVE_ANNOUNCE = ["--serve", "inproc", "--serve_quorum", "6", "--serve_deadline", "1.0"]
+SERVE_PAYLOAD = ["--serve_payload", "sketch", "--serve_quorum", "6", "--serve_deadline",
+                 "30.0", "--serve_trace", "seed=3"]
+SERVE_PLAN = ("wire_corrupt@1:clients=0;wire_dup@1:clients=1;"
+              "client_poison@2:clients=3,value=nan")
 
 
 def fail(msg: str):
@@ -1097,6 +1131,224 @@ def cohort_phase(cv_train, engine, csvec, kernels, card: str) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def serving_runs(fetch_after: int = 2):
+    """Inside the block, every round source a service hands out is recorded
+    with its service, and the first commit at or past round
+    ``fetch_after`` of a service with a metrics endpoint fetches
+    ``GET /metrics`` over HTTP into rec["metrics"]."""
+    import urllib.request
+
+    from commefficient_tpu_torch.serve import service as svc
+
+    rec = {"runs": [], "metrics": None}
+    source, committed = svc.AggregationService.source, svc.ServedSource.on_committed
+
+    def source_rec(self, start_round=None):
+        src = source(self, start_round)
+        rec["runs"].append((self, src))
+        return src
+
+    def committed_rec(self, committed_round):
+        committed(self, committed_round)
+        ms = self.service.metrics_server
+        if ms is not None and rec["metrics"] is None and committed_round >= fetch_after:
+            host, port = ms.address
+            with urllib.request.urlopen(f"http://{host}:{port}/metrics", timeout=30) as r:
+                rec["metrics"] = json.loads(r.read())
+
+    svc.AggregationService.source, svc.ServedSource.on_committed = source_rec, committed_rec
+    try:
+        yield rec
+    finally:
+        svc.AggregationService.source, svc.ServedSource.on_committed = source, committed
+
+
+def _drop_plan(closed_rounds) -> str:
+    """The batch round's fault plan that drops the positions a served run
+    masked, round by round."""
+    return ";".join(f"client_drop@{c.rnd}:clients=" + "+".join(
+        str(int(p)) for p in np.flatnonzero(c.arrived == 0.0))
+        for c in closed_rounds if (c.arrived == 0.0).any())
+
+
+def serve_phase(cv_train, engine, csvec, kernels, card: str) -> dict:
+    """Phase 14: the streaming aggregation service on ResNet-9 FetchSGD at
+    full width; returns each kernel's launches over the served runs of (a)
+    and (b)."""
+    import shutil
+
+    from commefficient_tpu_torch.obs import registry as obreg
+    from commefficient_tpu_torch.utils import checkpoint as ckpt
+    from commefficient_tpu_torch.utils.config import make_parser, resolve_defaults
+
+    base = os.path.join(ROOT, "build", "chip_smoke", "serve")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    reg = obreg.default()
+    out = {}
+
+    def run(extra, label, batch=False):
+        """One cv_train.main run; returns its record: session, round
+        source (served runs), service, logged rows (less time_s), stage
+        p50s, socket bytes, table-stack copies."""
+        log = os.path.join(base, f"{label}.jsonl")
+        argv = SLICE_ARGS + ["--num_rounds", str(SERVE_ROUNDS), "--sync_loop",
+                             "--log_jsonl", log] + list(extra)
+        for st in obreg.SERVE_STAGES:
+            reg.histogram(f"serve_stage_{st}_ms").reset_window()
+        mark = reg.mark()
+        service_from_args = cv_train.service_from_args
+        if batch:  # the same session, driven by the batch round: no service
+            cv_train.service_from_args = lambda args, session: None
+        try:
+            with serving_runs() as rec:
+                s = cv_train.main(argv)
+        finally:
+            cv_train.service_from_args = service_from_args
+        torch.cuda.synchronize()
+        rows = [json.loads(line) for line in open(log)]
+        for r in rows:
+            r.pop("time_s")
+        svc, src = rec["runs"][0] if rec["runs"] else (None, None)
+        info = {"s": s, "src": src, "svc": svc, "rows": rows, "metrics": rec["metrics"],
+                "stages": {st: reg.histogram(f"serve_stage_{st}_ms").summary()["p50"]
+                           for st in obreg.SERVE_STAGES} if svc is not None else None,
+                "wire_bytes": mark.delta("serve_client_wire_bytes_total"),
+                "copies": s.wire_copy_stats(), "round_ms": _steady_ms(s.run_stats)}
+        print(f"serve {label}: steady round ms {info['round_ms']:.2f}"
+              + (f", serve_stage_ms p50 {json.dumps(info['stages'])}" if svc else "")
+              + (f", counters {json.dumps(svc.queue.counters())}" if svc else "")
+              + f" [{card}]", flush=True)
+        out[label] = info
+        return info
+
+    def same(a, b, keys=None) -> bool:
+        """Bitwise: params, mode state, batch-norm statistics, the queue and
+        its ages, and the eval rows (only ``keys`` of them after a resume,
+        whose train-loss window starts at the resumed round)."""
+        sa, sb = a["s"], b["s"]
+        ra, rb = a["rows"], b["rows"]
+        if keys is not None:
+            ra, rb = ([{k: r[k] for k in keys} for r in x] for x in (ra, rb))
+        return (_equal(_full_state(sa), _full_state(sb)) and ra == rb
+                and list(sa._requeue_committed) == list(sb._requeue_committed)
+                and sa._requeue_ages_committed == sb._requeue_ages_committed)
+
+    # a. announce, inproc, against the batch round with the same drops
+    kernels.reset_launch_counts()
+    a = run(SERVE_ANNOUNCE, "announce_inproc")
+    launches = {"announce_inproc": dict(kernels.launch_counts)}
+    plan_a = _drop_plan(a["src"].closed_rounds)
+    print(f"serve a: closes {[c.closed_by for c in a['src'].closed_rounds]}, batch twin plan "
+          f"{plan_a!r}", flush=True)
+    if not plan_a or any(n != SERVE_ROUNDS for n in launches["announce_inproc"].values()):
+        fail(f"serve a: no casualties ({plan_a!r}) or launches {launches} not one a round")
+    ab = run(SERVE_ANNOUNCE + ["--fault_plan", plan_a], "announce_batch", batch=True)
+    if not same(a, ab):
+        fail("serve a: the served announce run differs from the batch round with its drops")
+    print("serve a: served announce == batch round with the same drops, bitwise (params, "
+          "Vvelocity, Verror, batch-norm statistics, eval row, queue and ages); one launch of "
+          "each kernel a round", flush=True)
+
+    # b. sketch payload, inproc, against compose_payload with the same drops
+    payload = ["--serve", "inproc"] + SERVE_PAYLOAD
+    kernels.reset_launch_counts()
+    b = run(payload + ["--fault_plan", SERVE_PLAN], "payload_inproc")
+    launches["payload_inproc"] = lp = dict(kernels.launch_counts)
+    counters = b["svc"].queue.counters()
+    W = b["s"].num_workers
+    checks = {
+        f"accumulate launched {W} times a round": lp["sketch_accumulate"] == W * SERVE_ROUNDS,
+        "query launched once a round": lp["sketch_query"] == SERVE_ROUNDS,
+        "rejected_malformed >= 1": counters["rejected_malformed"] >= 1,
+        "rejected_dup >= 1": counters["rejected_dup"] >= 1,
+        "rejected_quarantined >= 1": counters["rejected_quarantined"] >= 1,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"serve b: {bad}; launches {lp}, counters {counters}")
+    plan_b = _drop_plan(b["src"].closed_rounds)
+    bb = run(payload + ["--fault_plan", plan_b], "payload_batch", batch=True)
+    if not same(b, bb):
+        fail("serve b: the served payload run differs from the batch payload round")
+    print(f"serve b: held: {'; '.join(checks)} (launches {lp}); served payload == "
+          f"compose_payload batch round with drops {plan_b!r}, bitwise", flush=True)
+    s, _ = cv_train.build(resolve_defaults(make_parser().parse_args(SLICE_ARGS + payload)))
+    batch, _ = engine.split_valid(s._to_device(s.prepare_round(0).batch))
+    tables = s._payload_client(s.state, batch)[0]
+    update = engine.make_client_update(s.train_loss_fn, s.cfg, s.layout)
+    params = {k: v.requires_grad_(True) for k, v in s.layout.unflatten(s.state["params"]).items()}
+    spec = s.cfg.mode.sketch_spec
+    for w in range(W):
+        u = engine._clip_updates(s.cfg, update(s.state, {k: v[w] for k, v in batch.items()},
+                                               None, w, params)[0])
+        got = csvec.sketch_vec(spec, u)
+        compare(f"sketch_accumulate client {w}", got, csvec._sketch_vec_rotation(spec, u))
+        if not torch.equal(got, tables[w]):
+            fail(f"serve b: client {w}'s table in the client step differs from the kernel's "
+                 "table of its recomputed update")
+    print(f"serve b: each of the {W} per-client tables of round 0 == the plain sketch of its "
+          "update, bitwise, and == the client step's table", flush=True)
+    del s, batch, tables
+
+    # c. the same over the socket, both engines
+    for eng in ("eventloop", "threaded"):
+        sock = ["--serve", "socket", "--serve_transport", eng] + SERVE_PAYLOAD
+        c = run(sock + ["--fault_plan", SERVE_PLAN]
+                + (["--serve_metrics_port", "0"] if eng == "eventloop" else []),
+                f"payload_socket_{eng}")
+        if not same(b, c):
+            fail(f"serve c: the socket ({eng}) run differs from the inproc run")
+        print(f"serve c: socket ({eng}) == inproc bitwise; client bytes on the wire "
+              f"{c['wire_bytes'] / SERVE_ROUNDS:.0f} a round; counters "
+              f"{json.dumps(c['svc'].queue.counters())}", flush=True)
+    metrics = out["payload_socket_eventloop"]["metrics"]
+    if not metrics or metrics.get("payload") != "sketch":
+        fail(f"serve c: GET /metrics returned {metrics}")
+    print(f"serve c: GET /metrics over HTTP: {json.dumps(metrics)}", flush=True)
+
+    # d. preempt -> 75 -> resume, against (b)
+    ck = os.path.join(base, "ck")
+    pre = payload + ["--fault_plan", SERVE_PLAN + ";preempt@2", "--checkpoint_dir", ck]
+    try:
+        run(pre, "payload_preempted")
+        fail("serve d: preempt@2 did not exit")
+    except SystemExit as e:
+        if e.code != 75:
+            raise
+    path = ckpt.latest(ck)
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    if "serve" not in meta:
+        fail(f"serve d: no serve block in {path}/meta.json")
+    r = run(pre + ["--resume"], "payload_resumed")
+    if not (r["s"].run_stats.rounds == SERVE_ROUNDS - 3
+            and same(b, r, keys=("round", "test_loss", "test_acc", "comm_mb"))):
+        fail("serve d: preempt -> resume differs from the uninterrupted served run")
+    print(f"serve d: preempt@2 -> exit 75, checkpoint {os.path.basename(path)} with serve block "
+          f"{json.dumps(meta['serve'])} -> resume == uninterrupted served run, bitwise",
+          flush=True)
+    shutil.rmtree(ck, ignore_errors=True)
+
+    # e. numbers
+    for label in ("announce_inproc", "payload_inproc", "payload_socket_eventloop",
+                  "payload_socket_threaded"):
+        i = out[label]
+        print(f"serve e: {label}: serve_stage_ms p50 {json.dumps(i['stages'])}, steady round "
+              f"ms {i['round_ms']:.2f} (batch twin: announce {ab['round_ms']:.2f}, payload "
+              f"{bb['round_ms']:.2f}) [{card}]", flush=True)
+    for direction, d in out["payload_inproc"]["copies"].items():
+        print(f"serve e: [W, r, c] stack {direction}: {d['bytes'] / d['copies']:.0f} bytes, "
+              f"{d['ms'] / d['copies']:.3f} ms a round ({d['copies']} copies) [{card}]",
+              flush=True)
+    busy = {k: profile_rounds(out[k]["s"], top=4, label=f" {k} [{card}]")
+            for k in ("announce_batch", "payload_batch")}
+    print(f"serve e: device busy ms a round: announce round {busy['announce_batch']:.2f}, "
+          f"payload round {busy['payload_batch']:.2f} [{card}]", flush=True)
+    return launches
+
+
 def gpt2_phase(kernels, csvec, engine, time_ms, gen: torch.Generator, card: str,
                prof: dict) -> dict:
     """Phase 11: GPT-2 small PersonaChat fine-tuning through
@@ -1683,6 +1935,10 @@ def main(argv: list[str]) -> int:
     # 13. bfloat16, the double head, --init_from
     phase("13 (bf16, double head, init_from)")
     bf16 = bf16_phase(cv_train, engine, csvec, kernels, time_ms, gen, card, f32)
+
+    # 14. serving
+    phase("14 (serving)")
+    serve = serve_phase(cv_train, engine, csvec, kernels, card)
     phase("end")
 
     for name in rows:
@@ -1691,6 +1947,7 @@ def main(argv: list[str]) -> int:
         rows[name]["launches_cohort"] = cohort[name]
         rows[name]["gpt2_mc_bf16"] = bf16["gpt2_mc"][name]
         rows[name]["launches_bf16"] = {run: n[name] for run, n in bf16["launches"].items()}
+        rows[name]["launches_serve"] = {run: n[name] for run, n in serve.items()}
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -44,6 +44,7 @@ from .models.losses import make_classification_loss
 from .models.resnet9 import ResNet9, init_weights
 from .resilience import FaultPlan, RetryPolicy
 from .runner import RunnerConfig, run_loop
+from .serve import service_from_args
 from .utils import checkpoint as ckpt
 from .utils.config import make_parser, mode_config_from_args, resolve_defaults
 from .utils.device import make_reproducible, resolve_device
@@ -93,6 +94,9 @@ def build(args):
         dp_clip=args.dp_clip,
         dp_noise=args.dp_noise,
         requeue_policy=args.requeue_policy,
+        # --serve_payload sketch: the two-step wire round (per-client tables,
+        # then the table merge) that the service round-trips
+        wire_payloads=args.serve != "off" and args.serve_payload == "sketch",
     )
     return session, test_set
 
@@ -103,8 +107,11 @@ def main(argv=None):
     rounds_per_epoch = max(1, math.ceil(args.num_clients / session.num_workers))
     total_rounds = args.num_rounds or int(args.num_epochs * rounds_per_epoch)
     if session.fault_plan is not None:
-        # a client_* site at a round the run never reaches is refused now
+        # a client_* or wire_* site at a round the run never reaches, or a
+        # wire_* site on a run with no payload seam, is refused now
         session.fault_plan.validate_rounds(total_rounds)
+        session.fault_plan.validate_wire_context(
+            args.serve != "off" and args.serve_payload == "sketch")
     opt = FedOptimizer(triangular(args.lr_scale, args.pivot_epoch, args.num_epochs),
                        rounds_per_epoch)
     model = FedModel(session)
@@ -132,13 +139,21 @@ def main(argv=None):
             "nonfinite_rounds": nonfinite_total,
         }
 
+    # --serve: the aggregation service drives the loop from its arrival
+    # stream (built after the restore, so a resumed service picks up the
+    # checkpointed pending queue)
+    service = service_from_args(args, session)
     try:
         run_loop(session, opt,
                  RunnerConfig.from_args(args, total_rounds, args.eval_every or rounds_per_epoch),
                  eval_fn=lambda: model.eval(test_set, args.eval_batch_size),
-                 build_row=build_row, logger=logger)
+                 build_row=build_row, logger=logger,
+                 source=service.source() if service is not None else None)
     finally:
         logger.close()
+        if service is not None:
+            print(f"serve: final metrics {service.metrics_snapshot()}", flush=True)
+            service.close()
     return session
 
 

@@ -24,6 +24,15 @@ three steps, so the run loop (``runner/``) can overlap them:
   communication totals and the host-RNG and requeue snapshots, in dispatch
   order, under ``mutate_lock``.
 
+A served round (``serve/``) prepares from an arrival stream instead:
+``sample_cohort`` gives the invite list, ``prepare_served_round`` masks and
+queues the invitees that missed the close exactly as ``client_drop``
+faults. A ``wire_payloads`` session (``--serve_payload sketch``) runs the
+payload round: ``compute_client_tables`` (the per-client tables, copied to
+the host once), the wire, ``finish_served_payload``, then
+``dispatch_round`` merges the validated stack; its batch round composes
+the same two steps (``engine.compose_payload``).
+
 ``FedModel`` and ``FedOptimizer`` mirror the reference's
 ``FedModel(model, loss_fn, args)`` / ``FedOptimizer(opt, args)`` surface.
 The session runs on the GPU unless ``device="cpu"`` is passed. Batches are
@@ -65,7 +74,10 @@ class PreparedRound:
     clients the validity mask killed (dropped, or a degraded load);
     ``requeue`` and ``requeue_ages`` ((client id, round queued) pairs) are
     the dropped-client queue as of this preparation, published at commit
-    like the snapshot."""
+    like the snapshot. ``payload`` is a served payload round's
+    (validated [W, r, c] host table stack, [W] arrival mask, the client
+    step's device leftovers) for ``dispatch_round``'s merge; None
+    otherwise."""
 
     rnd: int
     ids: np.ndarray
@@ -74,6 +86,7 @@ class PreparedRound:
     masked: int = 0
     requeue: tuple = ()
     requeue_ages: tuple = ()
+    payload: tuple | None = None
 
 
 @dataclasses.dataclass
@@ -135,6 +148,7 @@ class FederatedSession:
         dp_clip: float = 0.0,
         dp_noise: float = 0.0,
         requeue_policy: str = "fifo",
+        wire_payloads: bool = False,
     ):
         self.device = resolve_device(device)
         if layout.d != mode_cfg.d:
@@ -151,7 +165,8 @@ class FederatedSession:
         self.cfg = engine.EngineConfig(
             mode=mode_cfg, weight_decay=weight_decay,
             on_nonfinite="skip" if on_nonfinite == "halt" else on_nonfinite, seed=seed,
-            client_dropout=client_dropout, dp_clip=dp_clip, dp_noise=dp_noise)
+            client_dropout=client_dropout, dp_clip=dp_clip, dp_noise=dp_noise,
+            wire_payloads=wire_payloads)
         self.layout = layout
         pflat = layout.flatten({k: v.detach().to(self.device) for k, v in params.items()})
         self.state = engine.init_server_state(
@@ -160,9 +175,21 @@ class FederatedSession:
         self.client_state = modes.init_client_state(mode_cfg, train_set.num_clients,
                                                     self.device)
         self.train_loss_fn = train_loss_fn
-        self._step = engine.make_round_step(train_loss_fn, self.cfg, layout)
-        self._multi = (None if mode_cfg.needs_local_state
-                       else engine.make_multi_round_step(train_loss_fn, self.cfg, layout))
+        self._payload_client = self._payload_merge = None
+        if self.cfg.wire_payloads:
+            # the wire-payload round (--serve_payload sketch): per-client
+            # tables, then the table merge. The batch round composes the
+            # two; a served round runs them apart with the wire between
+            # (compute_client_tables, then dispatch_round of a payload
+            # preparation)
+            self._payload_client, self._payload_merge = engine.make_payload_round_steps(
+                train_loss_fn, self.cfg, layout)
+            self._step = engine.compose_payload(self._payload_client, self._payload_merge)
+            self._multi = None
+        else:
+            self._step = engine.make_round_step(train_loss_fn, self.cfg, layout)
+            self._multi = (None if mode_cfg.needs_local_state
+                           else engine.make_multi_round_step(train_loss_fn, self.cfg, layout))
         self._eval = engine.make_eval_step(eval_loss_fn, layout)
         self.fault_plan = fault_plan
         self.retry_policy = retry_policy or rtry.RetryPolicy()
@@ -202,6 +229,16 @@ class FederatedSession:
         self.comm_per_round = round_comm_mb(mode_cfg, self.num_workers)
         self.comm_mb_total = 0.0
         self.run_stats = None  # the RunStats of the last run_loop that finished
+        # the serving layer's checkpoint hook (a callable returning the
+        # meta.json "serve" block, set by serve.AggregationService) and the
+        # block a restore read back for a service to pick up
+        self.serve_meta = None
+        self.restored_serve_meta = None
+        # a served payload round's copies of the [W, r, c] table stack:
+        # (direction, bytes, start event, end event) not read yet, and the
+        # totals of the read ones, by direction (wire_copy_stats)
+        self._wire_copies: list = []
+        self._wire_totals: dict = {}
 
     @property
     def inflight_rounds(self) -> int:
@@ -231,10 +268,10 @@ class FederatedSession:
         return {k: (v if torch.is_tensor(v) else torch.from_numpy(np.ascontiguousarray(v)))
                 .to(self.device, non_blocking=True) for k, v in batch.items()}
 
-    def _record(self):
+    def _record(self, timing: bool = False):
         if self.device.type != "cuda":
             return None
-        ev = torch.cuda.Event()
+        ev = torch.cuda.Event(enable_timing=timing)
         ev.record()
         return ev
 
@@ -346,7 +383,22 @@ class FederatedSession:
         order: one producer at a time, sequentially."""
         if rnd is None:
             rnd = self.round + self._inflight_rounds
-        ids = self.sample_cohort(rnd)
+        return self._assemble_round(rnd, self.sample_cohort(rnd))
+
+    def prepare_served_round(self, rnd: int, ids: np.ndarray, arrived) -> PreparedRound:
+        """Round preparation from an arrival stream (``serve/``): ``ids`` is
+        what ``sample_cohort(rnd)`` returned (the invite list) and
+        ``arrived`` the [W] 0/1 mask of invitees that made the close. A
+        no-show or straggler is handled exactly as a ``client_drop`` fault
+        (rows zeroed, validity 0, client queued), so a served short cohort
+        is bitwise the batch round that drops the same positions."""
+        arrived = np.asarray(arrived, np.float32)
+        if len(arrived) != len(ids):
+            raise ValueError(f"arrival mask covers {len(arrived)} clients but the round "
+                             f"invited {len(ids)}")
+        return self._assemble_round(rnd, ids, arrived)
+
+    def _assemble_round(self, rnd: int, ids: np.ndarray, arrived=None) -> PreparedRound:
         batch, valid = self._load_client_batch(ids, rnd)
         if self.fault_plan is not None:
             # the nonfinite burst, then the cohort faults; preempt stays a
@@ -355,6 +407,20 @@ class FederatedSession:
             batch, valid, dropped = self.fault_plan.client_faults(rnd, batch, valid, len(ids))
             for p in dropped:
                 self._queue(int(ids[p]), rnd)
+        if arrived is not None and (arrived == 0.0).any():
+            # a served round closed short: its casualties get the
+            # client_drop treatment at the point the fault site uses
+            no_show = [int(p) for p in np.flatnonzero(arrived == 0.0)]
+            valid = (np.ones(len(ids), np.float32) if valid is None
+                     else np.array(valid, copy=True))
+            batch = {k: (v if k.startswith("_") else np.array(v, copy=True))
+                     for k, v in batch.items()}
+            for k, v in batch.items():
+                if not k.startswith("_"):
+                    v[no_show] = 0
+            valid[no_show] = 0.0
+            for p in no_show:
+                self._queue(int(ids[p]), rnd)
         masked = int(len(ids) - valid.sum()) if valid is not None else 0
         # the validity mask always rides the batch (all ones when clean)
         batch = dict(batch)
@@ -362,6 +428,93 @@ class FederatedSession:
         return PreparedRound(rnd, ids, {k: self._host(v) for k, v in batch.items()},
                              self.rng.get_state(), masked=masked, requeue=tuple(self._requeue),
                              requeue_ages=tuple(self._requeue_enqueued.items()))
+
+    # -- the served payload round (serve/, --serve_payload sketch) ------
+
+    def compute_client_tables(self, prep: PreparedRound) -> tuple[np.ndarray, tuple]:
+        """Run the payload round's client step on a prepared cohort, chained
+        on the newest dispatched state, and copy its [W, r, c] table stack
+        into one pinned host buffer: the round's one host sync, since the
+        tables are the objects that cross the wire. Returns (tables [W, r, c]
+        float32 numpy, aux), ``aux`` the device leftovers the merge needs
+        (the state the client step read, per-client statistics and metric
+        rows, the participation mask)."""
+        if self._payload_client is None:
+            raise RuntimeError("compute_client_tables needs a wire_payloads=True session "
+                               "(--serve_payload sketch)")
+        state = self._head()
+        tables, nstates, mvals, part = self._payload_client(state, self._to_device(prep.batch))
+        if self.device.type == "cuda":
+            host = torch.empty(tables.shape, dtype=tables.dtype, pin_memory=True)
+            t0 = self._record(timing=True)
+            host.copy_(tables, non_blocking=True)
+            t1 = self._record(timing=True)
+            t1.synchronize()
+            self._wire_copies.append(("d2h", host.numel() * host.element_size(), t0, t1))
+            self._fold_wire_copies()  # the sync completed every earlier copy too
+        else:
+            host = tables
+        return host.numpy(), (state, nstates, mvals, part)
+
+    def finish_served_payload(self, prep: PreparedRound, arrived, wire_tables,
+                              aux: tuple) -> PreparedRound:
+        """After a served payload round's close: every invitee whose payload
+        missed the merge (no-show, straggler, rejected frame) is counted as
+        masked and queued, and the preparation carries the validated table
+        stack and the arrival mask for ``dispatch_round``. Draws no host
+        RNG, so the preparation's RNG snapshot stays valid."""
+        arrived = np.asarray(arrived, np.float32)
+        valid = np.asarray(prep.batch[engine.VALID_KEY], np.float32)
+        eff = valid * arrived
+        for p in np.flatnonzero(eff == 0.0):
+            self._queue(int(prep.ids[int(p)]), prep.rnd)
+        return dataclasses.replace(
+            prep, masked=int(len(prep.ids) - eff.sum()), requeue=tuple(self._requeue),
+            requeue_ages=tuple(self._requeue_enqueued.items()),
+            payload=(np.asarray(wire_tables, np.float32), arrived, aux))
+
+    def _dispatch_payload_merge(self, prep: PreparedRound, lr: float) -> InFlightRound:
+        """Dispatch the payload round's merge over the validated tables a
+        served round collected: one pinned host-to-device copy of the
+        [W, r, c] stack, then the merge on the state the client step read."""
+        wire_tables, arrived, aux = prep.payload
+        state, nstates, mvals, part = aux
+        host = self._host(wire_tables)
+        t0 = self._record(timing=True)
+        tables = host.to(self.device, non_blocking=True)
+        if t0 is not None:
+            self._wire_copies.append(("h2d", host.numel() * host.element_size(), t0,
+                                      self._record(timing=True)))
+        lr_host = self._host(np.asarray(lr, np.float32))
+        new_state, metrics = self._payload_merge(
+            state, tables, nstates, mvals, part,
+            self._host(arrived).to(self.device, non_blocking=True),
+            lr_host.to(self.device, non_blocking=True))
+        self._head_state = new_state
+        self._inflight += 1
+        self._inflight_rounds += 1
+        return InFlightRound(new_state, None, metrics, [lr], prep.snapshot, stacked=False,
+                             done=self._record(), host_batch={"tables": host},
+                             masked=[prep.masked], requeue_depths=[len(prep.requeue)],
+                             requeue=prep.requeue, requeue_ages=prep.requeue_ages)
+
+    def _fold_wire_copies(self) -> None:
+        for direction, nbytes, t0, t1 in self._wire_copies:
+            t1.synchronize()
+            d = self._wire_totals.setdefault(direction, {"copies": 0, "bytes": 0, "ms": 0.0})
+            d["copies"] += 1
+            d["bytes"] += nbytes
+            d["ms"] += t0.elapsed_time(t1)
+        self._wire_copies = []
+
+    def wire_copy_stats(self) -> dict:
+        """Bytes and CUDA-event milliseconds of the served payload rounds'
+        table-stack copies since the last call, by direction ("d2h": the
+        client tables to the host, "h2d": the validated stack back):
+        {direction: {"copies", "bytes", "ms"}}. Waits for the last copy."""
+        self._fold_wire_copies()
+        out, self._wire_totals = self._wire_totals, {}
+        return out
 
     def _head(self) -> dict:
         return self._head_state if self._head_state is not None else self.state
@@ -377,6 +530,8 @@ class FederatedSession:
             # a real SIGTERM that the run loop's PreemptionHandler turns into
             # drain -> emergency checkpoint -> resumable exit
             self.fault_plan.preempt(prep.rnd)
+        if prep.payload is not None:
+            return self._dispatch_payload_merge(prep, lr)
         lr_host = self._host(np.asarray(lr, np.float32))
         cstate = self._head_clients()
         rows, ids = {}, None
@@ -488,8 +643,10 @@ class FederatedSession:
         """Whether a block of rounds can run in one dispatch: not for a mode
         with client state (its rows are gathered and scattered around each
         round), nor with a fault plan (its sites are scheduled by round,
-        which a block cannot honour)."""
-        return self.client_state is None and self.fault_plan is None
+        which a block cannot honour), nor for the payload round (its wire
+        crossing is the round boundary)."""
+        return (self.client_state is None and self.fault_plan is None
+                and self._payload_client is None)
 
     def run_rounds(self, lrs) -> list[dict]:
         """len(lrs) rounds in one dispatch and one sync, with the same host

@@ -24,6 +24,10 @@ One round, given the flat [d] params (ravel_pytree order, see
 4. ``modes.server_step_sparse`` runs momentum and error feedback and
    releases the delta, which ``modes.apply_delta`` subtracts.
 
+The wire-payload round (``wire_payloads``, ``make_payload_round_steps``)
+has no shortcut: every client's update is sketched into its own table,
+and the server merges the tables by an ordered sum.
+
 Client participation: a client takes part in a round when the batch's
 validity mask (``VALID_KEY``: a dropped client, a failed data load) says
 so and it survives ``client_dropout``. Every fold, normalisation,
@@ -127,6 +131,10 @@ class EngineConfig:
     # dp_clip / participants for the mean
     dp_clip: float = 0.0
     dp_noise: float = 0.0
+    # the wire-payload round (--serve_payload sketch): every client sketches
+    # its own update and the server merges the per-client tables
+    # (make_payload_round_steps) instead of compressing the reduced update
+    wire_payloads: bool = False
 
     def generator(self, rnd: int, slot: int, step: int,
                   device: torch.device) -> torch.Generator:
@@ -144,6 +152,9 @@ class EngineConfig:
         if self.dp_clip < 0 or self.dp_noise < 0:
             raise ValueError(f"dp_clip and dp_noise must be >= 0, got {self.dp_clip} and "
                              f"{self.dp_noise}")
+        if self.wire_payloads and self.mode.mode != "sketch":
+            raise ValueError(f"wire_payloads needs mode='sketch' (per-client Count-Sketch "
+                             f"tables); mode={self.mode.mode!r} has no table wire")
         if self.dp_noise > 0 and self.dp_clip <= 0:
             raise ValueError("dp_noise > 0 requires dp_clip > 0 (unbounded sensitivity has no "
                              "meaningful noise scale)")
@@ -240,6 +251,12 @@ def make_client_update(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout)
         return p0 - p_cur, nstate, msum
 
     return local_sgd_update if mcfg.uses_weight_delta else grad_update
+
+
+def _clip_updates(cfg: EngineConfig, u: torch.Tensor) -> torch.Tensor:
+    """One client's update clipped to ``dp_clip`` in L2 (unchanged when the
+    clip is off): nonlinear, so it comes before any sum."""
+    return u if cfg.dp_clip <= 0 else u * clip_factor(u, cfg.dp_clip)
 
 
 def _weighted_client_fold(client_fn: Callable, batch: dict, part: torch.Tensor):
@@ -432,6 +449,130 @@ def make_round_step(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout) ->
             "round": state["round"] + 1,
         }
         return new_state, new_rows, metrics
+
+    return step
+
+
+def _merged_survivor_finalize(ns_sum: dict, m_sum: dict, part: torch.Tensor,
+                              net_state: dict) -> tuple[dict, dict]:
+    """Survivor-mean batch-norm statistics (the previous ones when nobody
+    survived) and the metric sums with the participants count, from the
+    merged per-client sums."""
+    n_live = part.sum().clamp_min(1.0)
+    alive = part.sum() > 0
+    new_net_state = {k: torch.where(alive, v / n_live, net_state[k]) for k, v in ns_sum.items()}
+    metrics = dict(m_sum)
+    metrics["participants"] = part.sum()
+    return new_net_state, metrics
+
+
+def _normalize_merged_wire(mcfg: ModeConfig, wire_sum: dict, n_live: torch.Tensor) -> dict:
+    """Survivor normalisation in wire space, after the merge."""
+    if mcfg.agg_op == "sum":
+        return dict(wire_sum)
+    return {k: v / n_live for k, v in wire_sum.items()}
+
+
+def _stack_rows(rows: list[dict]) -> dict:
+    return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+
+def make_payload_round_steps(loss_fn: Callable, cfg: EngineConfig,
+                             layout: FlatLayout) -> tuple[Callable, Callable]:
+    """The wire-payload round as two steps, the shape a serving deployment
+    has (the reference's ``make_payload_round_steps`` with no mesh):
+
+        client_step(state, batch) -> (tables [W, r, c], nstates, mvals, part)
+        merge_step(state, tables, nstates, mvals, part, arrived, lr)
+            -> (state', metrics)
+
+    ``client_step`` is "the clients": the eager per-client loop of the
+    batch round, each client's update clipped to ``dp_clip`` and sketched
+    into its own [r, c] table (on the card, one ``sketch_accumulate``
+    launch per client) before the next client's update exists, so the
+    [W, d] updates are never stacked. ``nstates`` and ``mvals`` are each
+    client's batch-norm statistics and metric sums, stacked on [W];
+    ``part`` is the validity mask times the participation mask.
+
+    ``merge_step`` is "the server": it sees only the tables and the small
+    per-client rows. ``arrived`` is the serving layer's 0/1 admission mask
+    (ones in the batch round): a rejected or missing payload is a zero row
+    under a 0 weight, exactly a dropped client. The merge is the masked
+    ordered sum over the client axis (``modes.merge_partial_wires``),
+    survivor normalisation in wire space, the non-finite guard and
+    ``modes.server_step_sparse`` (one query launch on the card).
+
+    The batch round composes the two (``compose_payload``); the serving
+    layer round-trips each client's table through the transport between
+    them. float32 framing is exact and both run these two functions, which
+    is what makes a served payload round bitwise the batch round that
+    drops the same clients. There is no compress-once shortcut here: the
+    sum of W tables is another float association than the sketch of the
+    summed update, so payload params are not bit-comparable to the
+    announce round's.
+
+    The reference's quarantine screen, adversarial transform, stale-fold
+    slots and edge variants are not ported (ROADMAP items 10 and 9b)."""
+    mcfg = cfg.mode
+    update = make_client_update(loss_fn, cfg, layout)
+
+    def client_step(state: dict, batch: dict):
+        pflat = state["params"]
+        batch, valid = split_valid(batch)
+        n_clients = next(iter(batch.values())).shape[0]
+        part = participation_mask(cfg.seed, state["round"], n_clients, cfg.client_dropout,
+                                  pflat.device)
+        if valid is not None:
+            part = part * valid.to(torch.float32)
+        params = {k: v.requires_grad_(True) for k, v in layout.unflatten(pflat).items()}
+        tables, nstates, mvals = [], [], []
+        for w in range(n_clients):
+            u, stats, metrics = update(state, {k: v[w] for k, v in batch.items()}, None, w,
+                                       params)
+            tables.append(modes.client_compress(mcfg, _clip_updates(cfg, u), {})[0]["table"])
+            del u  # this client's update is gone before the next one's exists
+            nstates.append(stats)
+            mvals.append(metrics)
+        return torch.stack(tables), _stack_rows(nstates), _stack_rows(mvals), part
+
+    def merge_step(state: dict, tables: torch.Tensor, nstates: dict, mvals: dict,
+                   part: torch.Tensor, arrived: torch.Tensor, lr):
+        part = part * arrived
+        wire_sum = modes.merge_partial_wires(mcfg, {"table": modes.mask_rows(part, tables)})
+        agg = _normalize_merged_wire(mcfg, wire_sum, part.sum().clamp_min(1.0))
+        new_net_state, metrics = _merged_survivor_finalize(
+            {k: modes.mask_rows(part, v).sum(0) for k, v in nstates.items()},
+            {k: modes.mask_rows(part, v).sum(0) for k, v in mvals.items()},
+            part, state["net_state"])
+        agg, new_net_state, _, metrics, _ = _guard_nonfinite(
+            cfg, agg, new_net_state, state["net_state"], {}, {}, metrics)
+        # dp_noise is refused with mode=sketch (EngineConfig)
+        delta, mode_state = modes.server_step_sparse(mcfg, agg, state["mode_state"], lr)
+        new_state = {
+            "params": modes.apply_delta(state["params"], delta),
+            "net_state": new_net_state,
+            "mode_state": mode_state,
+            "round": state["round"] + 1,
+        }
+        return new_state, metrics
+
+    return client_step, merge_step
+
+
+def compose_payload(client_step: Callable, merge_step: Callable) -> Callable:
+    """The payload pair as a round step with ``make_round_step``'s
+    signature, the batch round of a ``wire_payloads`` session: the client
+    tables flow straight into the merge with every invitee arrived. Client
+    rows pass through (the payload round keeps no client state)."""
+
+    def step(state: dict, batch: dict, client_rows: dict, lr):
+        pflat = state["params"]
+        lr_t = lr if torch.is_tensor(lr) else torch.tensor(lr, dtype=torch.float32,
+                                                           device=pflat.device)
+        tables, nstates, mvals, part = client_step(state, batch)
+        new_state, metrics = merge_step(state, tables, nstates, mvals, part,
+                                        torch.ones_like(part), lr_t)
+        return new_state, client_rows, metrics
 
     return step
 

@@ -130,6 +130,13 @@ def aggregate(cfg: ModeConfig, wires: dict, weights: torch.Tensor | None = None)
     return {"dense": op(wires["dense"])}
 
 
+def merge_partial_wires(cfg: ModeConfig, stacked: dict) -> dict:
+    """Merge sketch tables stacked on a leading [S] axis into one, in axis
+    order (``csvec.merge_tables``): the payload round's merge of its
+    per-client tables. The reference's robust policies are not ported."""
+    return {"table": csvec.merge_tables(cfg.sketch_spec, stacked["table"])}
+
+
 def server_step_sparse(cfg: ModeConfig, agg: dict, sstate: dict,
                        lr: torch.Tensor | float) -> tuple[dict, dict]:
     """Server momentum + error feedback; returns (delta_wire, new_state).

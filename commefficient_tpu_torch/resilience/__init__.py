@@ -4,7 +4,9 @@ PyTorch twin of the JAX package's ``resilience/`` for one process.
 - ``faults``: a seeded ``FaultPlan`` injecting failures at named sites and
   scheduled rounds (preemption, data-loader stalls and failures, eval
   stalls, NaN/Inf bursts, checkpoint write failures and damage, and the
-  cohort faults: dropped, straggling and poisoned clients).
+  cohort faults: dropped, straggling and poisoned clients, and the wire
+  faults of the payload round: corrupt, truncated, duplicated, delayed and
+  dropped frames).
 - ``retry``: bounded retries with exponential backoff and seeded jitter
   around checkpoint IO and data loading.
 - ``preemption``: a SIGTERM handler that lets the loop finish its in-flight

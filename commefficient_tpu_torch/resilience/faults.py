@@ -39,6 +39,17 @@ A plan is parsed from a compact CLI string (``--fault_plan``) of
                                 goes large (value=big, finite) or
                                 non-finite (nan/inf) through the real
                                 gradient path
+    wire_corrupt@2:clients=0    flip a byte of position 0's payload frame at
+                                the serving transport seam in round 2 (the
+                                checksum rejects it MALFORMED); likewise
+                                wire_truncate (cut the frame short: the
+                                length prefix rejects it), wire_dup (an
+                                at-least-once double send: counted once),
+                                conn_drop (the connection dies mid-send: a
+                                no-show) and wire_delay@2:clients=1,secs=S
+                                (a late frame, for the straggler
+                                discipline). Payload serving only
+                                (--serve_payload sketch)
     seed=7                      recorded on the plan for reporting
 
 Round numbers are global round indices (session.round), so a plan replays
@@ -46,15 +57,16 @@ correctly across checkpoint resume: ``preempt@3`` does not fire again in a
 resumed run that starts at round 4. ``FaultPlan.parse("")`` is None: no
 plan, no change.
 
-The reference's other kinds (wire faults, Byzantine clients, distributed
-bootstrap and one-host preemption, edge and shard kills) need sites the
-port does not have yet. They are refused at parse with a message that
+The reference's other kinds (Byzantine clients, distributed bootstrap and
+one-host preemption, edge and shard kills) need sites the port does not
+have yet. They are refused at parse with a message that
 names them and the ROADMAP item that brings them, never accepted and
 ignored.
 """
 
 from __future__ import annotations
 
+import base64
 import dataclasses
 import os
 import signal
@@ -79,19 +91,27 @@ KINDS = {
     "client_drop": ("clients",),
     "client_straggle": ("clients", "secs"),
     "client_poison": ("clients", "value"),
+    # transport-seam sites of the payload round: damage a client's frame
+    # between its table compute and the server's ingest
+    "wire_corrupt": ("clients",),
+    "wire_truncate": ("clients",),
+    "wire_dup": ("clients",),
+    "wire_delay": ("clients", "secs"),
+    "conn_drop": ("clients",),
 }
 
 # the client_* sites fire inside a round's preparation: scheduled at or past
 # the run's last round they would never inject, so validate_rounds rejects
 # them at launch (the run length is not known at parse time)
 CLIENT_KINDS = ("client_drop", "client_straggle", "client_poison")
+# the wire_* sites fire at the serving transport seam as a round's payloads
+# ship; the same schedule validation as the client kinds
+WIRE_KINDS = ("wire_corrupt", "wire_truncate", "wire_dup", "wire_delay", "conn_drop")
 
 # the reference's kinds whose sites the port does not have yet, with the
 # ROADMAP Queue 1 item that brings each
 NOT_PORTED = {
-    "dist_init": 7, "host_preempt": 7,
-    "wire_corrupt": 9, "wire_truncate": 9, "wire_dup": 9, "wire_delay": 9,
-    "conn_drop": 9, "edge_kill": 9, "shard_kill": 9,
+    "dist_init": 7, "host_preempt": 7, "edge_kill": "9b", "shard_kill": "9b",
     "client_signflip": 10, "client_scale": 10, "client_collude": 10,
     "client_normride": 10, "client_stale_poison": 10,
 }
@@ -214,17 +234,30 @@ class FaultPlan:
         return [s for s in self.specs if s.kind == kind and s.matches(rnd)]
 
     def validate_rounds(self, total_rounds: int) -> None:
-        """Launch-time check against the run's length: a client_* site
-        scheduled at a round >= total_rounds can never fire, and is refused
-        rather than let a chaos run pass without its fault."""
+        """Launch-time check against the run's length: a client_* or
+        wire_* site scheduled at a round >= total_rounds can never fire, and
+        is refused rather than let a chaos run pass without its fault."""
         for s in self.specs:
-            if s.kind in CLIENT_KINDS and s.rounds:
+            if s.kind in CLIENT_KINDS + WIRE_KINDS and s.rounds:
                 dead = [r for r in s.rounds if r >= total_rounds]
                 if dead:
                     raise ValueError(
                         f"--fault_plan: {s.kind}@{','.join(map(str, dead))} can never fire "
                         f"- the run ends at round {total_rounds} (rounds are 0-based global "
                         "indices)")
+
+    def validate_wire_context(self, payload_path_armed: bool) -> None:
+        """Launch-time check of the wire_* kinds: they damage payload
+        frames at the serving transport seam, which only a served payload
+        run has; on any other run they would inject nothing."""
+        if payload_path_armed:
+            return
+        dead = sorted({s.kind for s in self.specs if s.kind in WIRE_KINDS})
+        if dead:
+            raise ValueError(
+                f"--fault_plan: {', '.join(dead)} can never fire: the wire kinds damage "
+                "payload frames at the serving transport seam and need --serve inproc|socket "
+                "with --serve_payload sketch; on this run the chaos plan would pass vacuously")
 
     def _log(self, msg: str):
         print(f"fault-injection: {msg}", file=sys.stderr, flush=True)
@@ -351,6 +384,56 @@ class FaultPlan:
             dropped.extend(pos)
             self._log(f"dropping clients {pos} (round {rnd}; masked + re-queued)")
         return batch, valid, dropped
+
+    def wire_plan(self, rnd: int, num_workers: int) -> dict[int, dict]:
+        """Per-position wire damage of round ``rnd``'s payload shipments,
+        applied by the traffic at the transport seam: {position:
+        {"corrupt", "truncate", "dup", "drop": bool, "delay_s": float}}.
+        One-shot per (kind, round, positions), like the cohort sites."""
+        plan: dict[int, dict] = {}
+
+        def slot(p: int) -> dict:
+            return plan.setdefault(int(p), {"corrupt": False, "truncate": False, "dup": False,
+                                            "delay_s": 0.0, "drop": False})
+
+        for kind, field in (("wire_corrupt", "corrupt"), ("wire_truncate", "truncate"),
+                            ("wire_dup", "dup"), ("conn_drop", "drop")):
+            for s in self.specs_for(kind, rnd):
+                key = (kind, rnd, s.params.get("clients", (0,)))
+                if key in self._fired:
+                    continue
+                self._fired.add(key)
+                pos = list(self._positions(s, num_workers, rnd))
+                for p in pos:
+                    slot(p)[field] = True
+                self._log(f"{kind} on cohort positions {pos} (round {rnd})")
+        for s in self.specs_for("wire_delay", rnd):
+            key = ("wire_delay", rnd, s.params.get("clients", (0,)))
+            if key in self._fired:
+                continue
+            self._fired.add(key)
+            pos = list(self._positions(s, num_workers, rnd))
+            secs = float(s.params.get("secs", 1.0))
+            for p in pos:
+                slot(p)["delay_s"] += secs
+            self._log(f"wire_delay {secs}s on cohort positions {pos} (round {rnd})")
+        return plan
+
+    @staticmethod
+    def corrupt_frame(frame: dict) -> dict:
+        """One flipped payload byte (the middle one), the checksum left
+        stale: the validation must reject it MALFORMED."""
+        raw = bytearray(base64.b64decode(frame["data"]))
+        if raw:
+            raw[len(raw) // 2] ^= 0xFF
+        return {**frame, "data": base64.b64encode(bytes(raw)).decode("ascii")}
+
+    @staticmethod
+    def truncate_frame(frame: dict) -> dict:
+        """The frame's data cut to half with the length prefix intact: the
+        decoded-length check must reject it MALFORMED."""
+        raw = base64.b64decode(frame["data"])
+        return {**frame, "data": base64.b64encode(raw[:len(raw) // 2]).decode("ascii")}
 
     def preempt(self, rnd: int):
         """Simulated preemption: deliver a real SIGTERM to this process as

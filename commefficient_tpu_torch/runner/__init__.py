@@ -8,7 +8,8 @@
   of their own; emergency, preemption and final saves stay synchronous.
 - ``loop.run_loop``: the loop: dispatches without a host sync, metrics
   read at eval, checkpoint, in-flight-depth and end boundaries in one copy
-  per drain, the watchdog, preemption and the non-finite halt.
+  per drain, the watchdog, preemption and the non-finite halt; with
+  ``source=`` a served run's rounds come from the aggregation service.
 
 ``--sync_loop`` is the serial path; the async loop is pinned bitwise equal
 to it by tests/test_torch_runner.py.

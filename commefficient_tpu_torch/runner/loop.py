@@ -57,6 +57,7 @@ import time
 import torch
 
 from ..federated.api import FederatedSession, FedOptimizer, plan_block
+from ..obs import registry as obreg
 from ..resilience import EXIT_RESUMABLE, PreemptionHandler
 from ..utils import checkpoint as ckpt
 from ..utils.logging import Timer
@@ -179,7 +180,8 @@ def make_save_ckpt(session: FederatedSession, checkpoint_dir: str, timings: list
 
 
 def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
-             eval_fn=None, build_row=None, logger=None, save_ckpt=None) -> RunStats:
+             eval_fn=None, build_row=None, logger=None, save_ckpt=None,
+             source=None) -> RunStats:
     """Run the training loop from session.round to cfg.total_rounds.
 
     eval_fn() -> metrics dict, called at every eval boundary (drained).
@@ -187,6 +189,16 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
     the logger; ``m`` is the last round's metrics, ``totals`` the sum of
     every numeric metric since the previous eval row. Either may be None.
     save_ckpt defaults to make_save_ckpt when cfg.checkpoint_dir is set.
+
+    ``source`` is an external round source (``next()`` -> PreparedRound in
+    round order, ``stop()``; an optional ``on_committed(round)`` hook):
+    the serving layer's ``ServedSource``,
+    which makes the service, not the sampling prefetcher, the producer of
+    rounds. Its preparation then runs on this (the dispatch) thread.
+
+    Each prepare, dispatch, drain (the sync) and commit is observed into
+    the obs registry's ``runner_phase_<phase>_ms`` histograms, which the
+    serving layer's ``/metrics`` reads.
 
     Exits the process (raises SystemExit) on preemption (EXIT_RESUMABLE)
     and on --on_nonfinite halt, after draining and saving. On every exit
@@ -220,8 +232,12 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
     stats.rtt_ms = rtt_ms
     writer = (AsyncCheckpointWriter(save_ckpt)
               if async_mode and save_ckpt and cfg.checkpoint_every else None)
-    src = (RoundPrefetcher(session, start_round, depth=prefetch_depth) if async_mode
-           else PreparedSource(session, start_round))
+    src = source if source is not None else (
+        RoundPrefetcher(session, start_round, depth=prefetch_depth) if async_mode
+        else PreparedSource(session, start_round))
+    on_committed = getattr(src, "on_committed", None)
+    phase_hist = {ph: obreg.default().histogram(f"runner_phase_{ph}_ms")
+                  for ph in obreg.RUNNER_PHASES}
 
     pending: collections.deque = collections.deque()  # in-flight dispatches
     pending_rounds = 0
@@ -249,6 +265,8 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
         with (watchdog.round(session.round, rounds=committed)
               if watch else contextlib.nullcontext()):
             hosts = session.fetch_metrics(list(pending))
+        t_c0 = time.perf_counter()
+        phase_hist["drain"].observe((t_c0 - t_d0) * 1e3)
         for m in session.commit_rounds(list(pending), hosts):
             last_m = m
             nonfinite_total += int(m.get("nonfinite_rounds", 0))
@@ -262,6 +280,9 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
         pending_rounds = 0
         stats.drains += 1
         now = time.perf_counter()
+        phase_hist["commit"].observe((now - t_c0) * 1e3)
+        if on_committed is not None:
+            on_committed(session.round)
         stats.drain_ms += (now - t_d0) * 1e3
         per_round = (now - window_t0) * 1e3 / max(committed, 1)
         window_t0 = None
@@ -282,13 +303,17 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
         if window_t0 is None:
             window_t0 = t
         preps = [src.next() for _ in range(n)]
-        stats.prepare_ms += (time.perf_counter() - t) * 1e3
+        ms = (time.perf_counter() - t) * 1e3
+        stats.prepare_ms += ms
+        phase_hist["prepare"].observe(ms)
         return preps
 
     def dispatched(infl, n: int, t_d0: float):
         nonlocal pending_rounds
         pending.append(infl)
-        stats.dispatch_ms += (time.perf_counter() - t_d0) * 1e3
+        ms = (time.perf_counter() - t_d0) * 1e3
+        stats.dispatch_ms += ms
+        phase_hist["dispatch"].observe(ms)
         if len(pending) > 1:
             pending[-2].release_state()  # superseded head
         pending_rounds += n

@@ -225,6 +225,20 @@ def mask_transmitted(spec: CSVecSpec, V: torch.Tensor, E: torch.Tensor,
     return V, E
 
 
+def merge_tables(spec: CSVecSpec, tables: torch.Tensor) -> torch.Tensor:
+    """Merge stacked sketch tables [S, r, c] into one [r, c] table: an
+    ordered sum over the leading axis, table 0 first. The served payload
+    round and its batch twin both merge through here, so they add in the
+    same order."""
+    if tables.dim() != 3 or tuple(tables.shape[1:]) != spec.table_shape:
+        raise ValueError(f"expected stacked tables [S, {spec.r}, {spec.c}], got "
+                         f"{tuple(tables.shape)}")
+    out = tables[0]
+    for i in range(1, tables.shape[0]):
+        out = out + tables[i]
+    return out
+
+
 def query_all(spec: CSVecSpec, table: torch.Tensor) -> torch.Tensor:
     """Dense [d] vector of estimates for every coordinate. Rotation family:
     the CUDA kernel for a CUDA tensor, else the plain per-slab query."""

@@ -7,8 +7,9 @@ state of a mode that keeps one), ``meta.json`` (the round, the measured
 ``comm_mb_total``, the cohort size, the mode and client count, the host
 sampling RNG as plain ints and lists, so ``torch.load(weights_only=True)``
 never meets a numpy object, and the committed dropped-client queue,
-``requeued``, with each entry's queued round, ``requeue_ages``) and
-``manifest.json``. A checkpoint of another
+``requeued``, with each entry's queued round, ``requeue_ages``; a served
+run adds ``serve``, the serving layer's pending early submissions at the
+committed round) and ``manifest.json``. A checkpoint of another
 mode or client count is refused (``CheckpointMismatchError``), not set
 aside as damaged.
 
@@ -180,6 +181,9 @@ def save(ckpt_dir: str, session, keep: int = 3, fault_plan=None,
         # rounds ride along, so a restored aged queue keeps its real ages
         requeued = [int(i) for i in session._requeue_committed]
         requeue_ages = [[int(c), int(r)] for c, r in session._requeue_ages_committed]
+        # the serving layer's block (serve.AggregationService registers the
+        # callable), taken at the committed round like the RNG and queue
+        serve_meta = session.serve_meta() if callable(session.serve_meta) else None
     final = os.path.abspath(os.path.join(ckpt_dir, f"round_{rnd:08d}"))
     staging = os.path.abspath(os.path.join(ckpt_dir, f"{_TMP_PREFIX}{rnd:08d}"))
     t0 = time.perf_counter()
@@ -191,6 +195,8 @@ def save(ckpt_dir: str, session, keep: int = 3, fault_plan=None,
             "mode": session.cfg.mode.mode, "num_clients": session.train_set.num_clients,
             "host_rng": _rng_to_json(rng_state), "requeued": requeued,
             "requeue_ages": requeue_ages}
+    if serve_meta is not None:
+        meta["serve"] = serve_meta
     times = {"copy_ms": (time.perf_counter() - t0) * 1e3, "write_ms": 0.0, "verify_ms": 0.0}
 
     def attempt():
@@ -301,6 +307,8 @@ def restore(path: str, session) -> None:
         session._requeue_committed = tuple(requeued)
         session._requeue_enqueued = {cid: ages.get(cid, session.round) for cid in requeued}
         session._requeue_ages_committed = tuple(session._requeue_enqueued.items())
+        # for a service that attaches to the restored session (absent = empty)
+        session.restored_serve_meta = meta.get("serve")
     saved_w = meta.get("num_workers")
     if saved_w is not None and saved_w != session.num_workers:
         print(f"warning: checkpoint {path} was written with num_workers={saved_w} but "

@@ -2,10 +2,11 @@
 ``utils/config.py`` parser, with the same names, types, choices and
 defaults, plus ``--device``, so a launch command of the reference parses
 here. The flags of features the port does not run yet (``_UNPORTED``:
-the layerwise sketch path, robust merges and the quarantine, serving,
-batched clients, meshes and processes, observability, and GPT-2's ring
-attention, mixture of experts and parallelism) parse at the reference's
-defaults, and ``resolve_defaults`` refuses any other value
+the layerwise sketch path, robust merges and the quarantine, the
+pipelined, buffered-async, fast-path, sharded and edge-tree serving
+variants, batched clients, meshes and processes, observability, and
+GPT-2's ring attention, mixture of experts and parallelism) parse at the
+reference's defaults, and ``resolve_defaults`` refuses any other value
 by name, with the ROADMAP Queue 1 item that brings the feature: accepted
 and ignored is never an outcome. ``--share_ps_gpu`` and ``--port`` are the
 reference's own no-ops, and ``--topk_recall`` matters only to the top-k
@@ -22,7 +23,7 @@ from ..modes.config import MODES, ModeConfig
 # add_argument keywords as in the reference, the values the port runs, why
 # another value is refused, the ROADMAP Queue 1 item that brings it or None
 # when none is queued)
-_SERVE = "serving (the streaming aggregation service) is not ported"
+_SERVE = "the port runs the synchronous serial service only"
 _ROBUST = "robust merges and the sketch-space quarantine are not ported"
 _MULTI = "the port runs one process on one device"
 _OBS = "the observability layer (tracer, profiler window, health, ledger, SLO) is not ported"
@@ -37,29 +38,17 @@ _UNPORTED = (
     ("quarantine_scope", dict(default="cohort", choices=["cohort", "layer"]), ("cohort",),
      _ROBUST, 10),
     ("quarantine_window", dict(type=int, default=1), (1,), _ROBUST, 10),
-    ("serve", dict(default="off", choices=["off", "inproc", "socket"]), ("off",), _SERVE, 9),
-    ("serve_quorum", dict(type=int, default=0), (0,), _SERVE, 9),
-    ("serve_deadline", dict(type=float, default=4.0), (4.0,), _SERVE, 9),
-    ("serve_trace", dict(default=""), ("",), _SERVE, 9),
-    ("serve_payload", dict(default="announce", choices=["announce", "sketch"]), ("announce",),
-     _SERVE, 9),
-    ("serve_shed_watermark", dict(type=float, default=0.0), (0.0,), _SERVE, 9),
-    ("serve_pipeline", dict(action="store_true"), (False,), _SERVE, 9),
-    ("serve_async", dict(action="store_true"), (False,), _SERVE, 9),
-    ("serve_buffer", dict(type=int, default=0), (0,), _SERVE, 9),
-    ("serve_staleness", dict(type=float, default=0.5), (0.5,), _SERVE, 9),
-    ("serve_stale_rounds", dict(type=int, default=1), (1,), _SERVE, 9),
-    ("serve_transport", dict(default="eventloop", choices=["threaded", "eventloop"]),
-     ("eventloop",), _SERVE, 9),
-    ("serve_shards", dict(type=int, default=0), (0,), _SERVE, 9),
+    ("serve_pipeline", dict(action="store_true"), (False,), _SERVE, "9b"),
+    ("serve_async", dict(action="store_true"), (False,), _SERVE, "9b"),
+    ("serve_buffer", dict(type=int, default=0), (0,), _SERVE, "9b"),
+    ("serve_staleness", dict(type=float, default=0.5), (0.5,), _SERVE, "9b"),
+    ("serve_stale_rounds", dict(type=int, default=1), (1,), _SERVE, "9b"),
+    ("serve_shards", dict(type=int, default=0), (0,), _SERVE, "9b"),
     ("serve_shard_mode", dict(default="thread", choices=["thread", "process"]), ("thread",),
-     _SERVE, 9),
-    ("serve_edges", dict(type=int, default=0), (0,), _SERVE, 9),
-    ("serve_fastpath", dict(action="store_true"), (False,), _SERVE, 9),
-    ("serve_gauntlet_workers", dict(type=int, default=2), (2,), _SERVE, 9),
-    ("serve_max_conns", dict(type=int, default=0), (0,), _SERVE, 9),
-    ("serve_port", dict(type=int, default=0), (0,), _SERVE, 9),
-    ("serve_metrics_port", dict(type=int, default=-1), (-1,), _SERVE, 9),
+     _SERVE, "9b"),
+    ("serve_edges", dict(type=int, default=0), (0,), _SERVE, "9b"),
+    ("serve_fastpath", dict(action="store_true"), (False,), _SERVE, "9b"),
+    ("serve_gauntlet_workers", dict(type=int, default=2), (2,), _SERVE, "9b"),
     ("client_chunk", dict(type=int, default=0), (0,),
      "batched clients are not ported (the port folds one client at a time)", 3),
     ("split_compile", dict(action="store_true"), (False,),
@@ -194,8 +183,10 @@ def make_parser(task: str = "cv") -> argparse.ArgumentParser:
                         "nonfinite[:value=inf], ckpt_fail:times=N, ckpt_corrupt, "
                         "ckpt_partial, client_drop:clients=I+J, "
                         "client_straggle:clients=I,secs=S, "
-                        "client_poison:clients=I,value=nan|inf|big; seed=N. Unset "
-                        "= no injection")
+                        "client_poison:clients=I,value=nan|inf|big, and with "
+                        "--serve_payload sketch wire_corrupt/wire_truncate/wire_dup/"
+                        "conn_drop:clients=I, wire_delay:clients=I,secs=S; seed=N. "
+                        "Unset = no injection")
     p.add_argument("--max_retries", type=int, default=3,
                    help="bounded retries (exponential backoff + jitter) for "
                         "checkpoint IO and data loading")
@@ -207,6 +198,32 @@ def make_parser(task: str = "cv") -> argparse.ArgumentParser:
     p.add_argument("--checkpoint_dir", default="")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--checkpoint_every", type=int, default=0, help="rounds; 0 = never")
+    # the streaming aggregation service (serve/)
+    p.add_argument("--serve", default="off", choices=["off", "inproc", "socket"],
+                   help="run the rounds through the aggregation service: in-process "
+                        "submissions or a loopback socket")
+    p.add_argument("--serve_quorum", type=int, default=0,
+                   help="close a served round at this many arrivals (0 = the whole cohort)")
+    p.add_argument("--serve_deadline", type=float, default=4.0,
+                   help="served round deadline, seconds of (virtual) client latency")
+    p.add_argument("--serve_trace", default="",
+                   help="traffic trace 'k=v,...' (population, base_rate, "
+                        "diurnal_amplitude, diurnal_period_s, burst_rate, burst_size, seed)")
+    p.add_argument("--serve_payload", default="announce", choices=["announce", "sketch"],
+                   help="announce: submissions announce arrival; sketch: they carry the "
+                        "client's Count-Sketch table over the wire (mode=sketch)")
+    p.add_argument("--serve_shed_watermark", type=float, default=0.0,
+                   help="shed submissions with a retry-after hint past this share of the "
+                        "queue's capacity (0 = off)")
+    p.add_argument("--serve_transport", default="eventloop", choices=["threaded", "eventloop"],
+                   help="socket engine: eventloop (one selectors reactor) or threaded "
+                        "(a thread per connection)")
+    p.add_argument("--serve_max_conns", type=int, default=0,
+                   help="socket connection cap (0 = the engine's default)")
+    p.add_argument("--serve_port", type=int, default=0,
+                   help="socket bind port (0 = ephemeral)")
+    p.add_argument("--serve_metrics_port", type=int, default=-1,
+                   help=">= 0 serves GET /metrics on this port (0 = ephemeral)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on: cuda (default) or cpu")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],

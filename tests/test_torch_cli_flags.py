@@ -3,7 +3,8 @@ reference's ``make_parser("cv")`` and ``make_parser("gpt2")`` parses in
 the port with the reference's type, choices and default, so a reference
 launch command never fails by name; a flag of a feature the port does not
 run is refused at any other value, by name and with the ROADMAP item that
-brings it. The README's main-path command line parses."""
+brings it. The README's main-path command line parses, and the
+reference's served wire-payload command line runs."""
 
 import argparse
 import os
@@ -13,6 +14,7 @@ import pytest
 
 from commefficient_tpu.utils.config import make_parser as jmake_parser
 from commefficient_tpu_torch.utils import config as tconfig
+from test_torch_runner import tiny_cv  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 UNPORTED = {flag: (ok, item) for flag, _, ok, _, item in tconfig._unported("gpt2")}
@@ -92,3 +94,31 @@ def test_reference_no_ops_print_their_note(capsys):
     args = _parse("cv", ["--share_ps_gpu", "--port", "29500", "--topk_recall", "0.5"])
     assert args.share_ps_gpu and args.port == 29500 and args.topk_recall == 0.5
     assert "compatibility no-ops" in capsys.readouterr().out
+
+
+# the reference's served wire-payload command line (tests/test_serve.py's
+# CLI payload run, over the socket)
+SERVE_SOCKET_SKETCH = (
+    "--dataset cifar10 --num_clients 8 --num_workers 4 --local_batch_size 4 --lr_scale 0.05 "
+    "--weight_decay 0 --data_root /nonexistent --serve socket --serve_payload sketch "
+    "--mode sketch --k 16 --num_cols 256 --num_rows 3 --serve_quorum 3 --serve_deadline 2.0 "
+    "--num_rounds 3 --serve_metrics_port 0")
+
+
+def test_reference_serve_socket_sketch_command_runs(tiny_cv):  # noqa: F811
+    """The reference's ``--serve socket --serve_payload sketch`` command
+    line gives both parsers the same namespace, and runs through the port's
+    CLI on the CPU (the default event-loop engine) to the last round."""
+    import numpy as np
+    import torch
+
+    from commefficient_tpu_torch import cv_train
+
+    argv = shlex.split(SERVE_SOCKET_SKETCH)
+    ref = vars(jmake_parser("cv").parse_args(argv))
+    port = vars(tconfig.make_parser("cv").parse_args(argv))
+    assert ref == {k: v for k, v in port.items() if k != "device"}
+    session = cv_train.main(argv + ["--device", "cpu"])
+    assert session.round == 3 and session.cfg.wire_payloads
+    assert np.isfinite(session.state["params"].numpy()).all()
+    assert torch.count_nonzero(session.state["mode_state"]["Verror"]) > 0

@@ -79,7 +79,9 @@ PLANS = ["preempt@3", "stall@2:secs=1.5", "eval_stall@4:secs=0.5", "data_fail@1,
          "nonfinite@4", "nonfinite@4:value=inf", "ckpt_fail@2:times=1", "ckpt_corrupt@2",
          "ckpt_partial@2,5", "ckpt_fail:times=3", "preempt@1;stall@0:secs=0.1;seed=7",
          "client_drop@2:clients=0+3", "client_straggle@1:clients=2,secs=0.01",
-         "client_poison@2:clients=1,value=big;client_poison:clients=0"]
+         "client_poison@2:clients=1,value=big;client_poison:clients=0",
+         "wire_corrupt@1:clients=0+2;wire_truncate@2:clients=1",
+         "wire_dup@1:clients=3;conn_drop@2:clients=0", "wire_delay@1:clients=1,secs=0.25"]
 
 
 @pytest.mark.parametrize("text", PLANS)

@@ -95,7 +95,7 @@ def test_aggregate_survivor_mean_matches_reference():
 
 def test_unported_modes_raise():
     """Every mode is ported; what is not (the approximate top-k selections,
-    the wire and one-host-preemption fault kinds) raises by name, never runs
+    the edge-kill and one-host-preemption fault kinds) raises by name, never runs
     as something else; DP's flags parse."""
     from commefficient_tpu_torch.resilience import FaultPlan
     from commefficient_tpu_torch.sketch import csvec
@@ -114,6 +114,6 @@ def test_unported_modes_raise():
             csvec.topk_abs(x, 2, impl=impl)
     for flag in ("--dp_noise", "--dp_clip"):
         assert getattr(make_parser().parse_args([flag, "1.0"]), flag[2:]) == 1.0
-    for kind in ("host_preempt", "wire_corrupt"):
+    for kind in ("host_preempt", "edge_kill"):
         with pytest.raises(ValueError, match=kind):
             FaultPlan.parse(f"{kind}@1")

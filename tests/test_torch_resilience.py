@@ -59,7 +59,7 @@ def test_fault_plan_refuses_kinds_the_port_has_no_site_for(kind):
 
 def test_cli_refuses_unported_fault_kind_before_any_work():
     with pytest.raises(ValueError, match="not ported"):
-        cv_train.main(["--device", "cpu", "--fault_plan", "wire_corrupt@1:clients=0",
+        cv_train.main(["--device", "cpu", "--fault_plan", "edge_kill@1:edges=0",
                        "--data_root", "/nonexistent", "--num_rounds", "1"])
 
 
