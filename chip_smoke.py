@@ -106,7 +106,9 @@ Phases (any failure raises, and the exit status is non-zero):
       queue in meta.json, and --resume lands bitwise on the uninterrupted
       run, queue and ages included;
    c. one round with positions {0, 3} masked against the same round over
-      the 6 survivors alone: bitwise;
+      the 6 survivors alone: bitwise at --client_chunk 1 (one client a
+      vmap); at chunk 0 (a vmap of 8 against one of 6) top-k agreement and
+      the moved params held as phase 15a holds them;
    d. both kernels bitwise against their plain versions on (c)'s reduced
       gradient and error table;
    f. round time (sync, async) and device busy a round beside a clean run
@@ -157,12 +159,35 @@ Phases (any failure raises, and the exit status is non-zero):
       D2H and H2D bytes and ms, socket bytes a round, device busy of the
       payload and announce rounds.
 
+15. batched clients: the client phase is one ``torch.func.vmap`` over the
+   cohort (``--client_chunk`` 0, the default every phase above runs), or
+   W / C vmapped chunks; every phase above runs chunk 0. Sessions from the
+   entry points' build functions:
+   a. ResNet-9 FetchSGD (phase 5's flags) at chunk 0, 4 and 1 on one
+      state and cohort: per-client loss sums (FWD_REL) and gradients
+      (CLIENT_GRAD_REL), and the cohort's reduced gradient (GRAD_REL_L2),
+      against chunk 1; one round at lr 0.1 at each chunk: top-k agreement
+      (TOPK_AGREE) and the params both moved (GRAD_REL_L2); one launch of
+      each kernel a round; the kernels bitwise against their plain
+      versions on the chunk-0 reduced gradient; peak memory;
+   b. GPT-2 small at full width, LM float32 and MC bfloat16 with dropout
+      0.1, at chunk 0, 2 and 1: every client's dropout masks under the
+      vmap bitwise its (round, slot, step) generator's; per-client
+      gradients and loss sums at chunk 0 against chunk 1; one launch of
+      each kernel a round; peak memory at each chunk;
+   c. sync timing, chunk 0 and chunk 1 in turns (BATCH_PAIRS each), for
+      (a) and both GPT-2 runs: host dispatch ms, round ms, then a
+      profiler window: device busy ms a round with the matrix products
+      apart and kernel launches a round;
+   and no vmap batching-rule fallback warning fires on any of it.
+
 Prints one JSON line with the kernels' numbers (launches counted over
 phase 8; under "gpt2" each kernel's numbers at the GPT-2 shape, launches
 counted over phase 11a; "launches_cohort" counted over phase 12a's sync
 run; "launches_bf16" over each run of phase 13 and under "gpt2_mc_bf16"
 the numbers at phase 13b's shape; "launches_serve" over phase 14a's and
-14b's served runs), then as its last line
+14b's served runs; "launches_batched" over each round of phase 15), then
+as its last line
 ``{"ok": true, "device": {...}}``. Run from the repository root:
     python3 chip_smoke.py
 ``--kernels-only`` stops after phase 4 (a short first check of a new kernel),
@@ -265,6 +290,24 @@ SERVE_PAYLOAD = ["--serve_payload", "sketch", "--serve_quorum", "6", "--serve_de
                  "30.0", "--serve_trace", "seed=3"]
 SERVE_PLAN = ("wire_corrupt@1:clients=0;wire_dup@1:clients=1;"
               "client_poison@2:clients=3,value=nan")
+# phase 15: batched clients. ResNet-9 at these client chunks, GPT-2 at 0, 2
+# and 1 (the timing at 0 and 1); BATCH_PAIRS alternating sync pairs each.
+# A vmap over 8 clients and one over 1 run their products at other batch
+# sizes, so a float32 client's gradient sums in another order: held within
+# GRAD_REL_L2 and its loss sum within FWD_REL. In bfloat16 a product that
+# sums in another order may round its output one bfloat16 ulp (2**-8)
+# apart, and the backward carries such flips into every layer below: the
+# gradient within BF16_GRAD_REL and the loss sum within BF16_LOSS_REL, which
+# a layout, mask or scaling fault (an O(1) difference) cannot pass
+BATCH_CHUNKS = (0, 4, 1)
+GPT2_CHUNKS = (0, 2, 1)
+BATCH_PAIRS = 3
+BF16_GRAD_REL = 5e-2
+# one client's float32 gradient, not a cohort's mean, is what the vmap
+# changes: unaveraged, the same branch flips weigh more (an H100 read 6.0e-3
+# for the worst of 8 ResNet-9 clients at chunk 0 against chunk 1, the mean
+# of the cohort much less); a fault is O(1)
+CLIENT_GRAD_REL = 3e-2
 
 
 def fail(msg: str):
@@ -395,8 +438,9 @@ def profile_rounds(session, rounds: int = 2, top: int = 12, label: str = "",
     `rounds` more rounds; prints the device's busy time and idle share per
     round, the kernels that took most device time and the ``host_top`` host
     operations that took most host time, and returns the busy ms per round
-    (0.0: not measured). ``out``, if given, receives "busy_ms", "wall_ms"
-    and "gemm_ms" (the matrix-product kernels' ms a round, ``_is_gemm``)."""
+    (0.0: not measured). ``out``, if given, receives "busy_ms", "wall_ms",
+    "gemm_ms" (the matrix-product kernels' ms a round, ``_is_gemm``) and
+    "launches" (device kernels a round)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -414,11 +458,13 @@ def profile_rounds(session, rounds: int = 2, top: int = 12, label: str = "",
         return 0.0
     gemms = [e for e in kernels if _is_gemm(e.key)]
     gemm_ms = sum(e.self_device_time_total for e in gemms) / 1e3 / rounds
+    launches = sum(e.count for e in kernels) / rounds
     print(f"profile{label}: {rounds} rounds, wall {wall_ms:.2f} ms/round (profiled), device "
           f"busy {busy_ms:.2f} ms/round, idle share {1 - busy_ms / wall_ms:.3f}, matrix "
-          f"products {gemm_ms:.2f} ms/round in {len(gemms)} kernels", flush=True)
+          f"products {gemm_ms:.2f} ms/round in {len(gemms)} kernels, {launches:.0f} kernel "
+          "launches a round", flush=True)
     if out is not None:
-        out.update(busy_ms=busy_ms, wall_ms=wall_ms, gemm_ms=gemm_ms)
+        out.update(busy_ms=busy_ms, wall_ms=wall_ms, gemm_ms=gemm_ms, launches=launches)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         ms = e.self_device_time_total / 1e3 / rounds
         print(f"  {ms:8.3f} ms/round  {e.count // rounds:5d}x  {e.key[:110]}", flush=True)
@@ -674,7 +720,7 @@ def _releases_k(mcfg) -> bool:
 def check_baseline_round(session, engine, csvec) -> str:
     """One round at lr CHECK_LR through ``run_round``, held against the
     mode's algebra recomputed on the card from the same cohort's per-client
-    updates (the engine's ``make_client_update``: gradient plus weight
+    updates (the engine's ``make_client_updates``: gradient plus weight
     decay, or the local-SGD weight delta): per-client top-k with torch.topk
     and the client rows for local_topk, the survivor mean, server momentum
     and error, the plain sketch and query for sketched state."""
@@ -692,9 +738,9 @@ def check_baseline_round(session, engine, csvec) -> str:
     ids = torch.from_numpy(prep.ids.astype("int64")).to(dev)
     rows0 = ({k: v[ids] for k, v in session.client_state.items()}
              if session.client_state is not None else {})
-    update = engine.make_client_update(session.train_loss_fn, session.cfg, session.layout)
+    updates = engine.make_client_updates(session.train_loss_fn, session.cfg, session.layout)
     W, k = len(prep.ids), mcfg.k
-    ups = [update(state, {key: v[w] for key, v in batch.items()}, lr, w)[0] for w in range(W)]
+    ups = list(updates(state, batch, lr, range(W))[0])
     want_rows = {}
     if mcfg.mode == "local_topk":
         dense = []
@@ -1044,30 +1090,43 @@ def cohort_phase(cv_train, engine, csvec, kernels, card: str) -> dict:
           f"{meta['requeue_ages']}) in meta.json -> resume == uninterrupted, bitwise", flush=True)
     del e_
 
-    # c. masked == surviving cohort, one round on the card
-    args = resolve_defaults(make_parser().parse_args(SLICE_ARGS))
-    s, _ = cv_train.build(args)
-    batch = s.prepare_round(0).batch
-    masked = dict(batch, _valid=batch["_valid"].clone())
-    masked["_valid"][[0, 3]] = 0.0
-    surv = [1, 2, 4, 5, 6, 7]
-    alone = {k: v[surv] for k, v in batch.items()}
-    lr = torch.tensor(CHECK_LR, device=s.device)
-    out_m = s._step(s.state, s._to_device(masked), {}, lr)
-    out_s = s._step(s.state, s._to_device(alone), {}, lr)
-    diffs = {"params": (out_m[0]["params"] - out_s[0]["params"]).abs().max().item()}
-    for k in out_m[0]["mode_state"]:
-        diffs[k] = (out_m[0]["mode_state"][k] - out_s[0]["mode_state"][k]).abs().max().item()
-    same = (torch.equal(out_m[0]["params"], out_s[0]["params"])
-            and all(torch.equal(out_m[0][p][k], out_s[0][p][k])
-                    for p in ("mode_state", "net_state") for k in out_m[0][p])
-            and all(torch.equal(out_m[2][k], out_s[2][k]) for k in out_m[2]))
-    print(f"cohort c: positions {{0, 3}} masked vs the 6 survivors alone: max abs differences "
-          f"{diffs}", flush=True)
-    if not same:
-        fail("cohort c: the masked round is not bitwise the surviving cohort's round")
-    print("cohort c: masked round == surviving cohort's round, bitwise (params, Vvelocity, "
-          "Verror, batch-norm statistics, metrics)", flush=True)
+    # c. masked == surviving cohort, one round on the card: bitwise at
+    # --client_chunk 1 (one client a vmap, as the reference pins it); at
+    # chunk 0 a vmap of 8 and one of 6 sum in another order (GRAD_REL_L2)
+    for chunk in (1, 0):
+        args = resolve_defaults(make_parser().parse_args(
+            SLICE_ARGS + ["--client_chunk", str(chunk)]))
+        s, _ = cv_train.build(args)
+        batch = s.prepare_round(0).batch
+        masked = dict(batch, _valid=batch["_valid"].clone())
+        masked["_valid"][[0, 3]] = 0.0
+        surv = [1, 2, 4, 5, 6, 7]
+        alone = {k: v[surv] for k, v in batch.items()}
+        lr = torch.tensor(CHECK_LR, device=s.device)
+        out_m = s._step(s.state, s._to_device(masked), {}, lr)
+        out_s = s._step(s.state, s._to_device(alone), {}, lr)
+        diffs = {"params": (out_m[0]["params"] - out_s[0]["params"]).abs().max().item()}
+        for k in out_m[0]["mode_state"]:
+            diffs[k] = (out_m[0]["mode_state"][k] - out_s[0]["mode_state"][k]).abs().max().item()
+        print(f"cohort c: chunk {chunk}: positions {{0, 3}} masked vs the 6 survivors alone: "
+              f"max abs differences {diffs}", flush=True)
+        if chunk == 1:
+            same = (torch.equal(out_m[0]["params"], out_s[0]["params"])
+                    and all(torch.equal(out_m[0][p][k], out_s[0][p][k])
+                            for p in ("mode_state", "net_state") for k in out_m[0][p])
+                    and all(torch.equal(out_m[2][k], out_s[2][k]) for k in out_m[2]))
+            if not same:
+                fail("cohort c: the masked round is not bitwise the surviving cohort's round")
+            print("cohort c: chunk 1: masked round == surviving cohort's round, bitwise "
+                  "(params, Vvelocity, Verror, batch-norm statistics, metrics)", flush=True)
+        else:
+            agree, rel, swaps = round_agreement(out_m[0], out_s[0], s.state["params"])
+            verdict = (f"cohort c: chunk 0: masked vs surviving: top-k agreement {agree:.6f} "
+                       f"(bound {TOPK_AGREE}), moved params rel L2 on the coordinates both "
+                       f"moved {rel:.3e} (bound {GRAD_REL_L2}), {swaps} swaps")
+            print(verdict, flush=True)
+            if not (agree >= TOPK_AGREE and rel < GRAD_REL_L2):
+                fail(verdict)
 
     # d. the kernels on the masked round's reduced gradient and error table
     g, _, _ = engine.reduce_clients(s.train_loss_fn, s.cfg, s.layout, s.state,
@@ -1277,12 +1336,9 @@ def serve_phase(cv_train, engine, csvec, kernels, card: str) -> dict:
     s, _ = cv_train.build(resolve_defaults(make_parser().parse_args(SLICE_ARGS + payload)))
     batch, _ = engine.split_valid(s._to_device(s.prepare_round(0).batch))
     tables = s._payload_client(s.state, batch)[0]
-    update = engine.make_client_update(s.train_loss_fn, s.cfg, s.layout)
-    params = {k: v.requires_grad_(True) for k, v in s.layout.unflatten(s.state["params"]).items()}
+    updates = engine.make_client_updates(s.train_loss_fn, s.cfg, s.layout)
     spec = s.cfg.mode.sketch_spec
-    for w in range(W):
-        u = engine._clip_updates(s.cfg, update(s.state, {k: v[w] for k, v in batch.items()},
-                                               None, w, params)[0])
+    for w, u in enumerate(engine._clip_rows(s.cfg, updates(s.state, batch, None, range(W))[0])):
         got = csvec.sketch_vec(spec, u)
         compare(f"sketch_accumulate client {w}", got, csvec._sketch_vec_rotation(spec, u))
         if not torch.equal(got, tables[w]):
@@ -1736,6 +1792,203 @@ def bf16_phase(cv_train, engine, csvec, kernels, time_ms, gen: torch.Generator, 
                         for i, name in enumerate(("sketch_accumulate", "sketch_query"))}}
 
 
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a - b).norm() / b.norm()).item()
+
+
+def round_agreement(a: dict, b: dict, p0: torch.Tensor) -> tuple[float, float, int]:
+    """Two top-k rounds from one state whose gradients differ by rounding:
+    (the share of b's moved coordinates that a moved too, the rel L2 of a's
+    movement against b's on the coordinates both moved, the coordinates one
+    moved and the other did not). A near-tie at the k-th estimate swaps
+    between the two; their state differs by whole steps there."""
+    ma, mb = a["params"] != p0, b["params"] != p0
+    both = ma & mb
+    agree = (both.sum() / mb.sum().clamp_min(1)).item()
+    rel = _rel_l2(a["params"][both] - p0[both], b["params"][both] - p0[both])
+    return agree, rel, int((ma ^ mb).sum())
+
+
+def _client_rows(session, engine, batch: dict, chunk: int) -> tuple:
+    """The cohort's per-client updates and metric sums as ``client_chunk`` =
+    ``chunk`` computes them (0: one vmap of all W; C: W / C vmaps)."""
+    updates = engine.make_client_updates(session.train_loss_fn, session.cfg, session.layout)
+    W = next(iter(batch.values())).shape[0]
+    C = chunk or W
+    outs = [updates(session.state, {k: v[lo:lo + C] for k, v in batch.items()}, None,
+                    range(lo, lo + C)) for lo in range(0, W, C)]
+    return torch.cat([o[0] for o in outs]), torch.cat([o[2]["loss_sum"] for o in outs])
+
+
+def timed_pairs(sessions: dict, pairs: int, card: str) -> None:
+    """Sync rounds of ``sessions`` in turns (a, b, then b, a, ...), each
+    batch prepared first: per label the host ms of the dispatch (the round's
+    launches, from the call to its return) and of the round (dispatch to
+    the device's end), then a profiler window of 2 rounds: device busy,
+    matrix products and kernel launches a round; prints them."""
+    out = {label: {"dispatch_ms": [], "round_ms": []} for label in sessions}
+    order = list(sessions)
+    for i in range(pairs):
+        for label in (order if i % 2 == 0 else order[::-1]):
+            s = sessions[label]
+            prep = s.prepare_round()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            infl = s.dispatch_round(prep, 0.01)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            s.commit_round(infl)
+            out[label]["dispatch_ms"].append((t1 - t0) * 1e3)
+            out[label]["round_ms"].append((t2 - t0) * 1e3)
+    for label, s in sessions.items():
+        prof = {}
+        profile_rounds(s, top=0, label=f" {label} [{card}]", out=prof)
+        r = out[label]
+        r.update(prof)
+        busy, gemm = r.get("busy_ms", 0.0), r.get("gemm_ms", 0.0)
+        print(f"batched {label}: sync, {pairs} rounds in turns: host dispatch ms "
+              f"{[round(t, 2) for t in r['dispatch_ms']]} (median "
+              f"{statistics.median(r['dispatch_ms']):.2f}), round ms "
+              f"{[round(t, 2) for t in r['round_ms']]} (median "
+              f"{statistics.median(r['round_ms']):.2f}); device busy {busy:.2f} ms a round, "
+              f"matrix products {gemm:.2f}, the rest {busy - gemm:.2f}; "
+              f"{r.get('launches', 0.0):.0f} kernel launches a round [{card}]", flush=True)
+
+
+def batched_phase(cv_train, engine, csvec, kernels, card: str) -> dict:
+    """Phase 15: the batched client phase (one ``torch.func.vmap`` over the
+    cohort, ``--client_chunk``) at full width through the entry points'
+    build functions; returns each kernel's launches a round, by run."""
+    import warnings
+
+    launches = {}
+    # a batching rule functorch lacks falls back to a loop over the clients,
+    # with this warning
+    torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _batched_runs(cv_train, engine, csvec, kernels, card, launches)
+    torch._C._functorch._set_vmap_fallback_warning_enabled(False)
+    fallbacks = sorted({str(w.message)[:160] for w in caught if "fallback" in str(w.message)})
+    if fallbacks:
+        fail(f"batched: vmap fell back to a loop: {fallbacks}")
+    print("batched: no vmap batching-rule fallback on any model's step", flush=True)
+    return launches
+
+
+def _batched_runs(cv_train, engine, csvec, kernels, card: str, launches: dict) -> None:
+    from commefficient_tpu_torch import gpt2_train
+    from commefficient_tpu_torch.utils.config import make_parser, resolve_defaults
+
+    lr = CHECK_LR
+
+    def counted_round(label, s):
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        s.run_round(lr)
+        torch.cuda.synchronize()
+        got = dict(kernels.launch_counts)
+        launches[label] = got
+        if any(n != 1 for n in got.values()):
+            fail(f"batched {label}: launches {got} in one sketch round, expected 1 each")
+        return torch.cuda.max_memory_allocated() / 1e9
+
+    # a. ResNet-9 FetchSGD at chunk 0, 4 and 1
+    sessions = {c: cv_train.build(resolve_defaults(make_parser().parse_args(
+        SLICE_ARGS + ["--client_chunk", str(c)])))[0] for c in BATCH_CHUNKS}
+    s0 = sessions[0]
+    p0 = s0.state["params"].clone()
+    rng_state = s0.rng.get_state()
+    batch, _ = engine.split_valid(s0._to_device(s0.prepare_round().batch))
+    s0.rng.set_state(rng_state)
+    rows = {c: _client_rows(s0, engine, batch, c) for c in BATCH_CHUNKS}
+    grad_rel = {c: max(_rel_l2(rows[c][0][w], rows[1][0][w]) for w in range(len(rows[1][0])))
+                for c in BATCH_CHUNKS}
+    loss_rel = {c: max(abs(a / b - 1) for a, b in zip(rows[c][1].tolist(), rows[1][1].tolist()))
+                for c in BATCH_CHUNKS}
+    host_batch = s0.prepare_round().batch
+    s0.rng.set_state(rng_state)
+    reduced = {c: engine.reduce_clients(s.train_loss_fn, s.cfg, s.layout, s.state,
+                                        s._to_device(host_batch))[0]
+               for c, s in sessions.items()}
+    reduced_rel = {c: _rel_l2(reduced[c], reduced[1]) for c in BATCH_CHUNKS}
+    check_kernels(csvec, s0.cfg.mode.sketch_spec, reduced[0], s0.state["mode_state"]["Verror"])
+    del rows, reduced
+    peak = {c: counted_round(f"resnet9_chunk{c}", s) for c, s in sessions.items()}
+    agree = {c: round_agreement(_state(s), _state(sessions[1]), p0)
+             for c, s in sessions.items()}
+    verdict = (f"batched resnet9: against chunk 1, per-client loss sums worst rel "
+               f"{json.dumps(loss_rel)} (bound {FWD_REL}), per-client gradients worst rel L2 "
+               f"{json.dumps(grad_rel)} (bound {CLIENT_GRAD_REL}), the cohort's reduced "
+               f"gradient rel L2 {json.dumps(reduced_rel)} (bound {GRAD_REL_L2}); a round at lr "
+               f"{lr} from one state and cohort: (top-k agreement, moved params rel L2 on the "
+               f"coordinates both moved, swaps) {json.dumps(agree)} (bounds {TOPK_AGREE}, "
+               f"{GRAD_REL_L2}); launches {launches}; peak device memory GB "
+               f"{json.dumps({c: round(v, 2) for c, v in peak.items()})}")
+    if not (max(loss_rel.values()) < FWD_REL and max(grad_rel.values()) < CLIENT_GRAD_REL
+            and max(reduced_rel.values()) < GRAD_REL_L2
+            and min(a[0] for a in agree.values()) >= TOPK_AGREE
+            and max(a[1] for a in agree.values()) < GRAD_REL_L2):
+        fail(verdict)
+    print(verdict + "; kernels == plain on the chunk-0 reduced gradient and error table",
+          flush=True)
+    timed_pairs({"resnet9 chunk 0": sessions[0], "resnet9 chunk 1": sessions[1]}, BATCH_PAIRS,
+                card)
+    del sessions, s0, batch
+
+    # b. GPT-2 small at full width: LM float32 and the double head in bfloat16
+    mc = ["--mc_coef", "1", "--num_candidates", "2", "--dtype", "bfloat16"]
+    for name, extra, grad_bound, loss_bound in (("gpt2_lm", [], CLIENT_GRAD_REL, FWD_REL),
+                                                ("gpt2_mc_bf16", mc, BF16_GRAD_REL,
+                                                 BF16_LOSS_REL)):
+        sessions, peak = {}, {}
+        for c in GPT2_CHUNKS:
+            args = resolve_defaults(make_parser("gpt2").parse_args(
+                GPT2_ARGS + extra + ["--client_chunk", str(c)]))
+            sessions[c], _, extras = gpt2_train.build(args)
+        keep = 1.0 - extras["model"].cfg.dropout
+        del extras
+        s0 = sessions[0]
+        rng_state = s0.rng.get_state()
+        batch, _ = engine.split_valid(s0._to_device(s0.prepare_round().batch))
+        s0.rng.set_state(rng_state)
+        W = next(iter(batch.values())).shape[0]
+        loss_fn, cfg, rnd = s0.train_loss_fn, s0.cfg, s0.state["round"]
+        stacked = engine._draw_masks(loss_fn, cfg, rnd, range(W), 0, batch, s0.device)
+        for w in range(W):
+            one = engine._draw_masks(loss_fn, cfg, rnd, range(w, w + 1), 0,
+                                     {k: v[w:w + 1] for k, v in batch.items()}, s0.device)
+            # the embedding's mask, as the forward draws it from the generator
+            direct = torch.rand(stacked[0][w].shape, device=s0.device,
+                                generator=cfg.generator(rnd, w, 0, s0.device)) < keep
+            if not (all(torch.equal(a[w], b[0]) for a, b in zip(stacked, one))
+                    and torch.equal(stacked[0][w], direct)):
+                fail(f"batched {name}: client {w}'s dropout masks under the vmap differ from "
+                     "its generator's")
+        n_masks = len(stacked)
+        del stacked, one, direct
+        r0, r1 = _client_rows(s0, engine, batch, 0), _client_rows(s0, engine, batch, 1)
+        grad_rel = max(_rel_l2(r0[0][w], r1[0][w]) for w in range(W))
+        loss_rel = max(abs(a / b - 1) for a, b in zip(r0[1].tolist(), r1[1].tolist()))
+        del r0, r1, batch
+        for c, s in sessions.items():
+            peak[c] = counted_round(f"{name}_chunk{c}", s)
+        verdict = (f"batched {name}: the {n_masks} dropout masks of each of the {W} clients "
+                   f"under the vmap == its (round, slot, step) generator's, bitwise; per-client "
+                   f"gradient chunk 0 against chunk 1 worst rel L2 {grad_rel:.3e} (bound "
+                   f"{grad_bound}), loss sum rel {loss_rel:.3e} (bound {loss_bound}); launches "
+                   f"{ {c: launches[f'{name}_chunk{c}'] for c in GPT2_CHUNKS} }; peak device "
+                   f"memory GB a round (the three sessions' states live) "
+                   f"{json.dumps({c: round(v, 2) for c, v in peak.items()})} [{card}]")
+        if not (grad_rel < grad_bound and loss_rel < loss_bound):
+            fail(verdict)
+        print(verdict, flush=True)
+        timed_pairs({f"{name} chunk 0": sessions[0], f"{name} chunk 1": sessions[1]},
+                    BATCH_PAIRS, card)
+        del sessions, s0
+
+
 REPLACES = {"sketch_accumulate": "commefficient_tpu/sketch/pallas_kernels.py:135",
             "sketch_query": "commefficient_tpu/sketch/pallas_kernels.py:211"}
 
@@ -1939,6 +2192,10 @@ def main(argv: list[str]) -> int:
     # 14. serving
     phase("14 (serving)")
     serve = serve_phase(cv_train, engine, csvec, kernels, card)
+
+    # 15. batched clients
+    phase("15 (batched clients)")
+    batched = batched_phase(cv_train, engine, csvec, kernels, card)
     phase("end")
 
     for name in rows:
@@ -1948,6 +2205,7 @@ def main(argv: list[str]) -> int:
         rows[name]["gpt2_mc_bf16"] = bf16["gpt2_mc"][name]
         rows[name]["launches_bf16"] = {run: n[name] for run, n in bf16["launches"].items()}
         rows[name]["launches_serve"] = {run: n[name] for run, n in serve.items()}
+        rows[name]["launches_batched"] = {run: n[name] for run, n in batched.items()}
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

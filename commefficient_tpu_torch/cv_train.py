@@ -94,6 +94,7 @@ def build(args):
         dp_clip=args.dp_clip,
         dp_noise=args.dp_noise,
         requeue_policy=args.requeue_policy,
+        client_chunk=args.client_chunk,
         # --serve_payload sketch: the two-step wire round (per-client tables,
         # then the table merge) that the service round-trips
         wire_payloads=args.serve != "off" and args.serve_payload == "sketch",

@@ -149,6 +149,7 @@ class FederatedSession:
         dp_noise: float = 0.0,
         requeue_policy: str = "fifo",
         wire_payloads: bool = False,
+        client_chunk: int = 0,
     ):
         self.device = resolve_device(device)
         if layout.d != mode_cfg.d:
@@ -166,30 +167,25 @@ class FederatedSession:
             mode=mode_cfg, weight_decay=weight_decay,
             on_nonfinite="skip" if on_nonfinite == "halt" else on_nonfinite, seed=seed,
             client_dropout=client_dropout, dp_clip=dp_clip, dp_noise=dp_noise,
-            wire_payloads=wire_payloads)
+            wire_payloads=wire_payloads, client_chunk=client_chunk)
+        if client_chunk and self.num_workers % client_chunk:
+            # the cohort may have been clamped to num_clients: a chunk that
+            # divided the requested cohort may no longer divide. Largest
+            # viable chunk, as the reference repairs it
+            viable = next(c for c in range(min(client_chunk, self.num_workers), 0, -1)
+                          if self.num_workers % c == 0)
+            print(f"note: client_chunk={client_chunk} does not divide the cohort "
+                  f"({self.num_workers}); using client_chunk={viable}", flush=True)
+            self.cfg = dataclasses.replace(self.cfg, client_chunk=viable)
         self.layout = layout
+        self.train_loss_fn = train_loss_fn
+        self._build_steps()
         pflat = layout.flatten({k: v.detach().to(self.device) for k, v in params.items()})
         self.state = engine.init_server_state(
             self.cfg, pflat, {k: v.detach().to(self.device).clone() for k, v in net_state.items()})
         # [num_clients, d] per key, or None
         self.client_state = modes.init_client_state(mode_cfg, train_set.num_clients,
                                                     self.device)
-        self.train_loss_fn = train_loss_fn
-        self._payload_client = self._payload_merge = None
-        if self.cfg.wire_payloads:
-            # the wire-payload round (--serve_payload sketch): per-client
-            # tables, then the table merge. The batch round composes the
-            # two; a served round runs them apart with the wire between
-            # (compute_client_tables, then dispatch_round of a payload
-            # preparation)
-            self._payload_client, self._payload_merge = engine.make_payload_round_steps(
-                train_loss_fn, self.cfg, layout)
-            self._step = engine.compose_payload(self._payload_client, self._payload_merge)
-            self._multi = None
-        else:
-            self._step = engine.make_round_step(train_loss_fn, self.cfg, layout)
-            self._multi = (None if mode_cfg.needs_local_state
-                           else engine.make_multi_round_step(train_loss_fn, self.cfg, layout))
         self._eval = engine.make_eval_step(eval_loss_fn, layout)
         self.fault_plan = fault_plan
         self.retry_policy = retry_policy or rtry.RetryPolicy()
@@ -239,6 +235,34 @@ class FederatedSession:
         # totals of the read ones, by direction (wire_copy_stats)
         self._wire_copies: list = []
         self._wire_totals: dict = {}
+
+    def _build_steps(self) -> None:
+        """The round steps of ``self.cfg`` (again after a restore changes
+        ``client_chunk``)."""
+        loss_fn, cfg, layout = self.train_loss_fn, self.cfg, self.layout
+        self._payload_client = self._payload_merge = None
+        if cfg.wire_payloads:
+            # the wire-payload round (--serve_payload sketch): per-client
+            # tables, then the table merge. The batch round composes the
+            # two; a served round runs them apart with the wire between
+            # (compute_client_tables, then dispatch_round of a payload
+            # preparation)
+            self._payload_client, self._payload_merge = engine.make_payload_round_steps(
+                loss_fn, cfg, layout)
+            self._step = engine.compose_payload(self._payload_client, self._payload_merge)
+            self._multi = None
+        else:
+            self._step = engine.make_round_step(loss_fn, cfg, layout)
+            self._multi = (None if cfg.mode.needs_local_state
+                           else engine.make_multi_round_step(loss_fn, cfg, layout))
+
+    def set_client_chunk(self, chunk: int) -> None:
+        """Run later rounds at ``client_chunk`` = ``chunk`` (a restore sets
+        the checkpoint's, so a resumed run sums its clients as the run it
+        resumes did)."""
+        if chunk != self.cfg.client_chunk:
+            self.cfg = dataclasses.replace(self.cfg, client_chunk=chunk)
+            self._build_steps()
 
     @property
     def inflight_rounds(self) -> int:

@@ -12,12 +12,14 @@ One round, given the flat [d] params (ravel_pytree order, see
    fedavg/localSGD ``num_local_iters`` local SGD steps whose weight delta
    ``p0 - p_final`` is the update; local_topk then compresses each
    client's update with that client's rows of the client state;
-2. each client's update, batch-norm statistics and metrics are folded into
-   participation-weighted running sums as soon as they exist, so one
-   client's [d] update is live at a time; the sums are then normalised to
-   the survivor mean. The reference vmaps the clients and reduces them in
-   one XLA sum: with more than two clients the two packages add in another
-   order (float32 rounding, about 1e-7 relative);
+2. the clients' updates come from one ``torch.func.vmap`` of one
+   client's pure update (``make_client_updates``) over the stacked
+   cohort, as the reference's ``jax.vmap``; their updates, batch-norm
+   statistics and metrics are reduced to participation-weighted sums over
+   the client axis (``modes.mask_rows``, then ``.sum(0)``) and normalised
+   to the survivor mean. With ``client_chunk`` C > 0 the linear grad modes
+   run W / C vmapped chunks whose sums are added in chunk order, so at most
+   C full [d] updates are live at a time;
 3. every mode but local_topk is linear and takes the shortcut:
    compressing commutes with the mean, so the reduced update is compressed
    once (``modes.client_compress``) and lifted to the aggregate wire;
@@ -30,24 +32,27 @@ and the server merges the tables by an ordered sum.
 
 Client participation: a client takes part in a round when the batch's
 validity mask (``VALID_KEY``: a dropped client, a failed data load) says
-so and it survives ``client_dropout``. Every fold, normalisation,
+so and it survives ``client_dropout``. Every sum, normalisation,
 batch-norm merge and client-row select reads that one [W] weight, so a
 client that does not take part adds exact zeros, and a round where nobody
 does aggregates zero (momentum still decays) and keeps its batch-norm
 statistics and client rows. With ``dp_clip`` each client's update is
-clipped to that L2 norm before the fold; with ``dp_noise`` the aggregate
+clipped to that L2 norm before the sum; with ``dp_noise`` the aggregate
 gets central Gaussian noise scaled to the survivors (none when nobody
 took part).
 
-Randomness: a training forward that draws (GPT-2's dropout) takes a
-``torch.Generator`` as the loss's fourth argument: one per (round, client
-slot, local step), seeded by ``dropout_seed`` from the engine's seed and
-those three indices. The participation mask and the DP noise come from
+Randomness: a training forward that draws (GPT-2's dropout) reads keep
+masks drawn from a ``torch.Generator`` per (round, client slot, local
+step), seeded by ``dropout_seed`` from the engine's seed and those three
+indices. Nothing draws under the vmap: the loss's ``dropout_masks(cbatch,
+gen)`` draws each client's masks before it, in the forward's order and at
+its shapes, and the stacked masks enter the map as the loss's fourth
+argument, a batched input. The participation mask and the DP noise come from
 generators seeded the same way under tags of their own
 (``PARTICIPATION_TAG``, ``NOISE_TAG``), so no stream collides with
 another. Every seed is a pure function of the round, so the async and sync
 loops, and a run resumed from a checkpoint, draw the same values with no
-generator state to carry. The classification losses ignore the generator.
+generator state to carry. The classification losses draw nothing.
 The reference draws its mask and noise from JAX's threefry keys, which
 torch cannot reproduce: parity with it is distributional.
 
@@ -126,7 +131,7 @@ class EngineConfig:
     # probability (participation_mask)
     client_dropout: float = 0.0
     # differential privacy: dp_clip > 0 clips each client's update to that
-    # L2 norm before the fold; dp_noise > 0 adds N(0, (dp_noise * sens)^2)
+    # L2 norm before the sum; dp_noise > 0 adds N(0, (dp_noise * sens)^2)
     # to every aggregate entry, sens = dp_clip for agg_op="sum" and
     # dp_clip / participants for the mean
     dp_clip: float = 0.0
@@ -135,6 +140,11 @@ class EngineConfig:
     # its own update and the server merges the per-client tables
     # (make_payload_round_steps) instead of compressing the reduced update
     wire_payloads: bool = False
+    # > 0: the linear grad modes vmap the clients in W / client_chunk chunks
+    # of this many, adding the chunks' sums in chunk order, so at most this
+    # many full [d] updates are live at a time (must divide W); 0: one vmap
+    # of all W. fedavg/localSGD, local_topk and the payload round ignore it
+    client_chunk: int = 0
 
     def generator(self, rnd: int, slot: int, step: int,
                   device: torch.device) -> torch.Generator:
@@ -147,6 +157,8 @@ class EngineConfig:
     def __post_init__(self):
         if self.on_nonfinite not in ("off", "skip"):
             raise ValueError(f"on_nonfinite must be 'off' or 'skip', got {self.on_nonfinite!r}")
+        if self.client_chunk < 0:
+            raise ValueError(f"client_chunk must be >= 0, got {self.client_chunk}")
         if not 0.0 <= self.client_dropout < 1.0:
             raise ValueError(f"client_dropout must be in [0, 1), got {self.client_dropout}")
         if self.dp_clip < 0 or self.dp_noise < 0:
@@ -196,149 +208,187 @@ def split_valid(batch: dict) -> tuple[dict, torch.Tensor | None]:
     return batch, None
 
 
-def _detach(tree: dict) -> dict:
-    return {k: v.detach() for k, v in tree.items()}
+def _draw_masks(loss_fn: Callable, cfg: EngineConfig, rnd: int, slots: range, step: int,
+                cbatch: dict, device: torch.device) -> list | None:
+    """The dropout keep masks of the clients in cohort slots ``slots`` at
+    local step ``step``, drawn outside the map from each slot's generator
+    ``cfg.generator(rnd, slot, step)`` by the loss's ``dropout_masks``, in
+    the forward's order and at its shapes, then stacked on a leading client
+    axis: what the loop of one generator per client drew, bitwise. None when
+    the loss draws nothing (no ``dropout_masks``, or dropout off)."""
+    draw = getattr(loss_fn, "dropout_masks", None)
+    if draw is None:
+        return None
+    per_client = [draw({k: v[i] for k, v in cbatch.items()},
+                       cfg.generator(rnd, slot, step, device))
+                  for i, slot in enumerate(slots)]
+    if not per_client[0]:
+        return None
+    return [torch.stack(site) for site in zip(*per_client)]
 
 
-def _flat_grad(loss_fn: Callable, layout: FlatLayout, pflat: torch.Tensor,
-               net_state: dict, cbatch: dict, gen: torch.Generator,
-               params: dict | None = None):
-    """(flat gradient, loss aux) of one batch at the flat params ``pflat``,
-    the forward drawing from ``gen``. ``params`` may pass ``pflat``'s
-    unflattened leaves, already requiring grad, so that a cohort shares
-    them."""
-    if params is None:
-        params = {k: v.requires_grad_(True) for k, v in layout.unflatten(pflat).items()}
-    loss, aux = loss_fn(params, net_state, cbatch, gen)
-    grads = torch.autograd.grad(loss, list(params.values()))
-    return layout.flatten(dict(zip(params, grads))), aux
+def make_client_updates(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout) -> Callable:
+    """updates(state, cbatch, lr, slots) -> ([C, d] updates, new batch-norm
+    statistics {k: [C, ...]}, metric sums {k: [C]}) of the C clients in
+    cohort slots ``slots``, whose batches are stacked on the leading axis of
+    ``cbatch``, before clipping and compression: one ``torch.func.vmap`` of
+    one client's pure update over the C clients.
 
-
-def make_client_update(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout) -> Callable:
-    """update(state, cbatch, lr, slot, params=None) -> (flat [d] update, new
-    batch-norm statistics, metric sums) of the client in cohort slot
-    ``slot``, before compression:
-    its gradient plus weight decay, or for fedavg/localSGD the weight delta
-    ``p0 - p_final`` of ``num_local_iters`` local SGD steps at ``lr`` over
-    the microbatches ``cbatch[key][i]``, with weight decay inside the loop,
-    local momentum only for momentum_type="local", the batch-norm
-    statistics carried from step to step and the metrics summed over the
-    steps. Each forward draws from ``cfg.generator(state["round"], slot,
-    step)``."""
+    A client's update is its gradient (``torch.func.grad`` of the loss over
+    the unflattened leaves, flattened) plus weight decay, or for
+    fedavg/localSGD the weight delta ``p0 - p_final`` of ``num_local_iters``
+    local SGD steps at ``lr`` over the microbatches ``cbatch[key][:, i]``,
+    with weight decay inside the loop, local momentum only for
+    momentum_type="local", the batch-norm statistics carried from step to
+    step and the metrics summed over the steps. Each forward reads the
+    dropout masks of ``cfg.generator(state["round"], slot, step)``, drawn
+    before the map (``_draw_masks``). Batch norm computes each client's
+    statistics over that client's own batch under the map."""
     mcfg = cfg.mode
     wd = cfg.weight_decay
 
-    def grad_update(state, cbatch, lr, slot, params=None):
-        pflat = state["params"]
-        gen = cfg.generator(state["round"], slot, 0, pflat.device)
-        gflat, aux = _flat_grad(loss_fn, layout, pflat, state["net_state"], cbatch, gen,
-                                params)
-        return gflat + wd * pflat, _detach(aux["net_state"]), _detach(aux["metrics"])
+    def grad_one(pflat, net_state, cbatch, masks):
+        def loss(leaves):
+            return loss_fn(leaves, net_state, cbatch, masks)
 
-    def local_sgd_update(state, cbatch, lr, slot, params=None):
+        grads, aux = torch.func.grad(loss, has_aux=True)(layout.unflatten(pflat))
+        return layout.flatten(grads) + wd * pflat, aux["net_state"], aux["metrics"]
+
+    def local_sgd_one(pflat, net_state, cbatch, masks, lr):
         mu = mcfg.momentum if mcfg.momentum_type == "local" else 0.0
-        p0 = state["params"]
-        p_cur, nstate, mom, msum = p0, state["net_state"], torch.zeros_like(p0), None
+        p_cur, nstate, mom, msum = pflat, net_state, torch.zeros_like(pflat), None
         for i in range(mcfg.num_local_iters):
             micro = {k: v[i] for k, v in cbatch.items()}
-            gen = cfg.generator(state["round"], slot, i, p0.device)
-            gflat, aux = _flat_grad(loss_fn, layout, p_cur, nstate, micro, gen)
-            mom = mu * mom + (gflat + wd * p_cur)
+            g, nstate, m = grad_one(p_cur, nstate, micro, None if masks is None else masks[i])
+            mom = mu * mom + g
             p_cur = p_cur - lr * mom
-            nstate = _detach(aux["net_state"])
-            m = _detach(aux["metrics"])
             msum = m if msum is None else {k: msum[k] + m[k] for k in msum}
-        return p0 - p_cur, nstate, msum
+        return pflat - p_cur, nstate, msum
 
-    return local_sgd_update if mcfg.uses_weight_delta else grad_update
+    def updates(state, cbatch, lr, slots):
+        pflat = state["params"]
+        rnd = state["round"]
+        if mcfg.uses_weight_delta:
+            masks = [_draw_masks(loss_fn, cfg, rnd, slots, i,
+                                 {k: v[:, i] for k, v in cbatch.items()}, pflat.device)
+                     for i in range(mcfg.num_local_iters)]
+            masks = None if masks[0] is None else masks
+            # vmap's default randomness="error": nothing may draw under the map
+            return torch.func.vmap(
+                local_sgd_one, in_dims=(None, None, 0, None if masks is None else 0, None))(
+                pflat, state["net_state"], cbatch, masks, lr)
+        masks = _draw_masks(loss_fn, cfg, rnd, slots, 0, cbatch, pflat.device)
+        return torch.func.vmap(grad_one, in_dims=(None, None, 0, None if masks is None else 0))(
+            pflat, state["net_state"], cbatch, masks)
 
-
-def _clip_updates(cfg: EngineConfig, u: torch.Tensor) -> torch.Tensor:
-    """One client's update clipped to ``dp_clip`` in L2 (unchanged when the
-    clip is off): nonlinear, so it comes before any sum."""
-    return u if cfg.dp_clip <= 0 else u * clip_factor(u, cfg.dp_clip)
-
-
-def _weighted_client_fold(client_fn: Callable, batch: dict, part: torch.Tensor):
-    """Participation-weighted SUMS over the sampled clients of the update,
-    statistics and metrics that ``client_fn(w, cbatch) -> (update,
-    statistics, metrics, row)`` returns, folded client by client in cohort
-    order: one client's [d] update is live at a time. Also returns the list
-    of rows. Weighs like ``modes.mask_rows``, so a masked client's NaN
-    contributes an exact zero."""
-
-    def weigh(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        w = w.to(x.dtype)
-        return torch.where(w > 0, x * w, torch.zeros_like(x))
-
-    totals, rows = None, []
-    for w in range(part.shape[0]):
-        update, stats, metrics, row = client_fn(w, {k: v[w] for k, v in batch.items()})
-        rows.append(row)
-        # update, statistics, metrics, each as a dict
-        parts = [{k: weigh(part[w], x) for k, x in t.items()}
-                 for t in ({"u": update}, stats, metrics)]
-        totals = parts if totals is None else [{k: a[k] + b[k] for k in a}
-                                               for a, b in zip(totals, parts)]
-        del update, parts  # free this client's update before the next one's
-    return totals[0]["u"], totals[1], totals[2], rows
+    return updates
 
 
 def clip_factor(u: torch.Tensor, clip: float) -> torch.Tensor:
-    """The DP clip's factor of one client's update: min(1, clip / max(||u||,
-    1e-12)), the L2 norm in float32."""
-    nrm = torch.linalg.vector_norm(u.to(torch.float32))
+    """The DP clip's factor of each client's update, along the last axis
+    (one client's [d] update, or a [W, d] stack: one factor per row):
+    min(1, clip / max(||u||, 1e-12)), the L2 norm in float32."""
+    nrm = torch.linalg.vector_norm(u.to(torch.float32), dim=-1)
     return torch.clamp(clip / torch.clamp(nrm, min=1e-12), max=1.0)
 
 
-def _client_phase(update: Callable, cfg: EngineConfig, layout: FlatLayout, state: dict,
-                  batch: dict, client_rows: dict, lr):
-    """The client phase of a round: each client's update (clipped to
-    ``dp_clip``; local_topk: then its densified top-k wire, compressed with
-    its rows of the client state) folded into participation-weighted sums.
-    The participation weight is the batch's validity mask times the
-    round's ``participation_mask``. Returns the reduced update [d] (the
-    survivor mean unless agg_op=sum), the survivor mean of the batch-norm
-    statistics (the previous ones when nobody survived), the metric sums
-    with the participants count and the cohort's new rows ([W, d] per key;
-    a client that did not take part keeps its row)."""
-    mcfg = cfg.mode
-    pflat = state["params"]
+def _clip_rows(cfg: EngineConfig, updates: torch.Tensor,
+               part: torch.Tensor | None = None) -> torch.Tensor:
+    """The [W, d] updates, each row clipped to ``dp_clip`` in L2 (unchanged
+    when the clip is off): nonlinear, so it comes before any sum. With
+    ``part``, a client that does not take part keeps factor 1: its row (NaN
+    behind a mask, say) is weighed to an exact zero afterwards."""
+    if cfg.dp_clip <= 0:
+        return updates
+    fac = clip_factor(updates, cfg.dp_clip)
+    if part is not None:
+        fac = torch.where(part > 0, fac, torch.ones_like(fac))
+    return updates * fac[:, None]
+
+
+def _weighted_sums(part: torch.Tensor, updates: torch.Tensor, stats: dict,
+                   metrics: dict) -> tuple[torch.Tensor, dict, dict]:
+    """Participation-weighted sums over the client axis of the stacked
+    updates, statistics and metrics (``modes.mask_rows``, then ``.sum(0)``):
+    a masked client's NaN contributes an exact zero."""
+    return (modes.mask_rows(part, updates).sum(0),
+            {k: modes.mask_rows(part, v).sum(0) for k, v in stats.items()},
+            {k: modes.mask_rows(part, v).sum(0) for k, v in metrics.items()})
+
+
+def _compress_rows(mcfg: ModeConfig, updates: torch.Tensor, part: torch.Tensor,
+                   client_rows: dict) -> tuple[torch.Tensor, dict]:
+    """local_topk: each client's update compressed with its rows of the
+    client state (``modes.client_compress``), row by row in cohort order.
+    Returns the densified wires [W, d] and the new rows (a client that does
+    not take part keeps its rows)."""
+    dense, rows = [], []
+    for w in range(updates.shape[0]):
+        wire, row = modes.client_compress(mcfg, updates[w],
+                                          {k: v[w] for k, v in client_rows.items()})
+        dense.append(csvec.to_dense(mcfg.d, wire["idx"], wire["vals"]))
+        rows.append(row)
+    new_rows = {k: torch.where(modes.bcast(part, v) > 0, torch.stack([r[k] for r in rows]), v)
+                for k, v in client_rows.items()}
+    return torch.stack(dense), new_rows
+
+
+def _cohort_part(cfg: EngineConfig, state: dict, batch: dict):
+    """(batch without the validity mask, W, the [W] participation weight):
+    the validity mask times the round's ``participation_mask``."""
     batch, valid = split_valid(batch)
     # W: the leading dimension every leaf shares (an LM batch has no "x")
     n_clients = next(iter(batch.values())).shape[0]
-    part = (valid.to(torch.float32) if valid is not None
-            else torch.ones(n_clients, dtype=torch.float32, device=pflat.device))
-    if cfg.client_dropout > 0:
-        part = part * participation_mask(cfg.seed, state["round"], n_clients,
-                                          cfg.client_dropout, pflat.device)
-    # the grad modes' clients share one set of leaves requiring grad
-    params = (None if mcfg.uses_weight_delta else
-              {k: v.requires_grad_(True) for k, v in layout.unflatten(pflat).items()})
+    part = participation_mask(cfg.seed, state["round"], n_clients, cfg.client_dropout,
+                              state["params"].device)
+    if valid is not None:
+        part = part * valid.to(torch.float32)
+    return batch, n_clients, part
 
-    def client(w: int, cb: dict):
-        u, stats, metrics = update(state, cb, lr, w, params)
-        if cfg.dp_clip > 0:
-            # a client that does not take part keeps factor 1: its update
-            # (NaN behind a mask, say) is weighed to an exact zero below
-            u = u * torch.where(part[w] > 0, clip_factor(u, cfg.dp_clip),
-                                torch.ones((), device=u.device))
-        if modes.is_linear(mcfg):
-            return u, stats, metrics, {}
-        row = {k: v[w] for k, v in client_rows.items()}
-        wire, new_row = modes.client_compress(mcfg, u, row)
-        new_row = {k: torch.where(part[w] > 0, v, row[k]) for k, v in new_row.items()}
-        return csvec.to_dense(mcfg.d, wire["idx"], wire["vals"]), stats, metrics, new_row
 
-    wsum, ns_sum, m_sum, rows = _weighted_client_fold(client, batch, part)
+def _client_phase(updates: Callable, cfg: EngineConfig, state: dict, batch: dict,
+                  client_rows: dict, lr):
+    """The client phase of a round: the clients' updates (clipped to
+    ``dp_clip``; local_topk: then their densified top-k wires, compressed
+    with their rows of the client state) reduced to participation-weighted
+    sums over the stacked client axis, as the reference's
+    ``_weighted_client_reduce`` does. The participation weight is the
+    batch's validity mask times the round's ``participation_mask``.
+
+    The linear grad modes run one vmap over all W clients at
+    ``client_chunk`` 0, else W / C vmapped chunks of C clients whose sums
+    are added in chunk order, so at most C full [d] updates are live at a
+    time. fedavg/localSGD and local_topk run one vmap of all W (the knob is
+    ignored, as in the reference); local_topk then compresses row by row in
+    cohort order. Returns the reduced update [d] (the survivor mean unless
+    agg_op=sum), the survivor mean of the batch-norm statistics (the
+    previous ones when nobody survived), the metric sums with the
+    participants count and the cohort's new rows ([W, d] per key; a client
+    that did not take part keeps its row)."""
+    mcfg = cfg.mode
+    batch, W, part = _cohort_part(cfg, state, batch)
+    C = cfg.client_chunk
+    if mcfg.uses_weight_delta or not modes.is_linear(mcfg) or not C or C >= W:
+        C = W
+    if W % C:
+        raise ValueError(f"client_chunk={C} must divide the sampled cohort ({W})")
+    sums, new_rows = None, {}
+    for lo in range(0, W, C):
+        cb = {k: v[lo:lo + C] for k, v in batch.items()}
+        cpart = part[lo:lo + C]
+        u, stats, metrics = updates(state, cb, lr, range(lo, lo + C))
+        u = _clip_rows(cfg, u, cpart)
+        if not modes.is_linear(mcfg):
+            u, new_rows = _compress_rows(mcfg, u, part, client_rows)
+        chunk = _weighted_sums(cpart, u, stats, metrics)
+        del u  # this chunk's updates are gone before the next chunk's exist
+        sums = chunk if sums is None else (
+            sums[0] + chunk[0], {k: v + chunk[1][k] for k, v in sums[1].items()},
+            {k: v + chunk[2][k] for k, v in sums[2].items()})
+    wsum, ns_sum, m_sum = sums
     n_live = part.sum().clamp_min(1.0)
     weighted = wsum if mcfg.agg_op == "sum" else wsum / n_live
-    alive = part.sum() > 0
-    new_net_state = {k: torch.where(alive, v / n_live, state["net_state"][k])
-                     for k, v in ns_sum.items()}
-    metrics = dict(m_sum)
-    metrics["participants"] = part.sum()
-    new_rows = {k: torch.stack([r[k] for r in rows]) for k in client_rows}
+    new_net_state, metrics = _merged_survivor_finalize(ns_sum, m_sum, part, state["net_state"])
     return weighted, new_net_state, metrics, new_rows
 
 
@@ -348,7 +398,7 @@ def reduce_clients(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout,
     update [d], survivor-mean batch-norm statistics, metric sums with the
     participants count)."""
     weighted, new_net_state, metrics, _ = _client_phase(
-        make_client_update(loss_fn, cfg, layout), cfg, layout, state, batch, {}, None)
+        make_client_updates(loss_fn, cfg, layout), cfg, state, batch, {}, None)
     return weighted, new_net_state, metrics
 
 
@@ -413,14 +463,14 @@ def make_round_step(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout) ->
     averaged delta at ``server_lr``. Metrics are device tensors summed over
     clients (and local steps)."""
     mcfg = cfg.mode
-    update = make_client_update(loss_fn, cfg, layout)
+    updates = make_client_updates(loss_fn, cfg, layout)
 
     def step(state: dict, batch: dict, client_rows: dict, lr):
         pflat = state["params"]
         lr_t = lr if torch.is_tensor(lr) else torch.tensor(lr, dtype=torch.float32,
                                                            device=pflat.device)
         weighted, new_net_state, metrics, new_rows = _client_phase(
-            update, cfg, layout, state, batch, client_rows, lr_t)
+            updates, cfg, state, batch, client_rows, lr_t)
         if modes.is_linear(mcfg):
             # linearity shortcut: compress the reduced update once
             wire, _ = modes.client_compress(mcfg, weighted, {})
@@ -473,10 +523,6 @@ def _normalize_merged_wire(mcfg: ModeConfig, wire_sum: dict, n_live: torch.Tenso
     return {k: v / n_live for k, v in wire_sum.items()}
 
 
-def _stack_rows(rows: list[dict]) -> dict:
-    return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
-
-
 def make_payload_round_steps(loss_fn: Callable, cfg: EngineConfig,
                              layout: FlatLayout) -> tuple[Callable, Callable]:
     """The wire-payload round as two steps, the shape a serving deployment
@@ -486,13 +532,15 @@ def make_payload_round_steps(loss_fn: Callable, cfg: EngineConfig,
         merge_step(state, tables, nstates, mvals, part, arrived, lr)
             -> (state', metrics)
 
-    ``client_step`` is "the clients": the eager per-client loop of the
-    batch round, each client's update clipped to ``dp_clip`` and sketched
-    into its own [r, c] table (on the card, one ``sketch_accumulate``
-    launch per client) before the next client's update exists, so the
-    [W, d] updates are never stacked. ``nstates`` and ``mvals`` are each
-    client's batch-norm statistics and metric sums, stacked on [W];
-    ``part`` is the validity mask times the participation mask.
+    ``client_step`` is "the clients": one vmap of all W clients' updates
+    (``make_client_updates``; ``client_chunk`` does not apply), each row
+    clipped to ``dp_clip`` and sketched into its own [r, c] table, row by
+    row in cohort order (on the card, one ``sketch_accumulate`` launch per
+    client: what the reference's ``sequential_vmap`` lowers to). The
+    [W, d] stack of updates is live, as in the reference. ``nstates`` and
+    ``mvals`` are each client's batch-norm statistics and metric sums,
+    stacked on [W]; ``part`` is the validity mask times the participation
+    mask.
 
     ``merge_step`` is "the server": it sees only the tables and the small
     per-client rows. ``arrived`` is the serving layer's 0/1 admission mask
@@ -514,26 +562,17 @@ def make_payload_round_steps(loss_fn: Callable, cfg: EngineConfig,
     The reference's quarantine screen, adversarial transform, stale-fold
     slots and edge variants are not ported (ROADMAP items 10 and 9b)."""
     mcfg = cfg.mode
-    update = make_client_update(loss_fn, cfg, layout)
+    updates = make_client_updates(loss_fn, cfg, layout)
 
     def client_step(state: dict, batch: dict):
-        pflat = state["params"]
-        batch, valid = split_valid(batch)
-        n_clients = next(iter(batch.values())).shape[0]
-        part = participation_mask(cfg.seed, state["round"], n_clients, cfg.client_dropout,
-                                  pflat.device)
-        if valid is not None:
-            part = part * valid.to(torch.float32)
-        params = {k: v.requires_grad_(True) for k, v in layout.unflatten(pflat).items()}
-        tables, nstates, mvals = [], [], []
-        for w in range(n_clients):
-            u, stats, metrics = update(state, {k: v[w] for k, v in batch.items()}, None, w,
-                                       params)
-            tables.append(modes.client_compress(mcfg, _clip_updates(cfg, u), {})[0]["table"])
-            del u  # this client's update is gone before the next one's exists
-            nstates.append(stats)
-            mvals.append(metrics)
-        return torch.stack(tables), _stack_rows(nstates), _stack_rows(mvals), part
+        batch, W, part = _cohort_part(cfg, state, batch)
+        u, nstates, mvals = updates(state, batch, None, range(W))
+        u = _clip_rows(cfg, u)
+        # row by row, in cohort order: what the reference's sequential_vmap
+        # of the accumulate lowers to
+        tables = torch.stack([modes.client_compress(mcfg, u[w], {})[0]["table"]
+                              for w in range(W)])
+        return tables, nstates, mvals, part
 
     def merge_step(state: dict, tables: torch.Tensor, nstates: dict, mvals: dict,
                    part: torch.Tensor, arrived: torch.Tensor, lr):

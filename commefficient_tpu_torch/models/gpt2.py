@@ -13,9 +13,11 @@ tied LM head ``x @ wte.T`` in float32.
 
 Dropout draws its keep masks from an explicit ``torch.Generator`` (the
 engine makes one per round, client slot and local step), so a round's
-randomness is a function of the round alone. The masks differ from the
-reference's (threefry is not ported): parity with dropout on is
-distributional.
+randomness is a function of the round alone. Under ``torch.func.vmap``
+nothing may draw: ``dropout_masks`` draws a forward's masks beforehand,
+bitwise the same, and the forward takes them in the generator's place.
+The masks differ from the reference's (threefry is not ported): parity
+with dropout on is distributional.
 
 ``dtype="bfloat16"`` computes as the reference does, cast for cast:
 parameters stay float32; the embeddings are summed in float32 and the
@@ -89,14 +91,32 @@ def check_ported(cfg: GPT2Config) -> None:
         raise NotImplementedError(f"GPT-2 {', '.join(unported)}: not ported")
 
 
-def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None) -> torch.Tensor:
-    """Inverted dropout with the keep mask drawn from ``gen``, as flax's
-    ``nn.Dropout``: kept values are scaled by 1 / (1 - rate), dropped ones
-    are exact zeros. No generator (eval) or rate 0: identity."""
+class DropoutMasks:
+    """The keep masks of one training forward, in the order its dropout
+    sites read them (``GPT2LMHead.dropout_masks``): the engine draws them
+    outside ``torch.func.vmap`` and passes them in as batched inputs."""
+
+    def __init__(self, masks):
+        self._masks = iter(masks)
+        self.left = len(masks)
+
+    def take(self) -> torch.Tensor:
+        self.left -= 1
+        return next(self._masks)
+
+
+def dropout(x: torch.Tensor, rate: float, gen) -> torch.Tensor:
+    """Inverted dropout, as flax's ``nn.Dropout``: kept values are scaled by
+    1 / (1 - rate), dropped ones are exact zeros. The keep mask is drawn
+    from ``gen`` (a ``torch.Generator``) or, for ``DropoutMasks``, is its
+    next mask. No generator (eval) or rate 0: identity."""
     if gen is None or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=gen, device=x.device, dtype=torch.float32) < keep
+    if isinstance(gen, DropoutMasks):
+        mask = gen.take()
+    else:
+        mask = torch.rand(x.shape, generator=gen, device=x.device, dtype=torch.float32) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -137,20 +157,34 @@ class _GeluBF16(torch.autograd.Function):
     """``jax.nn.gelu(approximate=True)`` of a bfloat16 tensor, forward and
     backward, with the primitives JAX's autodiff emits, each result rounded
     to bfloat16 and the constants rounded first (sqrt(2/pi) -> 0.796875,
-    0.044715 -> 0.044677734375)."""
+    0.044715 -> 0.044677734375). The forward also returns the tanh and the
+    half factor it computed, which the backward reuses; elementwise, so
+    ``torch.func.vmap`` generates its batching rule."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
-        k0, k1 = (torch.tensor(c, dtype=x.dtype).item()
-                  for c in (math.sqrt(2.0 / math.pi), 0.044715))
+    def _constants(dtype: torch.dtype) -> tuple[float, float]:
+        # made on the CPU from Python floats: no device round trip
+        return tuple(torch.tensor(c, dtype=dtype).item()
+                     for c in (math.sqrt(2.0 / math.pi), 0.044715))
+
+    @staticmethod
+    def forward(x: torch.Tensor):
+        k0, k1 = _GeluBF16._constants(x.dtype)
         t = torch.tanh(k0 * (x + k1 * x ** 3))
         half = 0.5 * (1.0 + t)
-        ctx.save_for_backward(x, t, half)
-        ctx.k = (k0, k1)
-        return x * half
+        return x * half, t, half
 
     @staticmethod
-    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+    def setup_context(ctx, inputs, output):
+        (x,), (_, t, half) = inputs, output
+        ctx.save_for_backward(x, t, half)
+        ctx.mark_non_differentiable(t, half)
+        ctx.k = _GeluBF16._constants(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor, _gt, _ghalf) -> torch.Tensor:
         x, t, half = ctx.saved_tensors
         k0, k1 = ctx.k
         p = (0.5 * (x * g)) * (1.0 - t)  # through x * half, then tanh
@@ -166,7 +200,7 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     about 2 of 10."""
     if x.dtype == torch.float32:
         return F.gelu(x, approximate="tanh")
-    return _GeluBF16.apply(x)
+    return _GeluBF16.apply(x)[0]
 
 
 class Attention(nn.Module):
@@ -176,7 +210,7 @@ class Attention(nn.Module):
         self.c_attn = nn.Linear(cfg.n_embd, 3 * cfg.n_embd)
         self.c_proj = nn.Linear(cfg.n_embd, cfg.n_embd)
 
-    def forward(self, x: torch.Tensor, gen: torch.Generator | None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, gen) -> torch.Tensor:
         cfg = self.cfg
         dt = cfg.compute_dtype
         B, T, C = x.shape
@@ -200,7 +234,7 @@ class MLP(nn.Module):
         self.c_fc = nn.Linear(cfg.n_embd, 4 * cfg.n_embd)
         self.c_proj = nn.Linear(4 * cfg.n_embd, cfg.n_embd)
 
-    def forward(self, x: torch.Tensor, gen: torch.Generator | None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, gen) -> torch.Tensor:
         dt = self.cfg.compute_dtype
         h = gelu(dense(self.c_fc, x, dt))
         return dropout(dense(self.c_proj, h, dt), self.cfg.dropout, gen)
@@ -214,7 +248,7 @@ class Block(nn.Module):
         self.ln_2 = nn.LayerNorm(cfg.n_embd, eps=cfg.ln_eps)
         self.mlp = MLP(cfg)
 
-    def forward(self, x: torch.Tensor, gen: torch.Generator | None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, gen) -> torch.Tensor:
         # the norms return float32 (flax promotes); the sublayers return the
         # compute dtype, which the residual stream keeps
         x = x + self.attn(layer_norm(self.ln_1, x), gen)
@@ -240,17 +274,20 @@ class GPT2LMHead(nn.Module):
     def forward(self, input_ids: torch.Tensor, train: bool = True,
                 token_type_ids: torch.Tensor | None = None,
                 logit_positions: torch.Tensor | None = None,
-                gen: torch.Generator | None = None,
+                gen=None,
                 mc_positions: torch.Tensor | None = None):
         """Logits [B, T, V] (float32), or [B, V] at one position per row
         with ``logit_positions`` [B] (the decode fast path), or with the mc
         head and ``mc_positions`` [B] the pair (logits [B, T, V], scores
         [B]). Dropout runs when ``train`` and draws from ``gen``, which it
-        then needs."""
+        then needs: a generator, or the list of masks ``dropout_masks``
+        drew from one."""
         cfg = self.cfg
         if train and cfg.dropout > 0 and gen is None:
-            raise ValueError("a training forward with dropout needs a generator")
+            raise ValueError("a training forward with dropout needs a generator or its masks")
         gen = gen if train else None
+        if isinstance(gen, (list, tuple)):
+            gen = DropoutMasks(gen)
         T = input_ids.shape[1]
         x = F.embedding(input_ids.long(), self.wte) + self.wpe[:T][None]
         if token_type_ids is not None:
@@ -258,6 +295,8 @@ class GPT2LMHead(nn.Module):
         x = dropout(x.to(cfg.compute_dtype), cfg.dropout, gen)
         for i in range(cfg.n_layer):
             x = getattr(self, f"h_{i}")(x, gen)
+        if isinstance(gen, DropoutMasks) and gen.left:
+            raise ValueError(f"{gen.left} dropout masks left over after the forward")
         x = layer_norm(self.ln_f, x)
         if logit_positions is not None:
             return torch.matmul(gather_at(x, logit_positions), self.wte.t())
@@ -265,6 +304,25 @@ class GPT2LMHead(nn.Module):
         if not cfg.with_mc_head or mc_positions is None:
             return lm_logits
         return lm_logits, gather_at(x, mc_positions) @ self.mc_head
+
+    def dropout_masks(self, batch_shape: tuple, gen: torch.Generator) -> list[torch.Tensor]:
+        """The keep masks a training forward over ``input_ids`` of shape
+        ``batch_shape`` (B, T) draws from ``gen``, drawn here instead, with
+        one ``torch.rand`` per dropout site in the forward's order and at
+        its shape (the embedding [B, T, C], then per block the attention
+        probabilities [B, H, T, T], the attention output and the MLP output
+        [B, T, C]): bitwise the masks the forward would draw. Passed as
+        ``gen`` (a list), the forward reads them in that order. [] with
+        dropout off."""
+        cfg = self.cfg
+        if cfg.dropout == 0.0:
+            return []
+        B, T = batch_shape
+        shapes = [(B, T, cfg.n_embd)] + [(B, cfg.n_head, T, T), (B, T, cfg.n_embd),
+                                         (B, T, cfg.n_embd)] * cfg.n_layer
+        keep = 1.0 - cfg.dropout
+        return [torch.rand(s, generator=gen, device=gen.device, dtype=torch.float32) < keep
+                for s in shapes]
 
 
 def init_weights(model: GPT2LMHead, seed: int) -> None:

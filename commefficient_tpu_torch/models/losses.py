@@ -1,9 +1,12 @@
 """Loss functions binding a model to the engine's protocol:
 ``loss_fn(params, net_state, batch, gen=None) -> (loss, aux)``, the twin of
 the JAX package's ``models/losses.py``. ``gen`` is the ``torch.Generator``
-a training forward draws its dropout masks from (None in eval); the
-classification losses ignore it. The LM losses are ``make_lm_loss`` and,
-for the double-head objective, ``make_lm_mc_loss``."""
+a training forward draws its dropout masks from, or the list of masks
+that the loss's ``dropout_masks(batch, gen)`` drew from one beforehand
+(what the engine passes under ``torch.func.vmap``, where nothing may
+draw); None in eval. The classification losses ignore it and have no
+``dropout_masks``. The LM losses are ``make_lm_loss`` and, for the
+double-head objective, ``make_lm_mc_loss``."""
 
 from __future__ import annotations
 
@@ -70,6 +73,10 @@ def make_lm_loss(model: nn.Module, train: bool):
             "metrics": {"loss_sum": loss_sum, "count": mask.sum(), "correct": correct},
         }
 
+    def dropout_masks(batch: dict, gen: torch.Generator) -> list:
+        return model.dropout_masks(tuple(batch["input_ids"].shape), gen) if train else []
+
+    loss_fn.dropout_masks = dropout_masks
     return loss_fn
 
 
@@ -127,4 +134,10 @@ def make_lm_mc_loss(model: nn.Module, train: bool, mc_coef: float = 1.0, pad_id:
                         "mc_correct": mc_correct},
         }
 
+    def dropout_masks(batch: dict, gen: torch.Generator) -> list:
+        # every candidate runs through the transformer, flattened to [B*C, T]
+        B, C, T = batch["input_ids"].shape
+        return model.dropout_masks((B * C, T), gen) if train else []
+
+    loss_fn.dropout_masks = dropout_masks
     return loss_fn

@@ -172,6 +172,7 @@ def _accumulate(spec: CSVecSpec, vals: torch.Tensor, idx: torch.Tensor,
 
 
 def _check_vec(spec: CSVecSpec, v: torch.Tensor) -> None:
+    kernels.check_untransformed("v", v)
     if tuple(v.shape) != (spec.d,):
         raise ValueError(f"expected shape ({spec.d},), got {tuple(v.shape)}")
 
@@ -242,6 +243,7 @@ def merge_tables(spec: CSVecSpec, tables: torch.Tensor) -> torch.Tensor:
 def query_all(spec: CSVecSpec, table: torch.Tensor) -> torch.Tensor:
     """Dense [d] vector of estimates for every coordinate. Rotation family:
     the CUDA kernel for a CUDA tensor, else the plain per-slab query."""
+    kernels.check_untransformed("table", table)
     if tuple(table.shape) != spec.table_shape:
         raise ValueError(f"expected table {spec.table_shape}, got {tuple(table.shape)}")
     if spec.family == "rotation":

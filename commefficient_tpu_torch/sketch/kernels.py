@@ -25,8 +25,18 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
+def check_untransformed(name: str, t: torch.Tensor) -> None:
+    """Raise for a tensor of a ``torch.func`` transform (a vmap's batched
+    tensor, a grad's wrapper): the sketch runs on whole tensors outside any
+    transform, the engine calls it row by row, and no map may reach it."""
+    if torch._C._functorch.is_functorch_wrapped_tensor(t):
+        raise ValueError(f"{name} is a tensor of a torch.func transform (vmap or grad); the "
+                         "sketch kernels take plain tensors, outside any transform")
+
+
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
            device: torch.device) -> None:
+    check_untransformed(name, t)
     if not t.is_cuda or t.device != device:
         raise ValueError(f"{name} must be on {device}, got {t.device}")
     if t.dtype != dtype:

@@ -194,7 +194,7 @@ def save(ckpt_dir: str, session, keep: int = 3, fault_plan=None,
     meta = {"round": rnd, "comm_mb_total": comm_mb_total, "num_workers": num_workers,
             "mode": session.cfg.mode.mode, "num_clients": session.train_set.num_clients,
             "host_rng": _rng_to_json(rng_state), "requeued": requeued,
-            "requeue_ages": requeue_ages}
+            "requeue_ages": requeue_ages, "client_chunk": session.cfg.client_chunk}
     if serve_meta is not None:
         meta["serve"] = serve_meta
     times = {"copy_ms": (time.perf_counter() - t0) * 1e3, "write_ms": 0.0, "verify_ms": 0.0}
@@ -309,6 +309,12 @@ def restore(path: str, session) -> None:
         session._requeue_ages_committed = tuple(session._requeue_enqueued.items())
         # for a service that attaches to the restored session (absent = empty)
         session.restored_serve_meta = meta.get("serve")
+        saved_chunk = int(meta.get("client_chunk", session.cfg.client_chunk))
+        if saved_chunk != session.cfg.client_chunk:
+            print(f"note: checkpoint {path} was written at client_chunk={saved_chunk}; "
+                  f"resuming at it (this session asked for {session.cfg.client_chunk})",
+                  flush=True)
+            session.set_client_chunk(saved_chunk)
     saved_w = meta.get("num_workers")
     if saved_w is not None and saved_w != session.num_workers:
         print(f"warning: checkpoint {path} was written with num_workers={saved_w} but "

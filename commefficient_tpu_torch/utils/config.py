@@ -4,7 +4,7 @@ defaults, plus ``--device``, so a launch command of the reference parses
 here. The flags of features the port does not run yet (``_UNPORTED``:
 the layerwise sketch path, robust merges and the quarantine, the
 pipelined, buffered-async, fast-path, sharded and edge-tree serving
-variants, batched clients, meshes and processes, observability, and
+variants, meshes and processes, observability, and
 GPT-2's ring attention, mixture of experts and parallelism) parse at the
 reference's defaults, and ``resolve_defaults`` refuses any other value
 by name, with the ROADMAP Queue 1 item that brings the feature: accepted
@@ -49,8 +49,6 @@ _UNPORTED = (
     ("serve_edges", dict(type=int, default=0), (0,), _SERVE, "9b"),
     ("serve_fastpath", dict(action="store_true"), (False,), _SERVE, "9b"),
     ("serve_gauntlet_workers", dict(type=int, default=2), (2,), _SERVE, "9b"),
-    ("client_chunk", dict(type=int, default=0), (0,),
-     "batched clients are not ported (the port folds one client at a time)", 3),
     ("split_compile", dict(action="store_true"), (False,),
      "the port runs eagerly and compiles no program to split", None),
     ("multihost", dict(action="store_true"), (False,), _MULTI, 7),
@@ -165,6 +163,11 @@ def make_parser(task: str = "cv") -> argparse.ArgumentParser:
                    help="> 1 runs this many rounds per dispatch with one host-to-"
                         "device copy of their stacked batches and one metrics "
                         "read per block")
+    p.add_argument("--client_chunk", type=int, default=0,
+                   help="0 vmaps all sampled clients at once; C > 0 vmaps the "
+                        "linear grad modes' clients in chunks of C (repaired to a "
+                        "divisor of --num_workers), so at most C full gradients "
+                        "are live at a time")
     p.add_argument("--sync_loop", action="store_true",
                    help="run the synchronous loop: inline batch assembly, a "
                         "metrics sync per dispatch, blocking checkpoint writes. "

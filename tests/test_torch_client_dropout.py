@@ -73,23 +73,32 @@ def test_dropout_zero_is_identity(tiny):
     _same_round(step0(s0, batch, {}, 0.1), step1(s1, batch, {}, 0.1))
 
 
-@pytest.mark.parametrize("mode_kw", [UNCOMPRESSED, SKETCH], ids=["uncompressed", "sketch"])
-def test_dropout_equals_survivor_only_round(tiny, mode_kw):
-    """Given the mask: the dropout round is, bitwise, the round with that
-    mask as its validity and the round over the survivors alone; and it is
-    the reference round with the same validity."""
+def _dropout_vs_survivors(tiny, mode_kw, chunk):
+    """(the dropout round, the round over the survivors alone, the mask),
+    both at ``client_chunk`` = ``chunk``, after holding the dropout round
+    bitwise against the round with the mask as its validity."""
     W = 8
     batch = _image_batch(W)
     mask = engine.participation_mask(SEED, 0, W, 0.4)
     assert 0 < mask.sum() < W  # the seed gives a non-trivial mask
-    step, state = _port(tiny, mode_kw, client_dropout=0.4)
+    step, state = _port(tiny, mode_kw, client_dropout=0.4, client_chunk=chunk)
     dropped = step(state, _t(batch), {}, 0.1)
-    plain, state0 = _port(tiny, mode_kw)
+    plain, state0 = _port(tiny, mode_kw, client_chunk=chunk)
     _same_round(dropped, plain(state0, {**_t(batch), "_valid": mask}, {}, 0.1))
     surv = np.flatnonzero(mask.numpy())
     alone = plain(state0, _t({k: v[surv] for k, v in batch.items()}), {}, 0.1)
-    assert torch.equal(dropped[0]["params"], alone[0]["params"])
     assert dropped[2]["count"].item() == mask.sum().item() * 4
+    return dropped, alone, mask, batch, state
+
+
+@pytest.mark.parametrize("mode_kw", [UNCOMPRESSED, SKETCH], ids=["uncompressed", "sketch"])
+def test_dropout_equals_survivor_only_round(tiny, mode_kw):
+    """Given the mask: the dropout round is, bitwise, the round with that
+    mask as its validity and (at client_chunk=1, one client a chunk, as the
+    reference pins its own) the round over the survivors alone; and it is
+    the reference round with the same validity."""
+    dropped, alone, mask, batch, state = _dropout_vs_survivors(tiny, mode_kw, 1)
+    assert torch.equal(dropped[0]["params"], alone[0]["params"])
 
     fmodel, params, _ = tiny
     d = state["params"].numel()
@@ -108,6 +117,15 @@ def test_dropout_equals_survivor_only_round(tiny, mode_kw):
         np.testing.assert_allclose(tp[same], jp[same], rtol=0, atol=1e-5)
     else:
         np.testing.assert_allclose(tp, jp, rtol=0, atol=1e-5)
+
+
+def test_dropout_equals_survivor_only_round_at_chunk_0(tiny):
+    """At client_chunk=0 the dropout round is still bitwise the round with
+    the mask as its validity (the same W), and the survivors-alone round
+    (a vmap of fewer clients, whose products sum in another order) within
+    atol 1e-6 of its params."""
+    dropped, alone, _, _, _ = _dropout_vs_survivors(tiny, UNCOMPRESSED, 0)
+    torch.testing.assert_close(dropped[0]["params"], alone[0]["params"], rtol=0, atol=1e-6)
 
 
 def test_dropout_preserves_dropped_local_state(tiny):

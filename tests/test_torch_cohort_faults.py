@@ -291,18 +291,49 @@ def _assert_rounds_equal(a, b):
 SKETCH_FULL = dict(SKETCH, k=2000, num_rows=5, num_cols=65_536)
 
 
-@pytest.mark.parametrize("eng_kw", [{}, {"dp_clip": 1.0}], ids=["plain", "dp_clip"])
-def test_masked_round_bit_identical_to_surviving_cohort(eng_kw):
-    """ResNet-9 at full width, batch norm on: positions {0, 3} of 6
-    masked give, bitwise, the round of the 4 survivors alone (params,
-    Vvelocity/Verror, batch-norm statistics, every metric): a masked
-    client adds exact zeros to every fold."""
+def _masked_and_alone(eng_kw):
+    """ResNet-9 at full width, batch norm on: the round with positions
+    {0, 3} of 6 masked and the round of the 4 survivors alone."""
     step, state, batch = _resnet(6, SKETCH_FULL, **eng_kw)
     masked = dict(batch, _valid=torch.tensor([0, 1, 1, 0, 1, 1], dtype=torch.float32))
     surv = [1, 2, 4, 5]
     alone = {k: v[surv] for k, v in batch.items()}
     alone["_valid"] = torch.ones(4)
-    _assert_rounds_equal(step(state, masked, {}, 0.1), step(state, alone, {}, 0.1))
+    return step(state, masked, {}, 0.1), step(state, alone, {}, 0.1), state
+
+
+@pytest.mark.parametrize("eng_kw", [{}, {"dp_clip": 1.0}], ids=["plain", "dp_clip"])
+def test_masked_round_bit_identical_to_surviving_cohort(eng_kw):
+    """At client_chunk=1 (one client a chunk, as the reference pins its
+    own), positions {0, 3} of 6 masked give, bitwise, the round of the 4
+    survivors alone (params, Vvelocity/Verror, batch-norm statistics,
+    every metric): a masked client adds exact zeros to every sum."""
+    masked, alone, _ = _masked_and_alone(dict(eng_kw, client_chunk=1))
+    _assert_rounds_equal(masked, alone)
+
+
+@pytest.mark.parametrize("eng_kw", [{}, {"dp_clip": 1.0}], ids=["plain", "dp_clip"])
+def test_masked_round_matches_surviving_cohort_at_chunk_0(eng_kw):
+    """At client_chunk=0 a vmap over 6 clients and one over 4 run their
+    convolutions at other batch sizes, so the two rounds agree to rounding:
+    Verror within atol 1e-6, the moved params within atol 1e-6 (a top-k
+    swap only at a near-tie of the k-th estimate), the batch-norm
+    statistics and metrics within rtol 1e-5, the participants exactly."""
+    (sm, _, mm), (sa, _, ma), state = _masked_and_alone(eng_kw)
+    p0 = state["params"]
+    moved_m, moved_a = sm["params"] != p0, sa["params"] != p0
+    assert int((moved_m ^ moved_a).sum()) <= 2
+    both = moved_m & moved_a
+    torch.testing.assert_close(sm["params"][both], sa["params"][both], rtol=0, atol=1e-6)
+    for k in sm["mode_state"]:
+        torch.testing.assert_close(sm["mode_state"][k], sa["mode_state"][k], rtol=0,
+                                   atol=1e-6)
+    for k in sm["net_state"]:
+        torch.testing.assert_close(sm["net_state"][k], sa["net_state"][k], rtol=1e-5,
+                                   atol=1e-6)
+    for k in mm:
+        torch.testing.assert_close(mm[k], ma[k], rtol=1e-5, atol=0)
+    assert mm["participants"].item() == 4
 
 
 @pytest.mark.parametrize("eng_kw", [{}, {"dp_clip": 1.0}], ids=["plain", "dp_clip"])

@@ -79,7 +79,7 @@ def test_nonfinite_round_is_skipped():
 
 
 
-@pytest.mark.parametrize("flag", [["--client_chunk", "4"], ["--sketch_path", "layerwise"]])
+@pytest.mark.parametrize("flag", [["--sketch_path", "layerwise"]])
 def test_cli_rejects_reference_flags_the_port_does_not_honour(flag):
     """A flag of the JAX CLI that the port does not run parses, and a value
     that asks for the feature is refused by name, not accepted and
@@ -88,45 +88,82 @@ def test_cli_rejects_reference_flags_the_port_does_not_honour(flag):
         cv_train.resolve_defaults(cv_train.make_parser().parse_args(["--device", "cpu", *flag]))
 
 
-@pytest.mark.parametrize("valid", [[1.0, 1.0], [1.0, 0.0], [0.0, 0.0]],
-                         ids=["all_live", "nan_client_dropped", "all_dropped"])
-def test_client_reduce_equals_survivor_mean_of_client_gradients(valid):
-    """reduce_clients folds the clients one by one; the result must be,
-    bitwise, the survivor mean of each client's own gradient (+ weight
-    decay), batch-norm statistics and metric sums, computed client by
-    client here. A dropped client carries a NaN image, which must
-    contribute an exact zero; with nobody left the statistics stay as
-    they were and the update is zero."""
+def test_cli_client_chunk_reaches_the_engine_and_runs(tmp_path):
+    """--client_chunk 4 parses, reaches EngineConfig and runs a round."""
+    session = cv_train.main([
+        "--device", "cpu", "--mode", "sketch", "--num_clients", "10",
+        "--num_workers", "4", "--local_batch_size", "2", "--k", "500",
+        "--num_cols", "65536", "--num_rounds", "1", "--eval_every", "1",
+        "--synthetic_train", "100", "--data_root", str(tmp_path / "none"),
+        "--client_chunk", "4"])
+    assert session.cfg.client_chunk == 4
+    assert session.round == 1 and torch.isfinite(session.state["params"]).all()
+
+
+def _reduce_vs_clients(valid, chunk):
+    """(the engine's reduction at ``client_chunk`` = ``chunk``, and the
+    survivor mean of each client's own update, statistics and metric sums,
+    computed client by client here: one vmapped client at a time, as
+    ``client_chunk=1`` runs them). A dropped client carries a NaN image."""
     mode_kw = dict(mode="uncompressed", momentum=0.9, momentum_type="virtual",
                    error_type="none")
-    loss_fn, layout, cfg, state, batch = _setup(mode_kw, weight_decay=5e-4)
+    loss_fn, layout, cfg, state, batch = _setup(mode_kw, weight_decay=5e-4,
+                                                client_chunk=chunk)
     batch[engine.VALID_KEY] = torch.tensor(valid)
     if valid[1] == 0.0:
         batch["x"][1, 0, 0, 0, 0] = float("nan")
-    weighted, stats, metrics = engine.reduce_clients(loss_fn, cfg, layout, state, batch)
+    got = engine.reduce_clients(loss_fn, cfg, layout, state, batch)
 
-    pflat = state["params"]
+    updates = engine.make_client_updates(loss_fn, cfg, layout)
     grads, client_stats, client_metrics = [], [], []
     for w in range(2):
         if not valid[w]:
             continue
-        leaves = {k: v.clone().requires_grad_(True)
-                  for k, v in layout.unflatten(pflat).items()}
-        cbatch = {k: v[w] for k, v in batch.items() if k != engine.VALID_KEY}
-        loss, aux = loss_fn(leaves, state["net_state"], cbatch)
-        g = torch.autograd.grad(loss, list(leaves.values()))
-        grads.append(layout.flatten(dict(zip(leaves, g))) + 5e-4 * pflat)
-        client_stats.append({k: v.detach() for k, v in aux["net_state"].items()})
-        client_metrics.append({k: v.detach() for k, v in aux["metrics"].items()})
+        cbatch = {k: v[w:w + 1] for k, v in batch.items() if k != engine.VALID_KEY}
+        u, stats, metrics = updates(state, cbatch, None, range(w, w + 1))
+        grads.append(u[0])
+        client_stats.append({k: v[0] for k, v in stats.items()})
+        client_metrics.append({k: v[0] for k, v in metrics.items()})
     n = max(len(grads), 1)
+    pflat = state["params"]
+    want_g = sum(grads[1:], grads[0]) / n if grads else torch.zeros_like(pflat)
+    want_s = {k: ((sum(s[k] for s in client_stats[1:]) + client_stats[0][k]) / n
+                  if client_stats else prev) for k, prev in state["net_state"].items()}
+    want_m = {k: sum(float(m[k]) for m in client_metrics) for k in ("loss_sum", "count",
+                                                                   "correct")}
+    return got, (want_g, want_s, want_m)
+
+
+@pytest.mark.parametrize("valid", [[1.0, 1.0], [1.0, 0.0], [0.0, 0.0]],
+                         ids=["all_live", "nan_client_dropped", "all_dropped"])
+def test_client_reduce_equals_survivor_mean_of_client_gradients(valid):
+    """At client_chunk=1 the reduction must be, bitwise, the survivor mean
+    of each client's own gradient (+ weight decay), batch-norm statistics
+    and metric sums. A dropped client's NaN must contribute an exact zero;
+    with nobody left the statistics stay as they were and the update is
+    zero."""
+    (weighted, stats, metrics), (want_g, want_s, want_m) = _reduce_vs_clients(valid, 1)
     exact = dict(rtol=0, atol=0)
-    want = sum(grads[1:], grads[0]) / n if grads else torch.zeros_like(pflat)
-    torch.testing.assert_close(weighted, want, **exact)
-    for k, prev in state["net_state"].items():
-        want = (sum(s[k] for s in client_stats[1:]) + client_stats[0][k]) / n \
-            if client_stats else prev
+    torch.testing.assert_close(weighted, want_g, **exact)
+    for k, want in want_s.items():
         torch.testing.assert_close(stats[k], want, **exact)
-    for k in ("loss_sum", "count", "correct"):
-        want = sum(float(m[k]) for m in client_metrics)
+    for k, want in want_m.items():
         assert metrics[k].item() == pytest.approx(want, rel=1e-7, abs=0), k
+    assert metrics["participants"].item() == sum(valid)
+
+
+@pytest.mark.parametrize("valid", [[1.0, 1.0], [1.0, 0.0], [0.0, 0.0]],
+                         ids=["all_live", "nan_client_dropped", "all_dropped"])
+def test_client_reduce_at_chunk_0_equals_survivor_mean_of_client_gradients(valid):
+    """At client_chunk=0 (one vmap of both clients) the same, held within
+    rtol 1e-5, atol 1e-6: a vmap over 2 clients runs its convolutions at
+    another batch than one over 1, so the two sum in another order (CPU:
+    2e-7 apart); the dropped client's NaN still adds an exact zero."""
+    (weighted, stats, metrics), (want_g, want_s, want_m) = _reduce_vs_clients(valid, 0)
+    assert torch.isfinite(weighted).all()
+    torch.testing.assert_close(weighted, want_g, rtol=1e-5, atol=1e-6)
+    for k, want in want_s.items():
+        torch.testing.assert_close(stats[k], want, rtol=1e-5, atol=1e-6)
+    for k, want in want_m.items():
+        assert metrics[k].item() == pytest.approx(want, rel=1e-5, abs=0), k
     assert metrics["participants"].item() == sum(valid)

@@ -86,7 +86,9 @@ def _jquad(params, net_state, batch, rng):
 
 def _tquad(params, net_state, batch, gen=None):
     pred = batch["x"] @ params["w"] + params["b"]
-    err = pred - torch.nn.functional.one_hot(batch["y"].long(), pred.shape[-1]).float()
+    # one-hot by comparison: F.one_hot checks its range with .item(), which
+    # the engine's torch.func.vmap refuses
+    err = pred - (batch["y"].long()[:, None] == torch.arange(pred.shape[-1])).float()
     mask = batch["mask"]
     per_ex = (err ** 2).sum(-1)
     return (per_ex * mask).sum() / mask.sum().clamp_min(1.0), {
