@@ -181,12 +181,38 @@ Phases (any failure raises, and the exit status is non-zero):
       apart and kernel launches a round;
    and no vmap batching-rule fallback warning fires on any of it.
 
+16. observability (``obs/``) through the entry points, with the launch
+   counts zeroed before (a), (d) and (e):
+   a. ResNet-9 FetchSGD (phase 5's flags), 6 rounds, async, plain and with
+      --trace --trace_events --health_every 2 --ledger --slo warn
+      --profile_rounds 2:3 --profile_dir: bitwise equal; the trace holds
+      the runner's spans and device spans over every round; the capture
+      (the exported Chrome trace) holds accumulate_tiles once and
+      query_tiles once a round it covers, plus one query_tiles a health
+      round; health blocks on rounds 0, 2 and 4 only, each recall proxy
+      within 0.05 of the truth; each health round's raw table queried by
+      the kernel == its plain query bitwise; the ledger's replay-check and
+      diff against a second armed run exit 0;
+   b. preempt@2 -> exit 75 -> --resume with --ledger: one gap-free ledger,
+      and the exit-75 postmortem bundle (trace, ledger tail, registry,
+      config, reason);
+   c. phase 8h's sync probe with --trace --health_every 1 --ledger;
+   d. GPT-2 (phase 11's flags), 2 sync rounds with --health_every 1: the
+      chunked split estimator gives a finite block; its device ms and
+      transient memory, and a round with and without it, in turns;
+   e. the served sketch-payload round in process, 4 rounds with
+      --health_every 1: every health block == the batch payload round's;
+   f. sync round ms, plain against armed (off cadence and health rounds),
+      3 alternating rounds each.
+
 Prints one JSON line with the kernels' numbers (launches counted over
 phase 8; under "gpt2" each kernel's numbers at the GPT-2 shape, launches
 counted over phase 11a; "launches_cohort" counted over phase 12a's sync
 run; "launches_bf16" over each run of phase 13 and under "gpt2_mc_bf16"
 the numbers at phase 13b's shape; "launches_serve" over phase 14a's and
-14b's served runs; "launches_batched" over each round of phase 15), then
+14b's served runs; "launches_batched" over each round of phase 15;
+"launches_obs" over phase 16's armed (a), GPT-2 (d) and served (e) runs),
+then
 as its last line
 ``{"ok": true, "device": {...}}``. Run from the repository root:
     python3 chip_smoke.py
@@ -204,6 +230,7 @@ import os
 import statistics
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -308,6 +335,10 @@ BF16_GRAD_REL = 5e-2
 # for the worst of 8 ResNet-9 clients at chunk 0 against chunk 1, the mean
 # of the cohort much less); a fault is O(1)
 CLIENT_GRAD_REL = 3e-2
+# phase 16: observability, runs of OBS_ROUNDS rounds of phase 5's flags;
+# OBS_PAIRS alternating sync rounds a side in (f)
+OBS_ROUNDS = 6
+OBS_PAIRS = 3
 
 
 def fail(msg: str):
@@ -666,13 +697,20 @@ def sync_probe(cv_train, slice_args) -> None:
     which raises at any synchronizing CUDA call; the drain's copy, run under
     it first, must raise (the detector works). A profiler window over the
     dispatches and their drain also counts the synchronize calls: the
-    drain's and the profiler's own at its exit, no more."""
+    drain's and the profiler's own at its exit, no more. The observability
+    flags among ``slice_args`` (--trace, --health_every, --ledger) are
+    armed and attached as the entry point does, so their work runs under
+    the detector too."""
     from torch.profiler import ProfilerActivity, profile
 
+    from commefficient_tpu_torch import obs
     from commefficient_tpu_torch.runner import RoundPrefetcher
     from commefficient_tpu_torch.utils.config import make_parser, resolve_defaults
 
-    session, _ = cv_train.build(resolve_defaults(make_parser().parse_args(slice_args)))
+    args = resolve_defaults(make_parser().parse_args(slice_args))
+    obs.configure_from_args(args)
+    session, _ = cv_train.build(args)
+    wiring = obs.attach_from_args(args, session)
     src = RoundPrefetcher(session, 0, depth=4)
     try:
         session.commit_round(session.dispatch_round(src.next(), 0.01))  # warm
@@ -691,6 +729,8 @@ def sync_probe(cv_train, slice_args) -> None:
             session.commit_rounds(pending, session.fetch_metrics(pending))
     finally:
         src.stop()
+        wiring.close()
+        obs.trace.configure()
     syncs = [e.name for e in prof.events()
              if e.name.startswith("cuda") and "Synchronize" in e.name]
     print(f"sync probe: 4 dispatches ran with no synchronizing call; the profiler window "
@@ -1989,6 +2029,270 @@ def _batched_runs(cv_train, engine, csvec, kernels, card: str, launches: dict) -
         del sessions, s0
 
 
+@contextlib.contextmanager
+def recording_health(engine):
+    """Inside the block, every health block the engine computes records its
+    raw aggregate table (a copy), the CUDA events around the block and the
+    device memory before it and at its peak (the peak statistics are reset
+    just before the block)."""
+    rec = []
+    orig = engine._health_metrics
+
+    def health(cfg, raw_agg, *a, **kw):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0.record()
+        out = orig(cfg, raw_agg, *a, **kw)
+        t1.record()
+        rec.append({"table": raw_agg["table"].clone(), "events": (t0, t1), "base": base,
+                    "peak": torch.cuda.max_memory_allocated()})
+        return out
+
+    engine._health_metrics = health
+    try:
+        yield rec
+    finally:
+        engine._health_metrics = orig
+
+
+def _capture_kernels(path: str) -> Counter:
+    """Device kernel launches by name in an exported torch.profiler trace."""
+    with open(path) as f:
+        evs = json.load(f)["traceEvents"]
+    return Counter(e["name"] for e in evs if e.get("cat") == "kernel")
+
+
+def obs_phase(cv_train, engine, csvec, kernels, card: str) -> dict:
+    """Phase 16: the observability layer on the card; returns each kernel's
+    launches over (a)'s armed run, (d)'s GPT-2 health run and (e)'s served
+    payload run."""
+    import dataclasses
+    import shutil
+
+    from commefficient_tpu_torch import gpt2_train, obs
+    from commefficient_tpu_torch.obs import ledger as tledger
+    from commefficient_tpu_torch.utils.config import make_parser, resolve_defaults
+
+    phase_t = time.perf_counter()
+    base = os.path.join(ROOT, "build", "chip_smoke", "obs")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    launches = {}
+
+    def run(extra, label, main=cv_train.main, argv0=SLICE_ARGS, rounds=OBS_ROUNDS):
+        log = os.path.join(base, f"{label}.jsonl")
+        s = main(argv0 + ["--num_rounds", str(rounds), "--log_jsonl", log] + list(extra))
+        torch.cuda.synchronize()
+        rows = [json.loads(line) for line in open(log)]
+        for r in rows:
+            r.pop("time_s")
+        return s, rows
+
+    def armed(tag):
+        return ["--trace", os.path.join(base, f"{tag}.trace.json"), "--trace_events",
+                os.path.join(base, f"{tag}.events.jsonl"), "--health_every", "2", "--ledger",
+                os.path.join(base, f"{tag}.ledger.jsonl"), "--slo", "warn"]
+
+    # a. armed against plain, bitwise; the trace, the capture, the blocks
+    plain, rows_p = run([], "plain")
+    pdir = os.path.join(base, "prof")
+    kernels.reset_launch_counts()
+    with recording_health(engine) as hrec:
+        arm, rows_a = run(armed("a") + ["--profile_rounds", "2:3", "--profile_dir", pdir],
+                          "armed")
+    launches["armed"] = la = dict(kernels.launch_counts)
+    if not (_equal(_full_state(plain), _full_state(arm)) and rows_p == rows_a):
+        fail("obs a: the armed run differs from the plain run")
+    health_rounds = [r for r in range(OBS_ROUNDS) if r % 2 == 0]
+    want = {"sketch_accumulate": OBS_ROUNDS, "sketch_query": OBS_ROUNDS + len(health_rounds)}
+    if la != want:
+        fail(f"obs a: launches {la}, expected {want} (one query more a health round)")
+    with open(os.path.join(base, "a.trace.json")) as f:
+        evs = [e for e in json.load(f)["traceEvents"] if e["ph"] != "M"]
+    spans = Counter((e["cat"], e["name"]) for e in evs)
+    device = sorted((e["args"]["round_first"], e["args"]["rounds"]) for e in evs
+                    if e["cat"] == "device")
+    if (any(spans[("runner", p)] < 1 for p in ("prepare", "dispatch", "drain", "commit", "eval"))
+            or [r for f, n in device for r in range(f, f + n)] != list(range(OBS_ROUNDS))):
+        fail(f"obs a: the trace lacks runner spans or device spans: {spans}, {device}")
+    (cap,) = os.listdir(pdir)
+    first, last = (int(x) for x in cap.split(".")[0].split("_")[1:3])
+    got = _capture_kernels(os.path.join(pdir, cap))
+    cap_acc = sum(n for k, n in got.items() if "accumulate_tiles" in k)
+    cap_query = sum(n for k, n in got.items() if "query_tiles" in k)
+    covered = range(first, last + 1)
+    want_q = len(covered) + sum(1 for r in covered if r % 2 == 0)
+    if (cap_acc, cap_query) != (len(covered), want_q):
+        fail(f"obs a: the capture of rounds {first}..{last} holds accumulate_tiles "
+             f"{cap_acc}x and query_tiles {cap_query}x, expected {len(covered)} and {want_q}")
+    blocks = list(arm.health_monitor.history)
+    if [r for r, _ in blocks] != health_rounds:
+        fail(f"obs a: health blocks on rounds {[r for r, _ in blocks]}, not {health_rounds}")
+    for r, b in blocks:
+        gap = abs(b["topk_mass_proxy"] - b["topk_mass_true"])
+        print(f"obs a: round {r}: topk_mass_proxy {b['topk_mass_proxy']:.4f} (width "
+              f"{b['topk_proxy_width']:.4f}) against topk_mass_true {b['topk_mass_true']:.4f}, "
+              f"gap {gap:.4f}; row_mass_cv {b['row_mass_cv']:.4f}, occupancy "
+              f"{b['table_occupancy']:.4f}, verror_ratio {b['verror_ratio']:.4f}", flush=True)
+        if not gap <= 0.05:
+            fail(f"obs a: round {r}'s recall proxy is {gap:.4f} from the truth (bar 0.05)")
+    spec = arm.cfg.mode.sketch_spec
+    for h in hrec:
+        compare("sketch_query on a health round's raw table", csvec.query_all(spec, h["table"]),
+                csvec._query_all_rotation(spec, h["table"]))
+    led = os.path.join(base, "a.ledger.jsonl")
+    arm2, _ = run(armed("a2"), "armed2")
+    codes = (tledger.main(["replay-check", led]),
+             tledger.main(["diff", led, os.path.join(base, "a2.ledger.jsonl")]))
+    if codes != (0, 0):
+        fail(f"obs a: ledger replay-check / diff exit {codes}")
+    print(f"obs a: armed run (--trace --trace_events --health_every 2 --ledger --slo warn "
+          f"--profile_rounds 2:3) == plain run bitwise; launches {la}; {len(evs)} trace events, "
+          f"device spans {device}; capture of rounds {first}..{last}: accumulate_tiles "
+          f"{cap_acc}x, query_tiles {cap_query}x; health blocks on rounds {health_rounds}; the "
+          "health rounds' raw-table queries == plain bitwise; ledger replay-check 0, diff "
+          "against a second armed run 0", flush=True)
+    del plain, arm, arm2, hrec
+
+    # b. preempt -> 75 -> resume with --ledger, and the exit-75 bundle
+    ck, led_b = os.path.join(base, "ck"), os.path.join(base, "b.ledger.jsonl")
+    pre = ["--ledger", led_b, "--trace", os.path.join(base, "b.trace.json"),
+           "--checkpoint_dir", ck, "--fault_plan", "preempt@2"]
+    try:
+        run(pre, "preempted")
+        fail("obs b: preempt@2 did not exit")
+    except SystemExit as e:
+        if e.code != 75:
+            raise
+    bundle = led_b + ".postmortem"
+    have = sorted(os.listdir(bundle))
+    with open(os.path.join(bundle, "reason.json")) as f:
+        reason = json.load(f)
+    if (have != ["config.json", "ledger_tail.jsonl", "reason.json", "registry.json",
+                 "trace.json"] or reason["reason"] != "preemption"
+            or reason["artifact_failures"] is not None):
+        fail(f"obs b: the exit-75 bundle holds {have}, reason {reason}")
+    r_, _ = run(pre + ["--resume"], "resumed")
+    recs = tledger.round_records(led_b)
+    if tledger.replay_check(led_b) or [r["round"] for r in recs] != list(range(OBS_ROUNDS)):
+        fail(f"obs b: the resumed ledger is not gap-free: {[r['round'] for r in recs]}")
+    print(f"obs b: preempt@2 -> exit 75 (bundle {have}, reason preemption) -> resume: one "
+          f"ledger, rounds {[r['round'] for r in recs]}, no gaps or duplicates", flush=True)
+    del r_
+    shutil.rmtree(ck, ignore_errors=True)
+
+    # c. the sync probe, armed
+    led_c = os.path.join(base, "c.ledger.jsonl")
+    print("obs c: --trace --health_every 1 --ledger:", end=" ", flush=True)
+    sync_probe(cv_train, SLICE_ARGS + ["--trace", os.path.join(base, "c.trace.json"),
+                                       "--health_every", "1", "--ledger", led_c])
+    recs = tledger.round_records(led_c)
+    if len(recs) != 5 or not all(r["health"] and r["fingerprint"] for r in recs):
+        fail(f"obs c: the probe's ledger holds {len(recs)} rounds with health and fingerprints")
+
+    # d. GPT-2: the chunked split estimator at d = 85,453,056
+    kernels.reset_launch_counts()
+    with recording_health(engine) as hrec:
+        g, _ = run(["--sync_loop", "--health_every", "1"], "gpt2", gpt2_train.main, GPT2_ARGS, 2)
+    launches["gpt2_health"] = lg = dict(kernels.launch_counts)
+    if lg != {"sketch_accumulate": 2, "sketch_query": 4}:
+        fail(f"obs d: launches {lg}, expected 2 accumulates and 4 queries")
+    for r, b in g.health_monitor.history:
+        bad = [k for k, v in b.items() if not np.isfinite(v).all()]
+        if bad:
+            fail(f"obs d: GPT-2 round {r}'s health block is not finite: {bad}")
+        print(f"obs d: GPT-2 round {r}: topk_mass_proxy {b['topk_mass_proxy']:.4f} (width "
+              f"{b['topk_proxy_width']:.4f}) against topk_mass_true {b['topk_mass_true']:.4f}; "
+              f"{len(b['leaf_norms'])} leaf norms", flush=True)
+    torch.cuda.synchronize()
+    hms = [h["events"][0].elapsed_time(h["events"][1]) for h in hrec]
+    hgb = [(h["peak"] - h["base"]) / 1e9 for h in hrec]
+    spec = g.cfg.mode.sketch_spec
+    chunk = max(g.cfg.mode.k, csvec.UNSKETCH_SINGLE_SHOT_BYTES // (4 * spec.r))
+    del hrec
+
+    def timed_round(session) -> tuple:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        session.run_round(0.01)
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1), torch.cuda.max_memory_allocated() / 1e9
+
+    cfg_on = g.cfg
+    turns = {"health": [], "off": []}
+    for label in ("off", "health", "off", "health"):
+        g.cfg = cfg_on if label == "health" else dataclasses.replace(cfg_on, health=False)
+        g._build_steps()
+        turns[label].append(timed_round(g))
+    print(f"obs d: GPT-2 health block (chunked split estimator, chunks of {chunk:,} "
+          f"coordinates, {math.ceil(spec.d / chunk)} chunks): device ms between its events "
+          f"{[round(t, 2) for t in hms]}, transient peak above the round's live memory "
+          f"{[round(x, 2) for x in hgb]} GB; a whole round (device ms, peak GB) with the "
+          f"block {turns['health']} against without {turns['off']} [{card}]", flush=True)
+    del g
+
+    # e. served payload rounds: the health block == the batch payload round's
+    payload = ["--sync_loop", "--serve", "inproc"] + SERVE_PAYLOAD + ["--health_every", "1"]
+    kernels.reset_launch_counts()
+    with serving_runs() as rec:
+        served, _ = run(payload, "served", rounds=SERVE_ROUNDS)
+    launches["served_health"] = ls = dict(kernels.launch_counts)
+    W = served.num_workers
+    if ls != {"sketch_accumulate": W * SERVE_ROUNDS, "sketch_query": 2 * SERVE_ROUNDS}:
+        fail(f"obs e: launches {ls}, expected {W} accumulates and 2 queries a round")
+    plan = _drop_plan(rec["runs"][0][1].closed_rounds)
+    service_from_args = cv_train.service_from_args
+    cv_train.service_from_args = lambda args, session: None
+    try:
+        batch, _ = run(payload + (["--fault_plan", plan] if plan else []), "served_batch",
+                       rounds=SERVE_ROUNDS)
+    finally:
+        cv_train.service_from_args = service_from_args
+    hs, hb = list(served.health_monitor.history), list(batch.health_monitor.history)
+    if hs != hb or len(hs) != SERVE_ROUNDS or not _equal(_full_state(served),
+                                                         _full_state(batch)):
+        fail("obs e: the served payload rounds' health blocks differ from the batch twin's")
+    print(f"obs e: served payload, {SERVE_ROUNDS} rounds with health: every block == the batch "
+          f"payload round's (drops {plan!r}) bitwise; launches {ls}", flush=True)
+    del served, batch
+
+    # f. round ms, armed against plain, in turns
+    def session(extra):
+        args = resolve_defaults(make_parser().parse_args(SLICE_ARGS + list(extra)))
+        s, _ = cv_train.build(args)
+        return s, obs.attach_from_args(args, s)
+
+    trace_f = os.path.join(base, "f.trace.json")
+    (sp, _), (sa, wa) = session([]), session(armed("f"))
+    ms = {"plain": [], "armed, off cadence": [], "armed, health round": []}
+    for s in (sp, sa):
+        s.run_round(0.01)  # warm
+    torch.cuda.synchronize()
+    for _ in range(OBS_PAIRS * 2):
+        for label, s in (("plain", sp), ("armed", sa)):
+            obs.trace.configure(trace_f if s is sa else None)
+            if s is sa:
+                label = "armed, health round" if s.round % 2 == 0 else "armed, off cadence"
+            t0 = time.perf_counter()
+            s.run_round(0.01)
+            torch.cuda.synchronize()
+            ms[label].append((time.perf_counter() - t0) * 1e3)
+    obs.trace.configure()
+    wa.close()
+    print("obs f: sync round ms (prepare, dispatch, commit, synchronize), in turns: "
+          + "; ".join(f"{k} {[round(t, 2) for t in v]} (median {statistics.median(v):.2f})"
+                      for k, v in ms.items()) + f" [{card}]", flush=True)
+    del sp, sa
+    print(f"obs: phase took {time.perf_counter() - phase_t:.1f} s [{card}]", flush=True)
+    return launches
+
+
 REPLACES = {"sketch_accumulate": "commefficient_tpu/sketch/pallas_kernels.py:135",
             "sketch_query": "commefficient_tpu/sketch/pallas_kernels.py:211"}
 
@@ -2196,6 +2500,10 @@ def main(argv: list[str]) -> int:
     # 15. batched clients
     phase("15 (batched clients)")
     batched = batched_phase(cv_train, engine, csvec, kernels, card)
+
+    # 16. observability
+    phase("16 (observability)")
+    obs_launches = obs_phase(cv_train, engine, csvec, kernels, card)
     phase("end")
 
     for name in rows:
@@ -2206,6 +2514,7 @@ def main(argv: list[str]) -> int:
         rows[name]["launches_bf16"] = {run: n[name] for run, n in bf16["launches"].items()}
         rows[name]["launches_serve"] = {run: n[name] for run, n in serve.items()}
         rows[name]["launches_batched"] = {run: n[name] for run, n in batched.items()}
+        rows[name]["launches_obs"] = {run: n[name] for run, n in obs_launches.items()}
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -20,6 +20,13 @@ A baseline, e.g. local top-k over 3,550 FEMNIST writers with server-side
     python -m commefficient_tpu_torch.cv_train --dataset femnist --mode local_topk \
         --num_clients 3550 --error_type virtual --momentum_type virtual --k 50000
 
+Observability (``obs/``): --trace and --trace_events record the run's
+spans, --profile_rounds START:END (with --profile_dir) a torch.profiler
+capture of those rounds, --health_every N the sketch-health block every N
+rounds, --ledger PATH one record per committed round (and a postmortem
+bundle on exit 75, a watchdog abort or an unhandled exception), --slo
+warn|halt the SLO engine; none of them changes a bit of the run.
+
 --dtype bfloat16 computes in bfloat16 as the reference does (parameters,
 batch-norm statistics, logits and the sketched gradient stay float32).
 
@@ -37,6 +44,7 @@ import torch
 
 from .data.cifar import load_cifar_fed
 from .data.femnist import load_femnist_fed
+from . import obs
 from .federated.api import FederatedSession, FedModel, FedOptimizer
 from .models.convert import FlatLayout
 from .models.femnist_cnn import FEMNISTCNN
@@ -98,12 +106,19 @@ def build(args):
         # --serve_payload sketch: the two-step wire round (per-client tables,
         # then the table merge) that the service round-trips
         wire_payloads=args.serve != "off" and args.serve_payload == "sketch",
+        # the sketch-health estimators at the --health_every cadence and,
+        # with --ledger, per-round state fingerprints (both read-only:
+        # armed == unarmed, bitwise)
+        health_every=args.health_every,
+        ledger_fingerprint=bool(args.ledger),
     )
     return session, test_set
 
 
 def main(argv=None):
     args = resolve_defaults(make_parser().parse_args(argv))
+    # arm (or disarm) the tracer before anything emits
+    obs.configure_from_args(args)
     session, test_set = build(args)
     rounds_per_epoch = max(1, math.ceil(args.num_clients / session.num_workers))
     total_rounds = args.num_rounds or int(args.num_epochs * rounds_per_epoch)
@@ -140,21 +155,39 @@ def main(argv=None):
             "nonfinite_rounds": nonfinite_total,
         }
 
+    # --health_every, --slo, --ledger: attached after the restore, so the
+    # ledger's resume truncation keys off the restored round
+    wiring = obs.attach_from_args(args, session)
     # --serve: the aggregation service drives the loop from its arrival
     # stream (built after the restore, so a resumed service picks up the
     # checkpointed pending queue)
     service = service_from_args(args, session)
+    # --profile_dir without --profile_rounds: one capture of the whole run
+    capture = obs.profiler.whole_run("" if args.profile_rounds else args.profile_dir,
+                                     cuda=session.device.type == "cuda")
     try:
-        run_loop(session, opt,
-                 RunnerConfig.from_args(args, total_rounds, args.eval_every or rounds_per_epoch),
-                 eval_fn=lambda: model.eval(test_set, args.eval_batch_size),
-                 build_row=build_row, logger=logger,
-                 source=service.source() if service is not None else None)
+        with capture:
+            run_loop(session, opt,
+                     RunnerConfig.from_args(args, total_rounds,
+                                            args.eval_every or rounds_per_epoch),
+                     eval_fn=lambda: model.eval(test_set, args.eval_batch_size),
+                     build_row=build_row, logger=logger,
+                     source=service.source() if service is not None else None,
+                     slo=wiring.slo_engine, postmortem=wiring.postmortem)
+    except Exception as e:
+        # the unhandled-exception bundle (the watchdog-abort and exit-75
+        # bundles are written inside run_loop)
+        if wiring.postmortem is not None:
+            wiring.postmortem(f"exception:{type(e).__name__}: {e}")
+        raise
     finally:
         logger.close()
+        wiring.close()
         if service is not None:
             print(f"serve: final metrics {service.metrics_snapshot()}", flush=True)
             service.close()
+        # the Chrome trace is written on the preemption and halt exits too
+        obs.flush_trace()
     return session
 
 

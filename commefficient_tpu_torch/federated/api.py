@@ -33,6 +33,15 @@ the host once), the wire, ``finish_served_payload``, then
 ``dispatch_round`` merges the validated stack; its batch round composes
 the same two steps (``engine.compose_payload``).
 
+Observability (``obs/``): preparation is a ``federated`` span with
+``cohort_degraded`` and ``requeue_serve`` instants; with ``health_every``
+N > 0 each round's batch carries the host cadence flag
+(``engine.HEALTH_KEY``, armed on rounds ``rnd % N == 0``), and with
+``ledger_fingerprint`` every round's metrics carry the state fingerprints.
+``commit_rounds`` pops the "health/" and "ledger/" metrics before any row
+or total sees them and hands each committed round to the attached sinks
+(``health_monitor``, ``slo``, ``ledger``) in ``_publish_round_obs``.
+
 ``FedModel`` and ``FedOptimizer`` mirror the reference's
 ``FedModel(model, loss_fn, args)`` / ``FedOptimizer(opt, args)`` surface.
 The session runs on the GPU unless ``device="cpu"`` is passed. Batches are
@@ -56,6 +65,7 @@ from ..data.fed_dataset import FedDataset
 from ..models.convert import FlatLayout
 from ..modes import modes
 from ..modes.config import ModeConfig
+from ..obs import trace as obtrace
 from ..resilience import retry as rtry
 from ..utils.comm import BYTES_F32, BYTES_PAIR, round_comm_mb
 from ..utils.device import resolve_device
@@ -77,7 +87,9 @@ class PreparedRound:
     like the snapshot. ``payload`` is a served payload round's
     (validated [W, r, c] host table stack, [W] arrival mask, the client
     step's device leftovers) for ``dispatch_round``'s merge; None
-    otherwise."""
+    otherwise. ``health_on`` mirrors the batch's health cadence flag, so
+    commit knows which rounds' health blocks are real without reading a
+    device value."""
 
     rnd: int
     ids: np.ndarray
@@ -87,6 +99,7 @@ class PreparedRound:
     requeue: tuple = ()
     requeue_ages: tuple = ()
     payload: tuple | None = None
+    health_on: bool = False
 
 
 @dataclasses.dataclass
@@ -98,7 +111,9 @@ class InFlightRound:
     CPU): a checkpoint of this state waits for it alone. ``host_batch`` keeps the pinned source of
     the non-blocking copy referenced until commit. ``masked`` and
     ``requeue_depths`` hold each round's counts (aligned with ``lrs``),
-    ``requeue``/``requeue_ages`` the newest preparation's queue."""
+    ``requeue``/``requeue_ages`` the newest preparation's queue;
+    ``cohorts`` and ``health_on`` each round's invited ids and cadence flag
+    (what commit hands the obs sinks)."""
 
     new_state: dict | None
     new_client_state: dict | None
@@ -112,6 +127,8 @@ class InFlightRound:
     requeue_depths: list = dataclasses.field(default_factory=list)
     requeue: tuple = ()
     requeue_ages: tuple = ()
+    cohorts: list = dataclasses.field(default_factory=list)
+    health_on: list = dataclasses.field(default_factory=list)
 
     @property
     def num_rounds(self) -> int:
@@ -150,8 +167,12 @@ class FederatedSession:
         requeue_policy: str = "fifo",
         wire_payloads: bool = False,
         client_chunk: int = 0,
+        health_every: int = 0,
+        ledger_fingerprint: bool = False,
     ):
         self.device = resolve_device(device)
+        if health_every < 0:
+            raise ValueError(f"health_every must be >= 0, got {health_every}")
         if layout.d != mode_cfg.d:
             raise ValueError(f"mode_cfg.d={mode_cfg.d} but the model has d={layout.d}")
         if on_nonfinite not in ("off", "skip", "halt"):
@@ -167,7 +188,16 @@ class FederatedSession:
             mode=mode_cfg, weight_decay=weight_decay,
             on_nonfinite="skip" if on_nonfinite == "halt" else on_nonfinite, seed=seed,
             client_dropout=client_dropout, dp_clip=dp_clip, dp_noise=dp_noise,
-            wire_payloads=wire_payloads, client_chunk=client_chunk)
+            wire_payloads=wire_payloads, client_chunk=client_chunk,
+            # in-step observability (--health_every N > 0, --ledger): both
+            # only read round state, so armed rounds are bitwise unarmed ones
+            health=health_every > 0, ledger_fingerprint=ledger_fingerprint)
+        self._health_every = max(health_every, 1)
+        # the obs sinks commit hands each round to (obs.attach_from_args
+        # sets them): the health monitor, the SLO engine, the round ledger
+        self.health_monitor = None
+        self.slo = None
+        self.ledger = None
         if client_chunk and self.num_workers % client_chunk:
             # the cohort may have been clamped to num_clients: a chunk that
             # divided the requested cohort may no longer divide. Largest
@@ -288,8 +318,10 @@ class FederatedSession:
 
     def _to_device(self, batch: dict) -> dict:
         """Copy a batch of host tensors (or numpy arrays) to the session's
-        device. From pinned memory the copy is queued without a host sync."""
-        return {k: (v if torch.is_tensor(v) else torch.from_numpy(np.ascontiguousarray(v)))
+        device. From pinned memory the copy is queued without a host sync.
+        The health cadence flag stays on the host, where the step reads it."""
+        return {k: v if k == engine.HEALTH_KEY else
+                (v if torch.is_tensor(v) else torch.from_numpy(np.ascontiguousarray(v)))
                 .to(self.device, non_blocking=True) for k, v in batch.items()}
 
     def _record(self, timing: bool = False):
@@ -334,6 +366,8 @@ class FederatedSession:
             slot += 1
         self._requeue = collections.deque(leftover)
         if served:
+            obtrace.instant("federated", "requeue_serve", round=rnd,
+                            clients=[int(c) for c in served], still_queued=len(self._requeue))
             print(f"requeue: serving previously-dropped client(s) {served} "
                   f"({len(self._requeue)} still queued)", file=sys.stderr, flush=True)
         return ids
@@ -423,6 +457,14 @@ class FederatedSession:
         return self._assemble_round(rnd, ids, arrived)
 
     def _assemble_round(self, rnd: int, ids: np.ndarray, arrived=None) -> PreparedRound:
+        """Batch assembly (fault sites at ``rnd``), the served round's
+        no-show masking, the validity mask and the health flag, on the
+        ``federated`` track (on the prefetch thread in async mode, so a
+        trace shows it beside device work)."""
+        with obtrace.span("federated", "prepare_round", round=rnd, cohort=len(ids)):
+            return self._assemble_round_traced(rnd, ids, arrived)
+
+    def _assemble_round_traced(self, rnd: int, ids: np.ndarray, arrived=None) -> PreparedRound:
         batch, valid = self._load_client_batch(ids, rnd)
         if self.fault_plan is not None:
             # the nonfinite burst, then the cohort faults; preempt stays a
@@ -446,12 +488,21 @@ class FederatedSession:
             for p in no_show:
                 self._queue(int(ids[p]), rnd)
         masked = int(len(ids) - valid.sum()) if valid is not None else 0
+        if masked:
+            obtrace.instant("federated", "cohort_degraded", round=rnd, clients=masked)
         # the validity mask always rides the batch (all ones when clean)
         batch = dict(batch)
         batch[engine.VALID_KEY] = valid if valid is not None else np.ones(len(ids), np.float32)
+        health_on = False
+        if self.cfg.health:
+            # the cadence flag rides the batch like the validity mask, and
+            # stays on the host (_to_device)
+            health_on = rnd % self._health_every == 0
+            batch[engine.HEALTH_KEY] = np.full(len(ids), 1.0 if health_on else 0.0, np.float32)
         return PreparedRound(rnd, ids, {k: self._host(v) for k, v in batch.items()},
                              self.rng.get_state(), masked=masked, requeue=tuple(self._requeue),
-                             requeue_ages=tuple(self._requeue_enqueued.items()))
+                             requeue_ages=tuple(self._requeue_enqueued.items()),
+                             health_on=health_on)
 
     # -- the served payload round (serve/, --serve_payload sketch) ------
 
@@ -492,8 +543,11 @@ class FederatedSession:
         eff = valid * arrived
         for p in np.flatnonzero(eff == 0.0):
             self._queue(int(prep.ids[int(p)]), prep.rnd)
+        masked = int(len(prep.ids) - eff.sum())
+        if masked:
+            obtrace.instant("federated", "cohort_degraded", round=prep.rnd, clients=masked)
         return dataclasses.replace(
-            prep, masked=int(len(prep.ids) - eff.sum()), requeue=tuple(self._requeue),
+            prep, masked=masked, requeue=tuple(self._requeue),
             requeue_ages=tuple(self._requeue_enqueued.items()),
             payload=(np.asarray(wire_tables, np.float32), arrived, aux))
 
@@ -513,14 +567,15 @@ class FederatedSession:
         new_state, metrics = self._payload_merge(
             state, tables, nstates, mvals, part,
             self._host(arrived).to(self.device, non_blocking=True),
-            lr_host.to(self.device, non_blocking=True))
+            lr_host.to(self.device, non_blocking=True), health_on=prep.health_on)
         self._head_state = new_state
         self._inflight += 1
         self._inflight_rounds += 1
         return InFlightRound(new_state, None, metrics, [lr], prep.snapshot, stacked=False,
                              done=self._record(), host_batch={"tables": host},
                              masked=[prep.masked], requeue_depths=[len(prep.requeue)],
-                             requeue=prep.requeue, requeue_ages=prep.requeue_ages)
+                             requeue=prep.requeue, requeue_ages=prep.requeue_ages,
+                             cohorts=[prep.ids], health_on=[prep.health_on])
 
     def _fold_wire_copies(self) -> None:
         for direction, nbytes, t0, t1 in self._wire_copies:
@@ -576,7 +631,8 @@ class FederatedSession:
         return InFlightRound(new_state, new_cstate, metrics, [lr], prep.snapshot,
                              stacked=False, done=self._record(), host_batch=prep.batch,
                              masked=[prep.masked], requeue_depths=[len(prep.requeue)],
-                             requeue=prep.requeue, requeue_ages=prep.requeue_ages)
+                             requeue=prep.requeue, requeue_ages=prep.requeue_ages,
+                             cohorts=[prep.ids], health_on=[prep.health_on])
 
     def dispatch_block(self, preps: list[PreparedRound], lrs) -> InFlightRound:
         """Launch K rounds in one call (``engine.make_multi_round_step``)
@@ -595,7 +651,9 @@ class FederatedSession:
                              done=self._record(), host_batch=host,
                              masked=[p.masked for p in preps],
                              requeue_depths=[len(p.requeue) for p in preps],
-                             requeue=preps[-1].requeue, requeue_ages=preps[-1].requeue_ages)
+                             requeue=preps[-1].requeue, requeue_ages=preps[-1].requeue_ages,
+                             cohorts=[p.ids for p in preps],
+                             health_on=[p.health_on for p in preps])
 
     def _stack(self, xs: list) -> torch.Tensor:
         if self.device.type != "cuda":
@@ -607,7 +665,8 @@ class FederatedSession:
     def fetch_metrics(infls: list[InFlightRound]) -> list[dict]:
         """The host values of every metric of ``infls``, in one
         device-to-host copy (the drain's one sync): per dispatch, a dict of
-        floats, or of [K] lists for a block."""
+        floats, or of [K] lists for a block; a metric with an axis of its
+        own (the health block's ``leaf_norms``) comes as nested lists."""
         parts = [v.reshape(-1).float() for fl in infls for v in fl.metrics.values()]
         flat = torch.cat(parts).cpu().tolist() if parts else []
         out, pos = [], 0
@@ -615,7 +674,12 @@ class FederatedSession:
             host = {}
             for k, v in fl.metrics.items():
                 n = v.numel()
-                host[k] = flat[pos:pos + n] if fl.stacked else flat[pos]
+                if v.dim() == 0:
+                    host[k] = flat[pos]
+                elif v.dim() == 1 and fl.stacked:
+                    host[k] = flat[pos:pos + n]
+                else:
+                    host[k] = np.asarray(flat[pos:pos + n]).reshape(v.shape).tolist()
                 pos += n
             out.append(host)
         return out
@@ -633,13 +697,22 @@ class FederatedSession:
         counter run, and the newest dispatch's state, done-event and RNG
         snapshot are published, so a concurrent checkpoint sees either the
         view before the drain or the whole drained one."""
-        out = []
+        out, obs_records = [], []
         with self.mutate_lock:
             for infl, mh in zip(infls, metrics_hosts):
+                # the reserved obs prefixes never reach a row or a total
+                mh = dict(mh)
+                obs = {pre: {k[len(pre):]: mh.pop(k) for k in [k for k in mh
+                                                               if k.startswith(pre)]}
+                       for pre in ("health/", "ledger/")}
                 for i, lr in enumerate(infl.lrs):
-                    m = {k: v[i] for k, v in mh.items()} if infl.stacked else mh
-                    out.append(self._finalize_metrics(m, lr, infl.masked[i],
-                                                      infl.requeue_depths[i]))
+                    pick = (lambda d: {k: v[i] for k, v in d.items()}) if infl.stacked else dict
+                    m = self._finalize_metrics(pick(mh), lr, infl.masked[i],
+                                               infl.requeue_depths[i])
+                    out.append(m)
+                    obs_records.append((self.round - 1, infl.cohorts[i] if infl.cohorts else None,
+                                        m, pick(obs["health/"]), pick(obs["ledger/"]),
+                                        infl.health_on[i] if infl.health_on else False))
                 self._inflight -= 1
                 self._inflight_rounds -= infl.num_rounds
             last = infls[-1]
@@ -656,7 +729,27 @@ class FederatedSession:
             if self._inflight == 0:
                 self._head_state = None
                 self._head_client_state = None
+        # outside the lock: the sinks do host conversion and file IO, which an
+        # emergency checkpoint from the watchdog thread must never wait on
+        if self.health_monitor is not None or self.slo is not None or self.ledger is not None:
+            self._publish_round_obs(obs_records)
         return out
+
+    def _publish_round_obs(self, records: list) -> None:
+        """Hand each just-committed round to the attached obs sinks, in
+        dependency order: the health monitor (its block feeds the others),
+        the SLO engine, then the durable ledger append — the one place a
+        round reaches the ledger, after it committed. Every value is host
+        data already: the drain's one copy carried it."""
+        for rnd, ids, m, health, fp, health_on in records:
+            block = None
+            if self.health_monitor is not None and health_on and health:
+                block = self.health_monitor.on_round(rnd, health, m)
+            if self.slo is not None:
+                self.slo.on_round(rnd, m, block)
+            if self.ledger is not None:
+                self.ledger.append_round(rnd, cohort=ids, metrics=m, health=block,
+                                         fingerprint=fp)
 
     def run_round(self, lr: float) -> dict:
         """Prepare, dispatch and commit one round; returns its host metrics."""

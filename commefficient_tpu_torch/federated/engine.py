@@ -41,6 +41,13 @@ clipped to that L2 norm before the sum; with ``dp_noise`` the aggregate
 gets central Gaussian noise scaled to the survivors (none when nobody
 took part).
 
+Observability (``obs/``): with ``health`` the step computes the
+sketch-health block (``_health_metrics``) on the rounds whose batch carries
+an armed ``HEALTH_KEY`` flag, a host value, and with ``ledger_fingerprint``
+order-fixed fingerprints of the committed state (``_ledger_fingerprints``),
+under the reserved "health/" and "ledger/" metric prefixes. Both only read
+round state, so an armed round is bitwise an unarmed one.
+
 Randomness: a training forward that draws (GPT-2's dropout) reads keep
 masks drawn from a ``torch.Generator`` per (round, client slot, local
 step), seeded by ``dropout_seed`` from the engine's seed and those three
@@ -76,10 +83,16 @@ from ..data.fed_dataset import splitmix64
 from ..models.convert import FlatLayout
 from ..modes import modes
 from ..modes.config import ModeConfig
+from ..obs import health as obhealth
 from ..sketch import csvec
 
 # reserved batch key: the [W] 0/1 validity mask of the sampled clients
 VALID_KEY = "_valid"
+# reserved batch key: the health cadence flag, a [W] float host tensor (all
+# 1.0 on a round whose health block runs, all 0.0 elsewhere). It stays on
+# the host (FederatedSession copies every other key to the device), so the
+# step decides from host data and no round syncs on it
+HEALTH_KEY = "_health_on"
 # the client-slot words of the participation mask's and the DP noise's
 # seeds: far above any cohort position, so neither stream meets a
 # client's dropout stream
@@ -145,6 +158,14 @@ class EngineConfig:
     # many full [d] updates are live at a time (must divide W); 0: one vmap
     # of all W. fedavg/localSGD, local_topk and the payload round ignore it
     client_chunk: int = 0
+    # sketch-health estimators (--health_every, obs/health.py): the step
+    # computes the "health/" block on rounds whose HEALTH_KEY flag is armed.
+    # mode=sketch only (the quantities are sketch-wire quantities)
+    health: bool = False
+    # round-ledger fingerprints (--ledger, obs/ledger.py): order-fixed
+    # float reductions of the committed params and optimizer state on every
+    # round, under the "ledger/" prefix
+    ledger_fingerprint: bool = False
 
     def generator(self, rnd: int, slot: int, step: int,
                   device: torch.device) -> torch.Generator:
@@ -164,6 +185,11 @@ class EngineConfig:
         if self.dp_clip < 0 or self.dp_noise < 0:
             raise ValueError(f"dp_clip and dp_noise must be >= 0, got {self.dp_clip} and "
                              f"{self.dp_noise}")
+        if self.health and self.mode.mode != "sketch":
+            raise ValueError(
+                "health (--health_every) computes SKETCH-wire quality estimators — recall "
+                f"proxy, table saturation, sketched Verror health; mode={self.mode.mode!r} "
+                "has no table to estimate from (use mode='sketch')")
         if self.wire_payloads and self.mode.mode != "sketch":
             raise ValueError(f"wire_payloads needs mode='sketch' (per-client Count-Sketch "
                              f"tables); mode={self.mode.mode!r} has no table wire")
@@ -206,6 +232,107 @@ def split_valid(batch: dict) -> tuple[dict, torch.Tensor | None]:
         batch = dict(batch)
         return batch, batch.pop(VALID_KEY)
     return batch, None
+
+
+def split_health(batch: dict) -> tuple[dict, bool]:
+    """Pop the health cadence flag off a round batch: (batch without it,
+    whether this round's health block runs). Absent: no health. The flag
+    must be host data: deciding from a device tensor would sync the host."""
+    if HEALTH_KEY not in batch:
+        return batch, False
+    batch = dict(batch)
+    flag = batch.pop(HEALTH_KEY)
+    if torch.is_tensor(flag) and flag.device.type != "cpu":
+        raise ValueError(f"the {HEALTH_KEY!r} cadence flag must stay on the host (got a "
+                         f"{flag.device} tensor): reading it would sync the device")
+    return batch, bool((flag > 0).any())
+
+
+def _leaf_segments(layout: FlatLayout) -> tuple[tuple[int, int], ...]:
+    """(offset, size) of every non-empty parameter leaf in ravel order."""
+    return tuple((leaf.offset, leaf.size) for leaf in layout.leaves if leaf.size)
+
+
+def _ledger_fingerprints(cfg: EngineConfig, new_state: dict) -> dict:
+    """Order-fixed float fingerprints of the round's committed state under
+    the reserved "ledger/" prefix, on every round when the ledger is armed:
+    deterministic per program, so two runs of one config give equal
+    sequences and the ledger's diff names the first round where they split.
+    The optimizer state folds its tensors' sums of squares in sorted key
+    order (the JAX package's leaf order). Reads only."""
+    if not cfg.ledger_fingerprint:
+        return {}
+    p = new_state["params"].to(torch.float32)
+    opt = torch.zeros((), dtype=torch.float32, device=p.device)
+    for k in sorted(new_state["mode_state"]):
+        opt = opt + torch.sum(torch.square(new_state["mode_state"][k].to(torch.float32)))
+    return {"ledger/params_l2sq": torch.sum(torch.square(p)),
+            "ledger/params_sum": torch.sum(p),
+            "ledger/opt_state_l2sq": opt}
+
+
+def _health_metrics(cfg: EngineConfig, raw_agg: dict, delta: dict, new_mode_state: dict,
+                    weighted: torch.Tensor | None = None,
+                    segments: tuple | None = None) -> dict:
+    """The sketch-health block (obs/health.py's device half) of a round
+    whose cadence flag is armed, under the reserved "health/" prefix; the
+    session pops the prefix off the committed metrics before any row or
+    total sees it. Every estimator reads and none writes, which (with the
+    popped prefix) keeps a health-armed run bitwise an unarmed one.
+
+    ``raw_agg`` is the PRE-guard aggregate wire (a poisoned round's block
+    shows the poison the non-finite guard is about to discard);
+    ``delta``/``new_mode_state`` are the server step's release and new
+    Vvelocity/Verror tables; ``weighted`` (the fused round only) is the
+    dense reduced update, the dense-comparable reference the recall proxy
+    is validated against, sliced into per-leaf norms by ``segments``. On a
+    CUDA table the naive estimate's ``unsketch_topk`` launches the
+    ``sketch_query`` kernel."""
+    mcfg = cfg.mode
+    spec = mcfg.sketch_spec
+    out: dict = {}
+    table = raw_agg["table"]
+    mass = obhealth.table_mass_estimate(table)
+    out["grad_mass_est"] = mass
+    out["grad_norm_est"] = torch.sqrt(torch.clamp(mass, min=0.0))
+    out["row_mass_cv"] = obhealth.row_mass_cv(table)
+    out["table_occupancy"] = obhealth.table_occupancy(table)
+    # the recall proxy's bracket: the naive same-rows estimate inflates
+    # under saturation, the split-row cross-estimate deflates; their
+    # midpoint is the proxy and their gap its own uncertainty
+    _, pvals = csvec.unsketch_topk(spec, table, mcfg.k, impl=mcfg.topk_impl)
+    naive = obhealth.energy_fraction(obhealth.topk_energy(pvals), mass)
+    if spec.r >= 2:
+        pess = obhealth.split_topk_energy_fraction(spec, table, mcfg.k, mass)
+        out["topk_mass_proxy"] = 0.5 * (naive + pess)
+        out["topk_proxy_width"] = naive - pess
+    else:
+        out["topk_mass_proxy"] = naive
+        out["topk_proxy_width"] = torch.zeros_like(naive)
+    # telescoping health: the energy released this round against the
+    # energy the error accumulator kept (release_frac falling while
+    # verror_ratio climbs is the diverging-Verror signature)
+    rel = (obhealth.topk_energy(delta["vals"]) if "vals" in delta
+           else torch.zeros((), dtype=torch.float32, device=table.device))
+    out["release_energy"] = rel
+    vmass = obhealth.table_mass_estimate(new_mode_state["Verror"])
+    out["verror_norm_est"] = torch.sqrt(torch.clamp(vmass, min=0.0))
+    out["release_frac"] = obhealth.energy_fraction(rel, rel + vmass)
+    out["verror_ratio"] = obhealth.energy_fraction(out["verror_norm_est"],
+                                                   out["grad_norm_est"])
+    if weighted is not None:
+        # dense-comparable reference: the true top-k energy fraction the
+        # proxy estimates, and the per-leaf norms of the reduced update
+        w = weighted.to(torch.float32)
+        gsq = torch.sum(torch.square(w))
+        out["grad_norm_true"] = torch.sqrt(gsq)
+        t_idx = csvec.topk_abs(weighted, mcfg.k, impl="exact")
+        out["topk_mass_true"] = obhealth.energy_fraction(
+            obhealth.topk_energy(weighted[t_idx]), gsq)
+        if segments is not None:
+            out["leaf_norms"] = torch.stack([torch.sqrt(torch.sum(torch.square(w[o:o + n])))
+                                             for o, n in segments])
+    return {f"health/{k}": v for k, v in out.items()}
 
 
 def _draw_masks(loss_fn: Callable, cfg: EngineConfig, rnd: int, slots: range, step: int,
@@ -464,9 +591,11 @@ def make_round_step(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout) ->
     clients (and local steps)."""
     mcfg = cfg.mode
     updates = make_client_updates(loss_fn, cfg, layout)
+    segments = _leaf_segments(layout)
 
     def step(state: dict, batch: dict, client_rows: dict, lr):
         pflat = state["params"]
+        batch, health_on = split_health(batch)
         lr_t = lr if torch.is_tensor(lr) else torch.tensor(lr, dtype=torch.float32,
                                                            device=pflat.device)
         weighted, new_net_state, metrics, new_rows = _client_phase(
@@ -477,6 +606,7 @@ def make_round_step(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout) ->
             agg = modes.aggregate(mcfg, {k: v[None] for k, v in wire.items()})
         else:
             agg = {"dense": weighted}
+        raw_agg = agg  # the pre-guard wire: a health block shows the poison
         agg, new_net_state, new_rows, metrics, fin_ok = _guard_nonfinite(
             cfg, agg, new_net_state, state["net_state"], new_rows, client_rows, metrics)
         if cfg.dp_noise > 0:
@@ -498,6 +628,12 @@ def make_round_step(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout) ->
             "mode_state": mode_state,
             "round": state["round"] + 1,
         }
+        if cfg.health and health_on:
+            # mode=sketch takes the linearity shortcut, so `weighted` is the
+            # dense reduced update: the dense-comparable reference
+            metrics.update(_health_metrics(cfg, raw_agg, delta, mode_state,
+                                           weighted=weighted, segments=segments))
+        metrics.update(_ledger_fingerprints(cfg, new_state))
         return new_state, new_rows, metrics
 
     return step
@@ -565,6 +701,7 @@ def make_payload_round_steps(loss_fn: Callable, cfg: EngineConfig,
     updates = make_client_updates(loss_fn, cfg, layout)
 
     def client_step(state: dict, batch: dict):
+        batch, _ = split_health(batch)  # the merge computes health
         batch, W, part = _cohort_part(cfg, state, batch)
         u, nstates, mvals = updates(state, batch, None, range(W))
         u = _clip_rows(cfg, u)
@@ -575,7 +712,7 @@ def make_payload_round_steps(loss_fn: Callable, cfg: EngineConfig,
         return tables, nstates, mvals, part
 
     def merge_step(state: dict, tables: torch.Tensor, nstates: dict, mvals: dict,
-                   part: torch.Tensor, arrived: torch.Tensor, lr):
+                   part: torch.Tensor, arrived: torch.Tensor, lr, health_on: bool = False):
         part = part * arrived
         wire_sum = modes.merge_partial_wires(mcfg, {"table": modes.mask_rows(part, tables)})
         agg = _normalize_merged_wire(mcfg, wire_sum, part.sum().clamp_min(1.0))
@@ -583,6 +720,7 @@ def make_payload_round_steps(loss_fn: Callable, cfg: EngineConfig,
             {k: modes.mask_rows(part, v).sum(0) for k, v in nstates.items()},
             {k: modes.mask_rows(part, v).sum(0) for k, v in mvals.items()},
             part, state["net_state"])
+        raw_agg = agg  # the pre-guard wire for the health estimators
         agg, new_net_state, _, metrics, _ = _guard_nonfinite(
             cfg, agg, new_net_state, state["net_state"], {}, {}, metrics)
         # dp_noise is refused with mode=sketch (EngineConfig)
@@ -593,6 +731,12 @@ def make_payload_round_steps(loss_fn: Callable, cfg: EngineConfig,
             "mode_state": mode_state,
             "round": state["round"] + 1,
         }
+        if cfg.health and health_on:
+            # a served round sees only wire tables: the wire-side
+            # estimators, what a server that never holds a dense gradient
+            # can measure
+            metrics.update(_health_metrics(cfg, raw_agg, delta, mode_state))
+        metrics.update(_ledger_fingerprints(cfg, new_state))
         return new_state, metrics
 
     return client_step, merge_step
@@ -608,9 +752,11 @@ def compose_payload(client_step: Callable, merge_step: Callable) -> Callable:
         pflat = state["params"]
         lr_t = lr if torch.is_tensor(lr) else torch.tensor(lr, dtype=torch.float32,
                                                            device=pflat.device)
+        # the cadence flag gates the merge's health block
+        batch, health_on = split_health(batch)
         tables, nstates, mvals, part = client_step(state, batch)
         new_state, metrics = merge_step(state, tables, nstates, mvals, part,
-                                        torch.ones_like(part), lr_t)
+                                        torch.ones_like(part), lr_t, health_on=health_on)
         return new_state, client_rows, metrics
 
     return step
@@ -624,8 +770,10 @@ def make_multi_round_step(loss_fn: Callable, cfg: EngineConfig,
     tensor and every metric stacked to [K]. The reference scans the round
     step in one compiled program; eager PyTorch has no scan, so this is a
     loop over the same step, which keeps it bitwise equal to K single
-    rounds. A mode with per-client state is refused, as in the reference:
-    the session gathers and scatters its rows between rounds."""
+    rounds. A health metric of the block's off-cadence rounds stacks as
+    zeros, as the reference's off branch gives them. A mode with per-client
+    state is refused, as in the reference: the session gathers and scatters
+    its rows between rounds."""
     if cfg.mode.needs_local_state:
         raise ValueError(
             "multi-round dispatch requires a mode without per-client persistent state "
@@ -638,7 +786,9 @@ def make_multi_round_step(loss_fn: Callable, cfg: EngineConfig,
         for i in range(lrs.shape[0]):
             state, _, metrics = step(state, {k: v[i] for k, v in batches.items()}, {}, lrs[i])
             per_round.append(metrics)
-        return state, {k: torch.stack([m[k] for m in per_round]) for k in per_round[0]}
+        shapes = {k: v for m in per_round for k, v in m.items()}
+        return state, {k: torch.stack([m.get(k, torch.zeros_like(v)) for m in per_round])
+                       for k, v in shapes.items()}
 
     return multi
 

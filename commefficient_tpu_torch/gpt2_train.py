@@ -18,6 +18,13 @@ The double head in bfloat16 (the mc head adds n_embd parameters):
 gpt2_loader.py``) instead of a random init. --checkpoint_dir, --resume and
 the preemption exit 75 work as in ``cv_train``.
 
+Observability (``obs/``): --trace and --trace_events record the run's
+spans, --profile_rounds START:END (with --profile_dir) a torch.profiler
+capture of those rounds, --health_every N the sketch-health block every N
+rounds, --ledger PATH one record per committed round (and a postmortem
+bundle on exit 75, a watchdog abort or an unhandled exception), --slo
+warn|halt the SLO engine; none of them changes a bit of the run.
+
 The port runs the byte-level tokenizer (vocabulary 261) and, without
 ``personachat_self_original.json`` under --data_root, the deterministic
 synthetic persona-grouped corpus, with GPT-2 randomly initialised from
@@ -36,6 +43,7 @@ import numpy as np
 import torch
 
 from .data.personachat import load_personachat_fed
+from . import obs
 from .federated.api import FederatedSession, FedModel, FedOptimizer
 from .models.convert import FlatLayout
 from .models.generate import decode_reply, make_generate, word_f1
@@ -132,6 +140,11 @@ def build(args):
         # --serve_payload sketch: the two-step wire round (per-client tables,
         # then the table merge) that the service round-trips
         wire_payloads=args.serve != "off" and args.serve_payload == "sketch",
+        # the sketch-health estimators at the --health_every cadence and,
+        # with --ledger, per-round state fingerprints (both read-only:
+        # armed == unarmed, bitwise)
+        health_every=args.health_every,
+        ledger_fingerprint=bool(args.ledger),
     )
     return session, valid_set, {"model": model, "tok": tok}
 
@@ -179,6 +192,8 @@ class F1Eval:
 
 def main(argv=None):
     args = resolve_defaults(make_parser("gpt2").parse_args(argv))
+    # arm (or disarm) the tracer before anything emits
+    obs.configure_from_args(args)
     session, valid_set, extras = build(args)
     f1_eval = (F1Eval(args, extras["model"], extras["tok"], valid_set, session.device)
                if args.eval_f1 > 0 else None)
@@ -226,22 +241,39 @@ def main(argv=None):
             row["val_f1"] = f1_eval(model.params, rnd)
         return row
 
+    # --health_every, --slo, --ledger: attached after the restore, so the
+    # ledger's resume truncation keys off the restored round
+    wiring = obs.attach_from_args(args, session)
     # --serve: the aggregation service drives the loop from its arrival
     # stream (built after the restore, so a resumed service picks up the
     # checkpointed pending queue)
     service = service_from_args(args, session)
+    # --profile_dir without --profile_rounds: one capture of the whole run
+    capture = obs.profiler.whole_run("" if args.profile_rounds else args.profile_dir,
+                                     cuda=session.device.type == "cuda")
     try:
-        run_loop(session, opt,
-                 RunnerConfig.from_args(args, total_rounds,
-                                        args.eval_every or min(rounds_per_epoch, 200)),
-                 eval_fn=lambda: model.eval(valid_set, args.eval_batch_size),
-                 build_row=build_row, logger=logger,
-                 source=service.source() if service is not None else None)
+        with capture:
+            run_loop(session, opt,
+                     RunnerConfig.from_args(args, total_rounds,
+                                            args.eval_every or min(rounds_per_epoch, 200)),
+                     eval_fn=lambda: model.eval(valid_set, args.eval_batch_size),
+                     build_row=build_row, logger=logger,
+                     source=service.source() if service is not None else None,
+                     slo=wiring.slo_engine, postmortem=wiring.postmortem)
+    except Exception as e:
+        # the unhandled-exception bundle (the watchdog-abort and exit-75
+        # bundles are written inside run_loop)
+        if wiring.postmortem is not None:
+            wiring.postmortem(f"exception:{type(e).__name__}: {e}")
+        raise
     finally:
         logger.close()
+        wiring.close()
         if service is not None:
             print(f"serve: final metrics {service.metrics_snapshot()}", flush=True)
             service.close()
+        # the Chrome trace is written on the preemption and halt exits too
+        obs.flush_trace()
     return session
 
 

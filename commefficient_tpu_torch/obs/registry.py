@@ -230,6 +230,16 @@ class Registry:
                       if isinstance(m, Counter)}
         return RegistryMark(self, values)
 
+    def counter_values(self, prefixes: tuple[str, ...] = ("",)) -> dict[str, float]:
+        """{name: value} of the counters whose names start with one of
+        ``prefixes``: what ``snapshot()`` holds for them, without summarising
+        every histogram (the SLO engine and the ledger read this once a
+        committed round)."""
+        with self._lock:
+            items = list(self._metrics.items())
+        return {name: m.value for name, m in sorted(items)
+                if isinstance(m, Counter) and name.startswith(prefixes)}
+
     def snapshot(self) -> dict:
         """One JSON-able dict over every registered metric (counters ->
         value, gauges -> {value, max}, histograms -> summary, meters ->

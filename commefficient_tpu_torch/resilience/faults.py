@@ -75,6 +75,9 @@ import time
 
 import numpy as np
 
+from ..obs import registry as obreg
+from ..obs import trace as obtrace
+
 # allowed param keys per kind: a typo'd key must fail parse, not silently
 # fall back to the default and under-inject
 KINDS = {
@@ -262,6 +265,15 @@ class FaultPlan:
     def _log(self, msg: str):
         print(f"fault-injection: {msg}", file=sys.stderr, flush=True)
 
+    @staticmethod
+    def _mark(kind: str, rnd, **args):
+        """Every injection lands as a ``fault:<kind>`` trace instant on the
+        resilience track, with its round, and bumps the registry's
+        injected-faults counter."""
+        obreg.default().counter("resilience_faults_injected_total").inc()
+        obtrace.instant("resilience", f"fault:{kind}",
+                        round=rnd if rnd is None else int(rnd), **args)
+
     def _once(self, kind: str, rnd: int | None) -> FaultSpec | None:
         """The matching spec of a one-shot site, marked fired; None when
         there is none or it already fired."""
@@ -285,6 +297,7 @@ class FaultPlan:
         if n < times:
             self._attempts[key] = n + 1
             self._log(f"{kind} transient failure {n + 1}/{times} (round {rnd})")
+            self._mark(kind, rnd, attempt=n + 1, times=times)
             raise InjectedTransientError(f"injected {kind} failure {n + 1}/{times} "
                                          f"(round {rnd})")
 
@@ -296,6 +309,7 @@ class FaultPlan:
         if s is not None:
             secs = float(s.params.get("secs", 1.0))
             self._log(f"stalling data load {secs}s (round {rnd})")
+            self._mark("stall", rnd, secs=secs)
             time.sleep(secs)
         self.fire_transient("data_fail", rnd)
 
@@ -306,6 +320,7 @@ class FaultPlan:
         if s is not None:
             secs = float(s.params.get("secs", 1.0))
             self._log(f"stalling eval load {secs}s (round {rnd})")
+            self._mark("eval_stall", rnd, secs=secs)
             time.sleep(secs)
 
     def poison(self, rnd: int, batch: dict) -> dict:
@@ -321,6 +336,10 @@ class FaultPlan:
                    and np.issubdtype(v.dtype, np.floating) else v)
                for k, v in batch.items()}
         self._log(f"poisoning round {rnd} client batch with {val}")
+        poisoned = sum(1 for k, v in batch.items()
+                       if not k.startswith("_") and np.issubdtype(v.dtype, np.floating))
+        if poisoned:
+            self._mark("nonfinite", rnd, leaves=poisoned)
         return out
 
     @staticmethod
@@ -348,6 +367,7 @@ class FaultPlan:
             pos = self._positions(s, num_workers, rnd)
             secs = float(s.params.get("secs", 1.0))
             self._log(f"clients {list(pos)} straggling {secs}s (round {rnd})")
+            self._mark("client_straggle", rnd, clients=list(pos), secs=secs)
             time.sleep(secs)
 
         poison_specs = self.specs_for("client_poison", rnd)
@@ -368,6 +388,7 @@ class FaultPlan:
                 if not k.startswith("_") and np.issubdtype(v.dtype, np.floating):
                     v[pos] = fill
             self._log(f"poisoning clients {pos} with {val} (round {rnd})")
+            self._mark("client_poison", rnd, clients=pos, value=val)
         dropped: list[int] = []
         for s in drop_specs:
             key = ("client_drop", rnd, s.params.get("clients", (0,)))
@@ -383,6 +404,7 @@ class FaultPlan:
             valid[pos] = 0.0
             dropped.extend(pos)
             self._log(f"dropping clients {pos} (round {rnd}; masked + re-queued)")
+            self._mark("client_drop", rnd, clients=pos)
         return batch, valid, dropped
 
     def wire_plan(self, rnd: int, num_workers: int) -> dict[int, dict]:
@@ -407,6 +429,7 @@ class FaultPlan:
                 for p in pos:
                     slot(p)[field] = True
                 self._log(f"{kind} on cohort positions {pos} (round {rnd})")
+                self._mark(kind, rnd, clients=pos)
         for s in self.specs_for("wire_delay", rnd):
             key = ("wire_delay", rnd, s.params.get("clients", (0,)))
             if key in self._fired:
@@ -417,6 +440,7 @@ class FaultPlan:
             for p in pos:
                 slot(p)["delay_s"] += secs
             self._log(f"wire_delay {secs}s on cohort positions {pos} (round {rnd})")
+            self._mark("wire_delay", rnd, clients=pos, secs=secs)
         return plan
 
     @staticmethod
@@ -440,6 +464,7 @@ class FaultPlan:
         the scheduled round dispatches (one-shot)."""
         if self._once("preempt", rnd) is not None:
             self._log(f"injecting SIGTERM (preempt, round {rnd})")
+            self._mark("preempt", rnd)
             os.kill(os.getpid(), signal.SIGTERM)
 
     def corrupt_checkpoint(self, rnd: int, path: str):
@@ -464,6 +489,7 @@ class FaultPlan:
                 with open(target, "r+b") as f:
                     f.truncate(max(os.path.getsize(target) // 2, 1))
                 self._log(f"truncated checkpoint file: {target} (round {rnd})")
+            self._mark(kind, rnd)
 
     @staticmethod
     def _largest_data_file(path: str) -> str | None:

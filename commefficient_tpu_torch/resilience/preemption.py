@@ -32,6 +32,13 @@ class PreemptionHandler:
             print(f"preemption: received {signal.Signals(signum).name}; will finish the "
                   "in-flight rounds, take an emergency checkpoint, and exit "
                   f"{EXIT_RESUMABLE} (resumable)", file=sys.stderr, flush=True)
+            # the signal-safe instant skips the JSONL sink (the handler may
+            # have interrupted a write on that very handle) and appends only
+            # to the in-memory buffer, under the tracer's reentrant lock
+            from ..obs import trace as obtrace
+
+            obtrace.get().instant_signal_safe("resilience", "sigterm",
+                                              signal=signal.Signals(signum).name)
         self.triggered = True
 
     def __enter__(self) -> "PreemptionHandler":

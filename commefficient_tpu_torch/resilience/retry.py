@@ -74,6 +74,12 @@ def with_retries(fn: Callable, *, site: str, policy: RetryPolicy | None = None,
             return fn()
         except policy.retry_on as e:  # noqa: PERF203 — retry loop
             _count_failure(site)
+            # a trace instant per failed attempt; `round` is the caller's
+            # jitter seed, which the round sites key by global round
+            from ..obs import trace as obtrace
+
+            obtrace.instant("resilience", f"retry:{site}", attempt=attempt + 1, round=seed,
+                            error=type(e).__name__)
             if attempt >= policy.max_retries:
                 log(f"retry[{site}]: attempt {attempt + 1}/{policy.max_retries + 1} failed "
                     f"({type(e).__name__}: {e}); retries exhausted")

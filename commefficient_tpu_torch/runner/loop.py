@@ -37,6 +37,18 @@ prepare -> dispatch -> drain per round (or block), blocking saves. Both
 paths run the same step in the same order on the same host RNG stream,
 which is why the tests pin them bitwise equal.
 
+Observability (``obs/``): the loop's phases are spans on the tracer's
+``runner`` track (prepare, dispatch, drain, commit, checkpoint_sync, eval),
+with a ``commit_round`` instant per committed round. Each dispatch records
+only a host timestamp; the drain that commits it closes a deferred
+``device`` span from that timestamp to the drain's, so tracing adds no host
+sync. ``--profile_rounds`` opens a ``torch.profiler`` window
+(``obs.profiler.ProfileWindow``) at the dispatch of its first round and
+closes it after the drain that commits its last. An SLO engine in ``halt``
+mode that latched at a commit ends the run at the drain boundary through
+the non-finite halt's clean exit, and the ``postmortem`` hook writes the
+crash bundle on the watchdog abort and the preemption exit.
+
 Round time: each drain closes a window that opened when the loop took
 the first round after the previous drain; ``RunStats.round_ms`` holds each
 window's wall time over the rounds it committed. In the sync loop a window
@@ -58,6 +70,8 @@ import torch
 
 from ..federated.api import FederatedSession, FedOptimizer, plan_block
 from ..obs import registry as obreg
+from ..obs import trace as obtrace
+from ..obs.profiler import ProfileWindow
 from ..resilience import EXIT_RESUMABLE, PreemptionHandler
 from ..utils import checkpoint as ckpt
 from ..utils.logging import Timer
@@ -115,6 +129,10 @@ class RunnerConfig:
     on_nonfinite: str = "skip"  # "halt" stops the run at a drain
     watchdog_abort: bool = False
     no_emergency_checkpoint: bool = False
+    # a torch.profiler capture window around whole rounds ("START:END";
+    # empty = off) written into profile_dir (obs/profiler.py)
+    profile_rounds: str = ""
+    profile_dir: str = ""
 
     @classmethod
     def from_args(cls, args, total_rounds: int, eval_every: int):
@@ -124,7 +142,9 @@ class RunnerConfig:
             rounds_per_dispatch=args.rounds_per_dispatch, sync_loop=args.sync_loop,
             max_inflight=args.max_inflight, prefetch_depth=args.prefetch_depth,
             on_nonfinite=args.on_nonfinite, watchdog_abort=args.watchdog_abort,
-            no_emergency_checkpoint=args.no_emergency_checkpoint)
+            no_emergency_checkpoint=args.no_emergency_checkpoint,
+            profile_rounds=getattr(args, "profile_rounds", ""),
+            profile_dir=getattr(args, "profile_dir", ""))
 
 
 @dataclasses.dataclass
@@ -158,6 +178,9 @@ class RunStats:
     # dropped-client queue ran at a round's preparation
     clients_dropped: int = 0
     requeue_depth_max: int = 0
+    # SLO engine firings while this loop ran (the slo_violations_total
+    # registry counter's delta over the run)
+    slo_violations: int = 0
 
 
 def make_save_ckpt(session: FederatedSession, checkpoint_dir: str, timings: list | None = None):
@@ -181,7 +204,7 @@ def make_save_ckpt(session: FederatedSession, checkpoint_dir: str, timings: list
 
 def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
              eval_fn=None, build_row=None, logger=None, save_ckpt=None,
-             source=None) -> RunStats:
+             source=None, slo=None, postmortem=None) -> RunStats:
     """Run the training loop from session.round to cfg.total_rounds.
 
     eval_fn() -> metrics dict, called at every eval boundary (drained).
@@ -200,6 +223,12 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
     the obs registry's ``runner_phase_<phase>_ms`` histograms, which the
     serving layer's ``/metrics`` reads.
 
+    ``slo`` is the ``obs.SloEngine`` the session feeds at each commit; the
+    loop checks its halt latch at drain boundaries. ``postmortem``
+    (callable(reason), ``obs.ObsWiring.postmortem``) writes the crash
+    bundle on the watchdog-abort and preemption exits, where the CLIs'
+    exception handling never runs (os._exit) or runs too late.
+
     Exits the process (raises SystemExit) on preemption (EXIT_RESUMABLE)
     and on --on_nonfinite halt, after draining and saving. On every exit
     the live host RNG is rewound to the committed boundary, so the session
@@ -210,11 +239,35 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
     t0 = time.perf_counter()
     eval_every = max(cfg.eval_every, 1)
     start_round = session.round
+    reg = obreg.default()
+    mark = reg.mark()
+    tracer = obtrace.get()
     if save_ckpt is None and cfg.checkpoint_dir:
         save_ckpt = make_save_ckpt(session, cfg.checkpoint_dir, stats.checkpoints)
+    profile = ProfileWindow.parse(cfg.profile_rounds, cfg.profile_dir,
+                                  cuda=session.device.type == "cuda")
+    if profile is not None and profile.start >= cfg.total_rounds:
+        # a window the run can never reach is loud at launch, not a
+        # silently missing capture found later
+        profile.declare_unreachable(cfg.total_rounds)
+        profile = None
+
+    def _postmortem(reason: str):
+        """Best-effort crash-bundle write: the exit it precedes is the
+        point, and a failing bundle must never mask it."""
+        if postmortem is None:
+            return
+        try:
+            postmortem(reason)
+        except Exception as e:  # noqa: BLE001 — crash path
+            print(f"runner: postmortem bundle failed ({type(e).__name__}: {e})",
+                  file=sys.stderr, flush=True)
 
     def _abort():
-        os._exit(EXIT_RESUMABLE)  # stage 4: a resumable exit, skipping every finally
+        # stage 4: flush the black box, then a resumable exit that skips
+        # every finally (this is the bundle's one chance)
+        _postmortem("watchdog_abort")
+        os._exit(EXIT_RESUMABLE)
 
     # escalation ladder: warn -> stacks -> emergency checkpoint -> (opt-in)
     # abort with the resumable status
@@ -236,11 +289,13 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
         RoundPrefetcher(session, start_round, depth=prefetch_depth) if async_mode
         else PreparedSource(session, start_round))
     on_committed = getattr(src, "on_committed", None)
-    phase_hist = {ph: obreg.default().histogram(f"runner_phase_{ph}_ms")
-                  for ph in obreg.RUNNER_PHASES}
+    phase_hist = {ph: reg.histogram(f"runner_phase_{ph}_ms") for ph in obreg.RUNNER_PHASES}
 
     pending: collections.deque = collections.deque()  # in-flight dispatches
     pending_rounds = 0
+    # per dispatch (trace timestamp, first round, round count): the deferred
+    # device spans, closed by the drain that commits them
+    dispatch_marks: collections.deque = collections.deque()
     totals: collections.defaultdict = collections.defaultdict(float)
     last_m: dict | None = None
     nonfinite_total = 0
@@ -258,29 +313,42 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
         if not pending:
             return
         committed = pending_rounds
+        first = session.round  # the oldest uncommitted round
         t_d0 = time.perf_counter()
         # the drain waits out every queued round, so the watchdog's
         # threshold scales by the round count and the time it records is
         # per round
-        with (watchdog.round(session.round, rounds=committed)
+        with (watchdog.round(first, rounds=committed)
               if watch else contextlib.nullcontext()):
-            hosts = session.fetch_metrics(list(pending))
+            with tracer.span("runner", "drain", round_first=first, rounds=committed):
+                hosts = session.fetch_metrics(list(pending))
         t_c0 = time.perf_counter()
         phase_hist["drain"].observe((t_c0 - t_d0) * 1e3)
-        for m in session.commit_rounds(list(pending), hosts):
-            last_m = m
-            nonfinite_total += int(m.get("nonfinite_rounds", 0))
-            stats.clients_dropped += int(m.get("clients_dropped", 0))
-            stats.requeue_depth_max = max(stats.requeue_depth_max,
-                                          int(m.get("requeue_depth", 0)))
-            for k, v in m.items():
-                if isinstance(v, (int, float)):
-                    totals[k] += v
+        # the deferred device spans: each dispatch recorded a host timestamp;
+        # its rounds are known done here
+        end_us = tracer.now_us()
+        while dispatch_marks:
+            ts_us, d_first, d_n = dispatch_marks.popleft()
+            tracer.complete("device", f"rounds {d_first}..{d_first + d_n - 1}", ts_us,
+                            end_us - ts_us, round_first=d_first, rounds=d_n, sketch_path="ravel")
+        with tracer.span("runner", "commit", round_first=first, rounds=committed):
+            for i, m in enumerate(session.commit_rounds(list(pending), hosts)):
+                last_m = m
+                nonfinite_total += int(m.get("nonfinite_rounds", 0))
+                stats.clients_dropped += int(m.get("clients_dropped", 0))
+                stats.requeue_depth_max = max(stats.requeue_depth_max,
+                                              int(m.get("requeue_depth", 0)))
+                tracer.instant("runner", "commit_round", round=first + i)
+                for k, v in m.items():
+                    if isinstance(v, (int, float)):
+                        totals[k] += v
         pending.clear()
         pending_rounds = 0
         stats.drains += 1
         now = time.perf_counter()
         phase_hist["commit"].observe((now - t_c0) * 1e3)
+        if profile is not None:
+            profile.on_committed(session.round)
         if on_committed is not None:
             on_committed(session.round)
         stats.drain_ms += (now - t_d0) * 1e3
@@ -296,20 +364,31 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
             if async_mode and cfg.max_inflight <= 0:
                 eff_inflight = auto_inflight(rtt_ms, ema_round_ms)
 
-    def take(n: int) -> list:
-        """The next n prepared rounds; opens a drain window if none is open."""
+    def take(rnd: int, n: int) -> list:
+        """The next n prepared rounds, from round ``rnd``; opens a drain
+        window if none is open."""
         nonlocal window_t0
         t = time.perf_counter()
         if window_t0 is None:
             window_t0 = t
-        preps = [src.next() for _ in range(n)]
+        with tracer.span("runner", "prepare", round=rnd, rounds=n):
+            preps = [src.next() for _ in range(n)]
         ms = (time.perf_counter() - t) * 1e3
         stats.prepare_ms += ms
         phase_hist["prepare"].observe(ms)
         return preps
 
-    def dispatched(infl, n: int, t_d0: float):
+    def dispatch(fn, rnd: int, n: int):
+        """Launch one dispatch of n rounds from ``rnd`` (``fn`` returns its
+        InFlightRound) and queue it; the sync loop drains it at once."""
         nonlocal pending_rounds
+        t_d0 = time.perf_counter()
+        t_mark = tracer.now_us()
+        with tracer.span("runner", "dispatch", round=rnd, rounds=n):
+            infl = fn()
+        # marked only after the dispatch returned: a raising dispatch must
+        # not leave a mark the next drain would close into a phantom span
+        dispatch_marks.append((t_mark, rnd, n))
         pending.append(infl)
         ms = (time.perf_counter() - t_d0) * 1e3
         stats.dispatch_ms += ms
@@ -334,11 +413,13 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
                       file=sys.stderr, flush=True)
             writer.close()
 
-    def exit_saving(code, message: str | None = None):
+    def exit_saving(code, message: str | None = None, reason: str | None = None):
         shutdown()
         path = save_ckpt() if save_ckpt else None
         if message:
             print(message.format(path=path), flush=True)
+        if reason:
+            _postmortem(reason)
         sys.exit(code)
 
     rnd = start_round
@@ -348,19 +429,23 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
                 lrs = plan_block(opt, rnd, cfg.total_rounds, eval_every,
                                  cfg.checkpoint_every, cfg.rounds_per_dispatch)
                 if len(lrs) > 1 and session.supports_block_dispatch:
+                    # a block cannot split, so the capture window opens on
+                    # overlap (a round-aligned superset)
+                    if profile is not None:
+                        profile.on_dispatch(rnd, rounds=len(lrs))
                     # one dispatch for the block; the watchdog times it with
                     # the prefetch pull (a stalled loader is a stall)
                     with watchdog.round(rnd, record=cfg.sync_loop):
-                        preps = take(len(lrs))
-                        t_d0 = time.perf_counter()
-                        dispatched(session.dispatch_block(preps, lrs), len(lrs), t_d0)
+                        preps = take(rnd, len(lrs))
+                        dispatch(lambda: session.dispatch_block(preps, lrs), rnd, len(lrs))
                     rnd += len(lrs)
                 else:
-                    for j, lr in enumerate(lrs):
-                        with watchdog.round(rnd + j, record=cfg.sync_loop):
-                            prep = take(1)[0]
-                            t_d0 = time.perf_counter()
-                            dispatched(session.dispatch_round(prep, lr), 1, t_d0)
+                    for lr in lrs:
+                        if profile is not None:
+                            profile.on_dispatch(rnd)
+                        with watchdog.round(rnd, record=cfg.sync_loop):
+                            prep = take(rnd, 1)[0]
+                            dispatch(lambda: session.dispatch_round(prep, lr), rnd, 1)
                         rnd += 1
                         if pre.triggered:
                             break  # stop inside the block: the grace window is short
@@ -370,23 +455,31 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
                                            and rnd % cfg.checkpoint_every == 0)):
                     drain()
                 if pre.triggered:
+                    tracer.instant("resilience", "preempt_boundary", round=session.round)
                     exit_saving(EXIT_RESUMABLE,
                                 f"preemption: emergency checkpoint at round {session.round}: "
-                                "{path}")
+                                "{path}", reason="preemption")
+                saved = ("state checkpointed clean)" if save_ckpt
+                         else "no --checkpoint_dir, nothing saved)")
                 if nonfinite_total and cfg.on_nonfinite == "halt":
-                    exit_saving(
-                        f"halting at round {rnd}: non-finite update skipped (--on_nonfinite "
-                        "halt; " + ("state checkpointed clean)" if save_ckpt
-                                    else "no --checkpoint_dir, nothing saved)"))
+                    exit_saving(f"halting at round {rnd}: non-finite update skipped "
+                                "(--on_nonfinite halt; " + saved)
+                if slo is not None and slo.halted:
+                    # the session fed the engine at the drain above; a latched
+                    # halt exits through the non-finite halt's clean sequence
+                    exit_saving(f"halting at round {rnd}: SLO violation ({slo.halted_reason}) "
+                                "(--slo halt; " + saved)
                 if cfg.checkpoint_every and save_ckpt and rnd % cfg.checkpoint_every == 0:
                     if writer is not None:
                         writer.request()  # off the round path
                         stats.async_checkpoints += 1
                     else:
-                        save_ckpt()
+                        with tracer.span("runner", "checkpoint_sync", round=session.round):
+                            save_ckpt()
                         stats.sync_checkpoints += 1
                 if rnd % eval_every == 0 or rnd >= cfg.total_rounds:
-                    ev = eval_fn() if eval_fn is not None else {}
+                    with tracer.span("runner", "eval", round=session.round):
+                        ev = eval_fn() if eval_fn is not None else {}
                     stats.evals += 1
                     if build_row is not None and logger is not None:
                         logger.append(build_row(rnd=rnd, m=last_m, totals=dict(totals), ev=ev,
@@ -394,6 +487,8 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
                                                 nonfinite_total=nonfinite_total))
                     totals.clear()
     finally:
+        if profile is not None:
+            profile.close()
         src.stop()
         # the prefetcher may have drawn host RNG, and served or grown the
         # dropped-client queue, for rounds never dispatched: rewind both
@@ -411,6 +506,7 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
         stats.sync_checkpoints += 1
     stats.rounds = session.round - start_round
     stats.nonfinite_rounds = nonfinite_total
+    stats.slo_violations = int(mark.delta("slo_violations_total"))
     stats.max_inflight_used = eff_inflight if async_mode else 0
     stats.wall_s = time.perf_counter() - t0
     session.run_stats = stats

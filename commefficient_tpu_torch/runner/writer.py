@@ -22,6 +22,8 @@ from __future__ import annotations
 import sys
 import threading
 
+from ..obs import trace as obtrace
+
 
 class AsyncCheckpointWriter:
     def __init__(self, save_fn, alert=None):
@@ -60,7 +62,10 @@ class AsyncCheckpointWriter:
                 self._pending = False
                 self._busy = True
             try:
-                path = self._save_fn()
+                # the save span rides the writer's own track: its overlap
+                # with the runner's dispatch spans is what the trace shows
+                with obtrace.span("writer", "checkpoint_save"):
+                    path = self._save_fn()
                 with self._cv:
                     self.saves_completed += 1
                     self.last_path = path

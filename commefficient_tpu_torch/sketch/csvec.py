@@ -274,9 +274,24 @@ def topk_abs(x: torch.Tensor, k: int, impl: str = "exact") -> torch.Tensor:
             f"topk_impl={impl!r} is not ported; only 'exact' is")
     if x.numel() >= 1 << 32:
         raise ValueError(f"topk_abs takes fewer than 2**32 entries, got {x.numel()}")
-    bits = x.abs().contiguous().view(torch.int32).to(torch.int64)
-    low = (1 << 32) - 1 - torch.arange(x.numel(), dtype=torch.int64, device=x.device)
-    return torch.topk((bits << 32) | low, k).indices
+    return _topk_by_key(x.abs().contiguous().view(torch.int32), k)
+
+
+def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest float32 entries of x in descending
+    order, ties broken toward the lower index, as ``jax.lax.top_k`` gives
+    them: ``topk_abs``'s keys over the order-preserving int32 of each
+    entry's bits (the non-sign bits of a negative float flipped), so -inf
+    orders below every finite value."""
+    bits = x.contiguous().view(torch.int32)
+    idx = _topk_by_key(torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits), k)
+    return x[idx], idx
+
+
+def _topk_by_key(key: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest int32 keys, ties toward the lower index."""
+    low = (1 << 32) - 1 - torch.arange(key.numel(), dtype=torch.int64, device=key.device)
+    return torch.topk((key.to(torch.int64) << 32) | low, k).indices
 
 
 # Single-shot unsketch ceiling: the [d] estimates transient is materialized

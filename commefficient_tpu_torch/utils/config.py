@@ -4,7 +4,7 @@ defaults, plus ``--device``, so a launch command of the reference parses
 here. The flags of features the port does not run yet (``_UNPORTED``:
 the layerwise sketch path, robust merges and the quarantine, the
 pipelined, buffered-async, fast-path, sharded and edge-tree serving
-variants, meshes and processes, observability, and
+variants, meshes and processes, and
 GPT-2's ring attention, mixture of experts and parallelism) parse at the
 reference's defaults, and ``resolve_defaults`` refuses any other value
 by name, with the ROADMAP Queue 1 item that brings the feature: accepted
@@ -17,6 +17,8 @@ from __future__ import annotations
 import argparse
 
 from ..modes.config import MODES, ModeConfig
+from ..obs.profiler import parse_rounds_spec
+from ..obs.slo import parse_rules
 
 
 # the reference's flags for what the port does not run: (flag, its
@@ -26,7 +28,6 @@ from ..modes.config import MODES, ModeConfig
 _SERVE = "the port runs the synchronous serial service only"
 _ROBUST = "robust merges and the sketch-space quarantine are not ported"
 _MULTI = "the port runs one process on one device"
-_OBS = "the observability layer (tracer, profiler window, health, ledger, SLO) is not ported"
 _UNPORTED = (
     ("sketch_path", dict(default="ravel", choices=["ravel", "layerwise"]), ("ravel",),
      "the layerwise sketch path is not ported", 8),
@@ -58,14 +59,6 @@ _UNPORTED = (
     ("num_devices", dict(type=int, default=0, help="0 = all visible; the port runs one"),
      (0, 1), _MULTI, 7),
     ("mesh", dict(default=""), ("",), _MULTI, 7),
-    ("trace", dict(default=""), ("",), _OBS, 13),
-    ("trace_events", dict(default=""), ("",), _OBS, 13),
-    ("profile_rounds", dict(default=""), ("",), _OBS, 13),
-    ("profile_dir", dict(default=""), ("",), _OBS, 13),
-    ("health_every", dict(type=int, default=0), (0,), _OBS, 13),
-    ("ledger", dict(default=""), ("",), _OBS, 13),
-    ("slo", dict(default="off", choices=["off", "warn", "halt"]), ("off",), _OBS, 13),
-    ("slo_rules", dict(default=""), ("",), _OBS, 13),
 )
 _PARALLEL = "tensor, sequence and expert parallelism are not ported"
 _UNPORTED_GPT2 = (
@@ -227,6 +220,52 @@ def make_parser(task: str = "cv") -> argparse.ArgumentParser:
                    help="socket bind port (0 = ephemeral)")
     p.add_argument("--serve_metrics_port", type=int, default=-1,
                    help=">= 0 serves GET /metrics on this port (0 = ephemeral)")
+    # observability (obs/): the round tracer, the profiler window, sketch
+    # health, the round ledger and the SLO engine
+    p.add_argument("--trace", default="",
+                   help="write a Chrome-trace/Perfetto JSON of the run here: host-side "
+                        "spans on named tracks (runner, device, writer, serve-ingest, "
+                        "assembler, federated, resilience) with deferred device spans "
+                        "closed at drains; no host sync added, a traced run bitwise an "
+                        "untraced one. Open in chrome://tracing or ui.perfetto.dev")
+    p.add_argument("--trace_events", default="",
+                   help="append obs events as JSONL here (one schema-versioned object "
+                        "per span or instant, line-buffered whole-line writes); "
+                        "independent of --trace, both may be set")
+    p.add_argument("--profile_rounds", default="",
+                   help="START:END: a torch.profiler capture window that starts before "
+                        "round START dispatches and stops after round END commits (whole "
+                        "rounds, async pipeline included), exported as a Chrome trace "
+                        "into --profile_dir (needed). Without this flag --profile_dir "
+                        "captures the whole run")
+    p.add_argument("--profile_dir", default="",
+                   help="write torch.profiler Chrome traces here")
+    p.add_argument("--health_every", type=int, default=0,
+                   help="N > 0 computes the sketch-health estimators on the device every "
+                        "N rounds (mode=sketch): recall proxy, table saturation, Verror "
+                        "health, per-leaf norms, uplink against dense; read at the "
+                        "existing drain (no host sync) into health_* registry gauges, the "
+                        "trace and the ledger. They only read round state: an armed run "
+                        "is bitwise an unarmed one. 0 = off")
+    p.add_argument("--ledger", default="",
+                   help="append one schema-versioned JSONL record per committed round "
+                        "here (cohort, counter deltas, health block, params and "
+                        "optimizer fingerprints); --resume continues the same file "
+                        "gap-free. Also arms the postmortem bundle at PATH.postmortem/ "
+                        "(trace, ledger tail, registry, config, reason) on a watchdog "
+                        "abort, an unhandled exception or exit 75. Inspect with "
+                        "`python -m commefficient_tpu_torch.obs.ledger diff|replay-check`")
+    p.add_argument("--slo", default="off", choices=["off", "warn", "halt"],
+                   help="arm the SLO engine: windowed rules over the committed round "
+                        "series, evaluated at each commit; warn = stderr, slo_* counters "
+                        "and a trace instant; halt = also checkpoint and exit cleanly at "
+                        "the next drain boundary")
+    p.add_argument("--slo_rules", default="",
+                   help="';'-separated rules overriding the default set: "
+                        "name:series(>|<|^)threshold[@window], e.g. "
+                        "'recall:topk_mass_proxy<0.1@4'. Series: any per-round metric, "
+                        "quarantine_rate, stale_fraction, server_idle_ms, or a health "
+                        "estimator (needs --health_every). Requires --slo")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on: cuda (default) or cpu")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
@@ -302,6 +341,28 @@ def resolve_defaults(args: argparse.Namespace) -> argparse.Namespace:
     if args.share_ps_gpu or args.port:
         print("note: --share_ps_gpu/--port are reference-CLI compatibility no-ops (the port "
               "has no worker processes)", flush=True)
+    if args.health_every < 0:
+        raise SystemExit(f"--health_every must be >= 0, got {args.health_every}")
+    if args.health_every and args.mode != "sketch":
+        raise SystemExit("--health_every computes SKETCH-wire quality estimators; "
+                         f"--mode {args.mode} has no table to estimate from")
+    if args.slo_rules and args.slo == "off":
+        raise SystemExit("--slo_rules names rules for the SLO engine; arm it with "
+                         "--slo warn|halt")
+    if args.slo != "off":
+        # a typo'd rule fails at launch, not as an absent guard found later
+        try:
+            parse_rules(args.slo_rules)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
+    if args.profile_rounds:
+        try:
+            parse_rounds_spec(args.profile_rounds)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
+        if not args.profile_dir:
+            raise SystemExit("--profile_rounds needs --profile_dir (the capture has to be "
+                             "written somewhere)")
     if args.watchdog_abort and not args.checkpoint_dir:
         raise SystemExit("--watchdog_abort needs --checkpoint_dir: aborting without an "
                          "emergency checkpoint would lose the run instead of resuming it")
