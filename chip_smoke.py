@@ -204,6 +204,29 @@ Phases (any failure raises, and the exit status is non-zero):
       --health_every 1: every health block == the batch payload round's;
    f. sync round ms, plain against armed (off cadence and health rounds),
       3 alternating rounds each.
+17. robust merges and the quarantine (phase 5's flags, sync runs through
+   ``cv_train.main``), with the launch counts zeroed before each run of (a)
+   and (b):
+   a. 4 rounds of the table round at --merge_policy sum, trimmed
+      (--merge_trim 1) and median under a 50x-scaled, a sign-flipped and a
+      colluding client: each run's params distance from a clean run (the
+      sum's must be the largest), 32 accumulate and 4 query launches in 4
+      rounds; one attacked round's [8, 5, 524,288] stack merged by the
+      trimmed mean and the median (with and without the winsorized
+      residual) on the card == the same merge of a CPU copy, bitwise;
+   b. 5 announce rounds with --client_update_clip 3 --quarantine_window 4
+      --quarantine_scope layer and a NaN-poisoned client at round 2: the
+      one verdict, one launch of each kernel a round; the quarantined round
+      == the round with that client's validity zeroed, bitwise; the sync
+      probe with the clip armed;
+   c. phase 14's served sketch payload with the clip and a 50x table at
+      round 2: the gauntlet rejects it QUARANTINED, and the state equals
+      the batch twin's whose merge quarantines it, bitwise;
+   d. (b) preempted at round 2 and resumed == (b), rings included;
+   e. sum, trimmed and median rounds and merges on one state and cohort in
+      turns (CUDA events), peak memory, the sort along dim 0 against a
+      transposed one, and the trimmed keep mask three ways (sorted values,
+      ranks by counting, stable sort + argsort) at W = 8 to 100.
 
 Prints one JSON line with the kernels' numbers (launches counted over
 phase 8; under "gpt2" each kernel's numbers at the GPT-2 shape, launches
@@ -211,7 +234,8 @@ counted over phase 11a; "launches_cohort" counted over phase 12a's sync
 run; "launches_bf16" over each run of phase 13 and under "gpt2_mc_bf16"
 the numbers at phase 13b's shape; "launches_serve" over phase 14a's and
 14b's served runs; "launches_batched" over each round of phase 15;
-"launches_obs" over phase 16's armed (a), GPT-2 (d) and served (e) runs),
+"launches_obs" over phase 16's armed (a), GPT-2 (d) and served (e) runs,
+"launches_robust" over phase 17's attacked runs and its quarantine run),
 then
 as its last line
 ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -339,6 +363,24 @@ CLIENT_GRAD_REL = 3e-2
 # OBS_PAIRS alternating sync rounds a side in (f)
 OBS_ROUNDS = 6
 OBS_PAIRS = 3
+# phase 17: robust merges and the quarantine, sync runs of phase 5's flags.
+# (a) runs ROBUST_ROUNDS rounds of each policy under ATTACK_PLAN; (b) and (d)
+# QUARANTINE_ROUNDS rounds with a NaN-poisoned client at round 2 (phase 12's
+# poison) under QUARANTINE_ARGS; (c) the served payload round of phase 14
+# with a 50x table at round 2; (e) ROBUST_PAIRS timed turns a policy
+ROBUST_ROUNDS = 4
+ATTACK_PLAN = ("client_scale@1:clients=1,factor=50;client_signflip@2:clients=0;"
+               "client_collude@3:frac=0.25")
+ROBUST_POLICIES = {"sum": ["--merge_policy", "sum"],
+                   "trimmed": ["--merge_policy", "trimmed", "--merge_trim", "1"],
+                   "median": ["--merge_policy", "median"]}
+QUARANTINE_ARGS = ["--client_update_clip", "3", "--quarantine_window", "4",
+                   "--quarantine_scope", "layer"]
+QUARANTINE_PLAN = "client_poison@2:clients=5,value=nan"
+QUARANTINE_ROUNDS = 5
+SERVED_PLAN = "client_scale@2:clients=1,factor=50"
+ROBUST_PAIRS = 3
+RANK_COHORTS = (8, 12, 16, 24, 32, 100)  # phase 17e: W of the trimmed keep-mask timings
 
 
 def fail(msg: str):
@@ -2293,6 +2335,285 @@ def obs_phase(cv_train, engine, csvec, kernels, card: str) -> dict:
     return launches
 
 
+def robust_phase(cv_train, engine, csvec, kernels, card: str) -> dict:
+    """Phase 17: robust merges and the sketch-space quarantine on ResNet-9
+    FetchSGD at full width; returns each kernel's launches over the attacked
+    runs of (a) and the quarantine run of (b)."""
+    import dataclasses
+    import shutil
+
+    from commefficient_tpu_torch.modes import modes
+    from commefficient_tpu_torch.utils.config import make_parser, resolve_defaults
+
+    base = os.path.join(ROOT, "build", "chip_smoke", "robust")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    launches = {}
+
+    def run(extra, label, rounds=ROBUST_ROUNDS, count=False):
+        argv = SLICE_ARGS + ["--num_rounds", str(rounds), "--sync_loop"] + list(extra)
+        if count:
+            kernels.reset_launch_counts()
+        with recording_rounds() as rec:
+            s = cv_train.main(argv)
+        torch.cuda.synchronize()
+        if count:
+            launches[label] = dict(kernels.launch_counts)
+        return s, rec
+
+    def build(extra):
+        return cv_train.build(resolve_defaults(make_parser().parse_args(SLICE_ARGS + extra)))[0]
+
+    # a. the sum, trimmed and median table rounds under the same attacks,
+    # against a clean run: the sum drifts furthest
+    clean, _ = run([], "clean")
+    W = clean.num_workers
+    p0 = _initial_params("cifar10", clean.device)
+    moved = (clean.state["params"] - p0).norm().item()
+    dist = {}
+    for pol, flags in ROBUST_POLICIES.items():
+        s, rec = run(flags + ["--fault_plan", ATTACK_PLAN], pol, count=True)
+        want = {"sketch_accumulate": W * ROBUST_ROUNDS, "sketch_query": ROBUST_ROUNDS}
+        if not s._table_round or launches[pol] != want:
+            fail(f"robust a: {pol}: table round {s._table_round}, launches {launches[pol]} "
+                 f"(want {want})")
+        if not torch.isfinite(s.state["params"]).all():
+            fail(f"robust a: {pol}: non-finite params")
+        dist[pol] = (s.state["params"] - clean.state["params"]).norm().item()
+        del s
+    print(f"robust a: {ROBUST_ROUNDS} rounds under {ATTACK_PLAN!r}: params L2 distance from "
+          f"the clean run {json.dumps({k: round(v, 6) for k, v in dist.items()})} (the clean "
+          f"run moved {moved:.6f} from its initial params); launches a run {launches['sum']} "
+          f"[{card}]", flush=True)
+    if not dist["sum"] > max(dist["trimmed"], dist["median"]):
+        fail(f"robust a: the sum run did not drift furthest from the clean run ({dist})")
+    del clean
+
+    # the robust merge of one attacked round's [W, r, c] stack on the card
+    # against the same merge of a CPU copy, bitwise; the stack on the card
+    # is (e)'s input
+    s = build(ROBUST_POLICIES["median"] + ["--fault_plan", ATTACK_PLAN])
+    batch = s._to_device(s.prepare_round(1).batch)  # round 1: client 1 sends 50x
+    tables, _, _, live, _ = s._payload_client(s.state, batch)
+    spec = s.cfg.mode.sketch_spec
+    cpu_tables, cpu_live = tables.cpu(), live.cpu()
+    for pol, trim in (("median", 0), ("trimmed", 1)):
+        for resid in (False, True):
+            got = modes._robust_table_merge(spec, tables, live, pol, trim, want_residual=resid)
+            want = modes._robust_table_merge(spec, cpu_tables, cpu_live, pol, trim,
+                                             want_residual=resid)
+            pairs = ([(got, want)] if not resid
+                     else [(got[0], want[0]), (got[2]["residual"], want[2]["residual"])])
+            for g, w in pairs:
+                if not torch.equal(g.cpu(), w):
+                    fail(f"robust a: the {pol} merge (residual {resid}) on the card differs "
+                         f"from its CPU run (max abs {(g.cpu() - w).abs().max().item()})")
+    print(f"robust a: the {tuple(tables.shape)} stack of round 1 merged on the card == its "
+          "CPU run, bitwise (median and trimmed 1, plain and with the residual)", flush=True)
+
+    # e. the merge's cost: sum, trimmed and median on one state and cohort,
+    # in turns: a round (client step + merge) and the merge alone, by CUDA
+    # events, and the round's peak memory above the state
+    steps, merges = {}, {}
+    for pol, kw in (("sum", dict(merge_policy="sum", merge_trim=0)),
+                    ("trimmed", dict(merge_policy="trimmed", merge_trim=1)),
+                    ("median", dict(merge_policy="median", merge_trim=0))):
+        cfg = dataclasses.replace(s.cfg, **kw)
+        steps[pol] = engine.compose_payload(*engine.make_payload_round_steps(
+            s.train_loss_fn, cfg, s.layout))
+        rp = engine.robust_policy(cfg)
+        merges[pol] = (lambda rp=rp, t=kw["merge_trim"]: modes.merge_partial_wires(
+            s.cfg.mode, {"table": tables}, policy=rp, live=live, trim=t) if rp else
+            modes.merge_partial_wires(s.cfg.mode, {"table": modes.mask_rows(live, tables)}))
+    lr = torch.tensor(0.01, device=s.device)
+    cost = {p: {"round_ms": [], "merge_ms": [], "peak_mb": []} for p in steps}
+    for _ in range(ROBUST_PAIRS + 1):  # the first turn warms up and is dropped
+        for pol in steps:
+            torch.cuda.synchronize()
+            base_mem = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+            e0.record()
+            steps[pol](s.state, batch, {}, lr)
+            e1.record()
+            merges[pol]()
+            e2.record()
+            e2.synchronize()
+            cost[pol]["round_ms"].append(e0.elapsed_time(e1))
+            cost[pol]["merge_ms"].append(e1.elapsed_time(e2))
+            cost[pol]["peak_mb"].append((torch.cuda.max_memory_allocated() - base_mem) / 2**20)
+    med = {p: {k: statistics.median(v[1:]) for k, v in c.items()} for p, c in cost.items()}
+    for pol, m in med.items():
+        print(f"robust e: {pol}: round {m['round_ms']:.3f} ms, merge {m['merge_ms']:.4f} ms "
+              f"(device, CUDA events), peak memory {m['peak_mb']:.1f} MiB above the state "
+              f"(medians of {ROBUST_PAIRS} turns) [{card}]", flush=True)
+    # the merge's order statistics, in turns: on this stack, the sort along
+    # dim 0 against one along the last dim after a transposed copy; at each
+    # W of RANK_COHORTS (this stack at 8, seeded ones of its row width), the
+    # trimmed mean's keep mask three ways: read off the sorted values (the
+    # port's), from ranks by counting (W passes), and from a stable sort and
+    # an argsort of its order (the reference's); and the whole trimmed merge
+    def counted_ranks(keyed):
+        ranks = torch.zeros(keyed.shape, dtype=torch.int32, device=keyed.device)
+        for j in range(keyed.shape[0]):
+            ranks += keyed[j] < keyed
+            ranks[j + 1:] += keyed[j] == keyed[j + 1:]
+        return ranks
+
+    def window(ranks, n):
+        return (ranks >= 1) & (ranks < n - 1)
+
+    def timed(fns):
+        got = {k: f() for k, f in fns.items()}
+        ms = {k: [] for k in fns}
+        for _ in range(ROBUST_PAIRS):
+            for k, f in fns.items():
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                f()
+                e1.record()
+                e1.synchronize()
+                ms[k].append(e0.elapsed_time(e1))
+        return got, {k: round(statistics.median(v), 4) for k, v in ms.items()}
+
+    keyed = torch.where(live[:, None, None] > 0, tables, torch.full_like(tables, math.inf))
+    got, piece_ms = timed({
+        "sort dim 0": lambda: torch.sort(keyed, dim=0).values,
+        "transpose + sort last dim": lambda: torch.sort(
+            keyed.movedim(0, -1).contiguous(), dim=-1).values.movedim(-1, 0)})
+    if not torch.equal(got["sort dim 0"], got["transpose + sort last dim"]):
+        fail("robust e: the sort along dim 0 differs from the transposed sort")
+    print(f"robust e: sorts of the {tuple(tables.shape)} stack, device ms (medians of "
+          f"{ROBUST_PAIRS} turns; equal): {json.dumps(piece_ms)} [{card}]", flush=True)
+    del got
+    gen = torch.Generator(device=s.device).manual_seed(17)
+    for cw in RANK_COHORTS:
+        stack = tables if cw == tables.shape[0] else tables.std() * torch.randn(
+            (cw,) + tuple(tables.shape[1:]), generator=gen, device=s.device)
+        wlive = live if cw == tables.shape[0] else torch.ones(cw, device=s.device)
+        keyed = torch.where(wlive[:, None, None] > 0, stack, torch.full_like(stack, math.inf))
+        n = (wlive > 0).sum()
+        got, rank_ms = timed({
+            "sorted values (port)": lambda: modes._trimmed_keep(
+                keyed, torch.sort(keyed, dim=0).values, n, 1),
+            "ranks by counting": lambda: window(counted_ranks(keyed), n),
+            "stable sort + argsort (reference)": lambda: window(torch.argsort(
+                torch.sort(keyed, dim=0, stable=True).indices, dim=0, stable=True), n),
+            "sort dim 0": lambda: torch.sort(keyed, dim=0).values,
+            "trimmed merge (port)": lambda: modes._robust_table_merge(
+                spec, stack, wlive, "trimmed", 1)})
+        masks = [v for k, v in got.items() if k not in ("sort dim 0", "trimmed merge (port)")]
+        if not all(torch.equal(masks[0], m) for m in masks[1:]):
+            fail(f"robust e: the trimmed keep masks disagree at W = {cw}")
+        print(f"robust e: trimmed 1 keep mask of a {(cw,) + tuple(tables.shape[1:])} stack, "
+              f"device ms (medians of {ROBUST_PAIRS} turns; the three masks equal): "
+              f"{json.dumps(rank_ms)} [{card}]", flush=True)
+        del stack, keyed, got, masks
+    del s, tables, batch, steps, merges
+
+    # b. the quarantine in the announce round: window 4, layer scope, a
+    # NaN-poisoned client at round 2
+    qrun, rec_q = run(QUARANTINE_ARGS + ["--fault_plan", QUARANTINE_PLAN], "quarantine",
+                      rounds=QUARANTINE_ROUNDS, count=True)
+    counts = [m["clients_quarantined"] for m in rec_q["metrics"]]
+    lq = launches["quarantine"]
+    if counts != [0.0, 0.0, 1.0] + [0.0] * (QUARANTINE_ROUNDS - 3) or qrun._table_round or \
+            any(n != QUARANTINE_ROUNDS for n in lq.values()):
+        fail(f"robust b: clients_quarantined a round {counts}, launches {lq}")
+    q = qrun.state["quarantine"]
+    print(f"robust b: clients_quarantined a round {counts}, median "
+          f"{[round(m['quarantine_median'], 6) for m in rec_q['metrics']]}, ring count "
+          f"{int(q['count'])}, {q['layer_median'].numel()} leaf rings; one launch of each "
+          f"kernel a round ({lq})", flush=True)
+    s = build(QUARANTINE_ARGS)
+    for _ in range(2):
+        s.run_round(0.01)  # seeds the rings
+    clean_batch = s.prepare_round(2).batch
+    poisoned = {k: v.clone() for k, v in clean_batch.items()}
+    for k, v in poisoned.items():
+        if not k.startswith("_") and v.is_floating_point():
+            v[5] = float("nan")
+    masked = dict(clean_batch, _valid=clean_batch["_valid"].clone())
+    masked["_valid"][5] = 0.0
+    lr = torch.tensor(CHECK_LR, device=s.device)
+    out_q = s._step(s.state, s._to_device(poisoned), {}, lr)
+    out_m = s._step(s.state, s._to_device(masked), {}, lr)
+    diff = {f"{p}.{k}": (out_q[0][p][k] - out_m[0][p][k]).abs().max().item()
+            for p in ("mode_state", "net_state", "quarantine") for k in out_q[0][p]
+            if not torch.equal(out_q[0][p][k], out_m[0][p][k])}
+    if not torch.equal(out_q[0]["params"], out_m[0]["params"]):
+        diff["params"] = (out_q[0]["params"] - out_m[0]["params"]).abs().max().item()
+    if not torch.equal(out_q[2]["loss_sum"], out_m[2]["loss_sum"]):
+        diff["loss_sum"] = (out_q[2]["loss_sum"] - out_m[2]["loss_sum"]).abs().max().item()
+    counts = [(out_q[2][k].item(), out_m[2][k].item())
+              for k in ("participants", "clients_quarantined")]
+    if diff or counts != [(W - 1, W - 1), (1.0, 0.0)]:
+        fail(f"robust b: the quarantined round differs from the round with that client "
+             f"masked (max abs differences {diff}; participants and clients_quarantined, "
+             f"quarantined against masked, {counts})")
+    print("robust b: the round with client 5 poisoned and quarantined == the round with its "
+          "validity zeroed, bitwise (params, Vvelocity, Verror, batch-norm statistics, the "
+          "rings, loss sum)", flush=True)
+    del s, out_q, out_m
+    print("robust b:", end=" ", flush=True)
+    sync_probe(cv_train, SLICE_ARGS + QUARANTINE_ARGS)
+
+    # d. preempt (b)'s run and resume it: the rings survive
+    ck = os.path.join(base, "ck")
+    pre = QUARANTINE_ARGS + ["--fault_plan", QUARANTINE_PLAN + ";preempt@2",
+                             "--checkpoint_dir", ck]
+    try:
+        run(pre, "preempted", rounds=QUARANTINE_ROUNDS)
+        fail("robust d: preempt@2 did not exit")
+    except SystemExit as e:
+        if e.code != 75:
+            raise
+    r, rec_r = run(pre + ["--resume"], "resumed", rounds=QUARANTINE_ROUNDS)
+    if not (r.run_stats.rounds == QUARANTINE_ROUNDS - 3
+            and _equal(_full_state(qrun), _full_state(r))
+            and all(torch.equal(r.state["quarantine"][k], v) for k, v in q.items())
+            and rec_r["metrics"] == rec_q["metrics"][3:]):
+        fail("robust d: preempt -> resume differs from the uninterrupted run")
+    print("robust d: preempt@2 -> exit 75 -> resume == the uninterrupted run, bitwise (params, "
+          "Vvelocity, Verror, batch-norm statistics, every ring, per-round metrics)", flush=True)
+    shutil.rmtree(ck, ignore_errors=True)
+    del qrun, r
+
+    # c. served: the gauntlet rejects a 50x table as QUARANTINED; the round
+    # equals its batch twin whose merge quarantines the same client
+    served = ["--serve", "inproc"] + SERVE_PAYLOAD + ["--client_update_clip", "3"]
+    with serving_runs() as rec:
+        sv, rec_s = run(served + ["--fault_plan", SERVED_PLAN], "served", rounds=3)
+    svc, src = rec["runs"][0]
+    counters = svc.queue.counters()
+    drops = ";".join(f"client_drop@{c.rnd}:clients=" + "+".join(str(p) for p in pos)
+                     for c in src.closed_rounds
+                     for pos in [[int(p) for p in np.flatnonzero(c.arrived == 0.0)
+                                  if (c.rnd, int(p)) != (2, 1)]] if pos)
+    build_service = cv_train.service_from_args
+    cv_train.service_from_args = lambda args, session: None
+    try:
+        bt, rec_b = run(served + ["--fault_plan", ";".join(filter(None, [SERVED_PLAN, drops]))],
+                        "served_batch", rounds=3)
+    finally:
+        cv_train.service_from_args = build_service
+    held = {
+        "the gauntlet rejected one payload QUARANTINED": counters["rejected_quarantined"] == 1,
+        "round 2 of the batch twin quarantined one client":
+            rec_b["metrics"][2]["clients_quarantined"] == 1.0,
+        "round 2 of the served run quarantined none in the merge":
+            rec_s["metrics"][2]["clients_quarantined"] == 0.0,
+        "the same state, bitwise": _equal(_full_state(sv), _full_state(bt)) and all(
+            torch.equal(sv.state["quarantine"][k], v) for k, v in bt.state["quarantine"].items()),
+    }
+    bad = [k for k, ok in held.items() if not ok]
+    if bad:
+        fail(f"robust c: {bad}; counters {counters}, twin drops {drops!r}")
+    print(f"robust c: held: {'; '.join(held)} (counters {json.dumps(counters)}, twin drops "
+          f"{drops!r})", flush=True)
+    return launches
+
+
 REPLACES = {"sketch_accumulate": "commefficient_tpu/sketch/pallas_kernels.py:135",
             "sketch_query": "commefficient_tpu/sketch/pallas_kernels.py:211"}
 
@@ -2504,6 +2825,10 @@ def main(argv: list[str]) -> int:
     # 16. observability
     phase("16 (observability)")
     obs_launches = obs_phase(cv_train, engine, csvec, kernels, card)
+
+    # 17. robust merges and the quarantine
+    phase("17 (robust merges, quarantine)")
+    robust = robust_phase(cv_train, engine, csvec, kernels, card)
     phase("end")
 
     for name in rows:
@@ -2515,6 +2840,7 @@ def main(argv: list[str]) -> int:
         rows[name]["launches_serve"] = {run: n[name] for run, n in serve.items()}
         rows[name]["launches_batched"] = {run: n[name] for run, n in batched.items()}
         rows[name]["launches_obs"] = {run: n[name] for run, n in obs_launches.items()}
+        rows[name]["launches_robust"] = {run: n[name] for run, n in robust.items()}
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -111,6 +111,13 @@ def build(args):
         # armed == unarmed, bitwise)
         health_every=args.health_every,
         ledger_fingerprint=bool(args.ledger),
+        # the sketch-space quarantine and the robust table merge
+        client_update_clip=args.client_update_clip,
+        quarantine_window=args.quarantine_window,
+        quarantine_scope=args.quarantine_scope,
+        merge_policy=args.merge_policy,
+        merge_trim=args.merge_trim,
+        robust_residual=args.robust_residual == "on",
     )
     return session, test_set
 

@@ -31,7 +31,13 @@ faults. A ``wire_payloads`` session (``--serve_payload sketch``) runs the
 payload round: ``compute_client_tables`` (the per-client tables, copied to
 the host once), the wire, ``finish_served_payload``, then
 ``dispatch_round`` merges the validated stack; its batch round composes
-the same two steps (``engine.compose_payload``).
+the same two steps (``engine.compose_payload``). A robust ``merge_policy``
+and a fault plan that names an adversarial kind run that round too, and
+such a plan's ``_adv_*`` keys ride every round's batch (the identity off
+schedule). With ``client_update_clip`` the server state carries the
+quarantine's rings; ``quarantine_median_host`` is what the serving
+gauntlet screens against, and ``clients_quarantined_total`` counts the
+rejected clients, who stay charged for their uplink.
 
 Observability (``obs/``): preparation is a ``federated`` span with
 ``cohort_degraded`` and ``requeue_serve`` instants; with ``health_every``
@@ -169,6 +175,12 @@ class FederatedSession:
         client_chunk: int = 0,
         health_every: int = 0,
         ledger_fingerprint: bool = False,
+        client_update_clip: float = 0.0,
+        quarantine_window: int = 1,
+        merge_policy: str = "sum",
+        merge_trim: int = 0,
+        quarantine_scope: str = "cohort",
+        robust_residual: bool = False,
     ):
         self.device = resolve_device(device)
         if health_every < 0:
@@ -191,8 +203,30 @@ class FederatedSession:
             wire_payloads=wire_payloads, client_chunk=client_chunk,
             # in-step observability (--health_every N > 0, --ledger): both
             # only read round state, so armed rounds are bitwise unarmed ones
-            health=health_every > 0, ledger_fingerprint=ledger_fingerprint)
+            health=health_every > 0, ledger_fingerprint=ledger_fingerprint,
+            # the sketch-space quarantine (its baseline window and scope) and
+            # the Byzantine-robust table merge (see EngineConfig)
+            client_update_clip=client_update_clip, quarantine_window=quarantine_window,
+            merge_policy=merge_policy, merge_trim=merge_trim,
+            quarantine_scope=quarantine_scope, robust_residual=robust_residual)
         self._health_every = max(health_every, 1)
+        # the per-client-table round serves a real wire (wire_payloads), a
+        # robust merge (order statistics need each client's table) and the
+        # adversarial fault kinds (they transform the per-client wire, which
+        # exists only there)
+        adv = fault_plan is not None and fault_plan.has_adversarial()
+        if fault_plan is not None and fault_plan.has_normride() and client_update_clip <= 0:
+            raise ValueError("client_normride rides just under the quarantine screen (scale to "
+                             "ride * clip * running median); with --client_update_clip at 0 "
+                             "there is no threshold to ride and the attack is undefined - arm "
+                             "the quarantine")
+        self._table_round = engine.uses_table_round(self.cfg) or adv
+        if self._table_round and mode_cfg.mode != "sketch":
+            why = (f"merge_policy={merge_policy!r}" if engine.robust_policy(self.cfg)
+                   else "adversarial fault kinds (client_signflip/client_scale/client_collude/"
+                        "client_normride)")
+            raise ValueError(f"{why} need(s) the per-client-table round, which requires "
+                             f"mode='sketch'; got mode={mode_cfg.mode!r}")
         # the obs sinks commit hands each round to (obs.attach_from_args
         # sets them): the health monitor, the SLO engine, the round ledger
         self.health_monitor = None
@@ -212,7 +246,8 @@ class FederatedSession:
         self._build_steps()
         pflat = layout.flatten({k: v.detach().to(self.device) for k, v in params.items()})
         self.state = engine.init_server_state(
-            self.cfg, pflat, {k: v.detach().to(self.device).clone() for k, v in net_state.items()})
+            self.cfg, pflat, {k: v.detach().to(self.device).clone() for k, v in net_state.items()},
+            layout)
         # [num_clients, d] per key, or None
         self.client_state = modes.init_client_state(mode_cfg, train_set.num_clients,
                                                     self.device)
@@ -254,6 +289,9 @@ class FederatedSession:
         self.round = 0
         self.comm_per_round = round_comm_mb(mode_cfg, self.num_workers)
         self.comm_mb_total = 0.0
+        # clients the quarantine rejected, summed over committed rounds (the
+        # service's status reads it)
+        self.clients_quarantined_total = 0
         self.run_stats = None  # the RunStats of the last run_loop that finished
         # the serving layer's checkpoint hook (a callable returning the
         # meta.json "serve" block, set by serve.AggregationService) and the
@@ -271,10 +309,11 @@ class FederatedSession:
         ``client_chunk``)."""
         loss_fn, cfg, layout = self.train_loss_fn, self.cfg, self.layout
         self._payload_client = self._payload_merge = None
-        if cfg.wire_payloads:
-            # the wire-payload round (--serve_payload sketch): per-client
-            # tables, then the table merge. The batch round composes the
-            # two; a served round runs them apart with the wire between
+        if self._table_round:
+            # the per-client-table round (--serve_payload sketch, a robust
+            # --merge_policy, adversarial fault kinds): per-client tables,
+            # then the table merge. The batch round composes the two; a
+            # served round runs them apart with the wire between
             # (compute_client_tables, then dispatch_round of a payload
             # preparation)
             self._payload_client, self._payload_merge = engine.make_payload_round_steps(
@@ -493,6 +532,15 @@ class FederatedSession:
         # the validity mask always rides the batch (all ones when clean)
         batch = dict(batch)
         batch[engine.VALID_KEY] = valid if valid is not None else np.ones(len(ids), np.float32)
+        if self._table_round and self.fault_plan is not None and \
+                self.fault_plan.has_adversarial():
+            # the adversarial wire transform rides every round of a plan
+            # that names the kinds, the identity off schedule
+            scale, src = self.fault_plan.adversarial_plan(rnd, len(ids))
+            batch[engine.ADV_SCALE_KEY] = scale
+            batch[engine.ADV_SRC_KEY] = src
+            if self.fault_plan.has_normride():
+                batch[engine.ADV_RIDE_KEY] = self.fault_plan.normride_plan(rnd, len(ids))
         health_on = False
         if self.cfg.health:
             # the cadence flag rides the batch like the validity mask, and
@@ -515,10 +563,12 @@ class FederatedSession:
         (the state the client step read, per-client statistics and metric
         rows, the participation mask)."""
         if self._payload_client is None:
-            raise RuntimeError("compute_client_tables needs a wire_payloads=True session "
-                               "(--serve_payload sketch)")
+            raise RuntimeError("compute_client_tables needs a per-client-table session "
+                               "(--serve_payload sketch, a robust --merge_policy or an "
+                               "adversarial fault kind)")
         state = self._head()
-        tables, nstates, mvals, part = self._payload_client(state, self._to_device(prep.batch))
+        tables, nstates, mvals, part, lnorms = self._payload_client(
+            state, self._to_device(prep.batch))
         if self.device.type == "cuda":
             host = torch.empty(tables.shape, dtype=tables.dtype, pin_memory=True)
             t0 = self._record(timing=True)
@@ -529,7 +579,19 @@ class FederatedSession:
             self._fold_wire_copies()  # the sync completed every earlier copy too
         else:
             host = tables
-        return host.numpy(), (state, nstates, mvals, part)
+        return host.numpy(), (state, nstates, mvals, part, lnorms)
+
+    def quarantine_median_host(self) -> float:
+        """The current quarantine baseline on the host (0.0 with the
+        quarantine off or not seeded yet): what the ingest gauntlet's
+        sketch-space L2 screen reads. It is the cohort ring's median, the
+        one the table merge screens the table norms against, so a payload
+        the gauntlet rejects as QUARANTINED is one the merge would have
+        quarantined. A payload round syncs once anyway
+        (``compute_client_tables``), before this is read."""
+        if self.cfg.client_update_clip <= 0:
+            return 0.0
+        return float(self._head()["quarantine"]["median"])
 
     def finish_served_payload(self, prep: PreparedRound, arrived, wire_tables,
                               aux: tuple) -> PreparedRound:
@@ -556,7 +618,7 @@ class FederatedSession:
         served round collected: one pinned host-to-device copy of the
         [W, r, c] stack, then the merge on the state the client step read."""
         wire_tables, arrived, aux = prep.payload
-        state, nstates, mvals, part = aux
+        state, nstates, mvals, part, lnorms = aux
         host = self._host(wire_tables)
         t0 = self._record(timing=True)
         tables = host.to(self.device, non_blocking=True)
@@ -567,7 +629,8 @@ class FederatedSession:
         new_state, metrics = self._payload_merge(
             state, tables, nstates, mvals, part,
             self._host(arrived).to(self.device, non_blocking=True),
-            lr_host.to(self.device, non_blocking=True), health_on=prep.health_on)
+            lr_host.to(self.device, non_blocking=True), lnorms=lnorms,
+            health_on=prep.health_on)
         self._head_state = new_state
         self._inflight += 1
         self._inflight_rounds += 1
@@ -760,8 +823,9 @@ class FederatedSession:
         """Whether a block of rounds can run in one dispatch: not for a mode
         with client state (its rows are gathered and scattered around each
         round), nor with a fault plan (its sites are scheduled by round,
-        which a block cannot honour), nor for the payload round (its wire
-        crossing is the round boundary)."""
+        which a block cannot honour), nor for the per-client-table round
+        (its wire crossing, or the batch twin of it, is the round
+        boundary)."""
         return (self.client_state is None and self.fault_plan is None
                 and self._payload_client is None)
 
@@ -785,11 +849,14 @@ class FederatedSession:
         m["lr"] = float(lr)
         m["clients_dropped"] = float(masked)
         m["requeue_depth"] = float(requeue_depth)
+        self.clients_quarantined_total += int(m.get("clients_quarantined", 0))
         m.update(self.comm_per_round)
         if (self.cfg.client_dropout > 0 or masked) and "participants" in m:
-            # a dropped or masked client never transmits; the broadcast
-            # still reaches the whole cohort
-            m["comm_up_mb"] *= m["participants"] / self.num_workers
+            # a dropped or masked client never transmits; a quarantined one
+            # did upload (the server rejected it after), so it stays
+            # charged; the broadcast still reaches the whole cohort
+            uploaded = m["participants"] + m.get("clients_quarantined", 0.0)
+            m["comm_up_mb"] *= uploaded / self.num_workers
             m["comm_total_mb"] = m["comm_up_mb"] + m["comm_down_mb"]
         if "down_support" in m:
             # local_topk: the round's measured broadcast support replaces the

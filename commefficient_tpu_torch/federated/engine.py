@@ -26,9 +26,19 @@ One round, given the flat [d] params (ravel_pytree order, see
 4. ``modes.server_step_sparse`` runs momentum and error feedback and
    releases the delta, which ``modes.apply_delta`` subtracts.
 
-The wire-payload round (``wire_payloads``, ``make_payload_round_steps``)
-has no shortcut: every client's update is sketched into its own table,
-and the server merges the tables by an ordered sum.
+The per-client-table round (``make_payload_round_steps``: the wire-payload
+round ``wire_payloads``, a robust ``merge_policy``, the adversarial fault
+kinds) has no shortcut: every client's update is sketched into its own
+table, the batch's ``_adv_*`` keys may rewrite the tables, and the server
+merges them by an ordered sum, or by the coordinate-wise trimmed mean or
+median (``modes._robust_table_merge``).
+
+The sketch-space quarantine (``client_update_clip``): each client's update
+L2 norm (the table's, on the table round), and under layer scope each
+leaf's, is screened against the running median the server state carries
+(``state["quarantine"]``, a ring of ``quarantine_window`` per-round
+medians); a client over the clip multiple, or not finite, leaves the round
+exactly as a dropped client.
 
 Client participation: a client takes part in a round when the batch's
 validity mask (``VALID_KEY``: a dropped client, a failed data load) says
@@ -166,6 +176,35 @@ class EngineConfig:
     # float reductions of the committed params and optimizer state on every
     # round, under the "ledger/" prefix
     ledger_fingerprint: bool = False
+    # the sketch-space quarantine (--client_update_clip): > 0 rejects any
+    # client whose update L2 norm is not finite or exceeds this multiple of
+    # the running median of live client norms (state["quarantine"], seeded
+    # by the first round's cohort median). A rejected client leaves the
+    # merge and every renormalization exactly as a dropped one. The norms
+    # are taken before the DP clip; the table round screens the table norms
+    # (sketch space). 0 = off
+    client_update_clip: float = 0.0
+    # the quarantine baseline: 1 screens against the last non-empty round's
+    # live-cohort median (state {"median"}); K > 1 keeps a [K] ring of the
+    # per-round medians and screens against the median over its filled slots
+    quarantine_window: int = 1
+    # the table merge (--merge_policy): "sum" is the ordered sum; "trimmed"
+    # drops merge_trim live contributions at each end of every table
+    # coordinate before the ordered sum of the survivors; "median" is the
+    # coordinate-wise median. A robust policy runs the per-client-table
+    # round (uses_table_round) and needs mode=sketch; trimmed with
+    # merge_trim 0 is the sum (robust_policy)
+    merge_policy: str = "sum"
+    merge_trim: int = 0
+    # "layer" adds a per-leaf screen beside the cohort one: each leaf's
+    # update L2 against that leaf's own running-median ring (the leaves are
+    # _leaf_segments, the health block's segments); a client over any
+    # leaf's screen is rejected
+    quarantine_scope: str = "cohort"
+    # with a robust policy, add lr * (winsorized mean - robust merge) into
+    # Verror before the server step, so the honest mass the trim clips
+    # re-enters through error feedback (modes._robust_table_merge)
+    robust_residual: bool = False
 
     def generator(self, rnd: int, slot: int, step: int,
                   device: torch.device) -> torch.Generator:
@@ -182,6 +221,37 @@ class EngineConfig:
             raise ValueError(f"client_chunk must be >= 0, got {self.client_chunk}")
         if not 0.0 <= self.client_dropout < 1.0:
             raise ValueError(f"client_dropout must be in [0, 1), got {self.client_dropout}")
+        if self.client_update_clip < 0:
+            raise ValueError(f"client_update_clip must be >= 0, got {self.client_update_clip}")
+        if self.quarantine_window < 1:
+            raise ValueError(f"quarantine_window must be >= 1, got {self.quarantine_window}")
+        if self.merge_policy not in ("sum", "trimmed", "median"):
+            raise ValueError(f"merge_policy must be 'sum', 'trimmed' or 'median', got "
+                             f"{self.merge_policy!r}")
+        if self.merge_trim < 0:
+            raise ValueError(f"merge_trim must be >= 0, got {self.merge_trim}")
+        if self.merge_trim > 0 and self.merge_policy != "trimmed":
+            raise ValueError(f"merge_trim={self.merge_trim} names the trimmed policy's "
+                             f"per-coordinate drop count; merge_policy={self.merge_policy!r} "
+                             "has no use for it")
+        if robust_policy(self) and self.mode.mode != "sketch":
+            raise ValueError(f"merge_policy={self.merge_policy!r} is the robust TABLE merge "
+                             "over per-client Count-Sketch tables, so it requires "
+                             f"mode='sketch'; mode={self.mode.mode!r} has no table wire")
+        if self.quarantine_scope not in ("cohort", "layer"):
+            raise ValueError(f"quarantine_scope must be 'cohort' or 'layer', got "
+                             f"{self.quarantine_scope!r}")
+        if self.quarantine_scope == "layer" and self.client_update_clip <= 0:
+            raise ValueError("quarantine_scope='layer' refines the --client_update_clip "
+                             "screen; with the clip at 0 there is no quarantine to scope - "
+                             "set client_update_clip > 0")
+        if self.robust_residual and robust_policy(self) is None:
+            trim0 = " with merge_trim=0" if self.merge_policy == "trimmed" else ""
+            raise ValueError(
+                "robust_residual is the robust merge's error-feedback repair; merge_policy="
+                f"{self.merge_policy!r}{trim0} runs the plain sum, which has no residual to "
+                "accumulate - arm merge_policy='trimmed' (trim > 0) or 'median', or drop "
+                "the flag")
         if self.dp_clip < 0 or self.dp_noise < 0:
             raise ValueError(f"dp_clip and dp_noise must be >= 0, got {self.dp_clip} and "
                              f"{self.dp_noise}")
@@ -212,18 +282,59 @@ class EngineConfig:
                 "state.")
 
 
-def init_server_state(cfg: EngineConfig, pflat: torch.Tensor, net_state: dict) -> dict:
+def robust_policy(cfg: EngineConfig) -> str | None:
+    """The effective robust merge policy, or None for the ordered sum:
+    "trimmed" with merge_trim 0 trims nothing, so it runs the exact sum."""
+    if cfg.merge_policy == "median":
+        return "median"
+    if cfg.merge_policy == "trimmed" and cfg.merge_trim > 0:
+        return "trimmed"
+    return None
+
+
+def uses_table_round(cfg: EngineConfig) -> bool:
+    """Whether the round needs per-client tables (make_payload_round_steps):
+    a real wire (wire_payloads) or a robust merge, whose order statistics
+    need the contributions the compress-once shortcut never makes."""
+    return cfg.wire_payloads or robust_policy(cfg) is not None
+
+
+def init_server_state(cfg: EngineConfig, pflat: torch.Tensor, net_state: dict,
+                      layout: FlatLayout | None = None) -> dict:
+    """The round-0 server state. With the quarantine armed it carries
+    ``state["quarantine"]``: the running median (0 = no baseline yet: the
+    first round screens only non-finite updates, then seeds it), with
+    quarantine_window K > 1 the [K] ring of per-round medians and its fill
+    count, and under layer scope the same per leaf of ``layout`` (needed
+    then)."""
     if cfg.dp_noise > 0 and net_state:
         raise ValueError(
             "dp_noise with mutable model collections (e.g. BatchNorm batch_stats) is unsound: "
             "per-client statistics are averaged into the released model without clipping or "
             "noise, bypassing the DP mechanism. Use a normalization-free model for DP runs.")
-    return {
+    state = {
         "params": pflat,
         "net_state": net_state,
         "mode_state": modes.init_server_state(cfg.mode, pflat.device),
         "round": 0,
     }
+    if cfg.client_update_clip > 0:
+        dev, K = pflat.device, cfg.quarantine_window
+        q = {"median": torch.zeros((), dtype=torch.float32, device=dev)}
+        if K > 1:
+            q["window"] = torch.zeros(K, dtype=torch.float32, device=dev)
+            q["count"] = torch.zeros((), dtype=torch.int32, device=dev)
+        if cfg.quarantine_scope == "layer":
+            if layout is None:
+                raise ValueError("quarantine_scope='layer' needs the model's layout: one "
+                                 "median ring per parameter leaf")
+            L = len(_leaf_segments(layout))
+            q["layer_median"] = torch.zeros(L, dtype=torch.float32, device=dev)
+            if K > 1:
+                q["layer_window"] = torch.zeros((L, K), dtype=torch.float32, device=dev)
+                q["layer_count"] = torch.zeros(L, dtype=torch.int32, device=dev)
+        state["quarantine"] = q
+    return state
 
 
 def split_valid(batch: dict) -> tuple[dict, torch.Tensor | None]:
@@ -433,6 +544,108 @@ def _clip_rows(cfg: EngineConfig, updates: torch.Tensor,
     return updates * fac[:, None]
 
 
+def _client_norms(updates: torch.Tensor) -> torch.Tensor:
+    """[W] L2 norm of each client's flat update, in float32: the quarantine's
+    observable, taken before the DP clip."""
+    return torch.sqrt(torch.sum(torch.square(updates.to(torch.float32)), dim=1))
+
+
+def _quarantine_mask(cfg: EngineConfig, norms: torch.Tensor, qmed: torch.Tensor) -> torch.Tensor:
+    """[W] bool: the client is rejected by the quarantine. A non-finite norm
+    always is; the magnitude screen arms once a running median exists
+    (qmed > 0)."""
+    bad = ~torch.isfinite(norms)
+    return bad | ((qmed > 0) & (norms > cfg.client_update_clip * qmed))
+
+
+def _masked_median(values: torch.Tensor, live: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Median over the ``live`` entries of ``values`` along the last axis
+    (leading axes batch independent rings): sort with dead entries keyed
+    to +inf, then take ranks (n-1)//2 and n//2 by gathering on the device.
+    Undefined where n == 0: callers select past it."""
+    W = values.shape[-1]
+    s = torch.sort(torch.where(live, values, torch.full_like(values, float("inf"))),
+                   dim=-1).values
+    n = n.to(torch.int64)
+
+    def rank(i):
+        return torch.gather(s, -1, i.clamp(0, W - 1).unsqueeze(-1)).squeeze(-1)
+
+    return 0.5 * (rank((n - 1) // 2) + rank(n // 2))
+
+
+def _round_median(norms: torch.Tensor, part_eff: torch.Tensor):
+    """(median, live count) of this round's live, finite client norms along
+    the last axis: the per-round observation every baseline is built from."""
+    live = (part_eff > 0) & torch.isfinite(norms)
+    n_live = live.sum(-1)
+    return _masked_median(norms, live, n_live), n_live
+
+
+def _advance_quarantine(cfg: EngineConfig, qstate: dict, norms: torch.Tensor,
+                        part_eff: torch.Tensor) -> dict:
+    """One round's update of the quarantine state, for the rings along the
+    leading axes of ``norms`` ([W]: the cohort ring; [L, W]: one per leaf).
+    Window 1: {"median"}, this round's live median, or the previous one
+    when nobody live was left (an empty round must not zero the threshold).
+    Window K > 1: this round's median pushed into the [K] ring (an empty
+    round pushes nothing) and the threshold the median over the filled
+    slots, which fill from the tail."""
+    med, n_live = _round_median(norms, part_eff)
+    has = n_live > 0
+    if cfg.quarantine_window <= 1:
+        return {"median": torch.where(has, med, qstate["median"])}
+    K = cfg.quarantine_window
+    window = torch.where(has.unsqueeze(-1),
+                         torch.cat([qstate["window"][..., 1:], med.unsqueeze(-1)], dim=-1),
+                         qstate["window"])
+    count = torch.where(has, torch.clamp(qstate["count"] + 1, max=K), qstate["count"])
+    filled = torch.arange(K, device=window.device) >= (K - count).unsqueeze(-1)
+    wmed = _masked_median(window, filled, count)
+    return {"median": torch.where(count > 0, wmed, qstate["median"]), "window": window,
+            "count": count}
+
+
+def _client_layer_norms(updates: torch.Tensor, segments) -> torch.Tensor:
+    """[W, L] L2 norm of each client's update per parameter leaf (the
+    (offset, size) ``segments``), in float32. A single-leaf model's one
+    column is the reduction ``_client_norms`` runs."""
+    u = updates.to(torch.float32)
+    return torch.stack([torch.sqrt(torch.sum(torch.square(u[:, o:o + n]), dim=1))
+                        for o, n in segments], dim=1)
+
+
+def _quarantine_layer_mask(cfg: EngineConfig, lnorms: torch.Tensor,
+                           lmed: torch.Tensor) -> torch.Tensor:
+    """[W] bool: rejected by any leaf's screen (a non-finite leaf norm, or
+    one past the clip multiple of that leaf's running median, each leaf's
+    screen arming once its median seeds)."""
+    bad = ~torch.isfinite(lnorms)
+    bad = bad | ((lmed[None, :] > 0) & (lnorms > cfg.client_update_clip * lmed[None, :]))
+    return bad.any(dim=1)
+
+
+def _advance_quarantine_layers(cfg: EngineConfig, qstate: dict, lnorms: torch.Tensor,
+                               part_eff: torch.Tensor) -> dict:
+    """One round's update of the per-leaf rings: ``_advance_quarantine`` on
+    every leaf at once ([W, L] norms, rings on the leaf axis)."""
+    sub = {"median": qstate["layer_median"]}
+    if cfg.quarantine_window > 1:
+        sub.update(window=qstate["layer_window"], count=qstate["layer_count"])
+    out = _advance_quarantine(cfg, sub, lnorms.t(), part_eff)
+    return {f"layer_{k}": v for k, v in out.items()}
+
+
+def _advance_quarantine_full(cfg: EngineConfig, qstate: dict, norms: torch.Tensor,
+                             lnorms: torch.Tensor | None, part_eff: torch.Tensor) -> dict:
+    """The cohort ring and (layer scope) the per-leaf rings, one round: the
+    one entry both rounds use, so the state tree cannot drift."""
+    new_q = _advance_quarantine(cfg, qstate, norms, part_eff)
+    if lnorms is not None:
+        new_q.update(_advance_quarantine_layers(cfg, qstate, lnorms, part_eff))
+    return new_q
+
+
 def _weighted_sums(part: torch.Tensor, updates: torch.Tensor, stats: dict,
                    metrics: dict) -> tuple[torch.Tensor, dict, dict]:
     """Participation-weighted sums over the client axis of the stacked
@@ -474,13 +687,21 @@ def _cohort_part(cfg: EngineConfig, state: dict, batch: dict):
 
 
 def _client_phase(updates: Callable, cfg: EngineConfig, state: dict, batch: dict,
-                  client_rows: dict, lr):
+                  client_rows: dict, lr, segments: tuple = ()):
     """The client phase of a round: the clients' updates (clipped to
     ``dp_clip``; local_topk: then their densified top-k wires, compressed
     with their rows of the client state) reduced to participation-weighted
     sums over the stacked client axis, as the reference's
     ``_weighted_client_reduce`` does. The participation weight is the
     batch's validity mask times the round's ``participation_mask``.
+
+    With the quarantine armed (``client_update_clip``) each chunk's clients
+    are screened on their update norms (and, under layer scope, on their
+    per-leaf norms over ``segments``) against the running median in
+    ``state["quarantine"]``, before the clip: a rejected client's weight
+    drops to 0, so it leaves every sum and renormalization; the modes with
+    a weight delta or client state also zero its update, so its client rows
+    stay as they were. The verdict needs no other chunk's norms.
 
     The linear grad modes run one vmap over all W clients at
     ``client_chunk`` 0, else W / C vmapped chunks of C clients whose sums
@@ -490,8 +711,9 @@ def _client_phase(updates: Callable, cfg: EngineConfig, state: dict, batch: dict
     cohort order. Returns the reduced update [d] (the survivor mean unless
     agg_op=sum), the survivor mean of the batch-norm statistics (the
     previous ones when nobody survived), the metric sums with the
-    participants count and the cohort's new rows ([W, d] per key; a client
-    that did not take part keeps its row)."""
+    participants count (and ``clients_quarantined``, ``quarantine_median``),
+    the cohort's new rows ([W, d] per key; a client that did not take part
+    keeps its row) and the advanced quarantine state (None when off)."""
     mcfg = cfg.mode
     batch, W, part = _cohort_part(cfg, state, batch)
     C = cfg.client_chunk
@@ -499,24 +721,48 @@ def _client_phase(updates: Callable, cfg: EngineConfig, state: dict, batch: dict
         C = W
     if W % C:
         raise ValueError(f"client_chunk={C} must divide the sampled cohort ({W})")
-    sums, new_rows = None, {}
+    quarantine = cfg.client_update_clip > 0
+    layer_q = quarantine and cfg.quarantine_scope == "layer"
+    # a weight delta or a client-state wire is formed from the update row
+    # itself: a rejected client's row is zeroed before it can form one
+    zero_bad = mcfg.uses_weight_delta or not modes.is_linear(mcfg)
+    sums, new_rows, parts, norms, lnorms = None, {}, [], [], []
     for lo in range(0, W, C):
         cb = {k: v[lo:lo + C] for k, v in batch.items()}
         cpart = part[lo:lo + C]
         u, stats, metrics = updates(state, cb, lr, range(lo, lo + C))
+        if quarantine:
+            q = state["quarantine"]
+            norms.append(_client_norms(u))
+            bad = _quarantine_mask(cfg, norms[-1], q["median"])
+            if layer_q:
+                lnorms.append(_client_layer_norms(u, segments))
+                bad = bad | _quarantine_layer_mask(cfg, lnorms[-1], q["layer_median"])
+            cpart = cpart * (1.0 - bad.to(cpart.dtype))
+            if zero_bad:
+                u = torch.where(bad[:, None], torch.zeros_like(u), u)
+        parts.append(cpart)
         u = _clip_rows(cfg, u, cpart)
         if not modes.is_linear(mcfg):
-            u, new_rows = _compress_rows(mcfg, u, part, client_rows)
+            u, new_rows = _compress_rows(mcfg, u, cpart, client_rows)
         chunk = _weighted_sums(cpart, u, stats, metrics)
         del u  # this chunk's updates are gone before the next chunk's exist
         sums = chunk if sums is None else (
             sums[0] + chunk[0], {k: v + chunk[1][k] for k, v in sums[1].items()},
             {k: v + chunk[2][k] for k, v in sums[2].items()})
+    part_eff = torch.cat(parts)
     wsum, ns_sum, m_sum = sums
-    n_live = part.sum().clamp_min(1.0)
+    n_live = part_eff.sum().clamp_min(1.0)
     weighted = wsum if mcfg.agg_op == "sum" else wsum / n_live
-    new_net_state, metrics = _merged_survivor_finalize(ns_sum, m_sum, part, state["net_state"])
-    return weighted, new_net_state, metrics, new_rows
+    new_net_state, metrics = _merged_survivor_finalize(ns_sum, m_sum, part_eff,
+                                                       state["net_state"])
+    new_q = None
+    if quarantine:
+        metrics["clients_quarantined"] = part.sum() - part_eff.sum()
+        new_q = _advance_quarantine_full(cfg, state["quarantine"], torch.cat(norms),
+                                         torch.cat(lnorms) if layer_q else None, part_eff)
+        metrics["quarantine_median"] = new_q["median"]
+    return weighted, new_net_state, metrics, new_rows, new_q
 
 
 def reduce_clients(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout,
@@ -524,8 +770,9 @@ def reduce_clients(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout,
     """The client phase of a round of a mode without client state: (reduced
     update [d], survivor-mean batch-norm statistics, metric sums with the
     participants count)."""
-    weighted, new_net_state, metrics, _ = _client_phase(
-        make_client_updates(loss_fn, cfg, layout), cfg, state, batch, {}, None)
+    weighted, new_net_state, metrics, _, _ = _client_phase(
+        make_client_updates(loss_fn, cfg, layout), cfg, state, batch, {}, None,
+        _leaf_segments(layout))
     return weighted, new_net_state, metrics
 
 
@@ -542,8 +789,9 @@ def _guard_nonfinite(cfg: EngineConfig, agg: dict, new_net_state: dict, net_stat
                      new_rows: dict, client_rows: dict, metrics: dict):
     """on_nonfinite="skip": zero a non-finite aggregate, keep the previous
     batch-norm statistics and client rows, zero the round's training sums
-    and flag it in ``nonfinite_rounds``. On finite data every select keeps
-    its input. Also returns the round's finite flag (None with "off")."""
+    and flag it in ``nonfinite_rounds`` (the participants count and the
+    quarantine's metrics stay). On finite data every select keeps its
+    input. Also returns the round's finite flag (None with "off")."""
     if cfg.on_nonfinite != "skip":
         return agg, new_net_state, new_rows, metrics, None
     ok = _all_finite([*agg.values(), *new_net_state.values(), *new_rows.values()])
@@ -551,7 +799,10 @@ def _guard_nonfinite(cfg: EngineConfig, agg: dict, new_net_state: dict, net_stat
            for k, v in agg.items()}
     new_net_state = {k: torch.where(ok, v, net_state[k]) for k, v in new_net_state.items()}
     new_rows = {k: torch.where(ok, v, client_rows[k]) for k, v in new_rows.items()}
-    metrics = {k: v if k == "participants" else torch.where(ok, v, torch.zeros_like(v))
+    # the participants count and the quarantine's verdicts are server-side
+    # bookkeeping, not sums of the poisoned forward pass: they stay
+    keep = ("participants", "clients_quarantined", "quarantine_median")
+    metrics = {k: v if k in keep else torch.where(ok, v, torch.zeros_like(v))
                for k, v in metrics.items()}
     metrics["nonfinite_rounds"] = (~ok).to(torch.float32)
     return agg, new_net_state, new_rows, metrics, ok
@@ -590,6 +841,10 @@ def make_round_step(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout) ->
     averaged delta at ``server_lr``. Metrics are device tensors summed over
     clients (and local steps)."""
     mcfg = cfg.mode
+    if robust_policy(cfg) is not None:
+        raise ValueError(f"merge_policy={cfg.merge_policy!r} (trim={cfg.merge_trim}) needs the "
+                         "per-client-table round: use make_payload_round_steps "
+                         "(FederatedSession routes it); this round merges by the sum only")
     updates = make_client_updates(loss_fn, cfg, layout)
     segments = _leaf_segments(layout)
 
@@ -598,8 +853,8 @@ def make_round_step(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout) ->
         batch, health_on = split_health(batch)
         lr_t = lr if torch.is_tensor(lr) else torch.tensor(lr, dtype=torch.float32,
                                                            device=pflat.device)
-        weighted, new_net_state, metrics, new_rows = _client_phase(
-            updates, cfg, state, batch, client_rows, lr_t)
+        weighted, new_net_state, metrics, new_rows, new_q = _client_phase(
+            updates, cfg, state, batch, client_rows, lr_t, segments)
         if modes.is_linear(mcfg):
             # linearity shortcut: compress the reduced update once
             wire, _ = modes.client_compress(mcfg, weighted, {})
@@ -628,6 +883,8 @@ def make_round_step(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout) ->
             "mode_state": mode_state,
             "round": state["round"] + 1,
         }
+        if new_q is not None:
+            new_state["quarantine"] = new_q
         if cfg.health and health_on:
             # mode=sketch takes the linearity shortcut, so `weighted` is the
             # dense reduced update: the dense-comparable reference
@@ -659,32 +916,95 @@ def _normalize_merged_wire(mcfg: ModeConfig, wire_sum: dict, n_live: torch.Tenso
     return {k: v / n_live for k, v in wire_sum.items()}
 
 
+def _table_norms(tables: torch.Tensor) -> torch.Tensor:
+    """[W] L2 norm of each client's [r, c] table, in float32: the table
+    round's quarantine observable. The table is the only object the server
+    sees, so the screen and its running median live in sketch space (a
+    Count-Sketch row's squared norm estimates the update's; a non-finite
+    update gives a non-finite table)."""
+    return torch.sqrt(torch.sum(torch.square(tables.to(torch.float32)), dim=(1, 2)))
+
+
+# reserved batch keys: the adversarial transform of the table round
+# (resilience/faults.py's client_signflip, client_scale, client_collude and
+# client_normride). Client i transmits _adv_scale[i] * table[_adv_src[i]]
+# (sketch linearity: scaling the table is scaling the update); with
+# _adv_ride (a plan that names client_normride) a riding client's table is
+# rescaled to ride * clip * running median, just under the quarantine. The
+# identity (scale 1, src = position, ride 0) rides every round of a plan
+# that names the kinds; the client step pops them before the updates
+ADV_SCALE_KEY = "_adv_scale"
+ADV_SRC_KEY = "_adv_src"
+ADV_RIDE_KEY = "_adv_ride"
+
+
+def split_adv(batch: dict) -> tuple[dict, tuple | None]:
+    """Pop the adversarial keys off a round batch: (batch without them,
+    (scale, src, ride or None) or None)."""
+    if ADV_SCALE_KEY not in batch:
+        return batch, None
+    batch = dict(batch)
+    scale, src = batch.pop(ADV_SCALE_KEY), batch.pop(ADV_SRC_KEY)
+    return batch, (scale, src, batch.pop(ADV_RIDE_KEY, None))
+
+
+def _apply_adv(tables: torch.Tensor, adv, clip: float = 0.0,
+               qmed: torch.Tensor | None = None) -> torch.Tensor:
+    """The adversarial wire transform of the [W, r, c] table stack: row i
+    becomes scale[i] * tables[src[i]] (the identity leaves give the same
+    values bit for bit). With ``ride`` and the quarantine's ``qmed``, a
+    riding row (ride > 0) is rescaled so its table L2 is ride * clip * qmed;
+    with no baseline yet (qmed 0) it is left as it is."""
+    if adv is None:
+        return tables
+    scale, src, ride = adv
+    out = tables.index_select(0, src.to(torch.int64)) * scale.to(tables.dtype)[:, None, None]
+    if ride is not None and qmed is not None:
+        norms = _table_norms(out)
+        target = ride.to(torch.float32) * clip * qmed
+        factor = torch.where((ride > 0) & (target > 0) & (norms > 0),
+                             target / norms.clamp_min(1e-12), torch.ones_like(norms))
+        out = out * factor.to(out.dtype)[:, None, None]
+    return out
+
+
 def make_payload_round_steps(loss_fn: Callable, cfg: EngineConfig,
                              layout: FlatLayout) -> tuple[Callable, Callable]:
-    """The wire-payload round as two steps, the shape a serving deployment
-    has (the reference's ``make_payload_round_steps`` with no mesh):
+    """The per-client-table round as two steps, the shape a serving
+    deployment has (the reference's ``make_payload_round_steps`` with no
+    mesh): the wire-payload round (``wire_payloads``) and the round of a
+    robust merge policy or adversarial fault kinds.
 
-        client_step(state, batch) -> (tables [W, r, c], nstates, mvals, part)
-        merge_step(state, tables, nstates, mvals, part, arrived, lr)
-            -> (state', metrics)
+        client_step(state, batch) -> (tables [W, r, c], nstates, mvals, part,
+                                      lnorms)
+        merge_step(state, tables, nstates, mvals, part, arrived, lr,
+                   lnorms=None, health_on=False) -> (state', metrics)
 
     ``client_step`` is "the clients": one vmap of all W clients' updates
     (``make_client_updates``; ``client_chunk`` does not apply), each row
     clipped to ``dp_clip`` and sketched into its own [r, c] table, row by
     row in cohort order (on the card, one ``sketch_accumulate`` launch per
-    client: what the reference's ``sequential_vmap`` lowers to). The
-    [W, d] stack of updates is live, as in the reference. ``nstates`` and
-    ``mvals`` are each client's batch-norm statistics and metric sums,
-    stacked on [W]; ``part`` is the validity mask times the participation
-    mask.
+    client: what the reference's ``sequential_vmap`` lowers to), then the
+    adversarial transform of the batch's ``_adv_*`` keys on the stack
+    (``_apply_adv``). The [W, d] stack of updates is live, as in the
+    reference. ``nstates`` and ``mvals`` are each client's batch-norm
+    statistics and metric sums, stacked on [W]; ``part`` is the validity
+    mask times the participation mask; ``lnorms`` the [W, L] per-leaf update
+    norms before the clip under layer scope (else None).
 
     ``merge_step`` is "the server": it sees only the tables and the small
     per-client rows. ``arrived`` is the serving layer's 0/1 admission mask
     (ones in the batch round): a rejected or missing payload is a zero row
-    under a 0 weight, exactly a dropped client. The merge is the masked
-    ordered sum over the client axis (``modes.merge_partial_wires``),
-    survivor normalisation in wire space, the non-finite guard and
-    ``modes.server_step_sparse`` (one query launch on the card).
+    under a 0 weight, exactly a dropped client. With the quarantine armed
+    the tables are screened on their norms (and on ``lnorms`` under layer
+    scope) against ``state["quarantine"]``; a robust policy also masks a
+    non-finite table out. The merge is the masked ordered sum over the
+    client axis (``modes.merge_partial_wires``) with survivor
+    normalisation in wire space, or the robust mean, rescaled by the live
+    count for agg_op=sum (with ``robust_residual`` its winsorized residual
+    joins Verror at lr before the server step). Then the non-finite guard,
+    the ring's advance and ``modes.server_step_sparse`` (one query launch
+    on the card).
 
     The batch round composes the two (``compose_payload``); the serving
     layer round-trips each client's table through the transport between
@@ -695,42 +1015,100 @@ def make_payload_round_steps(loss_fn: Callable, cfg: EngineConfig,
     summed update, so payload params are not bit-comparable to the
     announce round's.
 
-    The reference's quarantine screen, adversarial transform, stale-fold
-    slots and edge variants are not ported (ROADMAP items 10 and 9b)."""
+    The reference's stale-fold slots and edge variants are not ported
+    (ROADMAP Queue 1 item 9b)."""
     mcfg = cfg.mode
+    if mcfg.mode != "sketch":
+        raise ValueError(f"the per-client-table round requires mode='sketch'; "
+                         f"mode={mcfg.mode!r} has no table wire")
     updates = make_client_updates(loss_fn, cfg, layout)
+    segments = _leaf_segments(layout)
+    quarantine = cfg.client_update_clip > 0
+    layer_q = quarantine and cfg.quarantine_scope == "layer"
+    pol = robust_policy(cfg)
 
     def client_step(state: dict, batch: dict):
         batch, _ = split_health(batch)  # the merge computes health
+        batch, adv = split_adv(batch)
         batch, W, part = _cohort_part(cfg, state, batch)
         u, nstates, mvals = updates(state, batch, None, range(W))
+        lnorms = _client_layer_norms(u, segments) if layer_q else None
         u = _clip_rows(cfg, u)
         # row by row, in cohort order: what the reference's sequential_vmap
         # of the accumulate lowers to
         tables = torch.stack([modes.client_compress(mcfg, u[w], {})[0]["table"]
                               for w in range(W)])
-        return tables, nstates, mvals, part
+        tables = _apply_adv(tables, adv, cfg.client_update_clip,
+                            state["quarantine"]["median"] if quarantine else None)
+        return tables, nstates, mvals, part, lnorms
 
     def merge_step(state: dict, tables: torch.Tensor, nstates: dict, mvals: dict,
-                   part: torch.Tensor, arrived: torch.Tensor, lr, health_on: bool = False):
+                   part: torch.Tensor, arrived: torch.Tensor, lr,
+                   lnorms: torch.Tensor | None = None, health_on: bool = False):
         part = part * arrived
-        wire_sum = modes.merge_partial_wires(mcfg, {"table": modes.mask_rows(part, tables)})
-        agg = _normalize_merged_wire(mcfg, wire_sum, part.sum().clamp_min(1.0))
+        part_eff, norms = part, None
+        if quarantine:
+            q = state["quarantine"]
+            norms = _table_norms(tables)
+            bad = _quarantine_mask(cfg, norms, q["median"])
+            if layer_q:
+                bad = bad | _quarantine_layer_mask(cfg, lnorms, q["layer_median"])
+            part_eff = part * (1.0 - bad.to(part.dtype))
+        if pol is not None:
+            # a non-finite table never enters the order statistics, so it
+            # leaves the round the same way: the survivor count, the rescale,
+            # the metric folds and the rings
+            finite = torch.isfinite(tables).reshape(tables.shape[0], -1).all(dim=1)
+            part_eff = part_eff * finite.to(part_eff.dtype)
+        residual = None
+        if pol is None:
+            # merge_policy="trimmed" with trim 0 runs this branch: the sum
+            wire_sum = modes.merge_partial_wires(
+                mcfg, {"table": modes.mask_rows(part_eff, tables)})
+            agg = _normalize_merged_wire(mcfg, wire_sum, part_eff.sum().clamp_min(1.0))
+        else:
+            merged = modes.merge_partial_wires(
+                mcfg, {"table": tables}, policy=pol, live=part_eff, trim=cfg.merge_trim,
+                want_residual=cfg.robust_residual)
+            if cfg.robust_residual:
+                robust, total_w, extras = merged
+                residual = extras["residual"]
+            else:
+                robust, total_w = merged, part_eff.sum()
+            # the robust mean; agg_op=sum rescales by the live count, so
+            # sum@lr == mean@lr*W survives
+            if mcfg.agg_op == "sum":
+                scale_w = total_w.clamp_min(1.0)
+                robust = {k: v * scale_w for k, v in robust.items()}
+                residual = None if residual is None else residual * scale_w
+            agg = robust
         new_net_state, metrics = _merged_survivor_finalize(
-            {k: modes.mask_rows(part, v).sum(0) for k, v in nstates.items()},
-            {k: modes.mask_rows(part, v).sum(0) for k, v in mvals.items()},
-            part, state["net_state"])
+            {k: modes.mask_rows(part_eff, v).sum(0) for k, v in nstates.items()},
+            {k: modes.mask_rows(part_eff, v).sum(0) for k, v in mvals.items()},
+            part_eff, state["net_state"])
+        new_q = None
+        if quarantine:
+            metrics["clients_quarantined"] = part.sum() - part_eff.sum()
+            new_q = _advance_quarantine_full(cfg, state["quarantine"], norms, lnorms, part_eff)
+            metrics["quarantine_median"] = new_q["median"]
         raw_agg = agg  # the pre-guard wire for the health estimators
         agg, new_net_state, _, metrics, _ = _guard_nonfinite(
             cfg, agg, new_net_state, state["net_state"], {}, {}, metrics)
         # dp_noise is refused with mode=sketch (EngineConfig)
-        delta, mode_state = modes.server_step_sparse(mcfg, agg, state["mode_state"], lr)
+        mode_state_in = state["mode_state"]
+        if residual is not None:
+            # the winsorized residual joins the error accumulator at the
+            # server step's lr scale; the momentum stays on the robust series
+            mode_state_in = dict(mode_state_in, Verror=mode_state_in["Verror"] + lr * residual)
+        delta, mode_state = modes.server_step_sparse(mcfg, agg, mode_state_in, lr)
         new_state = {
             "params": modes.apply_delta(state["params"], delta),
             "net_state": new_net_state,
             "mode_state": mode_state,
             "round": state["round"] + 1,
         }
+        if new_q is not None:
+            new_state["quarantine"] = new_q
         if cfg.health and health_on:
             # a served round sees only wire tables: the wire-side
             # estimators, what a server that never holds a dense gradient
@@ -744,9 +1122,9 @@ def make_payload_round_steps(loss_fn: Callable, cfg: EngineConfig,
 
 def compose_payload(client_step: Callable, merge_step: Callable) -> Callable:
     """The payload pair as a round step with ``make_round_step``'s
-    signature, the batch round of a ``wire_payloads`` session: the client
-    tables flow straight into the merge with every invitee arrived. Client
-    rows pass through (the payload round keeps no client state)."""
+    signature, the batch round of a table-round session: the client tables
+    flow straight into the merge with every invitee arrived. Client rows
+    pass through (the table round keeps no client state)."""
 
     def step(state: dict, batch: dict, client_rows: dict, lr):
         pflat = state["params"]
@@ -754,9 +1132,10 @@ def compose_payload(client_step: Callable, merge_step: Callable) -> Callable:
                                                            device=pflat.device)
         # the cadence flag gates the merge's health block
         batch, health_on = split_health(batch)
-        tables, nstates, mvals, part = client_step(state, batch)
+        tables, nstates, mvals, part, lnorms = client_step(state, batch)
         new_state, metrics = merge_step(state, tables, nstates, mvals, part,
-                                        torch.ones_like(part), lr_t, health_on=health_on)
+                                        torch.ones_like(part), lr_t, lnorms=lnorms,
+                                        health_on=health_on)
         return new_state, client_rows, metrics
 
     return step

@@ -7,6 +7,9 @@
   fedavg/localSGD).
 - ``aggregate(cfg, wires, weights) -> agg``: combine the W clients' wires
   (leading axis W) by mean or sum.
+- ``merge_partial_wires(cfg, stacked, policy=...)``: the ordered sum of
+  stacked wires, or the Byzantine-robust trimmed mean or median of
+  per-client tables (``_robust_table_merge``).
 - ``server_step_sparse(cfg, agg, sstate, lr) -> (delta_wire, sstate')``:
   server momentum and error feedback; ``apply_delta`` subtracts the delta.
 
@@ -130,11 +133,151 @@ def aggregate(cfg: ModeConfig, wires: dict, weights: torch.Tensor | None = None)
     return {"dense": op(wires["dense"])}
 
 
-def merge_partial_wires(cfg: ModeConfig, stacked: dict) -> dict:
-    """Merge sketch tables stacked on a leading [S] axis into one, in axis
-    order (``csvec.merge_tables``): the payload round's merge of its
-    per-client tables. The reference's robust policies are not ported."""
-    return {"table": csvec.merge_tables(cfg.sketch_spec, stacked["table"])}
+def _take_row(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """Row ``i`` (a 0-d device integer tensor) of ``x`` along dim 0,
+    without reading ``i`` on the host."""
+    return torch.index_select(x, 0, i.reshape(1))[0]
+
+
+def _trimmed_keep(keyed: torch.Tensor, s: torch.Tensor, n: torch.Tensor,
+                  trim: int) -> torch.Tensor:
+    """[W, ...] bool: the rows that a stable ascending sort of ``keyed``
+    along dim 0 (ties broken by row index) puts at ranks [trim, n - trim),
+    read off the sorted values ``s`` with no second sort. With a = s[trim]
+    and b = s[n - trim - 1], a row above a and below b is kept, one below a
+    or above b is not, and a row equal to an edge value has the rank
+    (rows below that value) + (equal rows before it), a count and a
+    cumulative count along dim 0. After the sort that the median and the
+    residual share, a fixed number of passes at any W. On an H100 the
+    mask, its sort included, took 3.07 ms at W = 8, 7.68 at 32 and 35.99
+    at 100, where ranks by counting (W passes, so W^2 work) took 1.91,
+    26.51 and 251.04 and the reference's argsort of the stable order
+    21.96, 25.34 and 67.24 (PERF.md §5; ``chip_smoke.py`` phase 17e times
+    all three)."""
+    W = keyed.shape[0]
+    a = s[min(trim, W - 1)]
+    b = _take_row(s, (n - trim - 1).clamp(0, W - 1))
+    # an edge-tied row's rank is (rows below v) + (tied rows up to it) - 1
+    lt_a, eq_a = keyed < a, keyed == a
+    upto_a = torch.cumsum(eq_a, dim=0, dtype=torch.int32)
+    above = ~(lt_a | eq_a) | (eq_a & (upto_a > trim - lt_a.sum(dim=0, dtype=torch.int32)))
+    lt_b, eq_b = keyed < b, keyed == b
+    upto_b = torch.cumsum(eq_b, dim=0, dtype=torch.int32)
+    below = lt_b | (eq_b & (upto_b <= n - trim - lt_b.sum(dim=0, dtype=torch.int32)))
+    return above & below & (n > 2 * trim)
+
+
+def _robust_table_merge(spec, stacked: torch.Tensor, live: torch.Tensor, policy: str,
+                        trim: int, want_residual: bool = False):
+    """Coordinate-wise Byzantine-robust location estimate over the [W, r, c]
+    stacked client tables, dead rows (``live`` == 0) excluded: the robust
+    MEAN (the caller rescales for agg_op="sum").
+
+    - "median": per coordinate, the median over the live rows, with the
+      quarantine's lo/hi convention (ranks (n-1)//2 and n//2; dead rows are
+      keyed to +inf and indexed past).
+    - "trimmed": per coordinate, rank the live rows as a stable sort would
+      (``_trimmed_keep``: ties break by client index), drop the ``trim``
+      lowest and ``trim`` highest live values and sum the survivors in
+      client-index order through ``csvec.merge_tables`` (the sum path's
+      ordered fold), divided by the survivor count.
+
+    A live row with any non-finite value is excluded like a dead one, from
+    the order statistics and from the live count. A cohort below
+    2*trim+1 live rows merges to zero. The live count stays a device tensor:
+    every index into the sorted stack is a device tensor, so nothing syncs.
+
+    With ``want_residual`` it returns ``(robust, total_weight, extras)``:
+    ``extras["residual"]`` is the winsorized mean minus the robust value
+    (every live contribution clamped into the policy's kept window, ranks
+    [trim, n-trim) for "trimmed" and the interquartile ranks for "median"),
+    which the engine adds into Verror; ``total_weight`` is the live count.
+    The reference's weighted (stale-slot) form is not ported (ROADMAP Queue
+    1 item 9b)."""
+    W = stacked.shape[0]
+    finite = torch.isfinite(stacked).reshape(W, -1).all(dim=1)
+    live = live * finite.to(live.dtype)
+    expand = bcast(live, stacked)
+    keyed = torch.where(expand > 0, stacked, torch.full_like(stacked, float("inf")))
+    n = (live > 0).sum()
+    total_w = live.sum()
+    if policy not in ("median", "trimmed"):
+        raise ValueError(f"unknown robust merge policy {policy!r}")
+    # the sorted values (the median's ranks, the trimmed window's edges, the
+    # residual's clamp); a tie's order does not change them
+    s = torch.sort(keyed, dim=0).values
+    if policy == "median":
+        lo = ((n - 1) // 2).clamp(0, W - 1)
+        hi = (n // 2).clamp(0, W - 1)
+        med = 0.5 * (_take_row(s, lo) + _take_row(s, hi))
+        robust = torch.where(n > 0, med, torch.zeros_like(med))
+        ok, win_lo = n > 0, n // 4
+    else:
+        keep = _trimmed_keep(keyed, s, n, trim) & (expand > 0)
+        kept = torch.where(keep, stacked, torch.zeros_like(stacked))
+        denom = (n - 2 * trim).to(stacked.dtype).clamp_min(1.0)
+        robust = csvec.merge_tables(spec, kept) / denom
+        ok, win_lo = n > 2 * trim, torch.full_like(n, trim)
+    if not want_residual:
+        return robust
+    # the winsorized mean: every live entry clamped into the kept window's
+    # edge values, so an adversary's residual is bounded by the clean range
+    v_floor = _take_row(s, win_lo.clamp(0, W - 1))
+    v_ceil = _take_row(s, (n - win_lo - 1).clamp(0, W - 1))
+    clamped = torch.minimum(torch.maximum(stacked, v_floor), v_ceil)
+    wins = csvec.merge_tables(spec, torch.where(expand > 0, clamped * expand,
+                                                torch.zeros_like(stacked)))
+    wins = wins / total_w.clamp_min(1e-12)
+    residual = torch.where(ok, wins - robust, torch.zeros_like(robust))
+    return robust, total_w, {"residual": residual}
+
+
+def merge_partial_wires(cfg: ModeConfig, stacked: dict, *, policy: str = "sum",
+                        live: torch.Tensor | None = None, trim: int = 0,
+                        stale_tables=None, stale_weights=None, want_residual: bool = False):
+    """Merge wires stacked on a leading [S] axis into one: sketch tables by
+    ``csvec.merge_tables`` (an ordered sum, table 0 first: the payload
+    round's merge of its per-client tables), dense wires by their sum.
+    Linear modes only.
+
+    ``policy`` "trimmed"/"median" is the Byzantine-robust table merge
+    (--merge_policy): the stacked leaves are per-client [W, r, c] tables,
+    ``live`` the [W] 0/1 mask of clients in the merge, and the result the
+    coordinate-wise robust MEAN (``_robust_table_merge``); the caller
+    rescales by the live count for agg_op="sum". With ``want_residual`` it
+    returns ``({"table": robust}, total_weight, extras)`` with the
+    winsorized residual. The reference's stale-slot union stack
+    (``stale_tables``/``stale_weights``) belongs to the buffered-async
+    service and is refused (ROADMAP Queue 1 item 9b)."""
+    if not is_linear(cfg):
+        raise ValueError(f"mode={cfg.mode!r} is nonlinear: partial per-shard wires cannot be "
+                         "merged by addition (per-client top-k does not commute with the "
+                         "cross-shard sum)")
+    if policy != "sum":
+        if cfg.mode != "sketch":
+            raise ValueError(f"robust merge policy {policy!r} operates on per-client "
+                             f"Count-Sketch tables; mode={cfg.mode!r} has no table wire")
+        if live is None:
+            raise ValueError("robust merge needs the [W] live-client mask: dead rows must be "
+                             "excluded from the order statistics, not counted as zero-valued "
+                             "contributions")
+        W = stacked["table"].shape[0]
+        if policy == "trimmed" and 2 * trim >= W:
+            raise ValueError(f"merge_trim={trim} would trim the whole cohort (2*{trim} >= "
+                             f"W={W}); need 2*trim < num_workers")
+        if stale_tables is not None or stale_weights is not None:
+            raise ValueError("the per-buffer robust merge over stale slots belongs to the "
+                             "buffered-async service, which is not ported (ROADMAP Queue 1 "
+                             "item 9b)")
+        spec = cfg.sketch_spec
+        if want_residual:
+            robust, total_w, extras = _robust_table_merge(spec, stacked["table"], live,
+                                                          policy, trim, want_residual=True)
+            return {"table": robust}, total_w, extras
+        return {"table": _robust_table_merge(spec, stacked["table"], live, policy, trim)}
+    if cfg.mode == "sketch":
+        return {"table": csvec.merge_tables(cfg.sketch_spec, stacked["table"])}
+    return {"dense": stacked["dense"].sum(0)}
 
 
 def server_step_sparse(cfg: ModeConfig, agg: dict, sstate: dict,

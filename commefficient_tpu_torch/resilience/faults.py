@@ -50,16 +50,37 @@ A plan is parsed from a compact CLI string (``--fault_plan``) of
                                 (a late frame, for the straggler
                                 discipline). Payload serving only
                                 (--serve_payload sketch)
-    seed=7                      recorded on the plan for reporting
+    client_signflip@2:clients=0 position 0 transmits its negated table in
+                                round 2: it passes every norm screen and
+                                only a robust merge answers it
+    client_scale@2:clients=1,factor=50
+                                position 1 transmits its table times the
+                                factor (model replacement): the quarantine
+                                catches it when armed, a robust merge always
+    client_collude@3:frac=0.25  a minority of ceil(frac * W) positions,
+                                drawn from the plan's seed pinned to
+                                (seed, round), each transmits the negated
+                                clone of the lowest-indexed honest client's
+                                table
+    client_normride@2:clients=0,ride=0.9
+                                position 0 rescales its table to ride x
+                                the clip multiple x the running median,
+                                just under the quarantine (needs
+                                --client_update_clip)
+                                The four adversarial kinds transform the
+                                per-client wire, so a plan that names them
+                                runs the per-client-table round
+    seed=7                      recorded on the plan for reporting, and the
+                                seed client_collude draws its colluders from
 
 Round numbers are global round indices (session.round), so a plan replays
 correctly across checkpoint resume: ``preempt@3`` does not fire again in a
 resumed run that starts at round 4. ``FaultPlan.parse("")`` is None: no
 plan, no change.
 
-The reference's other kinds (Byzantine clients, distributed bootstrap and
-one-host preemption, edge and shard kills) need sites the port does not
-have yet. They are refused at parse with a message that
+The reference's other kinds (distributed bootstrap and one-host
+preemption, edge and shard kills, the buffered-async stale poison) need
+sites the port does not have yet. They are refused at parse with a message that
 names them and the ROADMAP item that brings them, never accepted and
 ignored.
 """
@@ -101,6 +122,12 @@ KINDS = {
     "wire_dup": ("clients",),
     "wire_delay": ("clients", "secs"),
     "conn_drop": ("clients",),
+    # adversarial clients: transform the per-client table a client
+    # transmits (the table round's _adv_* batch keys)
+    "client_signflip": ("clients",),
+    "client_scale": ("clients", "factor"),
+    "client_collude": ("frac",),
+    "client_normride": ("clients", "ride"),
 }
 
 # the client_* sites fire inside a round's preparation: scheduled at or past
@@ -110,13 +137,16 @@ CLIENT_KINDS = ("client_drop", "client_straggle", "client_poison")
 # the wire_* sites fire at the serving transport seam as a round's payloads
 # ship; the same schedule validation as the client kinds
 WIRE_KINDS = ("wire_corrupt", "wire_truncate", "wire_dup", "wire_delay", "conn_drop")
+# the adversarial kinds fire in the table round's client step; the same
+# schedule validation as the client kinds
+ADVERSARIAL_KINDS = ("client_signflip", "client_scale", "client_collude", "client_normride")
 
 # the reference's kinds whose sites the port does not have yet, with the
 # ROADMAP Queue 1 item that brings each
 NOT_PORTED = {
     "dist_init": 7, "host_preempt": 7, "edge_kill": "9b", "shard_kill": "9b",
-    "client_signflip": 10, "client_scale": 10, "client_collude": 10,
-    "client_normride": 10, "client_stale_poison": 10,
+    # its site is the --serve_async stale band
+    "client_stale_poison": "9b",
 }
 
 
@@ -178,6 +208,25 @@ def _parse_entry(entry: str) -> FaultSpec:
                     if not pos or any(p < 0 for p in pos):
                         raise ValueError("expected '+'-separated non-negative positions")
                     params[k] = pos
+                elif k == "factor":
+                    f = float(v)
+                    if not np.isfinite(f) or f == 0.0:
+                        # zero is a drop and NaN a poison: those kinds say so
+                        raise ValueError("expected a finite nonzero float (zero is a drop, "
+                                         "use client_drop)")
+                    params[k] = f
+                elif k == "ride":
+                    f = float(v)
+                    if not 0.0 < f <= 1.0:
+                        raise ValueError("expected a ride fraction in (0, 1] (the attack sits "
+                                         "UNDER the quarantine multiple)")
+                    params[k] = f
+                elif k == "frac":
+                    f = float(v)
+                    if not 0.0 < f <= 0.5:
+                        raise ValueError("expected a fraction in (0, 0.5] (a colluding majority "
+                                         "defeats every robust merge by definition)")
+                    params[k] = f
                 elif k == "value":
                     allowed = ("nan", "inf", "big") if kind == "client_poison" else ("nan", "inf")
                     if v not in allowed:
@@ -197,7 +246,7 @@ class FaultPlan:
 
     def __init__(self, specs: list[FaultSpec], seed: int = 0, text: str = ""):
         self.specs = list(specs)
-        self.seed = seed  # recorded for reporting; no site draws from it
+        self.seed = seed  # client_collude draws its colluders from it
         self.text = text
         self._attempts: dict[tuple, int] = {}
         self._fired: set[tuple] = set()
@@ -241,7 +290,7 @@ class FaultPlan:
         wire_* site scheduled at a round >= total_rounds can never fire, and
         is refused rather than let a chaos run pass without its fault."""
         for s in self.specs:
-            if s.kind in CLIENT_KINDS + WIRE_KINDS and s.rounds:
+            if s.kind in CLIENT_KINDS + WIRE_KINDS + ADVERSARIAL_KINDS and s.rounds:
                 dead = [r for r in s.rounds if r >= total_rounds]
                 if dead:
                     raise ValueError(
@@ -406,6 +455,99 @@ class FaultPlan:
             self._log(f"dropping clients {pos} (round {rnd}; masked + re-queued)")
             self._mark("client_drop", rnd, clients=pos)
         return batch, valid, dropped
+
+    def has_adversarial(self) -> bool:
+        """Whether the plan names an adversarial kind: the session then runs
+        the per-client-table round, where the per-client wire exists."""
+        return any(s.kind in ADVERSARIAL_KINDS for s in self.specs)
+
+    def adversarial_plan(self, rnd: int, num_workers: int) -> tuple[np.ndarray, np.ndarray]:
+        """Round ``rnd``'s adversarial wire transform as the engine's batch
+        keys: (scale [W] float32, src [W] int32); client i transmits
+        scale[i] * table[src[i]]. The identity (ones, arange) when nothing
+        is scheduled. One-shot per (kind, round, params) like the cohort
+        sites; each attack lands a trace instant, the injected-faults
+        counter and its own ``resilience_attack_<kind>_total`` counter.
+
+        client_collude draws its ceil(frac * W) colluders (at least 1, at
+        most W - 1) from a RandomState seeded by (plan seed, round), and
+        each sends the negated clone of the lowest-indexed honest client's
+        table (not a colluder, not attacked by another kind this round)."""
+        scale = np.ones(num_workers, np.float32)
+        src = np.arange(num_workers, dtype=np.int32)
+
+        def attack_mark(kind, **args):
+            self._mark(kind, rnd, **args)
+            obreg.default().counter(f"resilience_attack_{kind[len('client_'):]}_total").inc()
+
+        for kind in ("client_signflip", "client_scale"):
+            for s in self.specs_for(kind, rnd):
+                key = (kind, rnd, s.params.get("clients", (0,)))
+                if key in self._fired:
+                    continue
+                self._fired.add(key)
+                pos = list(self._positions(s, num_workers, rnd))
+                if kind == "client_signflip":
+                    scale[pos] *= -1.0
+                    self._log(f"client_signflip on positions {pos} (round {rnd})")
+                    attack_mark(kind, clients=pos)
+                else:
+                    factor = float(s.params.get("factor", 10.0))
+                    scale[pos] *= factor
+                    self._log(f"client_scale x{factor:g} on positions {pos} (round {rnd})")
+                    attack_mark(kind, clients=pos, factor=factor)
+        for s in self.specs_for("client_collude", rnd):
+            frac = float(s.params.get("frac", 0.25))
+            key = ("client_collude", rnd, frac)
+            if key in self._fired:
+                continue
+            self._fired.add(key)
+            if num_workers < 2:
+                self._log(f"client_collude@{rnd}: num_workers={num_workers} leaves no honest "
+                          "source to clone; injection is a NO-OP (collusion needs a cohort of "
+                          ">= 2)")
+                continue
+            n = max(min(int(np.ceil(frac * num_workers)), num_workers - 1), 1)
+            rs = np.random.RandomState((self.seed * 1_000_003 + rnd) % (2 ** 32))
+            colluders = sorted(int(p) for p in rs.choice(num_workers, size=n, replace=False))
+            honest = [p for p in range(num_workers)
+                      if p not in colluders and scale[p] == 1.0 and src[p] == p]
+            if not honest:
+                self._log(f"client_collude@{rnd}: every non-colluding position is already "
+                          "attacked this round; injection is a NO-OP (no honest table to clone)")
+                continue
+            source = honest[0]
+            src[colluders] = source
+            scale[colluders] = -1.0
+            self._log(f"client_collude: positions {colluders} clone -table[{source}] "
+                      f"(frac={frac:g}, round {rnd})")
+            attack_mark("client_collude", clients=colluders, source=source, frac=frac)
+        return scale, src
+
+    def has_normride(self) -> bool:
+        """Whether the plan names client_normride: the batch then carries
+        the ride key, and the session needs the quarantine armed."""
+        return any(s.kind == "client_normride" for s in self.specs)
+
+    def normride_plan(self, rnd: int, num_workers: int) -> np.ndarray:
+        """Round ``rnd``'s [W] ride fractions (0 = honest): a riding client's
+        table is rescaled in the client step to ride * clip multiple *
+        running median, probing the server's baseline from below. One-shot
+        per (round, clients); each lands a trace instant, the
+        injected-faults counter and ``resilience_attack_normride_total``."""
+        ride = np.zeros(num_workers, np.float32)
+        for s in self.specs_for("client_normride", rnd):
+            key = ("client_normride", rnd, s.params.get("clients", (0,)))
+            if key in self._fired:
+                continue
+            self._fired.add(key)
+            pos = list(self._positions(s, num_workers, rnd))
+            frac = float(s.params.get("ride", 0.9))
+            ride[pos] = frac
+            self._log(f"client_normride (ride={frac:g}) on positions {pos} (round {rnd})")
+            self._mark("client_normride", rnd, clients=pos, ride=frac)
+            obreg.default().counter("resilience_attack_normride_total").inc()
+        return ride
 
     def wire_plan(self, rnd: int, num_workers: int) -> dict[int, dict]:
         """Per-position wire damage of round ``rnd``'s payload shipments,

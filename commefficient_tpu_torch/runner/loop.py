@@ -73,6 +73,7 @@ from ..obs import registry as obreg
 from ..obs import trace as obtrace
 from ..obs.profiler import ProfileWindow
 from ..resilience import EXIT_RESUMABLE, PreemptionHandler
+from ..resilience.faults import ADVERSARIAL_KINDS
 from ..utils import checkpoint as ckpt
 from ..utils.logging import Timer
 from ..utils.watchdog import RoundWatchdog
@@ -178,6 +179,12 @@ class RunStats:
     # dropped-client queue ran at a round's preparation
     clients_dropped: int = 0
     requeue_depth_max: int = 0
+    # clients the sketch-space quarantine rejected, summed over the run
+    # (also the cohort_clients_quarantined_total counter), and the
+    # adversarial attacks the fault plan injected while it ran (the
+    # resilience_attack_<kind>_total counters' deltas, summed)
+    clients_quarantined: int = 0
+    attacks_injected: int = 0
     # SLO engine firings while this loop ran (the slo_violations_total
     # registry counter's delta over the run)
     slo_violations: int = 0
@@ -338,7 +345,13 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
                 stats.clients_dropped += int(m.get("clients_dropped", 0))
                 stats.requeue_depth_max = max(stats.requeue_depth_max,
                                               int(m.get("requeue_depth", 0)))
+                quarantined = int(m.get("clients_quarantined", 0))
+                stats.clients_quarantined += quarantined
+                reg.counter("cohort_clients_quarantined_total").inc(quarantined)
                 tracer.instant("runner", "commit_round", round=first + i)
+                if quarantined:
+                    tracer.instant("resilience", "quarantine", round=first + i,
+                                   clients=quarantined)
                 for k, v in m.items():
                     if isinstance(v, (int, float)):
                         totals[k] += v
@@ -507,6 +520,8 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
     stats.rounds = session.round - start_round
     stats.nonfinite_rounds = nonfinite_total
     stats.slo_violations = int(mark.delta("slo_violations_total"))
+    stats.attacks_injected = sum(int(mark.delta(f"resilience_attack_{k[len('client_'):]}_total"))
+                                 for k in ADVERSARIAL_KINDS)
     stats.max_inflight_used = eff_inflight if async_mode else 0
     stats.wall_s = time.perf_counter() - t0
     session.run_stats = stats

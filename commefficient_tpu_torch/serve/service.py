@@ -127,7 +127,13 @@ class AggregationService:
                                  "payload round is another step pair, client tables + merge")
             mcfg = session.cfg.mode
             payload_shape = (mcfg.num_rows, mcfg.num_cols)
-            payload_policy = PayloadPolicy(rows=payload_shape[0], cols=payload_shape[1])
+            # the gauntlet's sketch-space screen reads the ring the merge
+            # screens against, so a QUARANTINED payload is the client the
+            # merge would have quarantined
+            payload_policy = PayloadPolicy(
+                rows=payload_shape[0], cols=payload_shape[1],
+                clip_multiple=float(session.cfg.client_update_clip),
+                quarantine_median=session.quarantine_median_host)
         self.session = session
         self.cfg = dataclasses.replace(cfg, quorum=quorum)
         self.traffic = traffic
@@ -339,6 +345,7 @@ class AggregationService:
             "submissions": self.queue.counters(),
             "rounds": self.assembler.counters(),
             "requeue_depth": len(s._requeue),
+            "clients_quarantined": int(s.clients_quarantined_total),
             "latency_ms": {**self._latency.summary(),
                            "count": self._latency.count - self._latency_base},
             "round_phase_ms": {ph: self.registry.histogram(f"runner_phase_{ph}_ms").summary()
@@ -352,6 +359,11 @@ class AggregationService:
             "transport_engine": (self.cfg.socket_transport if self.cfg.transport == "socket"
                                  else None),
             "payload": self.cfg.payload,
+            # the armed Byzantine defence: the merge (the sum or a robust
+            # statistic) and how wide the quarantine screens
+            "merge_policy": s.cfg.merge_policy,
+            "merge_trim": int(s.cfg.merge_trim),
+            "quarantine_scope": s.cfg.quarantine_scope,
         }
 
 

@@ -2,16 +2,17 @@
 ``utils/checkpoint.py``, written with ``torch.save`` in place of orbax.
 
 A checkpoint is a directory ``round_XXXXXXXX`` holding ``state.pt`` (params,
-batch-norm statistics, Vvelocity/Verror, and the [num_clients, d] client
-state of a mode that keeps one), ``meta.json`` (the round, the measured
+batch-norm statistics, Vvelocity/Verror, the quarantine's median rings when
+armed, and the [num_clients, d] client state of a mode that keeps one),
+``meta.json`` (the round, the measured
 ``comm_mb_total``, the cohort size, the mode and client count, the host
 sampling RNG as plain ints and lists, so ``torch.load(weights_only=True)``
 never meets a numpy object, and the committed dropped-client queue,
 ``requeued``, with each entry's queued round, ``requeue_ages``; a served
 run adds ``serve``, the serving layer's pending early submissions at the
 committed round) and ``manifest.json``. A checkpoint of another
-mode or client count is refused (``CheckpointMismatchError``), not set
-aside as damaged.
+mode, client count or quarantine tree is refused
+(``CheckpointMismatchError``), not set aside as damaged.
 
 - **Atomic commit**: everything is written into a ``.tmp_round_*`` staging
   directory and ``os.rename``d to its final name. A crash mid-write leaves
@@ -130,11 +131,15 @@ def _state_to_host(session, state: dict, client_state: dict | None, ready) -> di
     for that round alone."""
     tree = {"params": state["params"], "net_state": dict(state["net_state"]),
             "mode_state": dict(state["mode_state"])}
+    if "quarantine" in state:
+        tree["quarantine"] = dict(state["quarantine"])
 
     def host(fn):
         out = {"params": fn(tree["params"]),
                "net_state": {k: fn(v) for k, v in tree["net_state"].items()},
                "mode_state": {k: fn(v) for k, v in tree["mode_state"].items()}}
+        if "quarantine" in tree:
+            out["quarantine"] = {k: fn(v) for k, v in tree["quarantine"].items()}
         if client_state is not None:
             out["client_state"] = {k: fn(v) for k, v in client_state.items()}
         return out
@@ -285,6 +290,16 @@ def restore(path: str, session) -> None:
              "net_state": {k: v.to(dev) for k, v in payload["net_state"].items()},
              "mode_state": {k: v.to(dev) for k, v in payload["mode_state"].items()},
              "round": int(meta["round"])}
+    if "quarantine" in payload:
+        state["quarantine"] = {k: v.to(dev) for k, v in payload["quarantine"].items()}
+    # the quarantine's rings (cohort or per leaf, window 1 or K) must match
+    # this run's: resuming onto another tree would restart or misread them
+    want_q = _shapes(session.state.get("quarantine"))
+    if _shapes(state.get("quarantine")) != want_q:
+        raise CheckpointMismatchError(
+            f"checkpoint {path} holds the quarantine state "
+            f"{_shapes(state.get('quarantine'))}, this session's quarantine "
+            f"(--client_update_clip, --quarantine_window, --quarantine_scope) needs {want_q}")
     client_state = payload.get("client_state")
     if client_state is not None:
         client_state = {k: v.to(dev) for k, v in client_state.items()}

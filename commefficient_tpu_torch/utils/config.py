@@ -2,7 +2,7 @@
 ``utils/config.py`` parser, with the same names, types, choices and
 defaults, plus ``--device``, so a launch command of the reference parses
 here. The flags of features the port does not run yet (``_UNPORTED``:
-the layerwise sketch path, robust merges and the quarantine, the
+the layerwise sketch path, the
 pipelined, buffered-async, fast-path, sharded and edge-tree serving
 variants, meshes and processes, and
 GPT-2's ring attention, mixture of experts and parallelism) parse at the
@@ -26,19 +26,10 @@ from ..obs.slo import parse_rules
 # another value is refused, the ROADMAP Queue 1 item that brings it or None
 # when none is queued)
 _SERVE = "the port runs the synchronous serial service only"
-_ROBUST = "robust merges and the sketch-space quarantine are not ported"
 _MULTI = "the port runs one process on one device"
 _UNPORTED = (
     ("sketch_path", dict(default="ravel", choices=["ravel", "layerwise"]), ("ravel",),
      "the layerwise sketch path is not ported", 8),
-    ("client_update_clip", dict(type=float, default=0.0), (0.0,), _ROBUST, 10),
-    ("merge_policy", dict(default="sum", choices=["sum", "trimmed", "median"]), ("sum",),
-     _ROBUST, 10),
-    ("merge_trim", dict(type=int, default=0), (0,), _ROBUST, 10),
-    ("robust_residual", dict(default="off", choices=["off", "on"]), ("off",), _ROBUST, 10),
-    ("quarantine_scope", dict(default="cohort", choices=["cohort", "layer"]), ("cohort",),
-     _ROBUST, 10),
-    ("quarantine_window", dict(type=int, default=1), (1,), _ROBUST, 10),
     ("serve_pipeline", dict(action="store_true"), (False,), _SERVE, "9b"),
     ("serve_async", dict(action="store_true"), (False,), _SERVE, "9b"),
     ("serve_buffer", dict(type=int, default=0), (0,), _SERVE, "9b"),
@@ -138,6 +129,35 @@ def make_parser(task: str = "cv") -> argparse.ArgumentParser:
                    help="serving order of the dropped-client queue: fifo (drop "
                         "order) or aged (weighted by rounds waiting); neither "
                         "draws from the host sampling stream")
+    # the sketch-space quarantine and the Byzantine-robust table merge
+    p.add_argument("--client_update_clip", type=float, default=0.0,
+                   help="sketch-space quarantine: reject any client whose update L2 "
+                        "exceeds this multiple of the running median of live client "
+                        "norms (non-finite updates always rejected); the client leaves "
+                        "the merge and the renormalization, counted per round as "
+                        "clients_quarantined. 0 = off")
+    p.add_argument("--quarantine_window", type=int, default=1,
+                   help="--client_update_clip baseline: 1 screens against the last "
+                        "non-empty round's live-cohort median; K > 1 against the median "
+                        "over a ring of the last K rounds' medians")
+    p.add_argument("--quarantine_scope", default="cohort", choices=["cohort", "layer"],
+                   help="--client_update_clip granularity: cohort (one L2 per client) or "
+                        "layer (also each parameter leaf's L2 against that leaf's own "
+                        "running-median ring; a client over any of them is rejected)")
+    p.add_argument("--merge_policy", default="sum", choices=["sum", "trimmed", "median"],
+                   help="how per-client Count-Sketch tables combine: sum (the linear "
+                        "ordered sum), trimmed (per table coordinate, drop --merge_trim "
+                        "live contributions at each end, ties by client index) or median "
+                        "(coordinate-wise). A robust policy runs the per-client-table "
+                        "round and needs --mode sketch")
+    p.add_argument("--merge_trim", type=int, default=0,
+                   help="--merge_policy trimmed: contributions dropped per coordinate from "
+                        "each end (needs 2*trim < --num_workers); 0 trims nothing: the "
+                        "sum")
+    p.add_argument("--robust_residual", default="off", choices=["off", "on"],
+                   help="with --merge_policy trimmed|median: add the winsorized "
+                        "mean-minus-robust residual into the Verror table, so the honest "
+                        "mass the robust merge declines re-enters through error feedback")
     # run plumbing
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--on_nonfinite", default="skip", choices=["off", "skip", "halt"],
@@ -179,7 +199,9 @@ def make_parser(task: str = "cv") -> argparse.ArgumentParser:
                         "nonfinite[:value=inf], ckpt_fail:times=N, ckpt_corrupt, "
                         "ckpt_partial, client_drop:clients=I+J, "
                         "client_straggle:clients=I,secs=S, "
-                        "client_poison:clients=I,value=nan|inf|big, and with "
+                        "client_poison:clients=I,value=nan|inf|big, "
+                        "client_signflip:clients=I, client_scale:clients=I,factor=F, "
+                        "client_collude:frac=F, client_normride:clients=I,ride=R, and with "
                         "--serve_payload sketch wire_corrupt/wire_truncate/wire_dup/"
                         "conn_drop:clients=I, wire_delay:clients=I,secs=S; seed=N. "
                         "Unset = no injection")
@@ -363,6 +385,14 @@ def resolve_defaults(args: argparse.Namespace) -> argparse.Namespace:
         if not args.profile_dir:
             raise SystemExit("--profile_rounds needs --profile_dir (the capture has to be "
                              "written somewhere)")
+    if args.robust_residual == "on" and (
+            args.merge_policy == "sum" or (args.merge_policy == "trimmed"
+                                           and args.merge_trim == 0)):
+        # a silent no-op would be found at the postmortem
+        raise SystemExit("--robust_residual on names the robust merge's error-feedback "
+                         "residual; with --merge_policy sum (or trimmed@0, which is the sum) "
+                         "there is no robust merge - arm --merge_policy trimmed (trim > 0) "
+                         "or median")
     if args.watchdog_abort and not args.checkpoint_dir:
         raise SystemExit("--watchdog_abort needs --checkpoint_dir: aborting without an "
                          "emergency checkpoint would lose the run instead of resuming it")

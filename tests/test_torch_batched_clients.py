@@ -202,7 +202,7 @@ def test_payload_round_matches_the_reference(tiny, eng_kw):
     cfg, layout, tstate = _port_step(tmodel, mcfg, wire_payloads=True, **eng_kw)
     tclient, tmerge = engine.make_payload_round_steps(
         make_classification_loss(tmodel, True), cfg, layout)
-    tt, tns, tmv, tpart = tclient(tstate, {k: torch.from_numpy(v) for k, v in batch.items()})
+    tt, tns, tmv, tpart, _ = tclient(tstate, {k: torch.from_numpy(v) for k, v in batch.items()})
     np.testing.assert_array_equal(tpart.numpy(), np.asarray(jpart))
     for w in (0, 1, 3):
         np.testing.assert_allclose(tt[w].numpy(), np.asarray(jt[w]), rtol=0, atol=ATOL)

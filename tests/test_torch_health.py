@@ -263,7 +263,7 @@ def test_payload_merge_health_matches_jax(tiny):
                             health_on=jnp.float32(1.0))
     tclient, tmerge = engine.make_payload_round_steps(
         make_classification_loss(tmodel, True), cfg, layout)
-    tt, tns, tmv, tpart = tclient(tstate, {k: torch.from_numpy(v) for k, v in batch.items()})
+    tt, tns, tmv, tpart, _ = tclient(tstate, {k: torch.from_numpy(v) for k, v in batch.items()})
     _, tm = tmerge(tstate, tt, tns, tmv, tpart, torch.ones(W), torch.tensor(LR),
                    health_on=True)
     _health_equal(tm, jm, WIRE_KEYS)

@@ -81,7 +81,9 @@ PLANS = ["preempt@3", "stall@2:secs=1.5", "eval_stall@4:secs=0.5", "data_fail@1,
          "client_drop@2:clients=0+3", "client_straggle@1:clients=2,secs=0.01",
          "client_poison@2:clients=1,value=big;client_poison:clients=0",
          "wire_corrupt@1:clients=0+2;wire_truncate@2:clients=1",
-         "wire_dup@1:clients=3;conn_drop@2:clients=0", "wire_delay@1:clients=1,secs=0.25"]
+         "wire_dup@1:clients=3;conn_drop@2:clients=0", "wire_delay@1:clients=1,secs=0.25",
+         "client_signflip@1:clients=0+2;client_scale@2:clients=1,factor=50",
+         "seed=7;client_collude@3:frac=0.25;client_normride@2:clients=0,ride=0.9"]
 
 
 @pytest.mark.parametrize("text", PLANS)

@@ -18,7 +18,7 @@ from commefficient_tpu_torch.resilience import (EXIT_RESUMABLE, FaultPlan,
                                                 InjectedTransientError, PreemptionHandler,
                                                 RetryPolicy, reset_retry_counts,
                                                 retry_counts, with_retries)
-from commefficient_tpu_torch.resilience.faults import NOT_PORTED
+from commefficient_tpu_torch.resilience.faults import ADVERSARIAL_KINDS, NOT_PORTED
 from commefficient_tpu_torch.utils import checkpoint as ckpt
 from commefficient_tpu_torch.utils.watchdog import RoundWatchdog
 from test_torch_runner import LR, _args, _argv, _assert_state_equal, tiny_cv  # noqa: F401
@@ -52,9 +52,38 @@ def test_fault_plan_parse():
 @pytest.mark.parametrize("kind", NOT_PORTED)
 def test_fault_plan_refuses_kinds_the_port_has_no_site_for(kind):
     """A reference kind outside the ported subset is refused by name at
-    parse, never accepted and ignored."""
-    with pytest.raises(ValueError, match=f"fault kind '{kind}' .* is not ported"):
+    parse, with the ROADMAP item that brings it, never accepted and
+    ignored."""
+    with pytest.raises(ValueError, match=f"fault kind '{kind}' .* is not ported.*item "
+                                         f"{NOT_PORTED[kind]};"):
         FaultPlan.parse(f"preempt@1;{kind}@2")
+
+
+ADVERSARIAL = {
+    "client_signflip": "client_signflip@1:clients=0",
+    "client_scale": "client_scale@1:clients=1,factor=4",
+    "client_collude": "seed=3;client_collude@1:frac=0.5",
+    "client_normride": "client_normride@1:clients=0,ride=0.5",
+}
+
+
+@pytest.mark.parametrize("kind", ADVERSARIAL_KINDS)
+def test_adversarial_kind_parses_and_fires(tiny_cv, kind):
+    """Each of the four adversarial kinds parses and, through the CLI,
+    fires once on the per-client-table round it forces: its attack
+    counter and the run's attacks_injected read 1."""
+    from commefficient_tpu_torch.obs import registry as obreg
+
+    plan = FaultPlan.parse(ADVERSARIAL[kind])
+    assert plan.has_adversarial() and plan.spec(kind, 1) is not None
+    mark = obreg.default().mark()
+    clip = ["--client_update_clip", "3"] if kind == "client_normride" else []
+    s = cv_train.main(_argv(("--num_rounds", "2", "--sync_loop", "--fault_plan",
+                             ADVERSARIAL[kind], *clip), mode="sketch"))
+    assert s._table_round and s.round == 2
+    assert mark.delta(f"resilience_attack_{kind[len('client_'):]}_total") == 1.0
+    assert s.run_stats.attacks_injected == 1
+    assert np.isfinite(s.state["params"].numpy()).all()
 
 
 def test_cli_refuses_unported_fault_kind_before_any_work():
