@@ -227,6 +227,29 @@ Phases (any failure raises, and the exit status is non-zero):
       turns (CUDA events), peak memory, the sort along dim 0 against a
       transposed one, and the trimmed keep mask three ways (sorted values,
       ranks by counting, stable sort + argsort) at W = 8 to 100.
+18. the sharded round (``client_shards``, ``--mesh``; phase 5's flags, 4
+   rounds, S = 4 shards of 2 clients):
+   a. the emulation on one card (the session at client_shards=4 through
+      ``cv_train.main``, sync): exactly 4 accumulate and 1 query launches a
+      round; one round from its state against the unsharded round on the
+      same batch, allclose: rel L2 of the params' movement and top-k
+      agreement;
+   b. a 4-rank gloo group on the one card (``distributed.launch_local``,
+      the ranks sharing cuda:0; NCCL refuses two ranks on one card), each
+      rank through ``cv_train.main``, async: rank 0's rows, checkpoint
+      (params, Vvelocity, Verror, batch-norm statistics) and every rank's
+      per-round metrics bitwise (a)'s, every rank's ledger fingerprints
+      equal every round, 1 accumulate and 1 query launch a round on each
+      rank; --fault_plan host_preempt@1:host=2: every rank exits 75 and
+      rank 0 alone checkpoints round 2; --resume from it == the
+      uninterrupted run, bitwise;
+   c. a one-rank NCCL group on the card: ``initialize``, one gather of an
+      [r, c] table (the identity at one rank), ``all_hosts_max``; the NCCL
+      version;
+   d. round ms, the emulation (S = 4) against the unsharded round in turns
+      (CUDA events); the gloo gather's ms on rank 0 (processes on one card
+      through host memory: it says nothing of NVLink or InfiniBand);
+      ``merge_comm_bytes`` at S = 4 for ResNet-9 and GPT-2.
 
 Prints one JSON line with the kernels' numbers (launches counted over
 phase 8; under "gpt2" each kernel's numbers at the GPT-2 shape, launches
@@ -235,7 +258,9 @@ run; "launches_bf16" over each run of phase 13 and under "gpt2_mc_bf16"
 the numbers at phase 13b's shape; "launches_serve" over phase 14a's and
 14b's served runs; "launches_batched" over each round of phase 15;
 "launches_obs" over phase 16's armed (a), GPT-2 (d) and served (e) runs,
-"launches_robust" over phase 17's attacked runs and its quarantine run),
+"launches_robust" over phase 17's attacked runs and its quarantine run,
+"launches_mesh" over phase 18's emulation and each rank of its
+uninterrupted gloo run),
 then
 as its last line
 ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -381,6 +406,18 @@ QUARANTINE_ROUNDS = 5
 SERVED_PLAN = "client_scale@2:clients=1,factor=50"
 ROBUST_PAIRS = 3
 RANK_COHORTS = (8, 12, 16, 24, 32, 100)  # phase 17e: W of the trimmed keep-mask timings
+# phase 18: the sharded round, MESH_SHARDS shards (ranks) of phase 5's
+# cohort, MESH_ROUNDS rounds; MESH_PAIRS timed turns in (d)
+MESH_SHARDS = 4
+MESH_ROUNDS = 4
+MESH_PAIRS = 3
+MESH_ARGS = ["--num_rounds", str(MESH_ROUNDS), "--checkpoint_every", "2",
+             "--client_dropout", "0.25"]
+# the emulation against the unsharded round: the shards sum their clients
+# in another order, so a released coordinate may swap at the k-th estimate
+# and the params move by a sliver of the step apart
+MESH_TOPK_AGREE = 0.99
+MESH_REL = 1e-3
 
 
 def fail(msg: str):
@@ -2618,6 +2655,226 @@ REPLACES = {"sketch_accumulate": "commefficient_tpu/sketch/pallas_kernels.py:135
             "sketch_query": "commefficient_tpu/sketch/pallas_kernels.py:211"}
 
 
+def _mesh_rank(argv: list, out_dir: str, tag: str, device: str) -> None:
+    """One rank of phase 18's gloo group: join it (gloo, so four ranks can
+    share one card), run ``cv_train.main`` and write this rank's per-round
+    metrics, launch counts, gather times and exit code to
+    ``out_dir/<tag>_<rank>.json``; exit with the run's code."""
+    sys.path.insert(0, ROOT)
+    import torch.distributed as dist
+
+    from commefficient_tpu_torch import cv_train
+    from commefficient_tpu_torch.parallel import distributed
+    from commefficient_tpu_torch.sketch import kernels
+
+    distributed.initialize(force=True, backend="gloo", device=device)
+    rank = distributed.rank()
+    gathers, gather = [], distributed.all_gather_stacked
+
+    def timed_gather(tensors, group=None):
+        # the shard phase done and every rank at the gather first, so the
+        # time is the gather's (host staging, the collective, the copy back)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        out = gather(tensors, group)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        gathers.append([(time.perf_counter() - t0) * 1e3,
+                        sum(t.numel() * t.element_size() for t in tensors)])
+        return out
+
+    distributed.all_gather_stacked = timed_gather
+    kernels.reset_launch_counts()
+    code = 0
+    with recording_rounds() as rec:
+        try:
+            cv_train.main(list(argv))
+        except SystemExit as e:
+            code = e.code if isinstance(e.code, int) else 1
+        finally:
+            with open(os.path.join(out_dir, f"{tag}_{rank}.json"), "w") as f:
+                json.dump({"metrics": rec["metrics"], "launches": dict(kernels.launch_counts),
+                           "gathers": gathers, "code": code}, f)
+    if code:
+        sys.exit(code)
+
+
+def mesh_phase(cv_train, engine, kernels, card: str) -> dict:
+    """Phase 18: the sharded round on ResNet-9 FetchSGD at full width, one
+    card: the emulation (a), a 4-rank gloo group (b), a one-rank NCCL group
+    (c) and the times (d). Returns each kernel's launches over (a) and over
+    each rank of (b)'s uninterrupted run."""
+    import dataclasses
+    import functools
+    import shutil
+
+    from commefficient_tpu_torch.federated.api import FederatedSession
+    from commefficient_tpu_torch.parallel import distributed
+    from commefficient_tpu_torch.parallel.mesh import merge_comm_bytes
+
+    device = "cuda" if "cuda" in SLICE_ARGS else "cpu"
+    base = os.path.join(ROOT, "build", "chip_smoke", "mesh")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    S, R = MESH_SHARDS, MESH_ROUNDS
+    argv = SLICE_ARGS + MESH_ARGS
+    launches = {}
+
+    def ledger_prints(path):
+        with open(path) as f:
+            return [json.loads(ln).get("fingerprint") for ln in f if '"kind": "round"' in ln]
+
+    def ck_state(ck, rnd):
+        return torch.load(os.path.join(ck, f"round_{rnd:08d}", "state.pt"), weights_only=True)
+
+    def same_tree(a, b) -> bool:
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same_tree(a[k], b[k]) for k in a)
+        return torch.equal(a, b) if torch.is_tensor(a) else a == b
+
+    # a. the emulation: the session at client_shards=S on one card
+    emu_dir = os.path.join(base, "emu")
+    orig_session = cv_train.FederatedSession
+    cv_train.FederatedSession = functools.partial(FederatedSession, client_shards=S)
+    try:
+        kernels.reset_launch_counts()
+        with recording_rounds() as emu_rec:
+            emu = cv_train.main(argv + ["--sync_loop", "--checkpoint_dir", emu_dir + "_ck",
+                                        "--ledger", emu_dir + ".ledger", "--log_jsonl",
+                                        emu_dir + ".jsonl"])
+        torch.cuda.synchronize()
+        launches["emulation"] = dict(kernels.launch_counts)
+    finally:
+        cv_train.FederatedSession = orig_session
+    want = {"sketch_accumulate": S * R, "sketch_query": R}
+    if emu.cfg.client_shards != S or launches["emulation"] != want:
+        fail(f"mesh a: client_shards {emu.cfg.client_shards}, launches "
+             f"{launches['emulation']} in {R} rounds (want {want})")
+    # one round from the emulation's state, sharded and unsharded, on one batch
+    plain = engine.make_round_step(emu.train_loss_fn, dataclasses.replace(emu.cfg, client_shards=1),
+                                   emu.layout)
+    batch = emu._to_device(emu.prepare_round(R).batch)
+    lr = torch.tensor(CHECK_LR, device=emu.device)
+    a, _, _ = emu._step(emu.state, batch, {}, lr)
+    b, _, _ = plain(emu.state, batch, {}, lr)
+    agree, rel, swapped = round_agreement(a, b, emu.state["params"])
+    print(f"mesh a: emulation at client_shards={S}, {R} sync rounds: launches "
+          f"{launches['emulation']} ({S} accumulate and 1 query a round); one round at lr "
+          f"{CHECK_LR} against the unsharded round on the same state and batch: top-k agreement "
+          f"{agree:.6f}, rel L2 of the movement {rel:.3e}, {swapped} coordinates moved by one "
+          f"only [{card}]", flush=True)
+    if agree < MESH_TOPK_AGREE or rel > MESH_REL:
+        fail(f"mesh a: emulation vs unsharded round: agreement {agree}, rel {rel}")
+
+    # b. four ranks in a gloo group on the one card
+    def launch(tag, extra):
+        t0 = time.perf_counter()
+        codes = distributed.launch_local(_mesh_rank, S, (argv + extra, base, tag, device),
+                                         env={"LOCAL_RANK": "0"}, timeout_s=600)
+        ranks = []
+        for r in range(S):
+            path = os.path.join(base, f"{tag}_{r}.json")
+            if not os.path.exists(path):
+                fail(f"mesh b: {tag}: rank {r} wrote nothing (exit codes {codes})")
+            with open(path) as f:
+                ranks.append(json.load(f))
+        return codes, ranks, time.perf_counter() - t0
+
+    ck = os.path.join(base, "ck")
+    ledger = os.path.join(base, "mesh.ledger")
+    codes, ranks, secs = launch("mesh", ["--checkpoint_dir", ck, "--ledger", ledger,
+                                         "--log_jsonl", os.path.join(base, "mesh.jsonl")])
+    if codes != [0] * S:
+        fail(f"mesh b: rank exit codes {codes}")
+    for r, got in enumerate(ranks):
+        if got["metrics"] != emu_rec["metrics"]:
+            fail(f"mesh b: rank {r}'s per-round metrics differ from the emulation's")
+        if got["launches"] != {"sketch_accumulate": R, "sketch_query": R}:
+            fail(f"mesh b: rank {r} launched {got['launches']} in {R} rounds")
+        launches[f"rank{r}"] = got["launches"]
+    prints = [ledger_prints(ledger)] + [ledger_prints(f"{ledger}.rank{r}") for r in range(1, S)]
+    if len(prints[0]) != R or any(p != prints[0] for p in prints) or \
+            prints[0] != ledger_prints(emu_dir + ".ledger"):
+        fail("mesh b: the ranks' ledger fingerprints differ (from each other or the emulation)")
+    with open(emu_dir + ".jsonl") as f1, open(os.path.join(base, "mesh.jsonl")) as f2:
+        rows = [[{k: v for k, v in json.loads(ln).items() if k != "time_s"} for ln in f]
+                for f in (f1, f2)]
+    if rows[0] != rows[1]:
+        fail("mesh b: rank 0's rows differ from the emulation's")
+    final = ck_state(ck, R)
+    if not same_tree(final, ck_state(emu_dir + "_ck", R)):
+        fail("mesh b: the final state differs from the emulation's")
+    print(f"mesh b: {S} gloo ranks on one card, {R} async rounds: params, Vvelocity, Verror, "
+          f"batch-norm statistics, rows and every per-round metric == the emulation's, bitwise; "
+          f"fingerprints equal on every rank every round; launches a rank {ranks[0]['launches']}; "
+          f"{secs:.1f} s for the launch [{card}]", flush=True)
+    ck2 = os.path.join(base, "ck2")
+    codes, pre, _ = launch("preempt", ["--checkpoint_dir", ck2, "--fault_plan",
+                                       "host_preempt@1:host=2"])
+    if codes != [75] * S or sorted(os.listdir(ck2)) != ["round_00000002"]:
+        fail(f"mesh b: host_preempt@1:host=2: exit codes {codes}, checkpoints "
+             f"{sorted(os.listdir(ck2))}")
+    if any(len(p["metrics"]) != 2 or p["metrics"] != emu_rec["metrics"][:2] for p in pre):
+        fail("mesh b: the preempted ranks did not all commit rounds 0 and 1 as the emulation")
+    codes, res, _ = launch("resume", ["--checkpoint_dir", ck2, "--resume"])
+    if codes != [0] * S or not same_tree(ck_state(ck2, R), final):
+        fail(f"mesh b: the resume from rank 0's round-2 checkpoint (exit codes {codes}) does "
+             "not end on the uninterrupted run's state")
+    if any(p["metrics"] != emu_rec["metrics"][2:] for p in res):
+        fail("mesh b: the resumed rounds' metrics differ from the uninterrupted run's")
+    print(f"mesh b: host_preempt@1:host=2 -> every rank exit 75 at round 2, one checkpoint "
+          f"(rank 0's); --resume -> round {R} == the uninterrupted run, bitwise [{card}]",
+          flush=True)
+
+    # c. a one-rank NCCL group on the card
+    if device == "cuda":
+        distributed.initialize(force=True, device="cuda",
+                               coordinator_address=f"localhost:{distributed.free_port()}",
+                               num_processes=1, process_id=0)
+        try:
+            table = emu.state["mode_state"]["Verror"]
+            (got,) = distributed.all_gather_stacked([table])
+            ok = (torch.distributed.get_backend() == "nccl" and got.shape == (1,) + table.shape
+                  and torch.equal(got[0], table) and distributed.all_hosts_max(3) == 3)
+            nccl = ".".join(map(str, torch.cuda.nccl.version()))
+        finally:
+            distributed.shutdown()
+        if not ok:
+            fail("mesh c: the one-rank NCCL group's gather or agreement is wrong")
+        print(f"mesh c: a one-rank NCCL group (NCCL {nccl}): initialize, the gather of a "
+              f"{tuple(table.shape)} table == the table, all_hosts_max(3) == 3 [{card}]",
+              flush=True)
+
+    # d. times
+    steps = {"unsharded": plain, f"emulated S={S}": emu._step}
+    ms = {k: [] for k in steps}
+    for i in range(MESH_PAIRS + 1):  # the first turn warms up and is dropped
+        for label in (list(steps) if i % 2 == 0 else list(steps)[::-1]):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            e0.record()
+            steps[label](emu.state, batch, {}, lr)
+            e1.record()
+            e1.synchronize()
+            if i:
+                ms[label].append(e0.elapsed_time(e1))
+    gathers = ranks[0]["gathers"]
+    print(f"mesh d: sync round ms (CUDA events, {MESH_PAIRS} turns): "
+          + ", ".join(f"{k} {[round(t, 3) for t in v]} (median {statistics.median(v):.3f})"
+                      for k, v in ms.items()) + f" [{card}]", flush=True)
+    print(f"mesh d: gloo gather on rank 0, {S} processes on one card through host memory "
+          f"(not NVLink, not InfiniBand): ms {[round(g[0], 3) for g in gathers]} (median "
+          f"{statistics.median(g[0] for g in gathers):.3f}), {gathers[0][1] / 1e6:.2f} MB a "
+          f"rank a round [{card}]", flush=True)
+    for name, (r, c, d) in (("resnet9", (5, 524_288, 6_573_130)),
+                            ("gpt2", (5, 1_000_000, GPT2_D))):
+        print(f"mesh d: merge_comm_bytes(S={S}) {name}: {json.dumps(merge_comm_bytes(S, r, c, d))}",
+              flush=True)
+    return launches
+
+
 def time_kernels(csvec, kernels, time_ms, spec, gen: torch.Generator) -> dict:
     """Each kernel's median over CUDA-event-timed launches at ``spec``'s
     shape, cold (L2 flushed before each) and warm (its input just
@@ -2829,6 +3086,10 @@ def main(argv: list[str]) -> int:
     # 17. robust merges and the quarantine
     phase("17 (robust merges, quarantine)")
     robust = robust_phase(cv_train, engine, csvec, kernels, card)
+
+    # 18. the sharded round
+    phase("18 (sharded round)")
+    mesh = mesh_phase(cv_train, engine, kernels, card)
     phase("end")
 
     for name in rows:
@@ -2841,6 +3102,7 @@ def main(argv: list[str]) -> int:
         rows[name]["launches_batched"] = {run: n[name] for run, n in batched.items()}
         rows[name]["launches_obs"] = {run: n[name] for run, n in obs_launches.items()}
         rows[name]["launches_robust"] = {run: n[name] for run, n in robust.items()}
+        rows[name]["launches_mesh"] = {run: n[name] for run, n in mesh.items()}
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

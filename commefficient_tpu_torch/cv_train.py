@@ -30,6 +30,14 @@ warn|halt the SLO engine; none of them changes a bit of the run.
 --dtype bfloat16 computes in bfloat16 as the reference does (parameters,
 batch-norm statistics, logits and the sketched gradient stay float32).
 
+The sharded round, one rank per card (``parallel/``): launch the ranks
+with torchrun (``torchrun --nproc_per_node 4 -m
+commefficient_tpu_torch.cv_train ...``) or with --multihost
+--coordinator_address HOST:PORT --num_processes N --process_id I on each;
+the cohort shards over them (--mesh clients=N[,slices=M] names the
+shape). Every rank trains the same model; rank 0 writes the rows, the
+checkpoints and the trace, and rank r > 0 its ledger at PATH.rank<r>.
+
 Without the CIFAR-10 pickles (or LEAF's FEMNIST json under
 --data_root/femnist) the deterministic synthetic set of the same shape is
 used.
@@ -50,6 +58,7 @@ from .models.convert import FlatLayout
 from .models.femnist_cnn import FEMNISTCNN
 from .models.losses import make_classification_loss
 from .models.resnet9 import ResNet9, init_weights
+from .parallel import distributed
 from .resilience import FaultPlan, RetryPolicy
 from .runner import RunnerConfig, run_loop
 from .serve import service_from_args
@@ -60,11 +69,13 @@ from .utils.logging import TableLogger
 from .utils.schedules import triangular
 
 
-def build(args):
-    fault_plan = FaultPlan.parse(args.fault_plan)  # refuses an unported kind first
+def build(args, fault_plan=None):
+    if fault_plan is None:
+        fault_plan = FaultPlan.parse(args.fault_plan)  # refuses an unported kind first
     if torch.device(args.device).type == "cuda":
         make_reproducible()  # before any CUDA work of the run
-    device = resolve_device(args.device)
+    device = resolve_device(distributed.local_device(args.device))
+    mesh = distributed.cli_mesh(args)
     if args.dataset == "femnist":
         train_set, test_set, num_classes = load_femnist_fed(
             args.data_root, args.num_clients, args.seed)
@@ -118,21 +129,24 @@ def build(args):
         merge_policy=args.merge_policy,
         merge_trim=args.merge_trim,
         robust_residual=args.robust_residual == "on",
+        mesh=mesh,
     )
     return session, test_set
 
 
 def main(argv=None):
     args = resolve_defaults(make_parser().parse_args(argv))
+    fault_plan = FaultPlan.parse(args.fault_plan)  # refuses an unported kind first
+    distributed.join_cli(args, fault_plan)
     # arm (or disarm) the tracer before anything emits
     obs.configure_from_args(args)
-    session, test_set = build(args)
+    session, test_set = build(args, fault_plan)
     rounds_per_epoch = max(1, math.ceil(args.num_clients / session.num_workers))
     total_rounds = args.num_rounds or int(args.num_epochs * rounds_per_epoch)
     if session.fault_plan is not None:
         # a client_* or wire_* site at a round the run never reaches, or a
         # wire_* site on a run with no payload seam, is refused now
-        session.fault_plan.validate_rounds(total_rounds)
+        session.fault_plan.validate_rounds(total_rounds, distributed.world_size())
         session.fault_plan.validate_wire_context(
             args.serve != "off" and args.serve_payload == "sketch")
     opt = FedOptimizer(triangular(args.lr_scale, args.pivot_epoch, args.num_epochs),
@@ -146,7 +160,7 @@ def main(argv=None):
             opt.round = session.round
             print(f"resumed from {path} at round {session.round}", flush=True)
 
-    logger = TableLogger(args.log_jsonl or None)
+    logger = TableLogger(args.log_jsonl or None) if distributed.rank() == 0 else None
 
     def build_row(rnd, m, totals, ev, time_s, nonfinite_total):
         return {
@@ -188,7 +202,8 @@ def main(argv=None):
             wiring.postmortem(f"exception:{type(e).__name__}: {e}")
         raise
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
         wiring.close()
         if service is not None:
             print(f"serve: final metrics {service.metrics_snapshot()}", flush=True)

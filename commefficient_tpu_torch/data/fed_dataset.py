@@ -151,7 +151,8 @@ class FedDataset:
         return rng.choice(self.num_clients, size=min(num, self.num_clients), replace=False)
 
     def client_batch(self, rng: np.random.RandomState, client_ids: np.ndarray,
-                     batch_size: int, local_iters: int = 1) -> dict:
+                     batch_size: int, local_iters: int = 1,
+                     rows: tuple[int, int] | None = None) -> dict:
         """Fixed-shape per-round batch {"x": [W, B, ...], "y": [W, B],
         "mask": [W, B]}, or with a [local_iters] axis after W when
         local_iters > 1 (the microbatches of fedavg/localSGD's local steps).
@@ -159,27 +160,32 @@ class FedDataset:
         examples contributes B drawn without replacement from the splitmix64
         stream of slot w * local_iters + l (see the module docstring); one
         with fewer contributes all of them and zero padding behind a 0
-        mask."""
-        W, L, n = len(client_ids), local_iters, batch_size
+        mask. ``rows`` = (lo, hi) assembles only cohort slots [lo, hi) (a
+        rank's shard): the same rows those slots get in the whole batch,
+        and the same draw from ``rng``."""
+        lo, hi = rows if rows is not None else (0, len(client_ids))
+        W, L, n = hi - lo, local_iters, batch_size
         xs = np.zeros((W, L, n) + self.x.shape[1:], dtype=self.x.dtype)
         ys = np.zeros((W, L, n) + self.y.shape[1:], dtype=self.y.dtype)
         mask = np.zeros((W, L, n), dtype=np.float32)
-        self._fill_rows(rng, client_ids, n, L, xs, ys, mask)
+        self._fill_rows(rng, client_ids, n, L, xs, ys, mask, lo)
         if L == 1:
             return {"x": xs[:, 0], "y": ys[:, 0], "mask": mask[:, 0]}
         return {"x": xs, "y": ys, "mask": mask}
 
     def _fill_rows(self, rng: np.random.RandomState, client_ids: np.ndarray,
                    batch_size: int, local_iters: int, out_x: np.ndarray,
-                   out_y: np.ndarray, out_mask: np.ndarray | None) -> None:
+                   out_y: np.ndarray, out_mask: np.ndarray | None, lo: int = 0) -> None:
         """Fill [W, L, B, ...] buffers that already hold their padding with
         the sampled rows (one ``randint(1 << 62)`` of ``rng``, then the
         per-slot splitmix64 streams), as the reference's native
         ``assemble_rows`` does; rows past a short shard keep the padding,
-        and the mask (if any) is 1 on the filled rows."""
+        and the mask (if any) is 1 on the filled rows. Buffer row i holds
+        cohort slot lo + i."""
         n, L = batch_size, local_iters
         seed = int(rng.randint(1 << 62))
-        for wi, cid in enumerate(client_ids):
+        for i in range(out_x.shape[0]):
+            wi, cid = lo + i, client_ids[lo + i]
             shard = self.client_indices[int(cid)]
             k = min(len(shard), n)
             for li in range(L):
@@ -189,20 +195,21 @@ class FedDataset:
                     slot = wi * L + li + 1
                     slot_rng = _SplitMix64(seed ^ ((_GOLDEN * slot) & _M64))
                     take = shard[_sample_distinct(slot_rng, len(shard), k)]
-                out_x[wi, li, :k] = self.x[take]
-                out_y[wi, li, :k] = self.y[take]
+                out_x[i, li, :k] = self.x[take]
+                out_y[i, li, :k] = self.y[take]
                 if out_mask is not None:
-                    out_mask[wi, li, :k] = 1.0
+                    out_mask[i, li, :k] = 1.0
 
-    def empty_batch(self, num: int, batch_size: int, local_iters: int = 1) -> dict:
+    def empty_batch(self, num: int, batch_size: int, local_iters: int = 1,
+                    rows: tuple[int, int] | None = None) -> dict:
         """Stand-in batch of a degraded cohort, whose data failed to load
         after its retries: the keys and shapes ``client_batch`` returns (for
         a subclass too, which is why it assembles a real batch) from a
         private ``RandomState(0)`` and client 0, so the session's sampling
         stream does not advance. Every row sits behind a zero validity
-        mask, so its content never trains."""
+        mask, so its content never trains. ``rows`` as in ``client_batch``."""
         return self.client_batch(np.random.RandomState(0), np.zeros(num, dtype=np.int64),
-                                 batch_size, local_iters)
+                                 batch_size, local_iters, rows)
 
     def eval_batches(self, batch_size: int):
         """Fixed-shape eval iterator over the whole set (pads the tail)."""

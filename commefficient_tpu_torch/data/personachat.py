@@ -109,14 +109,16 @@ class FedTextDataset(FedDataset):
         return {"input_ids": xt[..., :T], "token_type_ids": xt[..., T:], "labels": y}
 
     def client_batch(self, rng: np.random.RandomState, client_ids: np.ndarray,
-                     batch_size: int, local_iters: int = 1) -> dict:
+                     batch_size: int, local_iters: int = 1,
+                     rows: tuple[int, int] | None = None) -> dict:
         """[W, B, T] int32 per key (a [local_iters] axis after W when
         local_iters > 1), with the rows drawn as ``FedDataset.client_batch``
-        draws them."""
-        W, L, n = len(client_ids), local_iters, batch_size
+        draws them (``rows`` too)."""
+        lo, hi = rows if rows is not None else (0, len(client_ids))
+        W, L, n = hi - lo, local_iters, batch_size
         xt = np.zeros((W, L, n, self.x.shape[1]), dtype=np.int32)
         y = np.full((W, L, n, self.y.shape[1]), -100, dtype=np.int32)
-        self._fill_rows(rng, client_ids, n, L, xt, y, None)
+        self._fill_rows(rng, client_ids, n, L, xt, y, None, lo)
         batch = self._unpack(xt, y)
         if L == 1:
             batch = {k: v[:, 0] for k, v in batch.items()}

@@ -48,6 +48,16 @@ N > 0 each round's batch carries the host cadence flag
 or total sees them and hands each committed round to the attached sinks
 (``health_monitor``, ``slo``, ``ledger``) in ``_publish_round_obs``.
 
+The sharded round (``client_shards`` S > 1, or a ``parallel.mesh.
+ClientMesh``): the cohort, rounded to a multiple of S, splits into S
+contiguous shards (``engine.make_sharded_round_step``). Without a mesh the
+shards run one after another on this device (the emulation); with a mesh
+of S shards each of the S ranks of this process's ``torch.distributed``
+group runs one, and every rank samples the same cohort, assembles only its
+own slice of the batch and keeps the same replicated state. The modes the
+sharded round does not cover and the per-client-table round raise on a
+group (ROADMAP Queue 1 item 7b).
+
 ``FedModel`` and ``FedOptimizer`` mirror the reference's
 ``FedModel(model, loss_fn, args)`` / ``FedOptimizer(opt, args)`` surface.
 The session runs on the GPU unless ``device="cpu"`` is passed. Batches are
@@ -181,6 +191,8 @@ class FederatedSession:
         merge_trim: int = 0,
         quarantine_scope: str = "cohort",
         robust_residual: bool = False,
+        mesh=None,
+        client_shards: int = 0,
     ):
         self.device = resolve_device(device)
         if health_every < 0:
@@ -232,14 +244,19 @@ class FederatedSession:
         self.health_monitor = None
         self.slo = None
         self.ledger = None
-        if client_chunk and self.num_workers % client_chunk:
-            # the cohort may have been clamped to num_clients: a chunk that
-            # divided the requested cohort may no longer divide. Largest
-            # viable chunk, as the reference repairs it
-            viable = next(c for c in range(min(client_chunk, self.num_workers), 0, -1)
-                          if self.num_workers % c == 0)
-            print(f"note: client_chunk={client_chunk} does not divide the cohort "
-                  f"({self.num_workers}); using client_chunk={viable}", flush=True)
+        self._setup_shards(mesh, client_shards, mode_cfg)
+        # on the sharded round client_chunk splits each shard, so it must
+        # divide the per-shard cohort
+        chunk_cohort = self.num_workers // self.cfg.client_shards
+        if client_chunk and chunk_cohort % client_chunk:
+            # the cohort may have been clamped to num_clients or rounded for
+            # the shards: a chunk that divided the requested cohort may no
+            # longer divide. Largest viable chunk, as the reference repairs it
+            viable = next(c for c in range(min(client_chunk, chunk_cohort), 0, -1)
+                          if chunk_cohort % c == 0)
+            per = "per-shard " if self.cfg.client_shards > 1 else ""
+            print(f"note: client_chunk={client_chunk} does not divide the {per}cohort "
+                  f"({chunk_cohort}); using client_chunk={viable}", flush=True)
             self.cfg = dataclasses.replace(self.cfg, client_chunk=viable)
         self.layout = layout
         self.train_loss_fn = train_loss_fn
@@ -304,6 +321,83 @@ class FederatedSession:
         self._wire_copies: list = []
         self._wire_totals: dict = {}
 
+    def _setup_shards(self, mesh, client_shards: int, mode_cfg: ModeConfig) -> None:
+        """The sharded round's routing, as the reference's session routes
+        it: ``client_shards`` S > 1 without a mesh runs the emulation on one
+        device; a ``parallel.mesh.ClientMesh`` of S > 1 shards runs one
+        shard per rank of this process's ``torch.distributed`` group, which
+        must have S ranks. An explicit ``client_shards`` that disagrees with
+        the mesh raises; the cohort is rounded to a multiple of S (raised
+        when it cannot be); a mode outside the sharded scope raises when
+        ``client_shards`` asks for it. On a group, what the sharded round
+        does not run there yet (out-of-scope modes, the per-client-table
+        round) raises, naming ROADMAP item 7b. Each rank samples the same
+        cohort and assembles only its contiguous slice of it."""
+        from ..parallel import distributed
+        from ..parallel import mesh as meshlib
+
+        self.group, self._rows = None, None
+        if client_shards >= 1 and mesh is not None and client_shards != mesh.shards:
+            # including client_shards=1 ("unsharded"), which the mesh's
+            # S-way program would drop without notice
+            raise ValueError(f"client_shards={client_shards} disagrees with the "
+                             f"{mesh.shards}-way client mesh; pass one or the other")
+        shards = meshlib.client_shards(mesh) if mesh is not None else max(client_shards, 1)
+        if mesh is not None and shards > 1:
+            world = distributed.world_size()
+            if world != shards:
+                raise ValueError(
+                    f"the {shards}-way client mesh runs one shard per rank, but this process "
+                    f"is in a job of {world} rank(s): launch {shards} ranks (torchrun "
+                    "--nproc_per_node, or --multihost --coordinator_address --num_processes "
+                    "--process_id), or pass client_shards without a mesh for the emulation on "
+                    "one device")
+            import torch.distributed as dist
+
+            self.group = dist.group.WORLD
+        if shards > 1 and self.num_workers % shards:
+            # the cohort must split evenly: round it to the nearest viable
+            # multiple (loudly), and raise when none exists
+            up = -(-self.num_workers // shards) * shards
+            adjusted = up if up <= self.train_set.num_clients else (
+                self.train_set.num_clients // shards) * shards
+            if adjusted <= 0:
+                raise ValueError(
+                    f"num_workers={self.num_workers} cannot be sharded over the {shards}-way "
+                    f"client mesh: the dataset has only {self.train_set.num_clients} clients, "
+                    "fewer than one per shard. Reduce the mesh (--num_devices) or add clients.")
+            print(f"note: num_workers={self.num_workers} not divisible by the {shards}-way "
+                  f"client mesh; rounding the cohort to {adjusted} so the round stays sharded "
+                  f"(pass a multiple of {shards} to silence this)", flush=True)
+            self.num_workers = adjusted
+        self._spmd = shards > 1 and engine.supports_sharded_round(mode_cfg)
+        if client_shards > 1 and not self._spmd:
+            raise ValueError(
+                f"client_shards={client_shards} requires a mode in the sharded-round scope "
+                f"(linear grad modes without client-local state); mode={mode_cfg.mode!r} "
+                f"error_type={mode_cfg.error_type!r} runs the GSPMD path - pass a mesh "
+                "instead of client_shards")
+        if self.group is not None:
+            if not self._spmd:
+                raise ValueError(
+                    f"mode={mode_cfg.mode!r} (error_type={mode_cfg.error_type!r}, "
+                    f"momentum_type={mode_cfg.momentum_type!r}) is outside the sharded "
+                    f"round's scope, which is all a group of {shards} ranks runs in the port; "
+                    "the reference partitions it over its mesh by GSPMD (ROADMAP Queue 1 "
+                    "item 7b)")
+            if self._table_round:
+                why = ("--serve_payload sketch" if self.cfg.wire_payloads else
+                       f"merge_policy={self.cfg.merge_policy!r}" if engine.robust_policy(self.cfg)
+                       else "the adversarial fault kinds")
+                raise ValueError(
+                    f"{why} runs the per-client-table round, which the port does not run on "
+                    f"a group of {shards} ranks yet (ROADMAP Queue 1 item 7b)")
+            wl = self.num_workers // shards
+            lo = mesh.shard_index(distributed.rank()) * wl
+            self._rows = (lo, lo + wl)
+        if self._spmd:
+            self.cfg = dataclasses.replace(self.cfg, client_shards=shards)
+
     def _build_steps(self) -> None:
         """The round steps of ``self.cfg`` (again after a restore changes
         ``client_chunk``)."""
@@ -321,9 +415,13 @@ class FederatedSession:
             self._step = engine.compose_payload(self._payload_client, self._payload_merge)
             self._multi = None
         else:
-            self._step = engine.make_round_step(loss_fn, cfg, layout)
+            # the sharded round (client_shards > 1): the emulation on one
+            # device, or one shard per rank of the group
+            self._step = (engine.make_sharded_round_step(loss_fn, cfg, layout, self.group)
+                          if cfg.client_shards > 1
+                          else engine.make_round_step(loss_fn, cfg, layout))
             self._multi = (None if cfg.mode.needs_local_state
-                           else engine.make_multi_round_step(loss_fn, cfg, layout))
+                           else engine.make_multi_round_step(loss_fn, cfg, layout, self._step))
 
     def set_client_chunk(self, chunk: int) -> None:
         """Run later rounds at ``client_chunk`` = ``chunk`` (a restore sets
@@ -455,7 +553,7 @@ class FederatedSession:
                 if self.fault_plan is not None:
                     self.fault_plan.data_load(rnd)
                 return self.train_set.client_batch(self.rng, ids, self.local_batch_size,
-                                                   mcfg.num_local_iters)
+                                                   mcfg.num_local_iters, self._rows)
             except Exception:
                 self.rng.set_state(rng_state)
                 raise
@@ -471,7 +569,7 @@ class FederatedSession:
             for i in ids:
                 self._queue(int(i), rnd)
             batch = self.train_set.empty_batch(len(ids), self.local_batch_size,
-                                               mcfg.num_local_iters)
+                                               mcfg.num_local_iters, self._rows)
             return self._with_local_axis(batch), np.zeros(len(ids), np.float32)
 
     def prepare_round(self, rnd: int | None = None) -> PreparedRound:
@@ -509,7 +607,8 @@ class FederatedSession:
             # the nonfinite burst, then the cohort faults; preempt stays a
             # dispatch-time site, so the SIGTERM lands when the round runs
             batch = self.fault_plan.poison(rnd, batch)
-            batch, valid, dropped = self.fault_plan.client_faults(rnd, batch, valid, len(ids))
+            batch, valid, dropped = self.fault_plan.client_faults(rnd, batch, valid, len(ids),
+                                                                  self._rows)
             for p in dropped:
                 self._queue(int(ids[p]), rnd)
         if arrived is not None and (arrived == 0.0).any():
@@ -529,9 +628,12 @@ class FederatedSession:
         masked = int(len(ids) - valid.sum()) if valid is not None else 0
         if masked:
             obtrace.instant("federated", "cohort_degraded", round=rnd, clients=masked)
-        # the validity mask always rides the batch (all ones when clean)
+        # the validity mask always rides the batch (all ones when clean); a
+        # rank's batch holds its shard's slots only
+        lo, hi = self._rows if self._rows is not None else (0, len(ids))
         batch = dict(batch)
-        batch[engine.VALID_KEY] = valid if valid is not None else np.ones(len(ids), np.float32)
+        batch[engine.VALID_KEY] = (valid[lo:hi] if valid is not None
+                                   else np.ones(hi - lo, np.float32))
         if self._table_round and self.fault_plan is not None and \
                 self.fault_plan.has_adversarial():
             # the adversarial wire transform rides every round of a plan
@@ -546,7 +648,7 @@ class FederatedSession:
             # the cadence flag rides the batch like the validity mask, and
             # stays on the host (_to_device)
             health_on = rnd % self._health_every == 0
-            batch[engine.HEALTH_KEY] = np.full(len(ids), 1.0 if health_on else 0.0, np.float32)
+            batch[engine.HEALTH_KEY] = np.full(hi - lo, 1.0 if health_on else 0.0, np.float32)
         return PreparedRound(rnd, ids, {k: self._host(v) for k, v in batch.items()},
                              self.rng.get_state(), masked=masked, requeue=tuple(self._requeue),
                              requeue_ages=tuple(self._requeue_enqueued.items()),

@@ -33,6 +33,20 @@ table, the batch's ``_adv_*`` keys may rewrite the tables, and the server
 merges them by an ordered sum, or by the coordinate-wise trimmed mean or
 median (``modes._robust_table_merge``).
 
+The sharded round (``make_sharded_round_step``, ``client_shards`` S > 1):
+the cohort splits into S contiguous shards; each shard runs the client
+phase on its W / S clients, reduces them to one weighted sum and
+compresses it (for mode=sketch, the shard's partial Count Sketch: one
+``sketch_accumulate`` launch a shard). The S partial wires are stacked in
+shard order and merged by one ordered sum (``modes.merge_partial_wires``),
+never by an all-reduce, which would reassociate the sum; then one
+replicated tail (``_merged_sharded_tail``) runs survivor normalisation,
+the quarantine's rings, the non-finite guard, DP noise and the server
+step. On one device the shards run in a loop (the emulation); on a
+``torch.distributed`` group of S ranks each rank runs its own shard and
+the partials are all-gathered, so a given S gives the same bits on one
+device and on S ranks.
+
 The sketch-space quarantine (``client_update_clip``): each client's update
 L2 norm (the table's, on the table round), and under layer scope each
 leaf's, is screened against the running median the server state carries
@@ -205,6 +219,11 @@ class EngineConfig:
     # Verror before the server step, so the honest mass the trim clips
     # re-enters through error feedback (modes._robust_table_merge)
     robust_residual: bool = False
+    # the sharded round's shard count S (make_sharded_round_step): part of
+    # the round's numerical contract, like client_chunk (it fixes the order
+    # of the sum), so a given S gives the same bits on one device and on S
+    # ranks; 1 = the unsharded round
+    client_shards: int = 1
 
     def generator(self, rnd: int, slot: int, step: int,
                   device: torch.device) -> torch.Generator:
@@ -219,6 +238,8 @@ class EngineConfig:
             raise ValueError(f"on_nonfinite must be 'off' or 'skip', got {self.on_nonfinite!r}")
         if self.client_chunk < 0:
             raise ValueError(f"client_chunk must be >= 0, got {self.client_chunk}")
+        if self.client_shards < 1:
+            raise ValueError(f"client_shards must be >= 1, got {self.client_shards}")
         if not 0.0 <= self.client_dropout < 1.0:
             raise ValueError(f"client_dropout must be in [0, 1), got {self.client_dropout}")
         if self.client_update_clip < 0:
@@ -673,27 +694,33 @@ def _compress_rows(mcfg: ModeConfig, updates: torch.Tensor, part: torch.Tensor,
     return torch.stack(dense), new_rows
 
 
-def _cohort_part(cfg: EngineConfig, state: dict, batch: dict):
+def _cohort_part(cfg: EngineConfig, state: dict, batch: dict, num_sampled: int | None = None,
+                 lo: int = 0):
     """(batch without the validity mask, W, the [W] participation weight):
-    the validity mask times the round's ``participation_mask``."""
+    the validity mask times the round's ``participation_mask``. A shard's
+    batch holds cohort slots [lo, lo + W) of a cohort of ``num_sampled``:
+    the mask is drawn for the whole cohort and sliced, so a client's draw
+    does not depend on the shard it lands in."""
     batch, valid = split_valid(batch)
     # W: the leading dimension every leaf shares (an LM batch has no "x")
     n_clients = next(iter(batch.values())).shape[0]
-    part = participation_mask(cfg.seed, state["round"], n_clients, cfg.client_dropout,
-                              state["params"].device)
+    total = n_clients if num_sampled is None else num_sampled
+    part = participation_mask(cfg.seed, state["round"], total, cfg.client_dropout,
+                              state["params"].device)[lo:lo + n_clients]
     if valid is not None:
         part = part * valid.to(torch.float32)
     return batch, n_clients, part
 
 
-def _client_phase(updates: Callable, cfg: EngineConfig, state: dict, batch: dict,
-                  client_rows: dict, lr, segments: tuple = ()):
-    """The client phase of a round: the clients' updates (clipped to
-    ``dp_clip``; local_topk: then their densified top-k wires, compressed
-    with their rows of the client state) reduced to participation-weighted
-    sums over the stacked client axis, as the reference's
-    ``_weighted_client_reduce`` does. The participation weight is the
-    batch's validity mask times the round's ``participation_mask``.
+def _client_reduce(updates: Callable, cfg: EngineConfig, state: dict, batch: dict,
+                   part: torch.Tensor, client_rows: dict, lr, segments: tuple = (),
+                   slot0: int = 0):
+    """The clients of ``batch`` (cohort slots from ``slot0`` on, weighed by
+    ``part``) reduced to participation-weighted sums, as the reference's
+    ``_weighted_client_reduce`` does: (update sum [d], batch-norm statistic
+    sums, metric sums, the effective weight [W] after the quarantine, the
+    [W] norms and [W, L] layer norms the quarantine screened (None when
+    off), the cohort's new client rows).
 
     With the quarantine armed (``client_update_clip``) each chunk's clients
     are screened on their update norms (and, under layer scope, on their
@@ -708,14 +735,9 @@ def _client_phase(updates: Callable, cfg: EngineConfig, state: dict, batch: dict
     are added in chunk order, so at most C full [d] updates are live at a
     time. fedavg/localSGD and local_topk run one vmap of all W (the knob is
     ignored, as in the reference); local_topk then compresses row by row in
-    cohort order. Returns the reduced update [d] (the survivor mean unless
-    agg_op=sum), the survivor mean of the batch-norm statistics (the
-    previous ones when nobody survived), the metric sums with the
-    participants count (and ``clients_quarantined``, ``quarantine_median``),
-    the cohort's new rows ([W, d] per key; a client that did not take part
-    keeps its row) and the advanced quarantine state (None when off)."""
+    cohort order."""
     mcfg = cfg.mode
-    batch, W, part = _cohort_part(cfg, state, batch)
+    W = part.shape[0]
     C = cfg.client_chunk
     if mcfg.uses_weight_delta or not modes.is_linear(mcfg) or not C or C >= W:
         C = W
@@ -730,7 +752,7 @@ def _client_phase(updates: Callable, cfg: EngineConfig, state: dict, batch: dict
     for lo in range(0, W, C):
         cb = {k: v[lo:lo + C] for k, v in batch.items()}
         cpart = part[lo:lo + C]
-        u, stats, metrics = updates(state, cb, lr, range(lo, lo + C))
+        u, stats, metrics = updates(state, cb, lr, range(slot0 + lo, slot0 + lo + C))
         if quarantine:
             q = state["quarantine"]
             norms.append(_client_norms(u))
@@ -750,17 +772,36 @@ def _client_phase(updates: Callable, cfg: EngineConfig, state: dict, batch: dict
         sums = chunk if sums is None else (
             sums[0] + chunk[0], {k: v + chunk[1][k] for k, v in sums[1].items()},
             {k: v + chunk[2][k] for k, v in sums[2].items()})
-    part_eff = torch.cat(parts)
     wsum, ns_sum, m_sum = sums
+    return (wsum, ns_sum, m_sum, torch.cat(parts), torch.cat(norms) if quarantine else None,
+            torch.cat(lnorms) if layer_q else None, new_rows)
+
+
+def _client_phase(updates: Callable, cfg: EngineConfig, state: dict, batch: dict,
+                  client_rows: dict, lr, segments: tuple = ()):
+    """The client phase of a round: the clients' updates (clipped to
+    ``dp_clip``; local_topk: then their densified top-k wires, compressed
+    with their rows of the client state) reduced to participation-weighted
+    sums over the stacked client axis (``_client_reduce``). The
+    participation weight is the batch's validity mask times the round's
+    ``participation_mask``. Returns the reduced update [d] (the survivor
+    mean unless agg_op=sum), the survivor mean of the batch-norm statistics
+    (the previous ones when nobody survived), the metric sums with the
+    participants count (and ``clients_quarantined``, ``quarantine_median``),
+    the cohort's new rows ([W, d] per key; a client that did not take part
+    keeps its row) and the advanced quarantine state (None when off)."""
+    mcfg = cfg.mode
+    batch, _, part = _cohort_part(cfg, state, batch)
+    wsum, ns_sum, m_sum, part_eff, norms, lnorms, new_rows = _client_reduce(
+        updates, cfg, state, batch, part, client_rows, lr, segments)
     n_live = part_eff.sum().clamp_min(1.0)
     weighted = wsum if mcfg.agg_op == "sum" else wsum / n_live
     new_net_state, metrics = _merged_survivor_finalize(ns_sum, m_sum, part_eff,
                                                        state["net_state"])
     new_q = None
-    if quarantine:
+    if cfg.client_update_clip > 0:
         metrics["clients_quarantined"] = part.sum() - part_eff.sum()
-        new_q = _advance_quarantine_full(cfg, state["quarantine"], torch.cat(norms),
-                                         torch.cat(lnorms) if layer_q else None, part_eff)
+        new_q = _advance_quarantine_full(cfg, state["quarantine"], norms, lnorms, part_eff)
         metrics["quarantine_median"] = new_q["median"]
     return weighted, new_net_state, metrics, new_rows, new_q
 
@@ -841,10 +882,7 @@ def make_round_step(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout) ->
     averaged delta at ``server_lr``. Metrics are device tensors summed over
     clients (and local steps)."""
     mcfg = cfg.mode
-    if robust_policy(cfg) is not None:
-        raise ValueError(f"merge_policy={cfg.merge_policy!r} (trim={cfg.merge_trim}) needs the "
-                         "per-client-table round: use make_payload_round_steps "
-                         "(FederatedSession routes it); this round merges by the sum only")
+    _robust_scope_check(cfg)
     updates = make_client_updates(loss_fn, cfg, layout)
     segments = _leaf_segments(layout)
 
@@ -1141,8 +1179,181 @@ def compose_payload(client_step: Callable, merge_step: Callable) -> Callable:
     return step
 
 
-def make_multi_round_step(loss_fn: Callable, cfg: EngineConfig,
-                          layout: FlatLayout) -> Callable:
+def supports_sharded_round(mcfg: ModeConfig) -> bool:
+    """Scope of the sharded round (``make_sharded_round_step``): linear
+    grad modes without client-local state and without the local-SGD
+    weight-delta loop, where compression commutes with the cross-shard sum
+    (FetchSGD's sketch linearity; trivially the dense wires)."""
+    return modes.is_linear(mcfg) and not mcfg.needs_local_state and not mcfg.uses_weight_delta
+
+
+def _sharded_scope_check(mcfg: ModeConfig):
+    if not supports_sharded_round(mcfg):
+        raise ValueError(
+            "sharded round supports linear grad modes without client-local "
+            f"state (the flagship sketch config); mode={mcfg.mode!r} "
+            f"error_type={mcfg.error_type!r} momentum_type="
+            f"{mcfg.momentum_type!r} needs the GSPMD path (make_round_step "
+            "over a sharded batch)"
+        )
+
+
+def _robust_scope_check(cfg: EngineConfig):
+    """A robust merge policy needs per-client tables, which the linear
+    round builders never make: a direct caller reaching one with a policy
+    armed gets a loud error, not a silently linear merge."""
+    if robust_policy(cfg) is not None:
+        raise ValueError(
+            f"merge_policy={cfg.merge_policy!r} (trim={cfg.merge_trim}) needs the per-client-"
+            "table round: use make_payload_round_steps (FederatedSession routes this "
+            "automatically); the linear round builders merge by the ordered sum only")
+
+
+def _merged_sharded_tail(cfg: EngineConfig, state: dict, stacked: dict, lr,
+                         health_on: bool = False) -> tuple[dict, dict]:
+    """Everything after the shards' client phases, shared by the emulation
+    and the ranks of a group so they cannot drift: the ordered merge of the
+    [S, ...] partial wires (``modes.merge_partial_wires``: an ordered sum,
+    shard 0 first, not an all-reduce), survivor normalisation in wire space,
+    the batch-norm and metric sums, the quarantine's rings from the
+    gathered [W] norms, the non-finite guard, DP noise and the server step.
+
+    ``stacked`` holds each shard's outputs (``_shard_outputs``) stacked on
+    a leading [S] axis in shard order: "wire/<key>", "ns/<key>",
+    "m/<key>", "part_eff" ([S, W/S]: dropout x validity x quarantine) and,
+    with the quarantine armed, "part" (before the quarantine), "norms" and
+    under layer scope "lnorms". A sharded round merges wires, so only the
+    wire-side health estimators exist (the dense reduced update never
+    does)."""
+    mcfg = cfg.mode
+
+    def sub(prefix):
+        return {k[len(prefix):]: v for k, v in stacked.items() if k.startswith(prefix)}
+
+    wire_sum = modes.merge_partial_wires(mcfg, sub("wire/"))
+    part_eff = stacked["part_eff"].reshape(-1)
+    agg = _normalize_merged_wire(mcfg, wire_sum, part_eff.sum().clamp_min(1.0))
+    new_net_state, metrics = _merged_survivor_finalize(
+        {k: v.sum(0) for k, v in sub("ns/").items()},
+        {k: v.sum(0) for k, v in sub("m/").items()}, part_eff, state["net_state"])
+    new_q = None
+    if cfg.client_update_clip > 0:
+        metrics["clients_quarantined"] = stacked["part"].sum() - part_eff.sum()
+        lnorms = stacked.get("lnorms")
+        new_q = _advance_quarantine_full(
+            cfg, state["quarantine"], stacked["norms"].reshape(-1),
+            None if lnorms is None else lnorms.reshape((-1,) + lnorms.shape[2:]), part_eff)
+        metrics["quarantine_median"] = new_q["median"]
+    raw_agg = agg  # the pre-guard wire: a health block shows the poison
+    agg, new_net_state, _, metrics, fin_ok = _guard_nonfinite(
+        cfg, agg, new_net_state, state["net_state"], {}, {}, metrics)
+    if cfg.dp_noise > 0:
+        live = metrics["participants"]
+        if fin_ok is not None:
+            live = live * fin_ok.to(live.dtype)
+        agg = _dp_noise_agg(cfg, agg, live, state["round"])
+    delta, mode_state = modes.server_step_sparse(mcfg, agg, state["mode_state"], lr)
+    new_state = {
+        "params": modes.apply_delta(state["params"], delta),
+        "net_state": new_net_state,
+        "mode_state": mode_state,
+        "round": state["round"] + 1,
+    }
+    if new_q is not None:
+        new_state["quarantine"] = new_q
+    if cfg.health and health_on:
+        metrics.update(_health_metrics(cfg, raw_agg, delta, mode_state))
+    metrics.update(_ledger_fingerprints(cfg, new_state))
+    return new_state, metrics
+
+
+def make_sharded_round_step(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout,
+                            group=None) -> Callable:
+    """The data-parallel round as S shards, the twin of the reference's
+    ``make_sharded_round_step``, with ``make_round_step``'s signature
+    (client rows pass through: the scope keeps no client state).
+
+    Each shard runs the client phase on its W / S clients (its cohort
+    slots, so its participation mask and dropout streams are the ones those
+    clients have in the unsharded round), reduces them to one weighted sum
+    and compresses it: for mode=sketch the shard's partial Count Sketch,
+    one ``sketch_accumulate`` launch. The partials are merged by one ordered
+    sum in ``_merged_sharded_tail`` (one ``sketch_query`` launch in the
+    server step).
+
+    ``group=None`` is the emulation on one device: a loop over the
+    ``cfg.client_shards`` shards of the full [W] batch, stacked in shard
+    order. Given a ``torch.distributed`` group of S ranks, the batch is the
+    rank's own shard ([W / S] rows, cohort slots from rank * W / S), the
+    rank runs its shard and ``all_gather``s every output (the wire, the
+    statistic and metric sums, the effective mask and the quarantine's
+    norms) into the same stacks, and the tail runs replicated. Every rank
+    runs the same ops at the same shapes as the emulation's loop body and
+    the tail runs on identical stacks, so a given S gives the same bits
+    on one device and on S ranks. Different S associate the sum
+    differently: allclose, not bitwise, to the unsharded round."""
+    mcfg = cfg.mode
+    _sharded_scope_check(mcfg)
+    _robust_scope_check(cfg)
+    if group is not None:
+        import torch.distributed as dist
+
+        from ..parallel import distributed
+
+        S = dist.get_world_size(group)
+        shard = dist.get_rank(group)
+        if cfg.client_shards > 1 and cfg.client_shards != S:
+            raise ValueError(f"cfg.client_shards={cfg.client_shards} disagrees with the "
+                             f"{S}-rank group")
+    else:
+        S = cfg.client_shards
+    if S <= 1:
+        raise ValueError("sharded round needs client_shards > 1 (or a group of > 1 ranks); "
+                         "use make_round_step for the unsharded round")
+    updates = make_client_updates(loss_fn, cfg, layout)
+    segments = _leaf_segments(layout)
+    quarantine = cfg.client_update_clip > 0
+
+    def shard_outputs(state: dict, batch_l: dict, lo: int, W: int) -> dict:
+        """One shard's client phase over cohort slots [lo, lo + W / S)."""
+        batch_l, _, part_l = _cohort_part(cfg, state, batch_l, W, lo)
+        wsum, ns_sum, m_sum, part_eff, norms, lnorms, _ = _client_reduce(
+            updates, cfg, state, batch_l, part_l, {}, None, segments, slot0=lo)
+        wire, _ = modes.client_compress(mcfg, wsum, {})
+        out = {"part_eff": part_eff, **{f"wire/{k}": v for k, v in wire.items()},
+               **{f"ns/{k}": v for k, v in ns_sum.items()},
+               **{f"m/{k}": v for k, v in m_sum.items()}}
+        if quarantine:
+            out.update(part=part_l, norms=norms)
+            if lnorms is not None:
+                out["lnorms"] = lnorms
+        return out
+
+    def step(state: dict, batch: dict, client_rows: dict, lr):
+        batch, health_on = split_health(batch)
+        lr_t = lr if torch.is_tensor(lr) else torch.tensor(lr, dtype=torch.float32,
+                                                           device=state["params"].device)
+        n = next(iter(batch.values())).shape[0]
+        if group is None:
+            if n % S:
+                raise ValueError(f"sampled cohort ({n}) not divisible by client_shards={S}")
+            wl = n // S
+            outs = [shard_outputs(state, {k: v[s * wl:(s + 1) * wl] for k, v in batch.items()},
+                                  s * wl, n) for s in range(S)]
+            stacked = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        else:
+            out = shard_outputs(state, batch, shard * n, n * S)
+            keys = sorted(out)
+            stacked = dict(zip(keys, distributed.all_gather_stacked([out[k] for k in keys],
+                                                                    group)))
+        new_state, metrics = _merged_sharded_tail(cfg, state, stacked, lr_t, health_on)
+        return new_state, client_rows, metrics
+
+    return step
+
+
+def make_multi_round_step(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout,
+                          step: Callable | None = None) -> Callable:
     """K rounds in one call, the twin of the reference's
     ``make_multi_round_step``: multi(state, batches, lrs) -> (state',
     metrics) with every batch leaf [K, W, ...], ``lrs`` a float32 [K]
@@ -1152,13 +1363,14 @@ def make_multi_round_step(loss_fn: Callable, cfg: EngineConfig,
     rounds. A health metric of the block's off-cadence rounds stacks as
     zeros, as the reference's off branch gives them. A mode with per-client
     state is refused, as in the reference: the session gathers and scatters
-    its rows between rounds."""
+    its rows between rounds. ``step`` is the round to repeat (default
+    ``make_round_step``'s; a sharded session passes its sharded step)."""
     if cfg.mode.needs_local_state:
         raise ValueError(
             "multi-round dispatch requires a mode without per-client persistent state "
             "(the session gathers/scatters those rows between rounds); use per-round "
             f"dispatch for mode={cfg.mode.mode!r} error_type={cfg.mode.error_type!r}")
-    step = make_round_step(loss_fn, cfg, layout)
+    step = step or make_round_step(loss_fn, cfg, layout)
 
     def multi(state: dict, batches: dict, lrs: torch.Tensor):
         per_round = []

@@ -15,8 +15,9 @@ The double head in bfloat16 (the mc head adds n_embd parameters):
         --num_workers 4 --k 50000 --num_cols 1000000 --num_rows 5 --num_blocks 20 \
         --mc_coef 1 --num_candidates 2 --dtype bfloat16
 --init_from DIR starts from a HuggingFace GPT-2 checkpoint (``models/
-gpt2_loader.py``) instead of a random init. --checkpoint_dir, --resume and
-the preemption exit 75 work as in ``cv_train``.
+gpt2_loader.py``) instead of a random init. --checkpoint_dir, --resume,
+the preemption exit 75 and the sharded round over ranks (torchrun, or
+--multihost with the cluster flags; --mesh) work as in ``cv_train``.
 
 Observability (``obs/``): --trace and --trace_events record the run's
 spans, --profile_rounds START:END (with --profile_dir) a torch.profiler
@@ -50,6 +51,7 @@ from .models.generate import decode_reply, make_generate, word_f1
 from .models.gpt2 import SMALL, TINY, GPT2LMHead, init_weights
 from .models.gpt2_loader import load_hf_gpt2
 from .models.losses import make_lm_loss, make_lm_mc_loss
+from .parallel import distributed
 from .resilience import FaultPlan, RetryPolicy
 from .runner import RunnerConfig, run_loop
 from .serve import service_from_args
@@ -79,18 +81,20 @@ def _from_checkpoint(args, tok, with_mc_head: bool) -> tuple[GPT2LMHead, dict, s
     return model, params, f"  init_from={args.init_from}"
 
 
-def build(args):
+def build(args, fault_plan=None):
     """(session, validation set, {"model", "tok"}) of the parsed flags. The
     model module stays on the host: every forward gets its parameters from
     the session's flat vector (``functional_call``)."""
-    fault_plan = FaultPlan.parse(args.fault_plan)  # refuses an unported kind first
+    if fault_plan is None:
+        fault_plan = FaultPlan.parse(args.fault_plan)  # refuses an unported kind first
     if args.mc_coef > 0 and args.num_candidates < 2:
         raise SystemExit("--mc_coef > 0 needs --num_candidates >= 2 (the MC head scores "
                          "a gold reply against at least one distractor)")
     with_mc_head = args.mc_coef > 0
     if torch.device(args.device).type == "cuda":
         make_reproducible()  # before any CUDA work of the run
-    device = resolve_device(args.device)
+    device = resolve_device(distributed.local_device(args.device))
+    mesh = distributed.cli_mesh(args)
     train_set, valid_set, tok = load_personachat_fed(
         args.data_root, args.num_clients, args.seq_len, args.seed,
         num_candidates=args.num_candidates if with_mc_head else 1,
@@ -152,6 +156,7 @@ def build(args):
         merge_policy=args.merge_policy,
         merge_trim=args.merge_trim,
         robust_residual=args.robust_residual == "on",
+        mesh=mesh,
     )
     return session, valid_set, {"model": model, "tok": tok}
 
@@ -199,9 +204,11 @@ class F1Eval:
 
 def main(argv=None):
     args = resolve_defaults(make_parser("gpt2").parse_args(argv))
+    fault_plan = FaultPlan.parse(args.fault_plan)  # refuses an unported kind first
+    distributed.join_cli(args, fault_plan)
     # arm (or disarm) the tracer before anything emits
     obs.configure_from_args(args)
-    session, valid_set, extras = build(args)
+    session, valid_set, extras = build(args, fault_plan)
     f1_eval = (F1Eval(args, extras["model"], extras["tok"], valid_set, session.device)
                if args.eval_f1 > 0 else None)
     rounds_per_epoch = max(1, math.ceil(args.num_clients / session.num_workers))
@@ -209,7 +216,7 @@ def main(argv=None):
     if session.fault_plan is not None:
         # a client_* or wire_* site at a round the run never reaches, or a
         # wire_* site on a run with no payload seam, is refused now
-        session.fault_plan.validate_rounds(total_rounds)
+        session.fault_plan.validate_rounds(total_rounds, distributed.world_size())
         session.fault_plan.validate_wire_context(
             args.serve != "off" and args.serve_payload == "sketch")
     opt = FedOptimizer(triangular(args.lr_scale, args.pivot_epoch, args.num_epochs),
@@ -223,7 +230,7 @@ def main(argv=None):
             opt.round = session.round
             print(f"resumed from {path} at round {session.round}", flush=True)
 
-    logger = TableLogger(args.log_jsonl or None)
+    logger = TableLogger(args.log_jsonl or None) if distributed.rank() == 0 else None
 
     def build_row(rnd, m, totals, ev, time_s, nonfinite_total):
         train_nll = totals.get("loss_sum", 0.0) / max(totals.get("count", 0.0), 1)
@@ -274,7 +281,8 @@ def main(argv=None):
             wiring.postmortem(f"exception:{type(e).__name__}: {e}")
         raise
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
         wiring.close()
         if service is not None:
             print(f"serve: final metrics {service.metrics_snapshot()}", flush=True)

@@ -1,0 +1,336 @@
+"""Joining the ranks of a sharded run: the PyTorch twin of the JAX
+package's ``parallel/distributed.py``.
+
+The JAX package runs one controller process per host, which drives every
+device of that host; ``jax.distributed.initialize`` joins the hosts. The
+port runs one process per card (a rank), and ``torch.distributed``'s
+process group joins them. A rank learns its place from torchrun's
+environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+``MASTER_PORT``) or from the reference's explicit cluster flags
+(``--coordinator_address host:port --num_processes N --process_id I``).
+
+- ``initialize`` joins the group, under bounded retries (site
+  ``dist_init``, where a ``FaultPlan`` injects its failures): the backend
+  is NCCL for a CUDA device and gloo for the CPU, chosen from the device
+  and never switched after a failure. A rank on the card takes
+  ``cuda:LOCAL_RANK``. Auto mode (no flag) joins only when ``detected``,
+  and degrades to a single process with a warning when the join fails, as
+  the reference's auto mode does; a forced join propagates its failure.
+- ``all_hosts_max`` is the agreement behind coordinated preemption: an
+  ``all_reduce(MAX)`` of one int over a gloo group on the host, so it
+  never waits on the card's queued work. A single process returns the
+  value and touches no collective.
+- ``all_gather_stacked`` gathers per-rank tensors into [S, ...] stacks in
+  rank order with one ``all_gather`` of their bytes: copies, so a stack is
+  bitwise what each rank held (over gloo a CUDA tensor is staged through
+  host memory, which is how that backend moves card memory).
+- ``launch_local`` starts N ranks of a function on this host, with the
+  environment torchrun would give them.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import sys
+
+import torch
+import torch.distributed as dist
+
+# the host-side group of all_hosts_max: the default group under gloo, a
+# gloo group of its own beside an NCCL default group
+_HOST_GROUP = None
+# how long a rank waits for the others in the join and in a collective
+TIMEOUT_S = 600.0
+
+
+def detected() -> bool:
+    """Whether the environment is one rank of a multi-rank launch:
+    torchrun's ``RANK`` and ``MASTER_ADDR`` with a ``WORLD_SIZE`` of 2 or
+    more. A world of one is a single process, where joining a group is
+    pointless."""
+    try:
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+    except ValueError:
+        return False
+    return world >= 2 and "RANK" in os.environ and bool(os.environ.get("MASTER_ADDR"))
+
+
+def is_joined() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def world_size() -> int:
+    """Ranks in the job (1 when no group was joined)."""
+    return dist.get_world_size() if is_joined() else 1
+
+
+def rank() -> int:
+    """This process's rank (0 when no group was joined)."""
+    return dist.get_rank() if is_joined() else 0
+
+
+def local_rank() -> int:
+    """This rank's card on its host: ``LOCAL_RANK`` when the launcher set
+    it (torchrun does), else the rank modulo the cards the host shows."""
+    if "LOCAL_RANK" in os.environ:
+        return int(os.environ["LOCAL_RANK"])
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 1
+    return rank() % max(n, 1)
+
+
+def backend_for(device: str | torch.device) -> str:
+    """NCCL for a CUDA device, gloo for the CPU."""
+    return "nccl" if torch.device(device).type == "cuda" else "gloo"
+
+
+def local_device(device: str | torch.device) -> torch.device:
+    """The device a rank runs on: ``cuda:LOCAL_RANK`` for a CUDA request
+    inside a group, else the request as it is."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None and is_joined():
+        return torch.device("cuda", local_rank())
+    return dev
+
+
+def initialize(force: bool = False, fault_plan=None, retry_policy=None,
+               device: str | torch.device = "cuda", backend: str | None = None,
+               coordinator_address: str | None = None, num_processes: int | None = None,
+               process_id: int | None = None) -> bool:
+    """Join the job's process group (idempotent). Returns True if this
+    process is (now) in a group.
+
+    - auto mode (force=False): join only when ``detected()``; a failed
+      join warns and runs as a single process, which must never kill a job
+      that would have run fine alone.
+    - force=True: join and propagate any failure. ``coordinator_address``
+      (host:port of rank 0), ``num_processes`` and ``process_id`` name the
+      cluster where no launcher's environment does; missing ones are read
+      from it.
+
+    ``backend`` defaults to ``backend_for(device)``; gloo on a CUDA device
+    is the caller's explicit choice (several ranks sharing one card, which
+    NCCL refuses). The join runs under bounded retries at the site
+    "dist_init": the common failure is rank 0 not listening yet."""
+    global _HOST_GROUP
+    if is_joined():
+        return True
+    if not (force or detected()):
+        return False
+    from ..resilience import retry as rtry
+
+    backend = backend or backend_for(device)
+    env = os.environ
+    world = num_processes if num_processes is not None else int(env.get("WORLD_SIZE", "0") or 0)
+    rnk = process_id if process_id is not None else int(env.get("RANK", "-1") or -1)
+    if coordinator_address:
+        init_method = f"tcp://{coordinator_address}"
+    elif env.get("MASTER_ADDR") and env.get("MASTER_PORT"):
+        init_method = "env://"
+    else:
+        init_method = None
+    if init_method is None or world < 1 or not 0 <= rnk < world:
+        msg = ("cannot join a process group: need --coordinator_address, --num_processes and "
+               "--process_id, or torchrun's MASTER_ADDR, MASTER_PORT, WORLD_SIZE and RANK "
+               f"(have address={coordinator_address or env.get('MASTER_ADDR')!r}, "
+               f"num_processes={world or None}, process_id={rnk if rnk >= 0 else None})")
+        if force:
+            raise ValueError(msg)
+        print(f"warning: {msg}; running as a single process", file=sys.stderr, flush=True)
+        return False
+
+    def join():
+        if fault_plan is not None:
+            fault_plan.fire_transient("dist_init")
+        try:
+            dist.init_process_group(backend, init_method=init_method, world_size=world,
+                                    rank=rnk, timeout=datetime.timedelta(seconds=TIMEOUT_S))
+        except Exception:
+            # a half-made group would make every retry fail on "already
+            # initialized" and hide the real connection error
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            raise
+
+    try:
+        rtry.with_retries(join, site="dist_init", policy=retry_policy)
+    except Exception as e:  # noqa: BLE001 — auto mode degrades, forced raises
+        if force:
+            raise
+        print(f"warning: auto-join failed ({type(e).__name__}: {e}); running as a single "
+              "process", file=sys.stderr, flush=True)
+        return False
+    # the preemption agreement is host data: a gloo group keeps it off the
+    # card's stream (every rank makes it, in the same order)
+    _HOST_GROUP = None if backend == "gloo" else dist.new_group(backend="gloo")
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(local_rank())
+    return True
+
+
+def shutdown() -> None:
+    """Leave the process group (and the host group beside it), if joined."""
+    global _HOST_GROUP
+    if is_joined():
+        dist.destroy_process_group()
+    _HOST_GROUP = None
+
+
+def initialize_from_args(args, fault_plan=None, retry_policy=None) -> bool:
+    """CLI adapter: explicit cluster flags force the join (a user who typed
+    a coordinator address wants a cluster; training alone on each node
+    would be the worst outcome)."""
+    cluster_kw = {k: v for k, v in (("coordinator_address", args.coordinator_address),
+                                    ("num_processes", args.num_processes),
+                                    ("process_id", args.process_id)) if v is not None}
+    return initialize(force=args.multihost or bool(cluster_kw), fault_plan=fault_plan,
+                      retry_policy=retry_policy, device=args.device, **cluster_kw)
+
+
+def join_cli(args, fault_plan=None) -> bool:
+    """The CLIs' start: join the job's process group before any work (a
+    torchrun launch of 2+ ranks, or the explicit cluster flags) and print
+    the reference's ``multihost:`` line; then leave the run's files to rank
+    0: on rank r > 0 the rows (``--log_jsonl``), the trace and the profiler
+    capture are off, and the ledger goes to PATH.rank<r>."""
+    from ..resilience.retry import RetryPolicy
+    from ..utils.device import make_reproducible
+
+    if torch.device(args.device).type == "cuda":
+        make_reproducible()  # before any CUDA work of the run
+    joined = initialize_from_args(args, fault_plan=fault_plan,
+                                  retry_policy=RetryPolicy(max_retries=args.max_retries))
+    if joined:
+        print(f"multihost: {process_info()}", flush=True)
+    r = rank()
+    if r:
+        args.log_jsonl = args.trace = args.trace_events = ""
+        args.profile_rounds = args.profile_dir = ""
+        if args.ledger:
+            args.ledger = f"{args.ledger}.rank{r}"
+    return joined
+
+
+def cli_mesh(args):
+    """The CLIs' client mesh (``mesh.mesh_from_args`` over this job's
+    ranks), printed as the reference's ``mesh:`` line. A group runs no
+    aggregation service yet."""
+    from . import mesh as meshlib
+
+    mesh = meshlib.mesh_from_args(args, world_size())
+    if mesh is not None:
+        print(f"mesh: {mesh_info(mesh)}", flush=True)
+        if args.serve != "off":
+            raise SystemExit(f"--serve {args.serve}: the port runs no aggregation service on a "
+                             f"group of {mesh.shards} ranks yet (ROADMAP Queue 1 item 7b)")
+    return mesh
+
+
+def all_hosts_max(value: int) -> int:
+    """The max of a small host-local int over every rank: one int64
+    ``all_reduce(MAX)`` on the host. A single process returns the value
+    unchanged without touching any collective."""
+    if world_size() == 1:
+        return int(value)
+    t = torch.tensor([int(value)], dtype=torch.int64)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=_HOST_GROUP)
+    return int(t[0])
+
+
+def all_gather_stacked(tensors: list[torch.Tensor], group=None) -> list[torch.Tensor]:
+    """Every rank's ``tensors``, each stacked to [S, *shape] in rank order,
+    on the device they came from: one ``all_gather`` of their bytes
+    (packed in list order), so each stack holds exactly the bits each rank
+    gave. Every rank passes tensors of the same shapes and dtypes. Over
+    gloo a CUDA buffer is staged through host memory."""
+    S = dist.get_world_size(group)
+    dev = tensors[0].device
+    flat = [t.detach().contiguous().reshape(-1).view(torch.uint8) for t in tensors]
+    buf = torch.cat(flat)
+    staged = dev.type == "cuda" and dist.get_backend(group) == "gloo"
+    if staged:
+        buf = buf.cpu()
+    parts = [torch.empty_like(buf) for _ in range(S)]
+    dist.all_gather(parts, buf, group=group)
+    gathered = torch.stack(parts)
+    if staged:
+        gathered = gathered.to(dev)
+    out, off = [], 0
+    for t, f in zip(tensors, flat):
+        n = f.numel()
+        out.append(gathered[:, off:off + n].contiguous().view(t.dtype)
+                   .reshape((S,) + tuple(t.shape)))
+        off += n
+    return out
+
+
+def mesh_info(mesh) -> dict:
+    """The mesh for the start-up line: its axes, how many ways the cohort
+    splits, and whether the merge crosses slices (hosts), the reference's
+    keys."""
+    from . import mesh as meshlib
+
+    return {"axes": mesh.shape, "client_shards": meshlib.client_shards(mesh),
+            "merge_crosses_dcn": mesh.slices > 1}
+
+
+def process_info() -> dict:
+    """This rank's place for the start-up line, under the reference's keys
+    (a rank drives one device), and the backend."""
+    return {"process_index": rank(), "process_count": world_size(), "local_devices": 1,
+            "global_devices": world_size(),
+            "backend": dist.get_backend() if is_joined() else None}
+
+
+def free_port() -> int:
+    """A TCP port free on localhost now (for a group's rendezvous)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _launched(fn, args, env: dict):
+    os.environ.update(env)
+    fn(*args)
+
+
+def launch_local(fn, world: int, args: tuple = (), env: dict | None = None,
+                 timeout_s: float = 900.0) -> list[int | None]:
+    """Run ``fn(*args)`` in ``world`` fresh processes on this host (the
+    "spawn" start method of ``torch.multiprocessing``), rank r with
+    torchrun's environment for a job of ``world`` ranks on a free localhost
+    port, plus ``env``. ``fn`` joins the
+    group itself (``initialize``). Returns the exit codes in rank order;
+    once one rank fails, the others are given 30 s before they are killed
+    (a rank waiting in a collective for a dead peer would wait out the
+    group's timeout), and a rank still running at ``timeout_s`` is killed
+    (its code is then the kill's)."""
+    import time
+
+    import torch.multiprocessing as mp
+
+    port = free_port()
+    ctx = mp.get_context("spawn")
+    procs = []
+    for r in range(world):
+        renv = {"RANK": str(r), "WORLD_SIZE": str(world), "LOCAL_RANK": str(r),
+                "MASTER_ADDR": "localhost", "MASTER_PORT": str(port), **(env or {})}
+        p = ctx.Process(target=_launched, args=(fn, args, renv), daemon=False)
+        p.start()
+        procs.append(p)
+    deadline = time.monotonic() + timeout_s
+    failed_at = None
+    while any(p.is_alive() for p in procs):
+        now = time.monotonic()
+        if failed_at is None and any(p.exitcode not in (None, 0, 75) for p in procs):
+            failed_at = now
+        if now > deadline or (failed_at is not None and now > failed_at + 30.0):
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+        time.sleep(0.05)
+    for p in procs:
+        p.join()
+    return [p.exitcode for p in procs]

@@ -1,0 +1,152 @@
+"""The client mesh of the port's sharded round: the PyTorch twin of the JAX
+package's ``parallel/mesh.py``, for one rank per card.
+
+In the JAX package a mesh is a grid of devices driven by one program and
+the sampled-client axis is sharded over it. In the port a rank is one
+process with one card, joined to the others by ``torch.distributed``
+(``parallel/distributed.py``), so the mesh is only its shape: ``clients``
+ranks inside a slice, times ``slices`` slices. Shard s of the cohort is the
+contiguous slice ``[s * W / S, (s + 1) * W / S)``, and rank r holds shard
+``shard_index(r)``, row-major over (slices, clients): the order the
+reference's ``_shard_index`` gives its devices and ``all_gather`` stacks
+the partial wires in. The batch of a shard is a slice of the cohort's
+batch, not a device placement, so the reference's sharding helpers
+(``client_sharding``, ``replicated``, ``shard_client_batch``) have no
+counterpart here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+DCN_AXIS = "slices"  # ranks on other hosts or slices
+CLIENT_AXIS = "clients"  # ranks inside a slice
+
+
+@dataclasses.dataclass(frozen=True)
+class ClientMesh:
+    """``slices`` x ``clients`` ranks, one card each; ``shards`` of them
+    split the sampled cohort."""
+
+    clients: int
+    slices: int = 1
+
+    def __post_init__(self):
+        for axis in (CLIENT_AXIS, DCN_AXIS):
+            size = getattr(self, axis)
+            if not isinstance(size, int) or size <= 0:
+                raise ValueError(f"the client mesh's {axis} must be a positive int, got {size!r}")
+
+    @property
+    def shards(self) -> int:
+        return self.clients * self.slices
+
+    @property
+    def shape(self) -> dict:
+        """The axes and their sizes, outermost first; an axis of size 1 is
+        left out, as the reference's ``make_mesh`` leaves it out."""
+        return ({DCN_AXIS: self.slices} if self.slices > 1 else {}) | {CLIENT_AXIS: self.clients}
+
+    def shard_index(self, rank: int) -> int:
+        """The cohort shard rank ``rank`` holds: row-major over (slices,
+        clients), slice ``rank // clients``, client ``rank % clients``."""
+        if not 0 <= rank < self.shards:
+            raise ValueError(f"rank {rank} is outside the {self.shards}-rank client mesh")
+        return (rank // self.clients) * self.clients + rank % self.clients
+
+
+def client_shards(mesh: ClientMesh) -> int:
+    """Total ways the cohort splits (must divide num_workers)."""
+    return mesh.shards
+
+
+def parse_mesh_spec(spec: str) -> dict:
+    """Parse the CLI's ``--mesh clients=N[,slices=M]`` into {"clients": N,
+    "slices": M} (slices defaults to 1), with the reference's loud errors:
+    a typo'd axis silently training on one card is the failure the flag
+    exists to prevent."""
+    out = {"clients": 0, "slices": 1}
+    seen: set[str] = set()
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" not in part:
+            raise ValueError(
+                f"bad --mesh entry {part!r}: expected axis=size "
+                "(e.g. clients=8 or clients=4,slices=2)"
+            )
+        axis, _, size = part.partition("=")
+        axis = axis.strip()
+        if axis not in ("clients", "slices"):
+            raise ValueError(
+                f"unknown --mesh axis {axis!r}: the round shards over "
+                "'clients' (ICI) and 'slices' (DCN); model/seq parallelism "
+                "keep their dedicated flags"
+            )
+        if axis in seen:
+            # a duplicate is almost always a typo for the other axis
+            raise ValueError(f"--mesh sets axis {axis!r} twice: {spec!r}")
+        seen.add(axis)
+        try:
+            out[axis] = int(size)
+        except ValueError:
+            raise ValueError(f"bad --mesh size {size!r} for axis {axis!r}")
+        if out[axis] <= 0:
+            raise ValueError(f"--mesh {axis} must be positive, got {out[axis]}")
+    if out["clients"] <= 0:
+        raise ValueError("--mesh must set clients=N (e.g. clients=8)")
+    return out
+
+
+def mesh_from_spec(spec: str, world_size: int) -> ClientMesh:
+    """The mesh a ``--mesh`` spec asks for, in a job of ``world_size``
+    ranks (one card each). A spec that needs another number of ranks
+    raises, as the reference's ``make_mesh_from_spec`` raises when the host
+    shows too few devices: an operator who typed a topology wants that
+    topology or a loud failure."""
+    sizes = parse_mesh_spec(spec)
+    mesh = ClientMesh(clients=sizes["clients"], slices=sizes["slices"])
+    if mesh.shards != world_size:
+        raise ValueError(
+            f"--mesh {spec!r} needs {mesh.shards} ranks (one card each); this job has "
+            f"{world_size} (launch one rank per card: torchrun --nproc_per_node, or "
+            "--multihost --coordinator_address --num_processes --process_id)")
+    return mesh
+
+
+def merge_comm_bytes(n_shards: int, r: int, c: int, d: int) -> dict:
+    """Analytic per-round cross-rank traffic of the sharded round's merge,
+    per rank: the sketch-table merge (what the round ships) against the
+    dense [d] all-reduce a gradient-synchronous data-parallel round would
+    ship.
+
+    allgather = (S-1) tables received per rank (the ordered merge the round
+    uses); psum = 2(S-1)/S tables (the ring all-reduce's lower bound, for
+    comparison); dense_allreduce = the same ring bound on [d] floats."""
+    table = r * c * 4
+    dense = d * 4
+    s = max(n_shards, 1)
+    ring = 2 * (s - 1) / s
+    return {
+        "sketch_table_mb": table / 1e6,
+        "sketch_allgather_mb_per_device": (s - 1) * table / 1e6,
+        "sketch_psum_mb_per_device": ring * table / 1e6,
+        "dense_allreduce_mb_per_device": ring * dense / 1e6,
+        "dense_over_sketch_ratio": d / (r * c),
+    }
+
+
+def mesh_from_args(args, world_size: int) -> ClientMesh | None:
+    """The CLIs' mesh: ``--mesh``'s, or one shard per rank of a job of
+    ``world_size`` ranks (the reference shards over every visible device
+    by default), or None for a single process. ``--num_devices`` other
+    than 0 must equal the rank count: a rank is one card."""
+    if args.mesh:
+        return mesh_from_spec(args.mesh, world_size)
+    if args.num_devices and args.num_devices != world_size:
+        raise ValueError(
+            f"--num_devices {args.num_devices} disagrees with this job's {world_size} rank(s): "
+            "the port runs one rank per card, so launch that many ranks (or leave "
+            "--num_devices at 0)")
+    return ClientMesh(clients=world_size) if world_size > 1 else None

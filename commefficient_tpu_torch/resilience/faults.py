@@ -14,6 +14,9 @@ A plan is parsed from a compact CLI string (``--fault_plan``) of
                                 round-4 eval boundary starts
     data_fail@1:times=2         raise a transient error twice in round 1's
                                 data load (recovered by the retry wrapper)
+    dist_init:times=2           fail the process-group join twice (recovered
+                                by retry); it fires before any round, so an
+                                @round schedule is refused
     nonfinite@4                 poison round 4's client batches with NaN
                                 (value=inf for an Inf burst) so the round's
                                 updates go non-finite through the real
@@ -70,6 +73,12 @@ A plan is parsed from a compact CLI string (``--fault_plan``) of
                                 The four adversarial kinds transform the
                                 per-client wire, so a plan that names them
                                 runs the per-client-table round
+    host_preempt@3:host=1       SIGTERM as round 3 dispatches, only on the
+                                rank whose index is 1: the preemption
+                                agreement (resilience.preemption.coordinated)
+                                makes every rank checkpoint the same round
+                                and exit 75 together. In one process, rank 0
+                                (host=0 behaves as preempt)
     seed=7                      recorded on the plan for reporting, and the
                                 seed client_collude draws its colluders from
 
@@ -78,9 +87,8 @@ correctly across checkpoint resume: ``preempt@3`` does not fire again in a
 resumed run that starts at round 4. ``FaultPlan.parse("")`` is None: no
 plan, no change.
 
-The reference's other kinds (distributed bootstrap and one-host
-preemption, edge and shard kills, the buffered-async stale poison) need
-sites the port does not have yet. They are refused at parse with a message that
+The reference's other kinds (edge and shard kills, the buffered-async
+stale poison) need sites the port does not have yet. They are refused at parse with a message that
 names them and the ROADMAP item that brings them, never accepted and
 ignored.
 """
@@ -106,6 +114,8 @@ KINDS = {
     "stall": ("secs",),
     "eval_stall": ("secs",),
     "data_fail": ("times",),
+    "dist_init": ("times",),
+    "host_preempt": ("host",),
     "nonfinite": ("value",),
     "ckpt_fail": ("times",),
     "ckpt_corrupt": (),
@@ -144,7 +154,7 @@ ADVERSARIAL_KINDS = ("client_signflip", "client_scale", "client_collude", "clien
 # the reference's kinds whose sites the port does not have yet, with the
 # ROADMAP Queue 1 item that brings each
 NOT_PORTED = {
-    "dist_init": 7, "host_preempt": 7, "edge_kill": "9b", "shard_kill": "9b",
+    "edge_kill": "9b", "shard_kill": "9b",
     # its site is the --serve_async stale band
     "client_stale_poison": "9b",
 }
@@ -185,6 +195,11 @@ def _parse_entry(entry: str) -> FaultSpec:
     except ValueError:
         raise ValueError(f"bad @round list {rounds_s!r} in --fault_plan entry {entry!r} "
                          "(expected comma-separated integers)") from None
+    if kind == "dist_init" and rounds:
+        # the join fires before any round exists: a schedule would parse
+        # and then never inject
+        raise ValueError(f"fault kind 'dist_init' fires at bootstrap and cannot take an "
+                         f"@round schedule (entry {entry!r})")
     params: dict = {}
     if tail:
         for kv in tail.split(","):
@@ -199,7 +214,7 @@ def _parse_entry(entry: str) -> FaultSpec:
             # coerce at parse time: a bad value rejects the plan at launch,
             # not hours later at the scheduled round
             try:
-                if k == "times":
+                if k in ("times", "host"):
                     params[k] = int(v)
                 elif k == "secs":
                     params[k] = float(v)
@@ -285,18 +300,27 @@ class FaultPlan:
         one round, e.g. one drop list and one poison list)."""
         return [s for s in self.specs if s.kind == kind and s.matches(rnd)]
 
-    def validate_rounds(self, total_rounds: int) -> None:
-        """Launch-time check against the run's length: a client_* or
-        wire_* site scheduled at a round >= total_rounds can never fire, and
-        is refused rather than let a chaos run pass without its fault."""
+    def validate_rounds(self, total_rounds: int, world_size: int = 1) -> None:
+        """Launch-time check against the run's length and ranks: a client_*,
+        wire_* or host_preempt site scheduled at a round >= total_rounds, or
+        a host_preempt naming a rank the job of ``world_size`` ranks does
+        not have, can never fire, and is refused rather than let a chaos
+        run pass without its fault."""
         for s in self.specs:
-            if s.kind in CLIENT_KINDS + WIRE_KINDS + ADVERSARIAL_KINDS and s.rounds:
+            if (s.kind in CLIENT_KINDS + WIRE_KINDS + ADVERSARIAL_KINDS
+                    or s.kind == "host_preempt") and s.rounds:
                 dead = [r for r in s.rounds if r >= total_rounds]
                 if dead:
                     raise ValueError(
                         f"--fault_plan: {s.kind}@{','.join(map(str, dead))} can never fire "
                         f"- the run ends at round {total_rounds} (rounds are 0-based global "
                         "indices)")
+            if s.kind == "host_preempt":
+                host = int(s.params.get("host", 0))
+                if not 0 <= host < world_size:
+                    raise ValueError(
+                        f"--fault_plan: host_preempt:host={host} can never fire - this job "
+                        f"has {world_size} rank(s) (host is a 0-based rank)")
 
     def validate_wire_context(self, payload_path_armed: bool) -> None:
         """Launch-time check of the wire_* kinds: they damage payload
@@ -400,14 +424,24 @@ class FaultPlan:
                              f"num_workers={num_workers}")
         return pos
 
-    def client_faults(self, rnd: int, batch: dict, valid, num_workers: int):
+    def client_faults(self, rnd: int, batch: dict, valid, num_workers: int,
+                      rows: tuple[int, int] | None = None):
         """Cohort faults inside round ``rnd``'s preparation, after the batch
         is assembled: client_straggle sleeps, client_poison fills the
         positions' float rows (nan/inf: a non-finite update; big: 1e6, a
         large finite one), client_drop zeroes the positions' rows and their
         validity. Returns (batch, valid, dropped positions); ``valid`` stays
         None when nothing dropped. Each fires once per (kind, round,
-        positions); keys starting with "_" are control rows and stay."""
+        positions); keys starting with "_" are control rows and stay.
+        ``rows`` = (lo, hi): the batch holds only cohort slots [lo, hi) (a
+        rank's shard) while positions, ``valid`` and the dropped list stay
+        over the whole cohort of ``num_workers``, so every rank queues the
+        same clients."""
+        lo, hi = rows if rows is not None else (0, num_workers)
+
+        def local(pos):
+            return [p - lo for p in pos if lo <= p < hi]
+
         for s in self.specs_for("client_straggle", rnd):
             key = ("client_straggle", rnd, s.params.get("clients", (0,)))
             if key in self._fired:
@@ -435,7 +469,7 @@ class FaultPlan:
             fill = {"nan": np.nan, "inf": np.inf, "big": 1e6}[val]
             for k, v in batch.items():
                 if not k.startswith("_") and np.issubdtype(v.dtype, np.floating):
-                    v[pos] = fill
+                    v[local(pos)] = fill
             self._log(f"poisoning clients {pos} with {val} (round {rnd})")
             self._mark("client_poison", rnd, clients=pos, value=val)
         dropped: list[int] = []
@@ -449,7 +483,7 @@ class FaultPlan:
                      else np.array(valid, copy=True))
             for k, v in batch.items():
                 if not k.startswith("_"):
-                    v[pos] = 0
+                    v[local(pos)] = 0
             valid[pos] = 0.0
             dropped.extend(pos)
             self._log(f"dropping clients {pos} (round {rnd}; masked + re-queued)")
@@ -603,10 +637,22 @@ class FaultPlan:
 
     def preempt(self, rnd: int):
         """Simulated preemption: deliver a real SIGTERM to this process as
-        the scheduled round dispatches (one-shot)."""
-        if self._once("preempt", rnd) is not None:
-            self._log(f"injecting SIGTERM (preempt, round {rnd})")
-            self._mark("preempt", rnd)
+        the scheduled round dispatches (one-shot). ``host_preempt`` fires
+        only on the rank whose index is its ``host`` (default 0), so
+        exactly one rank gets the signal and the preemption agreement has
+        to carry it to the others; a single process is rank 0."""
+        for kind in ("preempt", "host_preempt"):
+            s = self.spec(kind, rnd)
+            if s is None or (kind, rnd) in self._fired:
+                continue
+            if kind == "host_preempt":
+                from ..parallel import distributed
+
+                if distributed.rank() != int(s.params.get("host", 0)):
+                    continue  # another rank's signal; stays armed
+            self._fired.add((kind, rnd))
+            self._log(f"injecting SIGTERM ({kind}, round {rnd})")
+            self._mark(kind, rnd)
             os.kill(os.getpid(), signal.SIGTERM)
 
     def corrupt_checkpoint(self, rnd: int, path: str):

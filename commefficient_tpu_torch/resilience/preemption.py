@@ -1,7 +1,6 @@
 """Preemption handling: SIGTERM -> finish the in-flight rounds -> emergency
 checkpoint -> exit with a resumable status. The port's copy of the JAX
-package's ``resilience/preemption.py`` for one process; the cross-host
-agreement (``coordinated``) arrives with the port's multi-process mesh.
+package's ``resilience/preemption.py``.
 
 The handler only sets a flag. The run loop checks it where the server state
 is consistent, takes an emergency checkpoint and exits ``EXIT_RESUMABLE``,
@@ -15,6 +14,21 @@ import sys
 
 # EX_TEMPFAIL: "temporary failure, retry later" — relaunch with --resume
 EXIT_RESUMABLE = 75
+
+
+def coordinated(triggered: bool) -> bool:
+    """The ranks' agreement on preemption: the max over every rank of its
+    local SIGTERM flag. A scheduler may signal one rank; without agreement
+    that rank would exit while the others wait in the next round's gather,
+    and no rank would know which round was the last complete one. The run
+    loop calls this once per round-block boundary (every rank reaches the
+    same boundaries, so the collectives line up) and every rank acts on
+    the agreed flag: all finish the same round, rank 0 checkpoints it, and
+    all exit ``EXIT_RESUMABLE``. A single process: the local flag, no
+    collective."""
+    from ..parallel import distributed
+
+    return bool(distributed.all_hosts_max(int(bool(triggered))))
 
 
 class PreemptionHandler:

@@ -31,6 +31,10 @@ What stays synchronous, deliberately:
 - **Non-finite halt**: checked from committed metrics at drain
   boundaries; the step's ``skip`` guard keeps the state clean for any round
   dispatched after the poisoned one.
+- **Preemption across ranks**: in a group of ranks (the sharded round)
+  the SIGTERM flag is agreed at every round-block boundary
+  (``resilience.preemption.coordinated``), so every rank drains the same
+  round and exits 75 together, and only rank 0 writes checkpoints.
 
 ``--sync_loop`` is the serial path: inline preparation, one
 prepare -> dispatch -> drain per round (or block), blocking saves. Both
@@ -72,7 +76,8 @@ from ..federated.api import FederatedSession, FedOptimizer, plan_block
 from ..obs import registry as obreg
 from ..obs import trace as obtrace
 from ..obs.profiler import ProfileWindow
-from ..resilience import EXIT_RESUMABLE, PreemptionHandler
+from ..parallel import distributed
+from ..resilience import EXIT_RESUMABLE, PreemptionHandler, preemption
 from ..resilience.faults import ADVERSARIAL_KINDS
 from ..utils import checkpoint as ckpt
 from ..utils.logging import Timer
@@ -194,10 +199,15 @@ def make_save_ckpt(session: FederatedSession, checkpoint_dir: str, timings: list
     """The one save closure of a run: serialised by its own lock (the
     watchdog's emergency save runs on a timer thread and must not race a
     periodic save of the same round), sharing the session's fault plan and
-    retry policy. Each save's timings are appended to ``timings``."""
+    retry policy. Each save's timings are appended to ``timings``. One
+    writer per job: in a group of ranks (whose committed states are
+    bitwise equal) only rank 0 writes, and the others' saves return None."""
     lock = threading.Lock()
+    writer = distributed.rank() == 0
 
     def save_ckpt():
+        if not writer:
+            return None
         t: dict = {}
         with lock:
             path = ckpt.save(checkpoint_dir, session, fault_plan=session.fault_plan,
@@ -251,6 +261,11 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
     tracer = obtrace.get()
     if save_ckpt is None and cfg.checkpoint_dir:
         save_ckpt = make_save_ckpt(session, cfg.checkpoint_dir, stats.checkpoints)
+    # in a group of ranks a local SIGTERM must not cut the schedule short
+    # (the other ranks would wait in the next round's gather): every
+    # preemption decision goes through the ranks' agreement at the block
+    # boundaries, where every rank's collectives line up
+    ranks = distributed.world_size()
     profile = ProfileWindow.parse(cfg.profile_rounds, cfg.profile_dir,
                                   cuda=session.device.type == "cuda")
     if profile is not None and profile.start >= cfg.total_rounds:
@@ -430,7 +445,9 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
         shutdown()
         path = save_ckpt() if save_ckpt else None
         if message:
-            print(message.format(path=path), flush=True)
+            # in a group of ranks rank 0 alone writes
+            print(message.format(path=path if path or ranks == 1 else "written by rank 0"),
+                  flush=True)
         if reason:
             _postmortem(reason)
         sys.exit(code)
@@ -460,14 +477,15 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
                             prep = take(rnd, 1)[0]
                             dispatch(lambda: session.dispatch_round(prep, lr), rnd, 1)
                         rnd += 1
-                        if pre.triggered:
+                        if pre.triggered and ranks == 1:
                             break  # stop inside the block: the grace window is short
-                if pending_rounds and (pre.triggered or pending_rounds >= eff_inflight
+                preempt_now = preemption.coordinated(pre.triggered)
+                if pending_rounds and (preempt_now or pending_rounds >= eff_inflight
                                        or rnd >= cfg.total_rounds or rnd % eval_every == 0
                                        or (cfg.checkpoint_every
                                            and rnd % cfg.checkpoint_every == 0)):
                     drain()
-                if pre.triggered:
+                if preempt_now:
                     tracer.instant("resilience", "preempt_boundary", round=session.round)
                     exit_saving(EXIT_RESUMABLE,
                                 f"preemption: emergency checkpoint at round {session.round}: "

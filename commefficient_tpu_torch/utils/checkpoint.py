@@ -374,7 +374,11 @@ def restore_latest(ckpt_dir: str, session) -> str | None:
     the restored path, or None when the directory holds no checkpoint (a
     fresh run). Raises when checkpoints exist or existed but none can be
     restored: silently restarting a long run from round 0 is the worst
-    outcome."""
+    outcome. In a group of ranks every rank restores from the shared
+    directory and rank 0 alone renames or deletes in it."""
+    from ..parallel import distributed
+
+    tidy = distributed.rank() == 0
     if not os.path.isdir(ckpt_dir):
         return None
     rounds = sorted(_round_dirs(ckpt_dir), reverse=True)
@@ -390,7 +394,8 @@ def restore_latest(ckpt_dir: str, session) -> str | None:
             print(f"ERROR: checkpoint {path} FAILED integrity verification (corrupt or "
                   "partial write); falling back to the previous verified-good checkpoint",
                   file=sys.stderr, flush=True)
-            _set_aside_damaged(ckpt_dir, name)
+            if tidy:
+                _set_aside_damaged(ckpt_dir, name)
             skipped += 1
             continue
         try:
@@ -401,12 +406,14 @@ def restore_latest(ckpt_dir: str, session) -> str | None:
             print(f"ERROR: checkpoint {path} failed to restore ({type(e).__name__}: {e}); "
                   "falling back to the previous verified-good checkpoint",
                   file=sys.stderr, flush=True)
-            _set_aside_damaged(ckpt_dir, name)
+            if tidy:
+                _set_aside_damaged(ckpt_dir, name)
             skipped += 1
             continue
         restored_path = path
         break
-    _gc_damaged(ckpt_dir)
+    if tidy:
+        _gc_damaged(ckpt_dir)
     if restored_path is None:
         raise RuntimeError(f"no restorable checkpoint in {ckpt_dir}: all {len(rounds)} "
                            "candidates failed verification or restore")

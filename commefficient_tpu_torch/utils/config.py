@@ -4,8 +4,8 @@ defaults, plus ``--device``, so a launch command of the reference parses
 here. The flags of features the port does not run yet (``_UNPORTED``:
 the layerwise sketch path, the
 pipelined, buffered-async, fast-path, sharded and edge-tree serving
-variants, meshes and processes, and
-GPT-2's ring attention, mixture of experts and parallelism) parse at the
+variants, and GPT-2's ring attention, mixture of experts and
+parallelism) parse at the
 reference's defaults, and ``resolve_defaults`` refuses any other value
 by name, with the ROADMAP Queue 1 item that brings the feature: accepted
 and ignored is never an outcome. ``--share_ps_gpu`` and ``--port`` are the
@@ -26,7 +26,6 @@ from ..obs.slo import parse_rules
 # another value is refused, the ROADMAP Queue 1 item that brings it or None
 # when none is queued)
 _SERVE = "the port runs the synchronous serial service only"
-_MULTI = "the port runs one process on one device"
 _UNPORTED = (
     ("sketch_path", dict(default="ravel", choices=["ravel", "layerwise"]), ("ravel",),
      "the layerwise sketch path is not ported", 8),
@@ -43,13 +42,6 @@ _UNPORTED = (
     ("serve_gauntlet_workers", dict(type=int, default=2), (2,), _SERVE, "9b"),
     ("split_compile", dict(action="store_true"), (False,),
      "the port runs eagerly and compiles no program to split", None),
-    ("multihost", dict(action="store_true"), (False,), _MULTI, 7),
-    ("coordinator_address", dict(default=None), (None,), _MULTI, 7),
-    ("num_processes", dict(type=int, default=None), (None,), _MULTI, 7),
-    ("process_id", dict(type=int, default=None), (None,), _MULTI, 7),
-    ("num_devices", dict(type=int, default=0, help="0 = all visible; the port runs one"),
-     (0, 1), _MULTI, 7),
-    ("mesh", dict(default=""), ("",), _MULTI, 7),
 )
 _PARALLEL = "tensor, sequence and expert parallelism are not ported"
 _UNPORTED_GPT2 = (
@@ -290,6 +282,27 @@ def make_parser(task: str = "cv") -> argparse.ArgumentParser:
                         "estimator (needs --health_every). Requires --slo")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on: cuda (default) or cpu")
+    # ranks and the client mesh (parallel/): one rank per card
+    p.add_argument("--multihost", action="store_true",
+                   help="force joining the process group at start-up (a torchrun launch "
+                        "of 2+ ranks joins without this flag; see parallel/distributed.py)")
+    p.add_argument("--coordinator_address", default=None,
+                   help="host:port of rank 0 for --multihost on clusters without a "
+                        "launcher's environment")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="total ranks for --multihost (with --coordinator_address)")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="this process's rank for --multihost (with --coordinator_address)")
+    p.add_argument("--num_devices", type=int, default=0,
+                   help="0 = every rank of the job; otherwise it must equal the job's rank "
+                        "count (one card per rank)")
+    p.add_argument("--mesh", default="",
+                   help="client mesh of the sharded round: clients=N[,slices=M], N x M "
+                        "ranks (one card each). The sampled cohort shards N x M ways; each "
+                        "rank sketches its shard's partial Count Sketch and the ranks "
+                        "all-gather the r x c tables and merge them in rank order, instead "
+                        "of all-reducing the dense [d] gradient. Must match the job's rank "
+                        "count. Unset = shard over every rank of the job")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
                    help="model compute dtype (params, batch-norm statistics, logits "
                         "and the sketched gradient stay float32)")
@@ -393,6 +406,13 @@ def resolve_defaults(args: argparse.Namespace) -> argparse.Namespace:
                          "residual; with --merge_policy sum (or trimmed@0, which is the sum) "
                          "there is no robust merge - arm --merge_policy trimmed (trim > 0) "
                          "or median")
+    if args.mesh:
+        from ..parallel.mesh import parse_mesh_spec
+
+        try:
+            parse_mesh_spec(args.mesh)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
     if args.watchdog_abort and not args.checkpoint_dir:
         raise SystemExit("--watchdog_abort needs --checkpoint_dir: aborting without an "
                          "emergency checkpoint would lose the run instead of resuming it")

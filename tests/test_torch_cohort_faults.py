@@ -73,9 +73,11 @@ def test_client_fault_kinds_parse_and_coerce_as_the_reference():
                 parse(bad)
     with pytest.raises(ValueError, match="unknown param"):
         TFaultPlan.parse("client_drop@1:client=0")
-    # one-host preemption goes with the mesh, refused by name until then
-    with pytest.raises(ValueError, match="'host_preempt'.*not ported.*item 7"):
-        TFaultPlan.parse("host_preempt@3:host=1")
+    # one-host preemption came with the sharded round: its host parses to
+    # an int, as the reference's does
+    text = "host_preempt@3:host=1"
+    assert _specs(TFaultPlan.parse(text)) == _specs(JFaultPlan.parse(text))
+    assert TFaultPlan.parse(text).spec("host_preempt", 3).params["host"] == 1
 
 
 def test_validate_rounds_rejects_unreachable_client_sites():
