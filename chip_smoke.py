@@ -250,6 +250,27 @@ Phases (any failure raises, and the exit status is non-zero):
       (CUDA events); the gloo gather's ms on rank 0 (processes on one card
       through host memory: it says nothing of NVLink or InfiniBand);
       ``merge_comm_bytes`` at S = 4 for ResNet-9 and GPT-2.
+19. the layerwise sketch path (``--sketch_path layerwise``); every phase
+   above runs the ravel path and must launch no ``sketch_accumulate_leaf``:
+   a. the per-leaf accumulate against its plain version, bitwise after
+      every leaf, and the folded table against ``sketch_accumulate`` of the
+      raveled vector: on edge trees (a leaf that starts mid-slab and spans 3
+      slabs, a 1-element leaf, a last leaf with padding past d; c not a
+      multiple of 4 at r = 1; r = 16; c below the tile), then on every leaf
+      of ResNet-9's plan (26 leaves, c = 524,288) and of GPT-2's (148, c =
+      1,000,000); cold and warm ms of a whole tree's fold (beside
+      ``sketch_accumulate`` of the same vector) and of one launch on the
+      largest and the smallest leaf, with plain ms and bound;
+   b. ResNet-9 FetchSGD (phase 5's flags), 6 rounds: ravel sync, layerwise
+      sync and async (bitwise equal), launches a round 26
+      ``sketch_accumulate_leaf``, 0 ``sketch_accumulate``, 1
+      ``sketch_query``; layerwise against ravel bitwise (the client phase
+      is shared, so only the fold can differ); sync round ms and peak
+      memory of each path in turns (CUDA events);
+   d. --fault_plan preempt@2 exits 75, --resume == (b)'s layerwise run;
+   c. GPT-2 LM (phase 11's flags, chunk 0), 2 rounds each way: 148 leaf
+      launches a round, state and rows against ravel's bitwise, round ms
+      and peak memory in turns.
 
 Prints one JSON line with the kernels' numbers (launches counted over
 phase 8; under "gpt2" each kernel's numbers at the GPT-2 shape, launches
@@ -260,12 +281,15 @@ the numbers at phase 13b's shape; "launches_serve" over phase 14a's and
 "launches_obs" over phase 16's armed (a), GPT-2 (d) and served (e) runs,
 "launches_robust" over phase 17's attacked runs and its quarantine run,
 "launches_mesh" over phase 18's emulation and each rank of its
-uninterrupted gloo run),
+uninterrupted gloo run, "launches_layerwise" over each run of phase 19; a
+third row, ``sketch_accumulate_leaf``, with a whole ResNet-9 tree's fold
+times and (b)'s layerwise launches),
 then
 as its last line
 ``{"ok": true, "device": {...}}``. Run from the repository root:
     python3 chip_smoke.py
 ``--kernels-only`` stops after phase 4 (a short first check of a new kernel),
+``--layerwise-only`` runs phase 19 right after phase 4 and stops,
 ``--cohorts N`` sets the number of cohorts phase 7 compares (default 4);
 ``--pairs N`` the sync/async timing pairs of phase 8 (default 2).
 """
@@ -418,6 +442,16 @@ MESH_ARGS = ["--num_rounds", str(MESH_ROUNDS), "--checkpoint_every", "2",
 # and the params move by a sliver of the step apart
 MESH_TOPK_AGREE = 0.99
 MESH_REL = 1e-3
+# phase 19: the layerwise sketch path. (b) and (d) run LW_ROUNDS rounds of
+# phase 5's flags, (c) LW_GPT2_ROUNDS of phase 11's; LW_PAIRS timed turns a
+# path. LEAF_EDGES (d, c, r, leaf sizes): a leaf that starts mid-slab and
+# spans 3 slabs, a 1-element leaf and a last leaf with padding past d; c not
+# a multiple of 4 at r = 1; r = 16; c below the 2048-bucket tile
+LW_ROUNDS = 6
+LW_GPT2_ROUNDS = 2
+LW_PAIRS = 3
+LEAF_EDGES = [(3000, 1024, 3, (100, 2500, 1, 399)), (5003, 777, 1, (5, 1600, 1, 3397)),
+              (40000, 4096, 16, (4096, 1, 30000, 5903)), (2500, 300, 2, (299, 2, 2199))]
 
 
 def fail(msg: str):
@@ -741,7 +775,7 @@ def run_loop_phase(cv_train, kernels, card: str, pairs: int) -> dict:
     print("run loop: the resume fell back past the damaged round-3 checkpoint to round 2",
           flush=True)
     hold("corrupt -> fallback resume", f_, row_f, keys=("test_loss", "test_acc", "comm_mb"))
-    launches = dict(kernels.launch_counts)
+    launches = ravel_launches(kernels)
     for name, n in launches.items():
         if n != rounds:
             fail(f"{name} launched {n} times in {rounds} sketch rounds of the run-loop phase")
@@ -959,7 +993,7 @@ def baselines_phase(cv_train, engine, csvec, kernels, card: str) -> None:
                                         *extra])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(kernels.launch_counts)
+        launches = ravel_launches(kernels)
         if any(n != sketch_launches * s.run_stats.rounds for n in launches.values()):
             fail(f"{label}: launches {launches} in {s.run_stats.rounds} rounds, expected "
                  f"{sketch_launches} per round")
@@ -1140,7 +1174,7 @@ def cohort_phase(cv_train, engine, csvec, kernels, card: str) -> dict:
     kernels.reset_launch_counts()
     with contextlib.redirect_stderr(tee):
         a, rec_a = run(faults + ["--sync_loop"], "faults_sync")
-    launches = dict(kernels.launch_counts)
+    launches = ravel_launches(kernels)
     m = rec_a["metrics"]
     cols = {k: [x.get(k) for x in m] for k in ("participants", "clients_dropped",
                                                "requeue_depth", "nonfinite_rounds")}
@@ -1416,7 +1450,7 @@ def serve_phase(cv_train, engine, csvec, kernels, card: str) -> dict:
     # a. announce, inproc, against the batch round with the same drops
     kernels.reset_launch_counts()
     a = run(SERVE_ANNOUNCE, "announce_inproc")
-    launches = {"announce_inproc": dict(kernels.launch_counts)}
+    launches = {"announce_inproc": ravel_launches(kernels)}
     plan_a = _drop_plan(a["src"].closed_rounds)
     print(f"serve a: closes {[c.closed_by for c in a['src'].closed_rounds]}, batch twin plan "
           f"{plan_a!r}", flush=True)
@@ -1433,7 +1467,7 @@ def serve_phase(cv_train, engine, csvec, kernels, card: str) -> dict:
     payload = ["--serve", "inproc"] + SERVE_PAYLOAD
     kernels.reset_launch_counts()
     b = run(payload + ["--fault_plan", SERVE_PLAN], "payload_inproc")
-    launches["payload_inproc"] = lp = dict(kernels.launch_counts)
+    launches["payload_inproc"] = lp = ravel_launches(kernels)
     counters = b["svc"].queue.counters()
     W = b["s"].num_workers
     checks = {
@@ -1556,7 +1590,7 @@ def gpt2_phase(kernels, csvec, engine, time_ms, gen: torch.Generator, card: str,
                                          "--mode", mode, *extra])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(kernels.launch_counts)
+        launches = ravel_launches(kernels)
         per_round = 1 if mode == "sketch" else 0
         if any(n != per_round * s.run_stats.rounds for n in launches.values()):
             fail(f"gpt2 {label}: launches {launches} in {s.run_stats.rounds} {mode} rounds, "
@@ -1783,7 +1817,7 @@ def bf16_phase(cv_train, engine, csvec, kernels, time_ms, gen: torch.Generator, 
         t0 = time.perf_counter()
         s = fn()
         torch.cuda.synchronize()
-        got = dict(kernels.launch_counts)
+        got = ravel_launches(kernels)
         if any(n != rounds_per_run * s.run_stats.rounds for n in got.values()):
             fail(f"bf16 {label}: launches {got} in {s.run_stats.rounds} rounds, expected "
                  f"{rounds_per_run} per round")
@@ -2007,7 +2041,7 @@ def _batched_runs(cv_train, engine, csvec, kernels, card: str, launches: dict) -
         torch.cuda.reset_peak_memory_stats()
         s.run_round(lr)
         torch.cuda.synchronize()
-        got = dict(kernels.launch_counts)
+        got = ravel_launches(kernels)
         launches[label] = got
         if any(n != 1 for n in got.values()):
             fail(f"batched {label}: launches {got} in one sketch round, expected 1 each")
@@ -2181,7 +2215,7 @@ def obs_phase(cv_train, engine, csvec, kernels, card: str) -> dict:
     with recording_health(engine) as hrec:
         arm, rows_a = run(armed("a") + ["--profile_rounds", "2:3", "--profile_dir", pdir],
                           "armed")
-    launches["armed"] = la = dict(kernels.launch_counts)
+    launches["armed"] = la = ravel_launches(kernels)
     if not (_equal(_full_state(plain), _full_state(arm)) and rows_p == rows_a):
         fail("obs a: the armed run differs from the plain run")
     health_rounds = [r for r in range(OBS_ROUNDS) if r % 2 == 0]
@@ -2275,7 +2309,7 @@ def obs_phase(cv_train, engine, csvec, kernels, card: str) -> dict:
     kernels.reset_launch_counts()
     with recording_health(engine) as hrec:
         g, _ = run(["--sync_loop", "--health_every", "1"], "gpt2", gpt2_train.main, GPT2_ARGS, 2)
-    launches["gpt2_health"] = lg = dict(kernels.launch_counts)
+    launches["gpt2_health"] = lg = ravel_launches(kernels)
     if lg != {"sketch_accumulate": 2, "sketch_query": 4}:
         fail(f"obs d: launches {lg}, expected 2 accumulates and 4 queries")
     for r, b in g.health_monitor.history:
@@ -2321,7 +2355,7 @@ def obs_phase(cv_train, engine, csvec, kernels, card: str) -> dict:
     kernels.reset_launch_counts()
     with serving_runs() as rec:
         served, _ = run(payload, "served", rounds=SERVE_ROUNDS)
-    launches["served_health"] = ls = dict(kernels.launch_counts)
+    launches["served_health"] = ls = ravel_launches(kernels)
     W = served.num_workers
     if ls != {"sketch_accumulate": W * SERVE_ROUNDS, "sketch_query": 2 * SERVE_ROUNDS}:
         fail(f"obs e: launches {ls}, expected {W} accumulates and 2 queries a round")
@@ -2395,7 +2429,7 @@ def robust_phase(cv_train, engine, csvec, kernels, card: str) -> dict:
             s = cv_train.main(argv)
         torch.cuda.synchronize()
         if count:
-            launches[label] = dict(kernels.launch_counts)
+            launches[label] = ravel_launches(kernels)
         return s, rec
 
     def build(extra):
@@ -2651,8 +2685,286 @@ def robust_phase(cv_train, engine, csvec, kernels, card: str) -> dict:
     return launches
 
 
+def ravel_launches(kernels) -> dict:
+    """The launch counts of a run of the ravel path (phases 5-18): the
+    per-leaf accumulate must not have launched; returns the counts of the
+    two whole-vector kernels."""
+    counts = dict(kernels.launch_counts)
+    leaf = counts.pop("sketch_accumulate_leaf")
+    if leaf:
+        fail(f"a ravel-path run launched sketch_accumulate_leaf {leaf} times")
+    return counts
+
+
+def fold_check(layerwise, csvec, spec, leaves: list, label: str) -> float:
+    """Fold ``leaves`` (flat float32 tensors on the card, in ravel order)
+    into a zero table leaf by leaf, through the kernel and through the plain
+    version, and hold the two tables bitwise after every leaf; then the
+    folded table against ``sketch_accumulate`` of the concatenated vector.
+    Returns the largest difference (0.0: any other fails)."""
+    plan = layerwise.make_block_plan(spec, leaves)
+    got = csvec.zero_table(spec, "cuda")
+    want = csvec.zero_table(spec, "cuda")
+    err = 0.0
+    for i, (v, blk) in enumerate(zip(leaves, plan.blocks)):
+        layerwise.accumulate_leaf(spec, got, v, blk.offset)
+        layerwise._accumulate_leaf_rotation(spec, want, v, blk)
+        err = max(err, compare(f"sketch_accumulate_leaf {label} leaf {i} [{blk.offset}, "
+                               f"+{blk.size}) (slabs {blk.s0}..{blk.s0 + blk.num_slabs - 1})",
+                               got, want))
+    return max(err, compare(f"sketch_accumulate_leaf {label}: the folded table against "
+                            "sketch_accumulate", got, csvec.sketch_vec(spec, torch.cat(leaves))))
+
+
+def leaf_times(layerwise, csvec, kernels, time_ms, spec, segments, gen, label: str,
+               card: str) -> dict:
+    """Cold (L2 flushed) and warm (the leaves just rewritten) ms of a whole
+    tree's fold (one launch a leaf, and the table's zeroing) beside
+    ``sketch_accumulate`` of the same vector, and of one launch on the
+    largest and the smallest leaf; each with its plain version's ms and its
+    bound: the leaves read once and the touched table buckets (min(n, c) a
+    row) read and written once, at 3.35 TB/s, or 2 operations a (row,
+    coordinate) at 67 TFLOP/s. Prints them; returns the tree's numbers."""
+    import functools
+
+    d, c, r = spec.d, spec.c, spec.r
+    v = torch.randn(d, generator=gen, device="cuda")
+    leaves = [v[o:o + n] for o, n in segments]
+    plan = layerwise.make_block_plan(spec, leaves)
+    shifts, ks = csvec._rotation_keys(spec, v.device)
+    flush = torch.ones(64 * 2**20, dtype=torch.float32, device="cuda")
+
+    def bound(n_coords, buckets):
+        b = 4 * n_coords + 8 * r * buckets
+        ops = 2 * r * n_coords
+        bytes_ms, ops_ms = b / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+        return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+    def plain_tree():
+        t = csvec.zero_table(spec, "cuda")
+        for leaf, blk in zip(leaves, plan.blocks):
+            layerwise._accumulate_leaf_rotation(spec, t, leaf, blk)
+        return t
+
+    out = {}
+    work = {"tree": (lambda: layerwise.sketch_tree(spec, leaves, plan), plain_tree, d,
+                     sum(min(n, c) for _, n in segments), len(segments)),
+            "sketch_accumulate": (lambda: kernels.accumulate(v, shifts, ks, c), None, d, c, 1)}
+    table = csvec.zero_table(spec, "cuda")
+    for which, i in (("largest leaf", max(range(len(segments)), key=lambda i: segments[i][1])),
+                     ("smallest leaf", min(range(len(segments)), key=lambda i: segments[i][1]))):
+        o, n = segments[i]
+        blk = plan.blocks[i]
+        work[which] = (functools.partial(kernels.accumulate_leaf, table, leaves[i], o, shifts, ks,
+                                         c, d),
+                       functools.partial(layerwise._accumulate_leaf_rotation, spec, table.clone(),
+                                         leaves[i], blk), n, min(n, c), 1)
+    for name, (fn, plain, n_coords, buckets, launches) in work.items():
+        ms = time_ms(fn, TIMED_LAUNCHES, flush.sum)
+        warm = time_ms(fn, TIMED_LAUNCHES, lambda: v.mul_(1.0))
+        plain_ms = time_ms(plain, 3, flush.sum) if plain is not None else None
+        b_ms, b_by = bound(n_coords, buckets)
+        out[name] = {"ms": ms, "warm_ms": warm, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "launches": launches, "coords": n_coords}
+        print(f"layerwise a: {label} {name} ({launches} launch{'es' if launches > 1 else ''}, "
+              f"{n_coords:,} coordinates): {ms:.4f} ms cold, {warm:.4f} warm, plain "
+              f"{'n/a' if plain_ms is None else f'{plain_ms:.3f}'} ms, bound {b_ms:.4f} ms "
+              f"({b_by}) [{card}]", flush=True)
+    return out
+
+
+def layerwise_phase(cv_train, engine, csvec, kernels, time_ms, gen: torch.Generator,
+                    card: str) -> dict:
+    """Phase 19: the layerwise sketch path (``--sketch_path layerwise``) at
+    full width: the per-leaf kernel against its plain version (a), ResNet-9
+    FetchSGD layerwise against ravel (b), GPT-2 LM (c), preempt and resume
+    (d). Returns the per-leaf kernel's row fields and each kernel's
+    launches by run."""
+    import dataclasses
+    import shutil
+
+    from commefficient_tpu_torch import gpt2_train
+    from commefficient_tpu_torch.sketch import layerwise
+
+    base = os.path.join(ROOT, "build", "chip_smoke", "layerwise")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    phase_t = time.perf_counter()
+    launches = {}
+    err = 0.0
+
+    # a. the kernel against its plain version on the edge cases first
+    for d, c, r, sizes in LEAF_EDGES:
+        spec = csvec.CSVecSpec(d=d, c=c, r=r, seed=42, family="rotation")
+        v = torch.randn(d, generator=gen, device="cuda")
+        err = max(err, fold_check(layerwise, csvec, spec, list(torch.split(v, list(sizes))),
+                                  f"d={d} c={c} r={r}"))
+    print(f"layerwise a: sketch_accumulate_leaf == plain after every leaf, and the folded "
+          f"table == sketch_accumulate, bitwise, on {len(LEAF_EDGES)} edge trees "
+          f"{[e[3] for e in LEAF_EDGES]}", flush=True)
+
+    def run(main, argv, label, sketch_path):
+        log = os.path.join(base, f"{label}.jsonl")
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        s = main(argv + ["--sketch_path", sketch_path, "--log_jsonl", log])
+        torch.cuda.synchronize()
+        launches[label] = dict(kernels.launch_counts)
+        with open(log) as f:
+            rows = [{k: v for k, v in json.loads(ln).items() if k != "time_s"} for ln in f]
+        print(f"layerwise {label}: {s.run_stats.rounds} rounds, launches {launches[label]}, "
+              f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB, last row "
+              f"{rows[-1]}", flush=True)
+        print(_times(f"layerwise {label}", s.run_stats, card), flush=True)
+        return s, rows
+
+    def per_round_launches(label, rounds, leaves, accumulate=0):
+        want = {"sketch_accumulate": accumulate * rounds, "sketch_query": rounds,
+                "sketch_accumulate_leaf": leaves * rounds}
+        if launches[label] != want:
+            fail(f"layerwise {label}: launches {launches[label]} in {rounds} rounds, want {want}")
+
+    def turns(steps: dict, state, batch, lr) -> dict:
+        """Round ms of each step in turns (CUDA events), the first turn a
+        warm-up, and each step's peak device memory above what was
+        allocated before it."""
+        ms = {k: [] for k in steps}
+        peak = {}
+        for i in range(LW_PAIRS + 1):
+            for label in (list(steps) if i % 2 == 0 else list(steps)[::-1]):
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                steps[label](state, batch, {}, lr)
+                e1.record()
+                e1.synchronize()
+                peak[label] = (torch.cuda.max_memory_allocated() - before) / 1e9
+                if i:
+                    ms[label].append(e0.elapsed_time(e1))
+        return {k: {"ms": v, "median": statistics.median(v), "peak_gb": peak[k]}
+                for k, v in ms.items()}
+
+    # b. ResNet-9 FetchSGD at full width, layerwise against ravel
+    argv = SLICE_ARGS + ["--num_rounds", str(LW_ROUNDS), "--eval_every", str(LW_ROUNDS)]
+    rv, rows_rv = run(cv_train.main, argv + ["--sync_loop"], "resnet9_ravel", "ravel")
+    lw, rows_lw = run(cv_train.main, argv + ["--sync_loop"], "resnet9_sync", "layerwise")
+    segments = layerwise.leaf_segments(lw.layout)
+    per_round_launches("resnet9_ravel", LW_ROUNDS, 0, accumulate=1)
+    per_round_launches("resnet9_sync", LW_ROUNDS, len(segments))
+    la, rows_la = run(cv_train.main, argv, "resnet9_async", "layerwise")
+    per_round_launches("resnet9_async", LW_ROUNDS, len(segments))
+    if not (_equal(_full_state(lw), _full_state(la)) and rows_lw == rows_la):
+        fail("layerwise b: the async layerwise run differs from the sync one")
+
+    if not (_equal(_full_state(rv), _full_state(lw)) and rows_rv == rows_lw):
+        fail("layerwise b: the layerwise run differs from the ravel run")
+    print(f"layerwise b: ResNet-9 FetchSGD, {LW_ROUNDS} rounds: layerwise sync == async bitwise; "
+          f"layerwise == ravel bitwise (params, Vvelocity, Verror, batch-norm statistics, rows "
+          f"but time_s); launches a round {len(segments)} sketch_accumulate_leaf, 0 "
+          f"sketch_accumulate, 1 sketch_query [{card}]", flush=True)
+    # the kernel on every leaf of ResNet-9's plan, on the run's reduced
+    # gradient's shape, and the times
+    spec = lw.cfg.mode.sketch_spec
+    v = torch.randn(spec.d, generator=gen, device="cuda")
+    err = max(err, fold_check(layerwise, csvec, spec, [v[o:o + n] for o, n in segments],
+                              "resnet9"))
+    print(f"layerwise a: every leaf of ResNet-9's plan ({len(segments)} leaves, d={spec.d:,} "
+          f"c={spec.c:,} r={spec.r}) == plain after every leaf, the table == sketch_accumulate, "
+          "bitwise", flush=True)
+    times = leaf_times(layerwise, csvec, kernels, time_ms, spec, segments, gen, "resnet9", card)
+    batch = lw._to_device(lw.prepare_round(lw.round).batch)
+    lr = torch.tensor(CHECK_LR, device=lw.device)
+    ravel_step = engine.make_round_step(lw.train_loss_fn,
+                                        dataclasses.replace(lw.cfg, sketch_path="ravel"), lw.layout)
+    t9 = turns({"ravel": ravel_step, "layerwise": lw._step}, lw.state, batch, lr)
+    print(f"layerwise b: ResNet-9 sync round ms (CUDA events, {LW_PAIRS} turns): "
+          + ", ".join(f"{k} {[round(x, 3) for x in t['ms']]} (median {t['median']:.3f}, peak "
+                      f"{t['peak_gb']:.3f} GB above the state)" for k, t in t9.items())
+          + f" [{card}]", flush=True)
+    del rv, la, ravel_step, batch
+
+    # d. preempt and resume, layerwise
+    ck = os.path.join(base, "ck")
+    pre = argv + ["--sync_loop", "--checkpoint_dir", ck, "--fault_plan", "preempt@2"]
+    try:
+        run(cv_train.main, pre, "resnet9_preempted", "layerwise")
+        fail("layerwise d: preempt@2 did not exit")
+    except SystemExit as ex:
+        if ex.code != 75:
+            raise
+    res, rows_res = run(cv_train.main, pre + ["--resume"], "resnet9_resumed", "layerwise")
+    keys = ("round", "test_loss", "test_acc", "comm_mb")
+    if not (_equal(_full_state(res), _full_state(lw))
+            and [{k: r[k] for k in keys} for r in rows_res[-1:]] ==
+            [{k: r[k] for k in keys} for r in rows_lw[-1:]]):
+        fail("layerwise d: preempt -> resume differs from the uninterrupted layerwise run")
+    print("layerwise d: preempt@2 -> exit 75 -> --resume == the uninterrupted layerwise run, "
+          "bitwise (params, Vvelocity, Verror, batch-norm statistics, eval row)", flush=True)
+    shutil.rmtree(ck, ignore_errors=True)
+    del res, lw
+
+    # c. GPT-2 LM (phase 11's flags, client_chunk 0), layerwise against ravel
+    gargv = GPT2_ARGS + ["--num_rounds", str(LW_GPT2_ROUNDS), "--sync_loop"]
+    grv, grows_rv = run(gpt2_train.main, gargv, "gpt2_ravel", "ravel")
+    glw, grows_lw = run(gpt2_train.main, gargv, "gpt2_sync", "layerwise")
+    gsegments = layerwise.leaf_segments(glw.layout)
+    per_round_launches("gpt2_ravel", LW_GPT2_ROUNDS, 0, accumulate=1)
+    per_round_launches("gpt2_sync", LW_GPT2_ROUNDS, len(gsegments))
+    if not (_equal(_full_state(grv), _full_state(glw)) and grows_rv == grows_lw):
+        diff = max((_state(glw)[k] - _state(grv)[k]).abs().max().item() for k in _state(grv))
+        fail(f"layerwise c: GPT-2's layerwise run differs from the ravel run (params, "
+             f"Vvelocity, Verror max abs difference {diff:.3e})")
+    print(f"layerwise c: GPT-2 LM, {LW_GPT2_ROUNDS} rounds: layerwise == ravel bitwise (params, "
+          f"Vvelocity, Verror, rows but time_s); {len(gsegments)} leaf launches a round "
+          f"[{card}]", flush=True)
+    gspec = glw.cfg.mode.sketch_spec
+    v = torch.randn(gspec.d, generator=gen, device="cuda")
+    err = max(err, fold_check(layerwise, csvec, gspec, [v[o:o + n] for o, n in gsegments],
+                              "gpt2"))
+    print(f"layerwise a: every leaf of GPT-2's plan ({len(gsegments)} leaves, d={gspec.d:,} "
+          f"c={gspec.c:,} r={gspec.r}) == plain after every leaf, the table == "
+          "sketch_accumulate, bitwise", flush=True)
+    del v
+    gtimes = leaf_times(layerwise, csvec, kernels, time_ms, gspec, gsegments, gen, "gpt2", card)
+    gbatch = glw._to_device(glw.prepare_round(glw.round).batch)
+    glr = torch.tensor(CHECK_LR, device=glw.device)
+    tg = turns({"ravel": grv._step, "layerwise": glw._step}, glw.state, gbatch, glr)
+    print(f"layerwise c: GPT-2 LM sync round ms (CUDA events, {LW_PAIRS} turns): "
+          + ", ".join(f"{k} {[round(x, 3) for x in t['ms']]} (median {t['median']:.3f}, peak "
+                      f"{t['peak_gb']:.3f} GB above the state)" for k, t in tg.items())
+          + f" [{card}]", flush=True)
+    del grv, glw, gbatch
+    print(f"layerwise: phase took {time.perf_counter() - phase_t:.1f} s [{card}]", flush=True)
+    tree = times["tree"]
+    return {"row": {"max_abs_err": err, "ms": tree["ms"], "warm_ms": tree["warm_ms"],
+                    "plain_ms": tree["plain_ms"],
+                    "bound_ms": tree["bound_ms"], "bound_by": tree["bound_by"],
+                    "launches": launches["resnet9_sync"]["sketch_accumulate_leaf"],
+                    "per_launch": {k: times[k] for k in ("largest leaf", "smallest leaf")},
+                    "sketch_accumulate_same_vector": times["sketch_accumulate"],
+                    "gpt2": {**gtimes["tree"], "launches": launches["gpt2_sync"][
+                        "sketch_accumulate_leaf"], "per_launch": {
+                        k: gtimes[k] for k in ("largest leaf", "smallest leaf")},
+                        "sketch_accumulate_same_vector": gtimes["sketch_accumulate"]},
+                    "round_ms": {"resnet9": t9, "gpt2": tg}},
+            "launches": launches}
+
+
 REPLACES = {"sketch_accumulate": "commefficient_tpu/sketch/pallas_kernels.py:135",
             "sketch_query": "commefficient_tpu/sketch/pallas_kernels.py:211"}
+
+
+def leaf_row(lw: dict) -> dict:
+    """The per-leaf accumulate's row of the kernels line, from phase 19:
+    its times are a whole ResNet-9 tree's fold (26 launches), its launches
+    those of (b)'s layerwise sync run. It has no library call: PyTorch has
+    no rotation-family Count-Sketch, and ``index_put_`` computes another
+    hash family's scatter."""
+    return {"name": "sketch_accumulate_leaf", "route": "cuda",
+            "source": "commefficient_tpu_torch/sketch/csrc/sketch_kernels.cu",
+            "replaces": REPLACES["sketch_accumulate"], "library_ms": None, **lw["row"]}
 
 
 def _mesh_rank(argv: list, out_dir: str, tag: str, device: str) -> None:
@@ -2695,7 +3007,7 @@ def _mesh_rank(argv: list, out_dir: str, tag: str, device: str) -> None:
             code = e.code if isinstance(e.code, int) else 1
         finally:
             with open(os.path.join(out_dir, f"{tag}_{rank}.json"), "w") as f:
-                json.dump({"metrics": rec["metrics"], "launches": dict(kernels.launch_counts),
+                json.dump({"metrics": rec["metrics"], "launches": ravel_launches(kernels),
                            "gathers": gathers, "code": code}, f)
     if code:
         sys.exit(code)
@@ -2745,7 +3057,7 @@ def mesh_phase(cv_train, engine, kernels, card: str) -> dict:
                                         "--ledger", emu_dir + ".ledger", "--log_jsonl",
                                         emu_dir + ".jsonl"])
         torch.cuda.synchronize()
-        launches["emulation"] = dict(kernels.launch_counts)
+        launches["emulation"] = ravel_launches(kernels)
     finally:
         cv_train.FederatedSession = orig_session
     want = {"sketch_accumulate": S * R, "sketch_query": R}
@@ -2979,6 +3291,15 @@ def main(argv: list[str]) -> int:
     if "--kernels-only" in argv:
         print("chip_smoke: kernels-only run done", flush=True)
         return 0
+    if "--layerwise-only" in argv:
+        phase("19 (layerwise)")
+        lw = layerwise_phase(cv_train, engine, csvec, kernels, time_ms, gen, card_line())
+        rows["sketch_accumulate_leaf"] = leaf_row(lw)
+        for name in rows:
+            rows[name]["launches_layerwise"] = {run: n[name] for run, n in lw["launches"].items()}
+        print(json.dumps({"kernels": list(rows.values())}), flush=True)
+        print("chip_smoke: layerwise-only run done", flush=True)
+        return 0
 
     # 5. main path
     phase("5 (main path)")
@@ -2993,7 +3314,7 @@ def main(argv: list[str]) -> int:
     kernels.reset_launch_counts()
     session = cv_train.main(SLICE_ARGS + ["--num_rounds", str(ROUNDS), "--log_jsonl", log])
     torch.cuda.synchronize()
-    launches = dict(kernels.launch_counts)
+    launches = ravel_launches(kernels)
     with open(log) as f:
         logged = [json.loads(line) for line in f]
     for row in logged:
@@ -3090,6 +3411,10 @@ def main(argv: list[str]) -> int:
     # 18. the sharded round
     phase("18 (sharded round)")
     mesh = mesh_phase(cv_train, engine, kernels, card)
+
+    # 19. the layerwise sketch path
+    phase("19 (layerwise)")
+    lw = layerwise_phase(cv_train, engine, csvec, kernels, time_ms, gen, card)
     phase("end")
 
     for name in rows:
@@ -3103,6 +3428,9 @@ def main(argv: list[str]) -> int:
         rows[name]["launches_obs"] = {run: n[name] for run, n in obs_launches.items()}
         rows[name]["launches_robust"] = {run: n[name] for run, n in robust.items()}
         rows[name]["launches_mesh"] = {run: n[name] for run, n in mesh.items()}
+    rows["sketch_accumulate_leaf"] = leaf_row(lw)
+    for name in rows:
+        rows[name]["launches_layerwise"] = {run: n[name] for run, n in lw["launches"].items()}
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

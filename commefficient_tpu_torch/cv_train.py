@@ -130,6 +130,7 @@ def build(args, fault_plan=None):
         merge_trim=args.merge_trim,
         robust_residual=args.robust_residual == "on",
         mesh=mesh,
+        sketch_path=args.sketch_path,
     )
     return session, test_set
 

@@ -193,6 +193,7 @@ class FederatedSession:
         robust_residual: bool = False,
         mesh=None,
         client_shards: int = 0,
+        sketch_path: str = "ravel",
     ):
         self.device = resolve_device(device)
         if health_every < 0:
@@ -220,7 +221,8 @@ class FederatedSession:
             # the Byzantine-robust table merge (see EngineConfig)
             client_update_clip=client_update_clip, quarantine_window=quarantine_window,
             merge_policy=merge_policy, merge_trim=merge_trim,
-            quarantine_scope=quarantine_scope, robust_residual=robust_residual)
+            quarantine_scope=quarantine_scope, robust_residual=robust_residual,
+            sketch_path=sketch_path)
         self._health_every = max(health_every, 1)
         # the per-client-table round serves a real wire (wire_payloads), a
         # robust merge (order statistics need each client's table) and the
@@ -233,12 +235,17 @@ class FederatedSession:
                              "there is no threshold to ride and the attack is undefined - arm "
                              "the quarantine")
         self._table_round = engine.uses_table_round(self.cfg) or adv
-        if self._table_round and mode_cfg.mode != "sketch":
+        if self._table_round:
             why = (f"merge_policy={merge_policy!r}" if engine.robust_policy(self.cfg)
                    else "adversarial fault kinds (client_signflip/client_scale/client_collude/"
                         "client_normride)")
-            raise ValueError(f"{why} need(s) the per-client-table round, which requires "
-                             f"mode='sketch'; got mode={mode_cfg.mode!r}")
+            if mode_cfg.mode != "sketch":
+                raise ValueError(f"{why} need(s) the per-client-table round, which requires "
+                                 f"mode='sketch'; got mode={mode_cfg.mode!r}")
+            if sketch_path != "ravel":
+                raise ValueError(f"{why} need(s) the per-client-table round "
+                                 "(sketch_path='ravel'); layerwise accumulation has no "
+                                 "per-client wire to screen or attack")
         # the obs sinks commit hands each round to (obs.attach_from_args
         # sets them): the health monitor, the SLO engine, the round ledger
         self.health_monitor = None

@@ -47,6 +47,16 @@ step. On one device the shards run in a loop (the emulation); on a
 the partials are all-gathered, so a given S gives the same bits on one
 device and on S ranks.
 
+The layerwise path (``sketch_path="layerwise"``, mode=sketch only): the
+client phase is the ravel path's, and the reduced [d] update (a shard's
+partial sum on the sharded round) folds into the running table leaf by
+leaf, each leaf's slice of the flat vector in ravel order
+(``sketch/layerwise.py``; on the card one ``sketch_accumulate_leaf`` launch
+a leaf). The fold is bitwise ``sketch_vec`` of the whole vector, so the
+layerwise round gives the ravel round's bits by construction. The port
+keeps its flat client stacks: the vmapped backward returns every leaf's
+[C, n] gradient at once, so folding per leaf lowers no peak here.
+
 The sketch-space quarantine (``client_update_clip``): each client's update
 L2 norm (the table's, on the table round), and under layer scope each
 leaf's, is screened against the running median the server state carries
@@ -108,7 +118,7 @@ from ..models.convert import FlatLayout
 from ..modes import modes
 from ..modes.config import ModeConfig
 from ..obs import health as obhealth
-from ..sketch import csvec
+from ..sketch import csvec, layerwise
 
 # reserved batch key: the [W] 0/1 validity mask of the sampled clients
 VALID_KEY = "_valid"
@@ -212,8 +222,8 @@ class EngineConfig:
     merge_trim: int = 0
     # "layer" adds a per-leaf screen beside the cohort one: each leaf's
     # update L2 against that leaf's own running-median ring (the leaves are
-    # _leaf_segments, the health block's segments); a client over any
-    # leaf's screen is rejected
+    # layerwise.leaf_segments, the health block's segments); a client over
+    # any leaf's screen is rejected
     quarantine_scope: str = "cohort"
     # with a robust policy, add lr * (winsorized mean - robust merge) into
     # Verror before the server step, so the honest mass the trim clips
@@ -224,6 +234,12 @@ class EngineConfig:
     # of the sum), so a given S gives the same bits on one device and on S
     # ranks; 1 = the unsharded round
     client_shards: int = 1
+    # how the round's sketch table is built (mode=sketch only): "ravel"
+    # sketches the reduced [d] update at once; "layerwise" folds it into
+    # the running table leaf by leaf (sketch/layerwise.py; on the card one
+    # sketch_accumulate_leaf launch a leaf), bitwise the ravel round. The
+    # random hash family needs num_blocks == 1 there
+    sketch_path: str = "ravel"
 
     def generator(self, rnd: int, slot: int, step: int,
                   device: torch.device) -> torch.Generator:
@@ -236,6 +252,22 @@ class EngineConfig:
     def __post_init__(self):
         if self.on_nonfinite not in ("off", "skip"):
             raise ValueError(f"on_nonfinite must be 'off' or 'skip', got {self.on_nonfinite!r}")
+        if self.sketch_path not in ("ravel", "layerwise"):
+            raise ValueError(f"sketch_path must be 'ravel' or 'layerwise', got "
+                             f"{self.sketch_path!r}")
+        if self.sketch_path == "layerwise":
+            if self.mode.mode != "sketch":
+                raise ValueError(
+                    "sketch_path='layerwise' accumulates per-layer gradient blocks into the "
+                    f"Count-Sketch table, so it requires mode='sketch'; mode={self.mode.mode!r} "
+                    "has no table to accumulate into")
+            if self.mode.hash_family == "random" and self.mode.num_blocks != 1:
+                raise ValueError(
+                    "sketch_path='layerwise' with hash_family='random' requires num_blocks=1: "
+                    "the blocked ravel oracle sums per-block partial tables (a different fp "
+                    "association than the continuous coordinate fold), which would break the "
+                    "layerwise==ravel bit-parity contract. Use num_blocks=1 (layerwise "
+                    "transients are O(leaf) anyway) or hash_family='rotation'.")
         if self.client_chunk < 0:
             raise ValueError(f"client_chunk must be >= 0, got {self.client_chunk}")
         if self.client_shards < 1:
@@ -259,6 +291,12 @@ class EngineConfig:
             raise ValueError(f"merge_policy={self.merge_policy!r} is the robust TABLE merge "
                              "over per-client Count-Sketch tables, so it requires "
                              f"mode='sketch'; mode={self.mode.mode!r} has no table wire")
+        if robust_policy(self) and self.sketch_path != "ravel":
+            raise ValueError(
+                "robust merge policies run the per-client-table round (each client's table "
+                "is sketched from its flat update); sketch_path='layerwise' is a "
+                "server-memory optimization of the compress-once shortcut the robust merge "
+                "forfeits — use sketch_path='ravel'")
         if self.quarantine_scope not in ("cohort", "layer"):
             raise ValueError(f"quarantine_scope must be 'cohort' or 'layer', got "
                              f"{self.quarantine_scope!r}")
@@ -284,6 +322,12 @@ class EngineConfig:
         if self.wire_payloads and self.mode.mode != "sketch":
             raise ValueError(f"wire_payloads needs mode='sketch' (per-client Count-Sketch "
                              f"tables); mode={self.mode.mode!r} has no table wire")
+        if self.wire_payloads and self.sketch_path != "ravel":
+            raise ValueError(
+                "wire_payloads requires sketch_path='ravel': the client-side table is "
+                "sketched from the client's flat gradient (the object that crosses the "
+                "wire); layerwise accumulation is a server-memory optimization with no "
+                "client wire to ship")
         if self.dp_noise > 0 and self.dp_clip <= 0:
             raise ValueError("dp_noise > 0 requires dp_clip > 0 (unbounded sensitivity has no "
                              "meaningful noise scale)")
@@ -349,7 +393,7 @@ def init_server_state(cfg: EngineConfig, pflat: torch.Tensor, net_state: dict,
             if layout is None:
                 raise ValueError("quarantine_scope='layer' needs the model's layout: one "
                                  "median ring per parameter leaf")
-            L = len(_leaf_segments(layout))
+            L = len(layerwise.leaf_segments(layout))
             q["layer_median"] = torch.zeros(L, dtype=torch.float32, device=dev)
             if K > 1:
                 q["layer_window"] = torch.zeros((L, K), dtype=torch.float32, device=dev)
@@ -378,11 +422,6 @@ def split_health(batch: dict) -> tuple[dict, bool]:
         raise ValueError(f"the {HEALTH_KEY!r} cadence flag must stay on the host (got a "
                          f"{flag.device} tensor): reading it would sync the device")
     return batch, bool((flag > 0).any())
-
-
-def _leaf_segments(layout: FlatLayout) -> tuple[tuple[int, int], ...]:
-    """(offset, size) of every non-empty parameter leaf in ravel order."""
-    return tuple((leaf.offset, leaf.size) for leaf in layout.leaves if leaf.size)
 
 
 def _ledger_fingerprints(cfg: EngineConfig, new_state: dict) -> dict:
@@ -813,7 +852,7 @@ def reduce_clients(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout,
     participants count)."""
     weighted, new_net_state, metrics, _, _ = _client_phase(
         make_client_updates(loss_fn, cfg, layout), cfg, state, batch, {}, None,
-        _leaf_segments(layout))
+        layerwise.leaf_segments(layout))
     return weighted, new_net_state, metrics
 
 
@@ -868,6 +907,25 @@ def _dp_noise_agg(cfg: EngineConfig, agg: dict, participants: torch.Tensor, rnd:
     return out
 
 
+def _block_plan(cfg: EngineConfig, layout: FlatLayout) -> layerwise.BlockPlan | None:
+    """The layerwise round's block plan (None on the ravel path)."""
+    if cfg.sketch_path != "layerwise":
+        return None
+    return layerwise.make_block_plan(cfg.mode.sketch_spec, layout)
+
+
+def _compress(mcfg: ModeConfig, update: torch.Tensor,
+              plan: layerwise.BlockPlan | None) -> dict:
+    """The wire of a reduced (or a shard's partial) [d] update of a linear
+    mode: ``modes.client_compress``, or on the layerwise path the table
+    folded leaf by leaf from the update's slices (``plan``'s blocks),
+    bitwise the same table."""
+    if plan is None:
+        return modes.client_compress(mcfg, update, {})[0]
+    leaves = (update[b.offset:b.offset + b.size] for b in plan.blocks)
+    return {"table": layerwise.sketch_tree(mcfg.sketch_spec, leaves, plan)}
+
+
 def make_round_step(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout) -> Callable:
     """step(state, batch, client_rows, lr) -> (state', client_rows',
     metrics): the reference's step, its device RNG replaced by generators
@@ -884,7 +942,8 @@ def make_round_step(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout) ->
     mcfg = cfg.mode
     _robust_scope_check(cfg)
     updates = make_client_updates(loss_fn, cfg, layout)
-    segments = _leaf_segments(layout)
+    segments = layerwise.leaf_segments(layout)
+    plan = _block_plan(cfg, layout)
 
     def step(state: dict, batch: dict, client_rows: dict, lr):
         pflat = state["params"]
@@ -895,7 +954,7 @@ def make_round_step(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout) ->
             updates, cfg, state, batch, client_rows, lr_t, segments)
         if modes.is_linear(mcfg):
             # linearity shortcut: compress the reduced update once
-            wire, _ = modes.client_compress(mcfg, weighted, {})
+            wire = _compress(mcfg, weighted, plan)
             agg = modes.aggregate(mcfg, {k: v[None] for k, v in wire.items()})
         else:
             agg = {"dense": weighted}
@@ -1060,7 +1119,7 @@ def make_payload_round_steps(loss_fn: Callable, cfg: EngineConfig,
         raise ValueError(f"the per-client-table round requires mode='sketch'; "
                          f"mode={mcfg.mode!r} has no table wire")
     updates = make_client_updates(loss_fn, cfg, layout)
-    segments = _leaf_segments(layout)
+    segments = layerwise.leaf_segments(layout)
     quarantine = cfg.client_update_clip > 0
     layer_q = quarantine and cfg.quarantine_scope == "layer"
     pol = robust_policy(cfg)
@@ -1311,7 +1370,8 @@ def make_sharded_round_step(loss_fn: Callable, cfg: EngineConfig, layout: FlatLa
         raise ValueError("sharded round needs client_shards > 1 (or a group of > 1 ranks); "
                          "use make_round_step for the unsharded round")
     updates = make_client_updates(loss_fn, cfg, layout)
-    segments = _leaf_segments(layout)
+    segments = layerwise.leaf_segments(layout)
+    plan = _block_plan(cfg, layout)
     quarantine = cfg.client_update_clip > 0
 
     def shard_outputs(state: dict, batch_l: dict, lo: int, W: int) -> dict:
@@ -1319,7 +1379,7 @@ def make_sharded_round_step(loss_fn: Callable, cfg: EngineConfig, layout: FlatLa
         batch_l, _, part_l = _cohort_part(cfg, state, batch_l, W, lo)
         wsum, ns_sum, m_sum, part_eff, norms, lnorms, _ = _client_reduce(
             updates, cfg, state, batch_l, part_l, {}, None, segments, slot0=lo)
-        wire, _ = modes.client_compress(mcfg, wsum, {})
+        wire = _compress(mcfg, wsum, plan)
         out = {"part_eff": part_eff, **{f"wire/{k}": v for k, v in wire.items()},
                **{f"ns/{k}": v for k, v in ns_sum.items()},
                **{f"m/{k}": v for k, v in m_sum.items()}}

@@ -259,6 +259,8 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
     reg = obreg.default()
     mark = reg.mark()
     tracer = obtrace.get()
+    # the deferred device spans name the round variant the session runs
+    sketch_path = session.cfg.sketch_path
     if save_ckpt is None and cfg.checkpoint_dir:
         save_ckpt = make_save_ckpt(session, cfg.checkpoint_dir, stats.checkpoints)
     # in a group of ranks a local SIGTERM must not cut the schedule short
@@ -352,7 +354,8 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
         while dispatch_marks:
             ts_us, d_first, d_n = dispatch_marks.popleft()
             tracer.complete("device", f"rounds {d_first}..{d_first + d_n - 1}", ts_us,
-                            end_us - ts_us, round_first=d_first, rounds=d_n, sketch_path="ravel")
+                            end_us - ts_us, round_first=d_first, rounds=d_n,
+                            sketch_path=sketch_path)
         with tracer.span("runner", "commit", round_first=first, rounds=committed):
             for i, m in enumerate(session.commit_rounds(list(pending), hosts)):
                 last_m = m

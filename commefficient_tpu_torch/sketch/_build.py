@@ -1,6 +1,6 @@
 """Build and load the hand-written CUDA sketch kernels.
 
-``csrc/sketch_kernels.cu`` has a plain C interface; it is compiled at first
+``csrc/sketch_kernels.cu`` has a plain C interface (three entries); it is compiled at first
 use by ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/torch_kernels/`` at the root of the checkout, named by a hash of the
 source and the flags so an edited source rebuilds, and loaded with
@@ -73,12 +73,21 @@ def compile_library(source: Path = SOURCE) -> tuple[Path, str]:
 
 
 def bind(so: Path) -> ctypes.CDLL:
-    """Load a built kernel library and declare its two C entries."""
+    """Load a built kernel library and declare its C entries: the two whole-
+    vector entries, and the per-leaf accumulate where the source has it (an
+    older build timed by ``time_kernels.py`` may not)."""
     lib = ctypes.CDLL(str(so))
-    args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
-            ctypes.c_void_p]
-    for name in ("sketch_accumulate", "sketch_query"):
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    entries = {
+        "sketch_accumulate": [ptr, ptr, ptr, ptr, i64, i64, ctypes.c_int32, i64, ptr],
+        "sketch_query": [ptr, ptr, ptr, ptr, i64, i64, ctypes.c_int32, i64, ptr],
+        # table, leaf, shifts, ks, offset, n, d, c, r, num_slabs, stream
+        "sketch_accumulate_leaf": [ptr, ptr, ptr, ptr, i64, i64, i64, i64, ctypes.c_int32,
+                                   i64, ptr],
+    }
+    for name, args in entries.items():
+        if name == "sketch_accumulate_leaf" and not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int

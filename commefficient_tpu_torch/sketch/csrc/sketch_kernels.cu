@@ -7,6 +7,16 @@
 //                         sketch_vec): [d] vector -> [r, c] table.
 //   sketch_query       <- _query_kernel (entered via _query_call / query_all):
 //                         [r, c] table -> [d] lower-median estimates.
+//   sketch_accumulate_leaf <- _accumulate_kernel's computation restricted to
+//                         one leaf, the coordinates [offset, offset + n) of
+//                         the [d] vector, folded into a running [r, c]
+//                         table in place (the layerwise sketch path; the
+//                         JAX package folds a leaf in pure JAX,
+//                         sketch/layerwise.py). Its kernel,
+//                         accumulate_leaf_tiles, is accumulate_tiles over
+//                         the leaf's slabs; it reads each leaf r times, as
+//                         accumulate_tiles reads v, and is bounded by the
+//                         same bytes.
 //
 // Hash family. Coordinate i (slab s = i / c, position p = i mod c) of row j
 // lands in bucket (p + shift[j, s]) mod c with sign
@@ -355,6 +365,175 @@ accumulate_tiles(const float* __restrict__ v, const int32_t* __restrict__ shifts
   }
 }
 
+// The producer warp stages the positions of the rotated window (as
+// stage_window) whose slab positions lie in [lo, hi), the leaf's share of
+// the slab. Slab position p is element slab_off + p of the leaf
+// (slab_off = s * c - offset, negative when the leaf starts inside the
+// slab), and only positions in [lo, hi) are copied, so every copy reads
+// inside [leaf, leaf + n).
+__device__ __forceinline__ void stage_leaf_window(float* win, int e, const float* leaf,
+                                                  int64_t slab_off, uint32_t c, uint32_t lo,
+                                                  uint32_t hi, uint32_t start, int len,
+                                                  uint64_t* bar, int lane) {
+  const uint32_t la = minu(len, c - start);  // positions before the wrap
+  if (start < hi && lo < start + la) {
+    const uint32_t w0 = lo > start ? lo - start : 0u;
+    const uint32_t w1 = minu(la, hi - start);
+    stage_piece(win, e, static_cast<int>(w0), static_cast<int>(w1),
+                leaf + (slab_off + start + w0), bar, lane);
+  }
+  if (static_cast<uint32_t>(len) > la && lo < len - la) {
+    const uint32_t w1 = minu(len, la + hi);
+    stage_piece(win, e, static_cast<int>(la + lo), static_cast<int>(w1), leaf + (slab_off + lo),
+                bar, lane);
+  }
+}
+
+// The slab positions [lo, hi) of slab s that hold the leaf's coordinates
+// [offset, offset + n).
+__device__ __forceinline__ void leaf_range(int64_t s, int64_t c64, int64_t offset, int64_t n,
+                                           uint32_t& lo, uint32_t& hi) {
+  const int64_t base = s * c64;
+  lo = static_cast<uint32_t>(offset > base ? offset - base : 0);
+  hi = static_cast<uint32_t>(min64(c64, offset + n - base));
+}
+
+// The window of a tile starting at bucket b0 in a slab of shift `shift`
+// starts at slab position (b0 - shift) mod c.
+__device__ __forceinline__ uint32_t window_start(uint32_t b0, uint32_t shift, uint32_t c) {
+  return b0 >= shift ? b0 - shift : b0 + (c - shift);
+}
+
+// accumulate_tiles for one leaf, in place: the leaf holds the coordinates
+// [offset, offset + n) of the raveled vector, in slabs s0 .. s0 + ns - 1.
+// A block owns buckets [b0, b0 + kTile) of row j, starts from the table's
+// values and adds the leaf's coordinates that land there, slab by slab in
+// order, skipping every position outside the leaf. Folding a model's leaves
+// in ravel order into a +0 table therefore adds each (bucket, slab) term
+// exactly once and in slab order, the same left fold accumulate_tiles makes
+// in registers: the table equals sketch_accumulate of the raveled vector
+// bitwise. A block whose tile receives no coordinate of the leaf (only
+// possible when the leaf covers no whole slab) returns before it touches
+// the leaf or the table.
+__global__ void __launch_bounds__(kThreads)
+accumulate_leaf_tiles(float* __restrict__ table, const float* __restrict__ leaf,
+                      const int32_t* __restrict__ shifts, const uint32_t* __restrict__ ks,
+                      int64_t offset, int64_t n, int64_t c64, int64_t num_slabs) {
+  extern __shared__ __align__(16) float windows[];  // [kAccStages][kWindow]
+  __shared__ __align__(8) uint64_t full[kAccStages];
+  __shared__ __align__(8) uint64_t empty[kAccStages];
+  __shared__ uint32_t start_of[kAccStages];
+  __shared__ int e_of[kAccStages];
+  const uint32_t c = static_cast<uint32_t>(c64);
+  const int j = blockIdx.y;
+  const uint32_t b0 = blockIdx.x * static_cast<uint32_t>(kTile);
+  const int len = static_cast<int>(minu(kTile, c - b0));
+  const int32_t* row_shifts = shifts + j * num_slabs;
+  const int64_t s0 = offset / c64;
+  const int64_t ns = (offset + n - 1) / c64 - s0 + 1;
+  const int t = threadIdx.x, lane = t & 31;
+
+  if (ns < 3) {  // three slabs or more: the middle one is whole, every tile is touched
+    bool touched = false;
+    for (int64_t s = s0; s < s0 + ns; ++s) {
+      uint32_t lo, hi;
+      leaf_range(s, c64, offset, n, lo, hi);
+      const uint32_t start = window_start(b0, static_cast<uint32_t>(row_shifts[s]), c);
+      const uint32_t la = minu(len, c - start);
+      touched |= (start < hi && lo < start + la) || (static_cast<uint32_t>(len) > la && lo < len - la);
+    }
+    if (!touched) return;
+  }
+
+  // producer lane m holds the shift of leaf slab 32q + m while it stages
+  // slabs 32q .. 32q + 31
+  uint32_t lane_shift =
+      t >= kConsumers && lane < ns ? static_cast<uint32_t>(row_shifts[s0 + lane]) : 0u;
+  init_ring<kAccStages>(full, empty);
+
+  if (t >= kConsumers) {
+    for (int64_t m = 0; m < ns; ++m) {
+      if ((m & 31) == 0 && m > 0)
+        lane_shift = m + lane < ns ? static_cast<uint32_t>(row_shifts[s0 + m + lane]) : 0u;
+      const uint32_t shift = __shfl_sync(0xFFFFFFFFu, lane_shift, static_cast<int>(m & 31));
+      const int st = static_cast<int>(m % kAccStages);
+      acquire_slot<kAccStages>(empty, m, st, lane);
+      const int64_t s = s0 + m;
+      const uint32_t start = window_start(b0, shift, c);
+      const int64_t slab_off = s * c64 - offset;
+      // the element offset of window position 0 within 16 bytes, as if the
+      // leaf extended over the whole slab
+      const int e = static_cast<int>((offset16(leaf) + slab_off + start) & 3);
+      if (lane == 0) {
+        start_of[st] = start;
+        e_of[st] = e;
+      }
+      uint32_t lo, hi;
+      leaf_range(s, c64, offset, n, lo, hi);
+      stage_leaf_window(windows + st * kWindow, e, leaf, slab_off, c, lo, hi, start, len,
+                        &full[st], lane);
+      publish_slot(full, st, lane);
+    }
+  }
+
+  float* row_out = table + j * c64 + b0;
+  float acc[kPerThread];
+  if (t < kConsumers) {
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      const int w = t + k * kConsumers;
+      acc[k] = w < len ? row_out[w] : 0.0f;
+    }
+    const uint32_t key = fold_key(ks[j]);
+    for (int64_t m = 0; m < ns; ++m) {
+      const int st = static_cast<int>(m % kAccStages);
+      mbar_wait(&full[st], static_cast<uint32_t>((m / kAccStages) & 1));
+      const int64_t s = s0 + m;
+      const uint32_t start = start_of[st];
+      uint32_t lo, hi;
+      leaf_range(s, c64, offset, n, lo, hi);
+      const uint32_t slab_base = static_cast<uint32_t>(s * c64);  // uint32(i), as hashed
+      const float* win = windows + st * kWindow + e_of[st];
+      if (len == kTile && start >= lo && start + kTile <= hi) {
+        // whole tile inside the leaf, no wrap: position w is coordinate i0 + w
+        const uint32_t i0 = slab_base + start;
+#pragma unroll
+        for (int k = 0; k < kPerThread; ++k) {
+          const int w = t + k * kConsumers;
+          acc[k] += apply_sign(win[w], sign_mask(i0 + w, key));
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kPerThread; ++k) {
+          const int w = t + k * kConsumers;
+          uint32_t p = start + w;
+          if (p >= c) p -= c;
+          if (w < len && p >= lo && p < hi)
+            acc[k] += apply_sign(win[w], sign_mask(slab_base + p, key));
+        }
+      }
+      release_slot(empty, st, lane);
+    }
+  }
+
+  // back through shared memory, four consecutive buckets a store, as
+  // accumulate_tiles writes its sums
+  __syncthreads();
+  float* sums = windows;
+  if (t < kConsumers)
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) sums[t + k * kConsumers] = acc[k];
+  __syncthreads();
+  const bool vec = offset16(row_out) == 0;
+  for (int w = 4 * t; w < len; w += 4 * kThreads) {
+    if (vec && w + 4 <= len) {
+      *reinterpret_cast<float4*>(row_out + w) = *reinterpret_cast<const float4*>(sums + w);
+    } else {
+      for (int k = w; k < w + 4 && k < len; ++k) row_out[k] = sums[k];
+    }
+  }
+}
+
 // The query's tile: a slot holds r windows, so above 8 rows the tile halves
 // and two slots still fit in a block's shared memory.
 template <int R>
@@ -523,4 +702,22 @@ extern "C" int sketch_query(const float* table, const int32_t* shifts,
 #undef SKETCH_QUERY_CASE
   }
   return static_cast<int>(err);
+}
+
+extern "C" int sketch_accumulate_leaf(float* table, const float* leaf, const int32_t* shifts,
+                                      const uint32_t* ks, int64_t offset, int64_t n, int64_t d,
+                                      int64_t c, int32_t r, int64_t num_slabs, void* stream) {
+  if (bad_shape(d, c, r, num_slabs) || n < 1 || offset < 0 || offset > d - n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = static_cast<int>(sizeof(float) * kAccStages * kWindow);
+  const cudaError_t err = cudaFuncSetAttribute(
+      accumulate_leaf_tiles, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it, so the next call does not report it
+    return static_cast<int>(err);
+  }
+  const dim3 grid(static_cast<unsigned>((c + kTile - 1) / kTile), static_cast<unsigned>(r));
+  accumulate_leaf_tiles<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      table, leaf, shifts, ks, offset, n, c, num_slabs);
+  return static_cast<int>(cudaGetLastError());
 }

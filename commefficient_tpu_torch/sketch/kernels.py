@@ -1,10 +1,11 @@
 """ctypes wrappers for the CUDA sketch kernels (``csrc/sketch_kernels.cu``).
 
-Each wrapper checks its inputs, allocates its output with ``torch.empty``,
-launches on the current CUDA stream without synchronising, raises if the
-launch reports an error, and adds one to its launch count. They take CUDA
+Each wrapper checks its inputs, allocates its output with ``torch.empty``
+(``accumulate_leaf`` writes its table in place instead), launches on the
+current CUDA stream without synchronising, raises if the launch reports an
+error, and adds one to its launch count. They take CUDA
 tensors only; the plain PyTorch versions the CPU path runs live in
-``csvec.py``.
+``csvec.py`` and ``layerwise.py``.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ MAX_ROWS = 16
 
 # launches per kernel since the last reset; a run reads these to show its
 # main path went through the kernels
-launch_counts = {"sketch_accumulate": 0, "sketch_query": 0}
+launch_counts = {"sketch_accumulate": 0, "sketch_query": 0, "sketch_accumulate_leaf": 0}
 
 
 def reset_launch_counts() -> None:
@@ -103,3 +104,31 @@ def query(table: torch.Tensor, shifts: torch.Tensor, ks: torch.Tensor,
     _raise_on(err, "sketch_query")
     launch_counts["sketch_query"] += 1
     return out
+
+
+def accumulate_leaf(table: torch.Tensor, v_leaf: torch.Tensor, offset: int,
+                    shifts: torch.Tensor, ks: torch.Tensor, c: int, d: int) -> torch.Tensor:
+    """Rotation-family accumulate of one leaf, in place: fold the f32 [n]
+    leaf, the coordinates [offset, offset + n) of a raveled [d] vector, into
+    the running f32 [r, c] ``table`` and return it. The hashes are the whole
+    vector's (``shifts`` int32 [r, S] with S = ceil(d / c), ``ks`` int32
+    [r]): the sign of each global index, the shift of its slab. Folding a
+    vector's leaves in order into a zero table gives ``accumulate`` of the
+    vector, bitwise."""
+    if v_leaf.dim() != 1 or table.dim() != 2 or c <= 0 or d <= 0:
+        raise ValueError(f"need an [n] leaf, an [r, c] table, c > 0 and d > 0, got "
+                         f"{tuple(v_leaf.shape)}, {tuple(table.shape)}, c={c}, d={d}")
+    n, r = v_leaf.numel(), shifts.shape[0]
+    if n < 1 or offset < 0 or offset + n > d:
+        raise ValueError(f"leaf [{offset}, {offset + n}) must be non-empty and lie in [0, {d})")
+    _check("v_leaf", v_leaf, torch.float32, (n,), v_leaf.device)
+    _check("table", table, torch.float32, (r, c), v_leaf.device)
+    _check_hashes(shifts, ks, r, -(-d // c), v_leaf.device)
+    lib = _build.load()
+    with torch.cuda.device(v_leaf.device):
+        err = lib.sketch_accumulate_leaf(
+            table.data_ptr(), v_leaf.data_ptr(), shifts.data_ptr(), ks.data_ptr(), offset, n,
+            d, c, r, -(-d // c), torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "sketch_accumulate_leaf")
+    launch_counts["sketch_accumulate_leaf"] += 1
+    return table

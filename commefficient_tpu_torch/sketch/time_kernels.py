@@ -28,9 +28,12 @@ from pathlib import Path
 
 import torch
 
-from . import _build, csvec, kernels
+from . import _build, csvec
 
 SLICE = (6_573_130, 524_288, 5)  # (d, c, r) of FetchSGD on ResNet-9
+# the whole-vector entries this script times (chip_smoke.py's phase 19
+# times the per-leaf accumulate)
+ENTRIES = ("sketch_accumulate", "sketch_query")
 FLUSH_FLOATS = 64 * 2**20  # 256 MB, five times the 50 MB L2
 SPIN_CYCLES = 200_000  # about 0.1 ms of device time ahead of each timed launch
 
@@ -66,13 +69,14 @@ def time_ms(fn, iters: int, before) -> float:
 
 def ptxas_summary(log: str) -> str:
     """One line from nvcc's ``-Xptxas -v`` report: registers and spill
-    stores of each kernel entry (accumulate, query<r>)."""
+    stores of each kernel entry (accumulate, accumulate_leaf, query<r>)."""
     out, name = [], "?"
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             q = re.search(r"query_\w*ILi(\d+)E", entry.group(1))
             name = f"query<{q.group(1)}>" if q else (
+                "accumulate_leaf" if "accumulate_leaf" in entry.group(1) else
                 "accumulate" if "accumulate" in entry.group(1) else entry.group(1)[:32])
         spill = re.search(r"(\d+) bytes spill stores", line)
         if spill:
@@ -130,7 +134,7 @@ def main(argv: list[str] | None = None) -> int:
     outs = {"sketch_accumulate": torch.empty((r, c), device=dev),
             "sketch_query": torch.empty(d, device=dev)}
     launch = {(label, name): _launcher(lib, name, inputs[name], shifts, ks, outs[name], d, c, r)
-              for label, lib in libs.items() for name in kernels.launch_counts}
+              for label, lib in libs.items() for name in ENTRIES}
     wrong = []
     for (label, name), fn in launch.items():
         outs[name].fill_(float("nan"))
@@ -147,13 +151,13 @@ def main(argv: list[str] | None = None) -> int:
     turns = {key: {m: [] for m in modes} for key in launch}
     for _ in range(args.turns):
         for label in order:
-            for name in kernels.launch_counts:
+            for name in ENTRIES:
                 for mode, before in modes.items():
                     turns[(label, name)][mode].append(time_ms(
                         launch[(label, name)], args.iters, functools.partial(before, name)))
     for label, source in builds:
         row = {"lib": label, "source": str(source)}
-        for name in kernels.launch_counts:
+        for name in ENTRIES:
             t = turns[(label, name)]
             row[name] = {f"{m}_ms": statistics.median(t[m]) for m in modes}
             row[name].update({f"{m}_turns": t[m] for m in modes})

@@ -2,15 +2,14 @@
 ``utils/config.py`` parser, with the same names, types, choices and
 defaults, plus ``--device``, so a launch command of the reference parses
 here. The flags of features the port does not run yet (``_UNPORTED``:
-the layerwise sketch path, the
-pipelined, buffered-async, fast-path, sharded and edge-tree serving
+the pipelined, buffered-async, fast-path, sharded and edge-tree serving
 variants, and GPT-2's ring attention, mixture of experts and
-parallelism) parse at the
-reference's defaults, and ``resolve_defaults`` refuses any other value
-by name, with the ROADMAP Queue 1 item that brings the feature: accepted
-and ignored is never an outcome. ``--share_ps_gpu`` and ``--port`` are the
-reference's own no-ops, and ``--topk_recall`` matters only to the top-k
-selections the port refuses (``--topk_impl approx|oversample``)."""
+parallelism) parse at the reference's defaults, and ``resolve_defaults``
+refuses any other value by name, with the ROADMAP Queue 1 item that
+brings the feature: accepted and ignored is never an outcome.
+``--share_ps_gpu`` and ``--port`` are the reference's own no-ops, and
+``--topk_recall`` matters only to the top-k selections the port refuses
+(``--topk_impl approx|oversample``)."""
 
 from __future__ import annotations
 
@@ -27,8 +26,6 @@ from ..obs.slo import parse_rules
 # when none is queued)
 _SERVE = "the port runs the synchronous serial service only"
 _UNPORTED = (
-    ("sketch_path", dict(default="ravel", choices=["ravel", "layerwise"]), ("ravel",),
-     "the layerwise sketch path is not ported", 8),
     ("serve_pipeline", dict(action="store_true"), (False,), _SERVE, "9b"),
     ("serve_async", dict(action="store_true"), (False,), _SERVE, "9b"),
     ("serve_buffer", dict(type=int, default=0), (0,), _SERVE, "9b"),
@@ -80,6 +77,18 @@ def make_parser(task: str = "cv") -> argparse.ArgumentParser:
     p.add_argument("--topk_recall", type=float, default=0.95,
                    help="recall target of --topk_impl approx/oversample; accepted "
                         "at any value (exact top-k does not read it)")
+    p.add_argument("--sketch_path", default="ravel", choices=["ravel", "layerwise"],
+                   help="mode=sketch only: how the round's Count-Sketch table is built. "
+                        "ravel (default) concatenates every layer into one flat [d] "
+                        "gradient before compressing (the reference flat path); layerwise "
+                        "folds each layer's gradient block straight into the running r x c "
+                        "table as it comes off the backward pass — the dense [d] gradient "
+                        "(and the flat params copy for the delta apply) never materializes, "
+                        "so peak sketch-side memory is O(r*c) + one layer instead of O(d). "
+                        "Pinned bit-identical to ravel (fused, split, sharded). In this "
+                        "port layerwise gives ravel's bits by construction (the client phase "
+                        "is ravel's; only the table is folded leaf by leaf) and does not "
+                        "lower peak memory: the flat params and the reduced [d] update stay")
     p.add_argument("--server_state", default="dense", choices=["dense", "sketch"],
                    help="server optimizer state: dense [d] Vvelocity/Verror, or "
                         "r x c Count-Sketch tables (true_topk, and local_topk with "

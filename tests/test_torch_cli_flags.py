@@ -122,3 +122,28 @@ def test_reference_serve_socket_sketch_command_runs(tiny_cv):  # noqa: F811
     assert session.round == 3 and session.cfg.wire_payloads
     assert np.isfinite(session.state["params"].numpy()).all()
     assert torch.count_nonzero(session.state["mode_state"]["Verror"]) > 0
+
+
+@pytest.mark.parametrize("task", ["cv", "gpt2"])
+def test_sketch_path_layerwise_parses(task):
+    """--sketch_path layerwise is no longer refused (it was, naming ROADMAP
+    item 8): it parses at the reference's choices in both CLIs."""
+    assert "sketch_path" not in UNPORTED
+    args = _parse(task, ["--mode", "sketch", "--sketch_path", "layerwise"])
+    assert args.sketch_path == "layerwise"
+
+
+def test_sketch_path_layerwise_runs(tiny_cv):  # noqa: F811
+    """The CV CLI runs --sketch_path layerwise on the CPU to its last round,
+    and the session's round takes the layerwise path."""
+    import numpy as np
+
+    from commefficient_tpu_torch import cv_train
+
+    argv = shlex.split(
+        "--dataset cifar10 --num_clients 8 --num_workers 4 --local_batch_size 4 --mode sketch "
+        "--k 16 --num_cols 256 --num_rows 3 --num_rounds 2 --data_root /nonexistent "
+        "--sketch_path layerwise --device cpu")
+    session = cv_train.main(argv)
+    assert session.round == 2 and session.cfg.sketch_path == "layerwise"
+    assert np.isfinite(session.state["params"].numpy()).all()

@@ -141,7 +141,12 @@ def test_cpu_tensor_takes_the_plain_version_and_counts_no_launch():
     _, ts = _specs(3000, 1024, 3)
     t = tcs.sketch_vec(ts, torch.from_numpy(_vec(3000)))
     tcs.query_all(ts, t)
-    assert kernels.launch_counts == {"sketch_accumulate": 0, "sketch_query": 0}
+    from commefficient_tpu_torch.sketch import layerwise
+
+    v = torch.from_numpy(_vec(3000))
+    assert torch.equal(layerwise.sketch_tree(ts, [v[:1000], v[1000:]]), t)
+    assert kernels.launch_counts == {"sketch_accumulate": 0, "sketch_query": 0,
+                                     "sketch_accumulate_leaf": 0}
 
 
 def test_kernel_wrappers_reject_cpu_tensors():
@@ -155,3 +160,5 @@ def test_kernel_wrappers_reject_cpu_tensors():
         kernels.accumulate(torch.zeros(3000), shifts, ks, 1024)
     with pytest.raises(ValueError, match="must be on"):
         kernels.query(torch.zeros(3, 1024), shifts, ks, 3000)
+    with pytest.raises(ValueError, match="must be on"):
+        kernels.accumulate_leaf(torch.zeros(3, 1024), torch.zeros(10), 0, shifts, ks, 1024, 3000)

@@ -11,7 +11,9 @@ What is held, and how exactly:
   (sketch with dropout and the non-finite guard, uncompressed with the DP
   clip and noise, true_topk at client_chunk 2), a quarantined sketch case
   and GPT-2 at two layers with its per-slot dropout (each client's masks
-  come from its global cohort slot);
+  come from its global cohort slot), and the sketch and GPT-2 cases again
+  under ``sketch_path="layerwise"``, whose emulation equals the ravel
+  emulation bitwise;
 - the CLI on four ranks writes rows byte-equal (except ``time_s``) to the
   single-process CLI running the emulation, with equal ledger fingerprints
   on every rank every round; rank 0 alone writes the rows and the
@@ -65,6 +67,11 @@ CASES = {
     "sketch_quarantine": (SKETCH, dict(client_update_clip=3.0, quarantine_scope="layer",
                                        quarantine_window=2)),
     "gpt2_dropout": (dict(SKETCH, k=64, num_cols=4096), dict(client_dropout=0.25)),
+    # the layerwise sketch path: each shard's partial table folded leaf by leaf
+    "sketch_layerwise": (SKETCH, dict(client_dropout=0.25, on_nonfinite="skip",
+                                      sketch_path="layerwise")),
+    "gpt2_dropout_layerwise": (dict(SKETCH, k=64, num_cols=4096),
+                               dict(client_dropout=0.25, sketch_path="layerwise")),
 }
 T, V = 16, 261
 
@@ -222,8 +229,11 @@ def test_four_gloo_ranks_equal_the_emulation_bitwise(tmp_path):
             _equal(got, want, f"{name} rank {rank}")
         if name == "sketch_quarantine":
             assert [float(m["clients_quarantined"]) for m in want[1]] == [0.0, 0.0, 1.0]
-        if "dropout" in name or name == "sketch":
+        if "dropout" in name or name in ("sketch", "sketch_layerwise"):
             assert float(want[1][0]["participants"]) < W  # the mask dropped someone
+        if name.endswith("_layerwise"):
+            # the layerwise emulation is the ravel emulation, bitwise
+            _equal(want, _run_case(name[:-len("_layerwise")]), name)
     for rank in range(WORLD):
         extra = json.loads((tmp_path / f"extra_{rank}.json").read_text())
         assert (extra["max_rank"], extra["max_zero"]) == (WORLD - 1, 0)

@@ -11,7 +11,7 @@ import ctypes
 import pytest
 import torch
 
-from commefficient_tpu_torch.sketch import csvec, kernels
+from commefficient_tpu_torch.sketch import csvec, kernels, layerwise
 
 pytestmark = pytest.mark.cuda
 
@@ -38,7 +38,8 @@ def test_kernels_equal_plain_versions(cuda, d, c, r):
     table = csvec.sketch_vec(spec, v)
     assert torch.equal(table, csvec._sketch_vec_rotation(spec, v))
     assert torch.equal(csvec.query_all(spec, table), csvec._query_all_rotation(spec, table))
-    assert kernels.launch_counts == {"sketch_accumulate": 1, "sketch_query": 1}
+    assert kernels.launch_counts == {"sketch_accumulate": 1, "sketch_query": 1,
+                                     "sketch_accumulate_leaf": 0}
 
 
 def test_windows_wrap_in_the_short_last_slab_case():
@@ -153,3 +154,60 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         kernels.accumulate(v, shifts[:, :2].contiguous(), ks, 1024)
     with pytest.raises(ValueError, match="r <= 16"):
         kernels.query(torch.zeros(17, 1024, device=cuda), shifts, ks, 3000)
+
+
+# (d, c, r, leaf sizes): a leaf that starts mid-slab and spans 3 slabs, a
+# 1-element leaf, a last leaf with padding past d; c not a multiple of 4;
+# r = 16; c below the tile
+LEAF_TREES = [(3000, 1024, 3, (100, 2500, 1, 399)), (5003, 777, 1, (5, 1600, 1, 3397)),
+              (40000, 4096, 16, (4096, 1, 30000, 5903)), (2500, 300, 2, (299, 2, 2199))]
+
+
+@pytest.mark.parametrize("d,c,r,sizes", LEAF_TREES)
+def test_leaf_kernel_equals_plain_after_every_leaf(cuda, d, c, r, sizes):
+    spec = csvec.CSVecSpec(d=d, c=c, r=r, seed=11, family="rotation")
+    v = torch.randn(d, generator=torch.Generator(device=cuda).manual_seed(d), device=cuda)
+    leaves = list(torch.split(v, list(sizes)))
+    plan = layerwise.make_block_plan(spec, leaves)
+    got, want = csvec.zero_table(spec, cuda), csvec.zero_table(spec, cuda)
+    kernels.reset_launch_counts()
+    for leaf, blk in zip(leaves, plan.blocks):
+        layerwise.accumulate_leaf(spec, got, leaf, blk.offset)
+        layerwise._accumulate_leaf_rotation(spec, want, leaf, blk)
+        assert torch.equal(got, want), blk
+    assert torch.equal(got, csvec.sketch_vec(spec, v))
+    assert kernels.launch_counts["sketch_accumulate_leaf"] == len(sizes)
+
+
+@pytest.mark.parametrize("at", ["start", "end"])
+def test_leaf_kernel_reads_nothing_past_its_leaf(cuda, at):
+    """A leaf in the middle of a slab, starting or ending on the edge of
+    mapped memory: a read outside it faults at the synchronize."""
+    spec = csvec.CSVecSpec(d=9001, c=777, r=3, seed=5, family="rotation")
+    v = torch.randn(9001, generator=torch.Generator(device=cuda).manual_seed(1), device=cuda)
+    off, n = 1234, 2999
+    with _guarded(n, at, cuda) as leaf:
+        leaf.copy_(v[off:off + n])
+        got = layerwise.accumulate_leaf(spec, csvec.zero_table(spec, cuda), leaf, off)
+        torch.cuda.synchronize()
+        want = layerwise._accumulate_leaf_rotation(spec, csvec.zero_table(spec, cuda),
+                                                   v[off:off + n],
+                                                   layerwise._leaf_block(spec, off, n))
+        assert torch.equal(got, want)
+
+
+def test_leaf_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    spec = csvec.CSVecSpec(d=3000, c=1024, r=3, family="rotation")
+    shifts, ks = csvec._rotation_keys(spec, cuda)
+    table = torch.zeros(3, 1024, device=cuda)
+    leaf = torch.randn(100, device=cuda)
+    with pytest.raises(ValueError, match="lie in"):
+        kernels.accumulate_leaf(table, leaf, 2950, shifts, ks, 1024, 3000)
+    with pytest.raises(ValueError, match="lie in"):
+        kernels.accumulate_leaf(table, leaf[:0], 0, shifts, ks, 1024, 3000)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.accumulate_leaf(table.t().contiguous().t(), leaf, 0, shifts, ks, 1024, 3000)
+    with pytest.raises(ValueError, match="float32"):
+        kernels.accumulate_leaf(table, leaf.double(), 0, shifts, ks, 1024, 3000)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.accumulate_leaf(torch.zeros(3, 512, device=cuda), leaf, 0, shifts, ks, 1024, 3000)

@@ -47,6 +47,7 @@ from commefficient_tpu_torch.models.losses import make_lm_loss as tlm
 from commefficient_tpu_torch.modes import modes as tmodes
 from commefficient_tpu_torch.modes.config import ModeConfig as TModeConfig
 from commefficient_tpu_torch.parallel.mesh import ClientMesh
+from commefficient_tpu_torch.sketch import layerwise as tlayerwise
 from test_torch_cohort_faults import _image_batch, _tiny_pair
 from test_torch_loop_parity import TINY_PATHS
 from test_torch_serve import DOUT, _data, _jquad, _Quad, _tquad
@@ -168,7 +169,7 @@ def test_emulation_matches_the_reference_sharded_round(monkeypatch, tiny, name, 
         clean = [w for w in range(W) if w != 5]
         med = torch.median(tengine._client_norms(u)[clean]).reshape(())
         lmed = torch.median(tengine._client_layer_norms(
-            u, tengine._leaf_segments(layout))[clean], dim=0).values
+            u, tlayerwise.leaf_segments(layout))[clean], dim=0).values
         tstate["quarantine"] = {"median": med, "layer_median": lmed}
         jstate["quarantine"] = {"median": jnp.asarray(med.numpy()),
                                 "layer_median": jnp.asarray(lmed.numpy())}
