@@ -272,6 +272,23 @@ Phases (any failure raises, and the exit status is non-zero):
       launches a round, state and rows against ravel's bitwise, round ms
       and peak memory in turns.
 
+20. the rest of the client mesh on a group: 4 gloo ranks sharing the card
+   (as phase 18b), one launch, 4 rounds a run at ResNet-9's full width:
+   a. local_topk with local error and momentum (phase 10's flags, 100
+      clients): the [100, d] client state padded and split, 25 rows a key
+      on each rank; == the one-device twin (the emulation at S = 4)
+      bitwise on every rank, client rows included; each rank's resident
+      state a quarter of the twin's; preempted at round 1 on rank 2 and
+      resumed, == the uninterrupted run; rank 0's round-2 checkpoint
+      resumed in a one-device session, == the same;
+   b. fedavg with 5 local steps == its twin bitwise;
+   c. the trimmed table round (trim 1, clip 3, a 50x client) == the
+      one-device groups at client_shards 4 bitwise; each rank launches 2
+      accumulates and 1 query a round;
+   d. local_topk round ms on rank 0 in turns with the twin (rank 0 holds
+      it), the row moves' ms and bytes (against ``client_row_bytes``) and
+      the table gather's, on rank 0 after a barrier.
+
 Prints one JSON line with the kernels' numbers (launches counted over
 phase 8; under "gpt2" each kernel's numbers at the GPT-2 shape, launches
 counted over phase 11a; "launches_cohort" counted over phase 12a's sync
@@ -281,7 +298,8 @@ the numbers at phase 13b's shape; "launches_serve" over phase 14a's and
 "launches_obs" over phase 16's armed (a), GPT-2 (d) and served (e) runs,
 "launches_robust" over phase 17's attacked runs and its quarantine run,
 "launches_mesh" over phase 18's emulation and each rank of its
-uninterrupted gloo run, "launches_layerwise" over each run of phase 19; a
+uninterrupted gloo run, "launches_layerwise" over each run of phase 19,
+"launches_group" over each of phase 20's runs on rank 0; a
 third row, ``sketch_accumulate_leaf``, with a whole ResNet-9 tree's fold
 times and (b)'s layerwise launches),
 then
@@ -290,6 +308,7 @@ as its last line
     python3 chip_smoke.py
 ``--kernels-only`` stops after phase 4 (a short first check of a new kernel),
 ``--layerwise-only`` runs phase 19 right after phase 4 and stops,
+``--group-only`` runs phase 20 right after phase 4 and stops,
 ``--cohorts N`` sets the number of cohorts phase 7 compares (default 4);
 ``--pairs N`` the sync/async timing pairs of phase 8 (default 2).
 """
@@ -442,6 +461,22 @@ MESH_ARGS = ["--num_rounds", str(MESH_ROUNDS), "--checkpoint_every", "2",
 # and the params move by a sliver of the step apart
 MESH_TOPK_AGREE = 0.99
 MESH_REL = 1e-3
+# phase 20: the rest of the client mesh on a group of GROUP_SHARDS gloo
+# ranks sharing the card, GROUP_ROUNDS rounds a run: (a) local_topk with
+# local error and momentum (phase 10's flags, 100 clients: the client state
+# split over the ranks), (b) fedavg with 5 local steps, (c) the table round
+# of a trimmed merge with the clip and a 50x client; GROUP_TURNS timed
+# turns in (d)
+GROUP_SHARDS = 4
+GROUP_ROUNDS = 4
+GROUP_TURNS = 3
+GROUP_RUNS = {
+    "local_topk": RESNET_ARGS + ["--mode", "local_topk"],
+    "fedavg": RESNET_ARGS + ["--mode", "fedavg", "--num_local_iters", "5"],
+    "table": SLICE_ARGS + ["--merge_policy", "trimmed", "--merge_trim", "1",
+                           "--client_update_clip", "3", "--fault_plan",
+                           "client_scale@1:clients=1,factor=50"],
+}
 # phase 19: the layerwise sketch path. (b) and (d) run LW_ROUNDS rounds of
 # phase 5's flags, (c) LW_GPT2_ROUNDS of phase 11's; LW_PAIRS timed turns a
 # path. LEAF_EDGES (d, c, r, leaf sizes): a leaf that starts mid-slab and
@@ -3187,6 +3222,342 @@ def mesh_phase(cv_train, engine, kernels, card: str) -> dict:
     return launches
 
 
+def tree_digest(tree) -> str:
+    """sha256 over a nested dict of tensors (keys sorted, each tensor's
+    dtype, shape and bytes): two trees with equal digests are bitwise
+    equal."""
+    import hashlib
+
+    h = hashlib.sha256()
+
+    def walk(t, key):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], f"{key}/{k}")
+        elif torch.is_tensor(t):
+            c = t.detach().contiguous().cpu()
+            h.update(f"{key}:{c.dtype}:{tuple(c.shape)}".encode())
+            h.update(c.reshape(-1).view(torch.uint8).numpy().tobytes())
+        else:
+            h.update(f"{key}={t!r}".encode())
+
+    walk(tree, "")
+    return h.hexdigest()
+
+
+def _server_state(s) -> dict:
+    """The committed server state (params, batch-norm statistics, optimizer
+    state, the quarantine's rings), without the round counter."""
+    return {k: v for k, v in s.state.items() if k != "round"}
+
+
+def _client_blocks(client_state: dict, shards: int) -> list:
+    """The digests of the blocks a group of ``shards`` ranks holds of a
+    one-device [N, d] client state: padded to a multiple of ``shards``, cut
+    into contiguous blocks."""
+    n = next(iter(client_state.values())).shape[0]
+    B = -(-n // shards)
+    padded = {k: torch.cat([v, v.new_zeros((B * shards - n, v.shape[1]))])
+              for k, v in client_state.items()}
+    return [tree_digest({k: v[r * B:(r + 1) * B] for k, v in padded.items()})
+            for r in range(shards)]
+
+
+def _twin_session(shards: int):
+    """A FederatedSession factory for the group's one-device twin: the
+    sharded round's emulation at ``shards`` on one card, set on the built
+    session (the session's client_shards takes only the reference's linear
+    scope; the table round's emulation is that argument's)."""
+    import dataclasses
+
+    from commefficient_tpu_torch.federated.api import FederatedSession
+
+    def make(*a, **kw):
+        s = FederatedSession(*a, **kw)
+        s.cfg = dataclasses.replace(s.cfg, client_shards=shards)
+        s._build_steps()
+        return s
+
+    return make
+
+
+def _group_rank(out_dir: str, device: str) -> None:
+    """One rank of phase 20's gloo group: the runs of GROUP_RUNS through
+    ``cv_train.main`` ((a) uninterrupted, preempted at round 1 on rank 2
+    and resumed; (b); (c)), then (d)'s timed turns, row moves and table
+    gathers. Writes this rank's per-run metrics, launch counts, state and
+    client-block digests, resident client-state bytes and times to
+    ``out_dir/group_<rank>.json``."""
+    sys.path.insert(0, ROOT)
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from commefficient_tpu_torch import cv_train
+    from commefficient_tpu_torch.parallel import distributed
+    from commefficient_tpu_torch.parallel.mesh import client_row_bytes
+    from commefficient_tpu_torch.sketch import kernels
+    from commefficient_tpu_torch.utils.config import make_parser, resolve_defaults
+
+    distributed.initialize(force=True, backend="gloo", device=device)
+    rank, S = distributed.rank(), distributed.world_size()
+    out = {"runs": {}}
+    ck = os.path.join(out_dir, "ck")
+    rounds = ["--num_rounds", str(GROUP_ROUNDS)]
+
+    def run(tag, argv):
+        kernels.reset_launch_counts()
+        code, s = 0, None
+        t0 = time.perf_counter()
+        with recording_rounds() as rec:
+            try:
+                s = cv_train.main(list(argv) + rounds)
+            except SystemExit as e:
+                code = e.code if isinstance(e.code, int) else 1
+        torch.cuda.synchronize() if device == "cuda" else None
+        got = {"metrics": rec["metrics"], "launches": ravel_launches(kernels), "code": code,
+               "s": time.perf_counter() - t0}
+        if s is not None:
+            got["state"] = tree_digest(_server_state(s))
+            if s.client_state is not None:
+                got["block"] = tree_digest(s.client_state)
+                got["client_block"] = list(s.client_block)
+                got["resident_bytes"] = sum(v.numel() * v.element_size()
+                                            for v in s.client_state.values())
+            got["round_ms"] = s.run_stats.round_ms
+        out["runs"][tag] = got
+        return s
+
+    local = GROUP_RUNS["local_topk"]
+    run("local_topk", local)
+    run("preempted", local + ["--checkpoint_dir", ck, "--fault_plan", "host_preempt@1:host=2"])
+    dist.barrier()
+    # the resume keeps round 2's checkpoint beside its own (the newest 3
+    # are kept): the one-device restore reads it
+    s = run("resumed", local + ["--checkpoint_dir", ck, "--resume"])
+    run("fedavg", GROUP_RUNS["fedavg"])
+    run("table", GROUP_RUNS["table"])
+
+    # d. times, on the resumed session: the group's round in turns with its
+    # twin (rank 0 alone runs the twin, the others wait at a barrier), then
+    # the row moves and the table gather, each on rank 0 after a barrier
+    twin = None
+    if rank == 0:
+        cli_mesh = distributed.cli_mesh
+        distributed.cli_mesh = lambda a: None
+        try:
+            twin, _ = cv_train.build(resolve_defaults(make_parser().parse_args(local + rounds)))
+        finally:
+            distributed.cli_mesh = cli_mesh
+        twin.cfg = dataclasses.replace(twin.cfg, client_shards=S)
+        twin._build_steps()
+
+    def timed(fn):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, r
+
+    turns = {"group": [], "twin": []}
+    for i in range(GROUP_TURNS + 1):  # the first turn warms up and is dropped
+        for label in (("group", "twin") if i % 2 == 0 else ("twin", "group")):
+            dist.barrier()
+            if label == "group":
+                ms, _ = timed(lambda: s.run_round(CHECK_LR))
+            elif rank == 0:
+                ms, _ = timed(lambda: twin.run_round(CHECK_LR))
+            if i and (label == "group" or rank == 0):
+                turns[label].append(ms)
+    del twin
+    moves, gathers = [], []
+    d = s.layout.d
+    B = s.client_block[1]
+    tables = torch.randn((8 // S, SLICE["r"], SLICE["c"]), device=s.device)
+    for i in range(GROUP_TURNS + 1):
+        ids = s.sample_cohort(s.round)
+        plan = distributed.RowMoves(ids, B, s.group)
+        distributed.row_move_bytes.update(sent=0, received=0)
+        dist.barrier()
+        fetch_ms, rows = timed(lambda: plan.fetch(s.client_state))
+        dist.barrier()
+        back_ms, _ = timed(lambda: plan.give_back(s.client_state, rows))
+        want = client_row_bytes(ids, s.train_set.num_clients, S, d, len(s.client_state))
+        moved = dict(distributed.row_move_bytes)
+        both = want["sent_per_rank"][rank] + want["received_per_rank"][rank]
+        if moved != {"sent": both, "received": both}:
+            fail(f"group d: rank {rank} moved {moved}, client_row_bytes counts {both} each way")
+        dist.barrier()
+        gather_ms, _ = timed(lambda: distributed.all_gather_stacked([tables], s.group))
+        if i:
+            moves.append([fetch_ms, back_ms, want["bytes_each_way"], want["crossing"],
+                          moved["sent"], moved["received"]])
+            gathers.append([gather_ms, tables.numel() * tables.element_size() * S])
+    out.update(turns=turns, moves=moves, gathers=gathers)
+    with open(os.path.join(out_dir, f"group_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+
+
+def group_phase(cv_train, engine, kernels, card: str) -> dict:
+    """Phase 20: the rest of the client mesh on 4 gloo ranks sharing the
+    card, at ResNet-9's full width: (a) local_topk with the client state
+    split over the ranks, against its one-device twin, preempted and
+    resumed, its checkpoint resumed on one device; (b) fedavg; (c) the
+    trimmed table round; (d) the times. Returns each kernel's launches on
+    rank 0 over each run."""
+    import functools
+    import shutil
+
+    from commefficient_tpu_torch.federated.api import FederatedSession
+    from commefficient_tpu_torch.parallel import distributed
+    from commefficient_tpu_torch.utils import checkpoint as ckpt
+    from commefficient_tpu_torch.utils.config import make_parser, resolve_defaults
+
+    device = "cuda" if "cuda" in SLICE_ARGS else "cpu"
+    S, R = GROUP_SHARDS, GROUP_ROUNDS
+    base = os.path.join(ROOT, "build", "chip_smoke", "group")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    t0 = time.perf_counter()
+    codes = distributed.launch_local(_group_rank, S, (base, device), env={"LOCAL_RANK": "0"},
+                                     timeout_s=900)
+    secs = time.perf_counter() - t0
+    ranks = []
+    for r in range(S):
+        path = os.path.join(base, f"group_{r}.json")
+        if not os.path.exists(path):
+            fail(f"group: rank {r} wrote nothing (exit codes {codes})")
+        with open(path) as f:
+            ranks.append(json.load(f))
+    if codes != [0] * S:
+        fail(f"group: rank exit codes {codes}")
+    rounds = ["--num_rounds", str(R)]
+
+    def twin(tag, factory):
+        orig = cv_train.FederatedSession
+        cv_train.FederatedSession = factory
+        try:
+            kernels.reset_launch_counts()
+            with recording_rounds() as rec:
+                s = cv_train.main(GROUP_RUNS[tag] + rounds)
+            torch.cuda.synchronize()
+        finally:
+            cv_train.FederatedSession = orig
+        return s, rec["metrics"], ravel_launches(kernels)
+
+    def same_as(tag, run, s, metrics):
+        for r, got in enumerate(ranks):
+            g = got["runs"][run]
+            if g["code"] != 0 or g["metrics"] != metrics:
+                fail(f"group {tag}: rank {r}'s per-round metrics differ from the twin's")
+            if g["state"] != tree_digest(_server_state(s)):
+                fail(f"group {tag}: rank {r}'s state differs from the twin's")
+
+    # a. local_topk: states, client rows, residency, preemption, a checkpoint
+    # resumed on one device
+    a, a_metrics, a_launches = twin("local_topk", _twin_session(S))
+    same_as("a", "local_topk", a, a_metrics)
+    a_digest = tree_digest(_server_state(a))
+    blocks = _client_blocks(a.client_state, S)
+    one_bytes = sum(v.numel() * v.element_size() for v in a.client_state.values())
+    resident = []
+    for r, got in enumerate(ranks):
+        g = got["runs"]["local_topk"]
+        if g["block"] != blocks[r]:
+            fail(f"group a: rank {r}'s client rows differ from the twin's")
+        resident.append(g["resident_bytes"])
+        if 4 * g["resident_bytes"] != one_bytes or g["launches"] != a_launches:
+            fail(f"group a: rank {r} holds {g['resident_bytes']} bytes of client state (the "
+                 f"twin {one_bytes}), launched {g['launches']}")
+    print(f"group a: local_topk on {S} gloo ranks, {R} rounds == the one-device twin "
+          f"(the emulation at S={S}), bitwise on every rank: params, batch-norm statistics, "
+          f"Vvelocity, Verror, every per-round metric and every client row; resident client "
+          f"state a rank {[round(b / 1e9, 4) for b in resident]} GB against "
+          f"{one_bytes / 1e9:.4f} GB on one device; {secs:.1f} s for the launch [{card}]",
+          flush=True)
+    for r, got in enumerate(ranks):
+        pre, res = got["runs"]["preempted"], got["runs"]["resumed"]
+        if pre["code"] != 75 or pre["metrics"] != a_metrics[:2] or \
+                res["metrics"] != a_metrics[2:] or res["state"] != a_digest or \
+                res["block"] != blocks[r]:
+            fail(f"group a: rank {r}: host_preempt@1:host=2 -> exit {pre['code']}; the resume "
+                 "does not land on the uninterrupted run")
+    # the group's round-2 checkpoint (the unpadded rows, written by rank 0)
+    # restored in a one-device session, the twin, which runs rounds 2 and 3
+    # at the logged lrs
+    c = _twin_session(S)
+    orig = cv_train.FederatedSession
+    cv_train.FederatedSession = c
+    try:
+        c, _ = cv_train.build(resolve_defaults(make_parser().parse_args(
+            GROUP_RUNS["local_topk"] + rounds)))
+    finally:
+        cv_train.FederatedSession = orig
+    ckpt.restore(os.path.join(base, "ck", "round_00000002"), c)
+    c_metrics = [c.run_round(m["lr"]) for m in a_metrics[2:]]
+    if c.round != R or c_metrics != a_metrics[2:] or \
+            not all(torch.equal(c.client_state[k], v) for k, v in a.client_state.items()) or \
+            tree_digest(_server_state(c)) != a_digest:
+        fail("group a: the group's round-2 checkpoint, resumed on one device, does not land on "
+             "the uninterrupted run")
+    print(f"group a: host_preempt@1:host=2 -> every rank exit 75 at round 2; the group's "
+          f"resume == the uninterrupted run, client rows included; the group's round-2 "
+          f"checkpoint resumed on one device == the same, bitwise [{card}]", flush=True)
+    del a, c
+    shutil.rmtree(os.path.join(base, "ck"), ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # b. fedavg, 5 local steps
+    b, b_metrics, b_launches = twin("fedavg", _twin_session(S))
+    same_as("b", "fedavg", b, b_metrics)
+    print(f"group b: fedavg (5 local steps) on {S} gloo ranks, {R} rounds == the one-device "
+          f"twin, bitwise on every rank, every per-round metric included [{card}]", flush=True)
+    del b
+
+    # c. the table round: trimmed (trim 1), the clip, a 50x client
+    c, c_metrics, c_launches = twin("table", functools.partial(FederatedSession,
+                                                               client_shards=S))
+    same_as("c", "table", c, c_metrics)
+    want = {"sketch_accumulate": 8 // S * R, "sketch_query": R}
+    quarantined = [m["clients_quarantined"] for m in c_metrics]
+    for r, got in enumerate(ranks):
+        if got["runs"]["table"]["launches"] != want:
+            fail(f"group c: rank {r} launched {got['runs']['table']['launches']} (want {want})")
+    if c_launches != {"sketch_accumulate": 8 * R, "sketch_query": R} or not quarantined[1]:
+        fail(f"group c: the twin launched {c_launches}, quarantined {quarantined}")
+    print(f"group c: the trimmed table round (trim 1, clip 3, a 50x client at round 1) on {S} "
+          f"gloo ranks, {R} rounds == the one-device groups at client_shards={S}, bitwise on "
+          f"every rank; launches a rank {want} (the twin {c_launches}); quarantined a round "
+          f"{quarantined} [{card}]", flush=True)
+    del c
+
+    # d. times, on rank 0
+    turns, moves, gathers = ranks[0]["turns"], ranks[0]["moves"], ranks[0]["gathers"]
+    print(f"group d: local_topk sync round ms on rank 0 (host clock, synced, {GROUP_TURNS} "
+          f"turns): group {[round(t, 3) for t in turns['group']]} (median "
+          f"{statistics.median(turns['group']):.3f}), one-device twin "
+          f"{[round(t, 3) for t in turns['twin']]} (median "
+          f"{statistics.median(turns['twin']):.3f}) [{card}]", flush=True)
+    print(f"group d: row moves on rank 0 after a barrier, {S} processes on one card through "
+          f"host memory: fetch ms {[round(m[0], 3) for m in moves]}, return ms "
+          f"{[round(m[1], 3) for m in moves]}; client_row_bytes a round each way "
+          f"{[round(m[2] / 1e6, 3) for m in moves]} MB ({[m[3] for m in moves]} of 8 slot rows "
+          f"cross ranks); rank 0 sent {[round(m[4] / 1e6, 3) for m in moves]} MB, received "
+          f"{[round(m[5] / 1e6, 3) for m in moves]} MB (both ways, as counted) [{card}]",
+          flush=True)
+    print(f"group d: the table gather on rank 0 after a barrier: ms "
+          f"{[round(g[0], 3) for g in gathers]} (median "
+          f"{statistics.median(g[0] for g in gathers):.3f}), {gathers[0][1] / 1e6:.2f} MB of "
+          f"[{S}, {8 // S}, {SLICE['r']}, {SLICE['c']}] tables on every rank [{card}]",
+          flush=True)
+    print(f"group: run s on rank 0 "
+          + ", ".join(f"{k} {v['s']:.1f}" for k, v in ranks[0]["runs"].items()), flush=True)
+    return {run: ranks[0]["runs"][run]["launches"] for run in ranks[0]["runs"]}
+
+
 def time_kernels(csvec, kernels, time_ms, spec, gen: torch.Generator) -> dict:
     """Each kernel's median over CUDA-event-timed launches at ``spec``'s
     shape, cold (L2 flushed before each) and warm (its input just
@@ -3290,6 +3661,14 @@ def main(argv: list[str]) -> int:
         }
     if "--kernels-only" in argv:
         print("chip_smoke: kernels-only run done", flush=True)
+        return 0
+    if "--group-only" in argv:
+        phase("20 (group)")
+        group = group_phase(cv_train, engine, kernels, card_line())
+        for name in rows:
+            rows[name]["launches_group"] = {run: n[name] for run, n in group.items()}
+        print(json.dumps({"kernels": list(rows.values())}), flush=True)
+        print("chip_smoke: group-only run done", flush=True)
         return 0
     if "--layerwise-only" in argv:
         phase("19 (layerwise)")
@@ -3415,6 +3794,10 @@ def main(argv: list[str]) -> int:
     # 19. the layerwise sketch path
     phase("19 (layerwise)")
     lw = layerwise_phase(cv_train, engine, csvec, kernels, time_ms, gen, card)
+
+    # 20. the rest of the client mesh on a group
+    phase("20 (group)")
+    group = group_phase(cv_train, engine, kernels, card)
     phase("end")
 
     for name in rows:
@@ -3431,6 +3814,7 @@ def main(argv: list[str]) -> int:
     rows["sketch_accumulate_leaf"] = leaf_row(lw)
     for name in rows:
         rows[name]["launches_layerwise"] = {run: n[name] for run, n in lw["launches"].items()}
+        rows[name]["launches_group"] = {run: n.get(name, 0) for run, n in group.items()}
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -54,9 +54,16 @@ contiguous shards (``engine.make_sharded_round_step``). Without a mesh the
 shards run one after another on this device (the emulation); with a mesh
 of S shards each of the S ranks of this process's ``torch.distributed``
 group runs one, and every rank samples the same cohort, assembles only its
-own slice of the batch and keeps the same replicated state. The modes the
-sharded round does not cover and the per-client-table round raise on a
-group (ROADMAP Queue 1 item 7b).
+own slice of the batch and keeps the same replicated server state. On a
+group every mode runs sharded, local_topk and fedavg/localSGD included
+(``client_shards`` takes only the reference's linear scope), and so does
+the per-client-table round, whose ranks gather their tables in slot order
+(``engine.make_payload_round_steps``). A mode with client state keeps it
+split: the [num_clients, d] state is padded to a multiple of S and rank r
+holds only its contiguous block of rows; each round brings every cohort
+slot's rows from the rank that owns them to the rank that runs the slot
+and sends the new rows back (``parallel.distributed.RowMoves``), out of
+place as on one device.
 
 ``FedModel`` and ``FedOptimizer`` mirror the reference's
 ``FedModel(model, loss_fn, args)`` / ``FedOptimizer(opt, args)`` surface.
@@ -272,9 +279,11 @@ class FederatedSession:
         self.state = engine.init_server_state(
             self.cfg, pflat, {k: v.detach().to(self.device).clone() for k, v in net_state.items()},
             layout)
-        # [num_clients, d] per key, or None
-        self.client_state = modes.init_client_state(mode_cfg, train_set.num_clients,
-                                                    self.device)
+        # [num_clients, d] per key, or None; on a group this rank's block of
+        # the padded state ([B, d] per key, client_block)
+        self.client_state = modes.init_client_state(
+            mode_cfg, train_set.num_clients if self.client_block is None
+            else self.client_block[1], self.device)
         self._eval = engine.make_eval_step(eval_loss_fn, layout)
         self.fault_plan = fault_plan
         self.retry_policy = retry_policy or rtry.RetryPolicy()
@@ -335,15 +344,17 @@ class FederatedSession:
         shard per rank of this process's ``torch.distributed`` group, which
         must have S ranks. An explicit ``client_shards`` that disagrees with
         the mesh raises; the cohort is rounded to a multiple of S (raised
-        when it cannot be); a mode outside the sharded scope raises when
-        ``client_shards`` asks for it. On a group, what the sharded round
-        does not run there yet (out-of-scope modes, the per-client-table
-        round) raises, naming ROADMAP item 7b. Each rank samples the same
-        cohort and assembles only its contiguous slice of it."""
+        when it cannot be); a mode outside the reference's sharded scope
+        raises when ``client_shards`` asks for it, and runs sharded on a
+        group (local_topk, fedavg/localSGD), as does the per-client-table
+        round. Each rank samples the same cohort and assembles only its
+        contiguous slice of it. On a group, a mode with client state keeps
+        only its block of the padded [num_clients, d] state:
+        ``client_block`` is (first row, rows) of it, None elsewhere."""
         from ..parallel import distributed
         from ..parallel import mesh as meshlib
 
-        self.group, self._rows = None, None
+        self.group, self._rows, self.client_block = None, None, None
         if client_shards >= 1 and mesh is not None and client_shards != mesh.shards:
             # including client_shards=1 ("unsharded"), which the mesh's
             # S-way program would drop without notice
@@ -377,31 +388,27 @@ class FederatedSession:
                   f"client mesh; rounding the cohort to {adjusted} so the round stays sharded "
                   f"(pass a multiple of {shards} to silence this)", flush=True)
             self.num_workers = adjusted
-        self._spmd = shards > 1 and engine.supports_sharded_round(mode_cfg)
-        if client_shards > 1 and not self._spmd:
+        in_scope = engine.supports_sharded_round(mode_cfg)
+        if client_shards > 1 and not in_scope:
             raise ValueError(
                 f"client_shards={client_shards} requires a mode in the sharded-round scope "
                 f"(linear grad modes without client-local state); mode={mode_cfg.mode!r} "
                 f"error_type={mode_cfg.error_type!r} runs the GSPMD path - pass a mesh "
                 "instead of client_shards")
+        # a group runs every mode sharded (the reference's GSPMD modes as
+        # the port's sharded round); client_shards only the scope's
+        self._spmd = shards > 1 and (in_scope or self.group is not None)
         if self.group is not None:
-            if not self._spmd:
-                raise ValueError(
-                    f"mode={mode_cfg.mode!r} (error_type={mode_cfg.error_type!r}, "
-                    f"momentum_type={mode_cfg.momentum_type!r}) is outside the sharded "
-                    f"round's scope, which is all a group of {shards} ranks runs in the port; "
-                    "the reference partitions it over its mesh by GSPMD (ROADMAP Queue 1 "
-                    "item 7b)")
-            if self._table_round:
-                why = ("--serve_payload sketch" if self.cfg.wire_payloads else
-                       f"merge_policy={self.cfg.merge_policy!r}" if engine.robust_policy(self.cfg)
-                       else "the adversarial fault kinds")
-                raise ValueError(
-                    f"{why} runs the per-client-table round, which the port does not run on "
-                    f"a group of {shards} ranks yet (ROADMAP Queue 1 item 7b)")
             wl = self.num_workers // shards
-            lo = mesh.shard_index(distributed.rank()) * wl
+            shard = mesh.shard_index(distributed.rank())
+            lo = shard * wl
             self._rows = (lo, lo + wl)
+            if mode_cfg.needs_local_state:
+                # the [num_clients, d] client state, padded to a multiple of
+                # S, split by contiguous blocks: shard s owns rows [s * B,
+                # (s + 1) * B); the pad rows are never indexed
+                B = -(-self.train_set.num_clients // shards)
+                self.client_block = (shard * B, B)
         if self._spmd:
             self.cfg = dataclasses.replace(self.cfg, client_shards=shards)
 
@@ -418,7 +425,7 @@ class FederatedSession:
             # (compute_client_tables, then dispatch_round of a payload
             # preparation)
             self._payload_client, self._payload_merge = engine.make_payload_round_steps(
-                loss_fn, cfg, layout)
+                loss_fn, cfg, layout, self.group)
             self._step = engine.compose_payload(self._payload_client, self._payload_merge)
             self._multi = None
         else:
@@ -786,7 +793,13 @@ class FederatedSession:
         lr_host = self._host(np.asarray(lr, np.float32))
         cstate = self._head_clients()
         rows, ids = {}, None
-        if cstate is not None:
+        if self.client_block is not None:
+            # each slot's rows come from the rank that owns them
+            from ..parallel import distributed
+
+            moves = distributed.RowMoves(prep.ids, self.client_block[1], self.group)
+            rows = moves.fetch(cstate)
+        elif cstate is not None:
             ids = self._host(prep.ids.astype(np.int64)).to(self.device, non_blocking=True)
             rows = {k: v.index_select(0, ids) for k, v in cstate.items()}
         new_state, new_rows, metrics = self._step(
@@ -795,7 +808,8 @@ class FederatedSession:
         new_cstate = None
         if cstate is not None:
             # out of place: the committed client state stays as it was
-            new_cstate = {k: v.index_copy(0, ids, new_rows[k]) for k, v in cstate.items()}
+            new_cstate = (moves.give_back(cstate, new_rows) if self.client_block is not None
+                          else {k: v.index_copy(0, ids, new_rows[k]) for k, v in cstate.items()})
             self._head_client_state = new_cstate
         self._head_state = new_state
         self._inflight += 1

@@ -45,7 +45,11 @@ the quarantine's rings, the non-finite guard, DP noise and the server
 step. On one device the shards run in a loop (the emulation); on a
 ``torch.distributed`` group of S ranks each rank runs its own shard and
 the partials are all-gathered, so a given S gives the same bits on one
-device and on S ranks.
+device and on S ranks. On a group the sharded round also runs local_topk
+(each client compressed against its rows of the client state, which the
+session keeps split over the ranks) and fedavg/localSGD, which the
+reference runs over its mesh by GSPMD; the per-client-table round runs
+each rank's W / S clients and gathers their tables in slot order.
 
 The layerwise path (``sketch_path="layerwise"``, mode=sketch only): the
 client phase is the ravel path's, and the reduced [d] update (a shard's
@@ -866,15 +870,20 @@ def _all_finite(tensors) -> torch.Tensor:
 
 
 def _guard_nonfinite(cfg: EngineConfig, agg: dict, new_net_state: dict, net_state: dict,
-                     new_rows: dict, client_rows: dict, metrics: dict):
+                     new_rows: dict, client_rows: dict, metrics: dict,
+                     rows_ok: torch.Tensor | None = None):
     """on_nonfinite="skip": zero a non-finite aggregate, keep the previous
     batch-norm statistics and client rows, zero the round's training sums
     and flag it in ``nonfinite_rounds`` (the participants count and the
     quarantine's metrics stay). On finite data every select keeps its
-    input. Also returns the round's finite flag (None with "off")."""
+    input. Also returns the round's finite flag (None with "off").
+    ``rows_ok`` is the finite flag of new client rows held elsewhere (the
+    other shards' of a sharded round), folded into the verdict."""
     if cfg.on_nonfinite != "skip":
         return agg, new_net_state, new_rows, metrics, None
     ok = _all_finite([*agg.values(), *new_net_state.values(), *new_rows.values()])
+    if rows_ok is not None:
+        ok = ok & rows_ok
     agg = {k: torch.where(ok, v, torch.zeros_like(v)) if v.is_floating_point() else v
            for k, v in agg.items()}
     new_net_state = {k: torch.where(ok, v, net_state[k]) for k, v in new_net_state.items()}
@@ -1066,7 +1075,7 @@ def _apply_adv(tables: torch.Tensor, adv, clip: float = 0.0,
 
 
 def make_payload_round_steps(loss_fn: Callable, cfg: EngineConfig,
-                             layout: FlatLayout) -> tuple[Callable, Callable]:
+                             layout: FlatLayout, group=None) -> tuple[Callable, Callable]:
     """The per-client-table round as two steps, the shape a serving
     deployment has (the reference's ``make_payload_round_steps`` with no
     mesh): the wire-payload round (``wire_payloads``) and the round of a
@@ -1077,14 +1086,25 @@ def make_payload_round_steps(loss_fn: Callable, cfg: EngineConfig,
         merge_step(state, tables, nstates, mvals, part, arrived, lr,
                    lnorms=None, health_on=False) -> (state', metrics)
 
-    ``client_step`` is "the clients": one vmap of all W clients' updates
+    ``client_step`` is "the clients": the clients' updates
     (``make_client_updates``; ``client_chunk`` does not apply), each row
     clipped to ``dp_clip`` and sketched into its own [r, c] table, row by
     row in cohort order (on the card, one ``sketch_accumulate`` launch per
     client: what the reference's ``sequential_vmap`` lowers to), then the
     adversarial transform of the batch's ``_adv_*`` keys on the stack
-    (``_apply_adv``). The [W, d] stack of updates is live, as in the
-    reference. ``nstates`` and ``mvals`` are each client's batch-norm
+    (``_apply_adv``). With ``cfg.client_shards`` S > 1 the clients run as
+    S groups of W / S, one vmap a group, one group after another, as the
+    reference's ``lax.map`` over its groups (so at most W / S updates are
+    live); S = 1 is one vmap of all W, whose [W, d] stack of updates is
+    live, as in the reference. Given a ``torch.distributed`` group of S
+    ranks, each rank runs its own group (its batch holds cohort slots
+    [rank * W / S, (rank + 1) * W / S), W / S accumulate launches) and one
+    ordered ``all_gather`` of the tables, statistics, metric rows, masks
+    and norms makes the [W, ...] stacks in slot order on every rank, the
+    emulation's stacks bit for bit; the adversarial transform and the
+    merge then run replicated. Per-client tables keep the merge's
+    arithmetic per client, so the merge is the same at any S. ``nstates``
+    and ``mvals`` are each client's batch-norm
     statistics and metric sums, stacked on [W]; ``part`` is the validity
     mask times the participation mask; ``lnorms`` the [W, L] per-leaf update
     norms before the clip under layer scope (else None).
@@ -1123,21 +1143,49 @@ def make_payload_round_steps(loss_fn: Callable, cfg: EngineConfig,
     quarantine = cfg.client_update_clip > 0
     layer_q = quarantine and cfg.quarantine_scope == "layer"
     pol = robust_policy(cfg)
+    S, shard = _group_info(cfg, group)
+
+    def group_tables(state: dict, batch_g: dict, slots: range) -> dict:
+        """One group's clients (cohort ``slots``): their tables, statistics,
+        metric rows and (layer scope) per-leaf norms, under "t", "ns/",
+        "m/" and "lnorms"."""
+        u, nstates, mvals = updates(state, batch_g, None, slots)
+        out = {f"ns/{k}": v for k, v in nstates.items()}
+        out.update({f"m/{k}": v for k, v in mvals.items()})
+        if layer_q:
+            out["lnorms"] = _client_layer_norms(u, segments)
+        u = _clip_rows(cfg, u)
+        # row by row, in cohort order: what the reference's sequential_vmap
+        # of the accumulate lowers to
+        out["t"] = torch.stack([modes.client_compress(mcfg, u[w], {})[0]["table"]
+                                for w in range(u.shape[0])])
+        return out
 
     def client_step(state: dict, batch: dict):
         batch, _ = split_health(batch)  # the merge computes health
         batch, adv = split_adv(batch)
-        batch, W, part = _cohort_part(cfg, state, batch)
-        u, nstates, mvals = updates(state, batch, None, range(W))
-        lnorms = _client_layer_norms(u, segments) if layer_q else None
-        u = _clip_rows(cfg, u)
-        # row by row, in cohort order: what the reference's sequential_vmap
-        # of the accumulate lowers to
-        tables = torch.stack([modes.client_compress(mcfg, u[w], {})[0]["table"]
-                              for w in range(W)])
-        tables = _apply_adv(tables, adv, cfg.client_update_clip,
+        if group is None:
+            batch, W, part = _cohort_part(cfg, state, batch)
+            if W % S:
+                raise ValueError(f"sampled cohort ({W}) not divisible by client_shards={S}")
+            wl = W // S
+            outs = [group_tables(state, {k: v[lo:lo + wl] for k, v in batch.items()},
+                                 range(lo, lo + wl)) for lo in range(0, W, wl)]
+            out = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+        else:
+            n = next(iter(batch.values())).shape[0]
+            lo = shard * n
+            batch, _, part_l = _cohort_part(cfg, state, batch, n * S, lo)
+            local = group_tables(state, batch, range(lo, lo + n))
+            local["part"] = part_l
+            out = {k: v.reshape((-1,) + v.shape[2:])
+                   for k, v in _gather_in_shard_order(local, group).items()}
+            part = out.pop("part")
+        tables = _apply_adv(out.pop("t"), adv, cfg.client_update_clip,
                             state["quarantine"]["median"] if quarantine else None)
-        return tables, nstates, mvals, part, lnorms
+        nstates = {k[3:]: v for k, v in out.items() if k.startswith("ns/")}
+        mvals = {k[2:]: v for k, v in out.items() if k.startswith("m/")}
+        return tables, nstates, mvals, part, out.get("lnorms")
 
     def merge_step(state: dict, tables: torch.Tensor, nstates: dict, mvals: dict,
                    part: torch.Tensor, arrived: torch.Tensor, lr,
@@ -1239,22 +1287,14 @@ def compose_payload(client_step: Callable, merge_step: Callable) -> Callable:
 
 
 def supports_sharded_round(mcfg: ModeConfig) -> bool:
-    """Scope of the sharded round (``make_sharded_round_step``): linear
-    grad modes without client-local state and without the local-SGD
-    weight-delta loop, where compression commutes with the cross-shard sum
-    (FetchSGD's sketch linearity; trivially the dense wires)."""
+    """The reference's sharded-round scope: linear grad modes without
+    client-local state and without the local-SGD weight-delta loop, where
+    compression commutes with the cross-shard sum (FetchSGD's sketch
+    linearity; trivially the dense wires). The session's ``client_shards``
+    asks for these modes only, as the reference's does; on a group of ranks
+    the port also runs the other modes through ``make_sharded_round_step``,
+    which the reference runs over its mesh by GSPMD."""
     return modes.is_linear(mcfg) and not mcfg.needs_local_state and not mcfg.uses_weight_delta
-
-
-def _sharded_scope_check(mcfg: ModeConfig):
-    if not supports_sharded_round(mcfg):
-        raise ValueError(
-            "sharded round supports linear grad modes without client-local "
-            f"state (the flagship sketch config); mode={mcfg.mode!r} "
-            f"error_type={mcfg.error_type!r} momentum_type="
-            f"{mcfg.momentum_type!r} needs the GSPMD path (make_round_step "
-            "over a sharded batch)"
-        )
 
 
 def _robust_scope_check(cfg: EngineConfig):
@@ -1269,27 +1309,40 @@ def _robust_scope_check(cfg: EngineConfig):
 
 
 def _merged_sharded_tail(cfg: EngineConfig, state: dict, stacked: dict, lr,
-                         health_on: bool = False) -> tuple[dict, dict]:
+                         health_on: bool = False) -> tuple[dict, dict, torch.Tensor | None]:
     """Everything after the shards' client phases, shared by the emulation
     and the ranks of a group so they cannot drift: the ordered merge of the
     [S, ...] partial wires (``modes.merge_partial_wires``: an ordered sum,
     shard 0 first, not an all-reduce), survivor normalisation in wire space,
     the batch-norm and metric sums, the quarantine's rings from the
-    gathered [W] norms, the non-finite guard, DP noise and the server step.
+    gathered [W] norms, the non-finite guard, DP noise and the server step
+    (at ``server_lr`` for the weight-delta modes, whose local steps took
+    ``lr``). Returns (state', metrics, the guard's finite flag or None).
 
-    ``stacked`` holds each shard's outputs (``_shard_outputs``) stacked on
-    a leading [S] axis in shard order: "wire/<key>", "ns/<key>",
-    "m/<key>", "part_eff" ([S, W/S]: dropout x validity x quarantine) and,
-    with the quarantine armed, "part" (before the quarantine), "norms" and
-    under layer scope "lnorms". A sharded round merges wires, so only the
-    wire-side health estimators exist (the dense reduced update never
-    does)."""
+    ``stacked`` holds each shard's outputs (``make_sharded_round_step``'s
+    ``shard_outputs``) stacked on a leading [S] axis in shard order:
+    "wire/<key>", "ns/<key>", "m/<key>", "part_eff" ([S, W/S]: dropout x
+    validity x quarantine), with the quarantine armed "part" (before the
+    quarantine), "norms" and under layer scope "lnorms", and with client
+    state "rows_ok", each shard's finite flag of its new rows. A sharded
+    round merges wires, so only the wire-side health estimators exist (the
+    dense reduced update never does).
+
+    Where the algebra differs from the linear modes': a local_topk shard's
+    partial is the sum of its clients' densified top-k wires, each
+    compressed against that client's rows, so compression does not commute
+    with this sum and nothing is compressed here (the sum of those wires is
+    the aggregate all the same, merged by the dense ordered sum); and the
+    guard's verdict, which in the unsharded round reads every new client
+    row, reads the gathered ``rows_ok`` flags, since the rows stay with
+    their shards (the caller keeps its own rows on a non-finite round)."""
     mcfg = cfg.mode
 
     def sub(prefix):
         return {k[len(prefix):]: v for k, v in stacked.items() if k.startswith(prefix)}
 
-    wire_sum = modes.merge_partial_wires(mcfg, sub("wire/"))
+    wire_sum = (modes.merge_partial_wires(mcfg, sub("wire/")) if modes.is_linear(mcfg)
+                else {"dense": stacked["wire/dense"].sum(0)})
     part_eff = stacked["part_eff"].reshape(-1)
     agg = _normalize_merged_wire(mcfg, wire_sum, part_eff.sum().clamp_min(1.0))
     new_net_state, metrics = _merged_survivor_finalize(
@@ -1304,14 +1357,18 @@ def _merged_sharded_tail(cfg: EngineConfig, state: dict, stacked: dict, lr,
             None if lnorms is None else lnorms.reshape((-1,) + lnorms.shape[2:]), part_eff)
         metrics["quarantine_median"] = new_q["median"]
     raw_agg = agg  # the pre-guard wire: a health block shows the poison
+    rows_ok = stacked["rows_ok"].all() if "rows_ok" in stacked else None
     agg, new_net_state, _, metrics, fin_ok = _guard_nonfinite(
-        cfg, agg, new_net_state, state["net_state"], {}, {}, metrics)
+        cfg, agg, new_net_state, state["net_state"], {}, {}, metrics, rows_ok)
     if cfg.dp_noise > 0:
         live = metrics["participants"]
         if fin_ok is not None:
             live = live * fin_ok.to(live.dtype)
         agg = _dp_noise_agg(cfg, agg, live, state["round"])
-    delta, mode_state = modes.server_step_sparse(mcfg, agg, state["mode_state"], lr)
+    server_lr = mcfg.server_lr if mcfg.uses_weight_delta else lr
+    delta, mode_state = modes.server_step_sparse(mcfg, agg, state["mode_state"], server_lr)
+    if mcfg.mode == "local_topk":
+        metrics["down_support"] = modes.delta_support(mcfg.d, delta)
     new_state = {
         "params": modes.apply_delta(state["params"], delta),
         "net_state": new_net_state,
@@ -1323,49 +1380,72 @@ def _merged_sharded_tail(cfg: EngineConfig, state: dict, stacked: dict, lr,
     if cfg.health and health_on:
         metrics.update(_health_metrics(cfg, raw_agg, delta, mode_state))
     metrics.update(_ledger_fingerprints(cfg, new_state))
-    return new_state, metrics
+    return new_state, metrics, fin_ok
+
+
+def _group_info(cfg: EngineConfig, group) -> tuple[int, int]:
+    """(S, this rank's shard) of a ``torch.distributed`` group, or
+    (cfg.client_shards, 0) for the one-device emulation (group None)."""
+    if group is None:
+        return cfg.client_shards, 0
+    import torch.distributed as dist
+
+    S = dist.get_world_size(group)
+    if cfg.client_shards > 1 and cfg.client_shards != S:
+        raise ValueError(f"cfg.client_shards={cfg.client_shards} disagrees with the "
+                         f"{S}-rank group")
+    return S, dist.get_rank(group)
+
+
+def _gather_in_shard_order(out: dict, group) -> dict:
+    """Every rank's ``out`` (same keys, shapes and dtypes on each), stacked
+    to [S, ...] in rank order: one ``all_gather`` of their bytes."""
+    from ..parallel import distributed
+
+    keys = sorted(out)
+    return dict(zip(keys, distributed.all_gather_stacked([out[k] for k in keys], group)))
 
 
 def make_sharded_round_step(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout,
                             group=None) -> Callable:
     """The data-parallel round as S shards, the twin of the reference's
-    ``make_sharded_round_step``, with ``make_round_step``'s signature
-    (client rows pass through: the scope keeps no client state).
+    ``make_sharded_round_step``, with ``make_round_step``'s signature.
 
     Each shard runs the client phase on its W / S clients (its cohort
     slots, so its participation mask and dropout streams are the ones those
-    clients have in the unsharded round), reduces them to one weighted sum
-    and compresses it: for mode=sketch the shard's partial Count Sketch,
-    one ``sketch_accumulate`` launch. The partials are merged by one ordered
-    sum in ``_merged_sharded_tail`` (one ``sketch_query`` launch in the
-    server step).
+    clients have in the unsharded round) and reduces them to one weighted
+    sum. A linear grad mode compresses that sum: for mode=sketch the shard's
+    partial Count Sketch, one ``sketch_accumulate`` launch. local_topk
+    compresses each client against its rows of the client state, row by row
+    in cohort order, as ``_client_reduce`` does, and its partial is the sum
+    of the densified wires; fedavg/localSGD sum the clients' weight deltas
+    of ``num_local_iters`` local steps at ``lr``. The partials are merged by
+    one ordered sum in ``_merged_sharded_tail`` (one ``sketch_query`` launch
+    in the server step of mode=sketch).
+
+    ``client_rows`` is {key: [W, d]} of the cohort's client state on the
+    emulation, {key: [W / S, d]} of this rank's slots on a group ({} when
+    the mode keeps none); the new rows come back at the same shape, the old
+    ones where the non-finite guard skipped the round.
 
     ``group=None`` is the emulation on one device: a loop over the
     ``cfg.client_shards`` shards of the full [W] batch, stacked in shard
     order. Given a ``torch.distributed`` group of S ranks, the batch is the
     rank's own shard ([W / S] rows, cohort slots from rank * W / S), the
     rank runs its shard and ``all_gather``s every output (the wire, the
-    statistic and metric sums, the effective mask and the quarantine's
-    norms) into the same stacks, and the tail runs replicated. Every rank
-    runs the same ops at the same shapes as the emulation's loop body and
-    the tail runs on identical stacks, so a given S gives the same bits
-    on one device and on S ranks. Different S associate the sum
-    differently: allclose, not bitwise, to the unsharded round."""
+    statistic and metric sums, the effective mask, the quarantine's norms
+    and the rows' finite flag) into the same stacks, and the tail runs
+    replicated. Every rank runs the same ops at the same shapes as the
+    emulation's loop body and the tail runs on identical stacks, so a given
+    S gives the same bits on one device and on S ranks. Different S
+    associate the sum differently: allclose, not bitwise, to the unsharded
+    round. The reference's ``client_shards`` takes only the modes of
+    ``supports_sharded_round``; it runs the others over a mesh by GSPMD, of
+    which this is the port's form, and the emulation of them is that
+    group's one-device twin."""
     mcfg = cfg.mode
-    _sharded_scope_check(mcfg)
     _robust_scope_check(cfg)
-    if group is not None:
-        import torch.distributed as dist
-
-        from ..parallel import distributed
-
-        S = dist.get_world_size(group)
-        shard = dist.get_rank(group)
-        if cfg.client_shards > 1 and cfg.client_shards != S:
-            raise ValueError(f"cfg.client_shards={cfg.client_shards} disagrees with the "
-                             f"{S}-rank group")
-    else:
-        S = cfg.client_shards
+    S, shard = _group_info(cfg, group)
     if S <= 1:
         raise ValueError("sharded round needs client_shards > 1 (or a group of > 1 ranks); "
                          "use make_round_step for the unsharded round")
@@ -1373,13 +1453,15 @@ def make_sharded_round_step(loss_fn: Callable, cfg: EngineConfig, layout: FlatLa
     segments = layerwise.leaf_segments(layout)
     plan = _block_plan(cfg, layout)
     quarantine = cfg.client_update_clip > 0
+    linear = modes.is_linear(mcfg)
 
-    def shard_outputs(state: dict, batch_l: dict, lo: int, W: int) -> dict:
-        """One shard's client phase over cohort slots [lo, lo + W / S)."""
+    def shard_outputs(state: dict, batch_l: dict, rows_l: dict, lo: int, W: int, lr):
+        """One shard's client phase over cohort slots [lo, lo + W / S):
+        (its outputs for the merge, its clients' new rows)."""
         batch_l, _, part_l = _cohort_part(cfg, state, batch_l, W, lo)
-        wsum, ns_sum, m_sum, part_eff, norms, lnorms, _ = _client_reduce(
-            updates, cfg, state, batch_l, part_l, {}, None, segments, slot0=lo)
-        wire = _compress(mcfg, wsum, plan)
+        wsum, ns_sum, m_sum, part_eff, norms, lnorms, new_rows = _client_reduce(
+            updates, cfg, state, batch_l, part_l, rows_l, lr, segments, slot0=lo)
+        wire = _compress(mcfg, wsum, plan) if linear else {"dense": wsum}
         out = {"part_eff": part_eff, **{f"wire/{k}": v for k, v in wire.items()},
                **{f"ns/{k}": v for k, v in ns_sum.items()},
                **{f"m/{k}": v for k, v in m_sum.items()}}
@@ -1387,7 +1469,9 @@ def make_sharded_round_step(loss_fn: Callable, cfg: EngineConfig, layout: FlatLa
             out.update(part=part_l, norms=norms)
             if lnorms is not None:
                 out["lnorms"] = lnorms
-        return out
+        if new_rows and cfg.on_nonfinite == "skip":
+            out["rows_ok"] = _all_finite(new_rows.values())
+        return out, new_rows
 
     def step(state: dict, batch: dict, client_rows: dict, lr):
         batch, health_on = split_health(batch)
@@ -1398,16 +1482,18 @@ def make_sharded_round_step(loss_fn: Callable, cfg: EngineConfig, layout: FlatLa
             if n % S:
                 raise ValueError(f"sampled cohort ({n}) not divisible by client_shards={S}")
             wl = n // S
-            outs = [shard_outputs(state, {k: v[s * wl:(s + 1) * wl] for k, v in batch.items()},
-                                  s * wl, n) for s in range(S)]
-            stacked = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+            res = [shard_outputs(state, {k: v[s * wl:(s + 1) * wl] for k, v in batch.items()},
+                                 {k: v[s * wl:(s + 1) * wl] for k, v in client_rows.items()},
+                                 s * wl, n, lr_t) for s in range(S)]
+            stacked = {k: torch.stack([o[k] for o, _ in res]) for k in res[0][0]}
+            new_rows = {k: torch.cat([r[k] for _, r in res]) for k in client_rows}
         else:
-            out = shard_outputs(state, batch, shard * n, n * S)
-            keys = sorted(out)
-            stacked = dict(zip(keys, distributed.all_gather_stacked([out[k] for k in keys],
-                                                                    group)))
-        new_state, metrics = _merged_sharded_tail(cfg, state, stacked, lr_t, health_on)
-        return new_state, client_rows, metrics
+            out, new_rows = shard_outputs(state, batch, client_rows, shard * n, n * S, lr_t)
+            stacked = _gather_in_shard_order(out, group)
+        new_state, metrics, fin_ok = _merged_sharded_tail(cfg, state, stacked, lr_t, health_on)
+        if fin_ok is not None:
+            new_rows = {k: torch.where(fin_ok, v, client_rows[k]) for k, v in new_rows.items()}
+        return new_state, new_rows, metrics
 
     return step
 

@@ -24,6 +24,10 @@ environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
   rank order with one ``all_gather`` of their bytes: copies, so a stack is
   bitwise what each rank held (over gloo a CUDA tensor is staged through
   host memory, which is how that backend moves card memory).
+- ``RowMoves`` moves the split client state's rows between their owners
+  and the ranks that run their cohort slots, and back, with one
+  ``all_to_all_single`` each way (gloo and NCCL both have it);
+  ``gather_rows`` collects the blocks on rank 0 for a checkpoint.
 - ``launch_local`` starts N ranks of a function on this host, with the
   environment torchrun would give them.
 """
@@ -34,6 +38,7 @@ import datetime
 import os
 import sys
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -214,7 +219,7 @@ def join_cli(args, fault_plan=None) -> bool:
 def cli_mesh(args):
     """The CLIs' client mesh (``mesh.mesh_from_args`` over this job's
     ranks), printed as the reference's ``mesh:`` line. A group runs no
-    aggregation service yet."""
+    aggregation service yet (ROADMAP item 7c)."""
     from . import mesh as meshlib
 
     mesh = meshlib.mesh_from_args(args, world_size())
@@ -222,7 +227,7 @@ def cli_mesh(args):
         print(f"mesh: {mesh_info(mesh)}", flush=True)
         if args.serve != "off":
             raise SystemExit(f"--serve {args.serve}: the port runs no aggregation service on a "
-                             f"group of {mesh.shards} ranks yet (ROADMAP Queue 1 item 7b)")
+                             f"group of {mesh.shards} ranks yet (ROADMAP Queue 1 item 7c)")
     return mesh
 
 
@@ -262,6 +267,101 @@ def all_gather_stacked(tensors: list[torch.Tensor], group=None) -> list[torch.Te
                    .reshape((S,) + tuple(t.shape)))
         off += n
     return out
+
+
+# cross-rank bytes of the split client state's row moves (``RowMoves``)
+# this process sent and received since the count was last set to 0: what
+# ``mesh.client_row_bytes`` predicts for each rank
+row_move_bytes = {"sent": 0, "received": 0}
+
+
+class RowMoves:
+    """One round's moves of the split client state's rows over a group of S
+    ranks: rank s owns rows [s * B, (s + 1) * B) of the padded
+    [num_clients, d] state (``rows_per_rank`` B) and runs cohort slots
+    [s * W / S, (s + 1) * W / S). ``fetch`` brings each slot's rows from
+    their owner to the rank that runs the slot; ``give_back`` sends the new
+    rows back to their owners, which write them out of place. Each is one
+    ``all_to_all_single`` of the rows packed by destination rank, slot order
+    inside, all keys side by side ([n, K * d]): copies, so every row arrives
+    bitwise. Every rank builds the same plan from the same cohort ids, which
+    are host data, so planning syncs nothing. Over gloo a CUDA buffer is
+    staged through host memory."""
+
+    def __init__(self, ids, rows_per_rank: int, group=None):
+        S, r = dist.get_world_size(group), dist.get_rank(group)
+        ids = np.asarray(ids, np.int64)
+        W = len(ids)
+        if W % S:
+            raise ValueError(f"cohort of {W} does not split over {S} ranks")
+        owner, runner = ids // rows_per_rank, np.arange(W) // (W // S)
+        # slots whose rows this rank owns, by the rank that runs them; and
+        # the slots this rank runs, by the rank that owns their rows
+        out = [np.flatnonzero((owner == r) & (runner == q)) for q in range(S)]
+        into = [np.flatnonzero((runner == r) & (owner == p)) for p in range(S)]
+        self.group, self.rank = group, r
+        self.out_counts = [len(x) for x in out]
+        self.in_counts = [len(x) for x in into]
+        out_slots, in_slots = np.concatenate(out), np.concatenate(into)
+        self._local = torch.from_numpy(ids[out_slots] - r * rows_per_rank)
+        # the received rows in slot order, and this rank's slots in send order
+        self._to_slots = torch.from_numpy(np.argsort(in_slots, kind="stable"))
+        self._from_slots = torch.from_numpy(in_slots - r * (W // S))
+
+    def _exchange(self, send: torch.Tensor, recv_counts: list, send_counts: list) -> torch.Tensor:
+        dev = send.device
+        staged = dev.type == "cuda" and dist.get_backend(self.group) == "gloo"
+        buf = send.cpu() if staged else send.contiguous()
+        out = torch.empty((sum(recv_counts),) + tuple(send.shape[1:]), dtype=send.dtype,
+                          device=buf.device)
+        dist.all_to_all_single(out, buf, recv_counts, send_counts, group=self.group)
+        width = send.shape[1] * send.element_size()
+        row_move_bytes["sent"] += width * sum(n for q, n in enumerate(send_counts)
+                                              if q != self.rank)
+        row_move_bytes["received"] += width * sum(n for p, n in enumerate(recv_counts)
+                                                  if p != self.rank)
+        return out.to(dev) if staged else out
+
+    def fetch(self, block: dict) -> dict:
+        """{key: [W / S, d]}: the rows of this rank's slots, in slot order,
+        from this rank's ``block`` ({key: [B, d]}) and the other ranks'."""
+        keys = sorted(block)
+        dev = block[keys[0]].device
+        send = torch.cat([block[k].index_select(0, self._local.to(dev)) for k in keys], 1)
+        rows = self._exchange(send, self.in_counts, self.out_counts)
+        rows = rows.index_select(0, self._to_slots.to(dev))
+        return dict(zip(keys, (c.contiguous() for c in rows.chunk(len(keys), 1))))
+
+    def give_back(self, block: dict, new_rows: dict) -> dict:
+        """This rank's new block: ``block`` with the new rows of the slots it
+        owns written in, out of place (``block`` stays as it was)."""
+        keys = sorted(block)
+        dev = block[keys[0]].device
+        send = torch.cat([new_rows[k] for k in keys], 1).index_select(
+            0, self._from_slots.to(dev))
+        rows = self._exchange(send, self.out_counts, self.in_counts)
+        local = self._local.to(dev)
+        return {k: block[k].index_copy(0, local, c)
+                for k, c in zip(keys, rows.chunk(len(keys), 1))}
+
+
+def gather_rows(blocks: dict, num_rows: int) -> dict | None:
+    """The whole client state on rank 0: every rank's host ``blocks``
+    ({key: [B, d]}, rank r's rows [r * B, (r + 1) * B) of the padded
+    state), gathered over the host group in rank order with the pad rows
+    cut, {key: [num_rows, d]}; None on every other rank. A collective:
+    every rank calls it, in the same order."""
+    S, r = world_size(), rank()
+    out = {}
+    for k in sorted(blocks):
+        t = blocks[k].contiguous()
+        parts = [torch.empty_like(t) for _ in range(S)] if r == 0 else None
+        dist.gather(t, parts, dst=0, group=_HOST_GROUP)
+        if r == 0:
+            B = t.shape[0]
+            out[k] = torch.cat([p[:max(0, min(B, num_rows - s * B))]
+                                for s, p in enumerate(parts)])
+    return out if r == 0 else None
 
 
 def mesh_info(mesh) -> dict:

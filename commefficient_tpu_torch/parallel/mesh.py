@@ -137,6 +137,39 @@ def merge_comm_bytes(n_shards: int, r: int, c: int, d: int) -> dict:
     }
 
 
+def client_row_bytes(ids, num_clients: int, n_shards: int, d: int, n_keys: int,
+                     itemsize: int = 4) -> dict:
+    """Per-round bytes of the split client state's row moves
+    (``distributed.RowMoves``) for the cohort ``ids`` on S = ``n_shards``
+    ranks: shard s owns rows [s * B, (s + 1) * B), B = ceil(num_clients /
+    S), and runs cohort slots [s * W / S, (s + 1) * W / S). Each slot's
+    ``n_keys`` rows of d floats are brought from their owner to the rank
+    that runs the slot, and the new rows go back the same way.
+
+    rows: the W slot rows each way; crossing: those whose owner is not the
+    rank that runs them, which are all that cross between ranks;
+    row_bytes: one slot's rows; bytes_each_way: crossing x row_bytes;
+    sent_per_rank / received_per_rank: the cross-rank bytes each rank
+    sends and receives in one direction (the other direction swaps them),
+    what ``distributed.row_move_bytes`` counts."""
+    import numpy as np
+
+    ids = np.asarray(ids, np.int64)
+    W, S = len(ids), max(n_shards, 1)
+    owner = ids // -(-num_clients // S)
+    runner = np.arange(W) // (W // S)
+    cross = owner != runner
+    row = n_keys * d * itemsize
+    return {
+        "rows": W,
+        "crossing": int(cross.sum()),
+        "row_bytes": row,
+        "bytes_each_way": int(cross.sum()) * row,
+        "sent_per_rank": [int((cross & (owner == s)).sum()) * row for s in range(S)],
+        "received_per_rank": [int((cross & (runner == s)).sum()) * row for s in range(S)],
+    }
+
+
 def mesh_from_args(args, world_size: int) -> ClientMesh | None:
     """The CLIs' mesh: ``--mesh``'s, or one shard per rank of a job of
     ``world_size`` ranks (the reference shards over every visible device

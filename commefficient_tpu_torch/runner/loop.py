@@ -201,9 +201,11 @@ def make_save_ckpt(session: FederatedSession, checkpoint_dir: str, timings: list
     periodic save of the same round), sharing the session's fault plan and
     retry policy. Each save's timings are appended to ``timings``. One
     writer per job: in a group of ranks (whose committed states are
-    bitwise equal) only rank 0 writes, and the others' saves return None."""
+    bitwise equal) only rank 0 writes, and the others' saves return None;
+    a split client state (``session.client_block``) is gathered to rank 0
+    by every rank's save."""
     lock = threading.Lock()
-    writer = distributed.rank() == 0
+    writer = distributed.rank() == 0 or session.client_block is not None
 
     def save_ckpt():
         if not writer:
@@ -212,7 +214,7 @@ def make_save_ckpt(session: FederatedSession, checkpoint_dir: str, timings: list
         with lock:
             path = ckpt.save(checkpoint_dir, session, fault_plan=session.fault_plan,
                              retry_policy=session.retry_policy, timings=t)
-        if timings is not None:
+        if timings is not None and path is not None:
             timings.append(t)
         return path
 
@@ -293,10 +295,15 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
         _postmortem("watchdog_abort")
         os._exit(EXIT_RESUMABLE)
 
+    # a split client state's save is a collective of every rank: it runs on
+    # the main thread at a round boundary, never from the watchdog's timer
+    # or the writer thread, where the ranks' calls would not line up
+    split = session.client_block is not None
     # escalation ladder: warn -> stacks -> emergency checkpoint -> (opt-in)
     # abort with the resumable status
     watchdog = RoundWatchdog(
-        on_emergency=save_ckpt if save_ckpt and not cfg.no_emergency_checkpoint else None,
+        on_emergency=(save_ckpt if save_ckpt and not cfg.no_emergency_checkpoint and not split
+                      else None),
         on_abort=_abort if cfg.watchdog_abort and save_ckpt else None)
 
     async_mode = not cfg.sync_loop
@@ -308,7 +315,7 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
     ema_round_ms = 0.0
     stats.rtt_ms = rtt_ms
     writer = (AsyncCheckpointWriter(save_ckpt)
-              if async_mode and save_ckpt and cfg.checkpoint_every else None)
+              if async_mode and save_ckpt and cfg.checkpoint_every and not split else None)
     src = source if source is not None else (
         RoundPrefetcher(session, start_round, depth=prefetch_depth) if async_mode
         else PreparedSource(session, start_round))

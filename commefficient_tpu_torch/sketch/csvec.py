@@ -155,19 +155,46 @@ def _query_all_rotation(spec: CSVecSpec, table: torch.Tensor) -> torch.Tensor:
     return torch.cat(ests)[: spec.d]
 
 
+def scatter_add_ordered(row: torch.Tensor, buckets: torch.Tensor,
+                        contrib: torch.Tensor) -> torch.Tensor:
+    """``row[buckets[i]] += contrib[i]`` for every i, in place, each
+    bucket's entries added one at a time in index order, as the reference's
+    scatter adds them, on any number of CPU threads. On the CPU the entries
+    are grouped by occurrence: the k-th entry of every bucket (a stable
+    sort by bucket gives each entry its rank k among its bucket's) is added
+    in pass k, where no two entries share a bucket, so the order inside a
+    bucket is index order however the threads split a pass. On the GPU
+    ``index_put_(accumulate=True)`` sums colliding entries in a fixed order
+    (it sorts by bucket), where ``index_add_`` adds them with atomics in
+    whatever order they land."""
+    if row.is_cuda or buckets.numel() == 0:
+        return row.index_put_((buckets,), contrib, accumulate=True)
+    order = torch.sort(buckets, stable=True).indices
+    _, counts = torch.unique_consecutive(buckets[order], return_counts=True)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(order.numel()) - torch.repeat_interleave(starts, counts)
+    passes = torch.sort(rank, stable=True).indices
+    bounds = torch.cumsum(torch.bincount(rank), 0).tolist()
+    lo = 0
+    for hi in bounds:
+        sel = passes[lo:hi]
+        row.index_put_((buckets[sel],), contrib[sel], accumulate=True)
+        lo = hi
+    return row
+
+
 def _accumulate(spec: CSVecSpec, vals: torch.Tensor, idx: torch.Tensor,
                 valid: torch.Tensor) -> torch.Tensor:
     """Scatter (idx, vals) masked by ``valid`` into a fresh [r, c] table: the
     one scatter path shared by the random family's dense accumulate and by
-    sparse sketching. ``index_put_(accumulate=True)`` sums colliding entries
-    in a fixed order on the GPU too (it sorts by bucket), where
-    ``index_add_`` adds them with atomics in whatever order they land, so
-    two runs of one seed would differ."""
+    sparse sketching, in a fixed order on either device
+    (``scatter_add_ordered``)."""
     buckets, signs = _block_hashes(spec, idx, vals.dtype)
     contrib = signs * (vals * valid.to(vals.dtype))[None, :]  # [r, n]
     table = torch.zeros(spec.table_shape, dtype=vals.dtype, device=vals.device)
     for j in range(spec.r):
-        table[j].index_put_((buckets[j],), contrib[j], accumulate=True)
+        scatter_add_ordered(table[j], buckets[j], contrib[j])
     return table
 
 

@@ -58,7 +58,7 @@ import torch
 
 from ..models.convert import FlatLayout
 from . import kernels
-from .csvec import CSVecSpec, _block_hashes, _rotation_keys, zero_table
+from .csvec import CSVecSpec, _block_hashes, _rotation_keys, scatter_add_ordered, zero_table
 from .hashing import row_keys, sign_hash, slab_shifts
 
 
@@ -148,13 +148,14 @@ def _accumulate_leaf_random(spec: CSVecSpec, table: torch.Tensor, v: torch.Tenso
                             blk: LeafBlock) -> torch.Tensor:
     """Scatter-add the leaf's contributions onto the running table in place,
     in coordinate order: the per-bucket sequence of ``csvec._accumulate``'s
-    whole-vector scatter at num_blocks == 1 (``index_put_`` with accumulate
-    adds colliding entries in a fixed order on the GPU too)."""
+    whole-vector scatter at num_blocks == 1 (``csvec.scatter_add_ordered``
+    adds colliding entries in index order on the CPU, in a fixed order on
+    the GPU)."""
     idx = blk.offset + torch.arange(blk.size, dtype=torch.int64, device=v.device)
     buckets, signs = _block_hashes(spec, idx, v.dtype)
     contrib = signs * v[None, :]
     for j in range(spec.r):
-        table[j].index_put_((buckets[j],), contrib[j], accumulate=True)
+        scatter_add_ordered(table[j], buckets[j], contrib[j])
     return table
 
 

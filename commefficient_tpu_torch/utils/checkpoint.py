@@ -14,6 +14,13 @@ committed round) and ``manifest.json``. A checkpoint of another
 mode, client count or quarantine tree is refused
 (``CheckpointMismatchError``), not set aside as damaged.
 
+- **Split client state**: on a group of ranks whose session splits the
+  client state (``session.client_block``), every rank's save gathers its
+  block to rank 0, which alone writes the unpadded [num_clients, d] rows;
+  a restore reads the file mapped and each rank keeps its own block,
+  re-padded. The file is the one a one-device session writes and reads,
+  so a checkpoint moves freely between a group and one device.
+
 - **Atomic commit**: everything is written into a ``.tmp_round_*`` staging
   directory and ``os.rename``d to its final name. A crash mid-write leaves
   only a staging directory, which restores never consider and the next
@@ -170,7 +177,9 @@ def save(ckpt_dir: str, session, keep: int = 3, fault_plan=None,
     """Write the session's committed state as ``round_<round>`` and return
     its absolute path. ``timings``, if given, receives the milliseconds of
     the host copy (``copy_ms``), of the writes up to the commit
-    (``write_ms``) and of the read-back (``verify_ms``)."""
+    (``write_ms``) and of the read-back (``verify_ms``). With a split client
+    state every rank of the group calls it at the same round (a collective
+    gathers the rows) and every rank but 0 returns None."""
     # one consistent committed view: an emergency save on the watchdog's
     # timer thread must never mix round N's state with round N-1's counter
     with session.mutate_lock:
@@ -196,6 +205,15 @@ def save(ckpt_dir: str, session, keep: int = 3, fault_plan=None,
     # every attempt
     payload = _state_to_host(session, state_ref, client_ref, ready)
     del state_ref, client_ref
+    if session.client_block is not None:
+        # the split client state: every rank's block goes to rank 0, which
+        # writes the unpadded rows once; the other ranks are done
+        from ..parallel import distributed
+
+        payload["client_state"] = distributed.gather_rows(payload["client_state"],
+                                                          session.train_set.num_clients)
+        if payload["client_state"] is None:
+            return None
     meta = {"round": rnd, "comm_mb_total": comm_mb_total, "num_workers": num_workers,
             "mode": session.cfg.mode.mode, "num_clients": session.train_set.num_clients,
             "host_rng": _rng_to_json(rng_state), "requeued": requeued,
@@ -270,7 +288,8 @@ def restore(path: str, session) -> None:
     device): state, round counter, host RNG and its round-boundary
     snapshot, the measured communication total and the dropped-client
     queue with its ages (an entry without one restarts at the restored
-    round). Raises
+    round). A rank of a group whose session splits the client state keeps
+    only its block of the rows, re-padded. Raises
     ``CheckpointMismatchError`` for a checkpoint of another mode or client
     count."""
     if session.inflight_rounds:
@@ -283,15 +302,22 @@ def restore(path: str, session) -> None:
         raise CheckpointMismatchError(
             f"checkpoint {path} was written by a session with {differ}; this session has "
             f"{want}")
+    # a rank of a split client state reads only its block of the rows: the
+    # file is mapped, and every tensor copied out of the mapping
+    block = session.client_block
     payload = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
-                         weights_only=True)
+                         weights_only=True, mmap=block is not None)
     dev = session.device
-    state = {"params": payload["params"].to(dev),
-             "net_state": {k: v.to(dev) for k, v in payload["net_state"].items()},
-             "mode_state": {k: v.to(dev) for k, v in payload["mode_state"].items()},
+
+    def put(v):
+        return v.to(dev, copy=block is not None)
+
+    state = {"params": put(payload["params"]),
+             "net_state": {k: put(v) for k, v in payload["net_state"].items()},
+             "mode_state": {k: put(v) for k, v in payload["mode_state"].items()},
              "round": int(meta["round"])}
     if "quarantine" in payload:
-        state["quarantine"] = {k: v.to(dev) for k, v in payload["quarantine"].items()}
+        state["quarantine"] = {k: put(v) for k, v in payload["quarantine"].items()}
     # the quarantine's rings (cohort or per leaf, window 1 or K) must match
     # this run's: resuming onto another tree would restart or misread them
     want_q = _shapes(session.state.get("quarantine"))
@@ -302,7 +328,7 @@ def restore(path: str, session) -> None:
             f"(--client_update_clip, --quarantine_window, --quarantine_scope) needs {want_q}")
     client_state = payload.get("client_state")
     if client_state is not None:
-        client_state = {k: v.to(dev) for k, v in client_state.items()}
+        client_state = {k: put(_block_of(v, block)) for k, v in client_state.items()}
     if state["params"].shape != session.state["params"].shape or \
             state["net_state"].keys() != session.state["net_state"].keys() or \
             state["mode_state"].keys() != session.state["mode_state"].keys() or \
@@ -335,6 +361,19 @@ def restore(path: str, session) -> None:
         print(f"warning: checkpoint {path} was written with num_workers={saved_w} but "
               f"this session runs {session.num_workers}; the resumed run will NOT replay "
               "the uninterrupted client sequence exactly", flush=True)
+
+
+def _block_of(rows: torch.Tensor, block: tuple | None) -> torch.Tensor:
+    """Rows [lo, lo + B) of the unpadded client-state rows for a group
+    rank's ``block`` (lo, B), the pad rows past them zero; all of them
+    without a block."""
+    if block is None:
+        return rows
+    lo, B = block
+    n = max(0, min(B, rows.shape[0] - lo))
+    if n == B:
+        return rows[lo:lo + B]
+    return torch.cat([rows[lo:lo + n], rows.new_zeros((B - n,) + tuple(rows.shape[1:]))])
 
 
 def _shapes(tree: dict | None) -> dict | None:

@@ -162,3 +162,32 @@ def test_kernel_wrappers_reject_cpu_tensors():
         kernels.query(torch.zeros(3, 1024), shifts, ks, 3000)
     with pytest.raises(ValueError, match="must be on"):
         kernels.accumulate_leaf(torch.zeros(3, 1024), torch.zeros(10), 0, shifts, ks, 1024, 3000)
+
+
+@pytest.mark.parametrize("d, c, num_blocks",
+                         [(200000, 4096, 1), (100000, 64, 1), (120000, 4096, 3)],
+                         ids=["one_block", "crowded", "three_blocks"])
+def test_random_family_sketch_vec_bitwise_on_eight_threads(d, c, num_blocks):
+    """The random family's scatter adds each bucket's entries in index
+    order on any number of threads (``csvec.scatter_add_ordered``): ten runs
+    at 8 threads each equal the reference bitwise, the dense accumulate and
+    the sparse sketch alike. With 3 blocks the reference's scan adds the
+    block tables in another association (within 1e-6 above), so there the
+    ten runs equal each other bitwise."""
+    js, ts = _specs(d, c, 5, family="random", num_blocks=num_blocks)
+    v = _vec(d, 4) * np.exp(2 * _vec(d, 5))
+    want = np.asarray(jcs.sketch_vec(js, jnp.asarray(v))) if num_blocks == 1 else None
+    idx = np.random.RandomState(6).choice(d, d // 3, replace=False).astype(np.int32)
+    want_sparse = np.asarray(jcs.sketch_sparse(js, jnp.asarray(idx), jnp.asarray(v[idx])))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(8)
+    try:
+        for _ in range(10):
+            got = tcs.sketch_vec(ts, torch.from_numpy(v)).numpy()
+            want = got if want is None else want
+            np.testing.assert_array_equal(got, want)
+            got = tcs.sketch_sparse(ts, torch.from_numpy(idx.astype(np.int64)),
+                                    torch.from_numpy(v[idx]))
+            np.testing.assert_array_equal(got.numpy(), want_sparse)
+    finally:
+        torch.set_num_threads(threads)

@@ -21,9 +21,13 @@ What is held, and how exactly:
 - ``host_preempt@1:host=2`` signals rank 2 only, and every rank exits 75
   at the same round, with one checkpoint (rank 0's); ``--resume`` from it
   ends bitwise on the uninterrupted run's state;
-- ``all_hosts_max`` is the max over the ranks; on a group the modes the
-  sharded round does not cover there (local_topk, fedavg, a robust merge)
-  raise, naming ROADMAP item 7b; ``dist_init@1`` is refused at launch.
+- ``all_hosts_max`` is the max over the ranks; local_topk with client
+  state, fedavg and a trimmed merge run on the group and equal their
+  one-device twins bitwise over 2 rounds, client rows included (the
+  emulation at S = 4; tests/test_torch_group_client_state.py and
+  tests/test_torch_group_tables.py hold the rest); ``--serve`` is refused
+  on a group, naming ROADMAP item 7c; ``dist_init@1`` is refused at
+  launch.
 
 The rank functions live here at module level (``launch_local`` pickles
 them by name) and import no JAX."""
@@ -135,26 +139,54 @@ def _run_case(name, group=None, rank=0):
     return state, metrics
 
 
+# the sessions beyond the sharded round's linear scope: name -> (mode, knobs)
+GROUP_SESSIONS = {
+    "local_topk": (dict(mode="local_topk", k=4, momentum=0.9, momentum_type="local",
+                        error_type="local", num_clients=16), {}),
+    "fedavg": (dict(mode="fedavg", momentum=0.0, momentum_type="none", error_type="none",
+                    num_local_iters=2), {}),
+    "trimmed": (SKETCH, dict(merge_policy="trimmed", merge_trim=1)),
+}
+
+
+def _group_session_run(name, mesh=None):
+    """2 rounds of a GROUP_SESSIONS case: on the group (``mesh``), or its
+    one-device twin, the emulation at S = 4 (the session's client_shards
+    takes only the reference's scope, so local_topk's and fedavg's is set
+    on the built session)."""
+    import dataclasses
+
+    mode, kw = GROUP_SESSIONS[name]
+    if mesh is not None:
+        s = _tiny_session(mode, mesh=mesh, **kw)
+    elif name == "trimmed":
+        s = _tiny_session(mode, client_shards=WORLD, **kw)
+    else:
+        s = _tiny_session(mode, **kw)
+        s.cfg = dataclasses.replace(s.cfg, client_shards=WORLD)
+        s._build_steps()
+    ms = [s.run_round(lr) for lr in LRS[:2]]
+    return {"state": s.state, "clients": s.client_state, "metrics": ms}
+
+
 def _engine_ranks(out_dir):
-    """Rank function: every case on the group, then the agreement and the
-    refusals; each rank saves what it got."""
+    """Rank function: every case on the group, the sessions beyond the
+    linear scope, then the agreement and the refusal; each rank saves what
+    it got."""
+    import argparse
+
     distributed.initialize(force=True, device="cpu")
     rank = dist.get_rank()
     got = {name: _run_case(name, dist.group.WORLD, rank) for name in CASES}
+    got["sessions"] = {name: _group_session_run(name, ClientMesh(clients=WORLD))
+                       for name in GROUP_SESSIONS}
     torch.save(got, os.path.join(out_dir, f"engine_{rank}.pt"))
-    extra = {"max_rank": distributed.all_hosts_max(rank), "max_zero": distributed.all_hosts_max(0),
-             "refusals": {}}
-    for what, mode, kw in (
-            ("local_topk", dict(mode="local_topk", k=4, momentum=0.9, momentum_type="local",
-                                error_type="local", num_clients=16), {}),
-            ("fedavg", dict(mode="fedavg", momentum=0.0, momentum_type="none",
-                            error_type="none", num_local_iters=2), {}),
-            ("trimmed", SKETCH, dict(merge_policy="trimmed", merge_trim=1))):
-        try:
-            _tiny_session(mode, mesh=ClientMesh(clients=WORLD), **kw)
-            extra["refusals"][what] = None
-        except ValueError as e:
-            extra["refusals"][what] = str(e)
+    extra = {"max_rank": distributed.all_hosts_max(rank), "max_zero": distributed.all_hosts_max(0)}
+    try:
+        distributed.cli_mesh(argparse.Namespace(mesh="", num_devices=0, serve="inproc"))
+        extra["serve_refusal"] = None
+    except SystemExit as e:
+        extra["serve_refusal"] = str(e)
     with open(os.path.join(out_dir, f"extra_{rank}.json"), "w") as f:
         json.dump(extra, f)
 
@@ -234,13 +266,23 @@ def test_four_gloo_ranks_equal_the_emulation_bitwise(tmp_path):
         if name.endswith("_layerwise"):
             # the layerwise emulation is the ravel emulation, bitwise
             _equal(want, _run_case(name[:-len("_layerwise")]), name)
+    for name in GROUP_SESSIONS:
+        want = _group_session_run(name)
+        for rank in range(WORLD):
+            got = torch.load(tmp_path / f"engine_{rank}.pt", weights_only=False)["sessions"][name]
+            _equal(got["state"], want["state"], f"{name} rank {rank}")
+            assert got["metrics"] == want["metrics"], (name, rank)
+            if name == "local_topk":
+                # rank r holds client rows [4r, 4r + 4) of the 16
+                _equal(got["clients"], {k: v[4 * rank:4 * rank + 4]
+                                        for k, v in want["clients"].items()}, "client rows")
+            else:
+                assert got["clients"] is None and want["clients"] is None
     for rank in range(WORLD):
         extra = json.loads((tmp_path / f"extra_{rank}.json").read_text())
         assert (extra["max_rank"], extra["max_zero"]) == (WORLD - 1, 0)
-        for what, msg in extra["refusals"].items():
-            assert msg is not None and "item 7b" in msg, (what, msg)
-        assert "outside the sharded round's scope" in extra["refusals"]["local_topk"]
-        assert "per-client-table round" in extra["refusals"]["trimmed"]
+        assert "no aggregation service on a group of 4 ranks" in extra["serve_refusal"]
+        assert "item 7c" in extra["serve_refusal"]
 
 
 def test_single_process_agreement_touches_no_group():

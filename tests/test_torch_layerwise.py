@@ -306,10 +306,6 @@ def test_layerwise_wire_is_the_ravel_wire(monkeypatch, build, parts, extra, fami
     rng = np.random.RandomState(parts)
     w = torch.from_numpy((rng.standard_normal(d) * np.exp(3 * rng.standard_normal(d)))
                          .astype(np.float32))
-    if family == "random":
-        # one thread: the CPU's index_put_(accumulate=True) adds colliding
-        # entries in index order only there (ROADMAP Queue 3)
-        torch.set_num_threads(1)
     got = tengine._compress(mcfg, w, plan)
     want = tengine._compress(mcfg, w, None)
     assert got.keys() == want.keys() == {"table"}
@@ -338,17 +334,8 @@ def test_layerwise_round_bitwise_the_ravel_round(name, build, mode_kw, eng_kw, W
     mode_kw = {**SKETCH_KW, **mode_kw}
     kind = "gpt2" if build is _gpt2 else "image"
     batches = _batches(kind, W, dead=dead)
-    threads = torch.get_num_threads()
-    if mode_kw["hash_family"] == "random":
-        # the CPU's index_put_(accumulate=True) adds colliding entries in
-        # index order on one thread only (on more, in the threads' order,
-        # which differs from run to run, on either path)
-        torch.set_num_threads(1)
-    try:
-        ravel = _run(build, mode_kw, eng_kw, "ravel", W, shards, batches=batches)
-        lw = _run(build, mode_kw, eng_kw, "layerwise", W, shards, batches=batches)
-    finally:
-        torch.set_num_threads(threads)
+    ravel = _run(build, mode_kw, eng_kw, "ravel", W, shards, batches=batches)
+    lw = _run(build, mode_kw, eng_kw, "layerwise", W, shards, batches=batches)
     _assert_bitwise(ravel, lw)
     assert ravel[0]["round"] == lw[0]["round"] == ROUNDS
     if dead:

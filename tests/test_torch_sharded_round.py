@@ -303,13 +303,22 @@ def test_sharded_block_of_rounds_equals_rounds_one_by_one(tiny):
          num_clients=12),
     dict(mode="fedavg", momentum=0.0, momentum_type="none", error_type="none",
          num_local_iters=2)], ids=["local_topk", "fedavg"])
-def test_sharded_scope_refused_as_the_reference(mode_kw):
-    """Out-of-scope modes and a robust policy raise in both engines."""
+def test_sharded_scope_refused_as_the_reference(quad, mode_kw):
+    """A robust policy raises in both engines. The reference's engine
+    refuses the out-of-scope modes, which it runs over a mesh by GSPMD; the
+    port's builds them, as the one-device twin of its group round
+    (tests/test_torch_group_client_state.py), and both sessions refuse them
+    at client_shards > 1
+    (``test_session_out_of_scope_client_shards_raises_as_the_reference``)."""
+    with pytest.raises(ValueError, match="sharded round supports linear grad modes"):
+        jengine.make_sharded_round_step(_tquad, jengine.EngineConfig(
+            mode=JModeConfig(d=21, **mode_kw), client_shards=2))
+    layout = convert.FlatLayout(_Quad(_data()[2]))
+    assert layout.d == 21 and callable(tengine.make_sharded_round_step(
+        _tquad, tengine.EngineConfig(mode=TModeConfig(d=21, **mode_kw), client_shards=2),
+        layout))
     cfgs = [(tengine, TModeConfig), (jengine, JModeConfig)]
     for eng, MC in cfgs:
-        with pytest.raises(ValueError, match="sharded round supports linear grad modes"):
-            eng.make_sharded_round_step(_tquad, eng.EngineConfig(
-                mode=MC(d=21, **mode_kw), client_shards=2), *([None] if eng is tengine else []))
         with pytest.raises(ValueError, match="needs the per-client-table round"):
             eng.make_sharded_round_step(_tquad, eng.EngineConfig(
                 mode=MC(d=21, **SKETCH_KW), client_shards=2, merge_policy="median"),
