@@ -72,9 +72,10 @@ Phases (any failure raises, and the exit status is non-zero):
    recomputed on the card from the same cohort's per-client updates.
 
 11. GPT-2: ``gpt2_train.main`` fine-tunes GPT-2 small (byte vocabulary
-   261, seq_len 256, dropout 0.1, d = 85,453,056) over 17,500 synthetic
-   personas with FetchSGD (r = 5, c = 1,000,000, k = 50,000, 4 clients of 8
-   rows a round), with the launch counts zeroed before each run:
+   261, seq_len 256, dropout 0.1, d = 85,453,056) over 8,750 synthetic
+   personas (half the paper's 17,500: the corpus is host time) with
+   FetchSGD (r = 5, c = 1,000,000, k = 50,000, 4 clients of 8 rows a
+   round), with the launch counts zeroed before each run:
    a. 4 rounds through the sync loop, with --eval_f1 4; d and the flat
       layout's first and last leaves, peak device memory;
    b. both kernels at this shape bitwise against their plain versions (on a
@@ -288,6 +289,27 @@ Phases (any failure raises, and the exit status is non-zero):
    d. local_topk round ms on rank 0 in turns with the twin (rank 0 holds
       it), the row moves' ms and bytes (against ``client_row_bytes``) and
       the table gather's, on rank 0 after a barrier.
+21. serving on a group and the serving pipeline: 4 gloo ranks sharing the
+   card (as phase 20), one launch, 4 rounds a run at ResNet-9's full width:
+   a. served announce (phase 14a's close) and served payload (phase 14b's,
+      with --client_update_clip 3 and a wire_corrupt client), each ==
+      the one-device served run at client_shards 4 bitwise on every rank
+      (params, optimizer state, batch-norm statistics, the quarantine's
+      rings, every per-round metric, the committed queue and ages), rank
+      0's serve counters and casualties == the twin's; launches a rank:
+      announce 1 accumulate and 1 query a round, payload 2 and 1; the
+      payload close's broadcast (bytes and ms) on rank 0 after a barrier;
+   b. the payload group with host_preempt@1:host=2: every rank exits 75 at
+      round 2, rank 0's checkpoint has the serve block, and --resume ==
+      (a)'s payload run on every rank;
+   c. local_topk (phase 20a's, no checkpoints) served serially and with
+      --serve_pipeline on the group: bitwise equal on every rank, client
+      rows included; server_idle_ms and round ms of each;
+   d. on one card, 6 rounds each of announce and payload, serial and
+      pipelined in turns: bitwise equal, server_idle_ms and round ms of
+      each, launches (W = 8 accumulate and 1 query a payload round; a
+      payload pipeline's worker may sketch one round past the end), and
+      the kernels == plain on the pipelined run's params and error table.
 
 Prints one JSON line with the kernels' numbers (launches counted over
 phase 8; under "gpt2" each kernel's numbers at the GPT-2 shape, launches
@@ -299,7 +321,9 @@ the numbers at phase 13b's shape; "launches_serve" over phase 14a's and
 "launches_robust" over phase 17's attacked runs and its quarantine run,
 "launches_mesh" over phase 18's emulation and each rank of its
 uninterrupted gloo run, "launches_layerwise" over each run of phase 19,
-"launches_group" over each of phase 20's runs on rank 0; a
+"launches_group" over each of phase 20's runs on rank 0,
+"launches_serve_group" over each of phase 21's runs (rank 0's on the
+group); a
 third row, ``sketch_accumulate_leaf``, with a whole ResNet-9 tree's fold
 times and (b)'s layerwise launches),
 then
@@ -309,6 +333,7 @@ as its last line
 ``--kernels-only`` stops after phase 4 (a short first check of a new kernel),
 ``--layerwise-only`` runs phase 19 right after phase 4 and stops,
 ``--group-only`` runs phase 20 right after phase 4 and stops,
+``--serve-only`` runs phase 21 right after phase 4 and stops,
 ``--cohorts N`` sets the number of cohorts phase 7 compares (default 4);
 ``--pairs N`` the sync/async timing pairs of phase 8 (default 2).
 """
@@ -372,9 +397,11 @@ PAIRS = 2
 BASE_ROUNDS = 4
 FEMNIST_ARGS = ["--dataset", "femnist", "--num_clients", "3550", "--num_workers", "8",
                 "--local_batch_size", "8", "--k", "50000", "--device", "cuda"]
-# phase 11: GPT-2 small (byte vocabulary 261, seq_len 256, dropout 0.1) over
-# 17,500 synthetic personas, the paper's configuration #4
-GPT2_ARGS = ["--mode", "sketch", "--hash_family", "rotation", "--num_clients", "17500",
+# phase 11: GPT-2 small (byte vocabulary 261, seq_len 256, dropout 0.1), the
+# paper's configuration #4 at its widths, over 8,750 synthetic personas: its
+# 17,500 cut by half, since the LM and MC corpora cost about 2 and 4 ms of
+# host a persona and the rounds sample 4 of them
+GPT2_ARGS = ["--mode", "sketch", "--hash_family", "rotation", "--num_clients", "8750",
              "--num_workers", "4", "--local_batch_size", "8", "--k", "50000",
              "--num_rows", "5", "--num_cols", "1000000", "--num_blocks", "20",
              "--device", "cuda"]
@@ -476,6 +503,33 @@ GROUP_RUNS = {
     "table": SLICE_ARGS + ["--merge_policy", "trimmed", "--merge_trim", "1",
                            "--client_update_clip", "3", "--fault_plan",
                            "client_scale@1:clients=1,factor=50"],
+}
+# phase 21: serving on a group of SERVE_GROUP_SHARDS gloo ranks sharing the
+# card, SERVE_GROUP_ROUNDS rounds a run: (a) announce (phase 14a's close)
+# and payload (phase 14b's, with the clip and a corrupt frame) against the
+# one-device served runs at client_shards 4, (b) the payload run preempted
+# and resumed, (c) local_topk (phase 20a's) pipelined against serial;
+# SERVE_GROUP_TURNS timed broadcasts; (d) SERVE_ONE_ROUNDS rounds a run on
+# one card, pipelined against serial. (c) and (d) run the sync loop, which
+# drains every round, so every commit-to-dispatch gap is measured
+SERVE_GROUP_SHARDS = 4
+SERVE_GROUP_ROUNDS = 4
+SERVE_GROUP_TURNS = 3
+SERVE_GROUP_PLAN = "wire_corrupt@1:clients=0"
+SERVE_GROUP_RUNS = {
+    "announce": SLICE_ARGS + SERVE_ANNOUNCE + ["--num_rounds", str(SERVE_GROUP_ROUNDS)],
+    "payload": SLICE_ARGS + ["--serve", "inproc"] + SERVE_PAYLOAD
+    + ["--client_update_clip", "3", "--fault_plan", SERVE_GROUP_PLAN,
+       "--num_rounds", str(SERVE_GROUP_ROUNDS)],
+    "local_topk": GROUP_RUNS["local_topk"] + SERVE_ANNOUNCE
+    + ["--num_rounds", str(SERVE_GROUP_ROUNDS), "--sync_loop"],
+}
+SERVE_ONE_ROUNDS = 6
+SERVE_ONE_RUNS = {
+    "announce": SLICE_ARGS + SERVE_ANNOUNCE + ["--num_rounds", str(SERVE_ONE_ROUNDS),
+                                               "--sync_loop"],
+    "payload": SLICE_ARGS + ["--serve", "inproc"] + SERVE_PAYLOAD
+    + ["--fault_plan", SERVE_PLAN, "--num_rounds", str(SERVE_ONE_ROUNDS), "--sync_loop"],
 }
 # phase 19: the layerwise sketch path. (b) and (d) run LW_ROUNDS rounds of
 # phase 5's flags, (c) LW_GPT2_ROUNDS of phase 11's; LW_PAIRS timed turns a
@@ -1398,7 +1452,7 @@ def serving_runs(fetch_after: int = 2):
 
     def committed_rec(self, committed_round):
         committed(self, committed_round)
-        ms = self.service.metrics_server
+        ms = getattr(self.service, "metrics_server", None)  # a group's followers have none
         if ms is not None and rec["metrics"] is None and committed_round >= fetch_after:
             host, port = ms.address
             with urllib.request.urlopen(f"http://{host}:{port}/metrics", timeout=30) as r:
@@ -3558,6 +3612,240 @@ def group_phase(cv_train, engine, kernels, card: str) -> dict:
     return {run: ranks[0]["runs"][run]["launches"] for run in ranks[0]["runs"]}
 
 
+def _serve_run(cv_train, kernels, tag: str, argv: list, out: dict, device: str):
+    """One ``cv_train.main`` run of phase 21 with the launch counts zeroed
+    just before: its exit code, per-round metrics, launches, state and
+    client-block digests, committed queue and ages, server idle and round
+    ms, and (where this process ran the service) the service's counters;
+    into ``out[tag]``. Returns the session (None after an exit)."""
+    from commefficient_tpu_torch.parallel import distributed
+
+    kernels.reset_launch_counts()
+    distributed.broadcast_stats.update(calls=0, bytes=0, ms=0.0)
+    code, s = 0, None
+    t0 = time.perf_counter()
+    with recording_rounds() as rec, serving_runs() as srv:
+        try:
+            s = cv_train.main(list(argv))
+        except SystemExit as e:
+            code = e.code if isinstance(e.code, int) else 1
+    if device == "cuda":
+        torch.cuda.synchronize()
+    got = {"metrics": rec["metrics"], "launches": ravel_launches(kernels), "code": code,
+           "s": time.perf_counter() - t0, "broadcast": dict(distributed.broadcast_stats)}
+    if s is not None:
+        got.update(state=tree_digest(_server_state(s)),
+                   requeue=[list(s._requeue_committed),
+                            [list(a) for a in s._requeue_ages_committed]],
+                   idle_ms=[s.run_stats.server_idle_ms, s.run_stats.server_idle_ms_max],
+                   round_ms=_steady_ms(s.run_stats))
+        if s.client_state is not None:
+            got["block"] = tree_digest(s.client_state)
+    if srv["runs"]:
+        svc, src = srv["runs"][0]
+        got["counters"] = svc.queue.counters()
+        got["closes"] = [[int(p) for p in np.flatnonzero(c.arrived == 0.0)]
+                         for c in src.closed_rounds]
+    out[tag] = got
+    return s
+
+
+def _serve_group_rank(out_dir: str, device: str) -> None:
+    """One rank of phase 21's gloo group: (a) the served announce and
+    payload runs, (b) the payload run preempted on rank 2 and resumed, (c)
+    local_topk served serially and pipelined, then the close's broadcast
+    timed after a barrier. Writes ``out_dir/serve_<rank>.json``."""
+    sys.path.insert(0, ROOT)
+    import torch.distributed as dist
+
+    from commefficient_tpu_torch import cv_train
+    from commefficient_tpu_torch.parallel import distributed
+    from commefficient_tpu_torch.sketch import kernels
+
+    distributed.initialize(force=True, backend="gloo", device=device,
+                           serve_deadline_s=float(SERVE_PAYLOAD[SERVE_PAYLOAD.index(
+                               "--serve_deadline") + 1]))
+    rank = distributed.rank()
+    out = {"runs": {}}
+    runs = out["runs"]
+    ck = os.path.join(out_dir, "ck")
+    argv = SERVE_GROUP_RUNS
+    _serve_run(cv_train, kernels, "announce", argv["announce"], runs, device)
+    _serve_run(cv_train, kernels, "payload", argv["payload"], runs, device)
+    pre = ["--checkpoint_dir", ck, "--fault_plan", SERVE_GROUP_PLAN + ";host_preempt@1:host=2"]
+    _serve_run(cv_train, kernels, "preempted", argv["payload"] + pre, runs, device)
+    dist.barrier()
+    _serve_run(cv_train, kernels, "resumed", argv["payload"] + pre + ["--resume"], runs, device)
+    _serve_run(cv_train, kernels, "local_serial", argv["local_topk"], runs, device)
+    _serve_run(cv_train, kernels, "local_pipelined", argv["local_topk"] + ["--serve_pipeline"],
+               runs, device)
+    # the close's broadcast at the payload round's shape, on rank 0 after a
+    # barrier (processes on one card, through host memory)
+    W = 8
+    parts = [torch.ones(W), torch.randn(W, SLICE["r"], SLICE["c"])]
+    group = distributed.serve_group()
+    times = []
+    for i in range(SERVE_GROUP_TURNS + 1):
+        dist.barrier()
+        t0 = time.perf_counter()
+        got = distributed.broadcast_from_root(parts, group)
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    if not all(torch.equal(a, b) for a, b in zip(got, parts)) and rank == 0:
+        fail("serve group: rank 0's broadcast changed its own tensors")
+    out["broadcast_ms"] = times
+    out["broadcast_bytes"] = sum(t.numel() * t.element_size() for t in parts)
+    with open(os.path.join(out_dir, f"serve_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+
+
+def serve_group_phase(cv_train, engine, csvec, kernels, card: str) -> dict:
+    """Phase 21: serving on a group of 4 gloo ranks sharing the card, and
+    the serving pipeline on one card, at ResNet-9's full width. Returns
+    each kernel's launches over each run (rank 0's for the group's)."""
+    import functools
+    import shutil
+
+    from commefficient_tpu_torch.federated.api import FederatedSession
+    from commefficient_tpu_torch.parallel import distributed
+
+    device = "cuda" if "cuda" in SLICE_ARGS else "cpu"
+    S, R = SERVE_GROUP_SHARDS, SERVE_GROUP_ROUNDS
+    base = os.path.join(ROOT, "build", "chip_smoke", "serve_group")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    t0 = time.perf_counter()
+    codes = distributed.launch_local(_serve_group_rank, S, (base, device),
+                                     env={"LOCAL_RANK": "0"}, timeout_s=900)
+    secs = time.perf_counter() - t0
+    ranks = []
+    for r in range(S):
+        path = os.path.join(base, f"serve_{r}.json")
+        if not os.path.exists(path):
+            fail(f"serve group: rank {r} wrote nothing (exit codes {codes})")
+        with open(path) as f:
+            ranks.append(json.load(f))
+    if codes != [0] * S:
+        fail(f"serve group: rank exit codes {codes}")
+
+    # a. against the one-device served runs at client_shards S
+    twins = {}
+    orig = cv_train.FederatedSession
+    cv_train.FederatedSession = functools.partial(FederatedSession, client_shards=S)
+    try:
+        for tag in ("announce", "payload"):
+            _serve_run(cv_train, kernels, tag, SERVE_GROUP_RUNS[tag], twins, device)
+    finally:
+        cv_train.FederatedSession = orig
+    want = {"announce": {"sketch_accumulate": R, "sketch_query": R},
+            "payload": {"sketch_accumulate": 8 // S * R, "sketch_query": R}}
+    for tag in ("announce", "payload"):
+        t = twins[tag]
+        for r, got in enumerate(ranks):
+            g = got["runs"][tag]
+            for key in ("code", "metrics", "state", "requeue"):
+                if g[key] != t[key]:
+                    fail(f"serve group a: {tag} rank {r}'s {key} differs from the one-device "
+                         f"served run at client_shards={S}")
+            if g["launches"] != want[tag]:
+                fail(f"serve group a: {tag} rank {r} launched {g['launches']} (want "
+                     f"{want[tag]})")
+        if ranks[0]["runs"][tag]["counters"] != t["counters"] or \
+                ranks[0]["runs"][tag]["closes"] != t["closes"]:
+            fail(f"serve group a: {tag} rank 0's serve counters or closes differ from the twin's")
+        if not any(t["closes"]):
+            fail(f"serve group a: {tag}: no casualties, the pin is vacuous")
+        b0 = ranks[0]["runs"][tag]["broadcast"]
+        print(f"serve group a: {tag} served on {S} gloo ranks, {R} rounds == the one-device "
+              f"served run at client_shards={S}, bitwise on every rank: params, Vvelocity, "
+              f"Verror, batch-norm statistics, the quarantine's rings, every per-round metric, "
+              f"the committed queue and ages; rank 0's counters {json.dumps(t['counters'])} == "
+              f"the twin's; casualties a round {t['closes']}; launches a rank {want[tag]} (the "
+              f"twin {t['launches']}); rank 0 broadcast {b0['calls']} closes, "
+              f"{b0['bytes'] / max(b0['calls'], 1):.0f} bytes each, {b0['ms']:.1f} ms in all "
+              f"[{card}]", flush=True)
+    times, nbytes = ranks[0]["broadcast_ms"], ranks[0]["broadcast_bytes"]
+    print(f"serve group a: the payload close's broadcast on rank 0 after a barrier, {S} "
+          f"processes on one card through host memory: {nbytes} bytes ([8] arrived + [8, "
+          f"{SLICE['r']}, {SLICE['c']}] float32), ms {[round(x, 3) for x in times]} (median "
+          f"{statistics.median(times):.3f}) [{card}]", flush=True)
+
+    # b. preempted on rank 2 at round 1, resumed
+    t = twins["payload"]
+    with open(os.path.join(base, "ck", "round_00000002", "meta.json")) as f:
+        meta = json.load(f)
+    for r, got in enumerate(ranks):
+        pre, res = got["runs"]["preempted"], got["runs"]["resumed"]
+        if pre["code"] != 75 or pre["metrics"] != t["metrics"][:2] or \
+                res["code"] != 0 or res["metrics"] != t["metrics"][2:] or \
+                res["state"] != t["state"] or res["requeue"] != t["requeue"]:
+            fail(f"serve group b: rank {r}: host_preempt@1:host=2 -> exit {pre['code']}; the "
+                 "resume does not land on the uninterrupted served run")
+    if "serve" not in meta:
+        fail("serve group b: no serve block in the group's checkpoint")
+    print(f"serve group b: the served payload group, host_preempt@1:host=2 -> every rank exit "
+          f"75 at round 2, rank 0's checkpoint with serve block {json.dumps(meta['serve'])}; "
+          f"--resume == the uninterrupted run bitwise on every rank [{card}]", flush=True)
+    shutil.rmtree(os.path.join(base, "ck"), ignore_errors=True)
+
+    # c. pipelined local_topk on the group, against the serial group run
+    for r, got in enumerate(ranks):
+        a, p = got["runs"]["local_serial"], got["runs"]["local_pipelined"]
+        for key in ("code", "metrics", "state", "block", "requeue"):
+            if a[key] != p[key]:
+                fail(f"serve group c: rank {r}'s pipelined local_topk {key} differs from the "
+                     "serial run's")
+    a, p = ranks[0]["runs"]["local_serial"], ranks[0]["runs"]["local_pipelined"]
+    print(f"serve group c: served local_topk (100 clients, the client state split) on {S} "
+          f"gloo ranks, {R} rounds: pipelined == serial bitwise on every rank (params, "
+          f"optimizer state, client rows, metrics, queue); rank 0 server_idle_ms mean/max "
+          f"serial {[round(x, 3) for x in a['idle_ms']]} pipelined "
+          f"{[round(x, 3) for x in p['idle_ms']]}, steady round ms serial {a['round_ms']:.2f} "
+          f"pipelined {p['round_ms']:.2f} [{card}]", flush=True)
+
+    # d. pipelined on one card, in turns with serial
+    one = {}
+    sessions = {}
+    for kind, order in (("announce", (False, True)), ("payload", (True, False))):
+        for pipelined in order:
+            tag = f"{kind}_{'pipelined' if pipelined else 'serial'}"
+            sessions[tag] = _serve_run(
+                cv_train, kernels, tag, SERVE_ONE_RUNS[kind]
+                + (["--serve_pipeline"] if pipelined else []), one, device)
+        a, p = one[f"{kind}_serial"], one[f"{kind}_pipelined"]
+        for key in ("code", "metrics", "state", "requeue"):
+            if a[key] != p[key]:
+                fail(f"serve d: the pipelined {kind} run's {key} differs from the serial run's")
+        W = 8 if kind == "payload" else 1
+        # a payload pipeline's worker may compute one round's tables past
+        # the end before its stop
+        extra = (0, W) if kind == "payload" else (0,)
+        if a["launches"] != {"sketch_accumulate": W * SERVE_ONE_ROUNDS,
+                             "sketch_query": SERVE_ONE_ROUNDS} or \
+                p["launches"]["sketch_query"] != SERVE_ONE_ROUNDS or \
+                p["launches"]["sketch_accumulate"] - W * SERVE_ONE_ROUNDS not in extra:
+            fail(f"serve d: {kind} launched {a['launches']} serial, {p['launches']} pipelined")
+        print(f"serve d: {kind} on one card, {SERVE_ONE_ROUNDS} rounds, pipelined == serial "
+              f"bitwise (params, optimizer state, batch-norm statistics, metrics, queue); "
+              f"server_idle_ms mean/max serial {[round(x, 3) for x in a['idle_ms']]} "
+              f"pipelined {[round(x, 3) for x in p['idle_ms']]}; steady round ms serial "
+              f"{a['round_ms']:.2f} pipelined {p['round_ms']:.2f}; launches serial "
+              f"{a['launches']}, pipelined {p['launches']} [{card}]", flush=True)
+    s = sessions["payload_pipelined"]
+    check_kernels(csvec, s.cfg.mode.sketch_spec, s.state["params"],
+                  s.state["mode_state"]["Verror"])
+    print("serve d: kernels == plain on the pipelined payload run's params and error table",
+          flush=True)
+    del sessions, s
+    print(f"serve group: {secs:.1f} s for the launch; run s on rank 0 "
+          + ", ".join(f"{k} {v['s']:.1f}" for k, v in ranks[0]["runs"].items())
+          + "; one card " + ", ".join(f"{k} {v['s']:.1f}" for k, v in one.items()), flush=True)
+    launches = {f"group_{k}": v["launches"] for k, v in ranks[0]["runs"].items()}
+    launches.update({k: v["launches"] for k, v in one.items()})
+    return launches
+
+
 def time_kernels(csvec, kernels, time_ms, spec, gen: torch.Generator) -> dict:
     """Each kernel's median over CUDA-event-timed launches at ``spec``'s
     shape, cold (L2 flushed before each) and warm (its input just
@@ -3669,6 +3957,14 @@ def main(argv: list[str]) -> int:
             rows[name]["launches_group"] = {run: n[name] for run, n in group.items()}
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
         print("chip_smoke: group-only run done", flush=True)
+        return 0
+    if "--serve-only" in argv:
+        phase("21 (serving on a group, the pipeline)")
+        served = serve_group_phase(cv_train, engine, csvec, kernels, card_line())
+        for name in rows:
+            rows[name]["launches_serve_group"] = {run: n[name] for run, n in served.items()}
+        print(json.dumps({"kernels": list(rows.values())}), flush=True)
+        print("chip_smoke: serve-only run done", flush=True)
         return 0
     if "--layerwise-only" in argv:
         phase("19 (layerwise)")
@@ -3798,6 +4094,10 @@ def main(argv: list[str]) -> int:
     # 20. the rest of the client mesh on a group
     phase("20 (group)")
     group = group_phase(cv_train, engine, kernels, card)
+
+    # 21. serving on a group, the serving pipeline
+    phase("21 (serving on a group, the pipeline)")
+    served = serve_group_phase(cv_train, engine, csvec, kernels, card)
     phase("end")
 
     for name in rows:
@@ -3815,6 +4115,7 @@ def main(argv: list[str]) -> int:
     for name in rows:
         rows[name]["launches_layerwise"] = {run: n[name] for run, n in lw["launches"].items()}
         rows[name]["launches_group"] = {run: n.get(name, 0) for run, n in group.items()}
+        rows[name]["launches_serve_group"] = {run: n.get(name, 0) for run, n in served.items()}
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

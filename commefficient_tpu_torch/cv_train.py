@@ -36,7 +36,10 @@ commefficient_tpu_torch.cv_train ...``) or with --multihost
 --coordinator_address HOST:PORT --num_processes N --process_id I on each;
 the cohort shards over them (--mesh clients=N[,slices=M] names the
 shape). Every rank trains the same model; rank 0 writes the rows, the
-checkpoints and the trace, and rank r > 0 its ledger at PATH.rank<r>.
+checkpoints and the trace, and rank r > 0 its ledger at PATH.rank<r>. With
+--serve the aggregation service runs on rank 0 and shares each close with
+the other ranks; --serve_pipeline runs the serve cycle one round ahead on
+a worker thread, on one GPU or a group.
 
 Without the CIFAR-10 pickles (or LEAF's FEMNIST json under
 --data_root/femnist) the deterministic synthetic set of the same shape is
@@ -207,7 +210,8 @@ def main(argv=None):
             logger.close()
         wiring.close()
         if service is not None:
-            print(f"serve: final metrics {service.metrics_snapshot()}", flush=True)
+            if distributed.rank() == 0:  # a group's other ranks run a follower
+                print(f"serve: final metrics {service.metrics_snapshot()}", flush=True)
             service.close()
         # the Chrome trace is written on the preemption and halt exits too
         obs.flush_trace()

@@ -31,7 +31,12 @@ faults. A ``wire_payloads`` session (``--serve_payload sketch``) runs the
 payload round: ``compute_client_tables`` (the per-client tables, copied to
 the host once), the wire, ``finish_served_payload``, then
 ``dispatch_round`` merges the validated stack; its batch round composes
-the same two steps (``engine.compose_payload``). A robust ``merge_policy``
+the same two steps (``engine.compose_payload``). On a group of ranks only
+rank 0 copies the tables to the host (its transport ships them), every
+rank finishes the round with rank 0's validated stack, and the client
+step's gather rides the serve cycle's own process group
+(``parallel.distributed.serve_group``), which a pipelined service's worker
+thread uses beside the main thread's collectives. A robust ``merge_policy``
 and a fault plan that names an adversarial kind run that round too, and
 such a plan's ``_adv_*`` keys ride every round's batch (the identity off
 schedule). With ``client_update_clip`` the server state carries the
@@ -123,6 +128,9 @@ class PreparedRound:
     requeue_ages: tuple = ()
     payload: tuple | None = None
     health_on: bool = False
+    # the [W] validity mask of the whole cohort (a group rank's batch holds
+    # its slots' part only)
+    valid: np.ndarray | None = None
 
 
 @dataclasses.dataclass
@@ -336,6 +344,7 @@ class FederatedSession:
         # totals of the read ones, by direction (wire_copy_stats)
         self._wire_copies: list = []
         self._wire_totals: dict = {}
+        self._wire_lock = threading.Lock()
 
     def _setup_shards(self, mesh, client_shards: int, mode_cfg: ModeConfig) -> None:
         """The sharded round's routing, as the reference's session routes
@@ -424,8 +433,16 @@ class FederatedSession:
             # served round runs them apart with the wire between
             # (compute_client_tables, then dispatch_round of a payload
             # preparation)
+            group = self.group
+            if cfg.wire_payloads and group is not None:
+                # a served payload round's client step runs in the serve
+                # cycle (on the pipeline's worker when pipelined): its
+                # gather rides the serve cycle's own group
+                from ..parallel import distributed
+
+                group = distributed.serve_group() or group
             self._payload_client, self._payload_merge = engine.make_payload_round_steps(
-                loss_fn, cfg, layout, self.group)
+                loss_fn, cfg, layout, group)
             self._step = engine.compose_payload(self._payload_client, self._payload_merge)
             self._multi = None
         else:
@@ -625,17 +642,20 @@ class FederatedSession:
                                                                   self._rows)
             for p in dropped:
                 self._queue(int(ids[p]), rnd)
+        lo, hi = self._rows if self._rows is not None else (0, len(ids))
         if arrived is not None and (arrived == 0.0).any():
             # a served round closed short: its casualties get the
-            # client_drop treatment at the point the fault site uses
+            # client_drop treatment at the point the fault site uses (a
+            # rank's batch holds its slots [lo, hi) only)
             no_show = [int(p) for p in np.flatnonzero(arrived == 0.0)]
             valid = (np.ones(len(ids), np.float32) if valid is None
                      else np.array(valid, copy=True))
             batch = {k: (v if k.startswith("_") else np.array(v, copy=True))
                      for k, v in batch.items()}
+            rows = [p - lo for p in no_show if lo <= p < hi]
             for k, v in batch.items():
                 if not k.startswith("_"):
-                    v[no_show] = 0
+                    v[rows] = 0
             valid[no_show] = 0.0
             for p in no_show:
                 self._queue(int(ids[p]), rnd)
@@ -644,7 +664,6 @@ class FederatedSession:
             obtrace.instant("federated", "cohort_degraded", round=rnd, clients=masked)
         # the validity mask always rides the batch (all ones when clean); a
         # rank's batch holds its shard's slots only
-        lo, hi = self._rows if self._rows is not None else (0, len(ids))
         batch = dict(batch)
         batch[engine.VALID_KEY] = (valid[lo:hi] if valid is not None
                                    else np.ones(hi - lo, np.float32))
@@ -666,18 +685,23 @@ class FederatedSession:
         return PreparedRound(rnd, ids, {k: self._host(v) for k, v in batch.items()},
                              self.rng.get_state(), masked=masked, requeue=tuple(self._requeue),
                              requeue_ages=tuple(self._requeue_enqueued.items()),
-                             health_on=health_on)
+                             health_on=health_on,
+                             valid=(np.ones(len(ids), np.float32) if valid is None
+                                    else np.asarray(valid, np.float32)))
 
     # -- the served payload round (serve/, --serve_payload sketch) ------
 
-    def compute_client_tables(self, prep: PreparedRound) -> tuple[np.ndarray, tuple]:
+    def compute_client_tables(self, prep: PreparedRound,
+                              to_host: bool = True) -> tuple[np.ndarray | None, tuple]:
         """Run the payload round's client step on a prepared cohort, chained
         on the newest dispatched state, and copy its [W, r, c] table stack
         into one pinned host buffer: the round's one host sync, since the
         tables are the objects that cross the wire. Returns (tables [W, r, c]
         float32 numpy, aux), ``aux`` the device leftovers the merge needs
         (the state the client step read, per-client statistics and metric
-        rows, the participation mask)."""
+        rows, the participation mask). ``to_host=False`` (a served group's
+        ranks other than 0, whose merge reads rank 0's validated stack)
+        makes no copy and returns None for the tables."""
         if self._payload_client is None:
             raise RuntimeError("compute_client_tables needs a per-client-table session "
                                "(--serve_payload sketch, a robust --merge_policy or an "
@@ -685,17 +709,21 @@ class FederatedSession:
         state = self._head()
         tables, nstates, mvals, part, lnorms = self._payload_client(
             state, self._to_device(prep.batch))
+        aux = (state, nstates, mvals, part, lnorms)
+        if not to_host:
+            return None, aux
         if self.device.type == "cuda":
             host = torch.empty(tables.shape, dtype=tables.dtype, pin_memory=True)
             t0 = self._record(timing=True)
             host.copy_(tables, non_blocking=True)
             t1 = self._record(timing=True)
             t1.synchronize()
-            self._wire_copies.append(("d2h", host.numel() * host.element_size(), t0, t1))
+            with self._wire_lock:
+                self._wire_copies.append(("d2h", host.numel() * host.element_size(), t0, t1))
             self._fold_wire_copies()  # the sync completed every earlier copy too
         else:
             host = tables
-        return host.numpy(), (state, nstates, mvals, part, lnorms)
+        return host.numpy(), aux
 
     def quarantine_median_host(self) -> float:
         """The current quarantine baseline on the host (0.0 with the
@@ -717,8 +745,7 @@ class FederatedSession:
         stack and the arrival mask for ``dispatch_round``. Draws no host
         RNG, so the preparation's RNG snapshot stays valid."""
         arrived = np.asarray(arrived, np.float32)
-        valid = np.asarray(prep.batch[engine.VALID_KEY], np.float32)
-        eff = valid * arrived
+        eff = prep.valid * arrived
         for p in np.flatnonzero(eff == 0.0):
             self._queue(int(prep.ids[int(p)]), prep.rnd)
         masked = int(len(prep.ids) - eff.sum())
@@ -739,8 +766,9 @@ class FederatedSession:
         t0 = self._record(timing=True)
         tables = host.to(self.device, non_blocking=True)
         if t0 is not None:
-            self._wire_copies.append(("h2d", host.numel() * host.element_size(), t0,
-                                      self._record(timing=True)))
+            with self._wire_lock:
+                self._wire_copies.append(("h2d", host.numel() * host.element_size(), t0,
+                                          self._record(timing=True)))
         lr_host = self._host(np.asarray(lr, np.float32))
         new_state, metrics = self._payload_merge(
             state, tables, nstates, mvals, part,
@@ -757,13 +785,17 @@ class FederatedSession:
                              cohorts=[prep.ids], health_on=[prep.health_on])
 
     def _fold_wire_copies(self) -> None:
-        for direction, nbytes, t0, t1 in self._wire_copies:
-            t1.synchronize()
-            d = self._wire_totals.setdefault(direction, {"copies": 0, "bytes": 0, "ms": 0.0})
-            d["copies"] += 1
-            d["bytes"] += nbytes
-            d["ms"] += t0.elapsed_time(t1)
-        self._wire_copies = []
+        # a pipelined service's worker records the D2H copies, the main
+        # thread the H2D ones
+        with self._wire_lock:
+            copies, self._wire_copies = self._wire_copies, []
+            for direction, nbytes, t0, t1 in copies:
+                t1.synchronize()
+                d = self._wire_totals.setdefault(direction,
+                                                 {"copies": 0, "bytes": 0, "ms": 0.0})
+                d["copies"] += 1
+                d["bytes"] += nbytes
+                d["ms"] += t0.elapsed_time(t1)
 
     def wire_copy_stats(self) -> dict:
         """Bytes and CUDA-event milliseconds of the served payload rounds'
@@ -771,7 +803,8 @@ class FederatedSession:
         client tables to the host, "h2d": the validated stack back):
         {direction: {"copies", "bytes", "ms"}}. Waits for the last copy."""
         self._fold_wire_copies()
-        out, self._wire_totals = self._wire_totals, {}
+        with self._wire_lock:
+            out, self._wire_totals = self._wire_totals, {}
         return out
 
     def _head(self) -> dict:

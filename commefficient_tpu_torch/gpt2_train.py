@@ -286,7 +286,8 @@ def main(argv=None):
             logger.close()
         wiring.close()
         if service is not None:
-            print(f"serve: final metrics {service.metrics_snapshot()}", flush=True)
+            if distributed.rank() == 0:  # a group's other ranks run a follower
+                print(f"serve: final metrics {service.metrics_snapshot()}", flush=True)
             service.close()
         # the Chrome trace is written on the preemption and halt exits too
         obs.flush_trace()

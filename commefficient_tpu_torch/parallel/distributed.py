@@ -24,6 +24,15 @@ environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
   rank order with one ``all_gather`` of their bytes: copies, so a stack is
   bitwise what each rank held (over gloo a CUDA tensor is staged through
   host memory, which is how that backend moves card memory).
+- ``broadcast_from_root`` gives every rank rank 0's tensors with one
+  ``broadcast`` of their bytes: how a served group's rank 0, which runs
+  the aggregation service, shares each round's close.
+- ``serve_group`` is the process group of the serve cycle's collectives
+  (the payload client step's gather, the close's broadcast, the pipelined
+  worker's go/stop flag): a served run may issue them from its pipeline
+  worker while the main thread issues the round's own, and two threads on
+  one group could pair one rank's broadcast with another's all-to-all.
+  Every rank makes it at the join, in the same order.
 - ``RowMoves`` moves the split client state's rows between their owners
   and the ranks that run their cohort slots, and back, with one
   ``all_to_all_single`` each way (gloo and NCCL both have it);
@@ -37,6 +46,7 @@ from __future__ import annotations
 import datetime
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -45,6 +55,8 @@ import torch.distributed as dist
 # the host-side group of all_hosts_max: the default group under gloo, a
 # gloo group of its own beside an NCCL default group
 _HOST_GROUP = None
+# the serve cycle's own group (serve_group), beside the default group
+_SERVE_GROUP = None
 # how long a rank waits for the others in the join and in a collective
 TIMEOUT_S = 600.0
 
@@ -101,7 +113,7 @@ def local_device(device: str | torch.device) -> torch.device:
 def initialize(force: bool = False, fault_plan=None, retry_policy=None,
                device: str | torch.device = "cuda", backend: str | None = None,
                coordinator_address: str | None = None, num_processes: int | None = None,
-               process_id: int | None = None) -> bool:
+               process_id: int | None = None, serve_deadline_s: float = 0.0) -> bool:
     """Join the job's process group (idempotent). Returns True if this
     process is (now) in a group.
 
@@ -116,8 +128,11 @@ def initialize(force: bool = False, fault_plan=None, retry_policy=None,
     ``backend`` defaults to ``backend_for(device)``; gloo on a CUDA device
     is the caller's explicit choice (several ranks sharing one card, which
     NCCL refuses). The join runs under bounded retries at the site
-    "dist_init": the common failure is rank 0 not listening yet."""
-    global _HOST_GROUP
+    "dist_init": the common failure is rank 0 not listening yet. The serve
+    group waits ``serve_deadline_s`` longer than the others: the other
+    ranks sit in its broadcast while rank 0's wall-clock close waits up to
+    the served round's deadline."""
+    global _HOST_GROUP, _SERVE_GROUP
     if is_joined():
         return True
     if not (force or detected()):
@@ -168,17 +183,25 @@ def initialize(force: bool = False, fault_plan=None, retry_policy=None,
     # the preemption agreement is host data: a gloo group keeps it off the
     # card's stream (every rank makes it, in the same order)
     _HOST_GROUP = None if backend == "gloo" else dist.new_group(backend="gloo")
+    _SERVE_GROUP = dist.new_group(
+        backend=backend, timeout=datetime.timedelta(seconds=TIMEOUT_S + serve_deadline_s))
     if torch.device(device).type == "cuda":
         torch.cuda.set_device(local_rank())
     return True
 
 
 def shutdown() -> None:
-    """Leave the process group (and the host group beside it), if joined."""
-    global _HOST_GROUP
+    """Leave the process group (and the groups beside it), if joined."""
+    global _HOST_GROUP, _SERVE_GROUP
     if is_joined():
         dist.destroy_process_group()
-    _HOST_GROUP = None
+    _HOST_GROUP = _SERVE_GROUP = None
+
+
+def serve_group():
+    """The group of the serve cycle's collectives (None when no group was
+    joined)."""
+    return _SERVE_GROUP
 
 
 def initialize_from_args(args, fault_plan=None, retry_policy=None) -> bool:
@@ -189,7 +212,9 @@ def initialize_from_args(args, fault_plan=None, retry_policy=None) -> bool:
                                     ("num_processes", args.num_processes),
                                     ("process_id", args.process_id)) if v is not None}
     return initialize(force=args.multihost or bool(cluster_kw), fault_plan=fault_plan,
-                      retry_policy=retry_policy, device=args.device, **cluster_kw)
+                      retry_policy=retry_policy, device=args.device,
+                      serve_deadline_s=args.serve_deadline if args.serve != "off" else 0.0,
+                      **cluster_kw)
 
 
 def join_cli(args, fault_plan=None) -> bool:
@@ -197,7 +222,9 @@ def join_cli(args, fault_plan=None) -> bool:
     torchrun launch of 2+ ranks, or the explicit cluster flags) and print
     the reference's ``multihost:`` line; then leave the run's files to rank
     0: on rank r > 0 the rows (``--log_jsonl``), the trace and the profiler
-    capture are off, and the ledger goes to PATH.rank<r>."""
+    capture are off, and the ledger goes to PATH.rank<r>. With ``--serve``
+    rank 0 alone runs the aggregation service (its socket and metrics
+    ports); the other ranks follow it (``serve.service.ServeFollower``)."""
     from ..resilience.retry import RetryPolicy
     from ..utils.device import make_reproducible
 
@@ -218,16 +245,12 @@ def join_cli(args, fault_plan=None) -> bool:
 
 def cli_mesh(args):
     """The CLIs' client mesh (``mesh.mesh_from_args`` over this job's
-    ranks), printed as the reference's ``mesh:`` line. A group runs no
-    aggregation service yet (ROADMAP item 7c)."""
+    ranks), printed as the reference's ``mesh:`` line."""
     from . import mesh as meshlib
 
     mesh = meshlib.mesh_from_args(args, world_size())
     if mesh is not None:
         print(f"mesh: {mesh_info(mesh)}", flush=True)
-        if args.serve != "off":
-            raise SystemExit(f"--serve {args.serve}: the port runs no aggregation service on a "
-                             f"group of {mesh.shards} ranks yet (ROADMAP Queue 1 item 7c)")
     return mesh
 
 
@@ -265,6 +288,45 @@ def all_gather_stacked(tensors: list[torch.Tensor], group=None) -> list[torch.Te
         n = f.numel()
         out.append(gathered[:, off:off + n].contiguous().view(t.dtype)
                    .reshape((S,) + tuple(t.shape)))
+        off += n
+    return out
+
+
+# the broadcasts ``broadcast_from_root`` made in this process since the
+# count was last set to 0: calls, bytes of each call's buffer, and the host
+# ms from the call to its return
+broadcast_stats = {"calls": 0, "bytes": 0, "ms": 0.0}
+
+
+def broadcast_from_root(tensors: list[torch.Tensor], group=None) -> list[torch.Tensor]:
+    """Rank 0's ``tensors`` on every rank, on the device each came from:
+    one ``broadcast`` of their bytes (packed in list order), so every rank
+    gets rank 0's exact bits. The other ranks pass tensors of the same
+    shapes and dtypes, whose values are not read. Over gloo a CUDA buffer
+    is staged through host memory, and over NCCL a host buffer through the
+    card. A failed broadcast raises."""
+    dev = tensors[0].device
+    flat = [t.detach().contiguous().reshape(-1).view(torch.uint8) for t in tensors]
+    buf = torch.cat(flat)
+    backend = dist.get_backend(group)
+    if backend == "gloo" and dev.type == "cuda":
+        buf = buf.cpu()
+    elif backend == "nccl" and dev.type != "cuda":
+        buf = buf.to(torch.device("cuda", torch.cuda.current_device()))
+    t0 = time.perf_counter()
+    # src is a rank of the default group: the groups here span every rank
+    dist.broadcast(buf, src=0, group=group)
+    broadcast_stats["calls"] += 1
+    broadcast_stats["bytes"] += buf.numel()
+    broadcast_stats["ms"] += (time.perf_counter() - t0) * 1e3
+    buf = buf.to(dev)
+    out, off = [], 0
+    for t, f in zip(tensors, flat):
+        n = f.numel()
+        part = buf[off:off + n]
+        if off % t.element_size():
+            part = part.clone()  # a dtype view needs an aligned offset
+        out.append(part.view(t.dtype).reshape(t.shape))
         off += n
     return out
 
@@ -407,8 +469,6 @@ def launch_local(fn, world: int, args: tuple = (), env: dict | None = None,
     (a rank waiting in a collective for a dead peer would wait out the
     group's timeout), and a rank still running at ``timeout_s`` is killed
     (its code is then the kill's)."""
-    import time
-
     import torch.multiprocessing as mp
 
     port = free_port()

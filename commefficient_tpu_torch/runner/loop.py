@@ -193,6 +193,13 @@ class RunStats:
     # SLO engine firings while this loop ran (the slo_violations_total
     # registry counter's delta over the run)
     slo_violations: int = 0
+    # the mean and the longest gap from a drain's commit to the next
+    # dispatch: the server's idle time, which a pipelined served source
+    # (its next round ready at the commit) shrinks to the dispatch call
+    # itself; also the server_idle_ms gauge (the last gap) and the
+    # runner_idle_ms histogram
+    server_idle_ms: float = 0.0
+    server_idle_ms_max: float = 0.0
 
 
 def make_save_ckpt(session: FederatedSession, checkpoint_dir: str, timings: list | None = None):
@@ -233,10 +240,12 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
     save_ckpt defaults to make_save_ckpt when cfg.checkpoint_dir is set.
 
     ``source`` is an external round source (``next()`` -> PreparedRound in
-    round order, ``stop()``; an optional ``on_committed(round)`` hook):
-    the serving layer's ``ServedSource``,
+    round order, ``stop()``; optional ``on_dispatched(round)`` and
+    ``on_committed(round)`` hooks): the serving layer's ``ServedSource``,
     which makes the service, not the sampling prefetcher, the producer of
-    rounds. Its preparation then runs on this (the dispatch) thread.
+    rounds. Its preparation runs on this (the dispatch) thread, or ahead on
+    its pipeline's worker, which ``on_dispatched`` tells when a round's
+    merge is dispatched.
 
     Each prepare, dispatch, drain (the sync) and commit is observed into
     the obs registry's ``runner_phase_<phase>_ms`` histograms, which the
@@ -320,7 +329,12 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
         RoundPrefetcher(session, start_round, depth=prefetch_depth) if async_mode
         else PreparedSource(session, start_round))
     on_committed = getattr(src, "on_committed", None)
+    on_dispatched = getattr(src, "on_dispatched", None)
     phase_hist = {ph: reg.histogram(f"runner_phase_{ph}_ms") for ph in obreg.RUNNER_PHASES}
+    # the server's idle time: from a drain's end to the next dispatch
+    idle_hist, idle_gauge = reg.histogram("runner_idle_ms"), reg.gauge("server_idle_ms")
+    idle_since: float | None = None  # the end of the last drain, until a dispatch
+    idle_ms: list = []
 
     pending: collections.deque = collections.deque()  # in-flight dispatches
     pending_rounds = 0
@@ -340,7 +354,7 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
         window's per-round time feeds the next in-flight depth, except the
         first, which carries cuDNN's start-up."""
         nonlocal pending_rounds, last_m, nonfinite_total, eff_inflight, ema_round_ms
-        nonlocal window_t0, first_drain
+        nonlocal window_t0, first_drain, idle_since
         if not pending:
             return
         committed = pending_rounds
@@ -390,6 +404,7 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
         if on_committed is not None:
             on_committed(session.round)
         stats.drain_ms += (now - t_d0) * 1e3
+        idle_since = time.perf_counter()
         per_round = (now - window_t0) * 1e3 / max(committed, 1)
         window_t0 = None
         stats.round_ms.append(per_round)
@@ -419,8 +434,14 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
     def dispatch(fn, rnd: int, n: int):
         """Launch one dispatch of n rounds from ``rnd`` (``fn`` returns its
         InFlightRound) and queue it; the sync loop drains it at once."""
-        nonlocal pending_rounds
+        nonlocal pending_rounds, idle_since
         t_d0 = time.perf_counter()
+        if idle_since is not None:
+            gap = (t_d0 - idle_since) * 1e3
+            idle_since = None
+            idle_hist.observe(gap)
+            idle_gauge.set(gap)
+            idle_ms.append(gap)
         t_mark = tracer.now_us()
         with tracer.span("runner", "dispatch", round=rnd, rounds=n):
             infl = fn()
@@ -428,6 +449,8 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
         # not leave a mark the next drain would close into a phantom span
         dispatch_marks.append((t_mark, rnd, n))
         pending.append(infl)
+        if on_dispatched is not None:
+            on_dispatched(rnd + n - 1)
         ms = (time.perf_counter() - t_d0) * 1e3
         stats.dispatch_ms += ms
         phase_hist["dispatch"].observe(ms)
@@ -551,6 +574,8 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
     stats.attacks_injected = sum(int(mark.delta(f"resilience_attack_{k[len('client_'):]}_total"))
                                  for k in ADVERSARIAL_KINDS)
     stats.max_inflight_used = eff_inflight if async_mode else 0
+    stats.server_idle_ms = sum(idle_ms) / max(len(idle_ms), 1)
+    stats.server_idle_ms_max = max(idle_ms, default=0.0)
     stats.wall_s = time.perf_counter() - t0
     session.run_stats = stats
     return stats

@@ -1,6 +1,7 @@
 """The streaming aggregation service: the batch round inverted, clients
 pushing submissions at an aggregator (the port of the JAX package's
-``serve/``, synchronous serial serving).
+``serve/``, synchronous serving, serial or pipelined, on one device or a
+group of ranks).
 
 - ``ingest``    — the bounded arrival queue with admission control
   (backpressure, duplicates, out-of-round, early-push buffering, load
@@ -16,19 +17,24 @@ pushing submissions at an aggregator (the port of the JAX package's
   round's wire faults applied at the transport seam;
 - ``metrics``   — the ``/metrics`` endpoint;
 - ``service``   — ``AggregationService`` and ``ServedSource``, the round
-  source ``runner.run_loop(source=...)`` takes.
+  source ``runner.run_loop(source=...)`` takes; ``ServeFollower``, a
+  served group's part on the ranks other than 0;
+- ``pipeline``  — ``RoundPipeline``, the serve cycle run one round ahead
+  on a worker thread (``--serve_pipeline``).
 
 Both CLIs take ``--serve inproc|socket`` with ``--serve_payload
 announce|sketch``, ``--serve_quorum``, ``--serve_deadline``,
 ``--serve_trace``, ``--serve_shed_watermark``, ``--serve_metrics_port``,
-``--serve_port``, ``--serve_max_conns`` and ``--serve_transport
-eventloop|threaded``.
+``--serve_port``, ``--serve_max_conns``, ``--serve_transport
+eventloop|threaded`` and ``--serve_pipeline``.
 """
 
 from .assembler import ClosedRound, CohortAssembler
 from .ingest import IngestQueue, PayloadPolicy, Submission, validate_payload
 from .metrics import MetricsServer
-from .service import AggregationService, ServeConfig, ServedSource, service_from_args
+from .pipeline import RoundPipeline
+from .service import (AggregationService, ServeConfig, ServedSource, ServeFollower,
+                      service_from_args)
 from .traffic import TraceConfig, TrafficGenerator
 from .transport import (InProcessTransport, SocketTransport, abort_over_socket,
                         submit_over_socket, submit_with_retries)
@@ -41,7 +47,9 @@ __all__ = [
     "IngestQueue",
     "MetricsServer",
     "PayloadPolicy",
+    "RoundPipeline",
     "ServeConfig",
+    "ServeFollower",
     "ServedSource",
     "SocketTransport",
     "Submission",

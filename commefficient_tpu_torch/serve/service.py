@@ -27,20 +27,34 @@ merge (``dispatch_round``) consumes only the validated stack the close
 collected. A rejected frame is bitwise a dropped client.
 
 Threads: the socket engines and the metrics server run on threads of
-their own and touch host numpy only. The client step, the copies of the
-table stack and the merge dispatch run on the dispatch thread inside
-``ServedSource.next()`` and ``dispatch_round``, in round order: round r's
-client step reads the state round r-1's merge produced.
+their own and touch host numpy only. Serially, the client step and the
+copies of the table stack run on the dispatch thread inside
+``ServedSource.next()``; with ``--serve_pipeline`` the whole serve cycle
+runs ahead on the pipeline's worker (``serve/pipeline.py``), which waits
+before a payload round's client step until the previous round's merge is
+dispatched (``_compute_gate``), so round r's client step reads the state
+round r-1's merge produced either way. Both run on the device's default
+stream, the one the merges run on.
+
+On a group of ranks (``--mesh``, torchrun or ``--multihost``): rank 0 runs
+the service, and the other ranks run a ``ServeFollower``, which makes the
+same session calls in the same order without transport, ingest or
+assembler. Right after each close rank 0 broadcasts it
+(``parallel.distributed.broadcast_from_root`` on the serve group): the
+[W] arrival mask, and on a payload round the validated [W, r, c] stack.
+Every rank then prepares and merges exactly the bytes that crossed rank
+0's wire, so a group's run is bitwise its one-device served twin (the
+emulation at ``client_shards`` S), under the wire fault kinds too.
 
 Checkpoints: the early-submission buffer is snapshotted at every round
 boundary and published through ``session.serve_meta`` (meta.json
 "serve"); a restored session's ``restored_serve_meta`` re-seeds it, so a
 resumed run replays the arrival stream of the uninterrupted one.
 
-Not ported (ROADMAP Queue 1 item 9b): the pipelined and buffered-async
-services, the zero-copy fast path, sharded ingest and the edge tree.
-``ServeConfig`` has no field for them, and the CLIs refuse their flags by
-name (``utils/config.py``).
+Not ported (ROADMAP Queue 1 item 9b): the buffered-async service, the
+zero-copy fast path, sharded ingest and the edge tree. ``ServeConfig`` has
+no field for them, and the CLIs refuse their flags by name
+(``utils/config.py``).
 """
 
 from __future__ import annotations
@@ -52,6 +66,7 @@ import threading
 import time
 
 import numpy as np
+import torch
 
 from ..obs import registry as obreg
 from ..obs import trace as obtrace
@@ -87,6 +102,9 @@ class ServeConfig:
     # connection cap of the socket engine; 0 = the engine's default
     # (threaded 128, eventloop 8192)
     max_conns: int = 0
+    # --serve_pipeline: the serve cycle runs ahead on the pipeline's worker
+    # (serve/pipeline.py), bitwise the serial source
+    pipeline: bool = False
 
     @classmethod
     def from_args(cls, args) -> "ServeConfig":
@@ -94,19 +112,59 @@ class ServeConfig:
             quorum=args.serve_quorum, deadline_s=args.serve_deadline, transport=args.serve,
             port=args.serve_port, metrics_port=args.serve_metrics_port,
             payload=args.serve_payload, shed_watermark=args.serve_shed_watermark,
-            socket_transport=args.serve_transport, max_conns=args.serve_max_conns)
+            socket_transport=args.serve_transport, max_conns=args.serve_max_conns,
+            pipeline=args.serve_pipeline)
+
+
+def _check_payload_session(session, cfg: ServeConfig) -> None:
+    if cfg.payload not in ("announce", "sketch"):
+        raise ValueError(f"--serve_payload must be announce|sketch, got {cfg.payload!r}")
+    if cfg.payload == "sketch" and not session.cfg.wire_payloads:
+        raise ValueError("--serve_payload sketch needs a session built with "
+                         "wire_payloads=True (the CLIs arm it from the flag): the "
+                         "payload round is another step pair, client tables + merge")
+
+
+def _serve_group(session, root: bool):
+    """The serve cycle's group of a session sharded over a group of ranks
+    (None on one device), checked against where the caller runs: the
+    service on rank 0, the followers elsewhere."""
+    if session.group is None:
+        return None
+    from ..parallel import distributed
+
+    group = distributed.serve_group()
+    if group is None:
+        raise RuntimeError("a served group needs the serve cycle's own process group: join "
+                           "with parallel.distributed.initialize")
+    if (distributed.rank() == 0) != root:
+        raise ValueError("a group's aggregation service runs on rank 0 and a ServeFollower on "
+                         "each other rank")
+    return group
+
+
+def _agree(group, go: bool) -> bool:
+    """The pipelined group's go/stop flag for the next round: rank 0's
+    ``go``, broadcast on the serve group before any collective of that
+    round, so every rank's worker serves the same rounds and stops at the
+    same one."""
+    from ..parallel import distributed
+
+    flag = torch.tensor([1 if go else 0], dtype=torch.int64)
+    return bool(distributed.broadcast_from_root([flag], group)[0][0])
 
 
 class AggregationService:
     """See the module docstring. ``session`` is a FederatedSession;
     ``traffic`` a TrafficGenerator, or None for external clients only
-    (socket transport)."""
+    (socket transport). On a group of ranks it runs on rank 0 and shares
+    each close with the others' ``ServeFollower``."""
 
     def __init__(self, session, cfg: ServeConfig, traffic: TrafficGenerator | None = None):
         if cfg.transport not in ("inproc", "socket"):
             raise ValueError(f"serve transport must be inproc|socket, got {cfg.transport!r}")
-        if cfg.payload not in ("announce", "sketch"):
-            raise ValueError(f"--serve_payload must be announce|sketch, got {cfg.payload!r}")
+        _check_payload_session(session, cfg)
+        self.group = _serve_group(session, root=True)
         if cfg.socket_transport not in ("threaded", "eventloop"):
             raise ValueError(f"--serve_transport must be threaded|eventloop, got "
                              f"{cfg.socket_transport!r}")
@@ -121,10 +179,6 @@ class AggregationService:
                              "transport with external clients)")
         payload_policy = payload_shape = None
         if cfg.payload == "sketch":
-            if not session.cfg.wire_payloads:
-                raise ValueError("--serve_payload sketch needs a session built with "
-                                 "wire_payloads=True (the CLIs arm it from the flag): the "
-                                 "payload round is another step pair, client tables + merge")
             mcfg = session.cfg.mode
             payload_shape = (mcfg.num_rows, mcfg.num_cols)
             # the gauntlet's sketch-space screen reads the ring the merge
@@ -179,6 +233,9 @@ class AggregationService:
         # the checkpoint hook: utils/checkpoint.save calls it under the
         # session's mutate_lock and writes the result into meta.json
         session.serve_meta = self._serve_meta
+        # the pipeline's payload compute gate (serve/pipeline.py sets it;
+        # None: the serial source, whose compute runs inline)
+        self._compute_gate = None
         self._started = False
 
     # -- lifecycle ------------------------------------------------------
@@ -201,8 +258,30 @@ class AggregationService:
     # -- the round source -----------------------------------------------
 
     def source(self, start_round: int | None = None) -> "ServedSource":
-        """The run loop's round source."""
-        return ServedSource(self, self.session.round if start_round is None else start_round)
+        """The run loop's round source (pipelined with ``cfg.pipeline``)."""
+        return ServedSource(self, self.session.round if start_round is None else start_round,
+                            pipelined=self.cfg.pipeline)
+
+    def agree_round(self, rnd: int, stopping: bool) -> bool:
+        """Whether the pipeline's worker serves round ``rnd``: not when its
+        pipeline is stopping. On a group rank 0 decides for every rank."""
+        if self.group is None:
+            return not stopping
+        return _agree(self.group, not stopping)
+
+    def _share_close(self, closed: ClosedRound, rnd: int) -> None:
+        """On a group: the close to every rank (the arrival mask, and a
+        payload round's validated stack), as the followers' ``_receive``
+        takes it. The bits rank 0 merges are the ones it sent."""
+        if self.group is None:
+            return
+        from ..parallel import distributed
+
+        with self._stage("broadcast", rnd):
+            parts = [torch.from_numpy(closed.arrived)]
+            if closed.tables is not None:
+                parts.append(torch.from_numpy(closed.tables))
+            distributed.broadcast_from_root(parts, self.group)
 
     @contextlib.contextmanager
     def _stage(self, name: str, rnd: int):
@@ -232,6 +311,7 @@ class AggregationService:
                         closed = self.assembler.close_virtual(rnd, ids)
                     else:
                         closed = self.assembler.close_wall(rnd, ids)
+                self._share_close(closed, rnd)
                 with self._stage("prep", rnd):
                     prep = self.session.prepare_served_round(rnd, ids, closed.arrived)
         with self._meta_lock:
@@ -260,6 +340,8 @@ class AggregationService:
             ids = self.session.sample_cohort(rnd)
             prep0 = self.session.prepare_served_round(rnd, ids, np.ones(len(ids), np.float32))
         with self._stage("compute", rnd):
+            if self._compute_gate is not None:
+                self._compute_gate(rnd)
             tables, aux = self.session.compute_client_tables(prep0)
         with self._stage("invite", rnd):
             self.queue.open_round(rnd, ids)
@@ -273,6 +355,7 @@ class AggregationService:
                 closed = self.assembler.close_virtual(rnd, ids)
             else:
                 closed = self.assembler.close_wall(rnd, ids)
+        self._share_close(closed, rnd)
         with self._stage("prep", rnd):
             prep = self.session.finish_served_payload(prep0, closed.arrived, closed.tables, aux)
         return prep, closed
@@ -352,6 +435,10 @@ class AggregationService:
                                for ph in obreg.RUNNER_PHASES},
             "serve_stage_ms": {st: self.registry.histogram(f"serve_stage_{st}_ms").summary()
                                for st in obreg.SERVE_STAGES},
+            # the commit-to-next-dispatch gap the run loop measures (about
+            # 0 pipelined, the whole serve cycle serial)
+            "server_idle_ms": round(self.registry.gauge("server_idle_ms").value, 3),
+            "pipeline": bool(self.cfg.pipeline),
             "quorum": self.cfg.quorum,
             "invited_per_round": s.num_workers,
             "deadline_s": self.cfg.deadline_s,
@@ -367,28 +454,119 @@ class AggregationService:
         }
 
 
-class ServedSource:
-    """The run loop's round source backed by the service: ``next()`` runs
-    the whole invite -> collect -> close cycle on the dispatch thread (the
-    device still overlaps: the merge of round N runs while round N+1 is
-    served, up to the payload round's table copy). ``closed_rounds`` keeps
-    each round's ClosedRound for observers."""
+class ServeFollower:
+    """The service's part on ranks 1..S-1 of a served group: the session
+    calls rank 0's service makes, in the same order, with the close taken
+    from rank 0's broadcast instead of a transport, an ingest queue and an
+    assembler. So every rank draws the same host RNG, queues the same
+    casualties and merges the same validated stack. It holds no queue, so
+    it has no pending buffer to snapshot, restore or rewind, and serves no
+    port."""
 
-    def __init__(self, service: AggregationService, start_round: int):
+    def __init__(self, session, cfg: ServeConfig):
+        _check_payload_session(session, cfg)
+        self.group = _serve_group(session, root=False)
+        if self.group is None:
+            raise ValueError("a ServeFollower follows rank 0's service over a group of ranks; "
+                             "this session is not sharded over one")
+        self.session = session
+        self.cfg = cfg
+        self._compute_gate = None
+
+    def start(self) -> "ServeFollower":
+        return self
+
+    def close(self) -> None:
+        pass
+
+    def source(self, start_round: int | None = None) -> "ServedSource":
+        return ServedSource(self, self.session.round if start_round is None else start_round,
+                            pipelined=self.cfg.pipeline)
+
+    def agree_round(self, rnd: int, stopping: bool) -> bool:
+        """Rank 0's decision, whatever this rank's pipeline wants."""
+        return _agree(self.group, False)
+
+    def _receive(self, n: int, payload: bool) -> list:
+        """Rank 0's close as host numpy: the [n] arrival mask and, on a
+        payload round, the validated [n, r, c] stack."""
+        from ..parallel import distributed
+
+        parts = [torch.empty(n, dtype=torch.float32)]
+        if payload:
+            mcfg = self.session.cfg.mode
+            parts.append(torch.empty((n, mcfg.num_rows, mcfg.num_cols), dtype=torch.float32))
+        return [t.numpy() for t in distributed.broadcast_from_root(parts, self.group)]
+
+    def serve_round(self, rnd: int):
+        """Rank 0's ``serve_round`` without the transport: (PreparedRound,
+        None)."""
+        s = self.session
+        with obtrace.span("assembler", "serve_round", round=rnd):
+            ids = s.sample_cohort(rnd)
+            if self.cfg.payload != "sketch":
+                (arrived,) = self._receive(len(ids), payload=False)
+                return s.prepare_served_round(rnd, ids, arrived), None
+            prep0 = s.prepare_served_round(rnd, ids, np.ones(len(ids), np.float32))
+            if self._compute_gate is not None:
+                self._compute_gate(rnd)
+            # joins the client step's ordered gather; rank 0 alone copies
+            # the stack to the host for its transport
+            _, aux = s.compute_client_tables(prep0, to_host=False)
+            arrived, tables = self._receive(len(ids), payload=True)
+            return s.finish_served_payload(prep0, arrived, tables, aux), None
+
+    def _record_boundary(self, next_round: int) -> None:
+        pass
+
+    def record_merges(self, committed_round: int | None = None) -> int:
+        return 0
+
+    def rewind_to_committed(self) -> None:
+        pass
+
+
+class ServedSource:
+    """The run loop's round source backed by the service (or a group's
+    follower). Serial: ``next()`` runs the whole invite -> collect -> close
+    cycle on the dispatch thread (the device still overlaps: the merge of
+    round N runs while round N+1 is served, up to the payload round's table
+    copy). Pipelined: the cycle runs ahead on the pipeline's worker
+    (``serve/pipeline.py``) and ``next()`` pops a ready round.
+    ``closed_rounds`` keeps each round's ClosedRound (rank 0's) for
+    observers."""
+
+    def __init__(self, service, start_round: int, pipelined: bool = False):
         self.service = service
         self._next = start_round
         self.last_closed: ClosedRound | None = None
         self.closed_rounds: list[ClosedRound] = []
         service._record_boundary(start_round)
+        self._pipeline = None
+        if pipelined:
+            from .pipeline import RoundPipeline
+
+            self._pipeline = RoundPipeline(service, start_round).start()
 
     def next(self):
         rnd = self._next
-        prep, closed = self.service.serve_round(rnd)
-        self.service._record_boundary(rnd + 1)
-        self.last_closed = closed
-        self.closed_rounds.append(closed)
+        if self._pipeline is not None:
+            # the worker served this round and recorded its boundary
+            prep, closed = self._pipeline.next()
+        else:
+            prep, closed = self.service.serve_round(rnd)
+            self.service._record_boundary(rnd + 1)
+        if closed is not None:
+            self.last_closed = closed
+            self.closed_rounds.append(closed)
         self._next = rnd + 1
         return prep
+
+    def on_dispatched(self, rnd: int):
+        """The run loop's dispatch hook: round ``rnd``'s merge is dispatched,
+        so the pipeline's worker may compute round rnd + 1's tables."""
+        if self._pipeline is not None:
+            self._pipeline.on_dispatched(rnd)
 
     def on_committed(self, committed_round: int):
         """The run loop's commit hook: submission-to-merge latencies resolve
@@ -396,19 +574,29 @@ class ServedSource:
         self.service.record_merges(committed_round)
 
     def stop(self):
+        # the worker first: the loop's exit rewind (host RNG, requeue,
+        # pending buffer) must not race a preparation in flight
+        if self._pipeline is not None:
+            self._pipeline.stop()
         # the loop may have served rounds that never commit (preemption, an
         # early exit): rewind the pending buffer with the host RNG
         self.service.rewind_to_committed()
 
 
-def service_from_args(args, session) -> AggregationService | None:
+def service_from_args(args, session) -> AggregationService | ServeFollower | None:
     """Build and start the service of a CLI run (after the checkpoint
     restore, so a resumed service picks up the persisted pending queue);
-    None with --serve off. The trace's population defaults to the
-    dataset's client count and its seed to --seed unless the spec pins
-    them."""
+    None with --serve off. On a group of ranks rank 0 builds the service
+    and the other ranks a ``ServeFollower``, which prints nothing. The
+    trace's population defaults to the dataset's client count and its seed
+    to --seed unless the spec pins them."""
     if args.serve == "off":
         return None
+    if session.group is not None:
+        from ..parallel import distributed
+
+        if distributed.rank() != 0:
+            return ServeFollower(session, ServeConfig.from_args(args)).start()
     spec = args.serve_trace
     trace = TraceConfig.parse(spec)
     pinned = {p.partition("=")[0].strip() for p in spec.split(",") if p.strip()}
@@ -423,7 +611,10 @@ def service_from_args(args, session) -> AggregationService | None:
     print(f"serve: {service.cfg.transport} transport"
           + (f" ({service.cfg.socket_transport})" if service.cfg.transport == "socket" else "")
           + (f" on {addr[0]}:{addr[1]}" if addr else "")
-          + f", payload {service.cfg.payload}, quorum {service.cfg.quorum}/"
+          + f", payload {service.cfg.payload}"
+          + (", pipelined" if service.cfg.pipeline else "")
+          + (f", on rank 0 of {session.cfg.client_shards}" if service.group is not None else "")
+          + f", quorum {service.cfg.quorum}/"
           + f"{session.num_workers}, deadline {service.cfg.deadline_s}s, trace {trace}"
           + (f", metrics http://{maddr[0]}:{maddr[1]}/metrics" if maddr else ""), flush=True)
     return service

@@ -2,8 +2,7 @@
 ``utils/config.py`` parser, with the same names, types, choices and
 defaults, plus ``--device``, so a launch command of the reference parses
 here. The flags of features the port does not run yet (``_UNPORTED``:
-the pipelined, buffered-async, fast-path, sharded and edge-tree serving
-variants, and GPT-2's ring attention, mixture of experts and
+the buffered-async, fast-path, sharded and edge-tree serving variants, and GPT-2's ring attention, mixture of experts and
 parallelism) parse at the reference's defaults, and ``resolve_defaults``
 refuses any other value by name, with the ROADMAP Queue 1 item that
 brings the feature: accepted and ignored is never an outcome.
@@ -24,9 +23,8 @@ from ..obs.slo import parse_rules
 # add_argument keywords as in the reference, the values the port runs, why
 # another value is refused, the ROADMAP Queue 1 item that brings it or None
 # when none is queued)
-_SERVE = "the port runs the synchronous serial service only"
+_SERVE = "the port runs the synchronous service, serial or pipelined, only"
 _UNPORTED = (
-    ("serve_pipeline", dict(action="store_true"), (False,), _SERVE, "9b"),
     ("serve_async", dict(action="store_true"), (False,), _SERVE, "9b"),
     ("serve_buffer", dict(type=int, default=0), (0,), _SERVE, "9b"),
     ("serve_staleness", dict(type=float, default=0.5), (0.5,), _SERVE, "9b"),
@@ -243,6 +241,10 @@ def make_parser(task: str = "cv") -> argparse.ArgumentParser:
                    help="socket bind port (0 = ephemeral)")
     p.add_argument("--serve_metrics_port", type=int, default=-1,
                    help=">= 0 serves GET /metrics on this port (0 = ephemeral)")
+    p.add_argument("--serve_pipeline", action="store_true",
+                   help="run the serve cycle ahead of the merge on a worker thread "
+                        "(serve/pipeline.py): round N+1's invite/collect/close overlaps "
+                        "round N's merge, bitwise the serial service")
     # observability (obs/): the round tracer, the profiler window, sketch
     # health, the round ledger and the SLO engine
     p.add_argument("--trace", default="",

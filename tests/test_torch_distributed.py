@@ -25,9 +25,10 @@ What is held, and how exactly:
   state, fedavg and a trimmed merge run on the group and equal their
   one-device twins bitwise over 2 rounds, client rows included (the
   emulation at S = 4; tests/test_torch_group_client_state.py and
-  tests/test_torch_group_tables.py hold the rest); ``--serve`` is refused
-  on a group, naming ROADMAP item 7c; ``dist_init@1`` is refused at
-  launch.
+  tests/test_torch_group_tables.py hold the rest); ``--serve`` runs on a
+  group (rank 0's service, the others' followers, equal params: the
+  bitwise pins are tests/test_torch_group_serve.py's); ``dist_init@1`` is
+  refused at launch.
 
 The rank functions live here at module level (``launch_local`` pickles
 them by name) and import no JAX."""
@@ -52,6 +53,8 @@ from commefficient_tpu_torch.modes.config import ModeConfig
 from commefficient_tpu_torch.parallel import distributed
 from commefficient_tpu_torch.parallel.mesh import ClientMesh
 from commefficient_tpu_torch.resilience import EXIT_RESUMABLE, FaultPlan
+from commefficient_tpu_torch.serve import service_from_args
+from commefficient_tpu_torch.utils.config import make_parser
 from test_torch_runner import TINY_PATHS, TinyNet, _rows, init_tiny, tiny_cv  # noqa: F401
 
 torch.set_num_threads(2)
@@ -171,10 +174,8 @@ def _group_session_run(name, mesh=None):
 
 def _engine_ranks(out_dir):
     """Rank function: every case on the group, the sessions beyond the
-    linear scope, then the agreement and the refusal; each rank saves what
-    it got."""
-    import argparse
-
+    linear scope, then the agreement and two served rounds; each rank saves
+    what it got."""
     distributed.initialize(force=True, device="cpu")
     rank = dist.get_rank()
     got = {name: _run_case(name, dist.group.WORLD, rank) for name in CASES}
@@ -182,11 +183,19 @@ def _engine_ranks(out_dir):
                        for name in GROUP_SESSIONS}
     torch.save(got, os.path.join(out_dir, f"engine_{rank}.pt"))
     extra = {"max_rank": distributed.all_hosts_max(rank), "max_zero": distributed.all_hosts_max(0)}
-    try:
-        distributed.cli_mesh(argparse.Namespace(mesh="", num_devices=0, serve="inproc"))
-        extra["serve_refusal"] = None
-    except SystemExit as e:
-        extra["serve_refusal"] = str(e)
+    # --serve on the group: the mesh is not refused, rank 0 builds the
+    # service and the others a follower, and two served rounds run
+    args = make_parser().parse_args(["--serve", "inproc", "--serve_quorum", "6",
+                                     "--num_clients", "16"])
+    s = _tiny_session(SKETCH, mesh=distributed.cli_mesh(args))
+    svc = service_from_args(args, s)
+    src = svc.source()
+    for lr in LRS[:2]:
+        s.commit_round(s.dispatch_round(src.next(), lr))
+    src.stop()
+    svc.close()
+    extra["serve"] = {"kind": type(svc).__name__, "round": s.round,
+                      "params": s.state["params"].tolist()}
     with open(os.path.join(out_dir, f"extra_{rank}.json"), "w") as f:
         json.dump(extra, f)
 
@@ -281,8 +290,10 @@ def test_four_gloo_ranks_equal_the_emulation_bitwise(tmp_path):
     for rank in range(WORLD):
         extra = json.loads((tmp_path / f"extra_{rank}.json").read_text())
         assert (extra["max_rank"], extra["max_zero"]) == (WORLD - 1, 0)
-        assert "no aggregation service on a group of 4 ranks" in extra["serve_refusal"]
-        assert "item 7c" in extra["serve_refusal"]
+        served = json.loads((tmp_path / "extra_0.json").read_text())["serve"]
+        assert extra["serve"]["kind"] == ("AggregationService" if rank == 0
+                                          else "ServeFollower")
+        assert extra["serve"]["round"] == 2 and extra["serve"]["params"] == served["params"]
 
 
 def test_single_process_agreement_touches_no_group():

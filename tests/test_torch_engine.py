@@ -79,7 +79,7 @@ def test_nonfinite_round_is_skipped():
 
 
 
-@pytest.mark.parametrize("flag", [["--serve_pipeline"]])
+@pytest.mark.parametrize("flag", [["--serve_async"]])
 def test_cli_rejects_reference_flags_the_port_does_not_honour(flag):
     """A flag of the JAX CLI that the port does not run parses, and a value
     that asks for the feature is refused by name, not accepted and
