@@ -252,26 +252,30 @@ Phases (any failure raises, and the exit status is non-zero):
       through host memory: it says nothing of NVLink or InfiniBand);
       ``merge_comm_bytes`` at S = 4 for ResNet-9 and GPT-2.
 19. the layerwise sketch path (``--sketch_path layerwise``); every phase
-   above runs the ravel path and must launch no ``sketch_accumulate_leaf``:
-   a. the per-leaf accumulate against its plain version, bitwise after
-      every leaf, and the folded table against ``sketch_accumulate`` of the
-      raveled vector: on edge trees (a leaf that starts mid-slab and spans 3
-      slabs, a 1-element leaf, a last leaf with padding past d; c not a
-      multiple of 4 at r = 1; r = 16; c below the tile), then on every leaf
-      of ResNet-9's plan (26 leaves, c = 524,288) and of GPT-2's (148, c =
-      1,000,000); cold and warm ms of a whole tree's fold (beside
-      ``sketch_accumulate`` of the same vector) and of one launch on the
-      largest and the smallest leaf, with plain ms and bound;
+   above runs the ravel path and must launch no ``sketch_accumulate_tree``:
+   a. the tree accumulate against its plain version (the per-leaf fold),
+      bitwise after the whole tree, and against ``sketch_accumulate`` of
+      the raveled vector, with ceil(L / TREE_MAX_LEAVES) launches a tree: on
+      edge trees (a leaf that starts mid-slab and spans 3 slabs, a
+      1-element leaf, a last leaf with padding past d; c not a multiple of
+      4 at r = 1; r = 16; c below the tile), the same trees as separate
+      allocations starting at element offsets 1, 2 and 3 mod 4, a tree of
+      500 leaves of 1-37 coordinates (more than one launch takes), then
+      ResNet-9's plan (26 leaves, c = 524,288) and GPT-2's (148, c =
+      1,000,000); cold and warm ms of a whole tree's fold (one launch,
+      beside ``sketch_accumulate`` of the same vector) and of a one-leaf
+      fold in place on the largest and the smallest leaf, with plain ms and
+      bound;
    b. ResNet-9 FetchSGD (phase 5's flags), 6 rounds: ravel sync, layerwise
-      sync and async (bitwise equal), launches a round 26
-      ``sketch_accumulate_leaf``, 0 ``sketch_accumulate``, 1
+      sync and async (bitwise equal), launches a round 1
+      ``sketch_accumulate_tree``, 0 ``sketch_accumulate``, 1
       ``sketch_query``; layerwise against ravel bitwise (the client phase
       is shared, so only the fold can differ); sync round ms and peak
       memory of each path in turns (CUDA events);
    d. --fault_plan preempt@2 exits 75, --resume == (b)'s layerwise run;
-   c. GPT-2 LM (phase 11's flags, chunk 0), 2 rounds each way: 148 leaf
-      launches a round, state and rows against ravel's bitwise, round ms
-      and peak memory in turns.
+   c. GPT-2 LM (phase 11's flags, chunk 0), 2 rounds each way: 1 tree
+      launch a round, state and rows against ravel's bitwise, round ms and
+      peak memory in turns.
 
 20. the rest of the client mesh on a group: 4 gloo ranks sharing the card
    (as phase 18b), one launch, 4 rounds a run at ResNet-9's full width:
@@ -324,7 +328,7 @@ uninterrupted gloo run, "launches_layerwise" over each run of phase 19,
 "launches_group" over each of phase 20's runs on rank 0,
 "launches_serve_group" over each of phase 21's runs (rank 0's on the
 group); a
-third row, ``sketch_accumulate_leaf``, with a whole ResNet-9 tree's fold
+third row, ``sketch_accumulate_tree``, with a whole ResNet-9 tree's fold
 times and (b)'s layerwise launches),
 then
 as its last line
@@ -535,12 +539,19 @@ SERVE_ONE_RUNS = {
 # phase 5's flags, (c) LW_GPT2_ROUNDS of phase 11's; LW_PAIRS timed turns a
 # path. LEAF_EDGES (d, c, r, leaf sizes): a leaf that starts mid-slab and
 # spans 3 slabs, a 1-element leaf and a last leaf with padding past d; c not
-# a multiple of 4 at r = 1; r = 16; c below the 2048-bucket tile
+# a multiple of 4 at r = 1; r = 16; c below the 2048-bucket tile.
+# MANY_LEAVES leaves of 1 to 37 coordinates at (c, r) make a tree of more
+# leaves than one launch of the tree kernel takes
 LW_ROUNDS = 6
 LW_GPT2_ROUNDS = 2
 LW_PAIRS = 3
 LEAF_EDGES = [(3000, 1024, 3, (100, 2500, 1, 399)), (5003, 777, 1, (5, 1600, 1, 3397)),
               (40000, 4096, 16, (4096, 1, 30000, 5903)), (2500, 300, 2, (299, 2, 2199))]
+MANY_LEAVES = (500, 1000, 5)
+# phase 19a's timings spin about 2 ms ahead of each timed call, past the
+# host work of a 148-leaf tree's call, so that the events time the device
+LW_SPIN_CYCLES = 4_000_000
+LW_HOST_CALLS = 20
 
 
 def fail(msg: str):
@@ -2776,99 +2787,139 @@ def robust_phase(cv_train, engine, csvec, kernels, card: str) -> dict:
 
 def ravel_launches(kernels) -> dict:
     """The launch counts of a run of the ravel path (phases 5-18): the
-    per-leaf accumulate must not have launched; returns the counts of the
-    two whole-vector kernels."""
+    tree accumulate must not have launched; returns the counts of the two
+    whole-vector kernels."""
     counts = dict(kernels.launch_counts)
-    leaf = counts.pop("sketch_accumulate_leaf")
-    if leaf:
-        fail(f"a ravel-path run launched sketch_accumulate_leaf {leaf} times")
+    tree = counts.pop("sketch_accumulate_tree")
+    if tree:
+        fail(f"a ravel-path run launched sketch_accumulate_tree {tree} times")
     return counts
 
 
-def fold_check(layerwise, csvec, spec, leaves: list, label: str) -> float:
-    """Fold ``leaves`` (flat float32 tensors on the card, in ravel order)
-    into a zero table leaf by leaf, through the kernel and through the plain
-    version, and hold the two tables bitwise after every leaf; then the
-    folded table against ``sketch_accumulate`` of the concatenated vector.
-    Returns the largest difference (0.0: any other fails)."""
-    plan = layerwise.make_block_plan(spec, leaves)
-    got = csvec.zero_table(spec, "cuda")
-    want = csvec.zero_table(spec, "cuda")
-    err = 0.0
-    for i, (v, blk) in enumerate(zip(leaves, plan.blocks)):
-        layerwise.accumulate_leaf(spec, got, v, blk.offset)
-        layerwise._accumulate_leaf_rotation(spec, want, v, blk)
-        err = max(err, compare(f"sketch_accumulate_leaf {label} leaf {i} [{blk.offset}, "
-                               f"+{blk.size}) (slabs {blk.s0}..{blk.s0 + blk.num_slabs - 1})",
-                               got, want))
-    return max(err, compare(f"sketch_accumulate_leaf {label}: the folded table against "
-                            "sketch_accumulate", got, csvec.sketch_vec(spec, torch.cat(leaves))))
+def plain_fold(layerwise, csvec, spec, leaves: list, offsets: list):
+    """The tree kernel's plain version: the per-leaf fold in ravel order
+    into a zero table."""
+    table = csvec.zero_table(spec, "cuda")
+    for v, off in zip(leaves, offsets):
+        layerwise._accumulate_leaf_rotation(spec, table, v,
+                                            layerwise._leaf_block(spec, off, v.numel()))
+    return table
+
+
+def fold_check(layerwise, csvec, kernels, spec, leaves: list, label: str,
+               whole: torch.Tensor | None = None) -> float:
+    """Fold ``leaves`` (flat float32 tensors on the card, in ravel order,
+    views or separate allocations) through the tree kernel and through the
+    plain per-leaf fold, and hold the two tables bitwise after the whole
+    tree, with ceil(L / TREE_MAX_LEAVES) launches; then against
+    ``sketch_accumulate`` of the raveled vector (``whole``, default the
+    concatenation). Returns the largest difference (0.0: any other
+    fails)."""
+    sizes = [v.numel() for v in leaves]
+    offsets = [sum(sizes[:m]) for m in range(len(sizes))]
+    before = kernels.launch_counts["sketch_accumulate_tree"]
+    got = layerwise.sketch_tree(spec, leaves)
+    launched = kernels.launch_counts["sketch_accumulate_tree"] - before
+    want = -(-len(leaves) // kernels.TREE_MAX_LEAVES)
+    if launched != want:
+        fail(f"sketch_accumulate_tree {label}: {launched} launches for {len(leaves)} leaves, "
+             f"want {want}")
+    err = compare(f"sketch_accumulate_tree {label} ({len(leaves)} leaves)", got,
+                  plain_fold(layerwise, csvec, spec, leaves, offsets))
+    whole = torch.cat(leaves) if whole is None else whole
+    return max(err, compare(f"sketch_accumulate_tree {label}: the table against "
+                            "sketch_accumulate", got, csvec.sketch_vec(spec, whole)))
+
+
+def separate_leaves(v: torch.Tensor, sizes) -> list:
+    """v's leaves of ``sizes`` as separate allocations starting at element
+    offsets 1, 2, 3, 1, ... mod 4."""
+    out, off = [], 0
+    for m, n in enumerate(sizes):
+        k = 1 + m % 3
+        out.append(torch.empty(n + 4, device=v.device)[k:k + n].copy_(v[off:off + n]))
+        off += n
+    return out
 
 
 def leaf_times(layerwise, csvec, kernels, time_ms, spec, segments, gen, label: str,
                card: str) -> dict:
     """Cold (L2 flushed) and warm (the leaves just rewritten) ms of a whole
-    tree's fold (one launch a leaf, and the table's zeroing) beside
-    ``sketch_accumulate`` of the same vector, and of one launch on the
-    largest and the smallest leaf; each with its plain version's ms and its
-    bound: the leaves read once and the touched table buckets (min(n, c) a
-    row) read and written once, at 3.35 TB/s, or 2 operations a (row,
-    coordinate) at 67 TFLOP/s. Prints them; returns the tree's numbers."""
+    tree's fold into a fresh table (one launch) beside ``sketch_accumulate``
+    of the same vector, and of a one-leaf fold in place on the largest and
+    the smallest leaf; each with its plain version's ms and its bound, the
+    work's: the coordinates read once and the table written once (fresh,
+    the tree and ``sketch_accumulate``: 4d + 4rc bytes) or the touched
+    buckets (min(n, c) a row) read and written once (in place), with the
+    hashes, at 3.35 TB/s, or 2 operations a (row, coordinate) at 67
+    TFLOP/s; and the host ms of a call (its Python, the ctypes call and the
+    launch, no sync). Prints them; returns the numbers by name."""
     import functools
 
     d, c, r = spec.d, spec.c, spec.r
     v = torch.randn(d, generator=gen, device="cuda")
     leaves = [v[o:o + n] for o, n in segments]
-    plan = layerwise.make_block_plan(spec, leaves)
+    offsets = [o for o, _ in segments]
     shifts, ks = csvec._rotation_keys(spec, v.device)
     flush = torch.ones(64 * 2**20, dtype=torch.float32, device="cuda")
+    hash_bytes = 4 * (r * spec.num_slabs + r)
 
-    def bound(n_coords, buckets):
-        b = 4 * n_coords + 8 * r * buckets
+    def bound(n_coords, table_bytes):
+        b = 4 * n_coords + table_bytes + hash_bytes
         ops = 2 * r * n_coords
         bytes_ms, ops_ms = b / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
         return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
-    def plain_tree():
-        t = csvec.zero_table(spec, "cuda")
-        for leaf, blk in zip(leaves, plan.blocks):
-            layerwise._accumulate_leaf_rotation(spec, t, leaf, blk)
-        return t
-
+    plan = layerwise.make_block_plan(spec, leaves)  # once, as the engine makes it
     out = {}
-    work = {"tree": (lambda: layerwise.sketch_tree(spec, leaves, plan), plain_tree, d,
-                     sum(min(n, c) for _, n in segments), len(segments)),
-            "sketch_accumulate": (lambda: kernels.accumulate(v, shifts, ks, c), None, d, c, 1)}
+    work = {"tree": (lambda: layerwise.sketch_tree(spec, leaves, plan),
+                     lambda: plain_fold(layerwise, csvec, spec, leaves, offsets), d, 4 * r * c,
+                     1),
+            "sketch_accumulate": (lambda: kernels.accumulate(v, shifts, ks, c), None, d,
+                                  4 * r * c, 1)}
     table = csvec.zero_table(spec, "cuda")
     for which, i in (("largest leaf", max(range(len(segments)), key=lambda i: segments[i][1])),
                      ("smallest leaf", min(range(len(segments)), key=lambda i: segments[i][1]))):
         o, n = segments[i]
-        blk = plan.blocks[i]
-        work[which] = (functools.partial(kernels.accumulate_leaf, table, leaves[i], o, shifts, ks,
-                                         c, d),
+        work[which] = (functools.partial(kernels.accumulate_tree, table, [leaves[i]], [o],
+                                         shifts, ks, c, d),
                        functools.partial(layerwise._accumulate_leaf_rotation, spec, table.clone(),
-                                         leaves[i], blk), n, min(n, c), 1)
-    for name, (fn, plain, n_coords, buckets, launches) in work.items():
-        ms = time_ms(fn, TIMED_LAUNCHES, flush.sum)
-        warm = time_ms(fn, TIMED_LAUNCHES, lambda: v.mul_(1.0))
+                                         leaves[i], layerwise._leaf_block(spec, o, n)),
+                       n, 8 * r * min(n, c), 1)
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        calls = []
+        for _ in range(LW_HOST_CALLS):
+            t0 = time.perf_counter()
+            fn()
+            calls.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return statistics.median(calls)
+
+    for name, (fn, plain, n_coords, table_bytes, launches) in work.items():
+        ms = time_ms(fn, TIMED_LAUNCHES, flush.sum, LW_SPIN_CYCLES)
+        warm = time_ms(fn, TIMED_LAUNCHES, lambda: v.mul_(1.0), LW_SPIN_CYCLES)
         plain_ms = time_ms(plain, 3, flush.sum) if plain is not None else None
-        b_ms, b_by = bound(n_coords, buckets)
+        b_ms, b_by = bound(n_coords, table_bytes)
         out[name] = {"ms": ms, "warm_ms": warm, "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "launches": launches, "coords": n_coords}
-        print(f"layerwise a: {label} {name} ({launches} launch{'es' if launches > 1 else ''}, "
-              f"{n_coords:,} coordinates): {ms:.4f} ms cold, {warm:.4f} warm, plain "
+                     "bound_by": b_by, "launches": launches, "coords": n_coords,
+                     "mb": (4 * n_coords + table_bytes + hash_bytes) / 1e6,
+                     "host_ms": host_ms(fn)}
+        print(f"layerwise a: {label} {name} ({launches} launch, {n_coords:,} coordinates): "
+              f"{ms:.4f} ms cold, {warm:.4f} warm, plain "
               f"{'n/a' if plain_ms is None else f'{plain_ms:.3f}'} ms, bound {b_ms:.4f} ms "
-              f"({b_by}) [{card}]", flush=True)
+              f"({b_by}: {out[name]['mb']:.1f} MB); host {out[name]['host_ms']:.4f} ms a call "
+              f"[{card}]", flush=True)
     return out
 
 
 def layerwise_phase(cv_train, engine, csvec, kernels, time_ms, gen: torch.Generator,
                     card: str) -> dict:
     """Phase 19: the layerwise sketch path (``--sketch_path layerwise``) at
-    full width: the per-leaf kernel against its plain version (a), ResNet-9
+    full width: the tree kernel against its plain version (a), ResNet-9
     FetchSGD layerwise against ravel (b), GPT-2 LM (c), preempt and resume
-    (d). Returns the per-leaf kernel's row fields and each kernel's
-    launches by run."""
+    (d). Returns the tree kernel's row fields and each kernel's launches by
+    run."""
     import dataclasses
     import shutil
 
@@ -2882,15 +2933,26 @@ def layerwise_phase(cv_train, engine, csvec, kernels, time_ms, gen: torch.Genera
     launches = {}
     err = 0.0
 
-    # a. the kernel against its plain version on the edge cases first
+    # a. the kernel against its plain version on the edge cases first: views
+    # of one vector, then separate allocations off 16 bytes
     for d, c, r, sizes in LEAF_EDGES:
         spec = csvec.CSVecSpec(d=d, c=c, r=r, seed=42, family="rotation")
         v = torch.randn(d, generator=gen, device="cuda")
-        err = max(err, fold_check(layerwise, csvec, spec, list(torch.split(v, list(sizes))),
-                                  f"d={d} c={c} r={r}"))
-    print(f"layerwise a: sketch_accumulate_leaf == plain after every leaf, and the folded "
-          f"table == sketch_accumulate, bitwise, on {len(LEAF_EDGES)} edge trees "
-          f"{[e[3] for e in LEAF_EDGES]}", flush=True)
+        err = max(err, fold_check(layerwise, csvec, kernels, spec,
+                                  list(torch.split(v, list(sizes))), f"d={d} c={c} r={r}"))
+        err = max(err, fold_check(layerwise, csvec, kernels, spec, separate_leaves(v, sizes),
+                                  f"d={d} c={c} r={r} separate", whole=v))
+    n_many, c, r = MANY_LEAVES
+    sizes = torch.randint(1, 38, (n_many,), generator=torch.Generator().manual_seed(0)).tolist()
+    spec = csvec.CSVecSpec(d=sum(sizes), c=c, r=r, seed=42, family="rotation")
+    v = torch.randn(spec.d, generator=gen, device="cuda")
+    err = max(err, fold_check(layerwise, csvec, kernels, spec, list(torch.split(v, sizes)),
+                              f"{n_many} leaves of 1-37"))
+    print(f"layerwise a: sketch_accumulate_tree == the plain fold and sketch_accumulate, "
+          f"bitwise, on {len(LEAF_EDGES)} edge trees {[e[3] for e in LEAF_EDGES]} as views and "
+          f"as separate allocations at element offsets 1-3 mod 4, and on {n_many} leaves of "
+          f"1-37 coordinates (d={spec.d}, c={c}, r={r}; "
+          f"{-(-n_many // kernels.TREE_MAX_LEAVES)} launches)", flush=True)
 
     def run(main, argv, label, sketch_path):
         log = os.path.join(base, f"{label}.jsonl")
@@ -2907,9 +2969,9 @@ def layerwise_phase(cv_train, engine, csvec, kernels, time_ms, gen: torch.Genera
         print(_times(f"layerwise {label}", s.run_stats, card), flush=True)
         return s, rows
 
-    def per_round_launches(label, rounds, leaves, accumulate=0):
+    def per_round_launches(label, rounds, trees, accumulate=0):
         want = {"sketch_accumulate": accumulate * rounds, "sketch_query": rounds,
-                "sketch_accumulate_leaf": leaves * rounds}
+                "sketch_accumulate_tree": trees * rounds}
         if launches[label] != want:
             fail(f"layerwise {label}: launches {launches[label]} in {rounds} rounds, want {want}")
 
@@ -2941,9 +3003,9 @@ def layerwise_phase(cv_train, engine, csvec, kernels, time_ms, gen: torch.Genera
     lw, rows_lw = run(cv_train.main, argv + ["--sync_loop"], "resnet9_sync", "layerwise")
     segments = layerwise.leaf_segments(lw.layout)
     per_round_launches("resnet9_ravel", LW_ROUNDS, 0, accumulate=1)
-    per_round_launches("resnet9_sync", LW_ROUNDS, len(segments))
+    per_round_launches("resnet9_sync", LW_ROUNDS, 1)
     la, rows_la = run(cv_train.main, argv, "resnet9_async", "layerwise")
-    per_round_launches("resnet9_async", LW_ROUNDS, len(segments))
+    per_round_launches("resnet9_async", LW_ROUNDS, 1)
     if not (_equal(_full_state(lw), _full_state(la)) and rows_lw == rows_la):
         fail("layerwise b: the async layerwise run differs from the sync one")
 
@@ -2951,17 +3013,18 @@ def layerwise_phase(cv_train, engine, csvec, kernels, time_ms, gen: torch.Genera
         fail("layerwise b: the layerwise run differs from the ravel run")
     print(f"layerwise b: ResNet-9 FetchSGD, {LW_ROUNDS} rounds: layerwise sync == async bitwise; "
           f"layerwise == ravel bitwise (params, Vvelocity, Verror, batch-norm statistics, rows "
-          f"but time_s); launches a round {len(segments)} sketch_accumulate_leaf, 0 "
+          f"but time_s); launches a round 1 sketch_accumulate_tree ({len(segments)} "
+          "leaves), 0 "
           f"sketch_accumulate, 1 sketch_query [{card}]", flush=True)
     # the kernel on every leaf of ResNet-9's plan, on the run's reduced
     # gradient's shape, and the times
     spec = lw.cfg.mode.sketch_spec
     v = torch.randn(spec.d, generator=gen, device="cuda")
-    err = max(err, fold_check(layerwise, csvec, spec, [v[o:o + n] for o, n in segments],
-                              "resnet9"))
-    print(f"layerwise a: every leaf of ResNet-9's plan ({len(segments)} leaves, d={spec.d:,} "
-          f"c={spec.c:,} r={spec.r}) == plain after every leaf, the table == sketch_accumulate, "
-          "bitwise", flush=True)
+    err = max(err, fold_check(layerwise, csvec, kernels, spec,
+                              [v[o:o + n] for o, n in segments], "resnet9"))
+    print(f"layerwise a: ResNet-9's plan ({len(segments)} leaves, d={spec.d:,} c={spec.c:,} "
+          f"r={spec.r}) in 1 launch == the plain fold, the table == sketch_accumulate, bitwise",
+          flush=True)
     times = leaf_times(layerwise, csvec, kernels, time_ms, spec, segments, gen, "resnet9", card)
     batch = lw._to_device(lw.prepare_round(lw.round).batch)
     lr = torch.tensor(CHECK_LR, device=lw.device)
@@ -3000,21 +3063,21 @@ def layerwise_phase(cv_train, engine, csvec, kernels, time_ms, gen: torch.Genera
     glw, grows_lw = run(gpt2_train.main, gargv, "gpt2_sync", "layerwise")
     gsegments = layerwise.leaf_segments(glw.layout)
     per_round_launches("gpt2_ravel", LW_GPT2_ROUNDS, 0, accumulate=1)
-    per_round_launches("gpt2_sync", LW_GPT2_ROUNDS, len(gsegments))
+    per_round_launches("gpt2_sync", LW_GPT2_ROUNDS, 1)
     if not (_equal(_full_state(grv), _full_state(glw)) and grows_rv == grows_lw):
         diff = max((_state(glw)[k] - _state(grv)[k]).abs().max().item() for k in _state(grv))
         fail(f"layerwise c: GPT-2's layerwise run differs from the ravel run (params, "
              f"Vvelocity, Verror max abs difference {diff:.3e})")
     print(f"layerwise c: GPT-2 LM, {LW_GPT2_ROUNDS} rounds: layerwise == ravel bitwise (params, "
-          f"Vvelocity, Verror, rows but time_s); {len(gsegments)} leaf launches a round "
-          f"[{card}]", flush=True)
+          f"Vvelocity, Verror, rows but time_s); 1 tree launch a round ({len(gsegments)} "
+          f"leaves) [{card}]", flush=True)
     gspec = glw.cfg.mode.sketch_spec
     v = torch.randn(gspec.d, generator=gen, device="cuda")
-    err = max(err, fold_check(layerwise, csvec, gspec, [v[o:o + n] for o, n in gsegments],
-                              "gpt2"))
-    print(f"layerwise a: every leaf of GPT-2's plan ({len(gsegments)} leaves, d={gspec.d:,} "
-          f"c={gspec.c:,} r={gspec.r}) == plain after every leaf, the table == "
-          "sketch_accumulate, bitwise", flush=True)
+    err = max(err, fold_check(layerwise, csvec, kernels, gspec,
+                              [v[o:o + n] for o, n in gsegments], "gpt2"))
+    print(f"layerwise a: GPT-2's plan ({len(gsegments)} leaves, d={gspec.d:,} c={gspec.c:,} "
+          f"r={gspec.r}) in 1 launch == the plain fold, the table == sketch_accumulate, "
+          "bitwise", flush=True)
     del v
     gtimes = leaf_times(layerwise, csvec, kernels, time_ms, gspec, gsegments, gen, "gpt2", card)
     gbatch = glw._to_device(glw.prepare_round(glw.round).batch)
@@ -3030,11 +3093,11 @@ def layerwise_phase(cv_train, engine, csvec, kernels, time_ms, gen: torch.Genera
     return {"row": {"max_abs_err": err, "ms": tree["ms"], "warm_ms": tree["warm_ms"],
                     "plain_ms": tree["plain_ms"],
                     "bound_ms": tree["bound_ms"], "bound_by": tree["bound_by"],
-                    "launches": launches["resnet9_sync"]["sketch_accumulate_leaf"],
-                    "per_launch": {k: times[k] for k in ("largest leaf", "smallest leaf")},
+                    "launches": launches["resnet9_sync"]["sketch_accumulate_tree"],
+                    "one_leaf": {k: times[k] for k in ("largest leaf", "smallest leaf")},
                     "sketch_accumulate_same_vector": times["sketch_accumulate"],
                     "gpt2": {**gtimes["tree"], "launches": launches["gpt2_sync"][
-                        "sketch_accumulate_leaf"], "per_launch": {
+                        "sketch_accumulate_tree"], "one_leaf": {
                         k: gtimes[k] for k in ("largest leaf", "smallest leaf")},
                         "sketch_accumulate_same_vector": gtimes["sketch_accumulate"]},
                     "round_ms": {"resnet9": t9, "gpt2": tg}},
@@ -3045,13 +3108,13 @@ REPLACES = {"sketch_accumulate": "commefficient_tpu/sketch/pallas_kernels.py:135
             "sketch_query": "commefficient_tpu/sketch/pallas_kernels.py:211"}
 
 
-def leaf_row(lw: dict) -> dict:
-    """The per-leaf accumulate's row of the kernels line, from phase 19:
-    its times are a whole ResNet-9 tree's fold (26 launches), its launches
-    those of (b)'s layerwise sync run. It has no library call: PyTorch has
-    no rotation-family Count-Sketch, and ``index_put_`` computes another
-    hash family's scatter."""
-    return {"name": "sketch_accumulate_leaf", "route": "cuda",
+def tree_row(lw: dict) -> dict:
+    """The tree accumulate's row of the kernels line, from phase 19: its
+    times are a whole ResNet-9 tree's fold (26 leaves, one launch), its
+    launches those of (b)'s layerwise sync run. It has no library call:
+    PyTorch has no rotation-family Count-Sketch, and ``index_put_``
+    computes another hash family's scatter."""
+    return {"name": "sketch_accumulate_tree", "route": "cuda",
             "source": "commefficient_tpu_torch/sketch/csrc/sketch_kernels.cu",
             "replaces": REPLACES["sketch_accumulate"], "library_ms": None, **lw["row"]}
 
@@ -3969,7 +4032,7 @@ def main(argv: list[str]) -> int:
     if "--layerwise-only" in argv:
         phase("19 (layerwise)")
         lw = layerwise_phase(cv_train, engine, csvec, kernels, time_ms, gen, card_line())
-        rows["sketch_accumulate_leaf"] = leaf_row(lw)
+        rows["sketch_accumulate_tree"] = tree_row(lw)
         for name in rows:
             rows[name]["launches_layerwise"] = {run: n[name] for run, n in lw["launches"].items()}
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
@@ -4111,7 +4174,7 @@ def main(argv: list[str]) -> int:
         rows[name]["launches_obs"] = {run: n[name] for run, n in obs_launches.items()}
         rows[name]["launches_robust"] = {run: n[name] for run, n in robust.items()}
         rows[name]["launches_mesh"] = {run: n[name] for run, n in mesh.items()}
-    rows["sketch_accumulate_leaf"] = leaf_row(lw)
+    rows["sketch_accumulate_tree"] = tree_row(lw)
     for name in rows:
         rows[name]["launches_layerwise"] = {run: n[name] for run, n in lw["launches"].items()}
         rows[name]["launches_group"] = {run: n.get(name, 0) for run, n in group.items()}

@@ -55,11 +55,12 @@ The layerwise path (``sketch_path="layerwise"``, mode=sketch only): the
 client phase is the ravel path's, and the reduced [d] update (a shard's
 partial sum on the sharded round) folds into the running table leaf by
 leaf, each leaf's slice of the flat vector in ravel order
-(``sketch/layerwise.py``; on the card one ``sketch_accumulate_leaf`` launch
-a leaf). The fold is bitwise ``sketch_vec`` of the whole vector, so the
-layerwise round gives the ravel round's bits by construction. The port
-keeps its flat client stacks: the vmapped backward returns every leaf's
-[C, n] gradient at once, so folding per leaf lowers no peak here.
+(``sketch/layerwise.py``; on the card one ``sketch_accumulate_tree``
+launch folds the whole tree). The fold is bitwise ``sketch_vec`` of the
+whole vector, so the layerwise round gives the ravel round's bits by
+construction. The port keeps its flat client stacks: the vmapped backward
+returns every leaf's [C, n] gradient at once, so folding per leaf lowers
+no peak here.
 
 The sketch-space quarantine (``client_update_clip``): each client's update
 L2 norm (the table's, on the table round), and under layer scope each
@@ -241,7 +242,7 @@ class EngineConfig:
     # how the round's sketch table is built (mode=sketch only): "ravel"
     # sketches the reduced [d] update at once; "layerwise" folds it into
     # the running table leaf by leaf (sketch/layerwise.py; on the card one
-    # sketch_accumulate_leaf launch a leaf), bitwise the ravel round. The
+    # sketch_accumulate_tree launch a round), bitwise the ravel round. The
     # random hash family needs num_blocks == 1 there
     sketch_path: str = "ravel"
 
@@ -927,11 +928,11 @@ def _compress(mcfg: ModeConfig, update: torch.Tensor,
               plan: layerwise.BlockPlan | None) -> dict:
     """The wire of a reduced (or a shard's partial) [d] update of a linear
     mode: ``modes.client_compress``, or on the layerwise path the table
-    folded leaf by leaf from the update's slices (``plan``'s blocks),
-    bitwise the same table."""
+    folded from the update's slices (``plan``'s blocks; one tree launch on
+    the card), bitwise the same table."""
     if plan is None:
         return modes.client_compress(mcfg, update, {})[0]
-    leaves = (update[b.offset:b.offset + b.size] for b in plan.blocks)
+    leaves = [update[b.offset:b.offset + b.size] for b in plan.blocks]
     return {"table": layerwise.sketch_tree(mcfg.sketch_spec, leaves, plan)}
 
 

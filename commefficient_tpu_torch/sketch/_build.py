@@ -1,6 +1,6 @@
 """Build and load the hand-written CUDA sketch kernels.
 
-``csrc/sketch_kernels.cu`` has a plain C interface (three entries); it is compiled at first
+``csrc/sketch_kernels.cu`` has a plain C interface (four entries); it is compiled at first
 use by ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/torch_kernels/`` at the root of the checkout, named by a hash of the
 source and the flags so an edited source rebuilds, and loaded with
@@ -74,19 +74,20 @@ def compile_library(source: Path = SOURCE) -> tuple[Path, str]:
 
 def bind(so: Path) -> ctypes.CDLL:
     """Load a built kernel library and declare its C entries: the two whole-
-    vector entries, and the per-leaf accumulate where the source has it (an
+    vector entries, and the tree accumulate where the source has it (an
     older build timed by ``time_kernels.py`` may not)."""
     lib = ctypes.CDLL(str(so))
-    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
     entries = {
-        "sketch_accumulate": [ptr, ptr, ptr, ptr, i64, i64, ctypes.c_int32, i64, ptr],
-        "sketch_query": [ptr, ptr, ptr, ptr, i64, i64, ctypes.c_int32, i64, ptr],
-        # table, leaf, shifts, ks, offset, n, d, c, r, num_slabs, stream
-        "sketch_accumulate_leaf": [ptr, ptr, ptr, ptr, i64, i64, i64, i64, ctypes.c_int32,
-                                   i64, ptr],
+        "sketch_accumulate": [ptr, ptr, ptr, ptr, i64, i64, i32, i64, ptr],
+        "sketch_query": [ptr, ptr, ptr, ptr, i64, i64, i32, i64, ptr],
+        # table, leaves (host int64 [3, count]), count, shifts, ks, d, c, r,
+        # num_slabs, fresh, stream
+        "sketch_accumulate_tree": [ptr, ptr, i32, ptr, ptr, i64, i64, i32, i64, i32, ptr],
+        "sketch_tree_max_leaves": [],
     }
     for name, args in entries.items():
-        if name == "sketch_accumulate_leaf" and not hasattr(lib, name):
+        if name not in ("sketch_accumulate", "sketch_query") and not hasattr(lib, name):
             continue
         fn = getattr(lib, name)
         fn.argtypes = args

@@ -7,16 +7,13 @@
 //                         sketch_vec): [d] vector -> [r, c] table.
 //   sketch_query       <- _query_kernel (entered via _query_call / query_all):
 //                         [r, c] table -> [d] lower-median estimates.
-//   sketch_accumulate_leaf <- _accumulate_kernel's computation restricted to
-//                         one leaf, the coordinates [offset, offset + n) of
-//                         the [d] vector, folded into a running [r, c]
-//                         table in place (the layerwise sketch path; the
-//                         JAX package folds a leaf in pure JAX,
-//                         sketch/layerwise.py). Its kernel,
-//                         accumulate_leaf_tiles, is accumulate_tiles over
-//                         the leaf's slabs; it reads each leaf r times, as
-//                         accumulate_tiles reads v, and is bounded by the
-//                         same bytes.
+//   sketch_accumulate_tree <- _accumulate_kernel (pallas_kernels.py:135)
+//                         applied to a tree of leaves: the layerwise sketch
+//                         path, where the JAX package folds one leaf at a
+//                         time in pure JAX (sketch/layerwise.py:136-163,
+//                         _accumulate_leaf_rotation) and the port folds a
+//                         whole tree in one launch of accumulate_tree_tiles
+//                         (its note is above the kernel).
 //
 // Hash family. Coordinate i (slab s = i / c, position p = i mod c) of row j
 // lands in bucket (p + shift[j, s]) mod c with sign
@@ -365,171 +362,308 @@ accumulate_tiles(const float* __restrict__ v, const int32_t* __restrict__ shifts
   }
 }
 
-// The producer warp stages the positions of the rotated window (as
-// stage_window) whose slab positions lie in [lo, hi), the leaf's share of
-// the slab. Slab position p is element slab_off + p of the leaf
-// (slab_off = s * c - offset, negative when the leaf starts inside the
-// slab), and only positions in [lo, hi) are copied, so every copy reads
-// inside [leaf, leaf + n).
-__device__ __forceinline__ void stage_leaf_window(float* win, int e, const float* leaf,
-                                                  int64_t slab_off, uint32_t c, uint32_t lo,
-                                                  uint32_t hi, uint32_t start, int len,
-                                                  uint64_t* bar, int lane) {
-  const uint32_t la = minu(len, c - start);  // positions before the wrap
-  if (start < hi && lo < start + la) {
-    const uint32_t w0 = lo > start ? lo - start : 0u;
-    const uint32_t w1 = minu(la, hi - start);
-    stage_piece(win, e, static_cast<int>(w0), static_cast<int>(w1),
-                leaf + (slab_off + start + w0), bar, lane);
-  }
-  if (static_cast<uint32_t>(len) > la && lo < len - la) {
-    const uint32_t w1 = minu(len, la + hi);
-    stage_piece(win, e, static_cast<int>(la + lo), static_cast<int>(w1), leaf + (slab_off + lo),
-                bar, lane);
-  }
-}
-
-// The slab positions [lo, hi) of slab s that hold the leaf's coordinates
-// [offset, offset + n).
-__device__ __forceinline__ void leaf_range(int64_t s, int64_t c64, int64_t offset, int64_t n,
-                                           uint32_t& lo, uint32_t& hi) {
-  const int64_t base = s * c64;
-  lo = static_cast<uint32_t>(offset > base ? offset - base : 0);
-  hi = static_cast<uint32_t>(min64(c64, offset + n - base));
-}
-
 // The window of a tile starting at bucket b0 in a slab of shift `shift`
 // starts at slab position (b0 - shift) mod c.
 __device__ __forceinline__ uint32_t window_start(uint32_t b0, uint32_t shift, uint32_t c) {
   return b0 >= shift ? b0 - shift : b0 + (c - shift);
 }
 
-// accumulate_tiles for one leaf, in place: the leaf holds the coordinates
-// [offset, offset + n) of the raveled vector, in slabs s0 .. s0 + ns - 1.
-// A block owns buckets [b0, b0 + kTile) of row j, starts from the table's
-// values and adds the leaf's coordinates that land there, slab by slab in
-// order, skipping every position outside the leaf. Folding a model's leaves
-// in ravel order into a +0 table therefore adds each (bucket, slab) term
-// exactly once and in slab order, the same left fold accumulate_tiles makes
-// in registers: the table equals sketch_accumulate of the raveled vector
-// bitwise. A block whose tile receives no coordinate of the leaf (only
-// possible when the leaf covers no whole slab) returns before it touches
-// the leaf or the table.
-__global__ void __launch_bounds__(kThreads)
-accumulate_leaf_tiles(float* __restrict__ table, const float* __restrict__ leaf,
+__device__ __forceinline__ int64_t max64(int64_t a, int64_t b) { return a > b ? a : b; }
+
+// One launch's share of a tree: leaf m holds the coordinates [begin[m],
+// end[m]) of the raveled [d] vector at ptr[m], a separate allocation or a
+// view at any 4-byte alignment; the ranges ascend and do not overlap, and
+// gaps between them add nothing. The struct is a __grid_constant__
+// parameter, passed by value: no copy to the device, no wait for the host.
+// At 24 bytes a leaf, kTreeLeaves is what fits, beside the kernel's other
+// parameters, in the classic 4 KB of a kernel's parameters; a larger tree
+// takes ceil(L / kTreeLeaves) launches, each continuing the fold in place.
+constexpr int kTreeLeaves = 160;
+constexpr int kTreeBlocksPerSm = 4;  // the tree's grid tries this many blocks an SM first
+constexpr int kTreeProducers = 4;    // producer warps a block: window n is warp n % this
+constexpr int kTreeThreads = kConsumers + 32 * kTreeProducers;
+
+struct TreeLeaves {
+  const float* ptr[kTreeLeaves];
+  int64_t begin[kTreeLeaves];
+  int64_t end[kTreeLeaves];
+  int32_t count;
+};
+static_assert(sizeof(TreeLeaves) + 64 <= 4096,
+              "the tree and the kernel's other parameters must fit in 4 KB");
+
+// The first of the leaves [m, last) whose range ends after coordinate g
+// (last if none): a binary search, since the ranges ascend.
+__device__ __forceinline__ int leaf_after(const TreeLeaves& tree, int m, int last, int64_t g) {
+  while (m < last) {
+    const int mid = (m + last) >> 1;
+    if (tree.end[mid] <= g) {
+      m = mid + 1;
+    } else {
+      last = mid;
+    }
+  }
+  return m;
+}
+
+// The producer warp sets window positions [w0, w1) to +0.
+__device__ __forceinline__ void zero_positions(float* win, int e, int w0, int w1, int lane) {
+  for (int w = w0 + lane; w < w1; w += 32) win[w + e] = 0.0f;
+}
+
+// The producer warp stages the coordinates [ga, gb) of the raveled vector at
+// window positions w0, w0 + 1, ..., from the leaves m, m + 1, ... (m the
+// first whose range ends after ga; none at or past `last` reaches below gb).
+// Each leaf's share is copied from that leaf (stage_piece), so no copy reads
+// outside a leaf; the positions between two leaves are set to +0, which
+// adds an exact +-0 to a sum, as the plain fold's zero padding does.
+__device__ __forceinline__ void stage_tree_piece(float* win, int e, int w0, int64_t ga,
+                                                 int64_t gb, const TreeLeaves& tree, int m,
+                                                 int last, uint64_t* bar, int lane) {
+  int64_t at = ga;
+  for (; m < last && tree.begin[m] < gb; ++m) {
+    const int64_t x0 = max64(ga, tree.begin[m]), x1 = min64(gb, tree.end[m]);
+    zero_positions(win, e, w0 + static_cast<int>(at - ga), w0 + static_cast<int>(x0 - ga), lane);
+    stage_piece(win, e, w0 + static_cast<int>(x0 - ga), w0 + static_cast<int>(x1 - ga),
+                tree.ptr[m] + (x0 - tree.begin[m]), bar, lane);
+    at = x1;
+  }
+  zero_positions(win, e, w0 + static_cast<int>(at - ga), w0 + static_cast<int>(gb - ga), lane);
+}
+
+// Tile q of the r * ceil(c / kTile) (row, bucket tile) pairs, row-major: the
+// tile's row j and first bucket b0, and its length (the last tile of a row
+// may be short). `next` steps to tile q + 1.
+struct TileCursor {
+  int j;
+  uint32_t bt;
+  __device__ __forceinline__ uint32_t b0() const { return bt * static_cast<uint32_t>(kTile); }
+  __device__ __forceinline__ int len(uint32_t c) const {
+    return static_cast<int>(minu(kTile, c - b0()));
+  }
+  __device__ __forceinline__ void next(uint32_t tiles_a_row) {
+    if (++bt == tiles_a_row) {
+      bt = 0;
+      ++j;
+    }
+  }
+};
+
+// The layerwise fold of a whole tree, in one persistent launch.
+//
+// Work. The table, fresh (+0) or running (in place), plus each leaf's
+// coordinates signed and rotated into it: the same left fold per bucket as
+// accumulate_tiles, over the slabs the tree's leaves touch. Bound: the
+// leaves read once and the table written once (fresh: 4d + 4rc bytes; in
+// place: 4d + 8rc), at 3.35 TB/s; 36.8 MB and 11 us for a fresh table at
+// the ResNet-9 slice's shapes, 361.8 MB and 108 us at GPT-2's (d =
+// 85,453,056, c = 1,000,000, r = 5).
+//
+// Design. The TPU kernel keeps the whole [r, c] table resident in VMEM while
+// the slabs stream, so each slab of v is read from HBM once for all r rows.
+// Here the table is spread over the SMs instead: the grid is one wave of
+// blocks (kTreeBlocksPerSm an SM, fewer if their sums do not fit), and
+// each block owns a contiguous run of the r * ceil(c / kTile) (row, bucket
+// tile) pairs, split evenly over the blocks, whose sums stay in its shared
+// memory (kTile floats a pair, beside the ring) from the first slab to the
+// last. Every block walks the slabs in order, s = s_lo .. s_hi, and within
+// each slab stages and folds the window of each of its tiles through the
+// ring of accumulate_tiles (TMA bulk copies and 4-byte cp.async,
+// mbarriers). kTreeProducers producer warps take turns, window by window:
+// one warp's serial work a window (its barriers, the copies' issue, the
+// leaves' bounds) took about 1 us on the H100 and bounded the walk with
+// one producer a block (PERF.md gives the measured split). All blocks
+// start together and do the same work a slab, so they stay within a few
+// slabs of one another: a slab (4 MB at GPT-2) is read from HBM about
+// once, by whichever block touches it first, and the other r - 1 rows'
+// reads of it hit the 50 MB L2. accumulate_tiles, whose (tile, row) blocks
+// run in waves that each stream all of v, reads v from HBM up to r times
+// once v outgrows the L2. The r-fold gather itself (each coordinate staged
+// once a row, r * 4d bytes through L2 and shared memory) remains: a row's
+// window lands at its own shift, so no block can share a slab's copy
+// between rows. Sums that do not fit in one wave (very large r * c) make
+// the grid longer than one wave: still correct, with the later waves
+// reading v from HBM again. Every launch reads (in place) and writes the
+// whole table, so a launch for a small leaf costs the table's bytes.
+//
+// The leaves. A window is contiguous modulo c, so it is at most two pieces
+// of one slab; the producer cuts each piece again at the leaves' bounds
+// (the first leaf by a binary search among the leaves that reach into the
+// slab, a range its cursor moves forward slab by slab) and stages each
+// leaf's share from that leaf's own memory. The slot's offset e aligns the
+// window's first covered coordinate with its leaf's 16-byte offset; a leaf
+// whose alignment disagrees with e goes by 4-byte copies. Positions outside
+// [begin of the first leaf, end of the last) of this launch are not staged
+// and the consumers skip them; positions in a gap between two leaves are
+// set to +0.
+//
+// The fold. Each consumer thread owns the same positions of every tile
+// (t, t + kConsumers, ...), starts their sums from +0 (fresh) or from the
+// table (in place), and for each window takes its sums into registers, adds
+// the slab's terms and puts them back: each bucket gets its slab terms in
+// slab order, each exactly once. No other thread touches those sums until
+// the walk ends, so no atomics and no barrier. The table's bucket
+// therefore gets the plain per-leaf fold's sum after the whole tree, and,
+// for a fresh table and a tree that covers [0, d), sketch_accumulate's sum
+// of the concatenated vector, bitwise (up to the sign of zero). At the end
+// each tile is written once, with 16-byte stores where the row's offset
+// allows.
+__global__ void __launch_bounds__(kTreeThreads)
+accumulate_tree_tiles(const __grid_constant__ TreeLeaves tree, float* __restrict__ table,
                       const int32_t* __restrict__ shifts, const uint32_t* __restrict__ ks,
-                      int64_t offset, int64_t n, int64_t c64, int64_t num_slabs) {
-  extern __shared__ __align__(16) float windows[];  // [kAccStages][kWindow]
+                      int64_t c64, int32_t r, int64_t num_slabs, int32_t fresh) {
+  extern __shared__ __align__(16) float smem[];
+  float* windows = smem;                      // [kAccStages][kWindow]
+  float* sums = smem + kAccStages * kWindow;  // [pairs of this block][kTile]
   __shared__ __align__(8) uint64_t full[kAccStages];
   __shared__ __align__(8) uint64_t empty[kAccStages];
   __shared__ uint32_t start_of[kAccStages];
   __shared__ int e_of[kAccStages];
+  __shared__ uint32_t key_of[kMaxRows];
   const uint32_t c = static_cast<uint32_t>(c64);
-  const int j = blockIdx.y;
-  const uint32_t b0 = blockIdx.x * static_cast<uint32_t>(kTile);
-  const int len = static_cast<int>(minu(kTile, c - b0));
-  const int32_t* row_shifts = shifts + j * num_slabs;
-  const int64_t s0 = offset / c64;
-  const int64_t ns = (offset + n - 1) / c64 - s0 + 1;
+  const uint32_t tiles_a_row = static_cast<uint32_t>((c64 + kTile - 1) / kTile);
+  const int64_t tiles = int64_t{tiles_a_row} * r;
+  const int64_t q0 = tiles * blockIdx.x / gridDim.x;
+  const int nt = static_cast<int>(tiles * (blockIdx.x + 1) / gridDim.x - q0);
+  const TileCursor first{static_cast<int>(q0 / tiles_a_row),
+                         static_cast<uint32_t>(q0 % tiles_a_row)};
+  const int rows = static_cast<int>((q0 + nt - 1) / tiles_a_row) - first.j + 1;
+  const int64_t lo_g = tree.begin[0], hi_g = tree.end[tree.count - 1];
+  const int64_t s_lo = lo_g / c64, s_hi = (hi_g - 1) / c64;
   const int t = threadIdx.x, lane = t & 31;
-
-  if (ns < 3) {  // three slabs or more: the middle one is whole, every tile is touched
-    bool touched = false;
-    for (int64_t s = s0; s < s0 + ns; ++s) {
-      uint32_t lo, hi;
-      leaf_range(s, c64, offset, n, lo, hi);
-      const uint32_t start = window_start(b0, static_cast<uint32_t>(row_shifts[s]), c);
-      const uint32_t la = minu(len, c - start);
-      touched |= (start < hi && lo < start + la) || (static_cast<uint32_t>(len) > la && lo < len - la);
-    }
-    if (!touched) return;
-  }
-
-  // producer lane m holds the shift of leaf slab 32q + m while it stages
-  // slabs 32q .. 32q + 31
-  uint32_t lane_shift =
-      t >= kConsumers && lane < ns ? static_cast<uint32_t>(row_shifts[s0 + lane]) : 0u;
+  if (t < rows) key_of[t] = fold_key(ks[first.j + t]);
   init_ring<kAccStages>(full, empty);
 
   if (t >= kConsumers) {
-    for (int64_t m = 0; m < ns; ++m) {
-      if ((m & 31) == 0 && m > 0)
-        lane_shift = m + lane < ns ? static_cast<uint32_t>(row_shifts[s0 + m + lane]) : 0u;
-      const uint32_t shift = __shfl_sync(0xFFFFFFFFu, lane_shift, static_cast<int>(m & 31));
-      const int st = static_cast<int>(m % kAccStages);
-      acquire_slot<kAccStages>(empty, m, st, lane);
-      const int64_t s = s0 + m;
-      const uint32_t start = window_start(b0, shift, c);
-      const int64_t slab_off = s * c64 - offset;
-      // the element offset of window position 0 within 16 bytes, as if the
-      // leaf extended over the whole slab
-      const int e = static_cast<int>((offset16(leaf) + slab_off + start) & 3);
-      if (lane == 0) {
-        start_of[st] = start;
-        e_of[st] = e;
+    // producer warp pw stages windows pw, pw + kTreeProducers, ...; lane m
+    // < rows holds the shift of row first.j + m in the current slab, and
+    // loads the next slab's a slab ahead
+    const int pw = (t - kConsumers) >> 5;
+    const int32_t* lane_shifts = shifts + (first.j + (lane < rows ? lane : 0)) * num_slabs;
+    uint32_t shift_now = lane < rows ? static_cast<uint32_t>(lane_shifts[s_lo]) : 0u;
+    int lf = 0, ls = 0;  // the leaves [lf, ls) reach into slab s
+    int64_t n = 0;
+    for (int64_t s = s_lo; s <= s_hi; ++s) {
+      const uint32_t shift_next =
+          lane < rows && s < s_hi ? static_cast<uint32_t>(lane_shifts[s + 1]) : 0u;
+      const int64_t base = s * c64;
+      while (lf < tree.count && tree.end[lf] <= base) ++lf;
+      while (ls < tree.count && tree.begin[ls] < base + c64) ++ls;
+      // the slab positions [lo, hi) this launch covers
+      const uint32_t lo = static_cast<uint32_t>(max64(lo_g - base, 0));
+      const uint32_t hi = static_cast<uint32_t>(min64(hi_g - base, c64));
+      TileCursor tile = first;
+      for (int ti = 0; ti < nt; ++ti, ++n, tile.next(tiles_a_row)) {
+        const uint32_t shift = __shfl_sync(0xFFFFFFFFu, shift_now, tile.j - first.j);
+        if (n % kTreeProducers != pw) continue;
+        const int st = static_cast<int>(n % kAccStages);
+        acquire_slot<kAccStages>(empty, n, st, lane);
+        const int len = tile.len(c);
+        const uint32_t start = window_start(tile.b0(), shift, c);
+        const uint32_t la = minu(len, c - start);  // positions before the wrap
+        // covered: slab positions [a0, a1) of the first piece (window
+        // position p - start), [lo, b1) of the wrapped one (la + p)
+        const uint32_t a0 = start > lo ? start : lo, a1 = minu(start + la, hi);
+        const uint32_t b1 = minu(len - la, hi);
+        const bool has_a = a0 < a1, has_b = lo < b1;
+        const int64_t at = base + (has_a ? a0 : lo);
+        const int m = leaf_after(tree, lf, ls, at);
+        // e aligns the first covered coordinate with its leaf's 16 bytes
+        int e = 0;
+        if ((has_a || has_b) && m < ls) {
+          const int64_t x0 = max64(at, tree.begin[m]);
+          const int64_t w = (has_a ? a0 - start : la + lo) + (x0 - at);
+          e = static_cast<int>((offset16(tree.ptr[m]) + (x0 - tree.begin[m]) - w) & 3);
+        }
+        if (lane == 0) {
+          start_of[st] = start;
+          e_of[st] = e;
+        }
+        float* win = windows + st * kWindow;
+        if (has_a)
+          stage_tree_piece(win, e, static_cast<int>(a0 - start), base + a0, base + a1, tree, m,
+                           ls, &full[st], lane);
+        if (has_b)
+          stage_tree_piece(win, e, static_cast<int>(la + lo), base + lo, base + b1, tree,
+                           has_a ? leaf_after(tree, lf, ls, base + lo) : m, ls, &full[st], lane);
+        publish_slot(full, st, lane);
       }
-      uint32_t lo, hi;
-      leaf_range(s, c64, offset, n, lo, hi);
-      stage_leaf_window(windows + st * kWindow, e, leaf, slab_off, c, lo, hi, start, len,
-                        &full[st], lane);
-      publish_slot(full, st, lane);
+      shift_now = shift_next;
+    }
+  } else {
+    // each consumer thread starts the sums of the positions it owns
+    TileCursor tile = first;
+    for (int ti = 0; ti < nt; ++ti, tile.next(tiles_a_row)) {
+      const int len = tile.len(c);
+      const float* row_in = table + tile.j * c64 + tile.b0();
+      float* sum = sums + ti * kTile;
+#pragma unroll
+      for (int k = 0; k < kPerThread; ++k) {
+        const int w = t + k * kConsumers;
+        sum[w] = fresh || w >= len ? 0.0f : row_in[w];
+      }
+    }
+    int64_t n = 0;
+    for (int64_t s = s_lo; s <= s_hi; ++s) {
+      const int64_t base = s * c64;
+      const uint32_t lo = static_cast<uint32_t>(max64(lo_g - base, 0));
+      const uint32_t hi = static_cast<uint32_t>(min64(hi_g - base, c64));
+      const uint32_t slab_base = static_cast<uint32_t>(base);  // uint32(i), as hashed
+      tile = first;
+      for (int ti = 0; ti < nt; ++ti, ++n, tile.next(tiles_a_row)) {
+        const int st = static_cast<int>(n % kAccStages);
+        mbar_wait(&full[st], static_cast<uint32_t>((n / kAccStages) & 1));
+        const uint32_t start = start_of[st];
+        const float* win = windows + st * kWindow + e_of[st];
+        const uint32_t key = key_of[tile.j - first.j];
+        const int len = tile.len(c);
+        float* sum = sums + ti * kTile;
+        // the terms go to registers first and the slot is released before
+        // any sum is stored: the compiler cannot tell the sums from the
+        // slot, and would otherwise wait out each store before the next load
+        float acc[kPerThread];
+#pragma unroll
+        for (int k = 0; k < kPerThread; ++k) acc[k] = sum[t + k * kConsumers];
+        if (len == kTile && start >= lo && start + kTile <= hi) {
+          // whole tile covered, no wrap: position w is coordinate i0 + w
+          const uint32_t i0 = slab_base + start;
+#pragma unroll
+          for (int k = 0; k < kPerThread; ++k) {
+            const int w = t + k * kConsumers;
+            acc[k] += apply_sign(win[w], sign_mask(i0 + w, key));
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < kPerThread; ++k) {
+            const int w = t + k * kConsumers;
+            uint32_t p = start + w;
+            if (p >= c) p -= c;
+            if (w < len && p >= lo && p < hi)
+              acc[k] += apply_sign(win[w], sign_mask(slab_base + p, key));
+          }
+        }
+        release_slot(empty, st, lane);
+#pragma unroll
+        for (int k = 0; k < kPerThread; ++k) sum[t + k * kConsumers] = acc[k];
+      }
     }
   }
 
-  float* row_out = table + j * c64 + b0;
-  float acc[kPerThread];
-  if (t < kConsumers) {
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-      const int w = t + k * kConsumers;
-      acc[k] = w < len ? row_out[w] : 0.0f;
-    }
-    const uint32_t key = fold_key(ks[j]);
-    for (int64_t m = 0; m < ns; ++m) {
-      const int st = static_cast<int>(m % kAccStages);
-      mbar_wait(&full[st], static_cast<uint32_t>((m / kAccStages) & 1));
-      const int64_t s = s0 + m;
-      const uint32_t start = start_of[st];
-      uint32_t lo, hi;
-      leaf_range(s, c64, offset, n, lo, hi);
-      const uint32_t slab_base = static_cast<uint32_t>(s * c64);  // uint32(i), as hashed
-      const float* win = windows + st * kWindow + e_of[st];
-      if (len == kTile && start >= lo && start + kTile <= hi) {
-        // whole tile inside the leaf, no wrap: position w is coordinate i0 + w
-        const uint32_t i0 = slab_base + start;
-#pragma unroll
-        for (int k = 0; k < kPerThread; ++k) {
-          const int w = t + k * kConsumers;
-          acc[k] += apply_sign(win[w], sign_mask(i0 + w, key));
-        }
+  // every tile leaves once, four consecutive buckets a store where the
+  // row's offset allows, as accumulate_tiles writes its sums
+  __syncthreads();
+  TileCursor tile = first;
+  for (int ti = 0; ti < nt; ++ti, tile.next(tiles_a_row)) {
+    const int len = tile.len(c);
+    float* row_out = table + tile.j * c64 + tile.b0();
+    const float* sum = sums + ti * kTile;
+    const bool vec = offset16(row_out) == 0;
+    for (int w = 4 * t; w < len; w += 4 * kTreeThreads) {
+      if (vec && w + 4 <= len) {
+        *reinterpret_cast<float4*>(row_out + w) = *reinterpret_cast<const float4*>(sum + w);
       } else {
-#pragma unroll
-        for (int k = 0; k < kPerThread; ++k) {
-          const int w = t + k * kConsumers;
-          uint32_t p = start + w;
-          if (p >= c) p -= c;
-          if (w < len && p >= lo && p < hi)
-            acc[k] += apply_sign(win[w], sign_mask(slab_base + p, key));
-        }
+        for (int k = w; k < w + 4 && k < len; ++k) row_out[k] = sum[k];
       }
-      release_slot(empty, st, lane);
-    }
-  }
-
-  // back through shared memory, four consecutive buckets a store, as
-  // accumulate_tiles writes its sums
-  __syncthreads();
-  float* sums = windows;
-  if (t < kConsumers)
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k) sums[t + k * kConsumers] = acc[k];
-  __syncthreads();
-  const bool vec = offset16(row_out) == 0;
-  for (int w = 4 * t; w < len; w += 4 * kThreads) {
-    if (vec && w + 4 <= len) {
-      *reinterpret_cast<float4*>(row_out + w) = *reinterpret_cast<const float4*>(sums + w);
-    } else {
-      for (int k = w; k < w + 4 && k < len; ++k) row_out[k] = sums[k];
     }
   }
 }
@@ -664,6 +798,43 @@ bool bad_shape(int64_t d, int64_t c, int32_t r, int64_t num_slabs) {
          num_slabs != (d + c - 1) / c;
 }
 
+// The tree's grid over `tiles` (row, bucket tile) pairs: `blocks` blocks,
+// the pairs split evenly over them (so blocks differ by at most one pair),
+// and `smem` bytes of dynamic shared memory a block (the ring and the sums
+// of its pairs). One wave where the sums fit: kTreeBlocksPerSm blocks an SM
+// if that many fit, else fewer; else as many pairs a block as fit, in more
+// than one wave.
+cudaError_t tree_grid(int64_t tiles, int64_t& blocks, int& smem) {
+  int device = 0, sms = 0, optin = 0;
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, accumulate_tree_tiles);
+  if (err != cudaSuccess) return err;
+  const int64_t ring = sizeof(float) * kAccStages * kWindow, tile = sizeof(float) * kTile;
+  const int64_t room = optin - static_cast<int64_t>(fa.sharedSizeBytes);
+  // the most any launch may ask for; each launch asks for its own smem
+  err = cudaFuncSetAttribute(accumulate_tree_tiles, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(room));
+  for (int bps = kTreeBlocksPerSm; bps >= 1 && err == cudaSuccess; --bps) {
+    blocks = tiles < int64_t{bps} * sms ? tiles : int64_t{bps} * sms;
+    const int64_t bytes = ring + (tiles + blocks - 1) / blocks * tile;
+    if (bytes > room) continue;
+    smem = static_cast<int>(bytes);
+    int fit = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, accumulate_tree_tiles,
+                                                        kTreeThreads, smem);
+    if (err == cudaSuccess && fit >= bps) return cudaSuccess;
+  }
+  const int64_t per = (room - ring) / tile;
+  blocks = (tiles + per - 1) / per;
+  smem = static_cast<int>(ring + per * tile);
+  return err;
+}
+
 }  // namespace
 
 extern "C" int sketch_accumulate(const float* v, const int32_t* shifts,
@@ -704,20 +875,38 @@ extern "C" int sketch_query(const float* table, const int32_t* shifts,
   return static_cast<int>(err);
 }
 
-extern "C" int sketch_accumulate_leaf(float* table, const float* leaf, const int32_t* shifts,
-                                      const uint32_t* ks, int64_t offset, int64_t n, int64_t d,
-                                      int64_t c, int32_t r, int64_t num_slabs, void* stream) {
-  if (bad_shape(d, c, r, num_slabs) || n < 1 || offset < 0 || offset > d - n)
+extern "C" int sketch_tree_max_leaves() { return kTreeLeaves; }
+
+// `leaves` is int64 [3, count] in host memory: each leaf's device address,
+// then the coordinate of its first element, then the coordinate past its
+// last. fresh != 0 starts the table from +0 and reads nothing of it.
+extern "C" int sketch_accumulate_tree(float* table, const int64_t* leaves, int32_t count,
+                                      const int32_t* shifts, const uint32_t* ks, int64_t d,
+                                      int64_t c, int32_t r, int64_t num_slabs, int32_t fresh,
+                                      void* stream) {
+  if (bad_shape(d, c, r, num_slabs) || count < 1 || count > kTreeLeaves)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = static_cast<int>(sizeof(float) * kAccStages * kWindow);
-  const cudaError_t err = cudaFuncSetAttribute(
-      accumulate_leaf_tiles, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  TreeLeaves tree = {};
+  tree.count = count;
+  int64_t past = 0;
+  for (int m = 0; m < count; ++m) {
+    tree.ptr[m] = reinterpret_cast<const float*>(static_cast<uintptr_t>(leaves[m]));
+    tree.begin[m] = leaves[count + m];
+    tree.end[m] = leaves[2 * count + m];
+    if (tree.ptr[m] == nullptr || tree.begin[m] < past || tree.end[m] <= tree.begin[m] ||
+        tree.end[m] > d)
+      return static_cast<int>(cudaErrorInvalidValue);
+    past = tree.end[m];
+  }
+  int64_t blocks = 0;
+  int smem = 0;
+  const cudaError_t err = tree_grid((c + kTile - 1) / kTile * r, blocks, smem);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, so the next call does not report it
     return static_cast<int>(err);
   }
-  const dim3 grid(static_cast<unsigned>((c + kTile - 1) / kTile), static_cast<unsigned>(r));
-  accumulate_leaf_tiles<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      table, leaf, shifts, ks, offset, n, c, num_slabs);
+  accumulate_tree_tiles<<<static_cast<unsigned>(blocks), kTreeThreads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(tree, table, shifts, ks, c, r,
+                                                               num_slabs, fresh);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,24 +1,30 @@
 """ctypes wrappers for the CUDA sketch kernels (``csrc/sketch_kernels.cu``).
 
 Each wrapper checks its inputs, allocates its output with ``torch.empty``
-(``accumulate_leaf`` writes its table in place instead), launches on the
+(``accumulate_tree`` writes the caller's table instead), launches on the
 current CUDA stream without synchronising, raises if the launch reports an
-error, and adds one to its launch count. They take CUDA
+error, and adds one to its launch count for each launch. They take CUDA
 tensors only; the plain PyTorch versions the CPU path runs live in
 ``csvec.py`` and ``layerwise.py``.
 """
 
 from __future__ import annotations
 
+import ctypes
+from typing import Sequence
+
 import torch
 
 from . import _build
 
 MAX_ROWS = 16
+# leaves a launch of the tree kernel takes: kTreeLeaves in
+# csrc/sketch_kernels.cu (sketch_tree_max_leaves() of the built library)
+TREE_MAX_LEAVES = 160
 
 # launches per kernel since the last reset; a run reads these to show its
 # main path went through the kernels
-launch_counts = {"sketch_accumulate": 0, "sketch_query": 0, "sketch_accumulate_leaf": 0}
+launch_counts = {"sketch_accumulate": 0, "sketch_query": 0, "sketch_accumulate_tree": 0}
 
 
 def reset_launch_counts() -> None:
@@ -106,29 +112,59 @@ def query(table: torch.Tensor, shifts: torch.Tensor, ks: torch.Tensor,
     return out
 
 
-def accumulate_leaf(table: torch.Tensor, v_leaf: torch.Tensor, offset: int,
-                    shifts: torch.Tensor, ks: torch.Tensor, c: int, d: int) -> torch.Tensor:
-    """Rotation-family accumulate of one leaf, in place: fold the f32 [n]
-    leaf, the coordinates [offset, offset + n) of a raveled [d] vector, into
-    the running f32 [r, c] ``table`` and return it. The hashes are the whole
-    vector's (``shifts`` int32 [r, S] with S = ceil(d / c), ``ks`` int32
-    [r]): the sign of each global index, the shift of its slab. Folding a
-    vector's leaves in order into a zero table gives ``accumulate`` of the
-    vector, bitwise."""
-    if v_leaf.dim() != 1 or table.dim() != 2 or c <= 0 or d <= 0:
-        raise ValueError(f"need an [n] leaf, an [r, c] table, c > 0 and d > 0, got "
-                         f"{tuple(v_leaf.shape)}, {tuple(table.shape)}, c={c}, d={d}")
-    n, r = v_leaf.numel(), shifts.shape[0]
-    if n < 1 or offset < 0 or offset + n > d:
-        raise ValueError(f"leaf [{offset}, {offset + n}) must be non-empty and lie in [0, {d})")
-    _check("v_leaf", v_leaf, torch.float32, (n,), v_leaf.device)
-    _check("table", table, torch.float32, (r, c), v_leaf.device)
-    _check_hashes(shifts, ks, r, -(-d // c), v_leaf.device)
+def tree_launches(n_leaves: int, cap: int = TREE_MAX_LEAVES) -> list[range]:
+    """The leaves of each launch of the tree kernel: consecutive runs of at
+    most ``cap`` leaves, in ravel order, ceil(n_leaves / cap) of them."""
+    return [range(i, min(i + cap, n_leaves)) for i in range(0, n_leaves, cap)]
+
+
+def accumulate_tree(table: torch.Tensor, leaves: Sequence[torch.Tensor],
+                    offsets: Sequence[int], shifts: torch.Tensor, ks: torch.Tensor, c: int,
+                    d: int, fresh: bool = False) -> torch.Tensor:
+    """Rotation-family accumulate of a tree of leaves into the f32 [r, c]
+    ``table``, which it returns: leaf m, an f32 [n_m] tensor, holds the
+    coordinates [offsets[m], offsets[m] + n_m) of a raveled [d] vector.
+    The leaves may be views or separate allocations; their ranges ascend,
+    do not overlap and lie in [0, d), and a gap between them adds nothing.
+    ``fresh`` starts from a +0 table (its contents are not read: it may be
+    ``torch.empty``), else the fold continues the table in place. The hashes
+    are the whole vector's (``shifts`` int32 [r, S] with S = ceil(d / c),
+    ``ks`` int32 [r]). One launch per ``tree_launches`` group, each
+    continuing the fold; the result equals the plain per-leaf fold in ravel
+    order, and for a fresh table and leaves covering [0, d) ``accumulate``
+    of the concatenation, bitwise."""
+    if table.dim() != 2 or c <= 0 or d <= 0:
+        raise ValueError(f"need an [r, c] table, c > 0 and d > 0, got {tuple(table.shape)}, "
+                         f"c={c}, d={d}")
+    if not leaves or len(leaves) != len(offsets):
+        raise ValueError(f"need one offset per leaf and at least one leaf, got {len(leaves)} "
+                         f"leaves and {len(offsets)} offsets")
+    r = shifts.shape[0]
+    _check("table", table, torch.float32, (r, c), table.device)
+    _check_hashes(shifts, ks, r, -(-d // c), table.device)
+    dev, past, ptrs, ends = table.device, 0, [], []
+    for m, (leaf, off) in enumerate(zip(leaves, offsets)):
+        check_untransformed("a leaf", leaf)
+        if leaf.dim() != 1:
+            raise ValueError(f"leaf {m} must be 1-D, got shape {tuple(leaf.shape)}")
+        n = leaf.shape[0]
+        if leaf.dtype != torch.float32 or leaf.device != dev or not leaf.is_contiguous():
+            _check(f"leaf {m}", leaf, torch.float32, (n,), dev)
+        if n < 1 or off < past or off + n > d:
+            raise ValueError(f"leaf {m} [{off}, {off + n}) must be non-empty, lie in [0, {d}) "
+                             f"and start at or after the previous leaf's end {past}")
+        past = off + n
+        ptrs.append(leaf.data_ptr())
+        ends.append(past)
     lib = _build.load()
-    with torch.cuda.device(v_leaf.device):
-        err = lib.sketch_accumulate_leaf(
-            table.data_ptr(), v_leaf.data_ptr(), shifts.data_ptr(), ks.data_ptr(), offset, n,
-            d, c, r, -(-d // c), torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "sketch_accumulate_leaf")
-    launch_counts["sketch_accumulate_leaf"] += 1
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        for group in tree_launches(len(leaves)):
+            g = slice(group.start, group.stop)
+            arr = (ctypes.c_int64 * (3 * len(group)))(*ptrs[g], *offsets[g], *ends[g])
+            err = lib.sketch_accumulate_tree(
+                table.data_ptr(), arr, len(group), shifts.data_ptr(), ks.data_ptr(), d, c, r,
+                -(-d // c), int(fresh and group.start == 0), stream)
+            _raise_on(err, "sketch_accumulate_tree")
+            launch_counts["sketch_accumulate_tree"] += 1
     return table

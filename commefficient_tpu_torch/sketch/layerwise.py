@@ -7,6 +7,8 @@ per-client stacks never exist:
     for leaf in leaves:                    # ravel order
         accumulate_leaf(spec, table, leaf, offset(leaf))
 
+(on the card, one launch of a kernel folds the whole loop).
+
 Block plan
 ----------
 
@@ -31,17 +33,21 @@ bitwise, for both hash families:
   receives its terms in slab order, each exactly once. The plain version
   pads the leaf's slab range with zeros, and a padded position adds an
   exact ±0.0, which IEEE addition ignores (a sum started at +0 is never
-  -0.0); the CUDA kernel (``kernels.accumulate_leaf``) skips those
-  positions instead, which is the same.
+  -0.0); the CUDA kernel (``kernels.accumulate_tree``) folds a whole
+  tree's terms in that same order and skips those positions, which is the
+  same.
 - random: ``index_put_(accumulate=True)`` adds colliding entries in
   coordinate order onto the running table, the sequence the whole-vector
   scatter makes at ``num_blocks == 1``. ``num_blocks > 1`` sums per-block
   partial tables, another association, so the engine refuses layerwise
   there.
 
-On a CUDA table the rotation family launches the ``sketch_accumulate_leaf``
-kernel, one launch a leaf; on a CPU table the plain version runs. The
-random family is plain on both, as its whole-vector scatter is.
+On a CUDA table the rotation family launches the ``sketch_accumulate_tree``
+kernel: ``sketch_tree`` folds the whole tree into a fresh table in one
+launch (one per ``kernels.TREE_MAX_LEAVES`` leaves), ``accumulate_leaf``
+folds its one leaf in place. On a CPU table the plain per-leaf fold runs;
+it is the kernel's plain version. The random family is plain on both, as
+its whole-vector scatter is.
 
 The reference's ``apply_delta_tree`` (the sparse delta applied per leaf) is
 not needed here: the port's server state holds one flat [d] params vector,
@@ -161,11 +167,13 @@ def _accumulate_leaf_random(spec: CSVecSpec, table: torch.Tensor, v: torch.Tenso
 
 def _accumulate(spec: CSVecSpec, table: torch.Tensor, v: torch.Tensor,
                 blk: LeafBlock) -> torch.Tensor:
+    """Fold one leaf into the running table in place: the tree kernel with
+    one leaf for a CUDA table (rotation family), else the plain fold."""
     kernels.check_untransformed("leaf", v)
     if spec.family == "rotation":
         if table.is_cuda:
             shifts, ks = _rotation_keys(spec, table.device)
-            return kernels.accumulate_leaf(table, v.contiguous(), blk.offset, shifts, ks,
+            return kernels.accumulate_tree(table, [v.contiguous()], [blk.offset], shifts, ks,
                                            spec.c, spec.d)
         return _accumulate_leaf_rotation(spec, table, v, blk)
     return _accumulate_leaf_random(spec, table, v, blk)
@@ -175,8 +183,8 @@ def accumulate_leaf(spec: CSVecSpec, table: torch.Tensor, leaf: torch.Tensor,
                     offset: int) -> torch.Tensor:
     """Fold one leaf, the global coordinates [offset, offset + n) in ravel
     order (any shape, read row-major), into the running [r, c] table in
-    place, and return the table. Rotation family: the CUDA kernel for a
-    CUDA table, else the plain fold."""
+    place, and return the table. Rotation family: one launch of the tree
+    kernel for a CUDA table, else the plain fold."""
     v = leaf.reshape(-1)
     n = v.shape[0]
     if offset < 0 or n == 0 or offset + n > spec.d:
@@ -189,28 +197,33 @@ def accumulate_leaf(spec: CSVecSpec, table: torch.Tensor, leaf: torch.Tensor,
 def sketch_tree(spec: CSVecSpec, leaves: Iterable[torch.Tensor],
                 plan: BlockPlan | None = None) -> torch.Tensor:
     """Sketch a model's leaves, given in ravel order (any shape each, read
-    row-major; a generator is consumed one leaf at a time), into a fresh
-    [r, c] table, leaf by leaf: equal bitwise to ``csvec.sketch_vec`` of
-    their concatenation (rotation family at any num_blocks, random family
-    at num_blocks == 1). Without a plan the leaves' sizes make one."""
+    row-major; a generator is consumed once), into a fresh [r, c] table:
+    equal bitwise to ``csvec.sketch_vec`` of their concatenation (rotation
+    family at any num_blocks, random family at num_blocks == 1). The leaves
+    may be views of one buffer or separate tensors. Rotation family on the
+    card: one ``kernels.accumulate_tree`` call over the whole tree into an
+    uninitialised table; else leaf by leaf. Without a plan the leaves'
+    sizes make one."""
+    flat = [leaf if leaf.dim() == 1 else leaf.reshape(-1) for leaf in leaves if leaf.numel()]
     if plan is None:
-        leaves = [leaf for leaf in leaves if leaf.numel()]
-        plan = make_block_plan(spec, leaves)
-    table, count = None, 0
-    for leaf in leaves:
-        if not leaf.numel():
-            continue
-        if count == len(plan.blocks):
-            raise ValueError(f"more non-empty leaves than the plan's {len(plan.blocks)}")
-        blk = plan.blocks[count]
-        v = leaf.reshape(-1)
+        plan = make_block_plan(spec, flat)
+    if len(flat) != len(plan.blocks):
+        raise ValueError(f"{len(flat)} non-empty leaves but the plan covers "
+                         f"{len(plan.blocks)}")
+    for v, blk in zip(flat, plan.blocks):
         if v.shape[0] != blk.size:
             raise ValueError(f"leaf at offset {blk.offset} has {v.shape[0]} coordinates, the "
                              f"plan says {blk.size}: a plan of another model")
-        if table is None:
-            table = zero_table(spec, v.device, v.dtype)
+    if not flat:
+        return None
+    device = flat[0].device
+    if spec.family == "rotation" and device.type == "cuda":
+        shifts, ks = _rotation_keys(spec, device)
+        table = torch.empty(spec.table_shape, dtype=torch.float32, device=device)
+        return kernels.accumulate_tree(table, [v.contiguous() for v in flat],
+                                       [blk.offset for blk in plan.blocks], shifts, ks, spec.c,
+                                       spec.d, fresh=True)
+    table = zero_table(spec, device, flat[0].dtype)
+    for v, blk in zip(flat, plan.blocks):
         _accumulate(spec, table, v, blk)
-        count += 1
-    if count != len(plan.blocks):
-        raise ValueError(f"{count} non-empty leaves but the plan covers {len(plan.blocks)}")
     return table

@@ -146,7 +146,7 @@ def test_cpu_tensor_takes_the_plain_version_and_counts_no_launch():
     v = torch.from_numpy(_vec(3000))
     assert torch.equal(layerwise.sketch_tree(ts, [v[:1000], v[1000:]]), t)
     assert kernels.launch_counts == {"sketch_accumulate": 0, "sketch_query": 0,
-                                     "sketch_accumulate_leaf": 0}
+                                     "sketch_accumulate_tree": 0}
 
 
 def test_kernel_wrappers_reject_cpu_tensors():
@@ -161,7 +161,8 @@ def test_kernel_wrappers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="must be on"):
         kernels.query(torch.zeros(3, 1024), shifts, ks, 3000)
     with pytest.raises(ValueError, match="must be on"):
-        kernels.accumulate_leaf(torch.zeros(3, 1024), torch.zeros(10), 0, shifts, ks, 1024, 3000)
+        kernels.accumulate_tree(torch.zeros(3, 1024), [torch.zeros(10)], [0], shifts, ks, 1024,
+                                3000)
 
 
 @pytest.mark.parametrize("d, c, num_blocks",

@@ -126,6 +126,40 @@ def test_sketch_tree_bitwise_the_reference_and_sketch_vec(family, d, c, r, sizes
     assert torch.equal(got, tcsvec.sketch_vec(tspec, torch.from_numpy(flat)))
 
 
+@pytest.mark.parametrize("leaves_as", ["separate", "generator"])
+@pytest.mark.parametrize("family", ["rotation", "random"])
+@pytest.mark.parametrize("d,c,r,sizes", GRID)
+def test_sketch_tree_of_separate_leaves_or_a_generator(leaves_as, family, d, c, r, sizes):
+    """Leaves that are separate allocations (no views of one buffer), or a
+    generator consumed once, sketch bitwise as the reference's sketch_tree
+    and the port's sketch_vec do."""
+    flat = np.random.RandomState(3).randn(d).astype(np.float32)
+    leaves = _partition(flat, sizes)
+    tspec = tcsvec.CSVecSpec(d=d, c=c, r=r, seed=17, family=family)
+    jspec = jcsvec.CSVecSpec(d=d, c=c, r=r, seed=17, family=family)
+    separate = [torch.tensor(x) for x in leaves]  # a copy each
+    got = tlayerwise.sketch_tree(tspec, separate if leaves_as == "separate"
+                                 else (t for t in separate))
+    want = jax.jit(lambda t: jlayerwise.sketch_tree(jspec, t))(
+        {f"l{i:02d}": jnp.asarray(x) for i, x in enumerate(leaves)})
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert torch.equal(got, tcsvec.sketch_vec(tspec, torch.from_numpy(flat)))
+
+
+@pytest.mark.parametrize("n,cap", [(1, 160), (26, 160), (148, 160), (160, 160), (161, 160),
+                                   (500, 160), (500, 3), (7, 1)])
+def test_tree_launches_keep_ravel_order_and_the_cap(n, cap):
+    """The tree kernel's launches: consecutive runs of at most ``cap``
+    leaves that cover the tree once, in ravel order, ceil(n / cap) of them."""
+    from commefficient_tpu_torch.sketch import kernels
+
+    groups = kernels.tree_launches(n, cap)
+    assert len(groups) == -(-n // cap)
+    assert [m for g in groups for m in g] == list(range(n))
+    assert all(1 <= len(g) <= cap for g in groups)
+    assert kernels.tree_launches(n) == kernels.tree_launches(n, kernels.TREE_MAX_LEAVES)
+
+
 @pytest.mark.parametrize("family", ["rotation", "random"])
 def test_accumulate_leaf_folds_in_place_and_checks_its_block(family):
     spec = tcsvec.CSVecSpec(d=500, c=64, r=3, seed=5, family=family)
