@@ -72,8 +72,8 @@ Phases (any failure raises, and the exit status is non-zero):
    recomputed on the card from the same cohort's per-client updates.
 
 11. GPT-2: ``gpt2_train.main`` fine-tunes GPT-2 small (byte vocabulary
-   261, seq_len 256, dropout 0.1, d = 85,453,056) over 8,750 synthetic
-   personas (half the paper's 17,500: the corpus is host time) with
+   261, seq_len 256, dropout 0.1, d = 85,453,056) over 4,375 synthetic
+   personas (a quarter of the paper's 17,500: the corpus is host time) with
    FetchSGD (r = 5, c = 1,000,000, k = 50,000, 4 clients of 8 rows a
    round), with the launch counts zeroed before each run:
    a. 4 rounds through the sync loop, with --eval_f1 4; d and the flat
@@ -314,6 +314,29 @@ Phases (any failure raises, and the exit status is non-zero):
       each, launches (W = 8 accumulate and 1 query a payload round; a
       payload pipeline's worker may sketch one round past the end), and
       the kernels == plain on the pipelined run's params and error table.
+22. the buffered-async service, served payload in process at ResNet-9's
+   full width (the serve trace seed 5, a 30 s deadline), launches counted
+   over each run (W = 8 accumulates and 1 query a round):
+   a. --serve_async --serve_buffer 8 == the sync served run (quorum 8),
+      4 rounds, bitwise; no fold runs;
+   b. --serve_buffer 6 --serve_stale_rounds 1 --serve_staleness 0.5, 6
+      rounds, twice: bitwise equal, stragglers folded in every round from
+      1 (0 < stale_weight < stale_folded), and both kernels == plain on
+      the run's last folded table and on its error table; the H2D bytes
+      and CUDA-event ms of the live and the stale stacks;
+   c. trimmed (trim 2) and median, clean and under
+      client_stale_poison@2 (positions 0 and 1, -5x): the poisoned tables
+      admitted ACCEPTED_STALE and folded into round 3's union stack; the
+      params' distance from the clean run;
+   d. (b) preempted at round 3 (checkpoint at round 4, its stale band
+      non-empty in meta.json), --resume == (b) bitwise;
+   e. (b) with --serve_pipeline == (b) bitwise; round ms and
+      server_idle_ms of async buffer 6 and sync quorum 6, serial and
+      pipelined;
+   f. (b) on 4 gloo ranks sharing the card, 4 rounds, == the one-device
+      run at client_shards 4 bitwise on every rank (2 accumulates a rank a
+      round), with rank 0's broadcast bytes a round with and without
+      stale slots.
 
 Prints one JSON line with the kernels' numbers (launches counted over
 phase 8; under "gpt2" each kernel's numbers at the GPT-2 shape, launches
@@ -327,6 +350,7 @@ the numbers at phase 13b's shape; "launches_serve" over phase 14a's and
 uninterrupted gloo run, "launches_layerwise" over each run of phase 19,
 "launches_group" over each of phase 20's runs on rank 0,
 "launches_serve_group" over each of phase 21's runs (rank 0's on the
+group), "launches_async" over each of phase 22's runs (rank 0's on the
 group); a
 third row, ``sketch_accumulate_tree``, with a whole ResNet-9 tree's fold
 times and (b)'s layerwise launches),
@@ -338,6 +362,7 @@ as its last line
 ``--layerwise-only`` runs phase 19 right after phase 4 and stops,
 ``--group-only`` runs phase 20 right after phase 4 and stops,
 ``--serve-only`` runs phase 21 right after phase 4 and stops,
+``--async-only`` runs phase 22 right after phase 4 and stops,
 ``--cohorts N`` sets the number of cohorts phase 7 compares (default 4);
 ``--pairs N`` the sync/async timing pairs of phase 8 (default 2).
 """
@@ -402,10 +427,10 @@ BASE_ROUNDS = 4
 FEMNIST_ARGS = ["--dataset", "femnist", "--num_clients", "3550", "--num_workers", "8",
                 "--local_batch_size", "8", "--k", "50000", "--device", "cuda"]
 # phase 11: GPT-2 small (byte vocabulary 261, seq_len 256, dropout 0.1), the
-# paper's configuration #4 at its widths, over 8,750 synthetic personas: its
-# 17,500 cut by half, since the LM and MC corpora cost about 2 and 4 ms of
-# host a persona and the rounds sample 4 of them
-GPT2_ARGS = ["--mode", "sketch", "--hash_family", "rotation", "--num_clients", "8750",
+# paper's configuration #4 at its widths, over 4,375 synthetic personas: its
+# 17,500 cut to a quarter, since the LM and MC corpora cost about 1.5 and 4
+# ms of host a persona and the rounds sample 4 of them
+GPT2_ARGS = ["--mode", "sketch", "--hash_family", "rotation", "--num_clients", "4375",
              "--num_workers", "4", "--local_batch_size", "8", "--k", "50000",
              "--num_rows", "5", "--num_cols", "1000000", "--num_blocks", "20",
              "--device", "cuda"]
@@ -535,6 +560,25 @@ SERVE_ONE_RUNS = {
     "payload": SLICE_ARGS + ["--serve", "inproc"] + SERVE_PAYLOAD
     + ["--fault_plan", SERVE_PLAN, "--num_rounds", str(SERVE_ONE_ROUNDS), "--sync_loop"],
 }
+# phase 22: the buffered-async service on phase 21's served payload cell
+# with a 30 s deadline (only no-shows miss a close of the whole cohort) and
+# the serve trace seed 5, whose buffer-6 closes leave stragglers in every
+# round from 0 to 4, so every later round folds: (a) the sync run (quorum 8) against async with
+# --serve_buffer 8, ASYNC_SHORT rounds; (b) ASYNC_ARGS (buffer 6 of 8, the
+# stragglers folded a round later at (1 + 1)^-0.5) twice, ASYNC_ROUNDS
+# rounds; (c) trimmed (trim 2) and median, clean and under
+# ASYNC_POISON_PLAN, ASYNC_SHORT rounds; (d) (b) preempted at round 3 with
+# its band non-empty, resumed; (e) (b) pipelined, and the sync twin
+# (quorum 6) serial and pipelined; (f) (b) on ASYNC_GROUP_SHARDS gloo ranks
+# sharing the card against the one-device run at client_shards 4
+ASYNC_SHORT = 4
+ASYNC_ROUNDS = 6
+ASYNC_BASE = SLICE_ARGS + ["--serve", "inproc", "--serve_payload", "sketch",
+                           "--serve_deadline", "30.0", "--serve_trace", "seed=5"]
+ASYNC_ARGS = ASYNC_BASE + ["--serve_async", "--serve_buffer", "6", "--serve_stale_rounds",
+                           "1", "--serve_staleness", "0.5"]
+ASYNC_POISON_PLAN = "client_stale_poison@2:clients=0+1,factor=-5"
+ASYNC_GROUP_SHARDS = 4
 # phase 19: the layerwise sketch path. (b) and (d) run LW_ROUNDS rounds of
 # phase 5's flags, (c) LW_GPT2_ROUNDS of phase 11's; LW_PAIRS timed turns a
 # path. LEAF_EDGES (d, c, r, leaf sizes): a leaf that starts mid-slab and
@@ -3697,11 +3741,16 @@ def _serve_run(cv_train, kernels, tag: str, argv: list, out: dict, device: str):
     got = {"metrics": rec["metrics"], "launches": ravel_launches(kernels), "code": code,
            "s": time.perf_counter() - t0, "broadcast": dict(distributed.broadcast_stats)}
     if s is not None:
+        st = s.run_stats
         got.update(state=tree_digest(_server_state(s)),
                    requeue=[list(s._requeue_committed),
                             [list(a) for a in s._requeue_ages_committed]],
-                   idle_ms=[s.run_stats.server_idle_ms, s.run_stats.server_idle_ms_max],
-                   round_ms=_steady_ms(s.run_stats))
+                   idle_ms=[st.server_idle_ms, st.server_idle_ms_max],
+                   round_ms=_steady_ms(st),
+                   # the loop's host ms a round: waiting for the prepared
+                   # round, dispatching it, draining it
+                   host_ms=[x / max(st.rounds, 1) for x in (st.prepare_ms, st.dispatch_ms,
+                                                            st.drain_ms)])
         if s.client_state is not None:
             got["block"] = tree_digest(s.client_state)
     if srv["runs"]:
@@ -3909,6 +3958,259 @@ def serve_group_phase(cv_train, engine, csvec, kernels, card: str) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def recording_folds(engine):
+    """Inside the block, the last table ``engine._stale_fold`` returned
+    (rec["table"], a copy), how many folds ran (rec["folds"]) and, on the
+    card, each fold's CUDA-event ms (rec["ms"], read at the block's end)."""
+    rec = {"table": None, "folds": 0, "ms": []}
+    fold = engine._stale_fold
+    events = []
+
+    def fold_rec(*a):
+        cuda = a[0].is_cuda
+        if cuda:
+            t0 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+        out = fold(*a)
+        if cuda:
+            t1 = torch.cuda.Event(enable_timing=True)
+            t1.record()
+            events.append((t0, t1))
+        rec["table"], rec["folds"] = out[0].clone(), rec["folds"] + 1
+        return out
+
+    engine._stale_fold = fold_rec
+    try:
+        yield rec
+    finally:
+        engine._stale_fold = fold
+        for t0, t1 in events:
+            t1.synchronize()
+            rec["ms"].append(t0.elapsed_time(t1))
+
+
+def _async_group_rank(out_dir: str, device: str) -> None:
+    """One rank of phase 22f's gloo group: phase 22b's async run, each
+    broadcast's bytes recorded. Writes ``out_dir/async_<rank>.json``."""
+    sys.path.insert(0, ROOT)
+    import torch.distributed as dist
+
+    from commefficient_tpu_torch import cv_train
+    from commefficient_tpu_torch.parallel import distributed
+    from commefficient_tpu_torch.sketch import kernels
+
+    distributed.initialize(force=True, backend="gloo", device=device,
+                           serve_deadline_s=float(ASYNC_BASE[ASYNC_BASE.index(
+                               "--serve_deadline") + 1]))
+    sizes = []
+    broadcast = distributed.broadcast_from_root
+
+    def sized(tensors, group=None):
+        sizes.append(sum(t.numel() * t.element_size() for t in tensors))
+        return broadcast(tensors, group)
+
+    distributed.broadcast_from_root = sized
+    out = {"runs": {}}
+    _serve_run(cv_train, kernels, "async", ASYNC_ARGS + ["--num_rounds", str(ASYNC_SHORT),
+                                                         "--sync_loop"], out["runs"], device)
+    out["sizes"] = sizes
+    with open(os.path.join(out_dir, f"async_{distributed.rank()}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+
+
+def async_phase(cv_train, engine, csvec, kernels, card: str) -> dict:
+    """Phase 22: the buffered-async service on ResNet-9 FetchSGD at full
+    width, served payload, in process. Returns each kernel's launches over
+    each run (rank 0's for the group's)."""
+    import functools
+    import shutil
+
+    from commefficient_tpu_torch.federated.api import FederatedSession
+    from commefficient_tpu_torch.obs import registry as obreg
+    from commefficient_tpu_torch.parallel import distributed
+
+    device = "cuda" if "cuda" in SLICE_ARGS else "cpu"
+    base = os.path.join(ROOT, "build", "chip_smoke", "async")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    runs, sessions, folds = {}, {}, {}
+    short, rounds = ["--num_rounds", str(ASYNC_SHORT)], ["--num_rounds", str(ASYNC_ROUNDS)]
+
+    def run(tag, argv):
+        with recording_folds(engine) as rec:
+            sessions[tag] = _serve_run(cv_train, kernels, tag, argv, runs, device)
+        folds[tag] = rec
+        s = sessions[tag]
+        if s is not None:
+            runs[tag]["copies"] = s.wire_copy_stats()
+        return runs[tag]
+
+    def per_round(tag):
+        want = {"sketch_accumulate": 8 * len(runs[tag]["metrics"]),
+                "sketch_query": len(runs[tag]["metrics"])}
+        if runs[tag]["launches"] != want:
+            fail(f"async {tag}: launched {runs[tag]['launches']} (want {want})")
+
+    # a. everyone on time: async == sync
+    a = run("sync_q8", ASYNC_BASE + ["--serve_quorum", "8", "--sync_loop"] + short)
+    b = run("async_b8", ASYNC_BASE + ["--serve_async", "--serve_buffer", "8",
+                                      "--sync_loop"] + short)
+    for key in ("code", "metrics", "state", "requeue"):
+        if a[key] != b[key]:
+            fail(f"async a: --serve_buffer 8's {key} differs from the sync served run's")
+    for tag in ("sync_q8", "async_b8"):
+        per_round(tag)
+    if folds["async_b8"]["folds"] or any("stale_folded" in m for m in b["metrics"]):
+        fail("async a: a fold ran with every client on time")
+    print(f"async a: --serve_async --serve_buffer 8 == the sync served run, {ASYNC_SHORT} "
+          f"rounds, bitwise (params, optimizer state, batch-norm statistics, metrics, queue); "
+          f"no fold ran; launches {b['launches']}; casualties a round {b['closes']} [{card}]",
+          flush=True)
+
+    # b. buffer 6 of 8, twice
+    b1 = run("async_b6", ASYNC_ARGS + ["--sync_loop"] + rounds)
+    b2 = run("async_b6_again", ASYNC_ARGS + ["--sync_loop"] + rounds)
+    for key in ("code", "metrics", "state", "requeue"):
+        if b1[key] != b2[key]:
+            fail(f"async b: the second buffer-6 run's {key} differs from the first's")
+    per_round("async_b6")
+    stale = [(m.get("stale_folded", 0.0), m.get("stale_weight", 0.0)) for m in b1["metrics"]]
+    if stale[0][0] or not all(f > 0 for f, _ in stale[1:]) or \
+            not all(0 < w < f for f, w in stale[1:]):
+        fail(f"async b: (stale_folded, stale_weight) a round {stale}")
+    s = sessions["async_b6"]
+    spec = s.cfg.mode.sketch_spec
+    folded = folds["async_b6"]["table"]
+    check_kernels(csvec, spec, s.state["params"], folded)
+    check_kernels(csvec, spec, s.state["params"], s.state["mode_state"]["Verror"])
+    cp = b1["copies"]
+    h2d, hst = cp.get("h2d", {}), cp.get("h2d_stale", {})
+    print(f"async b: --serve_buffer 6 --serve_stale_rounds 1 --serve_staleness 0.5, "
+          f"{ASYNC_ROUNDS} rounds, twice: bitwise equal; (stale_folded, stale_weight) a round "
+          f"{stale}; {folds['async_b6']['folds']} folds; kernels == plain on the run's last "
+          f"folded table and its error table; launches {b1['launches']} [{card}]", flush=True)
+    print(f"async b: H2D a run: the live stacks {h2d.get('bytes', 0)} bytes in "
+          f"{h2d.get('copies', 0)} copies, {h2d.get('ms', 0.0):.3f} ms; the stale stacks "
+          f"{hst.get('bytes', 0)} bytes in {hst.get('copies', 0)} copies, "
+          f"{hst.get('ms', 0.0):.3f} ms (CUDA events) [{card}]", flush=True)
+    del sessions["async_b6_again"]
+
+    # c. the robust merges under the stale-band poison, beside clean runs
+    for pol, flags in (("trimmed", ["--merge_policy", "trimmed", "--merge_trim", "2"]),
+                       ("median", ["--merge_policy", "median"])):
+        run(f"{pol}_clean", ASYNC_ARGS + flags + ["--sync_loop"] + short)
+        mark = obreg.default().mark()
+        pois = run(f"{pol}_poisoned", ASYNC_ARGS + flags + ["--sync_loop", "--fault_plan",
+                                                            ASYNC_POISON_PLAN] + short)
+        attacks = mark.delta("resilience_attack_stale_poison_total")
+        admitted = mark.delta("serve_stale_admitted_total")
+        per_round(f"{pol}_clean")
+        per_round(f"{pol}_poisoned")
+        clean_p = sessions.pop(f"{pol}_clean").state["params"]
+        pois_p = sessions.pop(f"{pol}_poisoned").state["params"]
+        if attacks != 1 or admitted < 2 or not torch.isfinite(pois_p).all() or \
+                pois["metrics"][3].get("stale_folded", 0) < 2:
+            fail(f"async c: {pol}: attacks {attacks}, late tables admitted {admitted}, "
+                 f"round 3 {pois['metrics'][3]}")
+        dist = float((pois_p - clean_p).norm() / clean_p.norm())
+        print(f"async c: {pol} under {ASYNC_POISON_PLAN}: the withheld pair no-shows round 2, "
+              f"their -5x tables ACCEPTED_STALE ({admitted:.0f}) and folded into round 3's "
+              f"union stack ({pois['metrics'][3]['stale_folded']:.0f} slots); params "
+              f"{dist:.3e} (rel L2) from the clean async {pol} run [{card}]", flush=True)
+        del clean_p, pois_p
+
+    # d. preempted at round 3 with the band non-empty, resumed
+    ck = os.path.join(base, "ck")
+    pre = ["--sync_loop", "--checkpoint_dir", ck]
+    p = run("preempted", ASYNC_ARGS + pre + rounds + ["--fault_plan", "preempt@3"])
+    # the emergency checkpoint after the in-flight round 3: round 4's
+    meta = os.path.join(ck, sorted(os.listdir(ck))[-1], "meta.json")
+    with open(meta) as f:
+        band = json.load(f)["serve"]["band"]
+    depth = len(band["stale"]) + len(band["stash"])
+    r = run("resumed", ASYNC_ARGS + pre + rounds + ["--fault_plan", "preempt@3", "--resume"])
+    if p["code"] != 75 or depth < 1 or r["code"] != 0 or \
+            p["metrics"] + r["metrics"] != b1["metrics"] or r["state"] != b1["state"] or \
+            r["requeue"] != b1["requeue"]:
+        fail(f"async d: preempt@3 -> exit {p['code']}, band of {depth}; the resume does not "
+             "land on (b)'s run")
+    print(f"async d: preempt@3 -> exit 75, the checkpoint at round {len(p['metrics'])} with "
+          f"{depth} late table(s) in its band ({os.path.getsize(meta)} bytes of meta.json); "
+          f"--resume == (b) bitwise [{card}]", flush=True)
+    shutil.rmtree(ck, ignore_errors=True)
+
+    # e. pipelined == serial; the sync twin at quorum 6, serial and pipelined
+    e = run("async_b6_pipelined", ASYNC_ARGS + ["--serve_pipeline", "--sync_loop"] + rounds)
+    for key in ("code", "metrics", "state", "requeue"):
+        if e[key] != b1[key]:
+            fail(f"async e: the pipelined run's {key} differs from the serial run's")
+    extra = e["launches"]["sketch_accumulate"] - 8 * ASYNC_ROUNDS
+    if e["launches"]["sketch_query"] != ASYNC_ROUNDS or extra not in (0, 8):
+        fail(f"async e: the pipelined run launched {e['launches']}")
+    q6 = ASYNC_BASE + ["--serve_quorum", "6", "--sync_loop"] + rounds
+    sy = run("sync_q6", q6)
+    sp = run("sync_q6_pipelined", q6 + ["--serve_pipeline"])
+    print(f"async e: the pipelined async run == serial bitwise; steady round ms / "
+          f"server_idle_ms mean: sync quorum 6 serial {sy['round_ms']:.2f} / "
+          f"{sy['idle_ms'][0]:.3f}, pipelined {sp['round_ms']:.2f} / {sp['idle_ms'][0]:.3f}; "
+          f"async buffer 6 serial {b1['round_ms']:.2f} / {b1['idle_ms'][0]:.3f}, pipelined "
+          f"{e['round_ms']:.2f} / {e['idle_ms'][0]:.3f} [{card}]", flush=True)
+    print("async e: host ms a round (prepare, dispatch, drain): " + "; ".join(
+        f"{tag} {[round(x, 3) for x in runs[tag]['host_ms']]}"
+        for tag in ("sync_q6", "sync_q6_pipelined", "async_b6", "async_b6_pipelined"))
+        + f"; the fold's CUDA-event ms {[round(x, 4) for x in folds['async_b6']['ms']]} "
+        f"[{card}]", flush=True)
+    sessions.clear()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # f. on a group of 4 gloo ranks sharing the card
+    S = ASYNC_GROUP_SHARDS
+    t0 = time.perf_counter()
+    codes = distributed.launch_local(_async_group_rank, S, (base, device),
+                                     env={"LOCAL_RANK": "0"}, timeout_s=600)
+    secs = time.perf_counter() - t0
+    ranks = []
+    for rk in range(S):
+        path = os.path.join(base, f"async_{rk}.json")
+        if not os.path.exists(path):
+            fail(f"async f: rank {rk} wrote nothing (exit codes {codes})")
+        with open(path) as f:
+            ranks.append(json.load(f))
+    if codes != [0] * S:
+        fail(f"async f: rank exit codes {codes}")
+    orig = cv_train.FederatedSession
+    cv_train.FederatedSession = functools.partial(FederatedSession, client_shards=S)
+    try:
+        twin = run("group_twin", ASYNC_ARGS + ["--num_rounds", str(ASYNC_SHORT), "--sync_loop"])
+    finally:
+        cv_train.FederatedSession = orig
+    want = {"sketch_accumulate": 8 // S * ASYNC_SHORT, "sketch_query": ASYNC_SHORT}
+    for rk, got in enumerate(ranks):
+        g = got["runs"]["async"]
+        for key in ("code", "metrics", "state", "requeue"):
+            if g[key] != twin[key]:
+                fail(f"async f: rank {rk}'s {key} differs from the one-device run at "
+                     f"client_shards={S}")
+        if g["launches"] != want:
+            fail(f"async f: rank {rk} launched {g['launches']} (want {want})")
+    if ranks[0]["runs"]["async"]["counters"] != twin["counters"]:
+        fail("async f: rank 0's serve counters differ from the twin's")
+    sizes = ranks[0]["sizes"]
+    print(f"async f: async buffer 6 on {S} gloo ranks, {ASYNC_SHORT} rounds == the one-device "
+          f"run at client_shards={S}, bitwise on every rank (params, optimizer state, "
+          f"batch-norm statistics, metrics, queue); launches a rank {want}; rank 0's "
+          f"broadcasts a round (mask + count, then the stack and the filled slots), bytes "
+          f"{[sizes[i:i + 2] for i in range(0, len(sizes), 2)]}: round 0 without stale "
+          f"slots, later rounds with them; {secs:.1f} s for the launch [{card}]", flush=True)
+    print("async: run s " + ", ".join(f"{k} {v['s']:.1f}" for k, v in runs.items()), flush=True)
+    launches = {k: v["launches"] for k, v in runs.items()}
+    launches["group_async"] = ranks[0]["runs"]["async"]["launches"]
+    return launches
+
+
 def time_kernels(csvec, kernels, time_ms, spec, gen: torch.Generator) -> dict:
     """Each kernel's median over CUDA-event-timed launches at ``spec``'s
     shape, cold (L2 flushed before each) and warm (its input just
@@ -4028,6 +4330,14 @@ def main(argv: list[str]) -> int:
             rows[name]["launches_serve_group"] = {run: n[name] for run, n in served.items()}
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
         print("chip_smoke: serve-only run done", flush=True)
+        return 0
+    if "--async-only" in argv:
+        phase("22 (the buffered-async service)")
+        asy = async_phase(cv_train, engine, csvec, kernels, card_line())
+        for name in rows:
+            rows[name]["launches_async"] = {run: n[name] for run, n in asy.items()}
+        print(json.dumps({"kernels": list(rows.values())}), flush=True)
+        print("chip_smoke: async-only run done", flush=True)
         return 0
     if "--layerwise-only" in argv:
         phase("19 (layerwise)")
@@ -4161,6 +4471,10 @@ def main(argv: list[str]) -> int:
     # 21. serving on a group, the serving pipeline
     phase("21 (serving on a group, the pipeline)")
     served = serve_group_phase(cv_train, engine, csvec, kernels, card)
+
+    # 22. the buffered-async service
+    phase("22 (the buffered-async service)")
+    asy = async_phase(cv_train, engine, csvec, kernels, card)
     phase("end")
 
     for name in rows:
@@ -4179,6 +4493,7 @@ def main(argv: list[str]) -> int:
         rows[name]["launches_layerwise"] = {run: n[name] for run, n in lw["launches"].items()}
         rows[name]["launches_group"] = {run: n.get(name, 0) for run, n in group.items()}
         rows[name]["launches_serve_group"] = {run: n.get(name, 0) for run, n in served.items()}
+        rows[name]["launches_async"] = {run: n.get(name, 0) for run, n in asy.items()}
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -31,7 +31,10 @@ faults. A ``wire_payloads`` session (``--serve_payload sketch``) runs the
 payload round: ``compute_client_tables`` (the per-client tables, copied to
 the host once), the wire, ``finish_served_payload``, then
 ``dispatch_round`` merges the validated stack; its batch round composes
-the same two steps (``engine.compose_payload``). On a group of ranks only
+the same two steps (``engine.compose_payload``). A session built with
+``stale_slots`` > 0 (``--serve_async``) also takes late tables into a
+round's merge: ``finish_served_payload(..., stale=...)``, copied to the
+device beside the live stack. On a group of ranks only
 rank 0 copies the tables to the host (its transport ships them), every
 rank finishes the round with rank 0's validated stack, and the client
 step's gather rides the serve cycle's own process group
@@ -209,6 +212,7 @@ class FederatedSession:
         mesh=None,
         client_shards: int = 0,
         sketch_path: str = "ravel",
+        stale_slots: int = 0,
     ):
         self.device = resolve_device(device)
         if health_every < 0:
@@ -237,7 +241,10 @@ class FederatedSession:
             client_update_clip=client_update_clip, quarantine_window=quarantine_window,
             merge_policy=merge_policy, merge_trim=merge_trim,
             quarantine_scope=quarantine_scope, robust_residual=robust_residual,
-            sketch_path=sketch_path)
+            sketch_path=sketch_path,
+            # --serve_async: the payload merge may fold up to this many late
+            # tables a round (0: the sync service)
+            stale_slots=stale_slots)
         self._health_every = max(health_every, 1)
         # the per-client-table round serves a real wire (wire_payloads), a
         # robust merge (order statistics need each client's table) and the
@@ -738,12 +745,28 @@ class FederatedSession:
         return float(self._head()["quarantine"]["median"])
 
     def finish_served_payload(self, prep: PreparedRound, arrived, wire_tables,
-                              aux: tuple) -> PreparedRound:
+                              aux: tuple, stale=None) -> PreparedRound:
         """After a served payload round's close: every invitee whose payload
         missed the merge (no-show, straggler, rejected frame) is counted as
         masked and queued, and the preparation carries the validated table
         stack and the arrival mask for ``dispatch_round``. Draws no host
-        RNG, so the preparation's RNG snapshot stays valid."""
+        RNG, so the preparation's RNG snapshot stays valid.
+
+        ``stale`` (the buffered-async service): a host pair ([n, r, c] late
+        tables, [n] weights), n <= ``stale_slots``, that this round's merge
+        folds in; it needs a session built with ``stale_slots`` > 0. None
+        (every sync round, and an async round nobody was late for) runs the
+        plain merge."""
+        if stale is not None:
+            if self.cfg.stale_slots <= 0:
+                raise ValueError("finish_served_payload got a stale-fold stack but the session "
+                                 "was built with stale_slots=0 - arm stale_slots (--serve_async "
+                                 "wires it) or drop the stale entries")
+            n = len(stale[1])
+            if not 0 < n <= self.cfg.stale_slots or len(stale[0]) != n:
+                raise ValueError(f"a stale fold of {len(stale[0])} tables and {n} weights does "
+                                 f"not fit the session's {self.cfg.stale_slots} stale slots")
+            stale = (np.asarray(stale[0], np.float32), np.asarray(stale[1], np.float32))
         arrived = np.asarray(arrived, np.float32)
         eff = prep.valid * arrived
         for p in np.flatnonzero(eff == 0.0):
@@ -754,32 +777,46 @@ class FederatedSession:
         return dataclasses.replace(
             prep, masked=masked, requeue=tuple(self._requeue),
             requeue_ages=tuple(self._requeue_enqueued.items()),
-            payload=(np.asarray(wire_tables, np.float32), arrived, aux))
+            payload=(np.asarray(wire_tables, np.float32), arrived, aux, stale))
+
+    def _copy_in(self, a: np.ndarray, direction: str) -> tuple[torch.Tensor, torch.Tensor]:
+        """(pinned host tensor, its device copy) of a table stack: the copy is
+        queued without a host sync and timed by CUDA events under
+        ``direction`` in ``wire_copy_stats``."""
+        host = self._host(a)
+        t0 = self._record(timing=True)
+        dev = host.to(self.device, non_blocking=True)
+        if t0 is not None:
+            with self._wire_lock:
+                self._wire_copies.append((direction, host.numel() * host.element_size(), t0,
+                                          self._record(timing=True)))
+        return host, dev
 
     def _dispatch_payload_merge(self, prep: PreparedRound, lr: float) -> InFlightRound:
         """Dispatch the payload round's merge over the validated tables a
         served round collected: one pinned host-to-device copy of the
-        [W, r, c] stack, then the merge on the state the client step read."""
-        wire_tables, arrived, aux = prep.payload
+        [W, r, c] stack (and of an async round's late tables and weights),
+        then the merge on the state the client step read."""
+        wire_tables, arrived, aux, stale = prep.payload
         state, nstates, mvals, part, lnorms = aux
-        host = self._host(wire_tables)
-        t0 = self._record(timing=True)
-        tables = host.to(self.device, non_blocking=True)
-        if t0 is not None:
-            with self._wire_lock:
-                self._wire_copies.append(("h2d", host.numel() * host.element_size(), t0,
-                                          self._record(timing=True)))
+        host, tables = self._copy_in(wire_tables, "h2d")
+        kw, hosts = {}, {"tables": host}
+        if stale is not None:
+            # the late tables cross as the live stack does ("h2d_stale")
+            hosts["stale_tables"], kw["stale_tables"] = self._copy_in(stale[0], "h2d_stale")
+            hosts["stale_weights"] = self._host(stale[1])
+            kw["stale_weights"] = hosts["stale_weights"].to(self.device, non_blocking=True)
         lr_host = self._host(np.asarray(lr, np.float32))
         new_state, metrics = self._payload_merge(
             state, tables, nstates, mvals, part,
             self._host(arrived).to(self.device, non_blocking=True),
             lr_host.to(self.device, non_blocking=True), lnorms=lnorms,
-            health_on=prep.health_on)
+            health_on=prep.health_on, **kw)
         self._head_state = new_state
         self._inflight += 1
         self._inflight_rounds += 1
         return InFlightRound(new_state, None, metrics, [lr], prep.snapshot, stacked=False,
-                             done=self._record(), host_batch={"tables": host},
+                             done=self._record(), host_batch=hosts,
                              masked=[prep.masked], requeue_depths=[len(prep.requeue)],
                              requeue=prep.requeue, requeue_ages=prep.requeue_ages,
                              cohorts=[prep.ids], health_on=[prep.health_on])
@@ -800,7 +837,8 @@ class FederatedSession:
     def wire_copy_stats(self) -> dict:
         """Bytes and CUDA-event milliseconds of the served payload rounds'
         table-stack copies since the last call, by direction ("d2h": the
-        client tables to the host, "h2d": the validated stack back):
+        client tables to the host, "h2d": the validated stack back,
+        "h2d_stale": an async round's late tables):
         {direction: {"copies", "bytes", "ms"}}. Waits for the last copy."""
         self._fold_wire_copies()
         with self._wire_lock:

@@ -245,6 +245,13 @@ class EngineConfig:
     # sketch_accumulate_tree launch a round), bitwise the ravel round. The
     # random hash family needs num_blocks == 1 there
     sketch_path: str = "ravel"
+    # the buffered-async service (--serve_async): > 0 lets the payload
+    # merge take up to this many late tables, folded staleness-weighted
+    # after the live cohort's ordered sum (_stale_fold), or joining the
+    # robust order statistics as weighted rows under a robust policy. A
+    # round with no late table runs the plain merge, which is what keeps an
+    # async run where everyone is on time bitwise the sync run. 0 = off
+    stale_slots: int = 0
 
     def generator(self, rnd: int, slot: int, step: int,
                   device: torch.device) -> torch.Generator:
@@ -333,6 +340,13 @@ class EngineConfig:
                 "sketched from the client's flat gradient (the object that crosses the "
                 "wire); layerwise accumulation is a server-memory optimization with no "
                 "client wire to ship")
+        if self.stale_slots < 0:
+            raise ValueError(f"stale_slots must be >= 0, got {self.stale_slots}")
+        if self.stale_slots > 0 and not self.wire_payloads:
+            raise ValueError(
+                "stale_slots (--serve_async) folds LATE WIRE TABLES into the payload merge; "
+                "without wire_payloads there is no per-client table wire to arrive late - arm "
+                "--serve_payload sketch")
         if self.dp_noise > 0 and self.dp_clip <= 0:
             raise ValueError("dp_noise > 0 requires dp_clip > 0 (unbounded sensitivity has no "
                              "meaningful noise scale)")
@@ -1075,6 +1089,29 @@ def _apply_adv(tables: torch.Tensor, adv, clip: float = 0.0,
     return out
 
 
+def _stale_fold(table: torch.Tensor, live_weight: torch.Tensor, stale_tables: torch.Tensor,
+                stale_weights: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """The buffered-async service's fold of late client tables into the
+    merged wire table, the port's one site of arithmetic over the stale
+    stack (the reference's ``engine._stale_fold``): a left fold in slot
+    order, ``table += w_i * t_i`` and ``weight += w_i``, so the float
+    association is fixed by the slots the service filled (source round,
+    then cohort position, then admission order). Returns (the folded
+    table, the live weight plus the stale weights, which the survivor
+    normalisation divides by, and the metrics ``stale_folded``, the slots
+    of positive weight, and ``stale_weight``, their weights' sum in slot
+    order)."""
+    tbl, total = table, live_weight
+    stale_weight = torch.zeros_like(live_weight)
+    for i in range(stale_tables.shape[0]):
+        w = stale_weights[i]
+        tbl = tbl + w * stale_tables[i]
+        total = total + w
+        stale_weight = stale_weight + w
+    return tbl, total, {"stale_folded": (stale_weights > 0).sum(),
+                        "stale_weight": stale_weight}
+
+
 def make_payload_round_steps(loss_fn: Callable, cfg: EngineConfig,
                              layout: FlatLayout, group=None) -> tuple[Callable, Callable]:
     """The per-client-table round as two steps, the shape a serving
@@ -1133,8 +1170,15 @@ def make_payload_round_steps(loss_fn: Callable, cfg: EngineConfig,
     summed update, so payload params are not bit-comparable to the
     announce round's.
 
-    The reference's stale-fold slots and edge variants are not ported
-    (ROADMAP Queue 1 item 9b)."""
+    With ``stale_tables`` [n, r, c] and ``stale_weights`` [n] (the
+    buffered-async service's late tables, n <= ``cfg.stale_slots``) the sum
+    folds them in after the live cohort's ordered sum (``_stale_fold``) and
+    normalises by the live count plus their weights; a robust policy takes
+    them into its order statistics as weighted rows of the union stack
+    (``modes.merge_partial_wires``). Either adds ``stale_folded`` and
+    ``stale_weight`` to the metrics. A round without them runs exactly the
+    plain merge. The reference's edge variants are not ported (ROADMAP
+    Queue 1 item 9b)."""
     mcfg = cfg.mode
     if mcfg.mode != "sketch":
         raise ValueError(f"the per-client-table round requires mode='sketch'; "
@@ -1190,7 +1234,9 @@ def make_payload_round_steps(loss_fn: Callable, cfg: EngineConfig,
 
     def merge_step(state: dict, tables: torch.Tensor, nstates: dict, mvals: dict,
                    part: torch.Tensor, arrived: torch.Tensor, lr,
-                   lnorms: torch.Tensor | None = None, health_on: bool = False):
+                   lnorms: torch.Tensor | None = None, health_on: bool = False,
+                   stale_tables: torch.Tensor | None = None,
+                   stale_weights: torch.Tensor | None = None):
         part = part * arrived
         part_eff, norms = part, None
         if quarantine:
@@ -1206,19 +1252,29 @@ def make_payload_round_steps(loss_fn: Callable, cfg: EngineConfig,
             # the metric folds and the rings
             finite = torch.isfinite(tables).reshape(tables.shape[0], -1).all(dim=1)
             part_eff = part_eff * finite.to(part_eff.dtype)
-        residual = None
+        residual, stale = None, {}
         if pol is None:
             # merge_policy="trimmed" with trim 0 runs this branch: the sum
             wire_sum = modes.merge_partial_wires(
                 mcfg, {"table": modes.mask_rows(part_eff, tables)})
-            agg = _normalize_merged_wire(mcfg, wire_sum, part_eff.sum().clamp_min(1.0))
+            total_w = part_eff.sum()
+            if stale_tables is not None:
+                # the late tables join after the live cohort's ordered sum
+                # (linearity makes the staging exact), their weights the
+                # survivor normalisation
+                folded, total_w, stale = _stale_fold(wire_sum["table"], total_w, stale_tables,
+                                                     stale_weights)
+                wire_sum = {"table": folded}
+            agg = _normalize_merged_wire(mcfg, wire_sum, total_w.clamp_min(1.0))
         else:
             merged = modes.merge_partial_wires(
                 mcfg, {"table": tables}, policy=pol, live=part_eff, trim=cfg.merge_trim,
+                stale_tables=stale_tables, stale_weights=stale_weights,
                 want_residual=cfg.robust_residual)
-            if cfg.robust_residual:
+            if cfg.robust_residual or stale_tables is not None:
                 robust, total_w, extras = merged
-                residual = extras["residual"]
+                residual = extras.get("residual")
+                stale = {k: extras[k] for k in ("stale_folded", "stale_weight") if k in extras}
             else:
                 robust, total_w = merged, part_eff.sum()
             # the robust mean; agg_op=sum rescales by the live count, so
@@ -1232,6 +1288,7 @@ def make_payload_round_steps(loss_fn: Callable, cfg: EngineConfig,
             {k: modes.mask_rows(part_eff, v).sum(0) for k, v in nstates.items()},
             {k: modes.mask_rows(part_eff, v).sum(0) for k, v in mvals.items()},
             part_eff, state["net_state"])
+        metrics.update(stale)
         new_q = None
         if quarantine:
             metrics["clients_quarantined"] = part.sum() - part_eff.sum()

@@ -144,6 +144,9 @@ def build(args, fault_plan=None):
         # --serve_payload sketch: the two-step wire round (per-client tables,
         # then the table merge) that the service round-trips
         wire_payloads=args.serve != "off" and args.serve_payload == "sketch",
+        # --serve_async: one cohort's worth of stale slots (the trigger
+        # bounds how many straggle a round, the band how long they wait)
+        stale_slots=args.num_workers if args.serve_async else 0,
         # the sketch-health estimators at the --health_every cadence and,
         # with --ledger, per-round state fingerprints (both read-only:
         # armed == unarmed, bitwise)
@@ -215,11 +218,14 @@ def main(argv=None):
     rounds_per_epoch = max(1, math.ceil(args.num_clients / session.num_workers))
     total_rounds = args.num_rounds or int(args.num_epochs * rounds_per_epoch)
     if session.fault_plan is not None:
-        # a client_* or wire_* site at a round the run never reaches, or a
-        # wire_* site on a run with no payload seam, is refused now
+        # a client_* or wire_* site at a round the run never reaches, a
+        # wire_* site on a run with no payload seam, or a stale poison with
+        # no stale band, is refused now
         session.fault_plan.validate_rounds(total_rounds, distributed.world_size())
         session.fault_plan.validate_wire_context(
             args.serve != "off" and args.serve_payload == "sketch")
+        session.fault_plan.validate_stale_context(
+            args.serve != "off" and args.serve_payload == "sketch" and args.serve_async)
     opt = FedOptimizer(triangular(args.lr_scale, args.pivot_epoch, args.num_epochs),
                        rounds_per_epoch)
     model = FedModel(session)

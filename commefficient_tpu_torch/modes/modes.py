@@ -168,7 +168,8 @@ def _trimmed_keep(keyed: torch.Tensor, s: torch.Tensor, n: torch.Tensor,
 
 
 def _robust_table_merge(spec, stacked: torch.Tensor, live: torch.Tensor, policy: str,
-                        trim: int, want_residual: bool = False):
+                        trim: int, want_residual: bool = False, stale_tables=None,
+                        stale_weights=None):
     """Coordinate-wise Byzantine-robust location estimate over the [W, r, c]
     stacked client tables, dead rows (``live`` == 0) excluded: the robust
     MEAN (the caller rescales for agg_op="sum").
@@ -192,8 +193,15 @@ def _robust_table_merge(spec, stacked: torch.Tensor, live: torch.Tensor, policy:
     (every live contribution clamped into the policy's kept window, ranks
     [trim, n-trim) for "trimmed" and the interquartile ranks for "median"),
     which the engine adds into Verror; ``total_weight`` is the live count.
-    The reference's weighted (stale-slot) form is not ported (ROADMAP Queue
-    1 item 9b)."""
+
+    With ``stale_tables`` [n, r, c] and ``stale_weights`` [n] (the
+    buffered-async service's late tables) it runs the weighted form over the
+    union stack (``_weighted_table_merge``) and returns the same tuple."""
+    if policy not in ("median", "trimmed"):
+        raise ValueError(f"unknown robust merge policy {policy!r}")
+    if stale_tables is not None:
+        return _weighted_table_merge(spec, stacked, live, policy, trim, want_residual,
+                                     stale_tables, stale_weights)
     W = stacked.shape[0]
     finite = torch.isfinite(stacked).reshape(W, -1).all(dim=1)
     live = live * finite.to(live.dtype)
@@ -201,8 +209,6 @@ def _robust_table_merge(spec, stacked: torch.Tensor, live: torch.Tensor, policy:
     keyed = torch.where(expand > 0, stacked, torch.full_like(stacked, float("inf")))
     n = (live > 0).sum()
     total_w = live.sum()
-    if policy not in ("median", "trimmed"):
-        raise ValueError(f"unknown robust merge policy {policy!r}")
     # the sorted values (the median's ranks, the trimmed window's edges, the
     # residual's clamp); a tie's order does not change them
     s = torch.sort(keyed, dim=0).values
@@ -220,16 +226,101 @@ def _robust_table_merge(spec, stacked: torch.Tensor, live: torch.Tensor, policy:
         ok, win_lo = n > 2 * trim, torch.full_like(n, trim)
     if not want_residual:
         return robust
-    # the winsorized mean: every live entry clamped into the kept window's
-    # edge values, so an adversary's residual is bounded by the clean range
+    residual = _winsorized_residual(spec, stacked, expand, s, n, win_lo, total_w, robust, ok)
+    return robust, total_w, {"residual": residual}
+
+
+def _winsorized_residual(spec, stacked, expand, s, n, win_lo, total_w, robust, ok):
+    """The winsorized weighted mean minus the robust value: every live entry
+    clamped into the kept window's edge values (sorted ranks ``win_lo`` and
+    n - ``win_lo`` - 1), so an adversary's residual is bounded by the clean
+    range; zero where the policy kept nothing."""
+    W = stacked.shape[0]
     v_floor = _take_row(s, win_lo.clamp(0, W - 1))
     v_ceil = _take_row(s, (n - win_lo - 1).clamp(0, W - 1))
     clamped = torch.minimum(torch.maximum(stacked, v_floor), v_ceil)
     wins = csvec.merge_tables(spec, torch.where(expand > 0, clamped * expand,
                                                 torch.zeros_like(stacked)))
     wins = wins / total_w.clamp_min(1e-12)
-    residual = torch.where(ok, wins - robust, torch.zeros_like(robust))
-    return robust, total_w, {"residual": residual}
+    return torch.where(ok, wins - robust, torch.zeros_like(robust))
+
+
+def _ordered_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of a 1-D tensor as a left fold, element 0 first: the same
+    association on any device."""
+    out = x[0]
+    for i in range(1, x.shape[0]):
+        out = out + x[i]
+    return out
+
+
+def _weighted_table_merge(spec, stacked, live, policy, trim, want_residual, stale_tables,
+                          stale_weights):
+    """The per-buffer robust merge of the buffered-async service (the
+    reference's extended ``_robust_table_merge``): the order statistics run
+    over the union stack, the cohort's [W] tables (client-index order) then
+    the [n] stale slots (slot order), at weights ``live`` and
+    ``stale_weights`` ((1 + lag)^-alpha). A non-finite row, a dead client
+    and an empty slot weigh 0 and are excluded. Ranks are over raw values,
+    so a stale outlier is trimmed like an on-time one; the weights shape
+    the estimate:
+
+    - "median": the weighted median, 0.5 * (the value at lo + the value at
+      hi), lo the first sorted row whose cumulative weight is >= half the
+      total and hi the first with > half. The cumulative weight is a left
+      fold in sorted order, one add a row (``torch.cumsum`` of floats has
+      no deterministic CUDA kernel); lo and hi count the rows below half.
+    - "trimmed": the ranks [trim, n - trim) of ``_trimmed_keep``, and the
+      weighted survivor mean, both sums ordered folds in union order.
+
+    Returns ``(robust, total_weight, extras)``: the live weights' sum in
+    union order, and ``stale_folded``/``stale_weight`` (the slots of
+    positive weight, their weights' sum) plus ``residual`` with
+    ``want_residual``. With unit weights and no slots every value is the
+    unweighted form's."""
+    stacked = torch.cat([stacked, stale_tables.to(stacked.dtype)])
+    weights = torch.cat([live.to(torch.float32), stale_weights.to(torch.float32)])
+    U = stacked.shape[0]
+    finite = torch.isfinite(stacked).reshape(U, -1).all(dim=1)
+    w_eff = weights * finite.to(weights.dtype)
+    expand = bcast(w_eff, stacked)
+    keyed = torch.where(expand > 0, stacked, torch.full_like(stacked, float("inf")))
+    n = (w_eff > 0).sum()
+    total_w = _ordered_sum(w_eff)
+    if policy == "median":
+        s, order = torch.sort(keyed, dim=0, stable=True)
+        sw = w_eff[order]
+        half = total_w / 2.0
+        acc = torch.zeros_like(s[0])
+        lo = torch.zeros(s.shape[1:], dtype=torch.int64, device=s.device)
+        hi = torch.zeros_like(lo)
+        for i in range(U):
+            acc = acc + sw[i]
+            lo = lo + (acc < half).to(torch.int64)
+            hi = hi + (acc <= half).to(torch.int64)
+        # no row over the mark (n == 0): index 0, as an argmax finds it
+        lo = torch.where(lo >= U, torch.zeros_like(lo), lo)
+        hi = torch.where(hi >= U, torch.zeros_like(hi), hi)
+        med = 0.5 * (s.gather(0, lo[None])[0] + s.gather(0, hi[None])[0])
+        robust = torch.where(n > 0, med, torch.zeros_like(med))
+        ok, win_lo = n > 0, n // 4
+    else:
+        s = torch.sort(keyed, dim=0).values
+        keep = _trimmed_keep(keyed, s, n, trim) & (expand > 0)
+        kept_v = torch.where(keep, stacked * expand, torch.zeros_like(stacked))
+        kept_w = torch.where(keep, expand.expand_as(stacked), torch.zeros_like(stacked))
+        denom = csvec.merge_tables(spec, kept_w).clamp_min(1e-12)
+        robust = torch.where(n > 2 * trim, csvec.merge_tables(spec, kept_v) / denom,
+                             torch.zeros_like(denom))
+        ok, win_lo = n > 2 * trim, torch.full_like(n, trim)
+    stale_w = stale_weights.to(torch.float32)
+    extras = {"stale_folded": (stale_w > 0).sum(),
+              "stale_weight": (_ordered_sum(stale_w) if stale_w.shape[0]
+                               else torch.zeros((), device=stale_w.device))}
+    if want_residual:
+        extras["residual"] = _winsorized_residual(spec, stacked, expand, s, n, win_lo,
+                                                  total_w, robust, ok)
+    return robust, total_w, extras
 
 
 def merge_partial_wires(cfg: ModeConfig, stacked: dict, *, policy: str = "sum",
@@ -244,11 +335,10 @@ def merge_partial_wires(cfg: ModeConfig, stacked: dict, *, policy: str = "sum",
     (--merge_policy): the stacked leaves are per-client [W, r, c] tables,
     ``live`` the [W] 0/1 mask of clients in the merge, and the result the
     coordinate-wise robust MEAN (``_robust_table_merge``); the caller
-    rescales by the live count for agg_op="sum". With ``want_residual`` it
-    returns ``({"table": robust}, total_weight, extras)`` with the
-    winsorized residual. The reference's stale-slot union stack
-    (``stale_tables``/``stale_weights``) belongs to the buffered-async
-    service and is refused (ROADMAP Queue 1 item 9b)."""
+    rescales by the live count for agg_op="sum". With ``want_residual``, or
+    with the buffered-async service's ``stale_tables``/``stale_weights``
+    (the weighted union stack; the caller only forwards them), it returns
+    ``({"table": robust}, total_weight, extras)``."""
     if not is_linear(cfg):
         raise ValueError(f"mode={cfg.mode!r} is nonlinear: partial per-shard wires cannot be "
                          "merged by addition (per-client top-k does not commute with the "
@@ -265,14 +355,14 @@ def merge_partial_wires(cfg: ModeConfig, stacked: dict, *, policy: str = "sum",
         if policy == "trimmed" and 2 * trim >= W:
             raise ValueError(f"merge_trim={trim} would trim the whole cohort (2*{trim} >= "
                              f"W={W}); need 2*trim < num_workers")
-        if stale_tables is not None or stale_weights is not None:
-            raise ValueError("the per-buffer robust merge over stale slots belongs to the "
-                             "buffered-async service, which is not ported (ROADMAP Queue 1 "
-                             "item 9b)")
+        if (stale_tables is None) != (stale_weights is None):
+            raise ValueError("the per-buffer robust merge takes the stale slots' tables and "
+                             "their weights together")
         spec = cfg.sketch_spec
-        if want_residual:
-            robust, total_w, extras = _robust_table_merge(spec, stacked["table"], live,
-                                                          policy, trim, want_residual=True)
+        if want_residual or stale_tables is not None:
+            robust, total_w, extras = _robust_table_merge(
+                spec, stacked["table"], live, policy, trim, want_residual=want_residual,
+                stale_tables=stale_tables, stale_weights=stale_weights)
             return {"table": robust}, total_w, extras
         return {"table": _robust_table_merge(spec, stacked["table"], live, policy, trim)}
     if cfg.mode == "sketch":

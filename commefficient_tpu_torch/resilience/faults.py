@@ -73,6 +73,16 @@ A plan is parsed from a compact CLI string (``--fault_plan``) of
                                 The four adversarial kinds transform the
                                 per-client wire, so a plan that names them
                                 runs the per-client-table round
+    client_stale_poison@2:clients=1,factor=-1
+                                position 1 withholds its round-2 payload (a
+                                no-show at the close) and the service
+                                submits factor x its real table late, into
+                                the buffered-async stale band during round
+                                3's serving, through the real transport and
+                                validation, where it is screened against
+                                round 2's retained median. Needs
+                                --serve_async with --serve_payload sketch
+                                (validate_stale_context)
     host_preempt@3:host=1       SIGTERM as round 3 dispatches, only on the
                                 rank whose index is 1: the preemption
                                 agreement (resilience.preemption.coordinated)
@@ -87,10 +97,9 @@ correctly across checkpoint resume: ``preempt@3`` does not fire again in a
 resumed run that starts at round 4. ``FaultPlan.parse("")`` is None: no
 plan, no change.
 
-The reference's other kinds (edge and shard kills, the buffered-async
-stale poison) need sites the port does not have yet. They are refused at parse with a message that
-names them and the ROADMAP item that brings them, never accepted and
-ignored.
+The reference's other kinds (edge and shard kills) need sites the port
+does not have yet. They are refused at parse with a message that names
+them and the ROADMAP item that brings them, never accepted and ignored.
 """
 
 from __future__ import annotations
@@ -138,6 +147,9 @@ KINDS = {
     "client_scale": ("clients", "factor"),
     "client_collude": ("frac",),
     "client_normride": ("clients", "ride"),
+    # withhold a payload on time, then submit factor x the table into the
+    # buffered-async stale band at the next round's serving
+    "client_stale_poison": ("clients", "factor"),
 }
 
 # the client_* sites fire inside a round's preparation: scheduled at or past
@@ -150,14 +162,14 @@ WIRE_KINDS = ("wire_corrupt", "wire_truncate", "wire_dup", "wire_delay", "conn_d
 # the adversarial kinds fire in the table round's client step; the same
 # schedule validation as the client kinds
 ADVERSARIAL_KINDS = ("client_signflip", "client_scale", "client_collude", "client_normride")
+# client_stale_poison fires at the serving seam (withheld on time, submitted
+# late into the stale band): the same schedule validation, one round
+# earlier, and validate_stale_context
+STALE_POISON_KINDS = ("client_stale_poison",)
 
 # the reference's kinds whose sites the port does not have yet, with the
 # ROADMAP Queue 1 item that brings each
-NOT_PORTED = {
-    "edge_kill": "9b", "shard_kill": "9b",
-    # its site is the --serve_async stale band
-    "client_stale_poison": "9b",
-}
+NOT_PORTED = {"edge_kill": "9b", "shard_kill": "9b"}
 
 
 class InjectedFault(RuntimeError):
@@ -307,7 +319,7 @@ class FaultPlan:
         not have, can never fire, and is refused rather than let a chaos
         run pass without its fault."""
         for s in self.specs:
-            if (s.kind in CLIENT_KINDS + WIRE_KINDS + ADVERSARIAL_KINDS
+            if (s.kind in CLIENT_KINDS + WIRE_KINDS + ADVERSARIAL_KINDS + STALE_POISON_KINDS
                     or s.kind == "host_preempt") and s.rounds:
                 dead = [r for r in s.rounds if r >= total_rounds]
                 if dead:
@@ -315,6 +327,18 @@ class FaultPlan:
                         f"--fault_plan: {s.kind}@{','.join(map(str, dead))} can never fire "
                         f"- the run ends at round {total_rounds} (rounds are 0-based global "
                         "indices)")
+            if s.kind in STALE_POISON_KINDS and s.rounds:
+                # the late half lands during the next round's serving: at the
+                # final round the withhold would fire and the table never
+                # reach the band
+                late = [r for r in s.rounds if r >= total_rounds - 1]
+                if late:
+                    raise ValueError(
+                        f"--fault_plan: {s.kind}@{','.join(map(str, late))} withholds at that "
+                        "round but its late submission lands during the NEXT round's serving "
+                        f"- the run ends at round {total_rounds}, so the poisoned table would "
+                        f"never reach the stale band; schedule it at most at round "
+                        f"{total_rounds - 2}")
             if s.kind == "host_preempt":
                 host = int(s.params.get("host", 0))
                 if not 0 <= host < world_size:
@@ -334,6 +358,20 @@ class FaultPlan:
                 f"--fault_plan: {', '.join(dead)} can never fire: the wire kinds damage "
                 "payload frames at the serving transport seam and need --serve inproc|socket "
                 "with --serve_payload sketch; on this run the chaos plan would pass vacuously")
+
+    def validate_stale_context(self, stale_band_armed: bool) -> None:
+        """Launch-time check of client_stale_poison: it submits into the
+        buffered-async stale band (--serve_async with --serve_payload
+        sketch); on any other run it would inject nothing."""
+        if stale_band_armed:
+            return
+        dead = sorted({s.kind for s in self.specs if s.kind in STALE_POISON_KINDS})
+        if dead:
+            raise ValueError(
+                f"--fault_plan: {', '.join(dead)} can never fire - the stale-poison kind "
+                "submits adversarial tables into the buffered-async stale band and needs "
+                "--serve_async with --serve_payload sketch; on this run the chaos plan would "
+                "pass vacuously")
 
     def _log(self, msg: str):
         print(f"fault-injection: {msg}", file=sys.stderr, flush=True)
@@ -582,6 +620,33 @@ class FaultPlan:
             self._mark("client_normride", rnd, clients=pos, ride=frac)
             obreg.default().counter("resilience_attack_normride_total").inc()
         return ride
+
+    def has_stale_poison(self) -> bool:
+        return any(s.kind in STALE_POISON_KINDS for s in self.specs)
+
+    def stale_poison_plan(self, rnd: int, num_workers: int) -> list[tuple[int, float]]:
+        """Round ``rnd``'s stale-band poison for the serving layer:
+        [(cohort position, factor)]. Each position withholds its on-time
+        payload this round, and the service submits factor x its real table
+        into the stale band at the next round's serving, through the real
+        transport and validation. One-shot per (round, clients); each lands
+        a trace instant, the injected-faults counter and
+        ``resilience_attack_stale_poison_total`` (here, where the withhold is
+        decided; the ingest band counts the late admission)."""
+        out: list[tuple[int, float]] = []
+        for s in self.specs_for("client_stale_poison", rnd):
+            key = ("client_stale_poison", rnd, s.params.get("clients", (0,)))
+            if key in self._fired:
+                continue
+            self._fired.add(key)
+            pos = list(self._positions(s, num_workers, rnd))
+            factor = float(s.params.get("factor", -1.0))
+            out.extend((p, factor) for p in pos)
+            self._log(f"client_stale_poison (factor={factor:g}) on positions {pos} (round "
+                      f"{rnd}): withheld now, submitted into the stale band next round")
+            self._mark("client_stale_poison", rnd, clients=pos, factor=factor)
+            obreg.default().counter("resilience_attack_stale_poison_total").inc()
+        return out
 
     def wire_plan(self, rnd: int, num_workers: int) -> dict[int, dict]:
         """Per-position wire damage of round ``rnd``'s payload shipments,

@@ -34,7 +34,8 @@ What stays synchronous, deliberately:
 - **Preemption across ranks**: in a group of ranks (the sharded round)
   the SIGTERM flag is agreed at every round-block boundary
   (``resilience.preemption.coordinated``), so every rank drains the same
-  round and exits 75 together, and only rank 0 writes checkpoints.
+  round and exits 75 together, and only rank 0 writes checkpoints; no rank
+  exits before rank 0's exit checkpoint is written.
 
 ``--sync_loop`` is the serial path: inline preparation, one
 prepare -> dispatch -> drain per round (or block), blocking saves. Both
@@ -477,6 +478,12 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
     def exit_saving(code, message: str | None = None, reason: str | None = None):
         shutdown()
         path = save_ckpt() if save_ckpt else None
+        if ranks > 1:
+            # every rank reaches this exit at the same agreed round; none
+            # leaves before rank 0's checkpoint is written, so a run resumed
+            # at once (a relaunch, or the same processes calling main again)
+            # finds it on every rank
+            distributed.all_hosts_max(0)
         if message:
             # in a group of ranks rank 0 alone writes
             print(message.format(path=path if path or ranks == 1 else "written by rank 0"),

@@ -1,16 +1,18 @@
 """The streaming aggregation service: the batch round inverted, clients
 pushing submissions at an aggregator (the port of the JAX package's
-``serve/``, synchronous serving, serial or pipelined, on one device or a
-group of ranks).
+``serve/``: the sync and the buffered-async service, serial or pipelined,
+on one device or a group of ranks).
 
 - ``ingest``    — the bounded arrival queue with admission control
   (backpressure, duplicates, out-of-round, early-push buffering, load
-  shedding) and the payload validation (``validate_payload``);
+  shedding, the async band's late admissions) and the payload validation
+  (``validate_payload``);
 - ``transport`` — in-process and loopback-socket (threaded) submission
   fronts and the client helpers; ``scale/eventloop`` — the selectors
   reactor, the default socket engine;
-- ``assembler`` — cohorts that close at W-of-N arrivals; payload rounds
-  collect the validated table stack;
+- ``assembler`` — cohorts that close at W-of-N arrivals (or the async
+  buffer size); payload rounds collect the validated table stack, and
+  async ones the stragglers' tables;
 - ``clients``   — per-client streams and device classes as pure functions
   of (seed, client id[, round]);
 - ``traffic``   — the trace-driven traffic generator, with the payload
@@ -26,7 +28,8 @@ Both CLIs take ``--serve inproc|socket`` with ``--serve_payload
 announce|sketch``, ``--serve_quorum``, ``--serve_deadline``,
 ``--serve_trace``, ``--serve_shed_watermark``, ``--serve_metrics_port``,
 ``--serve_port``, ``--serve_max_conns``, ``--serve_transport
-eventloop|threaded`` and ``--serve_pipeline``.
+eventloop|threaded``, ``--serve_pipeline``, and ``--serve_async`` with
+``--serve_buffer``, ``--serve_staleness`` and ``--serve_stale_rounds``.
 """
 
 from .assembler import ClosedRound, CohortAssembler

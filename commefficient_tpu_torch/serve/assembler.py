@@ -1,6 +1,5 @@
 """Cohort assembler: over-provisioned rounds that close at W-of-N (the
-port's copy of the JAX package's ``serve/assembler.py``, synchronous
-closes only).
+port's copy of the JAX package's ``serve/assembler.py``).
 
 A round invites the full cohort the session sampled (N = num_workers) and
 closes when the quorum W has arrived or the deadline passes, whichever is
@@ -20,6 +19,12 @@ Two close disciplines:
 A payload round's close also collects the validated [N, r, c] table stack
 (``ClosedRound.tables``): each invitee's table where it passed the
 validation and made the close, an exact zero row everywhere else.
+
+The buffered-async service (``--serve_async``) closes the same way with
+the quorum read as the buffer-size trigger (``buffered``: the close is
+named "buffer"), and the validated tables that arrived after the cut ride
+on the ClosedRound (``straggler_tables``, in cohort-position order) for
+the service to fold into a later merge.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ class ClosedRound:
     invited: np.ndarray         # [N] int64 cohort (session.sample_cohort)
     arrived: np.ndarray         # [N] float32 0/1: made the W-of-N close
     latencies: np.ndarray       # [N] float64 submission latency (inf = none)
-    closed_by: str              # "quorum" | "deadline"
+    closed_by: str              # "quorum" | "buffer" | "deadline"
     close_latency_s: float      # virtual close time (the W-th arrival's latency)
     stragglers: int             # submitted, but after the close
     no_shows: int               # never submitted
@@ -51,6 +56,10 @@ class ClosedRound:
     # ``invited``, a zero row wherever a payload missed the merge; None on
     # the announce path
     tables: np.ndarray | None = None
+    # buffered closes only: (cohort position, client id, table) of each
+    # invitee whose validated table arrived after the cut, in position
+    # order; () otherwise
+    straggler_tables: tuple = ()
 
     @property
     def survivors(self) -> int:
@@ -59,7 +68,7 @@ class ClosedRound:
 
 class CohortAssembler:
     def __init__(self, queue: IngestQueue, quorum: int, deadline_s: float,
-                 payload_shape: tuple | None = None):
+                 payload_shape: tuple | None = None, buffered: bool = False):
         if quorum < 1:
             raise ValueError(f"quorum must be >= 1, got {quorum}")
         self.queue = queue
@@ -67,6 +76,10 @@ class CohortAssembler:
         self.deadline_s = deadline_s
         # (r, c) of the payload tables; None = announce path
         self.payload_shape = payload_shape
+        # the async service's buffer-size trigger: the same cut as the
+        # quorum's, named "buffer", and the stragglers' tables collected
+        self.buffered = buffered
+        self.trigger_label = "buffer" if buffered else "quorum"
         self.rounds_closed = 0
         self.closed_by_quorum = 0
         self.closed_by_deadline = 0
@@ -90,13 +103,14 @@ class CohortAssembler:
         n_in_time = int((lat[order] <= self.deadline_s).sum())
         if n_in_time >= self.quorum:
             close = float(lat[order][self.quorum - 1])
-            closed_by = "quorum"
+            closed_by = self.trigger_label
         else:
             close = self.deadline_s
             closed_by = "deadline"
         arrived = (lat <= close).astype(np.float32)
         return self._finish(rnd, invited, arrived, lat, closed_by, close, walls,
-                            self._collect_tables(pos, arrivals, arrived, len(invited)))
+                            self._collect_tables(pos, arrivals, arrived, len(invited)),
+                            self._collect_stragglers(pos, arrivals, arrived))
 
     def close_wall(self, rnd: int, invited) -> ClosedRound:
         """Close on real arrival order: wait for quorum or deadline, then
@@ -118,11 +132,12 @@ class CohortAssembler:
         for a in made_cut:
             if int(a.client_id) in pos:
                 arrived[pos[int(a.client_id)]] = 1.0
-        closed_by = "quorum" if len(cut) >= self.quorum else "deadline"
+        closed_by = self.trigger_label if len(cut) >= self.quorum else "deadline"
         close = (max((a.latency_s for a in made_cut), default=self.deadline_s)
                  if closed_by != "deadline" else self.deadline_s)
         return self._finish(rnd, invited, arrived, lat, closed_by, close, walls,
-                            self._collect_tables(pos, arrivals, arrived, len(invited)))
+                            self._collect_tables(pos, arrivals, arrived, len(invited)),
+                            self._collect_stragglers(pos, arrivals, arrived))
 
     def _collect_tables(self, pos, arrivals, arrived, n: int) -> np.ndarray | None:
         """The [N, r, c] validated-table stack of a payload round: rows
@@ -137,8 +152,25 @@ class CohortAssembler:
                 out[p] = a.table
         return out
 
+    def _collect_stragglers(self, pos, arrivals, arrived) -> tuple:
+        """(position, client id, table) of every invitee whose validated
+        table arrived but missed the cut, in position order: the async
+        service's fold candidates. () unless ``buffered``."""
+        if not self.buffered or self.payload_shape is None:
+            return ()
+        out = []
+        for a in arrivals:
+            p = pos.get(int(a.client_id))
+            if p is not None and arrived[p] == 0.0 and a.table is not None:
+                # a copy: an in-process table is a view into the session's
+                # pinned host buffer of the round's client tables, which a
+                # straggler kept for a later round would hold (and the host
+                # allocator would pin a new buffer for every round after)
+                out.append((int(p), int(a.client_id), np.array(a.table, np.float32)))
+        return tuple(sorted(out, key=lambda e: e[0]))
+
     def _finish(self, rnd, invited, arrived, lat, closed_by, close, walls,
-                tables) -> ClosedRound:
+                tables, straggler_tables: tuple = ()) -> ClosedRound:
         submitted = np.isfinite(lat)
         stragglers = int((submitted & (arrived == 0.0)).sum())
         no_shows = int((~submitted).sum())
@@ -155,7 +187,7 @@ class CohortAssembler:
         return ClosedRound(rnd=rnd, invited=invited, arrived=arrived, latencies=lat,
                            closed_by=closed_by, close_latency_s=float(close),
                            stragglers=stragglers, no_shows=no_shows, wall_ts=walls,
-                           tables=tables)
+                           tables=tables, straggler_tables=straggler_tables)
 
     def counters(self) -> dict[str, int]:
         return {

@@ -1,5 +1,5 @@
 """Ingest layer: admission control for client submissions (the port's
-copy of the JAX package's ``serve/ingest.py``, synchronous serving only).
+copy of the JAX package's ``serve/ingest.py``).
 
 A bounded, thread-safe arrival queue with explicit admission decisions:
 every submission is either ACCEPTED into an open round or rejected with a
@@ -20,7 +20,12 @@ Admission rules, in check order:
   round after the newest window ever opened is ``BUFFERED`` in the
   bounded pending queue and admitted when that round opens (announce path
   only: a sketch payload is a function of its round's params, so a table
-  for a round whose window never opened cannot exist yet).
+  for a round whose window never opened cannot exist yet). In the
+  buffered-async band (``stale_rounds`` > 0) a payload for a round closed
+  at most ``stale_rounds`` behind the newest window is admitted
+  ``ACCEPTED_STALE`` into the bounded stale buffer instead, checked against
+  that round's retained invite list, dedup set and quarantine median (not
+  the newest round's), and the service folds it into a later merge.
 - ``NOT_INVITED``  — the client is not in the round's cohort.
 - ``DUPLICATE``    — the client already has an accepted submission for
   the round.
@@ -29,14 +34,13 @@ With a payload policy (``--serve_payload sketch``) an otherwise admissible
 submission then runs ``validate_payload``, the one decode of untrusted
 wire bytes: ``MALFORMED`` (structure, layout, length prefix, checksum, a
 broken chunk sequence), ``STALE_SCHEMA`` (an unknown wire schema) or
-``QUARANTINED`` (a non-finite table; with ``clip_multiple > 0`` also a
-table whose L2 norm exceeds that multiple of the running median, which
-the port does not arm yet: ``--client_update_clip`` is refused). A
-rejected payload is bitwise a client that never submitted.
+``QUARANTINED`` (a non-finite table; with ``clip_multiple > 0``, which
+``--client_update_clip`` arms, also a table whose L2 norm exceeds that
+multiple of the round's quarantine median, the gauntlet's sketch-space
+screen). A rejected payload is bitwise a client that never submitted.
 
-The reference's buffered-async band and its zero-copy fast path
-(``StaleArrival``, ``drain_stale``, ``prune_stale``, ``restore_band``,
-``attach_block``, ``submit_block``, ``screen_block``) are not ported.
+The reference's zero-copy fast path (``attach_block``, ``submit_block``,
+``screen_block``) is not ported (ROADMAP Queue 1 item 9b).
 
 Counters are cumulative over the service's life and feed ``/metrics``;
 the wire-facing rejections also bump process-wide counters in the obs
@@ -68,6 +72,9 @@ OUT_OF_ROUND = "OUT_OF_ROUND"
 NOT_INVITED = "NOT_INVITED"
 DUPLICATE = "DUPLICATE"
 BUFFERED = "BUFFERED"  # early submission parked for the next round
+# buffered-async band: a late payload for a recently closed round, parked
+# for a staleness-weighted fold into a later merge
+ACCEPTED_STALE = "ACCEPTED_STALE"
 MALFORMED = "MALFORMED"
 STALE_SCHEMA = "STALE_SCHEMA"
 QUARANTINED = "QUARANTINED"
@@ -79,14 +86,15 @@ _REJECTION_COUNTERS = {
     STALE_SCHEMA: "serve_rejected_stale_schema_total",
     QUARANTINED: "serve_rejected_quarantined_total",
     SHEDDING: "serve_shed_total",
+    ACCEPTED_STALE: "serve_stale_admitted_total",
 }
 # windows open at once (the serial service opens one; the reference's
 # pipelined service, not ported, two)
 MAX_OPEN_ROUNDS = 2
 # every decision also counts as serve_admission_<decision>_total
 _ADMISSION_COUNTERS = {s: f"serve_admission_{s.lower()}_total" for s in (
-    ACCEPTED, CLOSED, QUEUE_FULL, OUT_OF_ROUND, NOT_INVITED, DUPLICATE, BUFFERED, MALFORMED,
-    STALE_SCHEMA, QUARANTINED, SHEDDING)}
+    ACCEPTED, CLOSED, QUEUE_FULL, OUT_OF_ROUND, NOT_INVITED, DUPLICATE, BUFFERED, ACCEPTED_STALE,
+    MALFORMED, STALE_SCHEMA, QUARANTINED, SHEDDING)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,6 +125,20 @@ class Arrival:
     recv_order: int
     wall_t: float = 0.0
     table: Any = None
+
+
+@dataclasses.dataclass(frozen=True)
+class StaleArrival:
+    """A late payload admitted into the buffered-async band: the validated
+    table and the round it answered, whose lag to the merge round fixes
+    its weight."""
+
+    round: int
+    client_id: int
+    latency_s: float
+    recv_order: int
+    wall_t: float
+    table: Any
 
 
 @dataclasses.dataclass(frozen=True)
@@ -270,15 +292,23 @@ class _Window:
 
 class IngestQueue:
     """Bounded arrival queue over up to ``MAX_OPEN_ROUNDS`` open per-round
-    windows, plus a bounded pending buffer of early submissions.
-    Thread-safe: transports submit from their own threads; the assembler
-    consumes under the same lock."""
+    windows, plus a bounded pending buffer of early submissions and, with
+    ``stale_rounds`` > 0, the buffered-async band: a bounded stale buffer
+    (``stale_capacity``) of late payloads for rounds closed at most
+    ``stale_rounds`` behind the newest window, each closed round's screen
+    state (median, invite map, dedup set) kept while it is in the band.
+    ``stale_rounds`` 0 (the sync service) keeps none of it. Thread-safe:
+    transports submit from their own threads; the assembler consumes under
+    the same lock."""
 
     def __init__(self, capacity: int = 1024, pending_capacity: int = 256,
                  payload_policy: PayloadPolicy | None = None, shed_watermark: float = 0.0,
-                 shed_retry_after_s: float = 1.0):
+                 shed_retry_after_s: float = 1.0, stale_rounds: int = 0,
+                 stale_capacity: int = 256):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
+        if stale_rounds < 0:
+            raise ValueError(f"stale_rounds must be >= 0, got {stale_rounds}")
         if not 0.0 <= shed_watermark <= 1.0:
             raise ValueError(f"shed_watermark must be in [0, 1] (a fraction of total queue "
                              f"capacity; 0 = shedding off), got {shed_watermark}")
@@ -286,15 +316,24 @@ class IngestQueue:
         self.pending_capacity = max(pending_capacity, 0)
         # None = announce path: payloads are not decoded
         self.payload_policy = payload_policy
+        # the buffered-async band; its capacity exists only with the band,
+        # so a sync queue's depth and watermark are unchanged
+        self.stale_rounds = stale_rounds
+        self.stale_capacity = max(stale_capacity, 0) if stale_rounds else 0
         # depth at or past this share of the total capacity (one window's
-        # arrivals + pending) sheds submissions; 0 = off
-        self._shed_depth = (max(int(shed_watermark * (capacity + self.pending_capacity)), 1)
+        # arrivals + pending + the stale band) sheds submissions; 0 = off
+        self._shed_depth = (max(int(shed_watermark * (capacity + self.pending_capacity
+                                                      + self.stale_capacity)), 1)
                             if shed_watermark > 0 else 0)
         self.shed_retry_after_s = shed_retry_after_s
         self._cv = threading.Condition()
         self._windows: dict[int, _Window] = {}
         # the newest round ever opened; the pending buffer targets _newest + 1
         self._newest: int | None = None
+        # closed rounds in the band: round -> (median, invited, seen), so a
+        # late payload is screened against the state its round had
+        self._recent: dict[int, tuple[float, dict[int, int], set[int]]] = {}
+        self._stale: list[StaleArrival] = []
         self._closed = False
         # early submissions for round _newest + 1: (client_id, latency_s),
         # in arrival order, deduped; admitted at the window's open
@@ -305,6 +344,7 @@ class IngestQueue:
         self.on_accept = None
         self.accepted = 0
         self.buffered = 0
+        self.accepted_stale = 0
         self.rejected_full = 0
         self.rejected_dup = 0
         self.rejected_out_of_round = 0
@@ -344,6 +384,13 @@ class IngestQueue:
             win = _Window({int(c): i for i, c in enumerate(invited_ids)}, median)
             self._windows[rnd] = win
             self._newest = rnd if self._newest is None else max(self._newest, rnd)
+            # the band moves with the newest window
+            if self.stale_rounds:
+                low = self._newest - self.stale_rounds
+                for r in [r for r in self._recent if r < low]:
+                    del self._recent[r]
+            else:
+                self._recent.clear()
             still_pending: list[tuple[int, float]] = []
             for cid, latency in self._pending:
                 if cid in win.invited and cid not in win.seen:
@@ -356,14 +403,19 @@ class IngestQueue:
     def close_round(self, rnd: int | None = None) -> list[Arrival]:
         """Close one open window (None = the oldest) and return its
         arrivals in submission order; later submissions naming it are
-        OUT_OF_ROUND."""
+        OUT_OF_ROUND, or ACCEPTED_STALE inside the async band."""
         with self._cv:
             if rnd is None:
                 if not self._windows:
                     return []
                 rnd = min(self._windows)
             win = self._windows.pop(rnd, None)
-            return [] if win is None else list(win.arrivals)
+            if win is None:
+                return []
+            if self.stale_rounds:
+                # the round's screen state, kept for the band
+                self._recent[rnd] = (win.median, win.invited, win.seen)
+            return list(win.arrivals)
 
     def arrivals(self, rnd: int | None = None) -> list[Arrival]:
         """Snapshot of an open round's arrivals so far (None = oldest)."""
@@ -416,15 +468,17 @@ class IngestQueue:
     def _decide(self, sub: Submission) -> str:
         cid = int(sub.client_id)
         with self._cv:
-            status = self._precheck(sub, cid)
+            status, stale_median = self._precheck(sub, cid)
             if status is not None:
                 return status
-            win = self._windows[sub.round]
+            win = self._windows.get(sub.round)
             if self.payload_policy is None:
                 self._admit(win, cid, float(sub.latency_s))
                 self._cv.notify_all()
                 return ACCEPTED
-            median = win.median
+            # a stale-band candidate is screened against its own round's
+            # retained median
+            median = win.median if win is not None else stale_median
         # the payload decode runs outside the lock (base64, crc32 and numpy
         # over up to a frame cap of bytes), then the admission re-checks
         table, decision, detail = validate_payload(sub.payload, self.payload_policy,
@@ -446,9 +500,9 @@ class IngestQueue:
                 return CLOSED
             win = self._windows.get(sub.round)
             if win is None:
-                # the window closed while this thread decoded
-                self.rejected_out_of_round += 1
-                return OUT_OF_ROUND
+                # a late payload, or the window closed while this thread
+                # decoded: the band may take it
+                return self._admit_stale(sub, cid, table)
             if cid in win.seen:
                 self.rejected_dup += 1
                 return DUPLICATE
@@ -459,21 +513,25 @@ class IngestQueue:
             self._cv.notify_all()
             return ACCEPTED
 
-    def _precheck(self, sub: Submission, cid: int) -> str | None:
-        """Every check before the payload decode (lock held): the decision,
-        or None when the submission is admissible so far."""
+    def _precheck(self, sub: Submission, cid: int) -> tuple[str | None, float]:
+        """Every check before the payload decode (lock held): (the decision,
+        or None when the submission is admissible so far; the round's
+        retained median when it is a stale-band candidate)."""
         if self._closed:
             self.rejected_closed += 1
-            return CLOSED
+            return CLOSED, 0.0
         if self._shed_depth and self.depth_locked() >= self._shed_depth:
             win = self._windows.get(sub.round)
-            if win is not None and cid in win.seen:
-                # at-least-once under overload: a retry of an admitted
-                # submission hears DUPLICATE (success), not SHEDDING
+            recent = self._recent.get(sub.round)
+            if (win is not None and cid in win.seen) or (recent is not None
+                                                         and cid in recent[2]):
+                # at-least-once under overload: a retry of a submission
+                # admitted into the window or the stale band hears DUPLICATE
+                # (success), not SHEDDING
                 self.rejected_dup += 1
-                return DUPLICATE
+                return DUPLICATE, 0.0
             self.shed += 1
-            return SHEDDING
+            return SHEDDING, 0.0
         win = self._windows.get(sub.round)
         if win is None:
             if (self._newest is not None and sub.round == self._newest + 1
@@ -483,25 +541,66 @@ class IngestQueue:
                 # even when the buffer is full)
                 if any(c == cid for c, _ in self._pending):
                     self.rejected_dup += 1
-                    return DUPLICATE
+                    return DUPLICATE, 0.0
                 if len(self._pending) >= self.pending_capacity:
                     self.rejected_full += 1
-                    return QUEUE_FULL
+                    return QUEUE_FULL, 0.0
                 self._pending.append((cid, float(sub.latency_s)))
                 self.buffered += 1
-                return BUFFERED
+                return BUFFERED, 0.0
+            # late: the async band takes a payload for a recently closed
+            # round, checked against that round's state
+            recent = self._recent.get(sub.round) if self.payload_policy is not None else None
+            if recent is not None:
+                _, invited, seen = recent
+                if cid not in invited:
+                    self.rejected_uninvited += 1
+                    return NOT_INVITED, 0.0
+                if cid in seen:
+                    self.rejected_dup += 1
+                    return DUPLICATE, 0.0
+                if len(self._stale) >= self.stale_capacity:
+                    self.rejected_full += 1
+                    return QUEUE_FULL, 0.0
+                return None, recent[0]
             self.rejected_out_of_round += 1
-            return OUT_OF_ROUND
+            return OUT_OF_ROUND, 0.0
         if cid not in win.invited:
             self.rejected_uninvited += 1
-            return NOT_INVITED
+            return NOT_INVITED, 0.0
         if cid in win.seen:
             self.rejected_dup += 1
-            return DUPLICATE
+            return DUPLICATE, 0.0
         if len(win.arrivals) >= self.capacity:
             self.rejected_full += 1
+            return QUEUE_FULL, 0.0
+        return None, 0.0
+
+    def _admit_stale(self, sub: Submission, cid: int, table) -> str:
+        """Admit a validated late payload into the stale buffer (lock held),
+        after the checks ``_precheck`` ran again: the band may have moved
+        while this thread decoded."""
+        recent = self._recent.get(sub.round)
+        if recent is None:
+            self.rejected_out_of_round += 1
+            return OUT_OF_ROUND
+        _, invited, seen = recent
+        if cid not in invited:
+            self.rejected_uninvited += 1
+            return NOT_INVITED
+        if cid in seen:
+            self.rejected_dup += 1
+            return DUPLICATE
+        if len(self._stale) >= self.stale_capacity:
+            self.rejected_full += 1
             return QUEUE_FULL
-        return None
+        seen.add(cid)
+        self._stale.append(StaleArrival(int(sub.round), cid, float(sub.latency_s),
+                                        self._recv_counter, time.perf_counter(), table))
+        self._recv_counter += 1
+        self.accepted_stale += 1
+        self._cv.notify_all()
+        return ACCEPTED_STALE
 
     def _admit(self, win: _Window, cid: int, latency_s: float, table=None) -> None:
         """Record an accepted arrival into a window (lock held)."""
@@ -513,14 +612,38 @@ class IngestQueue:
         if self.on_accept is not None:
             self.on_accept(1)
 
+    def drain_stale(self) -> list[StaleArrival]:
+        """Hand the parked late payloads to the service (which folds them
+        into a merge) and clear the buffer."""
+        with self._cv:
+            out, self._stale = self._stale, []
+            return out
+
+    def prune_stale(self, rnd: int) -> int:
+        """Drop parked late payloads and kept band state of rounds >= ``rnd``
+        and rewind the newest-window mark below ``rnd``: the rewind's queue
+        half, so a round that never committed is served again with no
+        pre-rewind twin of its late payloads, and the replay's BUFFERED and
+        OUT_OF_ROUND verdicts are the original run's. Returns how many
+        parked payloads it dropped."""
+        with self._cv:
+            before = len(self._stale)
+            self._stale = [a for a in self._stale if a.round < rnd]
+            for r in [r for r in self._recent if r >= rnd]:
+                del self._recent[r]
+            if self._newest is not None and self._newest >= rnd:
+                self._newest = rnd - 1 if rnd > 0 else None
+            return before - len(self._stale)
+
     # -- introspection --------------------------------------------------
 
     def depth_locked(self) -> int:
-        return sum(len(w.arrivals) for w in self._windows.values()) + len(self._pending)
+        return (sum(len(w.arrivals) for w in self._windows.values()) + len(self._pending)
+                + len(self._stale))
 
     def depth(self) -> int:
-        """Arrivals across every open window plus parked early submissions
-        (the queue depth ``/metrics`` reports)."""
+        """Arrivals across every open window plus parked early and late
+        submissions (the queue depth ``/metrics`` reports)."""
         with self._cv:
             return self.depth_locked()
 
@@ -539,11 +662,49 @@ class IngestQueue:
         with self._cv:
             self._pending = [(int(c), float(s)) for c, s in pending]
 
+    def band_snapshot(self) -> dict:
+        """The async band's state, which a resumed or rewound run needs for
+        its folds to replay bitwise: the parked late payloads (tables
+        included), the kept screen state of closed rounds, the newest-window
+        mark and the admission counter. Tables stay ndarrays; the service
+        encodes them for a checkpoint."""
+        with self._cv:
+            return self._band_snapshot_locked()
+
+    def _band_snapshot_locked(self) -> dict:
+        return {
+            "stale": [(a.round, a.client_id, a.latency_s, a.recv_order, a.wall_t, a.table)
+                      for a in self._stale],
+            "recent": [(r, m, dict(inv), set(seen)) for r, (m, inv, seen) in self._recent.items()],
+            "newest": self._newest,
+            "recv_counter": self._recv_counter,
+        }
+
+    def boundary_snapshot(self) -> tuple[list, dict]:
+        """(pending, band) under one lock hold: a round boundary's
+        checkpoint pair, which a submission between two separate reads
+        could tear."""
+        with self._cv:
+            return list(self._pending), self._band_snapshot_locked()
+
+    def restore_band(self, band: dict) -> None:
+        """Re-seed the async band from a snapshot (the committed boundary's,
+        on a rewind or a resume)."""
+        with self._cv:
+            self._stale = [StaleArrival(int(r), int(c), float(lat), int(ro), float(w), t)
+                           for r, c, lat, ro, w, t in band.get("stale", [])]
+            self._recent = {int(r): (float(m), {int(c): int(p) for c, p in inv.items()},
+                                     {int(c) for c in seen})
+                            for r, m, inv, seen in band.get("recent", [])}
+            self._newest = None if band.get("newest") is None else int(band["newest"])
+            self._recv_counter = int(band.get("recv_counter", self._recv_counter))
+
     def counters(self) -> dict[str, int]:
         with self._cv:
             return {
                 "accepted": self.accepted,
                 "buffered": self.buffered,
+                "accepted_stale": self.accepted_stale,
                 "rejected_full": self.rejected_full,
                 "rejected_dup": self.rejected_dup,
                 "rejected_out_of_round": self.rejected_out_of_round,

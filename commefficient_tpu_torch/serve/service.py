@@ -1,6 +1,6 @@
 """The aggregation service: a running server over the session (the port's
-copy of the JAX package's ``serve/service.py``, the synchronous serial
-service).
+copy of the JAX package's ``serve/service.py``: the sync and the
+buffered-async service, serial or pipelined).
 
 ``AggregationService`` owns the serving stack (ingest queue, transport,
 cohort assembler, traffic, metrics endpoint) and gives the run loop a
@@ -46,19 +46,38 @@ Every rank then prepares and merges exactly the bytes that crossed rank
 0's wire, so a group's run is bitwise its one-device served twin (the
 emulation at ``client_shards`` S), under the wire fault kinds too.
 
-Checkpoints: the early-submission buffer is snapshotted at every round
-boundary and published through ``session.serve_meta`` (meta.json
-"serve"); a restored session's ``restored_serve_meta`` re-seeds it, so a
-resumed run replays the arrival stream of the uninterrupted one.
+The buffered-async service (``--serve_async``, FedBuff-shaped): a round
+closes at ``--serve_buffer`` validated tables instead of the quorum, and a
+late table is not discarded but folded into a later merge with weight
+(1 + lag) ** -``--serve_staleness``: a straggler that arrived after the
+cut (``ClosedRound.straggler_tables``), or a payload for a round closed at
+most ``--serve_stale_rounds`` ago, which the ingest band admits
+ACCEPTED_STALE against that round's own screen state. At each payload
+close ``_build_stale_fold`` fills up to ``session.cfg.stale_slots`` slots
+in (source round, cohort position, admission order) order; entries older
+than the band are dropped and counted, overflow waits for the next round.
+The straggler is masked and queued at its own close all the same. A round
+with no late table hands the merge no fold, so an async run where every
+client is on time is bitwise the sync run. On a group rank 0 broadcasts
+the filled slots and their count after the close (``_share_close``), and
+every rank folds the same bytes in the same order.
 
-Not ported (ROADMAP Queue 1 item 9b): the buffered-async service, the
-zero-copy fast path, sharded ingest and the edge tree. ``ServeConfig`` has
-no field for them, and the CLIs refuse their flags by name
-(``utils/config.py``).
+Checkpoints: the early-submission buffer (and, async, the whole stale
+band: parked late tables, the closed rounds' screen state, the straggler
+stash and stale-poison tables in flight, through the reference's codec) is
+snapshotted at every round boundary and published through
+``session.serve_meta`` (meta.json "serve"); a restored session's
+``restored_serve_meta`` re-seeds it, so a resumed run replays the arrival
+stream and the folds of the uninterrupted one.
+
+Not ported (ROADMAP Queue 1 item 9b): the zero-copy fast path, sharded
+ingest and the edge tree. ``ServeConfig`` has no field for them, and the
+CLIs refuse their flags by name (``utils/config.py``).
 """
 
 from __future__ import annotations
 
+import base64
 import contextlib
 import dataclasses
 import sys
@@ -71,10 +90,61 @@ import torch
 from ..obs import registry as obreg
 from ..obs import trace as obtrace
 from .assembler import ClosedRound, CohortAssembler
-from .ingest import IngestQueue, PayloadPolicy
+from .ingest import IngestQueue, PayloadPolicy, Submission
 from .metrics import MetricsServer
 from .traffic import TraceConfig, TrafficGenerator
 from .transport import InProcessTransport, SocketTransport, abort_over_socket, submit_over_socket
+
+
+# -- the stale band's checkpoint codec (the reference's, field for field, so
+# a band written by either package reads in the other). meta.json needs
+# JSON: base64 of a table's raw little-endian float32 bytes is exact.
+
+
+def _enc_table(t) -> dict:
+    a = np.ascontiguousarray(np.asarray(t, np.float32))
+    return {"shape": list(a.shape), "b64": base64.b64encode(a.tobytes()).decode("ascii")}
+
+
+def _dec_table(d) -> np.ndarray:
+    # the run's own checkpoint meta (tables that passed the validation when
+    # they arrived), never wire input
+    return np.frombuffer(base64.b64decode(d["b64"]), np.float32).reshape(d["shape"]).copy()
+
+
+def _enc_band(band: dict, stash, poison) -> dict:
+    """meta.json's "band": (the queue's band snapshot, the service's stale
+    stash, the stale-poison tables in flight)."""
+    return {
+        "stale": [[int(r), int(c), float(lat), int(ro), _enc_table(t)]
+                  for r, c, lat, ro, _w, t in band["stale"]],
+        "recent": [[int(r), float(m), [[int(c), int(p)] for c, p in inv.items()],
+                    sorted(int(c) for c in seen)]
+                   for r, m, inv, seen in band["recent"]],
+        "newest": band["newest"],
+        "recv_counter": int(band["recv_counter"]),
+        "stash": [[int(sr), int(pos), int(cid), _enc_table(t)] for sr, pos, cid, t in stash],
+        "poison": [[int(sr), int(pos), int(cid), _enc_table(t)] for sr, pos, cid, t in poison],
+    }
+
+
+def _dec_band(enc: dict):
+    """The inverse of ``_enc_band``: (queue band, stash, poison). An
+    admission's wall time restarts at 0.0 (it feeds only the latency
+    histogram, and a resumed process has a new clock)."""
+    band = {
+        "stale": [(int(r), int(c), float(lat), int(ro), 0.0, _dec_table(t))
+                  for r, c, lat, ro, t in enc.get("stale", [])],
+        "recent": [(int(r), float(m), {int(c): int(p) for c, p in inv}, {int(c) for c in seen})
+                   for r, m, inv, seen in enc.get("recent", [])],
+        "newest": enc.get("newest"),
+        "recv_counter": int(enc.get("recv_counter", 0)),
+    }
+    stash = [(int(sr), int(pos), int(cid), _dec_table(t))
+             for sr, pos, cid, t in enc.get("stash", [])]
+    poison = [(int(sr), int(pos), int(cid), _dec_table(t))
+              for sr, pos, cid, t in enc.get("poison", [])]
+    return band, stash, poison
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +175,15 @@ class ServeConfig:
     # --serve_pipeline: the serve cycle runs ahead on the pipeline's worker
     # (serve/pipeline.py), bitwise the serial source
     pipeline: bool = False
+    # --serve_async: the buffered-async service (module docstring). The
+    # close fires at buffer_size validated tables (0 = the quorum), late
+    # tables fold with weight (1 + lag) ** -staleness_alpha while at most
+    # stale_rounds behind; needs payload "sketch" and a session built with
+    # stale_slots > 0
+    async_mode: bool = False
+    buffer_size: int = 0
+    staleness_alpha: float = 0.5
+    stale_rounds: int = 1
 
     @classmethod
     def from_args(cls, args) -> "ServeConfig":
@@ -113,12 +192,33 @@ class ServeConfig:
             port=args.serve_port, metrics_port=args.serve_metrics_port,
             payload=args.serve_payload, shed_watermark=args.serve_shed_watermark,
             socket_transport=args.serve_transport, max_conns=args.serve_max_conns,
-            pipeline=args.serve_pipeline)
+            pipeline=args.serve_pipeline, async_mode=args.serve_async,
+            buffer_size=args.serve_buffer, staleness_alpha=args.serve_staleness,
+            stale_rounds=args.serve_stale_rounds)
 
 
 def _check_payload_session(session, cfg: ServeConfig) -> None:
     if cfg.payload not in ("announce", "sketch"):
         raise ValueError(f"--serve_payload must be announce|sketch, got {cfg.payload!r}")
+    if cfg.async_mode:
+        if cfg.payload != "sketch":
+            raise ValueError("--serve_async merges client tables as they arrive; the announce "
+                             "path has no client-computed table to merge - arm "
+                             "--serve_payload sketch")
+        if session.cfg.stale_slots <= 0:
+            raise ValueError("--serve_async needs a session built with stale_slots > 0 (the "
+                             "CLIs arm it from the flag): the staleness-weighted fold takes "
+                             "its late tables through those slots")
+        if cfg.stale_rounds < 1:
+            raise ValueError(f"--serve_stale_rounds must be >= 1 in async mode, got "
+                             f"{cfg.stale_rounds} (0 stale rounds IS sync)")
+        if cfg.staleness_alpha < 0:
+            raise ValueError(f"--serve_staleness must be >= 0, got {cfg.staleness_alpha} "
+                             "(0 = unweighted folds)")
+    elif cfg.buffer_size:
+        raise ValueError("--serve_buffer is the ASYNC buffer-size trigger; without "
+                         "--serve_async the close discipline is the W-of-N quorum "
+                         "(--serve_quorum)")
     if cfg.payload == "sketch" and not session.cfg.wire_payloads:
         raise ValueError("--serve_payload sketch needs a session built with "
                          "wire_payloads=True (the CLIs arm it from the flag): the "
@@ -189,15 +289,36 @@ class AggregationService:
                 clip_multiple=float(session.cfg.client_update_clip),
                 quarantine_median=session.quarantine_median_host)
         self.session = session
-        self.cfg = dataclasses.replace(cfg, quorum=quorum)
+        # async: the quorum becomes the buffer-size trigger (the close fires
+        # when that many validated tables are in); sync keeps the quorum
+        trigger = (min(cfg.buffer_size or quorum, session.num_workers) if cfg.async_mode
+                   else quorum)
+        if trigger < 1:
+            raise ValueError(f"--serve_buffer must be >= 1, got {trigger}")
+        self.cfg = dataclasses.replace(cfg, quorum=quorum, buffer_size=trigger)
         self.traffic = traffic
         self.queue = IngestQueue(capacity=cfg.queue_capacity,
                                  pending_capacity=cfg.pending_capacity,
                                  payload_policy=payload_policy,
                                  shed_watermark=cfg.shed_watermark,
-                                 shed_retry_after_s=cfg.shed_retry_after_s)
-        self.assembler = CohortAssembler(self.queue, quorum, cfg.deadline_s,
-                                         payload_shape=payload_shape)
+                                 shed_retry_after_s=cfg.shed_retry_after_s,
+                                 # the async band: late payloads for recently
+                                 # closed rounds park for the fold
+                                 stale_rounds=cfg.stale_rounds if cfg.async_mode else 0,
+                                 stale_capacity=session.cfg.stale_slots)
+        self.assembler = CohortAssembler(self.queue, trigger, cfg.deadline_s,
+                                         payload_shape=payload_shape,
+                                         buffered=cfg.async_mode)
+        # the async stash: (source round, cohort position, client id, table)
+        # of late tables waiting for their fold, from each close's
+        # stragglers and the queue's band; touched by the serve cycle only
+        # (the pipeline's worker when pipelined)
+        self._stale_stash: list[tuple[int, int, int, np.ndarray]] = []
+        # client_stale_poison's second halves: (source round, position,
+        # client id, poisoned table), withheld at their close and submitted
+        # into the band at the next round's serving; band state like any
+        # other
+        self._stale_poison_pending: list[tuple[int, int, int, np.ndarray]] = []
         if cfg.transport == "socket":
             cap = {"max_conns": cfg.max_conns} if cfg.max_conns else {}
             if cfg.socket_transport == "eventloop":
@@ -219,17 +340,28 @@ class AggregationService:
         self._unmerged: list[ClosedRound] = []
         self.metrics_server = (MetricsServer(self.metrics_snapshot, port=cfg.metrics_port)
                                if cfg.metrics_port >= 0 else None)
-        # _pending_by_round[r]: the early-submission buffer a run positioned
-        # at committed round r starts from (checkpoints write the committed
-        # one)
+        # _pending_by_round[r] and _band_by_round[r]: the early-submission
+        # buffer and (async; None sync) the whole stale band a run
+        # positioned at committed round r starts from (checkpoints write
+        # the committed ones, a rewind restores them)
         self._meta_lock = threading.Lock()
         self._pending_by_round: dict[int, list] = {}
+        self._band_by_round: dict[int, tuple | None] = {}
         restored = session.restored_serve_meta
         if restored:
             self.queue.restore_pending(restored.get("pending", []))
             print(f"serve: restored {len(restored.get('pending', []))} pending early "
                   "submission(s) from checkpoint meta", file=sys.stderr, flush=True)
-        self._pending_by_round[session.round] = self.queue.pending_snapshot()
+            if restored.get("band") is not None and cfg.async_mode:
+                band, stash, poison = _dec_band(restored["band"])
+                self.queue.restore_band(band)
+                self._stale_stash, self._stale_poison_pending = stash, poison
+                print(f"serve: restored stale band from checkpoint meta ({len(band['stale'])} "
+                      f"parked, {len(stash)} stashed, {len(poison)} poison-pending)",
+                      file=sys.stderr, flush=True)
+        pending, band = self._boundary_state()
+        self._pending_by_round[session.round] = pending
+        self._band_by_round[session.round] = band
         # the checkpoint hook: utils/checkpoint.save calls it under the
         # session's mutate_lock and writes the result into meta.json
         session.serve_meta = self._serve_meta
@@ -269,17 +401,27 @@ class AggregationService:
             return not stopping
         return _agree(self.group, not stopping)
 
-    def _share_close(self, closed: ClosedRound, rnd: int) -> None:
+    def _share_close(self, closed: ClosedRound, rnd: int, stale=None) -> None:
         """On a group: the close to every rank (the arrival mask, and a
         payload round's validated stack), as the followers' ``_receive``
-        takes it. The bits rank 0 merges are the ones it sent."""
+        takes it. Async, a first broadcast carries the mask and the count
+        of filled stale slots, a second the stack and those slots' tables
+        and weights (only the filled ones). The bits rank 0 merges are the
+        ones it sent."""
         if self.group is None:
             return
         from ..parallel import distributed
 
         with self._stage("broadcast", rnd):
             parts = [torch.from_numpy(closed.arrived)]
-            if closed.tables is not None:
+            if self.cfg.async_mode:
+                k = 0 if stale is None else len(stale[1])
+                distributed.broadcast_from_root(
+                    parts + [torch.tensor([k], dtype=torch.int64)], self.group)
+                parts = [torch.from_numpy(closed.tables)]
+                if k:
+                    parts += [torch.from_numpy(stale[0]), torch.from_numpy(stale[1])]
+            elif closed.tables is not None:
                 parts.append(torch.from_numpy(closed.tables))
             distributed.broadcast_from_root(parts, self.group)
 
@@ -349,16 +491,105 @@ class AggregationService:
             if self.traffic is not None:
                 plan = self.session.fault_plan
                 wire = plan.wire_plan(rnd, len(ids)) if plan is not None else None
+                if self.cfg.async_mode and plan is not None and plan.has_stale_poison():
+                    # the stale-band attack's first half: the scheduled
+                    # positions withhold their on-time payload (a no-show at
+                    # this close), and the poisoned table waits for a late
+                    # submission at the next round's serving, where it is
+                    # screened against this round's kept median
+                    wire = dict(wire or {})
+                    for pos, factor in plan.stale_poison_plan(rnd, len(ids)):
+                        wire.setdefault(int(pos), {})["withhold"] = True
+                        self._stale_poison_pending.append(
+                            (rnd, int(pos), int(ids[pos]),
+                             np.asarray(factor * tables[pos], np.float32)))
                 submit, abort = self._submit_fns()
                 self.traffic.respond_to_invites(rnd, ids, submit, self.cfg.deadline_s,
                                                 payloads=tables, wire=wire, abort=abort)
                 closed = self.assembler.close_virtual(rnd, ids)
             else:
                 closed = self.assembler.close_wall(rnd, ids)
-        self._share_close(closed, rnd)
+        stale = None
+        if self.cfg.async_mode:
+            with self._stage("prep", rnd):
+                # the poison's late half goes through the real admission
+                # band first, then the fold is built, then this close's
+                # stragglers wait for a later one
+                self._submit_stale_poison(rnd)
+                stale = self._build_stale_fold(rnd)
+                self._stash_stragglers(closed)
+        self._share_close(closed, rnd, stale)
         with self._stage("prep", rnd):
-            prep = self.session.finish_served_payload(prep0, closed.arrived, closed.tables, aux)
+            prep = self.session.finish_served_payload(prep0, closed.arrived, closed.tables, aux,
+                                                      stale=stale)
         return prep, closed
+
+    def _submit_stale_poison(self, rnd: int) -> None:
+        """Push the due stale-poison tables (withheld at an earlier close) as
+        late submissions for their source round, through the transport a
+        client uses. The band decides: ACCEPTED_STALE inside it and the
+        screen, QUARANTINED over the screen, OUT_OF_ROUND aged out."""
+        due = [e for e in self._stale_poison_pending if e[0] < rnd]
+        if not due:
+            return
+        self._stale_poison_pending = [e for e in self._stale_poison_pending if e[0] >= rnd]
+        submit, _ = self._submit_fns()
+        for sr, pos, cid, table in due:
+            status = submit(Submission(client_id=int(cid), round=int(sr), latency_s=0.0,
+                                       payload=table))
+            obtrace.instant("serve-ingest", "stale_poison_submit", round=int(rnd),
+                            source_round=int(sr), client=int(cid), status=status)
+            print(f"serve: stale-poison table from client {cid} (round {sr}) submitted late "
+                  f"-> {status}", file=sys.stderr, flush=True)
+
+    def _stash_stragglers(self, closed: ClosedRound) -> None:
+        """Keep a close's validated tables that missed the cut for a later
+        fold. The client is masked and queued at this close all the same
+        (it missed this round): the fold keeps its work, the queue its
+        turn."""
+        for pos, cid, table in closed.straggler_tables:
+            self._stale_stash.append((int(closed.rnd), pos, cid, table))
+
+    def _build_stale_fold(self, rnd: int):
+        """Round ``rnd``'s fold: the stash plus the queue's late admissions,
+        each weighted (1 + lag) ** -alpha, lag = rnd - source round. An
+        entry more than ``stale_rounds`` behind is dropped (counted);
+        overflow past the session's ``stale_slots`` waits for the next
+        round (to merge then or age out then, never both). Slots are filled
+        in (source round, cohort position) order, a late admission's
+        position being num_workers + its admission order: a function of
+        the submissions, never of wall time. Returns the filled slots
+        ([n, r, c] tables, [n] weights), or None when nothing is due (the
+        round then runs the plain merge)."""
+        for a in self.queue.drain_stale():
+            self._stale_stash.append((int(a.round), self.session.num_workers + int(a.recv_order),
+                                      int(a.client_id), a.table))
+        if not self._stale_stash:
+            return None
+        keep, dropped = [], 0
+        for e in self._stale_stash:
+            if rnd - e[0] > self.cfg.stale_rounds:
+                dropped += 1  # too stale to be worth its noise
+            else:
+                keep.append(e)
+        keep.sort(key=lambda e: (e[0], e[1]))
+        ready = [e for e in keep if rnd - e[0] >= 1][:self.session.cfg.stale_slots]
+        folded = {(sr, cid) for sr, _, cid, _ in ready}
+        self._stale_stash = [e for e in keep if (e[0], e[2]) not in folded]
+        if dropped:
+            self.registry.counter("serve_stale_dropped_total").inc(dropped)
+            print(f"serve: dropped {dropped} stale table(s) aged past the "
+                  f"{self.cfg.stale_rounds}-round band", file=sys.stderr, flush=True)
+        if not ready:
+            return None
+        tables = np.stack([np.asarray(t, np.float32) for _, _, _, t in ready])
+        weights = np.array([(1.0 + (rnd - sr)) ** -self.cfg.staleness_alpha
+                            for sr, _, _, _ in ready], np.float32)
+        for sr, _, cid, _ in ready:
+            obtrace.instant("serve-ingest", "stale_fold", round=int(rnd), source_round=int(sr),
+                            client=int(cid))
+        self.registry.counter("serve_stale_folded_total").inc(len(ready))
+        return tables, weights
 
     def record_merges(self, committed_round: int | None = None) -> int:
         """Resolve the submission-to-merge latency of every closed round the
@@ -382,41 +613,73 @@ class AggregationService:
 
     # -- checkpoint and metrics surfaces --------------------------------
 
+    def _boundary_state(self):
+        """(pending, band) of a round boundary: the queue's half under one
+        lock hold (a submission between two reads would tear it), and
+        async the stash and stale-poison lists, which only the serve cycle
+        changes; band is None on a sync service. Validated tables do not
+        change, so the references are a frozen view; they are encoded when
+        a checkpoint is written."""
+        pending, qband = self.queue.boundary_snapshot()
+        band = ((qband, list(self._stale_stash), list(self._stale_poison_pending))
+                if self.cfg.async_mode else None)
+        return pending, band
+
     def _record_boundary(self, next_round: int) -> None:
-        """Snapshot the pending buffer as the state a run positioned at
-        ``next_round`` starts from; drop snapshots behind the committed
-        round."""
-        pending = self.queue.pending_snapshot()
+        """Snapshot the pending buffer (and, async, the stale band) as the
+        state a run positioned at ``next_round`` starts from; drop
+        snapshots behind the committed round."""
+        pending, band = self._boundary_state()
         with self._meta_lock:
             self._pending_by_round[next_round] = pending
+            self._band_by_round[next_round] = band
             committed = self.session.round
             for r in [r for r in self._pending_by_round if r < committed]:
                 del self._pending_by_round[r]
+                self._band_by_round.pop(r, None)
 
     def _serve_meta(self) -> dict:
-        """The checkpoint block: the pending buffer as of the committed round
-        (the caller holds the session's mutate_lock)."""
+        """The checkpoint block: the pending buffer (and, async, the whole
+        stale band) as of the committed round (the caller holds the
+        session's mutate_lock), so a resume with late tables in flight
+        replays the uninterrupted run's folds."""
         with self._meta_lock:
             committed = self.session.round
-            pending = self._pending_by_round.get(committed)
-            if pending is None:
-                pending = self.queue.pending_snapshot()
-            return {"round": committed, "pending": [[int(c), float(s)] for c, s in pending]}
+            if committed in self._pending_by_round:
+                pending = self._pending_by_round[committed]
+                band = self._band_by_round.get(committed)
+            else:
+                pending, band = self._boundary_state()
+            out = {"round": committed, "pending": [[int(c), float(s)] for c, s in pending]}
+            if band is not None:
+                out["band"] = _enc_band(*band)
+            return out
 
     def rewind_to_committed(self) -> None:
-        """Restore the live pending buffer to the committed boundary (the
-        twin of run_loop's host-RNG rewind), close any window left open and
-        drop served rounds that never committed, so a session and service
-        reused after an interrupted loop replay identically."""
+        """Restore the live pending buffer (and the stale band) to the
+        committed boundary (the twin of run_loop's host-RNG rewind), close
+        any window left open, drop the band's state of rounds that never
+        committed and the served rounds that never committed, so a session
+        and service reused after an interrupted loop replay identically."""
         committed = self.session.round
         for r in self.queue.open_rounds():
             if r >= committed:
                 self.queue.close_round(r)
+        # late payloads for a round served again must not meet their own
+        # replay
+        self.queue.prune_stale(committed)
         with self._meta_lock:
             pending = self._pending_by_round.get(committed)
+            band = self._band_by_round.get(committed)
             self._unmerged = [c for c in self._unmerged if c.rnd < committed]
         if pending is not None:
             self.queue.restore_pending(pending)
+        if band is not None:
+            # the whole band as the committed boundary had it: what the
+            # uncommitted rounds drained, stashed or counted comes back
+            qband, stash, poison = band
+            self.queue.restore_band(qband)
+            self._stale_stash, self._stale_poison_pending = list(stash), list(poison)
 
     def metrics_snapshot(self) -> dict:
         """The ``/metrics`` payload (``serve/metrics.py``)."""
@@ -439,6 +702,17 @@ class AggregationService:
             # 0 pipelined, the whole serve cycle serial)
             "server_idle_ms": round(self.registry.gauge("server_idle_ms").value, 3),
             "pipeline": bool(self.cfg.pipeline),
+            "async": bool(self.cfg.async_mode),
+            # the async posture: the trigger, the staleness discipline and
+            # the late tables admitted at the band, folded and dropped
+            "stale": {
+                "buffer_size": int(self.cfg.buffer_size),
+                "staleness_alpha": float(self.cfg.staleness_alpha),
+                "stale_rounds": int(self.cfg.stale_rounds),
+                "admitted": int(self.registry.counter("serve_stale_admitted_total").value),
+                "folded": int(self.registry.counter("serve_stale_folded_total").value),
+                "dropped": int(self.registry.counter("serve_stale_dropped_total").value),
+            } if self.cfg.async_mode else None,
             "quorum": self.cfg.quorum,
             "invited_per_round": s.num_workers,
             "deadline_s": self.cfg.deadline_s,
@@ -459,9 +733,9 @@ class ServeFollower:
     calls rank 0's service makes, in the same order, with the close taken
     from rank 0's broadcast instead of a transport, an ingest queue and an
     assembler. So every rank draws the same host RNG, queues the same
-    casualties and merges the same validated stack. It holds no queue, so
-    it has no pending buffer to snapshot, restore or rewind, and serves no
-    port."""
+    casualties and merges the same validated stack (and, async, folds the
+    same late tables). It holds no queue, so it has no pending buffer or
+    stale band to snapshot, restore or rewind, and serves no port."""
 
     def __init__(self, session, cfg: ServeConfig):
         _check_payload_session(session, cfg)
@@ -487,16 +761,30 @@ class ServeFollower:
         """Rank 0's decision, whatever this rank's pipeline wants."""
         return _agree(self.group, False)
 
-    def _receive(self, n: int, payload: bool) -> list:
-        """Rank 0's close as host numpy: the [n] arrival mask and, on a
-        payload round, the validated [n, r, c] stack."""
+    def _receive(self, n: int, payload: bool) -> tuple:
+        """Rank 0's close as host numpy: (the [n] arrival mask, on a payload
+        round the validated [n, r, c] stack, and async the filled stale
+        slots' ([k, r, c] tables, [k] weights) or None)."""
         from ..parallel import distributed
 
-        parts = [torch.empty(n, dtype=torch.float32)]
-        if payload:
-            mcfg = self.session.cfg.mode
-            parts.append(torch.empty((n, mcfg.num_rows, mcfg.num_cols), dtype=torch.float32))
-        return [t.numpy() for t in distributed.broadcast_from_root(parts, self.group)]
+        mask = [torch.empty(n, dtype=torch.float32)]
+        if not payload:
+            return distributed.broadcast_from_root(mask, self.group)[0].numpy(), None, None
+        shape = (self.session.cfg.mode.num_rows, self.session.cfg.mode.num_cols)
+        k, parts = 0, mask
+        if self.cfg.async_mode:
+            arrived, count = distributed.broadcast_from_root(
+                mask + [torch.empty(1, dtype=torch.int64)], self.group)
+            k, parts = int(count[0]), []
+        parts = parts + [torch.empty((n,) + shape, dtype=torch.float32)]
+        if k:
+            parts += [torch.empty((k,) + shape, dtype=torch.float32),
+                      torch.empty(k, dtype=torch.float32)]
+        got = distributed.broadcast_from_root(parts, self.group)
+        if not self.cfg.async_mode:
+            arrived = got.pop(0)
+        stale = (got[1].numpy(), got[2].numpy()) if k else None
+        return arrived.numpy(), got[0].numpy(), stale
 
     def serve_round(self, rnd: int):
         """Rank 0's ``serve_round`` without the transport: (PreparedRound,
@@ -505,7 +793,7 @@ class ServeFollower:
         with obtrace.span("assembler", "serve_round", round=rnd):
             ids = s.sample_cohort(rnd)
             if self.cfg.payload != "sketch":
-                (arrived,) = self._receive(len(ids), payload=False)
+                arrived, _, _ = self._receive(len(ids), payload=False)
                 return s.prepare_served_round(rnd, ids, arrived), None
             prep0 = s.prepare_served_round(rnd, ids, np.ones(len(ids), np.float32))
             if self._compute_gate is not None:
@@ -513,8 +801,8 @@ class ServeFollower:
             # joins the client step's ordered gather; rank 0 alone copies
             # the stack to the host for its transport
             _, aux = s.compute_client_tables(prep0, to_host=False)
-            arrived, tables = self._receive(len(ids), payload=True)
-            return s.finish_served_payload(prep0, arrived, tables, aux), None
+            arrived, tables, stale = self._receive(len(ids), payload=True)
+            return s.finish_served_payload(prep0, arrived, tables, aux, stale=stale), None
 
     def _record_boundary(self, next_round: int) -> None:
         pass
@@ -613,8 +901,11 @@ def service_from_args(args, session) -> AggregationService | ServeFollower | Non
           + (f" on {addr[0]}:{addr[1]}" if addr else "")
           + f", payload {service.cfg.payload}"
           + (", pipelined" if service.cfg.pipeline else "")
+          + (f", async (alpha={service.cfg.staleness_alpha:g}, band={service.cfg.stale_rounds})"
+             if service.cfg.async_mode else "")
           + (f", on rank 0 of {session.cfg.client_shards}" if service.group is not None else "")
-          + f", quorum {service.cfg.quorum}/"
+          + (f", buffer {service.cfg.buffer_size}/" if service.cfg.async_mode
+             else f", quorum {service.cfg.quorum}/")
           + f"{session.num_workers}, deadline {service.cfg.deadline_s}s, trace {trace}"
           + (f", metrics http://{maddr[0]}:{maddr[1]}/metrics" if maddr else ""), flush=True)
     return service

@@ -143,7 +143,11 @@ class TrafficGenerator:
           decides whether it still makes the close);
         - drop kills the send: through `abort` (a mid-send connection death,
           socket realism) when given, else the submission just never leaves
-          the client — either way the server sees a no-show."""
+          the client — either way the server sees a no-show;
+        - withhold suppresses the send entirely (no abort, no wire bytes):
+          the client deliberately sits the round out — the first half of
+          the client_stale_poison attack, whose second half the serving
+          layer submits into the stale band next round."""
         from ..resilience.faults import FaultPlan
         from ..sketch.payload import encode_frame
         from .ingest import Submission
@@ -164,6 +168,8 @@ class TrafficGenerator:
             actions = wire.get(int(i), {})
             sub = Submission(client_id=int(invited_ids[i]), round=rnd,
                              latency_s=float(lat[i]), payload=payload)
+            if actions.get("withhold"):
+                continue  # deliberate silence: not even an aborted send
             if actions.get("drop"):
                 if abort is not None:
                     abort(sub)  # the connection dies mid-send

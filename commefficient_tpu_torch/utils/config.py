@@ -2,8 +2,8 @@
 ``utils/config.py`` parser, with the same names, types, choices and
 defaults, plus ``--device``, so a launch command of the reference parses
 here. The flags of features the port does not run yet (``_UNPORTED``:
-the buffered-async, fast-path, sharded and edge-tree serving variants, and GPT-2's ring attention, mixture of experts and
-parallelism) parse at the reference's defaults, and ``resolve_defaults``
+the fast-path, sharded and edge-tree serving variants, and GPT-2's ring
+attention, mixture of experts and parallelism) parse at the reference's defaults, and ``resolve_defaults``
 refuses any other value by name, with the ROADMAP Queue 1 item that
 brings the feature: accepted and ignored is never an outcome.
 ``--share_ps_gpu`` and ``--port`` are the reference's own no-ops, and
@@ -23,12 +23,9 @@ from ..obs.slo import parse_rules
 # add_argument keywords as in the reference, the values the port runs, why
 # another value is refused, the ROADMAP Queue 1 item that brings it or None
 # when none is queued)
-_SERVE = "the port runs the synchronous service, serial or pipelined, only"
+_SERVE = ("the port runs the one-listener service (sync or --serve_async, serial or "
+          "pipelined) only")
 _UNPORTED = (
-    ("serve_async", dict(action="store_true"), (False,), _SERVE, "9b"),
-    ("serve_buffer", dict(type=int, default=0), (0,), _SERVE, "9b"),
-    ("serve_staleness", dict(type=float, default=0.5), (0.5,), _SERVE, "9b"),
-    ("serve_stale_rounds", dict(type=int, default=1), (1,), _SERVE, "9b"),
     ("serve_shards", dict(type=int, default=0), (0,), _SERVE, "9b"),
     ("serve_shard_mode", dict(default="thread", choices=["thread", "process"]), ("thread",),
      _SERVE, "9b"),
@@ -245,6 +242,24 @@ def make_parser(task: str = "cv") -> argparse.ArgumentParser:
                    help="run the serve cycle ahead of the merge on a worker thread "
                         "(serve/pipeline.py): round N+1's invite/collect/close overlaps "
                         "round N's merge, bitwise the serial service")
+    p.add_argument("--serve_async", action="store_true",
+                   help="buffered asynchronous aggregation (FedBuff-shaped): rounds close at a "
+                        "buffer-size trigger (--serve_buffer) instead of the quorum, and late "
+                        "tables (stragglers past the trigger, pushes for a recently closed "
+                        "round) fold into a later merge weighted (1+lag)^-alpha. Needs "
+                        "--serve_payload sketch; with --merge_policy trimmed|median the stale "
+                        "tables join the robust order statistics. A run where everyone "
+                        "answers on time is bitwise the sync run")
+    p.add_argument("--serve_buffer", type=int, default=0,
+                   help="--serve_async: the merged-table count that closes a round (replaces "
+                        "the quorum; 0 = the --serve_quorum value)")
+    p.add_argument("--serve_staleness", type=float, default=0.5,
+                   help="--serve_async: the staleness exponent alpha, a table lag rounds late "
+                        "folds with weight (1+lag)^-alpha (0 = unweighted)")
+    p.add_argument("--serve_stale_rounds", type=int, default=1,
+                   help="--serve_async: how many rounds behind the newest window a late table "
+                        "is still admitted and folded; older ones bounce OUT_OF_ROUND and a "
+                        "parked one is dropped (counted)")
     # observability (obs/): the round tracer, the profiler window, sketch
     # health, the round ledger and the SLO engine
     p.add_argument("--trace", default="",
@@ -417,6 +432,16 @@ def resolve_defaults(args: argparse.Namespace) -> argparse.Namespace:
                          "residual; with --merge_policy sum (or trimmed@0, which is the sum) "
                          "there is no robust merge - arm --merge_policy trimmed (trim > 0) "
                          "or median")
+    if args.serve_async:
+        # the fold runs over wire tables: both prerequisites fail at launch
+        if args.serve == "off":
+            raise SystemExit("--serve_async is a serving mode; arm --serve inproc|socket")
+        if args.serve_payload != "sketch":
+            raise SystemExit("--serve_async merges client tables as they arrive; the announce "
+                             "path has none - arm --serve_payload sketch")
+    elif args.serve_buffer:
+        raise SystemExit("--serve_buffer is the --serve_async trigger size; without "
+                         "--serve_async the close discipline is --serve_quorum")
     if args.mesh:
         from ..parallel.mesh import parse_mesh_spec
 

@@ -209,10 +209,9 @@ def test_merge_partial_wires_rejects_bad_robust_calls():
     with pytest.raises(ValueError, match="trim the whole cohort"):
         tmodes.merge_partial_wires(scfg, {"table": torch.zeros(2, 2, 4)}, policy="trimmed",
                                    live=torch.ones(2), trim=1)
-    with pytest.raises(ValueError, match="item 9b"):
+    with pytest.raises(ValueError, match="together"):
         tmodes.merge_partial_wires(scfg, {"table": torch.zeros(3, 2, 4)}, policy="median",
-                                   live=torch.ones(3), stale_tables=torch.zeros(1, 2, 4),
-                                   stale_weights=torch.ones(1))
+                                   live=torch.ones(3), stale_tables=torch.zeros(1, 2, 4))
     with pytest.raises(ValueError, match="unknown robust merge policy"):
         tmodes._robust_table_merge(scfg.sketch_spec, torch.zeros(3, 2, 4), torch.ones(3),
                                    "mean", 0)

@@ -14,7 +14,9 @@ What is held, and how exactly:
   (client rows included, each rank's block) and fedavg, and in the payload
   round with the clip, a ``wire_corrupt`` client and a no-show; rank 0's
   admission counters equal the twin's, and each rank sketches W / S tables
-  a payload round;
+  a payload round; the same for the buffered-async payload round (buffer 6
+  of 8, its stragglers folded a round later, by the sum and, pipelined, by
+  the trimmed union stack), whose late tables cross in rank 0's broadcast;
 - pipelined (``ServeConfig.pipeline``), local_topk and the payload round on
   the group equal the same twins bitwise;
 - the agreed stop: a pipelined group stopped at round 2 leaves every
@@ -65,6 +67,7 @@ SKETCH = dict(mode="sketch", k=8, num_rows=3, num_cols=128, momentum=0.9,
               momentum_type="virtual", error_type="virtual")
 ANNOUNCE = tservice.ServeConfig(quorum=6, deadline_s=1.0)
 PAYLOAD = tservice.ServeConfig(quorum=8, deadline_s=30.0, payload="sketch")
+ASYNC = dataclasses.replace(PAYLOAD, async_mode=True, buffer_size=6)
 # name -> (mode, session knobs, service config); the trace's seed 5 has a
 # no-show in the payload run besides the corrupt frame
 CASES = {
@@ -77,6 +80,16 @@ CASES = {
     "pipelined_payload": (SKETCH, dict(wire_payloads=True, client_update_clip=3.0,
                                        fault_plan="wire_corrupt@1:clients=0"),
                           dataclasses.replace(PAYLOAD, pipeline=True)),
+    # the buffered-async service: rank 0 broadcasts each round's filled
+    # stale slots, and every rank folds them (the sum; the trimmed union
+    # stack, pipelined)
+    "async_payload": (SKETCH, dict(wire_payloads=True, client_update_clip=3.0, stale_slots=W,
+                                   fault_plan="wire_corrupt@1:clients=0"), ASYNC),
+    "async_pipelined_trimmed": (SKETCH, dict(wire_payloads=True, client_update_clip=3.0,
+                                             stale_slots=W, merge_policy="trimmed",
+                                             merge_trim=1,
+                                             fault_plan="wire_corrupt@1:clients=0"),
+                                dataclasses.replace(ASYNC, pipeline=True)),
 }
 
 
@@ -237,6 +250,8 @@ def test_group_serve_equals_the_one_device_served_run_bitwise(group_run, name):
         assert c["rejected_malformed"] >= 1, c
         # a no-show besides the corrupt frame
         assert sum(m["clients_dropped"] for m in metrics) >= 2, metrics
+    if cfg.async_mode:
+        assert any(m.get("stale_folded", 0) for m in metrics), "no fold: the pin is vacuous"
 
 
 def test_pipelined_group_stops_together_and_continues(group_run):

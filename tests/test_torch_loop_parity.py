@@ -84,6 +84,7 @@ PLANS = ["preempt@3", "stall@2:secs=1.5", "eval_stall@4:secs=0.5", "data_fail@1,
          "wire_dup@1:clients=3;conn_drop@2:clients=0", "wire_delay@1:clients=1,secs=0.25",
          "client_signflip@1:clients=0+2;client_scale@2:clients=1,factor=50",
          "seed=7;client_collude@3:frac=0.25;client_normride@2:clients=0,ride=0.9",
+         "client_stale_poison@1:clients=0+1,factor=-5",
          "dist_init:times=2;host_preempt@3:host=1"]
 
 

@@ -12,8 +12,9 @@ drops the same positions (announce and payload), a full-arrival round the
 plain round, the socket the in-process transport and the event loop the
 threaded engine; a CLI run preempted mid-run resumes to the uninterrupted
 run (announce and payload), with its pending queue and requeue ages from
-meta.json; the flags of ROADMAP item 9b but --serve_pipeline are refused
-by name, and a stopped transport fails the round."""
+meta.json; the flags of ROADMAP item 9b but --serve_pipeline and the
+--serve_async four are refused by name, and a stopped transport fails the
+round."""
 
 import json
 import os
@@ -301,25 +302,34 @@ def test_metrics_endpoint_over_http():
 
 
 # the reference's ServeConfig fields of ROADMAP item 9b, each with a CLI
-# value the port does not run, but for "pipeline", which it runs
+# value the port does not run, but for the ported ones (ITEM_9B_PORTED:
+# --serve_pipeline, and --serve_async with its three flags)
 ITEM_9B = {
     "pipeline": ["--serve_pipeline"], "async_mode": ["--serve_async"],
-    "buffer_size": ["--serve_buffer", "4"], "staleness_alpha": ["--serve_staleness", "0.9"],
-    "stale_rounds": ["--serve_stale_rounds", "3"], "shards": ["--serve_shards", "3"],
+    "buffer_size": ["--serve_buffer", "4", "--serve_async"],
+    "staleness_alpha": ["--serve_staleness", "0.9", "--serve_async"],
+    "stale_rounds": ["--serve_stale_rounds", "3", "--serve_async"],
+    "shards": ["--serve_shards", "3"],
     "shard_mode": ["--serve_shard_mode", "process"], "edges": ["--serve_edges", "3"],
     "fastpath": ["--serve_fastpath"], "gauntlet_workers": ["--serve_gauntlet_workers", "3"],
 }
+ITEM_9B_PORTED = {"pipeline": True, "async_mode": True, "buffer_size": 4,
+                  "staleness_alpha": 0.9, "stale_rounds": 3}
 
 
 @pytest.mark.parametrize("field", list(ITEM_9B))
 def test_service_refuses_item_9b_by_name(field):
     """The service has no field for an item-9b option, and the command line
-    that asks for one is refused by the flag's name; the first of them,
-    --serve_pipeline, is accepted by both."""
-    if field == "pipeline":
-        assert tservice.ServeConfig(quorum=2, pipeline=True).pipeline
-        args = resolve_defaults(make_parser().parse_args(["--serve", "inproc", *ITEM_9B[field]]))
-        assert tservice.ServeConfig.from_args(args).pipeline
+    that asks for one is refused by the flag's name; the ported ones,
+    --serve_pipeline and --serve_async with --serve_buffer,
+    --serve_staleness and --serve_stale_rounds, are accepted by both."""
+    if field in ITEM_9B_PORTED:
+        want = ITEM_9B_PORTED[field]
+        assert getattr(tservice.ServeConfig(quorum=2, **{field: want}), field) == want
+        args = resolve_defaults(make_parser().parse_args(
+            ["--serve", "inproc", "--serve_payload", "sketch", "--mode", "sketch",
+             *ITEM_9B[field]]))
+        assert getattr(tservice.ServeConfig.from_args(args), field) == want
         return
     with pytest.raises(TypeError, match=field):
         tservice.ServeConfig(quorum=2, **{field: 3})
@@ -405,7 +415,7 @@ def test_cli_served_preempt_resume_bitwise(tiny_cv, tmp_path, payload):  # noqa:
 
 
 def test_cli_refuses_item_9b_serve_flags(tiny_cv):  # noqa: F811
-    for extra in (["--serve_async"], ["--serve_edges", "2"],
+    for extra in (["--serve_gauntlet_workers", "3"], ["--serve_edges", "2"],
                   ["--serve_fastpath"], ["--serve_shards", "2"]):
         with pytest.raises(SystemExit, match=f"^{extra[0]} .*item 9b"):
             cv_train.main(_cli("announce", extra))
