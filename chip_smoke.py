@@ -336,7 +336,29 @@ Phases (any failure raises, and the exit status is non-zero):
    f. (b) on 4 gloo ranks sharing the card, 4 rounds, == the one-device
       run at client_shards 4 bitwise on every rank (2 accumulates a rank a
       round), with rank 0's broadcast bytes a round with and without
-      stale slots.
+      stale slots (in the whole script the ranks are phase 21's launch's).
+23. the serving fast path (--serve_fastpath) on phase 22's served payload
+   cell, under a corrupt frame at round 1 and a NaN table at round 2 with
+   the clip at 3, every run held bitwise against its fastpath-off twin
+   (params, optimizer state, batch-norm statistics, metrics, queue and,
+   but pipelined, the admission counters), launches counted over each run
+   (W = 8 accumulates and 1 query a round):
+   a. in process, 6 rounds a run, slow, fast, fast, slow; the chaos went
+      through the validation; both kernels == plain on the fast run's last
+      merged table and on its error table;
+   b. over the socket, the eventloop and the threaded engine, 4 rounds a
+      run: the validation ran in batches, and the host copies of a table,
+      slow against fast, are printed;
+   c. async buffer 6 and d. pipelined, 4 rounds a run;
+   e. the fast run on 4 gloo ranks sharing the card, 3 rounds (in phase
+      21's launch when the whole script runs), == the one-device fast run
+      at client_shards 4 on every rank (2 accumulates a rank a round; rank
+      0 broadcasts its ring-built stack);
+   f. a's runs in turns: host copies of a table, the H2D copies' bytes and
+      CUDA-event ms (the ring's chunks against the slow path's stack), the
+      loop's host ms a round, round ms, the ring's blocks made and the host
+      allocator's pinned blocks made and handed out;
+   no "gauntlet batch failed" line may appear.
 
 Prints one JSON line with the kernels' numbers (launches counted over
 phase 8; under "gpt2" each kernel's numbers at the GPT-2 shape, launches
@@ -351,6 +373,7 @@ uninterrupted gloo run, "launches_layerwise" over each run of phase 19,
 "launches_group" over each of phase 20's runs on rank 0,
 "launches_serve_group" over each of phase 21's runs (rank 0's on the
 group), "launches_async" over each of phase 22's runs (rank 0's on the
+group), "launches_fastpath" over each of phase 23's runs (rank 0's on the
 group); a
 third row, ``sketch_accumulate_tree``, with a whole ResNet-9 tree's fold
 times and (b)'s layerwise launches),
@@ -363,6 +386,7 @@ as its last line
 ``--group-only`` runs phase 20 right after phase 4 and stops,
 ``--serve-only`` runs phase 21 right after phase 4 and stops,
 ``--async-only`` runs phase 22 right after phase 4 and stops,
+``--fastpath-only`` runs phase 23 right after phase 4 and stops,
 ``--cohorts N`` sets the number of cohorts phase 7 compares (default 4);
 ``--pairs N`` the sync/async timing pairs of phase 8 (default 2).
 """
@@ -579,6 +603,21 @@ ASYNC_ARGS = ASYNC_BASE + ["--serve_async", "--serve_buffer", "6", "--serve_stal
                            "1", "--serve_staleness", "0.5"]
 ASYNC_POISON_PLAN = "client_stale_poison@2:clients=0+1,factor=-5"
 ASYNC_GROUP_SHARDS = 4
+# phase 23: the fast path (--serve_fastpath) on phase 22's served payload
+# cell under FAST_PLAN with the clip at 3 (a corrupt frame at round 1, a NaN
+# table at round 2, each through the validation): (a) in process, slow and
+# fast in turns (slow, fast, fast, slow), FAST_ROUNDS rounds each; (b) over
+# the socket, each engine slow then fast, FAST_SOCKET_ROUNDS rounds (a
+# socket round ships 8 tables of 14 MB of JSON: about 1.7 s); (c) async
+# buffer 6 and (d) pipelined, fast against slow, ASYNC_SHORT rounds; (e) the
+# fast run on ASYNC_GROUP_SHARDS gloo ranks sharing the card, FAST_GROUP_ROUNDS
+# rounds, against the one-device fast run at client_shards 4 (in the whole
+# script the group runs of 22f and 23e ride phase 21's launch)
+FAST_ROUNDS = 6
+FAST_SOCKET_ROUNDS = 4
+FAST_GROUP_ROUNDS = 3
+FAST_PLAN = "wire_corrupt@1:clients=0;client_poison@2:clients=3,value=nan"
+FAST_BASE = ASYNC_BASE + ["--client_update_clip", "3", "--fault_plan", FAST_PLAN, "--sync_loop"]
 # phase 19: the layerwise sketch path. (b) and (d) run LW_ROUNDS rounds of
 # phase 5's flags, (c) LW_GPT2_ROUNDS of phase 11's; LW_PAIRS timed turns a
 # path. LEAF_EDGES (d, c, r, leaf sizes): a leaf that starts mid-slab and
@@ -3756,17 +3795,22 @@ def _serve_run(cv_train, kernels, tag: str, argv: list, out: dict, device: str):
     if srv["runs"]:
         svc, src = srv["runs"][0]
         got["counters"] = svc.queue.counters()
+        if svc.cfg.fastpath:
+            got["fastpath"] = svc.metrics_snapshot()["fastpath"]
+            got["ring_blocks"] = svc._ring.allocated
         got["closes"] = [[int(p) for p in np.flatnonzero(c.arrived == 0.0)]
                          for c in src.closed_rounds]
     out[tag] = got
     return s
 
 
-def _serve_group_rank(out_dir: str, device: str) -> None:
+def _serve_group_rank(out_dir: str, device: str, extra: tuple = ()) -> None:
     """One rank of phase 21's gloo group: (a) the served announce and
     payload runs, (b) the payload run preempted on rank 2 and resumed, (c)
     local_topk served serially and pipelined, then the close's broadcast
-    timed after a barrier. Writes ``out_dir/serve_<rank>.json``."""
+    timed after a barrier, then (the whole script) the runs ``extra`` of
+    ``served_group_runs()`` for phases 22f and 23e. Writes
+    ``out_dir/serve_<rank>.json`` (and ``out_dir/served_<rank>.json``)."""
     sys.path.insert(0, ROOT)
     import torch.distributed as dist
 
@@ -3809,13 +3853,17 @@ def _serve_group_rank(out_dir: str, device: str) -> None:
     out["broadcast_bytes"] = sum(t.numel() * t.element_size() for t in parts)
     with open(os.path.join(out_dir, f"serve_{rank}.json"), "w") as f:
         json.dump(out, f)
+    if extra:
+        _served_runs(out_dir, device, extra)
     dist.barrier()
 
 
-def serve_group_phase(cv_train, engine, csvec, kernels, card: str) -> dict:
+def serve_group_phase(cv_train, engine, csvec, kernels, card: str, extra: tuple = ()) -> tuple:
     """Phase 21: serving on a group of 4 gloo ranks sharing the card, and
     the serving pipeline on one card, at ResNet-9's full width. Returns
-    each kernel's launches over each run (rank 0's for the group's)."""
+    (each kernel's launches over each run, rank 0's for the group's; with
+    ``extra``, the same launch's (ranks, seconds) of those runs of
+    ``served_group_runs()``, which phases 22f and 23e read, else None)."""
     import functools
     import shutil
 
@@ -3827,10 +3875,12 @@ def serve_group_phase(cv_train, engine, csvec, kernels, card: str) -> dict:
     base = os.path.join(ROOT, "build", "chip_smoke", "serve_group")
     shutil.rmtree(base, ignore_errors=True)
     os.makedirs(base)
+    assert S == ASYNC_GROUP_SHARDS
     t0 = time.perf_counter()
-    codes = distributed.launch_local(_serve_group_rank, S, (base, device),
+    codes = distributed.launch_local(_serve_group_rank, S, (base, device, tuple(extra)),
                                      env={"LOCAL_RANK": "0"}, timeout_s=900)
     secs = time.perf_counter() - t0
+    shared = (read_served_group(base, codes, "serve group"), secs) if extra else None
     ranks = []
     for r in range(S):
         path = os.path.join(base, f"serve_{r}.json")
@@ -3955,7 +4005,7 @@ def serve_group_phase(cv_train, engine, csvec, kernels, card: str) -> dict:
           + "; one card " + ", ".join(f"{k} {v['s']:.1f}" for k, v in one.items()), flush=True)
     launches = {f"group_{k}": v["launches"] for k, v in ranks[0]["runs"].items()}
     launches.update({k: v["launches"] for k, v in one.items()})
-    return launches
+    return launches, shared
 
 
 @contextlib.contextmanager
@@ -3990,19 +4040,29 @@ def recording_folds(engine):
             rec["ms"].append(t0.elapsed_time(t1))
 
 
-def _async_group_rank(out_dir: str, device: str) -> None:
-    """One rank of phase 22f's gloo group: phase 22b's async run, each
-    broadcast's bytes recorded. Writes ``out_dir/async_<rank>.json``."""
+def _served_group_rank(out_dir: str, device: str, tags: tuple) -> None:
+    """One rank of a gloo group of its own for the runs ``tags`` of
+    ``served_group_runs()`` (phase 22f or 23e run alone)."""
     sys.path.insert(0, ROOT)
     import torch.distributed as dist
 
-    from commefficient_tpu_torch import cv_train
     from commefficient_tpu_torch.parallel import distributed
-    from commefficient_tpu_torch.sketch import kernels
 
     distributed.initialize(force=True, backend="gloo", device=device,
                            serve_deadline_s=float(ASYNC_BASE[ASYNC_BASE.index(
                                "--serve_deadline") + 1]))
+    _served_runs(out_dir, device, tags)
+    dist.barrier()
+
+
+def _served_runs(out_dir: str, device: str, tags: tuple) -> None:
+    """On a rank of a joined group: the runs ``tags`` of
+    ``served_group_runs()``, each broadcast's bytes recorded by run. Writes
+    ``out_dir/served_<rank>.json``."""
+    from commefficient_tpu_torch import cv_train
+    from commefficient_tpu_torch.parallel import distributed
+    from commefficient_tpu_torch.sketch import kernels
+
     sizes = []
     broadcast = distributed.broadcast_from_root
 
@@ -4011,25 +4071,63 @@ def _async_group_rank(out_dir: str, device: str) -> None:
         return broadcast(tensors, group)
 
     distributed.broadcast_from_root = sized
-    out = {"runs": {}}
-    _serve_run(cv_train, kernels, "async", ASYNC_ARGS + ["--num_rounds", str(ASYNC_SHORT),
-                                                         "--sync_loop"], out["runs"], device)
-    out["sizes"] = sizes
-    with open(os.path.join(out_dir, f"async_{distributed.rank()}.json"), "w") as f:
+    out = {"runs": {}, "sizes": {}}
+    try:
+        for tag in tags:
+            sizes.clear()
+            _serve_run(cv_train, kernels, tag, served_group_runs()[tag], out["runs"], device)
+            out["sizes"][tag] = list(sizes)
+    finally:
+        distributed.broadcast_from_root = broadcast
+    with open(os.path.join(out_dir, f"served_{distributed.rank()}.json"), "w") as f:
         json.dump(out, f)
-    dist.barrier()
 
 
-def async_phase(cv_train, engine, csvec, kernels, card: str) -> dict:
+def served_group_runs() -> dict:
+    """The served runs on a group: phase 22f's async run and phase 23e's
+    fast one."""
+    return {"async": ASYNC_ARGS + ["--num_rounds", str(ASYNC_SHORT), "--sync_loop"],
+            "fast": FAST_BASE + ["--serve_fastpath", "--num_rounds", str(FAST_GROUP_ROUNDS)]}
+
+
+def launch_served_group(base: str, device: str, tags: tuple, label: str) -> tuple:
+    """One launch of ASYNC_GROUP_SHARDS gloo ranks sharing the card, running
+    the runs ``tags``: (each rank's output, the launch's seconds)."""
+    from commefficient_tpu_torch.parallel import distributed
+
+    t0 = time.perf_counter()
+    codes = distributed.launch_local(_served_group_rank, ASYNC_GROUP_SHARDS,
+                                     (base, device, tuple(tags)), env={"LOCAL_RANK": "0"},
+                                     timeout_s=600)
+    return read_served_group(base, codes, label), time.perf_counter() - t0
+
+
+def read_served_group(base: str, codes: list, label: str) -> list:
+    """Each rank's ``served_<rank>.json`` in ``base``; fails on a missing
+    file or a rank's non-zero exit code."""
+    ranks = []
+    for rk in range(ASYNC_GROUP_SHARDS):
+        path = os.path.join(base, f"served_{rk}.json")
+        if not os.path.exists(path):
+            fail(f"{label}: rank {rk} wrote nothing (exit codes {codes})")
+        with open(path) as f:
+            ranks.append(json.load(f))
+    if codes != [0] * ASYNC_GROUP_SHARDS:
+        fail(f"{label}: rank exit codes {codes}")
+    return ranks
+
+
+def async_phase(cv_train, engine, csvec, kernels, card: str, group=None) -> dict:
     """Phase 22: the buffered-async service on ResNet-9 FetchSGD at full
-    width, served payload, in process. Returns each kernel's launches over
-    each run (rank 0's for the group's)."""
+    width, served payload, in process. ``group``: phase 21's launch's
+    (ranks, seconds), where the whole script ran (f)'s async run; None
+    launches the group here. Returns each kernel's launches over each run
+    (rank 0's for the group's)."""
     import functools
     import shutil
 
     from commefficient_tpu_torch.federated.api import FederatedSession
     from commefficient_tpu_torch.obs import registry as obreg
-    from commefficient_tpu_torch.parallel import distributed
 
     device = "cuda" if "cuda" in SLICE_ARGS else "cpu"
     base = os.path.join(ROOT, "build", "chip_smoke", "async")
@@ -4166,21 +4264,11 @@ def async_phase(cv_train, engine, csvec, kernels, card: str) -> dict:
     if device == "cuda":
         torch.cuda.empty_cache()
 
-    # f. on a group of 4 gloo ranks sharing the card
+    # f. on a group of 4 gloo ranks sharing the card (phase 21's launch ran
+    # it when the whole script runs)
     S = ASYNC_GROUP_SHARDS
-    t0 = time.perf_counter()
-    codes = distributed.launch_local(_async_group_rank, S, (base, device),
-                                     env={"LOCAL_RANK": "0"}, timeout_s=600)
-    secs = time.perf_counter() - t0
-    ranks = []
-    for rk in range(S):
-        path = os.path.join(base, f"async_{rk}.json")
-        if not os.path.exists(path):
-            fail(f"async f: rank {rk} wrote nothing (exit codes {codes})")
-        with open(path) as f:
-            ranks.append(json.load(f))
-    if codes != [0] * S:
-        fail(f"async f: rank exit codes {codes}")
+    shared = group is not None
+    ranks, secs = group or launch_served_group(base, device, ("async",), "async f")
     orig = cv_train.FederatedSession
     cv_train.FederatedSession = functools.partial(FederatedSession, client_shards=S)
     try:
@@ -4198,16 +4286,249 @@ def async_phase(cv_train, engine, csvec, kernels, card: str) -> dict:
             fail(f"async f: rank {rk} launched {g['launches']} (want {want})")
     if ranks[0]["runs"]["async"]["counters"] != twin["counters"]:
         fail("async f: rank 0's serve counters differ from the twin's")
-    sizes = ranks[0]["sizes"]
+    sizes = ranks[0]["sizes"]["async"]
     print(f"async f: async buffer 6 on {S} gloo ranks, {ASYNC_SHORT} rounds == the one-device "
           f"run at client_shards={S}, bitwise on every rank (params, optimizer state, "
           f"batch-norm statistics, metrics, queue); launches a rank {want}; rank 0's "
           f"broadcasts a round (mask + count, then the stack and the filled slots), bytes "
           f"{[sizes[i:i + 2] for i in range(0, len(sizes), 2)]}: round 0 without stale "
-          f"slots, later rounds with them; {secs:.1f} s for the launch [{card}]", flush=True)
+          f"slots, later rounds with them; {secs:.1f} s for the launch"
+          f"{' (shared with phase 21)' if shared else ''} [{card}]", flush=True)
     print("async: run s " + ", ".join(f"{k} {v['s']:.1f}" for k, v in runs.items()), flush=True)
     launches = {k: v["launches"] for k, v in runs.items()}
     launches["group_async"] = ranks[0]["runs"]["async"]["launches"]
+    return launches
+
+
+@contextlib.contextmanager
+def recording_merges(csvec):
+    """Inside the block, the last table ``csvec.merge_tables`` returned
+    (rec["table"], a copy): a payload round's merged table."""
+    rec = {"table": None}
+    merge = csvec.merge_tables
+
+    def merge_rec(spec, tables):
+        out = merge(spec, tables)
+        rec["table"] = out.clone()
+        return out
+
+    csvec.merge_tables = merge_rec
+    try:
+        yield rec
+    finally:
+        csvec.merge_tables = merge
+
+
+@contextlib.contextmanager
+def counting_stderr(needle: str):
+    """Inside the block stderr passes through, and rec["n"] counts the
+    occurrences of ``needle`` written to it (from any thread)."""
+    rec = {"n": 0}
+    real = sys.stderr
+
+    class Tee:
+        def write(self, text):
+            rec["n"] += text.count(needle)
+            return real.write(text)
+
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+    sys.stderr = Tee()
+    try:
+        yield rec
+    finally:
+        sys.stderr = real
+
+
+def _pinned_stats() -> dict | None:
+    """The host allocator's pinned blocks made and handed out so far (None
+    where this torch has no ``host_memory_stats``)."""
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if stats is None:
+        return None
+    got = stats()
+    return {"made": int(got.get("num_host_alloc", 0)),
+            "handed_out": int(got.get("active_requests.allocated", 0))}
+
+
+def fastpath_phase(cv_train, engine, csvec, kernels, card: str, group=None) -> dict:
+    """Phase 23: the serving fast path on ResNet-9 FetchSGD's served payload
+    round at full width. ``group``: phase 21's launch's (ranks, seconds),
+    where the whole script ran (e)'s fast run; None launches the group here.
+    Returns each kernel's launches over each run (rank 0's for the
+    group's)."""
+    import functools
+    import shutil
+
+    from commefficient_tpu_torch.federated.api import FederatedSession
+    from commefficient_tpu_torch.obs import registry as obreg
+
+    device = "cuda" if "cuda" in SLICE_ARGS else "cpu"
+    base = os.path.join(ROOT, "build", "chip_smoke", "fastpath")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    reg = obreg.default()
+    runs, merged = {}, {}
+    fast = ["--serve_fastpath"]
+    table_bytes = 4 * SLICE["r"] * SLICE["c"]
+
+    def run(tag, argv, keep=False):
+        batches = reg.histogram("serve_gauntlet_batch_ms").count
+        pins = _pinned_stats()
+        mark = reg.mark()
+        with recording_merges(csvec) as rec:
+            s = _serve_run(cv_train, kernels, tag, argv, runs, device)
+        r = runs[tag]
+        r["bytes_copied"] = mark.delta("serve_table_bytes_copied_total")
+        r["batches"] = reg.histogram("serve_gauntlet_batch_ms").count - batches
+        after = _pinned_stats()
+        r["pinned"] = None if pins is None else {k: after[k] - pins[k] for k in pins}
+        if s is not None:
+            r["copies"] = s.wire_copy_stats()
+            if keep:
+                merged[tag] = (s, rec["table"])
+        return r
+
+    def same(tag, twin, label, keys=("code", "metrics", "state", "requeue", "counters")):
+        for key in keys:
+            if runs[tag][key] != runs[twin][key]:
+                fail(f"fastpath {label}: {tag}'s {key} differs from {twin}'s")
+
+    def per_round(tag, rounds, past_end=False):
+        n = runs[tag]["launches"]
+        extra = n["sketch_accumulate"] - 8 * rounds
+        if n["sketch_query"] != rounds or extra not in ((0, 8) if past_end else (0,)):
+            fail(f"fastpath {tag}: launched {n} in {rounds} rounds")
+
+    def per_table(tag):
+        r = runs[tag]
+        return r["bytes_copied"] / max(r["counters"]["accepted"], 1) / table_bytes
+
+    with counting_stderr("gauntlet batch failed") as failures:
+        # a. in process, in turns
+        argv = FAST_BASE + ["--num_rounds", str(FAST_ROUNDS)]
+        turns = ["slow_1", "fast_1", "fast_2", "slow_2"]
+        for tag in turns:
+            run(tag, argv + (fast if tag.startswith("fast") else []), keep=tag == "fast_2")
+        for tag in turns:
+            same(tag, "slow_1", "a")
+            per_round(tag, FAST_ROUNDS)
+        c = runs["fast_1"]["counters"]
+        if c["rejected_malformed"] < 1 or c["rejected_quarantined"] < 1:
+            fail(f"fastpath a: the chaos never reached the validation: {c}")
+        s, table = merged.pop("fast_2")
+        spec = s.cfg.mode.sketch_spec
+        check_kernels(csvec, spec, s.state["params"], table)
+        check_kernels(csvec, spec, s.state["params"], s.state["mode_state"]["Verror"])
+        del s, table
+        print(f"fastpath a: in process, {FAST_ROUNDS} rounds under {FAST_PLAN} (clip 3), slow, "
+              f"fast, fast, slow: bitwise equal (params, optimizer state, batch-norm "
+              f"statistics, metrics, queue, admission counters {c}); launches "
+              f"{runs['fast_1']['launches']}; kernels == plain on the fast run's last merged "
+              f"table and its error table [{card}]", flush=True)
+
+        # b. over the socket, each engine
+        ratios = {}
+        for eng in ("eventloop", "threaded"):
+            argv = FAST_BASE + ["--serve", "socket", "--serve_transport", eng,
+                                "--num_rounds", str(FAST_SOCKET_ROUNDS)]
+            slow_t, fast_t = f"socket_{eng}_slow", f"socket_{eng}_fast"
+            run(slow_t, argv)
+            run(fast_t, argv + fast)
+            same(fast_t, slow_t, f"b {eng}")
+            per_round(slow_t, FAST_SOCKET_ROUNDS)
+            per_round(fast_t, FAST_SOCKET_ROUNDS)
+            if runs[fast_t]["batches"] < 1 or runs[slow_t]["batches"]:
+                fail(f"fastpath b {eng}: {runs[fast_t]['batches']} validation batches fast, "
+                     f"{runs[slow_t]['batches']} slow")
+            ratios[eng] = (per_table(slow_t), per_table(fast_t))
+            ms = runs[fast_t]["fastpath"]["gauntlet_batch_ms"]
+            print(f"fastpath b: socket ({eng}), {FAST_SOCKET_ROUNDS} rounds: fast == slow "
+                  f"bitwise; {runs[fast_t]['batches']} validation batches (the process's "
+                  f"batch ms p50 {ms['p50']}, p99 {ms['p99']}); host copies of a table "
+                  f"slow {ratios[eng][0]:.3f}, fast {ratios[eng][1]:.3f} (ratio "
+                  f"{ratios[eng][0] / max(ratios[eng][1], 1e-9):.3f}); steady round ms slow "
+                  f"{runs[slow_t]['round_ms']:.2f}, fast {runs[fast_t]['round_ms']:.2f} "
+                  f"[{card}]", flush=True)
+
+        # c. async buffer 6, d. pipelined: each against its slow twin
+        short = ["--num_rounds", str(ASYNC_SHORT)]
+        argv = FAST_BASE + ["--serve_async", "--serve_buffer", "6", "--serve_stale_rounds", "1",
+                            "--serve_staleness", "0.5"] + short
+        run("async_slow", argv)
+        run("async_fast", argv + fast)
+        same("async_fast", "async_slow", "c")
+        per_round("async_fast", ASYNC_SHORT)
+        if not any(m.get("stale_folded", 0) for m in runs["async_fast"]["metrics"]):
+            fail("fastpath c: no late table folded")
+        argv = FAST_BASE + ["--serve_pipeline"] + short
+        run("pipelined_slow", argv)
+        run("pipelined_fast", argv + fast)
+        # a pipeline's worker may serve a round past the end before its
+        # stop, whose admissions count
+        same("pipelined_fast", "pipelined_slow", "d", ("code", "metrics", "state", "requeue"))
+        per_round("pipelined_fast", ASYNC_SHORT, past_end=True)
+        print(f"fastpath c, d: async buffer 6 and pipelined, {ASYNC_SHORT} rounds each: fast "
+              f"== slow bitwise; stale_folded a round "
+              f"{[m.get('stale_folded', 0.0) for m in runs['async_fast']['metrics']]}; "
+              f"launches {runs['async_fast']['launches']}, pipelined "
+              f"{runs['pipelined_fast']['launches']} [{card}]", flush=True)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+        # e. on a group of 4 gloo ranks sharing the card (phase 21's launch
+        # ran it when the whole script runs)
+        S = ASYNC_GROUP_SHARDS
+        out, secs = group or launch_served_group(base, device, ("fast",), "fastpath e")
+        ranks = [r["runs"]["fast"] for r in out]
+        orig = cv_train.FederatedSession
+        cv_train.FederatedSession = functools.partial(FederatedSession, client_shards=S)
+        try:
+            twin = run("group_twin", FAST_BASE + fast + ["--num_rounds",
+                                                         str(FAST_GROUP_ROUNDS)])
+        finally:
+            cv_train.FederatedSession = orig
+        want = {"sketch_accumulate": 8 // S * FAST_GROUP_ROUNDS,
+                "sketch_query": FAST_GROUP_ROUNDS}
+        for rk, g in enumerate(ranks):
+            for key in ("code", "metrics", "state", "requeue"):
+                if g[key] != twin[key]:
+                    fail(f"fastpath e: rank {rk}'s {key} differs from the one-device fast run "
+                         f"at client_shards={S}")
+            if g["launches"] != want:
+                fail(f"fastpath e: rank {rk} launched {g['launches']} (want {want})")
+        if ranks[0]["counters"] != twin["counters"]:
+            fail("fastpath e: rank 0's serve counters differ from the twin's")
+        print(f"fastpath e: the fast run on {S} gloo ranks, {FAST_GROUP_ROUNDS} rounds == the "
+              f"one-device fast run at client_shards={S}, bitwise on every rank (params, "
+              f"optimizer state, batch-norm statistics, metrics, queue); rank 0 broadcast its "
+              f"ring-built stack, {ranks[0]['broadcast']['bytes']} bytes in "
+              f"{ranks[0]['broadcast']['calls']} broadcasts; launches a rank {want}; "
+              f"{secs:.1f} s for the launch{' (shared with phase 21)' if group else ''} "
+              f"[{card}]", flush=True)
+    if failures["n"]:
+        fail(f"fastpath: {failures['n']} 'gauntlet batch failed' line(s)")
+
+    # f. the numbers, in turns (a's runs: slow, fast, fast, slow)
+    for tag in turns:
+        r = runs[tag]
+        cp = r["copies"]
+        h2d = cp.get("h2d_ring" if tag.startswith("fast") else "h2d", {})
+        print(f"fastpath f: {tag}: host copies of a table {per_table(tag):.3f} "
+              f"({r['bytes_copied']:.0f} bytes, {r['counters']['accepted']} accepted); H2D "
+              f"{h2d.get('copies', 0)} copies, {h2d.get('bytes', 0)} bytes, "
+              f"{h2d.get('ms', 0.0):.3f} ms (CUDA events; a run); D2H "
+              f"{cp.get('d2h', {}).get('ms', 0.0):.3f} ms; host ms a round (prepare, "
+              f"dispatch, drain) {[round(x, 3) for x in r['host_ms']]}; steady round ms "
+              f"{r['round_ms']:.2f}; server_idle_ms {r['idle_ms'][0]:.3f}; ring blocks made "
+              f"{r.get('ring_blocks', 'none')}; the host allocator's pinned blocks made / "
+              f"handed out {r['pinned'] if r['pinned'] is not None else 'not measured'} "
+              f"[{card}]", flush=True)
+    print("fastpath: run s " + ", ".join(f"{k} {v['s']:.1f}" for k, v in runs.items()),
+          flush=True)
+    launches = {k: v["launches"] for k, v in runs.items()}
+    launches["group_fast"] = ranks[0]["launches"]
     return launches
 
 
@@ -4325,7 +4646,7 @@ def main(argv: list[str]) -> int:
         return 0
     if "--serve-only" in argv:
         phase("21 (serving on a group, the pipeline)")
-        served = serve_group_phase(cv_train, engine, csvec, kernels, card_line())
+        served, _ = serve_group_phase(cv_train, engine, csvec, kernels, card_line())
         for name in rows:
             rows[name]["launches_serve_group"] = {run: n[name] for run, n in served.items()}
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
@@ -4338,6 +4659,14 @@ def main(argv: list[str]) -> int:
             rows[name]["launches_async"] = {run: n[name] for run, n in asy.items()}
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
         print("chip_smoke: async-only run done", flush=True)
+        return 0
+    if "--fastpath-only" in argv:
+        phase("23 (the serving fast path)")
+        fp = fastpath_phase(cv_train, engine, csvec, kernels, card_line())
+        for name in rows:
+            rows[name]["launches_fastpath"] = {run: n[name] for run, n in fp.items()}
+        print(json.dumps({"kernels": list(rows.values())}), flush=True)
+        print("chip_smoke: fastpath-only run done", flush=True)
         return 0
     if "--layerwise-only" in argv:
         phase("19 (layerwise)")
@@ -4470,11 +4799,17 @@ def main(argv: list[str]) -> int:
 
     # 21. serving on a group, the serving pipeline
     phase("21 (serving on a group, the pipeline)")
-    served = serve_group_phase(cv_train, engine, csvec, kernels, card)
+    # (the same launch runs phases 22f's and 23e's group runs)
+    served, shared = serve_group_phase(cv_train, engine, csvec, kernels, card,
+                                       extra=("async", "fast"))
 
     # 22. the buffered-async service
     phase("22 (the buffered-async service)")
-    asy = async_phase(cv_train, engine, csvec, kernels, card)
+    asy = async_phase(cv_train, engine, csvec, kernels, card, shared)
+
+    # 23. the serving fast path
+    phase("23 (the serving fast path)")
+    fp = fastpath_phase(cv_train, engine, csvec, kernels, card, shared)
     phase("end")
 
     for name in rows:
@@ -4494,6 +4829,7 @@ def main(argv: list[str]) -> int:
         rows[name]["launches_group"] = {run: n.get(name, 0) for run, n in group.items()}
         rows[name]["launches_serve_group"] = {run: n.get(name, 0) for run, n in served.items()}
         rows[name]["launches_async"] = {run: n.get(name, 0) for run, n in asy.items()}
+        rows[name]["launches_fastpath"] = {run: n.get(name, 0) for run, n in fp.items()}
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

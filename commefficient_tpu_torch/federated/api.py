@@ -725,8 +725,7 @@ class FederatedSession:
             host.copy_(tables, non_blocking=True)
             t1 = self._record(timing=True)
             t1.synchronize()
-            with self._wire_lock:
-                self._wire_copies.append(("d2h", host.numel() * host.element_size(), t0, t1))
+            self.note_wire_copy("d2h", host.numel() * host.element_size(), t0, t1)
             self._fold_wire_copies()  # the sync completed every earlier copy too
         else:
             host = tables
@@ -751,6 +750,10 @@ class FederatedSession:
         masked and queued, and the preparation carries the validated table
         stack and the arrival mask for ``dispatch_round``. Draws no host
         RNG, so the preparation's RNG snapshot stays valid.
+
+        ``wire_tables`` is the host [W, r, c] stack, or (the fast path) a
+        tensor already on the session's device, ordered before its stream,
+        which the merge reads as it is.
 
         ``stale`` (the buffered-async service): a host pair ([n, r, c] late
         tables, [n] weights), n <= ``stale_slots``, that this round's merge
@@ -777,7 +780,8 @@ class FederatedSession:
         return dataclasses.replace(
             prep, masked=masked, requeue=tuple(self._requeue),
             requeue_ages=tuple(self._requeue_enqueued.items()),
-            payload=(np.asarray(wire_tables, np.float32), arrived, aux, stale))
+            payload=(wire_tables if torch.is_tensor(wire_tables)
+                     else np.asarray(wire_tables, np.float32), arrived, aux, stale))
 
     def _copy_in(self, a: np.ndarray, direction: str) -> tuple[torch.Tensor, torch.Tensor]:
         """(pinned host tensor, its device copy) of a table stack: the copy is
@@ -787,20 +791,34 @@ class FederatedSession:
         t0 = self._record(timing=True)
         dev = host.to(self.device, non_blocking=True)
         if t0 is not None:
-            with self._wire_lock:
-                self._wire_copies.append((direction, host.numel() * host.element_size(), t0,
-                                          self._record(timing=True)))
+            self.note_wire_copy(direction, host.numel() * host.element_size(), t0,
+                                self._record(timing=True))
         return host, dev
+
+    def note_wire_copy(self, direction: str, nbytes: int, t0, t1) -> None:
+        """Record one copy of a payload round's tables for
+        ``wire_copy_stats``: its bytes and the CUDA events around it (any
+        thread, any stream)."""
+        with self._wire_lock:
+            self._wire_copies.append((direction, nbytes, t0, t1))
 
     def _dispatch_payload_merge(self, prep: PreparedRound, lr: float) -> InFlightRound:
         """Dispatch the payload round's merge over the validated tables a
         served round collected: one pinned host-to-device copy of the
-        [W, r, c] stack (and of an async round's late tables and weights),
+        [W, r, c] stack (a fast-path stack is on the device already and
+        passes as it is), and of an async round's late tables and weights,
         then the merge on the state the client step read."""
         wire_tables, arrived, aux, stale = prep.payload
         state, nstates, mvals, part, lnorms = aux
-        host, tables = self._copy_in(wire_tables, "h2d")
-        kw, hosts = {}, {"tables": host}
+        if torch.is_tensor(wire_tables):
+            if wire_tables.device != self.device:
+                raise ValueError(f"a device stack of the payload round on {wire_tables.device}, "
+                                 f"the session runs on {self.device}")
+            tables, hosts = wire_tables, {}
+        else:
+            host, tables = self._copy_in(wire_tables, "h2d")
+            hosts = {"tables": host}
+        kw = {}
         if stale is not None:
             # the late tables cross as the live stack does ("h2d_stale")
             hosts["stale_tables"], kw["stale_tables"] = self._copy_in(stale[0], "h2d_stale")
@@ -838,6 +856,7 @@ class FederatedSession:
         """Bytes and CUDA-event milliseconds of the served payload rounds'
         table-stack copies since the last call, by direction ("d2h": the
         client tables to the host, "h2d": the validated stack back,
+        "h2d_ring": the fast path's chunks of ring slots instead,
         "h2d_stale": an async round's late tables):
         {direction: {"copies", "bytes", "ms"}}. Waits for the last copy."""
         self._fold_wire_copies()

@@ -18,7 +18,10 @@ Two close disciplines:
 
 A payload round's close also collects the validated [N, r, c] table stack
 (``ClosedRound.tables``): each invitee's table where it passed the
-validation and made the close, an exact zero row everywhere else.
+validation and made the close, an exact zero row everywhere else. With
+``--serve_fastpath`` (``ring_mode``) the accepted tables already lie in the
+round's ring block, so the close builds no host stack (``tables`` is None)
+and the service builds the device stack from the ring.
 
 The buffered-async service (``--serve_async``) closes the same way with
 the quorum read as the buffer-size trigger (``buffered``: the close is
@@ -33,6 +36,7 @@ import dataclasses
 
 import numpy as np
 
+from ..obs import registry as obreg
 from ..obs import trace as obtrace
 from .ingest import IngestQueue
 
@@ -54,7 +58,7 @@ class ClosedRound:
     wall_ts: np.ndarray | None = None
     # payload rounds: [N, r, c] float32 validated tables aligned with
     # ``invited``, a zero row wherever a payload missed the merge; None on
-    # the announce path
+    # the announce path and with the fast path's ring
     tables: np.ndarray | None = None
     # buffered closes only: (cohort position, client id, table) of each
     # invitee whose validated table arrived after the cut, in position
@@ -68,7 +72,8 @@ class ClosedRound:
 
 class CohortAssembler:
     def __init__(self, queue: IngestQueue, quorum: int, deadline_s: float,
-                 payload_shape: tuple | None = None, buffered: bool = False):
+                 payload_shape: tuple | None = None, buffered: bool = False,
+                 ring_mode: bool = False):
         if quorum < 1:
             raise ValueError(f"quorum must be >= 1, got {quorum}")
         self.queue = queue
@@ -80,6 +85,9 @@ class CohortAssembler:
         # quorum's, named "buffer", and the stragglers' tables collected
         self.buffered = buffered
         self.trigger_label = "buffer" if buffered else "quorum"
+        # --serve_fastpath: the tables lie in the round's ring block, so the
+        # close stacks none
+        self.ring_mode = ring_mode
         self.rounds_closed = 0
         self.closed_by_quorum = 0
         self.closed_by_deadline = 0
@@ -142,14 +150,21 @@ class CohortAssembler:
     def _collect_tables(self, pos, arrivals, arrived, n: int) -> np.ndarray | None:
         """The [N, r, c] validated-table stack of a payload round: rows
         copied into a zero array, so a rejected, late or missing payload is
-        an exact zero row. None on the announce path."""
-        if self.payload_shape is None:
+        an exact zero row. None on the announce path and in ring mode."""
+        if self.payload_shape is None or self.ring_mode:
             return None
         out = np.zeros((n,) + tuple(self.payload_shape), np.float32)
+        copied = 0
         for a in arrivals:
             p = pos.get(int(a.client_id))
             if p is not None and arrived[p] == 1.0 and a.table is not None:
                 out[p] = a.table
+                copied += 1
+        if copied:
+            # the slow path's second host copy of a table (the decode made
+            # the first)
+            obreg.default().counter("serve_table_bytes_copied_total").inc(
+                copied * int(np.prod(self.payload_shape)) * 4)
         return out
 
     def _collect_stragglers(self, pos, arrivals, arrived) -> tuple:
@@ -163,9 +178,9 @@ class CohortAssembler:
             p = pos.get(int(a.client_id))
             if p is not None and arrived[p] == 0.0 and a.table is not None:
                 # a copy: an in-process table is a view into the session's
-                # pinned host buffer of the round's client tables, which a
-                # straggler kept for a later round would hold (and the host
-                # allocator would pin a new buffer for every round after)
+                # pinned host buffer of the round's client tables, or into
+                # the round's ring block, either of which a straggler kept
+                # for a later round would hold
                 out.append((int(p), int(a.client_id), np.array(a.table, np.float32)))
         return tuple(sorted(out, key=lambda e: e[0]))
 

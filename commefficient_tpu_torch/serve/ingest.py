@@ -39,8 +39,13 @@ broken chunk sequence), ``STALE_SCHEMA`` (an unknown wire schema) or
 multiple of the round's quarantine median, the gauntlet's sketch-space
 screen). A rejected payload is bitwise a client that never submitted.
 
-The reference's zero-copy fast path (``attach_block``, ``submit_block``,
-``screen_block``) is not ported (ROADMAP Queue 1 item 9b).
+With ``--serve_fastpath`` a payload round's decoded tables land straight
+in the round's ring block (``attach_block``; ``serve/ring.py``: one write,
+no table of its own), and over the socket the validation runs in batches
+(``serve/gauntlet.py`` -> ``submit_block``): the frames' structural checks
+one by one, then the finite and L2 screen over the block in one numpy pass
+(``screen_block``). Verdicts, counters and the per-submission attribution
+are bitwise the inline path's; ``validate_payload`` stays the one decode.
 
 Counters are cumulative over the service's life and feed ``/metrics``;
 the wire-facing rejections also bump process-wide counters in the obs
@@ -194,10 +199,18 @@ def _reassemble_chunks(payload):
     return merged, None, None
 
 
-def validate_payload(payload, policy: PayloadPolicy, median: float | None = None):
+def validate_payload(payload, policy: PayloadPolicy, median: float | None = None, out=None,
+                     screen: bool = True):
     """The one decode of untrusted wire bytes. Returns (table, decision,
     detail); ``table`` is a validated host float32 [r, c] ndarray only when
     decision == ACCEPTED, else None.
+
+    ``out`` (the fast path) is a ``RingSlot`` the decoded table is written
+    into once every structural check has passed; the returned table is then
+    the slot's view. ``screen=False`` leaves the finite and L2 screen to the
+    batched path's ``screen_block`` (same verdicts); only that path passes
+    it. Each decode copy of a table counts its bytes on
+    ``serve_table_bytes_copied_total``.
 
     Check order (the earliest failing stage reports):
       MALFORMED     structure: no payload, not a frame dict, chunk list or
@@ -220,7 +233,13 @@ def validate_payload(payload, policy: PayloadPolicy, median: float | None = None
             return None, MALFORMED, f"dtype {t.dtype} != float32"
         if t.shape != (policy.rows, policy.cols):
             return None, MALFORMED, f"shape {t.shape} != ({policy.rows}, {policy.cols})"
-        return _screen_table(np.ascontiguousarray(t), policy, median)
+        if out is not None:
+            # in process, the client's table lands straight in its slot
+            t = out.write(t)
+            obreg.default().counter("serve_table_bytes_copied_total").inc(policy.nbytes)
+        else:
+            t = np.ascontiguousarray(t)
+        return _screen_table(t, policy, median) if screen else (t, ACCEPTED, "")
     if isinstance(payload, (list, tuple)):
         payload, decision, detail = _reassemble_chunks(list(payload))
         if decision is not None:
@@ -257,8 +276,11 @@ def validate_payload(payload, policy: PayloadPolicy, median: float | None = None
         return None, MALFORMED, f"decoded {len(raw)} bytes, length prefix says {nbytes}"
     if (zlib.crc32(raw) & 0xFFFFFFFF) != crc:
         return None, MALFORMED, "checksum mismatch"
-    t = np.frombuffer(raw, dtype=WIRE_DTYPE).reshape(policy.rows, policy.cols).astype(np.float32)
-    return _screen_table(t, policy, median)
+    wire_view = np.frombuffer(raw, dtype=WIRE_DTYPE).reshape(policy.rows, policy.cols)
+    # the fast path's one copy of the table lands in its ring slot
+    t = out.write(wire_view) if out is not None else wire_view.astype(np.float32)
+    obreg.default().counter("serve_table_bytes_copied_total").inc(policy.nbytes)
+    return _screen_table(t, policy, median) if screen else (t, ACCEPTED, "")
 
 
 def _screen_table(t: np.ndarray, policy: PayloadPolicy, median: float | None = None):
@@ -275,6 +297,50 @@ def _screen_table(t: np.ndarray, policy: PayloadPolicy, median: float | None = N
                 return None, QUARANTINED, (f"sketch L2 {norm:.3g} > {policy.clip_multiple:g} x "
                                            f"median {med:.3g}")
     return t, ACCEPTED, ""
+
+
+def screen_block(entries, policy: PayloadPolicy):
+    """The batched path's finite and L2 screen, one numpy pass over each
+    ring block's span of the entries' slots instead of one reduction a
+    table. ``entries``: (table, median, block, slot index) each; a table
+    with no slot (block None, index -1: the ring overflowed) is screened
+    alone. Returns one (decision, detail) an entry.
+
+    The verdicts are bitwise ``_screen_table``'s: each row of a contiguous
+    [m, r, c] span sums its r * c contiguous elements in the order the 2-D
+    sum does (numpy's pairwise summation depends on the layout only), the
+    float64 square and root are exact elementwise, and the detail formats
+    the same double. Medians come resolved (the target round's snapshot);
+    the live ``quarantine_median`` is never read here."""
+    verdicts: list = [None] * len(entries)
+    want_norms = policy.clip_multiple > 0 and policy.quarantine_median is not None
+    groups: dict[int, tuple[Any, list[int]]] = {}
+    for i, (t, med, blk, slot) in enumerate(entries):
+        if blk is not None and slot >= 0:
+            groups.setdefault(id(blk), (blk, []))[1].append(i)
+        else:
+            _t, decision, detail = _screen_table(t, policy, med)
+            verdicts[i] = (decision, detail)
+    for blk, idxs in groups.values():
+        rows = [entries[i][3] for i in idxs]
+        lo, hi = min(rows), max(rows)
+        span = blk.tables[lo:hi + 1]
+        finite = np.isfinite(span).all(axis=(1, 2))
+        norms = np.sqrt(np.square(span, dtype=np.float64).sum(axis=(1, 2))) if want_norms \
+            else None
+        for i, row in zip(idxs, rows):
+            if not finite[row - lo]:
+                verdicts[i] = (QUARANTINED, "non-finite table")
+                continue
+            med = float(entries[i][1])
+            if want_norms and med > 0:
+                norm = float(norms[row - lo])
+                if norm > policy.clip_multiple * med:
+                    verdicts[i] = (QUARANTINED, f"sketch L2 {norm:.3g} > "
+                                                f"{policy.clip_multiple:g} x median {med:.3g}")
+                    continue
+            verdicts[i] = (ACCEPTED, "")
+    return verdicts
 
 
 class _Window:
@@ -328,6 +394,9 @@ class IngestQueue:
         self.shed_retry_after_s = shed_retry_after_s
         self._cv = threading.Condition()
         self._windows: dict[int, _Window] = {}
+        # --serve_fastpath: the open rounds' ring blocks (serve/ring.py),
+        # dropped at the close; a block's lock is a leaf under this one
+        self._blocks: dict[int, Any] = {}
         # the newest round ever opened; the pending buffer targets _newest + 1
         self._newest: int | None = None
         # closed rounds in the band: round -> (median, invited, seen), so a
@@ -400,6 +469,23 @@ class IngestQueue:
             self._pending = still_pending
             self._cv.notify_all()
 
+    def attach_block(self, rnd: int, block) -> None:
+        """Arm the fast path for open round ``rnd``: its decoded payloads
+        land in ``block``'s slots until its close."""
+        with self._cv:
+            if rnd in self._windows:
+                self._blocks[rnd] = block
+
+    def _acquire_slot(self, rnd: int):
+        """(block, slot) of a fast-path decode for round ``rnd``: (block,
+        None) when the block is full (the decode makes a table of its own,
+        counted as ring overflow), (None, None) with no block attached."""
+        with self._cv:
+            blk = self._blocks.get(int(rnd))
+        if blk is None:
+            return None, None
+        return blk, blk.acquire()
+
     def close_round(self, rnd: int | None = None) -> list[Arrival]:
         """Close one open window (None = the oldest) and return its
         arrivals in submission order; later submissions naming it are
@@ -410,6 +496,7 @@ class IngestQueue:
                     return []
                 rnd = min(self._windows)
             win = self._windows.pop(rnd, None)
+            self._blocks.pop(rnd, None)  # no ring acquire past the close
             if win is None:
                 return []
             if self.stale_rounds:
@@ -454,6 +541,12 @@ class IngestQueue:
         """The admission decision for one submission (rule order in the
         module docstring)."""
         status = self._decide(sub)
+        self._finish_submit(sub, status)
+        return status
+
+    def _finish_submit(self, sub: Submission, status: str) -> None:
+        """A submission's own counters and trace instant, whichever path
+        (inline or batched) decided it."""
         reg = obreg.default()
         counter = _REJECTION_COUNTERS.get(status)
         if counter is not None:
@@ -463,7 +556,69 @@ class IngestQueue:
             obtrace.instant("serve-ingest", f"submit:{status}",
                             submission=f"r{int(sub.round)}/c{int(sub.client_id)}",
                             round=int(sub.round), client=int(sub.client_id))
-        return status
+
+    def submit_block(self, subs) -> list[str]:
+        """The batched admission (the gauntlet pool's entry): one decision a
+        submission, in order, each bitwise the one ``submit`` gives and
+        attributed to its submission alone. The batch changes when the
+        screen's arithmetic runs, one numpy pass over the block's ring rows,
+        never what it computes."""
+        subs = list(subs)
+        statuses = self._decide_block(subs)
+        for sub, status in zip(subs, statuses):
+            self._finish_submit(sub, status)
+        return statuses
+
+    def _decide_block(self, subs: list[Submission]) -> list[str]:
+        n = len(subs)
+        statuses: list[str | None] = [None] * n
+        medians = [0.0] * n
+        # the checks before the decode, for the whole block under one lock
+        # hold (an announce submission is admitted here, as inline)
+        with self._cv:
+            announced = False
+            for i, sub in enumerate(subs):
+                cid = int(sub.client_id)
+                status, stale_median = self._precheck(sub, cid)
+                if status is not None:
+                    statuses[i] = status
+                    continue
+                win = self._windows.get(sub.round)
+                if self.payload_policy is None:
+                    self._admit(win, cid, float(sub.latency_s))
+                    statuses[i] = ACCEPTED
+                    announced = True
+                    continue
+                medians[i] = win.median if win is not None else stale_median
+            if announced:
+                self._cv.notify_all()
+        if self.payload_policy is None or all(s is not None for s in statuses):
+            return statuses
+        # each frame's structural checks, outside the lock; an accepted
+        # table lands in its round's ring slot, its screen deferred
+        entries = []  # (i, sub, blk, slot, table)
+        for i, sub in enumerate(subs):
+            if statuses[i] is not None:
+                continue
+            blk, slot = self._acquire_slot(sub.round)
+            table, decision, detail = validate_payload(sub.payload, self.payload_policy,
+                                                       median=medians[i], out=slot,
+                                                       screen=False)
+            if decision != ACCEPTED:
+                statuses[i] = self._reject_decoded(sub, decision, detail, blk, slot)
+                continue
+            entries.append((i, sub, blk, slot, table))
+        # one finite and L2 pass over the block
+        verdicts = screen_block(
+            [(t, medians[i], blk, slot.index if slot is not None else -1)
+             for i, _sub, blk, slot, t in entries], self.payload_policy)
+        # each survivor's admission checks again, as inline
+        for (i, sub, blk, slot, table), (decision, detail) in zip(entries, verdicts):
+            if decision != ACCEPTED:
+                statuses[i] = self._reject_decoded(sub, decision, detail, blk, slot)
+            else:
+                statuses[i] = self._admit_decoded(sub, table, blk, slot)
+        return statuses
 
     def _decide(self, sub: Submission) -> str:
         cid = int(sub.client_id)
@@ -480,38 +635,75 @@ class IngestQueue:
             # retained median
             median = win.median if win is not None else stale_median
         # the payload decode runs outside the lock (base64, crc32 and numpy
-        # over up to a frame cap of bytes), then the admission re-checks
+        # over up to a frame cap of bytes), then the admission re-checks;
+        # with a ring block attached the table lands in a slot
+        blk, slot = self._acquire_slot(sub.round)
         table, decision, detail = validate_payload(sub.payload, self.payload_policy,
-                                                   median=median)
+                                                   median=median, out=slot)
         if decision != ACCEPTED:
-            with self._cv:
-                if decision == MALFORMED:
-                    self.rejected_malformed += 1
-                elif decision == STALE_SCHEMA:
-                    self.rejected_stale_schema += 1
-                else:
-                    self.rejected_quarantined += 1
-            print(f"serve: payload from client {cid} rejected {decision} ({detail})",
-                  file=sys.stderr, flush=True)
-            return decision
+            return self._reject_decoded(sub, decision, detail, blk, slot)
+        return self._admit_decoded(sub, table, blk, slot)
+
+    def _reject_decoded(self, sub: Submission, decision: str, detail: str, blk=None,
+                        slot=None) -> str:
+        """A validation's rejection (inline and batched): its counter and
+        its stderr line; a ring slot the decode wrote is zeroed back."""
+        if slot is not None:
+            blk.reject(slot)
+        with self._cv:
+            if decision == MALFORMED:
+                self.rejected_malformed += 1
+            elif decision == STALE_SCHEMA:
+                self.rejected_stale_schema += 1
+            else:
+                self.rejected_quarantined += 1
+        print(f"serve: payload from client {int(sub.client_id)} rejected {decision} ({detail})",
+              file=sys.stderr, flush=True)
+        return decision
+
+    def _admit_decoded(self, sub: Submission, table, blk=None, slot=None) -> str:
+        """The admission checks after a validation (inline and batched):
+        the round may have closed, a duplicate landed or the window filled
+        while this thread decoded. A ring slot is committed at the client's
+        cohort position or rejected back to zero; a late admission copies
+        its table out of the ring first (a ring view never outlives its
+        round)."""
+        cid = int(sub.client_id)
+        pos = -1
         with self._cv:
             if self._closed:
                 self.rejected_closed += 1
-                return CLOSED
-            win = self._windows.get(sub.round)
-            if win is None:
-                # a late payload, or the window closed while this thread
-                # decoded: the band may take it
-                return self._admit_stale(sub, cid, table)
-            if cid in win.seen:
-                self.rejected_dup += 1
-                return DUPLICATE
-            if len(win.arrivals) >= self.capacity:
-                self.rejected_full += 1
-                return QUEUE_FULL
-            self._admit(win, cid, float(sub.latency_s), table)
-            self._cv.notify_all()
-            return ACCEPTED
+                status = CLOSED
+            else:
+                win = self._windows.get(sub.round)
+                if win is None:
+                    # a late payload, or the window closed while this thread
+                    # decoded: the band may take it
+                    status = self._admit_stale(
+                        sub, cid, np.array(table, np.float32) if slot is not None else table)
+                elif cid in win.seen:
+                    self.rejected_dup += 1
+                    status = DUPLICATE
+                elif len(win.arrivals) >= self.capacity:
+                    self.rejected_full += 1
+                    status = QUEUE_FULL
+                else:
+                    self._admit(win, cid, float(sub.latency_s), table)
+                    pos = win.invited[cid]
+                    self._cv.notify_all()
+                    status = ACCEPTED
+                    attached = self._blocks.get(sub.round)
+                    if slot is None and attached is not None:
+                        # a table with no slot (the ring overflowed, or it
+                        # was decoded before the block was attached) lands
+                        # on its own, registered before the close can read
+                        attached.add_extra(pos, table)
+        if slot is not None:
+            if status == ACCEPTED:
+                blk.commit(slot, pos)
+            else:
+                blk.reject(slot)
+        return status
 
     def _precheck(self, sub: Submission, cid: int) -> tuple[str | None, float]:
         """Every check before the payload decode (lock held): (the decision,

@@ -13,7 +13,10 @@ over the same numbers:
   (submission-to-merge {p50, p99, count}, the registry histogram
   ``serve_submit_to_merge_ms``), round_phase_ms (the run loop's
   ``runner_phase_*_ms``), serve_stage_ms (``serve_stage_*_ms``: invite,
-  compute, collect, prep) and the service's configuration.
+  compute, collect, prep), with ``--serve_fastpath`` the ``fastpath`` block
+  (gauntlet_workers, gauntlet_batch_ms, ring_occupancy, ring_overflow,
+  bytes_copied: the registry's ``FASTPATH_METRICS``; null without it) and
+  the service's configuration.
 
 The HTTP server is a stdlib ThreadingHTTPServer on its own daemon thread:
 it reads host numbers only and never touches the device. Any other path
@@ -31,6 +34,22 @@ from typing import Callable
 from ..obs import registry as obreg
 
 _NAME_SANITIZE = re.compile(r"[^a-zA-Z0-9_:]")
+
+# the fast path's metrics (--serve_fastpath), registered when a fast-path
+# service starts so that both formats show them at zero from the first
+# scrape: (name, kind)
+FASTPATH_METRICS = (("serve_ring_overflow_total", "counter"),
+                    ("serve_table_bytes_copied_total", "counter"),
+                    ("serve_ring_occupancy", "histogram"),
+                    ("serve_gauntlet_batch_ms", "histogram"))
+
+
+def register_fastpath(registry: obreg.Registry | None = None) -> None:
+    """Register ``FASTPATH_METRICS`` in ``registry`` (default: the
+    process-wide one)."""
+    registry = registry if registry is not None else obreg.default()
+    for name, kind in FASTPATH_METRICS:
+        getattr(registry, kind)(name)
 
 
 def _prom_name(name: str) -> str:

@@ -19,9 +19,15 @@ One reactor thread multiplexes every connection through
 - write backpressure: replies that would block park on the connection's
   out-buffer and flush when the socket turns writable.
 
+- the fast path's deferral (``--serve_fastpath``): a complete submission
+  goes to the batched validation's pool (``serve/gauntlet.py``) with a
+  callback that parks its verdict on a locked list and wakes the selector
+  through the self-pipe; the reactor moves parked verdicts onto their
+  connections' out-buffers at its next wakeup, so it never waits on a
+  batch.
+
 Nothing reachable from the loop blocks beyond the selector wait. The
-reference's sharded reactors and batched-validation deferral are not
-ported.
+reference's sharded reactors are not ported.
 """
 
 from __future__ import annotations
@@ -85,9 +91,17 @@ class EventLoopTransport(LineProtocol):
         self._thread: threading.Thread | None = None
         self._conns: dict[socket.socket, _Conn] = {}
         self._stop = threading.Event()
-        # self-pipe: stop() writes one byte to wake the selector at once
+        # self-pipe: stop() and the gauntlet's callbacks write one byte to
+        # wake the selector at once
         self._wake_r: socket.socket | None = None
         self._wake_w: socket.socket | None = None
+        # the fast path's verdicts, parked by gauntlet threads for the
+        # reactor: (connection, status)
+        self._deferred: list[tuple[_Conn, str]] = []
+        self._deferred_lock = threading.Lock()
+        # the connection whose frames the reactor is dispatching (reactor
+        # thread only): where a deferred reply goes
+        self._cur_conn: _Conn | None = None
 
     @property
     def address(self) -> tuple[str, int] | None:
@@ -195,6 +209,42 @@ class EventLoopTransport(LineProtocol):
                 pass
         except (BlockingIOError, OSError):
             pass
+        self._flush_deferred()
+
+    def _wake(self) -> None:
+        """One byte down the self-pipe: the selector wakes now (safe from
+        any thread)."""
+        w = self._wake_w
+        if w is not None:
+            try:
+                w.send(b"x")
+            except OSError:
+                pass
+
+    def _deferred_submit(self, sub) -> None:
+        """The fast path's deferral: hand the submission to the pool with a
+        callback that parks its verdict for the reactor, and reply nothing
+        yet; the reactor serves every other connection meanwhile."""
+        conn = self._cur_conn
+
+        def deliver(status: str) -> None:
+            with self._deferred_lock:
+                self._deferred.append((conn, status))
+            self._wake()
+
+        self.gauntlet.submit(sub, deliver)
+        return None
+
+    def _flush_deferred(self) -> None:
+        """Queue the parked verdicts on their connections' out-buffers
+        (reactor thread only). A connection that died while its frame was in
+        a batch drops its reply, as a threaded handler whose peer vanished
+        does."""
+        with self._deferred_lock:
+            items, self._deferred = self._deferred, []
+        for conn, status in items:
+            if self._conns.get(conn.sock) is conn and not conn.closing:
+                self._queue_reply(conn, self._reply_for(status))
 
     def _accept_burst(self) -> None:
         while True:
@@ -236,6 +286,7 @@ class EventLoopTransport(LineProtocol):
         rejection."""
         buf = conn.buf
         view = memoryview(buf)
+        self._cur_conn = conn  # where a deferred reply goes
         while True:
             nl = buf.find(b"\n", conn.off)
             if nl < 0:

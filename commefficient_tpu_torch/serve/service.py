@@ -70,9 +70,28 @@ snapshotted at every round boundary and published through
 ``restored_serve_meta`` re-seeds it, so a resumed run replays the arrival
 stream and the folds of the uninterrupted one.
 
-Not ported (ROADMAP Queue 1 item 9b): the zero-copy fast path, sharded
-ingest and the edge tree. ``ServeConfig`` has no field for them, and the
-CLIs refuse their flags by name (``utils/config.py``).
+The fast path (``--serve_fastpath``): a layout and timing change, never an
+order change, so a fast-path run is bitwise the same run without it. A
+payload round opens a block of the ``TableRing`` (``serve/ring.py``; on
+the GPU pinned once, when the pool makes it) at its invite and attaches it
+to the queue; each validated table is written into its slot once (in
+process the client's table is copied in; over the socket the decode
+writes there, and the socket engines validate in batches on a
+``GauntletPool``, ``serve/gauntlet.py``). While the window is open,
+``_RingUploader``'s poller thread copies each finalized chunk of slots to
+the device on a side CUDA stream of its own (``non_blocking``, from the
+pinned block); at the close ``_finish_ring_stack`` ships the rest and
+scatters the slots that made the cut into a zero [W, r, c] stack at their
+cohort positions (``index_copy_``, positions filtered on the host), on the
+stream the merge runs on, ordered after the copies by an event. The
+merge's stack never crosses the host again, and the block goes back to the
+pool, where its next ``reset`` waits for its last copy. On the CPU the
+"upload" is a copy into a tensor of its own, never a view of the block.
+On a group rank 0 broadcasts the stack it built from the ring.
+
+Not ported (ROADMAP Queue 1 item 9b): sharded ingest and the edge tree.
+``ServeConfig`` has no field for them, and the CLIs refuse their flags by
+name (``utils/config.py``).
 """
 
 from __future__ import annotations
@@ -90,8 +109,10 @@ import torch
 from ..obs import registry as obreg
 from ..obs import trace as obtrace
 from .assembler import ClosedRound, CohortAssembler
+from .gauntlet import GauntletPool
 from .ingest import IngestQueue, PayloadPolicy, Submission
-from .metrics import MetricsServer
+from .metrics import MetricsServer, register_fastpath
+from .ring import RingBlock, TableRing
 from .traffic import TraceConfig, TrafficGenerator
 from .transport import InProcessTransport, SocketTransport, abort_over_socket, submit_over_socket
 
@@ -184,6 +205,13 @@ class ServeConfig:
     buffer_size: int = 0
     staleness_alpha: float = 0.5
     stale_rounds: int = 1
+    # --serve_fastpath: the table ring, the batched validation over the
+    # socket and the upload that overlaps the open window (module
+    # docstring); bitwise the run without it. Needs payload "sketch"
+    fastpath: bool = False
+    # --serve_gauntlet_workers: the batched validation's threads (socket
+    # only; in process the validation runs inline into the ring)
+    gauntlet_workers: int = 2
 
     @classmethod
     def from_args(cls, args) -> "ServeConfig":
@@ -194,7 +222,8 @@ class ServeConfig:
             socket_transport=args.serve_transport, max_conns=args.serve_max_conns,
             pipeline=args.serve_pipeline, async_mode=args.serve_async,
             buffer_size=args.serve_buffer, staleness_alpha=args.serve_staleness,
-            stale_rounds=args.serve_stale_rounds)
+            stale_rounds=args.serve_stale_rounds, fastpath=args.serve_fastpath,
+            gauntlet_workers=args.serve_gauntlet_workers)
 
 
 def _check_payload_session(session, cfg: ServeConfig) -> None:
@@ -219,6 +248,13 @@ def _check_payload_session(session, cfg: ServeConfig) -> None:
         raise ValueError("--serve_buffer is the ASYNC buffer-size trigger; without "
                          "--serve_async the close discipline is the W-of-N quorum "
                          "(--serve_quorum)")
+    if cfg.fastpath:
+        if cfg.payload != "sketch":
+            raise ValueError("--serve_fastpath accelerates the wire-PAYLOAD ingest path; the "
+                             "announce path moves no tables - arm --serve_payload sketch")
+        if cfg.gauntlet_workers < 1:
+            raise ValueError(f"--serve_gauntlet_workers must be >= 1, got "
+                             f"{cfg.gauntlet_workers}")
     if cfg.payload == "sketch" and not session.cfg.wire_payloads:
         raise ValueError("--serve_payload sketch needs a session built with "
                          "wire_payloads=True (the CLIs arm it from the flag): the "
@@ -252,6 +288,100 @@ def _agree(group, go: bool) -> bool:
 
     flag = torch.tensor([1 if go else 0], dtype=torch.int64)
     return bool(distributed.broadcast_from_root([flag], group)[0][0])
+
+
+class _RingUploader:
+    """The copy of a ring block's slots to the device as they finalize: the
+    fast path's overlap of the upload with the open window. A poller thread
+    ships each finalized chunk of slots, on fixed boundaries (every
+    ``max(1, capacity // 4)`` slots: the same chunks every round, whatever
+    the arrival timing), into one [capacity, r, c] device tensor. On the GPU
+    each chunk is a ``non_blocking`` copy from the pinned block on a side
+    stream of the uploader's own, timed by CUDA events as ``"h2d_ring"`` in
+    the session's ``wire_copy_stats``; on the CPU a copy into a tensor of
+    its own. ``finish`` joins the poller, ships the rest and returns the
+    slots, ordered before the caller's stream by an event; an error of the
+    poller is raised there."""
+
+    POLL_S = 0.002  # the poller's period
+
+    def __init__(self, block: RingBlock, session):
+        self.block = block
+        self._session = session
+        self.device = session.device
+        cap = block.capacity
+        step = max(1, cap // 4)
+        self._bounds = list(range(step, cap, step)) + [cap]
+        # the poller's alone until finish() joins it
+        self._bi = 0
+        self._uploaded = 0
+        self._stream = None
+        shape = (cap, block.rows, block.cols)
+        if self.device.type == "cuda":
+            self._stream = torch.cuda.Stream(device=self.device)
+            with torch.cuda.stream(self._stream):
+                self.slots = torch.empty(shape, dtype=torch.float32, device=self.device)
+        else:
+            self.slots = torch.empty(shape, dtype=torch.float32)
+        self._err: BaseException | None = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="serve-ring-upload",
+                                        daemon=True)
+
+    def start(self) -> "_RingUploader":
+        self._thread.start()
+        return self
+
+    def _ship_through(self, ready: int) -> None:
+        while self._bi < len(self._bounds) and self._bounds[self._bi] <= ready:
+            lo, hi = self._uploaded, self._bounds[self._bi]
+            # finalized slots' bytes do not change until the block's reset,
+            # and the slots past the acquired ones are zeros
+            src = self.block.host[lo:hi]
+            if self._stream is None:
+                self.slots[lo:hi].copy_(src)
+            else:
+                t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                with torch.cuda.stream(self._stream):
+                    t0.record()
+                    self.slots[lo:hi].copy_(src, non_blocking=True)
+                    t1.record()
+                self._session.note_wire_copy("h2d_ring", src.numel() * src.element_size(),
+                                             t0, t1)
+            self._uploaded, self._bi = hi, self._bi + 1
+
+    def _run(self) -> None:
+        try:
+            if self._stream is not None:
+                torch.cuda.set_device(self.device)
+            while not self._stop.wait(self.POLL_S):
+                self._ship_through(self.block.final_prefix())
+        except BaseException as e:  # noqa: BLE001 - raised by finish()
+            self._err = e
+
+    def stop(self) -> None:
+        """Stop the poller without finishing (the round is abandoned)."""
+        self._stop.set()
+        self._thread.join(timeout=30.0)
+
+    def finish(self) -> torch.Tensor:
+        """Join the poller, ship every chunk left (the caller waited for the
+        slots to finalize) and return the [capacity, r, c] slots."""
+        self.stop()
+        if self._thread.is_alive():
+            raise RuntimeError("serve: the ring uploader did not stop within 30 s")
+        if self._err is not None:
+            raise self._err
+        self._ship_through(self._bounds[-1])
+        if self._stream is not None:
+            done = torch.cuda.Event()
+            done.record(self._stream)
+            consumer = torch.cuda.current_stream(self.device)
+            consumer.wait_event(done)
+            # allocated on the side stream, read on the consumer's
+            self.slots.record_stream(consumer)
+            self.block.upload_done = done
+        return self.slots
 
 
 class AggregationService:
@@ -308,7 +438,7 @@ class AggregationService:
                                  stale_capacity=session.cfg.stale_slots)
         self.assembler = CohortAssembler(self.queue, trigger, cfg.deadline_s,
                                          payload_shape=payload_shape,
-                                         buffered=cfg.async_mode)
+                                         buffered=cfg.async_mode, ring_mode=cfg.fastpath)
         # the async stash: (source round, cohort position, client id, table)
         # of late tables waiting for their fold, from each close's
         # stragglers and the queue's band; touched by the serve cycle only
@@ -329,6 +459,17 @@ class AggregationService:
                 self.transport = SocketTransport(self.queue, port=cfg.port, **cap)
         else:
             self.transport = InProcessTransport(self.queue)
+        # the fast path: the ring every payload round lands in, and over the
+        # socket the batched validation's pool the engine hands frames to
+        self._ring = self._gauntlet = None
+        # round -> (its ring block, its uploader) while the round is served
+        self._ring_blocks: dict[int, tuple] = {}
+        if cfg.fastpath:
+            register_fastpath()
+            self._ring = TableRing(payload_shape[0], payload_shape[1], device=session.device)
+            if cfg.transport == "socket":
+                self._gauntlet = GauntletPool(self.queue, workers=cfg.gauntlet_workers)
+                self.transport.gauntlet = self._gauntlet
         self.registry = obreg.default()
         self._rate = self.registry.meter("serve_arrival_rate")
         self._latency = self.registry.histogram("serve_submit_to_merge_ms")
@@ -374,6 +515,8 @@ class AggregationService:
 
     def start(self) -> "AggregationService":
         if not self._started:
+            if self._gauntlet is not None:
+                self._gauntlet.start()
             self.transport.start()
             if self.metrics_server is not None:
                 self.metrics_server.start()
@@ -382,7 +525,13 @@ class AggregationService:
 
     def close(self) -> None:
         self.queue.shutdown()
+        # the transport first: its connection threads may wait on verdicts
+        # in flight, and the pool's stop fails the rest CLOSED
         self.transport.stop()
+        if self._gauntlet is not None:
+            self._gauntlet.stop()
+        for rnd in list(self._ring_blocks):
+            self._drop_ring(rnd)
         if self.metrics_server is not None:
             self.metrics_server.stop()
         self._started = False
@@ -401,28 +550,35 @@ class AggregationService:
             return not stopping
         return _agree(self.group, not stopping)
 
-    def _share_close(self, closed: ClosedRound, rnd: int, stale=None) -> None:
+    def _share_close(self, closed: ClosedRound, rnd: int, stale=None, tables=None) -> None:
         """On a group: the close to every rank (the arrival mask, and a
-        payload round's validated stack), as the followers' ``_receive``
-        takes it. Async, a first broadcast carries the mask and the count
-        of filled stale slots, a second the stack and those slots' tables
-        and weights (only the filled ones). The bits rank 0 merges are the
-        ones it sent."""
+        payload round's validated stack: ``tables``, the close's host stack
+        or the fast path's ring-built one), as the followers' ``_receive``
+        takes it. Async, a first broadcast carries the mask and the count of
+        filled stale slots, a second the stack and those slots' tables and
+        weights (only the filled ones). The bits rank 0 merges are the ones
+        it sent."""
         if self.group is None:
             return
         from ..parallel import distributed
 
+        if torch.is_tensor(tables):
+            # the ring's device stack: a group over gloo stages it through
+            # the host anyway
+            tables = tables.cpu()
+        elif tables is not None:
+            tables = torch.from_numpy(tables)
         with self._stage("broadcast", rnd):
             parts = [torch.from_numpy(closed.arrived)]
             if self.cfg.async_mode:
                 k = 0 if stale is None else len(stale[1])
                 distributed.broadcast_from_root(
                     parts + [torch.tensor([k], dtype=torch.int64)], self.group)
-                parts = [torch.from_numpy(closed.tables)]
+                parts = [tables]
                 if k:
                     parts += [torch.from_numpy(stale[0]), torch.from_numpy(stale[1])]
-            elif closed.tables is not None:
-                parts.append(torch.from_numpy(closed.tables))
+            elif tables is not None:
+                parts.append(tables)
             distributed.broadcast_from_root(parts, self.group)
 
     @contextlib.contextmanager
@@ -453,7 +609,7 @@ class AggregationService:
                         closed = self.assembler.close_virtual(rnd, ids)
                     else:
                         closed = self.assembler.close_wall(rnd, ids)
-                self._share_close(closed, rnd)
+                self._share_close(closed, rnd, tables=closed.tables)
                 with self._stage("prep", rnd):
                     prep = self.session.prepare_served_round(rnd, ids, closed.arrived)
         with self._meta_lock:
@@ -477,7 +633,9 @@ class AggregationService:
         real client sketches locally, then ships), the tables cross the
         transport, the validation checks each, and the close hands the merge
         only the validated stack. Every invitee whose payload missed the
-        merge is masked and queued as a dropped client."""
+        merge is masked and queued as a dropped client. With the fast path
+        the tables land in a ring block opened at the invite and go to the
+        device while the window is open (module docstring)."""
         with self._stage("prep", rnd):
             ids = self.session.sample_cohort(rnd)
             prep0 = self.session.prepare_served_round(rnd, ids, np.ones(len(ids), np.float32))
@@ -487,6 +645,16 @@ class AggregationService:
             tables, aux = self.session.compute_client_tables(prep0)
         with self._stage("invite", rnd):
             self.queue.open_round(rnd, ids)
+            if self._ring is not None:
+                self._open_ring(rnd, len(ids))
+        try:
+            return self._collect_payload_round(rnd, ids, prep0, tables, aux)
+        finally:
+            if rnd in self._ring_blocks:  # the round failed before its stack
+                self._drop_ring(rnd)
+
+    def _collect_payload_round(self, rnd: int, ids, prep0, tables, aux):
+        """The payload round from its collect on (``_serve_payload_round``)."""
         with self._stage("collect", rnd):
             if self.traffic is not None:
                 plan = self.session.fault_plan
@@ -518,11 +686,64 @@ class AggregationService:
                 self._submit_stale_poison(rnd)
                 stale = self._build_stale_fold(rnd)
                 self._stash_stragglers(closed)
-        self._share_close(closed, rnd, stale)
+        wire_tables = closed.tables
+        if self._ring is not None:
+            with self._stage("prep", rnd):
+                wire_tables = self._finish_ring_stack(rnd, closed)
+        self._share_close(closed, rnd, stale, wire_tables)
         with self._stage("prep", rnd):
-            prep = self.session.finish_served_payload(prep0, closed.arrived, closed.tables, aux,
+            prep = self.session.finish_served_payload(prep0, closed.arrived, wire_tables, aux,
                                                       stale=stale)
         return prep, closed
+
+    def _open_ring(self, rnd: int, n: int) -> None:
+        """Arm the fast path for round ``rnd``: a ring block of ``n`` slots
+        attached to its window, and an uploader shipping its slots as they
+        finalize."""
+        block = self._ring.open_block(rnd, n)
+        self.queue.attach_block(rnd, block)
+        self._ring_blocks[rnd] = (block, _RingUploader(block, self.session).start())
+
+    def _drop_ring(self, rnd: int) -> None:
+        """Forget round ``rnd``'s block without building its stack (the
+        round failed, or the service closed): the uploader stops, and the
+        block, which a copy may still read, does not go back to the pool."""
+        _, uploader = self._ring_blocks.pop(rnd)
+        uploader.stop()
+
+    def _finish_ring_stack(self, rnd: int, closed: ClosedRound) -> torch.Tensor:
+        """The merge's [N, r, c] stack of round ``rnd``, on the session's
+        device, from its ring block: wait for the decodes in flight to
+        finalize their slots, finish the upload the open window overlapped,
+        and scatter the admitted slots whose client made the cut into a zero
+        stack at their cohort positions (a table the ring had no slot for
+        lands on its own). Bitwise the assembler's host stack: the copies
+        move bytes, each position is written at most once and every other
+        row is the same +0.0. The block then goes back to the pool."""
+        block, uploader = self._ring_blocks[rnd]
+        if not block.wait_final(timeout_s=30.0):
+            raise RuntimeError(f"serve: round {rnd}'s ring block has slots no decode "
+                               "finalized within 30 s of the close")
+        count, positions, valid, extras = block.snapshot()
+        slots = uploader.finish()
+        del self._ring_blocks[rnd]
+        self.registry.histogram("serve_ring_occupancy").observe(float(count))
+        n = len(closed.invited)
+        r, c = self.assembler.payload_shape
+        dev = slots.device
+        stack = torch.zeros((n, r, c), dtype=torch.float32, device=dev)
+        pos = positions[:count]
+        sel = np.flatnonzero(valid[:count] & (pos >= 0))
+        sel = sel[closed.arrived[pos[sel]] == 1.0]
+        host = self.session._host  # pinned on the GPU: the copies queue without a sync
+        if len(sel):
+            stack.index_copy_(0, host(pos[sel].astype(np.int64)).to(dev, non_blocking=True),
+                              slots.index_select(0, host(sel).to(dev, non_blocking=True)))
+        for p, table in extras:
+            if 0 <= p < n and closed.arrived[p] == 1.0:
+                stack[p] = host(np.asarray(table, np.float32)).to(dev, non_blocking=True)
+        self._ring.release(block)
+        return stack
 
     def _submit_stale_poison(self, rnd: int) -> None:
         """Push the due stale-poison tables (withheld at an earlier close) as
@@ -713,6 +934,17 @@ class AggregationService:
                 "folded": int(self.registry.counter("serve_stale_folded_total").value),
                 "dropped": int(self.registry.counter("serve_stale_dropped_total").value),
             } if self.cfg.async_mode else None,
+            # the fast path's posture (null without it): the validation
+            # batches' ms, the ring's fill, its overflows and the host bytes
+            # of the tables' copies
+            "fastpath": {
+                "gauntlet_workers": int(self.cfg.gauntlet_workers),
+                "gauntlet_batch_ms": self.registry.histogram("serve_gauntlet_batch_ms").summary(),
+                "ring_occupancy": self.registry.histogram("serve_ring_occupancy").summary(),
+                "ring_overflow": int(self.registry.counter("serve_ring_overflow_total").value),
+                "bytes_copied": int(
+                    self.registry.counter("serve_table_bytes_copied_total").value),
+            } if self.cfg.fastpath else None,
             "quorum": self.cfg.quorum,
             "invited_per_round": s.num_workers,
             "deadline_s": self.cfg.deadline_s,
@@ -900,6 +1132,7 @@ def service_from_args(args, session) -> AggregationService | ServeFollower | Non
           + (f" ({service.cfg.socket_transport})" if service.cfg.transport == "socket" else "")
           + (f" on {addr[0]}:{addr[1]}" if addr else "")
           + f", payload {service.cfg.payload}"
+          + (", fastpath" if service.cfg.fastpath else "")
           + (", pipelined" if service.cfg.pipeline else "")
           + (f", async (alpha={service.cfg.staleness_alpha:g}, band={service.cfg.stale_rounds})"
              if service.cfg.async_mode else "")

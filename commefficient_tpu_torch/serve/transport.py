@@ -94,6 +94,9 @@ class LineProtocol:
 
     queue: IngestQueue
     max_frame_bytes: int
+    # the batched validation's pool (serve/gauntlet.py) with
+    # --serve_fastpath; None: validate on the thread that read the frame
+    gauntlet = None
 
     def _handle_line(self, line: bytes, sequences: dict | None = None,
                      line_bytes: int | None = None) -> dict | None:
@@ -119,7 +122,7 @@ class LineProtocol:
             print(f"serve: malformed submission rejected ({type(e).__name__}: {e})",
                   file=sys.stderr, flush=True)
             return _malformed(self.queue, type(e).__name__)
-        return self._reply_for(self.queue.submit(sub))
+        return self._submit_reply(sub)
 
     def _sequence_byte_budget(self) -> int:
         """Upper bound on the wire bytes one chunk sequence may buffer: a
@@ -155,9 +158,22 @@ class LineProtocol:
         if len(seq["frames"]) < total:
             return None  # mid-sequence: the reply comes with the last chunk
         frames = sequences.pop(key)["frames"]
-        return self._reply_for(self.queue.submit(Submission(
+        return self._submit_reply(Submission(
             client_id=key[0], round=key[1], latency_s=latency,
-            payload_bytes=sum(len(str(f.get("data", ""))) for f in frames), payload=frames)))
+            payload_bytes=sum(len(str(f.get("data", ""))) for f in frames), payload=frames))
+
+    def _submit_reply(self, sub: Submission) -> dict | None:
+        if self.gauntlet is not None:
+            # the fast path: the submission joins a block of the pool; None
+            # means its reply comes later (the event loop)
+            return self._deferred_submit(sub)
+        return self._reply_for(self.queue.submit(sub))
+
+    def _deferred_submit(self, sub: Submission) -> dict | None:
+        """Caller-runs (the threaded engine): this connection's thread
+        drains batches itself until its submission's verdict lands. The
+        event loop overrides it with a deferral that never waits."""
+        return self._reply_for(self.gauntlet.submit_and_wait(sub))
 
     def _reply_for(self, status: str) -> dict:
         reply = {"status": status}

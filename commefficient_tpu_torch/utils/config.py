@@ -2,8 +2,8 @@
 ``utils/config.py`` parser, with the same names, types, choices and
 defaults, plus ``--device``, so a launch command of the reference parses
 here. The flags of features the port does not run yet (``_UNPORTED``:
-the fast-path, sharded and edge-tree serving variants, and GPT-2's ring
-attention, mixture of experts and parallelism) parse at the reference's defaults, and ``resolve_defaults``
+the sharded and edge-tree serving variants, and GPT-2's ring attention,
+mixture of experts and parallelism) parse at the reference's defaults, and ``resolve_defaults``
 refuses any other value by name, with the ROADMAP Queue 1 item that
 brings the feature: accepted and ignored is never an outcome.
 ``--share_ps_gpu`` and ``--port`` are the reference's own no-ops, and
@@ -24,14 +24,12 @@ from ..obs.slo import parse_rules
 # another value is refused, the ROADMAP Queue 1 item that brings it or None
 # when none is queued)
 _SERVE = ("the port runs the one-listener service (sync or --serve_async, serial or "
-          "pipelined) only")
+          "pipelined, with or without --serve_fastpath) only")
 _UNPORTED = (
     ("serve_shards", dict(type=int, default=0), (0,), _SERVE, "9b"),
     ("serve_shard_mode", dict(default="thread", choices=["thread", "process"]), ("thread",),
      _SERVE, "9b"),
     ("serve_edges", dict(type=int, default=0), (0,), _SERVE, "9b"),
-    ("serve_fastpath", dict(action="store_true"), (False,), _SERVE, "9b"),
-    ("serve_gauntlet_workers", dict(type=int, default=2), (2,), _SERVE, "9b"),
     ("split_compile", dict(action="store_true"), (False,),
      "the port runs eagerly and compiles no program to split", None),
 )
@@ -260,6 +258,19 @@ def make_parser(task: str = "cv") -> argparse.ArgumentParser:
                    help="--serve_async: how many rounds behind the newest window a late table "
                         "is still admitted and folded; older ones bounce OUT_OF_ROUND and a "
                         "parked one is dropped (counted)")
+    p.add_argument("--serve_fastpath", action="store_true",
+                   help="the zero-copy ingest-to-merge fast path: each accepted r x c table "
+                        "is written once, straight into a pinned host ring block sized by "
+                        "the cohort (serve/ring.py), and copied to the device in chunks "
+                        "while the round's window is still open; over the socket the "
+                        "validation also runs in batches (vectorized finite/L2 screen, "
+                        "--serve_gauntlet_workers). Verdicts, counters and the served "
+                        "round's bytes are bitwise the run without it. Needs "
+                        "--serve_payload sketch")
+    p.add_argument("--serve_gauntlet_workers", type=int, default=2,
+                   help="--serve_fastpath over the socket: threads draining the batched "
+                        "validation (up to 32 queued frames a drain, screened as one numpy "
+                        "block); in process the validation runs inline and ignores this")
     # observability (obs/): the round tracer, the profiler window, sketch
     # health, the round ledger and the SLO engine
     p.add_argument("--trace", default="",
@@ -442,6 +453,16 @@ def resolve_defaults(args: argparse.Namespace) -> argparse.Namespace:
     elif args.serve_buffer:
         raise SystemExit("--serve_buffer is the --serve_async trigger size; without "
                          "--serve_async the close discipline is --serve_quorum")
+    if args.serve_fastpath:
+        if args.serve == "off":
+            raise SystemExit("--serve_fastpath is a serving-path optimization; arm --serve "
+                             "inproc|socket")
+        if args.serve_payload != "sketch":
+            raise SystemExit("--serve_fastpath pins client TABLES into a host ring; the "
+                             "announce path has none - arm --serve_payload sketch")
+    if args.serve_gauntlet_workers < 1:
+        raise SystemExit(f"--serve_gauntlet_workers must be >= 1, got "
+                         f"{args.serve_gauntlet_workers}")
     if args.mesh:
         from ..parallel.mesh import parse_mesh_spec
 

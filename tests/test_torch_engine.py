@@ -86,9 +86,9 @@ def test_cli_rejects_reference_flags_the_port_does_not_honour(flag):
     """A flag of the JAX CLI that the port does not run parses, and a value
     that asks for the feature is refused by name, not accepted and
     ignored; a flag the port runs, asked for where the reference refuses
-    it (--serve_async without --serve or with the announce payload,
-    --serve_buffer without --serve_async), is refused by name with the
-    reference's launch error."""
+    it (--serve_fastpath or --serve_async without --serve, --serve_async
+    with the announce payload, --serve_buffer without --serve_async), is
+    refused by name with the reference's launch error."""
     with pytest.raises(SystemExit, match=flag[0]):
         cv_train.resolve_defaults(cv_train.make_parser().parse_args(["--device", "cpu", *flag]))
 

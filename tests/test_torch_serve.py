@@ -12,9 +12,9 @@ drops the same positions (announce and payload), a full-arrival round the
 plain round, the socket the in-process transport and the event loop the
 threaded engine; a CLI run preempted mid-run resumes to the uninterrupted
 run (announce and payload), with its pending queue and requeue ages from
-meta.json; the flags of ROADMAP item 9b but --serve_pipeline and the
---serve_async four are refused by name, and a stopped transport fails the
-round."""
+meta.json; the flags of ROADMAP item 9b but --serve_pipeline, the
+--serve_async four and the --serve_fastpath two are refused by name, and a
+stopped transport fails the round."""
 
 import json
 import os
@@ -303,7 +303,8 @@ def test_metrics_endpoint_over_http():
 
 # the reference's ServeConfig fields of ROADMAP item 9b, each with a CLI
 # value the port does not run, but for the ported ones (ITEM_9B_PORTED:
-# --serve_pipeline, and --serve_async with its three flags)
+# --serve_pipeline, --serve_async with its three flags, and --serve_fastpath
+# with --serve_gauntlet_workers)
 ITEM_9B = {
     "pipeline": ["--serve_pipeline"], "async_mode": ["--serve_async"],
     "buffer_size": ["--serve_buffer", "4", "--serve_async"],
@@ -314,15 +315,17 @@ ITEM_9B = {
     "fastpath": ["--serve_fastpath"], "gauntlet_workers": ["--serve_gauntlet_workers", "3"],
 }
 ITEM_9B_PORTED = {"pipeline": True, "async_mode": True, "buffer_size": 4,
-                  "staleness_alpha": 0.9, "stale_rounds": 3}
+                  "staleness_alpha": 0.9, "stale_rounds": 3, "fastpath": True,
+                  "gauntlet_workers": 3}
 
 
 @pytest.mark.parametrize("field", list(ITEM_9B))
 def test_service_refuses_item_9b_by_name(field):
     """The service has no field for an item-9b option, and the command line
     that asks for one is refused by the flag's name; the ported ones,
-    --serve_pipeline and --serve_async with --serve_buffer,
-    --serve_staleness and --serve_stale_rounds, are accepted by both."""
+    --serve_pipeline, --serve_async with --serve_buffer, --serve_staleness
+    and --serve_stale_rounds, and --serve_fastpath with
+    --serve_gauntlet_workers, are accepted by both."""
     if field in ITEM_9B_PORTED:
         want = ITEM_9B_PORTED[field]
         assert getattr(tservice.ServeConfig(quorum=2, **{field: want}), field) == want
@@ -415,9 +418,15 @@ def test_cli_served_preempt_resume_bitwise(tiny_cv, tmp_path, payload):  # noqa:
 
 
 def test_cli_refuses_item_9b_serve_flags(tiny_cv):  # noqa: F811
-    for extra in (["--serve_gauntlet_workers", "3"], ["--serve_edges", "2"],
-                  ["--serve_fastpath"], ["--serve_shards", "2"]):
+    """The serving variants still to port are refused by name with their
+    ROADMAP item; the ported fast path's flags only where the reference
+    refuses them, with its launch errors."""
+    for extra in (["--serve_edges", "2"], ["--serve_shards", "2"]):
         with pytest.raises(SystemExit, match=f"^{extra[0]} .*item 9b"):
+            cv_train.main(_cli("announce", extra))
+    for extra, why in ((["--serve_gauntlet_workers", "0"], "must be >= 1, got 0"),
+                       (["--serve_fastpath"], "arm --serve_payload sketch")):
+        with pytest.raises(SystemExit, match=f"^{extra[0]} .*{why}"):
             cv_train.main(_cli("announce", extra))
     with pytest.raises(ValueError, match="wire kinds"):
         cv_train.main(_cli("announce", ["--fault_plan", "wire_dup@1:clients=0"]))
