@@ -359,6 +359,28 @@ Phases (any failure raises, and the exit status is non-zero):
       loop's host ms a round, round ms, the ring's blocks made and the host
       allocator's pinned blocks made and handed out;
    no "gauntlet batch failed" line may appear.
+24. the sharded ingest on phase 23b's socket eventloop cell (the corrupt
+   frame, the NaN table, the clip at 3), 4 rounds a run, 8 accumulates and 1
+   query a payload round counted over each run, each round's merged stack
+   digested, /dev/shm's names the same before and after each run:
+   a. 4 thread shards (fast) == the one-listener run, slow and fast (phase
+      23b's runs in the whole script) bitwise: params, optimizer state,
+      batch-norm statistics, every metric row, the queue, the admission
+      counters, each round's stack;
+   b. 4 process shards (fewer if /dev/shm cannot hold 4 blocks of the
+      cohort), slow (tables over the control connections) and fast (the
+      shared-memory ring blocks): == (a) bitwise, the same keys; steady
+      round ms, the serve_stage_collect_ms p50, host copies of a table, the
+      H2D copies of the shm chunks ("h2d_ring"), the workers' spawn s;
+   c. shard_kill@2:shards=1 == client_drop@2 of the dead shard's cohort
+      positions bitwise; 1 death, the worker respawned at round 3 (its s);
+   d. the fast process run on 4 gloo ranks sharing the card, 3 rounds
+      (phase 21's launch in the whole script), == the one-device run at
+      client_shards 4 on every rank (2 accumulates and 1 query a rank a
+      round);
+   e. one load-generator stage: 2,048 connections from 4 client processes
+      for 5 s against the process shards: submissions/s, the verdicts, the
+      descriptor cap of a client process, os.cpu_count().
 
 Prints one JSON line with the kernels' numbers (launches counted over
 phase 8; under "gpt2" each kernel's numbers at the GPT-2 shape, launches
@@ -374,6 +396,7 @@ uninterrupted gloo run, "launches_layerwise" over each run of phase 19,
 "launches_serve_group" over each of phase 21's runs (rank 0's on the
 group), "launches_async" over each of phase 22's runs (rank 0's on the
 group), "launches_fastpath" over each of phase 23's runs (rank 0's on the
+group), "launches_shards" over each of phase 24's runs (rank 0's on the
 group); a
 third row, ``sketch_accumulate_tree``, with a whole ResNet-9 tree's fold
 times and (b)'s layerwise launches),
@@ -387,6 +410,9 @@ as its last line
 ``--serve-only`` runs phase 21 right after phase 4 and stops,
 ``--async-only`` runs phase 22 right after phase 4 and stops,
 ``--fastpath-only`` runs phase 23 right after phase 4 and stops,
+``--shards-only`` runs phase 24 right after phase 4 and stops,
+``--shard-turns N`` runs phase 24's cell in N turns of the one listener and
+process shards (``shard_turns``) right after phase 4 and stops,
 ``--cohorts N`` sets the number of cohorts phase 7 compares (default 4);
 ``--pairs N`` the sync/async timing pairs of phase 8 (default 2).
 """
@@ -618,6 +644,21 @@ FAST_SOCKET_ROUNDS = 4
 FAST_GROUP_ROUNDS = 3
 FAST_PLAN = "wire_corrupt@1:clients=0;client_poison@2:clients=3,value=nan"
 FAST_BASE = ASYNC_BASE + ["--client_update_clip", "3", "--fault_plan", FAST_PLAN, "--sync_loop"]
+# phase 24: the sharded ingest on phase 23b's socket eventloop cell,
+# SHARD_ROUNDS rounds a run: (a) SHARDS thread shards against the one
+# listener (23b's runs where the whole script ran them); (b) SHARDS process
+# shards (fewer if /dev/shm cannot hold SHARDS blocks of the cohort), slow
+# and fast; (c) KILL_PLAN against client_drop of the dead shard's cohort
+# positions; (d) the fast process run on ASYNC_GROUP_SHARDS gloo ranks
+# (phase 21's launch in the whole script), SHARD_GROUP_ROUNDS rounds; (e)
+# one load-generator stage of LOADGEN_CONNS connections from LOADGEN_PROCS
+# client processes for LOADGEN_S seconds against process shards
+SHARD_ROUNDS = 4
+SHARD_GROUP_ROUNDS = 3
+SHARDS = 4
+SHARD_BASE = FAST_BASE + ["--serve", "socket", "--serve_transport", "eventloop"]
+KILL_ROUND, KILL_SHARD = 2, 1
+LOADGEN_CONNS, LOADGEN_PROCS, LOADGEN_S = 2048, 4, 5.0
 # phase 19: the layerwise sketch path. (b) and (d) run LW_ROUNDS rounds of
 # phase 5's flags, (c) LW_GPT2_ROUNDS of phase 11's; LW_PAIRS timed turns a
 # path. LEAF_EDGES (d, c, r, leaf sizes): a leaf that starts mid-slab and
@@ -635,6 +676,41 @@ MANY_LEAVES = (500, 1000, 5)
 # host work of a 148-leaf tree's call, so that the events time the device
 LW_SPIN_CYCLES = 4_000_000
 LW_HOST_CALLS = 20
+
+
+def reuse_run_inputs(cv_train) -> None:
+    """Most runs of this script build their session from the same synthetic
+    CIFAR (or FEMNIST) set and the same initial weights of their seed, each
+    about 1.5-3 s of host time a run, over a hundred runs: build each once a
+    process and hand later runs the same (never mutated) data arrays and a
+    copy of the weights, bitwise the ones the run would have built itself.
+    Idempotent; ``cv_train.main`` is otherwise untouched."""
+    if getattr(cv_train, "_reused_inputs", False):
+        return
+    init = cv_train.init_weights
+    data, weights = {}, {}
+
+    def once(load):
+        def load_once(*args, **kw):
+            key = (load.__name__, args, tuple(sorted(kw.items())))
+            if key not in data:
+                data[key] = load(*args, **kw)
+            return data[key]
+        return load_once
+
+    def init_once(model, seed):
+        key = (type(model).__name__, seed,
+               tuple((n, tuple(p.shape), p.dtype) for n, p in model.named_parameters()))
+        if key in weights:
+            model.load_state_dict(weights[key])
+        else:
+            init(model, seed)
+            weights[key] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    cv_train.load_cifar_fed = once(cv_train.load_cifar_fed)
+    cv_train.load_femnist_fed = once(cv_train.load_femnist_fed)
+    cv_train.init_weights = init_once
+    cv_train._reused_inputs = True
 
 
 def fail(msg: str):
@@ -3500,6 +3576,7 @@ def _group_rank(out_dir: str, device: str) -> None:
     from commefficient_tpu_torch.utils.config import make_parser, resolve_defaults
 
     distributed.initialize(force=True, backend="gloo", device=device)
+    reuse_run_inputs(cv_train)
     rank, S = distributed.rank(), distributed.world_size()
     out = {"runs": {}}
     ck = os.path.join(out_dir, "ck")
@@ -3758,19 +3835,23 @@ def group_phase(cv_train, engine, kernels, card: str) -> dict:
     return {run: ranks[0]["runs"][run]["launches"] for run in ranks[0]["runs"]}
 
 
-def _serve_run(cv_train, kernels, tag: str, argv: list, out: dict, device: str):
+def _serve_run(cv_train, kernels, tag: str, argv: list, out: dict, device: str,
+               stacks: bool = False):
     """One ``cv_train.main`` run of phase 21 with the launch counts zeroed
     just before: its exit code, per-round metrics, launches, state and
     client-block digests, committed queue and ages, server idle and round
-    ms, and (where this process ran the service) the service's counters;
-    into ``out[tag]``. Returns the session (None after an exit)."""
+    ms, and (where this process ran the service) the service's counters,
+    invite lists and casualties; with ``stacks`` each payload round's merged
+    stack's digest; into ``out[tag]``. Returns the session (None after an
+    exit)."""
     from commefficient_tpu_torch.parallel import distributed
 
     kernels.reset_launch_counts()
     distributed.broadcast_stats.update(calls=0, bytes=0, ms=0.0)
     code, s = 0, None
     t0 = time.perf_counter()
-    with recording_rounds() as rec, serving_runs() as srv:
+    with recording_rounds() as rec, serving_runs() as srv, \
+            (recording_stacks() if stacks else contextlib.nullcontext([])) as digests:
         try:
             s = cv_train.main(list(argv))
         except SystemExit as e:
@@ -3778,7 +3859,8 @@ def _serve_run(cv_train, kernels, tag: str, argv: list, out: dict, device: str):
     if device == "cuda":
         torch.cuda.synchronize()
     got = {"metrics": rec["metrics"], "launches": ravel_launches(kernels), "code": code,
-           "s": time.perf_counter() - t0, "broadcast": dict(distributed.broadcast_stats)}
+           "s": time.perf_counter() - t0, "broadcast": dict(distributed.broadcast_stats),
+           "stacks": list(digests)}
     if s is not None:
         st = s.run_stats
         got.update(state=tree_digest(_server_state(s)),
@@ -3797,9 +3879,15 @@ def _serve_run(cv_train, kernels, tag: str, argv: list, out: dict, device: str):
         got["counters"] = svc.queue.counters()
         if svc.cfg.fastpath:
             got["fastpath"] = svc.metrics_snapshot()["fastpath"]
-            got["ring_blocks"] = svc._ring.allocated
+            # process shards run no ring pool in the root (their blocks are
+            # the workers' shared-memory segments)
+            got["ring_blocks"] = svc._ring.allocated if svc._ring is not None else None
         got["closes"] = [[int(p) for p in np.flatnonzero(c.arrived == 0.0)]
                          for c in src.closed_rounds]
+        got["invited"] = [[int(i) for i in c.invited] for c in src.closed_rounds]
+        if svc._proc is not None:
+            got["spawn_s"] = [round(w.spawn_s, 3) for w in svc._proc.workers]
+            got["respawns"] = [(k, round(t, 3)) for k, t in svc._proc.respawns]
     out[tag] = got
     return s
 
@@ -3821,6 +3909,7 @@ def _serve_group_rank(out_dir: str, device: str, extra: tuple = ()) -> None:
     distributed.initialize(force=True, backend="gloo", device=device,
                            serve_deadline_s=float(SERVE_PAYLOAD[SERVE_PAYLOAD.index(
                                "--serve_deadline") + 1]))
+    reuse_run_inputs(cv_train)
     rank = distributed.rank()
     out = {"runs": {}}
     runs = out["runs"]
@@ -4063,6 +4152,7 @@ def _served_runs(out_dir: str, device: str, tags: tuple) -> None:
     from commefficient_tpu_torch.parallel import distributed
     from commefficient_tpu_torch.sketch import kernels
 
+    reuse_run_inputs(cv_train)
     sizes = []
     broadcast = distributed.broadcast_from_root
 
@@ -4084,10 +4174,13 @@ def _served_runs(out_dir: str, device: str, tags: tuple) -> None:
 
 
 def served_group_runs() -> dict:
-    """The served runs on a group: phase 22f's async run and phase 23e's
-    fast one."""
+    """The served runs on a group: phase 22f's async run, phase 23e's fast
+    one and phase 24d's fast run over process shards (rank 0's ingest)."""
     return {"async": ASYNC_ARGS + ["--num_rounds", str(ASYNC_SHORT), "--sync_loop"],
-            "fast": FAST_BASE + ["--serve_fastpath", "--num_rounds", str(FAST_GROUP_ROUNDS)]}
+            "fast": FAST_BASE + ["--serve_fastpath", "--num_rounds", str(FAST_GROUP_ROUNDS)],
+            "proc": SHARD_BASE + ["--serve_fastpath", "--serve_shards", str(shard_count()),
+                                  "--serve_shard_mode", "process", "--num_rounds",
+                                  str(SHARD_GROUP_ROUNDS)]}
 
 
 def launch_served_group(base: str, device: str, tags: tuple, label: str) -> tuple:
@@ -4320,6 +4413,29 @@ def recording_merges(csvec):
 
 
 @contextlib.contextmanager
+def recording_stacks():
+    """Inside the block, the digest of each payload round's merged [W, r, c]
+    stack (the close's host stack or the ring-built device one), in the
+    order the service finished them."""
+    from commefficient_tpu_torch.federated.api import FederatedSession
+
+    digests = []
+    finish = FederatedSession.finish_served_payload
+
+    def finish_rec(self, prep0, arrived, wire_tables, aux, stale=None):
+        t = wire_tables if torch.is_tensor(wire_tables) else torch.from_numpy(
+            np.asarray(wire_tables))
+        digests.append(tree_digest({"stack": t}))
+        return finish(self, prep0, arrived, wire_tables, aux, stale=stale)
+
+    FederatedSession.finish_served_payload = finish_rec
+    try:
+        yield digests
+    finally:
+        FederatedSession.finish_served_payload = finish
+
+
+@contextlib.contextmanager
 def counting_stderr(needle: str):
     """Inside the block stderr passes through, and rec["n"] counts the
     occurrences of ``needle`` written to it (from any thread)."""
@@ -4352,12 +4468,14 @@ def _pinned_stats() -> dict | None:
             "handed_out": int(got.get("active_requests.allocated", 0))}
 
 
-def fastpath_phase(cv_train, engine, csvec, kernels, card: str, group=None) -> dict:
+def fastpath_phase(cv_train, engine, csvec, kernels, card: str, group=None,
+                   runs_out: dict | None = None) -> dict:
     """Phase 23: the serving fast path on ResNet-9 FetchSGD's served payload
     round at full width. ``group``: phase 21's launch's (ranks, seconds),
     where the whole script ran (e)'s fast run; None launches the group here.
     Returns each kernel's launches over each run (rank 0's for the
-    group's)."""
+    group's); ``runs_out`` receives (b)'s eventloop runs, each round's stack
+    digested, which phase 24 reads."""
     import functools
     import shutil
 
@@ -4377,9 +4495,12 @@ def fastpath_phase(cv_train, engine, csvec, kernels, card: str, group=None) -> d
         batches = reg.histogram("serve_gauntlet_batch_ms").count
         pins = _pinned_stats()
         mark = reg.mark()
+        reg.histogram("serve_stage_collect_ms").reset_window()
         with recording_merges(csvec) as rec:
-            s = _serve_run(cv_train, kernels, tag, argv, runs, device)
+            s = _serve_run(cv_train, kernels, tag, argv, runs, device,
+                           stacks=tag.startswith("socket_eventloop"))
         r = runs[tag]
+        r["collect_p50"] = reg.histogram("serve_stage_collect_ms").summary()["p50"]
         r["bytes_copied"] = mark.delta("serve_table_bytes_copied_total")
         r["batches"] = reg.histogram("serve_gauntlet_batch_ms").count - batches
         after = _pinned_stats()
@@ -4527,9 +4648,260 @@ def fastpath_phase(cv_train, engine, csvec, kernels, card: str, group=None) -> d
               f"[{card}]", flush=True)
     print("fastpath: run s " + ", ".join(f"{k} {v['s']:.1f}" for k, v in runs.items()),
           flush=True)
+    if runs_out is not None:
+        runs_out.update({k: v for k, v in runs.items() if k.startswith("socket_eventloop")})
     launches = {k: v["launches"] for k, v in runs.items()}
     launches["group_fast"] = ranks[0]["launches"]
     return launches
+
+
+def shard_count() -> int:
+    """Phase 24's process shards: SHARDS, or as many blocks of the cohort
+    (W = 8 tables of r x c) as /dev/shm holds; fails below 2."""
+    from commefficient_tpu_torch.serve.scale.shmring import layout, shm_free_bytes
+
+    W = int(SLICE_ARGS[SLICE_ARGS.index("--num_workers") + 1])
+    per = layout(SLICE["r"], SLICE["c"], W)[4]
+    free = shm_free_bytes()
+    n = SHARDS if free is None else min(SHARDS, free // per)
+    if n < 2:
+        fail(f"shards: /dev/shm has {free} bytes free; 2 shared-memory table ring blocks "
+             f"need {2 * per}")
+    return int(n)
+
+
+def shards_phase(cv_train, engine, csvec, kernels, card: str, group=None,
+                 eventloop: dict | None = None) -> dict:
+    """Phase 24: the sharded ingest on phase 23b's socket eventloop cell at
+    full width. ``group``: phase 21's launch's (ranks, seconds), where the
+    whole script ran (d)'s run; None launches the group here. ``eventloop``:
+    phase 23b's one-listener runs where the whole script ran them; None
+    runs them here. Returns each kernel's launches over each run (rank 0's
+    for the group's)."""
+    import functools
+    import shutil
+
+    from commefficient_tpu_torch.federated.api import FederatedSession
+    from commefficient_tpu_torch.obs import registry as obreg
+    from commefficient_tpu_torch.serve.scale import loadgen
+    from commefficient_tpu_torch.serve.scale.procshard import ProcShardedIngest
+    from commefficient_tpu_torch.serve.scale.shard import shard_for
+    from commefficient_tpu_torch.serve.scale.shmring import layout, shm_free_bytes
+
+    device = "cuda" if "cuda" in SLICE_ARGS else "cpu"
+    shared = group is not None
+    base = os.path.join(ROOT, "build", "chip_smoke", "shards")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    reg = obreg.default()
+    N = shard_count()
+    W = int(SLICE_ARGS[SLICE_ARGS.index("--num_workers") + 1])
+    table_bytes = 4 * SLICE["r"] * SLICE["c"]
+    shm_bytes = N * layout(SLICE["r"], SLICE["c"], W)[4]
+    print(f"shards: /dev/shm {shm_free_bytes()} bytes free; {N} process shards, "
+          f"{shm_bytes} bytes of shared-memory ring; os.cpu_count() {os.cpu_count()} "
+          f"[{card}]", flush=True)
+    runs = dict(eventloop or {})
+    group = group or launch_served_group(base, device, ("proc",), "shards d")
+    fast = ["--serve_fastpath"]
+    thread = ["--serve_shards", str(N), "--serve_shard_mode", "thread"]
+    proc = ["--serve_shards", str(N), "--serve_shard_mode", "process"]
+    rounds = ["--num_rounds", str(SHARD_ROUNDS)]
+
+    def shm_names():
+        return set(os.listdir("/dev/shm")) if os.path.isdir("/dev/shm") else set()
+
+    def run(tag, argv):
+        names, mark = shm_names(), reg.mark()
+        reg.histogram("serve_stage_collect_ms").reset_window()
+        s = _serve_run(cv_train, kernels, tag, argv, runs, device, stacks=True)
+        r = runs[tag]
+        r["collect_p50"] = reg.histogram("serve_stage_collect_ms").summary()["p50"]
+        r["bytes_copied"] = mark.delta("serve_table_bytes_copied_total")
+        r["deaths"] = mark.delta("serve_shard_deaths_total")
+        r["copies"] = s.wire_copy_stats() if s is not None else {}
+        if shm_names() != names:
+            fail(f"shards {tag}: /dev/shm holds {sorted(shm_names() ^ names)} after the run")
+        return r
+
+    def same(tag, twin, label, keys=("code", "metrics", "state", "requeue", "counters",
+                                     "stacks")):
+        for key in keys:
+            if runs[tag][key] != runs[twin][key]:
+                fail(f"shards {label}: {tag}'s {key} differs from {twin}'s")
+
+    def per_round(tag, n_rounds):
+        want = {"sketch_accumulate": W * n_rounds, "sketch_query": n_rounds}
+        if runs[tag]["launches"] != want:
+            fail(f"shards {tag}: launched {runs[tag]['launches']} in {n_rounds} rounds "
+                 f"(want {want})")
+
+    def numbers(tag):
+        r = runs[tag]
+        h2d = r["copies"].get("h2d_ring", r["copies"].get("h2d", {}))
+        per_table = r["bytes_copied"] / max(r["counters"]["accepted"], 1) / table_bytes
+        return (f"steady round ms {r['round_ms']:.2f}; serve_stage_collect_ms p50 "
+                f"{r['collect_p50']}; host copies of a table {per_table:.3f}; H2D "
+                f"{h2d.get('copies', 0)} copies, {h2d.get('bytes', 0)} bytes, "
+                f"{h2d.get('ms', 0.0):.3f} ms (CUDA events; a run); launches {r['launches']}"
+                + (f"; worker spawn s {r['spawn_s']}, respawns {r['respawns']}"
+                   if "spawn_s" in r else ""))
+
+    # a. the one listener (phase 23b's runs in the whole script) and thread
+    # shards
+    for tag, extra in (("socket_eventloop_slow", []), ("socket_eventloop_fast", fast)):
+        if tag not in runs:
+            run(tag, SHARD_BASE + rounds + extra)
+    run("thread_fast", SHARD_BASE + rounds + thread + fast)
+    same("socket_eventloop_fast", "socket_eventloop_slow", "a")
+    same("thread_fast", "socket_eventloop_slow", "a")
+    for tag in ("socket_eventloop_slow", "socket_eventloop_fast", "thread_fast"):
+        per_round(tag, SHARD_ROUNDS)
+    c = runs["thread_fast"]["counters"]
+    if c["rejected_malformed"] < 1 or c["rejected_quarantined"] < 1:
+        fail(f"shards a: the chaos never reached the validation: {c}")
+    print(f"shards a: {N} thread shards, {SHARD_ROUNDS} rounds, fast == the one listener slow "
+          f"and fast bitwise (params, optimizer state, batch-norm statistics, metrics, queue, "
+          f"admission counters, each round's stack) [{card}]", flush=True)
+
+    # b. process shards, slow and fast
+    run("process_slow", SHARD_BASE + rounds + proc)
+    run("process_fast", SHARD_BASE + rounds + proc + fast)
+    for tag in ("process_slow", "process_fast"):
+        same(tag, "socket_eventloop_slow", "b")
+        per_round(tag, SHARD_ROUNDS)
+        if runs[tag]["deaths"] or runs[tag]["respawns"]:
+            fail(f"shards b: {tag} lost a worker")
+    print(f"shards b: {N} process shards, {SHARD_ROUNDS} rounds, slow and fast == (a) bitwise "
+          f"(the same keys) [{card}]", flush=True)
+    for tag in ("socket_eventloop_slow", "socket_eventloop_fast", "thread_fast",
+                "process_slow", "process_fast"):
+        print(f"shards a/b: {tag}: {numbers(tag)} [{card}]", flush=True)
+
+    # c. shard_kill against client_drop of the dead shard's positions
+    plan_i = SHARD_BASE.index("--fault_plan") + 1
+    kill = list(SHARD_BASE)
+    kill[plan_i] = f"{FAST_PLAN};shard_kill@{KILL_ROUND}:shards={KILL_SHARD}"
+    run("kill", kill + rounds + proc + fast)
+    ids = runs["kill"]["invited"][KILL_ROUND]
+    doomed = [p for p, cid in enumerate(ids) if shard_for(cid, N) == KILL_SHARD]
+    if not doomed:
+        fail(f"shards c: shard {KILL_SHARD} owns none of round {KILL_ROUND}'s cohort {ids}")
+    drop = list(SHARD_BASE)
+    drop[plan_i] = (f"{FAST_PLAN};client_drop@{KILL_ROUND}:clients="
+                    + "+".join(map(str, doomed)))
+    run("drop", drop + rounds + proc + fast)
+    # (a dropped client's table still crosses the wire and is masked in the
+    # merge; a dead shard's never arrives: the stacks differ, the rounds not)
+    same("kill", "drop", "c", ("code", "metrics", "state", "requeue"))
+    per_round("kill", SHARD_ROUNDS)
+    k = runs["kill"]
+    if k["deaths"] != 1 or [s for s, _ in k["respawns"]] != [KILL_SHARD]:
+        fail(f"shards c: {k['deaths']} deaths, respawns {k['respawns']}")
+    if not set(doomed) <= set(k["closes"][KILL_ROUND]):
+        fail(f"shards c: round {KILL_ROUND} masked {k['closes'][KILL_ROUND]}, not {doomed}")
+    print(f"shards c: shard_kill@{KILL_ROUND}:shards={KILL_SHARD} == client_drop@{KILL_ROUND} "
+          f"of its positions {doomed} bitwise (params, optimizer state, batch-norm statistics, "
+          f"metrics, queue); 1 death, respawned at round "
+          f"{KILL_ROUND + 1} in {k['respawns'][0][1]:.3f} s; {numbers('kill')} [{card}]",
+          flush=True)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # d. the fast process run on a group of 4 gloo ranks sharing the card
+    # (phase 21's launch ran it when the whole script runs; alone, the
+    # launch came first, before the other runs' thousands of connections)
+    S = ASYNC_GROUP_SHARDS
+    out, secs = group
+    ranks = [r["runs"]["proc"] for r in out]
+    orig = cv_train.FederatedSession
+    cv_train.FederatedSession = functools.partial(FederatedSession, client_shards=S)
+    try:
+        twin = run("group_twin", served_group_runs()["proc"])
+    finally:
+        cv_train.FederatedSession = orig
+    want = {"sketch_accumulate": W // S * SHARD_GROUP_ROUNDS, "sketch_query": SHARD_GROUP_ROUNDS}
+    for rk, g in enumerate(ranks):
+        for key in ("code", "metrics", "state", "requeue"):
+            if g[key] != twin[key]:
+                fail(f"shards d: rank {rk}'s {key} differs from the one-device run at "
+                     f"client_shards={S}")
+        if g["launches"] != want:
+            fail(f"shards d: rank {rk} launched {g['launches']} (want {want})")
+    if ranks[0]["counters"] != twin["counters"]:
+        fail("shards d: rank 0's serve counters differ from the twin's")
+    print(f"shards d: the fast process-shard run on {S} gloo ranks, {SHARD_GROUP_ROUNDS} rounds "
+          f"== the one-device run at client_shards={S}, bitwise on every rank; launches a rank "
+          f"{want}; {secs:.1f} s for the launch{' (shared with phase 21)' if shared else ''} "
+          f"[{card}]", flush=True)
+
+    # e. the load generator against process shards
+    t = ProcShardedIngest(n_shards=N)
+    names = shm_names()
+    t.start()
+    try:
+        t.queue.open_round(0, list(range(W)))
+        lg = loadgen.run_stage(loadgen.LoadGenConfig(
+            port=t.address[1], processes=LOADGEN_PROCS, stage_s=LOADGEN_S, model="flat",
+            connections=LOADGEN_CONNS, ramp_start=LOADGEN_CONNS), LOADGEN_CONNS)
+        counts = t.queue.counters()
+        per_shard = [v["submissions"] for v in t.counters().values()]
+    finally:
+        t.stop()
+    if shm_names() != names:
+        fail("shards e: /dev/shm changed")
+    # the server also decided the submissions in flight at the stage's end
+    # (at most one a connection), whose verdicts no client read
+    if lg["opened_conns"] != LOADGEN_CONNS or lg["errors"] or \
+            sum(lg["statuses"].values()) != lg["submissions"] or not \
+            lg["submissions"] <= counts["rejected_uninvited"] <= lg["submissions"] + LOADGEN_CONNS:
+        fail(f"shards e: {lg}, server counters {counts}")
+    print(f"shards e: loadgen {LOADGEN_CONNS} connections from {LOADGEN_PROCS} processes for "
+          f"{LOADGEN_S:g} s against {N} process shards: {lg['submissions_per_s']:.1f} "
+          f"submissions/s ({lg['submissions']} submissions, verdicts {lg['statuses']}, "
+          f"{lg['errors']} errors, per shard {per_shard}); fd cap {lg['fd_cap_per_proc']} a "
+          f"client process (capped {lg['fd_capped']}); os.cpu_count() {os.cpu_count()} "
+          f"[{card}]", flush=True)
+    print("shards: run s " + ", ".join(f"{k} {v['s']:.1f}" for k, v in runs.items()),
+          flush=True)
+    launches = {k: v["launches"] for k, v in runs.items()}
+    launches["group_proc"] = ranks[0]["launches"]
+    return launches
+
+
+def shard_turns(cv_train, kernels, card: str, turns: int) -> None:
+    """``--shard-turns N``: phase 24's cell in N turns of the one listener
+    fast, process shards fast (the uploader polling every 2 ms, then every
+    20 ms) and process shards slow, 4 shards, SHARD_ROUNDS rounds a run;
+    each run's round ms, stage p50s, the loop's host ms and the H2D copies."""
+    from commefficient_tpu_torch.obs import registry as obreg
+    from commefficient_tpu_torch.serve import service
+
+    reg = obreg.default()
+    fast = ["--serve_fastpath"]
+    proc = ["--serve_shards", str(SHARDS), "--serve_shard_mode", "process"]
+    plan = [("one_fast", fast, 0.002), ("proc_fast", proc + fast, 0.002),
+            ("proc_fast_poll20", proc + fast, 0.02), ("proc_slow", proc, 0.002)]
+    runs, poll = {}, service._RingUploader.POLL_S
+    try:
+        for turn in range(turns):
+            for tag, extra, poll_s in plan:
+                service._RingUploader.POLL_S = poll_s
+                for st in obreg.SERVE_STAGES:
+                    reg.histogram(f"serve_stage_{st}_ms").reset_window()
+                key = f"{tag}_{turn}"
+                s = _serve_run(cv_train, kernels, key, SHARD_BASE + extra + [
+                    "--num_rounds", str(SHARD_ROUNDS)], runs, "cuda")
+                r = runs[key]
+                copies = s.wire_copy_stats()
+                h2d = copies.get("h2d_ring", copies.get("h2d", {}))
+                p50 = {st: reg.histogram(f"serve_stage_{st}_ms").summary()["p50"]
+                       for st in obreg.SERVE_STAGES}
+                print(f"shard turns: {key}: round ms {r['round_ms']:.2f}; stage p50 {p50}; host "
+                      f"ms a round {[round(x, 2) for x in r['host_ms']]}; H2D {h2d}; spawn s "
+                      f"{r.get('spawn_s')}; run s {r['s']:.1f} [{card}]", flush=True)
+    finally:
+        service._RingUploader.POLL_S = poll
 
 
 def time_kernels(csvec, kernels, time_ms, spec, gen: torch.Generator) -> dict:
@@ -4589,6 +4961,7 @@ def main(argv: list[str]) -> int:
     from commefficient_tpu_torch.sketch import _build, csvec, kernels
     from commefficient_tpu_torch.sketch.time_kernels import card_line, ptxas_summary, time_ms
 
+    reuse_run_inputs(cv_train)
     cohorts = int(argv[argv.index("--cohorts") + 1]) if "--cohorts" in argv else COHORTS
     pairs = int(argv[argv.index("--pairs") + 1]) if "--pairs" in argv else PAIRS
     t_start = time.perf_counter()
@@ -4667,6 +5040,19 @@ def main(argv: list[str]) -> int:
             rows[name]["launches_fastpath"] = {run: n[name] for run, n in fp.items()}
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
         print("chip_smoke: fastpath-only run done", flush=True)
+        return 0
+    if "--shard-turns" in argv:
+        phase("24 (the sharded ingest, in turns)")
+        shard_turns(cv_train, kernels, card_line(), int(argv[argv.index("--shard-turns") + 1]))
+        print("chip_smoke: shard-turns run done", flush=True)
+        return 0
+    if "--shards-only" in argv:
+        phase("24 (the sharded ingest)")
+        sh = shards_phase(cv_train, engine, csvec, kernels, card_line())
+        for name in rows:
+            rows[name]["launches_shards"] = {run: n[name] for run, n in sh.items()}
+        print(json.dumps({"kernels": list(rows.values())}), flush=True)
+        print("chip_smoke: shards-only run done", flush=True)
         return 0
     if "--layerwise-only" in argv:
         phase("19 (layerwise)")
@@ -4799,9 +5185,9 @@ def main(argv: list[str]) -> int:
 
     # 21. serving on a group, the serving pipeline
     phase("21 (serving on a group, the pipeline)")
-    # (the same launch runs phases 22f's and 23e's group runs)
+    # (the same launch runs phases 22f's, 23e's and 24d's group runs)
     served, shared = serve_group_phase(cv_train, engine, csvec, kernels, card,
-                                       extra=("async", "fast"))
+                                       extra=("async", "fast", "proc"))
 
     # 22. the buffered-async service
     phase("22 (the buffered-async service)")
@@ -4809,7 +5195,12 @@ def main(argv: list[str]) -> int:
 
     # 23. the serving fast path
     phase("23 (the serving fast path)")
-    fp = fastpath_phase(cv_train, engine, csvec, kernels, card, shared)
+    eventloop = {}
+    fp = fastpath_phase(cv_train, engine, csvec, kernels, card, shared, runs_out=eventloop)
+
+    # 24. the sharded ingest (23b's one-listener runs are its (a)'s)
+    phase("24 (the sharded ingest)")
+    sh = shards_phase(cv_train, engine, csvec, kernels, card, shared, eventloop=eventloop)
     phase("end")
 
     for name in rows:
@@ -4830,6 +5221,7 @@ def main(argv: list[str]) -> int:
         rows[name]["launches_serve_group"] = {run: n.get(name, 0) for run, n in served.items()}
         rows[name]["launches_async"] = {run: n.get(name, 0) for run, n in asy.items()}
         rows[name]["launches_fastpath"] = {run: n.get(name, 0) for run, n in fp.items()}
+        rows[name]["launches_shards"] = {run: n.get(name, 0) for run, n in sh.items()}
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -219,13 +219,17 @@ def main(argv=None):
     total_rounds = args.num_rounds or int(args.num_epochs * rounds_per_epoch)
     if session.fault_plan is not None:
         # a client_* or wire_* site at a round the run never reaches, a
-        # wire_* site on a run with no payload seam, or a stale poison with
-        # no stale band, is refused now
+        # wire_* site on a run with no payload seam, a stale poison with no
+        # stale band, or a shard kill with no shard worker to kill, is
+        # refused now
         session.fault_plan.validate_rounds(total_rounds, distributed.world_size())
         session.fault_plan.validate_wire_context(
             args.serve != "off" and args.serve_payload == "sketch")
         session.fault_plan.validate_stale_context(
             args.serve != "off" and args.serve_payload == "sketch" and args.serve_async)
+        session.fault_plan.validate_shard_context(
+            args.serve == "socket" and args.serve_shards >= 2
+            and args.serve_shard_mode == "process", args.serve_shards)
     opt = FedOptimizer(triangular(args.lr_scale, args.pivot_epoch, args.num_epochs),
                        rounds_per_epoch)
     model = FedModel(session)

@@ -28,27 +28,30 @@ from __future__ import annotations
 
 import dataclasses
 
-from . import export, health, profiler, registry, slo, trace
-from .health import HealthMonitor
+from . import export, profiler, registry, slo, trace
 from .profiler import ProfileWindow
 from .registry import Registry
 from .slo import SloEngine
 from .trace import Tracer
 
+# names resolved on first access (PEP 562): ``ledger`` doubles as the
+# ``python -m commefficient_tpu_torch.obs.ledger`` CLI, and an eager import
+# would put it in sys.modules before runpy executes it as __main__ (the
+# found-in-sys.modules RuntimeWarning); ``health`` imports torch, and a
+# shard worker process (serve/scale/procshard_worker.py) imports this
+# package for its registry and must stay torch-free
+_LAZY = {"ledger": "ledger", "RoundLedger": "ledger", "write_postmortem_bundle": "ledger",
+         "health": "health", "HealthMonitor": "health"}
+
 
 def __getattr__(name):
-    """Lazy obs.ledger access (PEP 562): the ledger module doubles as the
-    ``python -m commefficient_tpu_torch.obs.ledger`` CLI, and an eager
-    package-level import would put it in sys.modules before runpy executes
-    it as __main__ (the found-in-sys.modules RuntimeWarning)."""
-    if name in ("ledger", "RoundLedger", "write_postmortem_bundle"):
-        import importlib
+    mod = _LAZY.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
 
-        mod = importlib.import_module(".ledger", __name__)
-        if name == "ledger":
-            return mod
-        return getattr(mod, name)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    module = importlib.import_module(f".{mod}", __name__)
+    return module if name == mod else getattr(module, name)
 
 
 def configure_from_args(args) -> bool:
@@ -120,6 +123,8 @@ def attach_from_args(args, session) -> ObsWiring:
         k: v for k, v in vars(args).items()
         if isinstance(v, (str, int, float, bool, type(None)))})
     if getattr(args, "health_every", 0):
+        from .health import HealthMonitor
+
         wiring.monitor = HealthMonitor(
             mode_cfg=session.cfg.mode, num_workers=session.num_workers,
             health_every=args.health_every)

@@ -445,12 +445,30 @@ def process_info() -> dict:
 
 
 def free_port() -> int:
-    """A TCP port free on localhost now (for a group's rendezvous)."""
+    """A TCP port free now on every address of this host (for a group's
+    rendezvous, whose store listens on all of them: a port free on
+    127.0.0.1 alone may be held on another loopback address, by a closed
+    connection's TIME_WAIT)."""
     import socket
 
     with socket.socket() as s:
-        s.bind(("localhost", 0))
+        s.bind(("", 0))
         return s.getsockname()[1]
+
+
+def reserve_port():
+    """A socket holding a port free on every address (``free_port``) until
+    it is closed: bound with SO_REUSEADDR and never listening, so the
+    rendezvous store can still bind and listen on the port (it sets
+    SO_REUSEADDR too), while no other socket's bind to port 0 and no
+    outgoing connection can take it meanwhile, as they could between
+    ``free_port`` and the store's bind."""
+    import socket
+
+    s = socket.socket()
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    s.bind(("", 0))
+    return s
 
 
 def _launched(fn, args, env: dict):
@@ -471,7 +489,8 @@ def launch_local(fn, world: int, args: tuple = (), env: dict | None = None,
     (its code is then the kill's)."""
     import torch.multiprocessing as mp
 
-    port = free_port()
+    reserved = reserve_port()
+    port = reserved.getsockname()[1]
     ctx = mp.get_context("spawn")
     procs = []
     for r in range(world):
@@ -493,4 +512,5 @@ def launch_local(fn, world: int, args: tuple = (), env: dict | None = None,
         time.sleep(0.05)
     for p in procs:
         p.join()
+    reserved.close()
     return [p.exitcode for p in procs]

@@ -83,6 +83,15 @@ A plan is parsed from a compact CLI string (``--fault_plan``) of
                                 round 2's retained median. Needs
                                 --serve_async with --serve_payload sketch
                                 (validate_stale_context)
+    shard_kill@2:shards=1+3     SIGKILL the shard worker processes 1 and 3
+                                of the process-sharded ingest at round 2's
+                                collect: their clients' submissions fail at
+                                the socket and the round closes without
+                                them (bitwise a client_drop of the dead
+                                shards' clients, requeued); each respawns
+                                at round 3's open. Needs --serve socket
+                                --serve_shards >= 2 --serve_shard_mode
+                                process (validate_shard_context)
     host_preempt@3:host=1       SIGTERM as round 3 dispatches, only on the
                                 rank whose index is 1: the preemption
                                 agreement (resilience.preemption.coordinated)
@@ -97,9 +106,9 @@ correctly across checkpoint resume: ``preempt@3`` does not fire again in a
 resumed run that starts at round 4. ``FaultPlan.parse("")`` is None: no
 plan, no change.
 
-The reference's other kinds (edge and shard kills) need sites the port
-does not have yet. They are refused at parse with a message that names
-them and the ROADMAP item that brings them, never accepted and ignored.
+The reference's other kind, edge_kill, needs a site the port does not
+have yet. It is refused at parse with a message that names it and the
+ROADMAP item that brings it, never accepted and ignored.
 """
 
 from __future__ import annotations
@@ -150,6 +159,9 @@ KINDS = {
     # withhold a payload on time, then submit factor x the table into the
     # buffered-async stale band at the next round's serving
     "client_stale_poison": ("clients", "factor"),
+    # SIGKILL shard worker processes of the process-sharded ingest at the
+    # round's collect; "+"-separated shard indices
+    "shard_kill": ("shards",),
 }
 
 # the client_* sites fire inside a round's preparation: scheduled at or past
@@ -166,10 +178,15 @@ ADVERSARIAL_KINDS = ("client_signflip", "client_scale", "client_collude", "clien
 # late into the stale band): the same schedule validation, one round
 # earlier, and validate_stale_context
 STALE_POISON_KINDS = ("client_stale_poison",)
+# shard_kill fires at the process-sharded ingest (--serve_shards >= 2 with
+# --serve_shard_mode process): the same schedule validation, and
+# validate_shard_context (thread shards share the root process and cannot
+# be killed under it)
+SHARD_KINDS = ("shard_kill",)
 
 # the reference's kinds whose sites the port does not have yet, with the
 # ROADMAP Queue 1 item that brings each
-NOT_PORTED = {"edge_kill": "9b", "shard_kill": "9b"}
+NOT_PORTED = {"edge_kill": "9b"}
 
 
 class InjectedFault(RuntimeError):
@@ -248,6 +265,11 @@ def _parse_entry(entry: str) -> FaultSpec:
                         raise ValueError("expected a ride fraction in (0, 1] (the attack sits "
                                          "UNDER the quarantine multiple)")
                     params[k] = f
+                elif k == "shards":
+                    pos = tuple(int(p) for p in v.split("+") if p.strip())
+                    if not pos or any(p < 0 for p in pos):
+                        raise ValueError("expected '+'-separated non-negative shard indices")
+                    params[k] = pos
                 elif k == "frac":
                     f = float(v)
                     if not 0.0 < f <= 0.5:
@@ -262,6 +284,9 @@ def _parse_entry(entry: str) -> FaultSpec:
             except ValueError as e:
                 raise ValueError(f"bad value {v!r} for param {k!r} in --fault_plan entry "
                                  f"{entry!r} ({e})") from None
+    if kind == "shard_kill" and "shards" not in params:
+        raise ValueError(f"fault kind 'shard_kill' needs shards=<i>[+<j>...] in --fault_plan "
+                         f"entry {entry!r} (which shard worker dies)")
     return FaultSpec(kind=kind, rounds=rounds, params=params)
 
 
@@ -319,8 +344,8 @@ class FaultPlan:
         not have, can never fire, and is refused rather than let a chaos
         run pass without its fault."""
         for s in self.specs:
-            if (s.kind in CLIENT_KINDS + WIRE_KINDS + ADVERSARIAL_KINDS + STALE_POISON_KINDS
-                    or s.kind == "host_preempt") and s.rounds:
+            if (s.kind in (CLIENT_KINDS + WIRE_KINDS + ADVERSARIAL_KINDS + STALE_POISON_KINDS
+                           + SHARD_KINDS) or s.kind == "host_preempt") and s.rounds:
                 dead = [r for r in s.rounds if r >= total_rounds]
                 if dead:
                     raise ValueError(
@@ -372,6 +397,46 @@ class FaultPlan:
                 "submits adversarial tables into the buffered-async stale band and needs "
                 "--serve_async with --serve_payload sketch; on this run the chaos plan would "
                 "pass vacuously")
+
+    def validate_shard_context(self, proc_shards_armed: bool, n_shards: int = 0) -> None:
+        """Launch-time check of shard_kill: it SIGKILLs worker processes of
+        the process-sharded ingest (--serve_shards >= 2 with
+        --serve_shard_mode process), so on any other run, or naming a shard
+        past the worker count, it would never fire."""
+        specs = [s for s in self.specs if s.kind in SHARD_KINDS]
+        if not specs:
+            return
+        if not proc_shards_armed:
+            raise ValueError(
+                "--fault_plan: shard_kill can never fire - it SIGKILLs worker processes of the "
+                "process-sharded ingest and needs --serve_shards >= 2 with --serve_shard_mode "
+                "process; on this run the chaos plan would pass vacuously")
+        for s in specs:
+            dead = [k for k in s.params.get("shards", ()) if k >= n_shards]
+            if dead:
+                raise ValueError(
+                    f"--fault_plan: shard_kill:shards={'+'.join(map(str, dead))} can never "
+                    f"fire - the ingest has {n_shards} shard worker(s) (0-based indices)")
+
+    def has_shard_kill(self) -> bool:
+        return any(s.kind in SHARD_KINDS for s in self.specs)
+
+    def shard_kill_plan(self, rnd: int) -> tuple:
+        """The shard workers scheduled to die at round ``rnd`` (sorted,
+        deduplicated; a re-served round after a rewind kills the same ones).
+        The kill lands at the collect's start: the worker dies without a
+        drain, its clients' submissions fail at the socket, and the close
+        masks and requeues them, bitwise a client_drop of the dead shard's
+        clients. The worker starts again at the next round's open. Each kill
+        is a trace instant and counts ``resilience_fault_shard_kill_total``."""
+        out: list[int] = []
+        for s in self.specs_for("shard_kill", rnd):
+            shards = [int(k) for k in s.params["shards"]]
+            out.extend(shards)
+            self._mark("shard_kill", rnd, shards=shards)
+            obreg.default().counter("resilience_fault_shard_kill_total").inc()
+            self._log(f"shard_kill: shard worker(s) {shards} SIGKILLed at round {rnd}")
+        return tuple(sorted(set(out)))
 
     def _log(self, msg: str):
         print(f"fault-injection: {msg}", file=sys.stderr, flush=True)

@@ -12,8 +12,10 @@ on one device or a group of ranks).
 - ``gauntlet``  — ``GauntletPool``, the fast path's batched validation
   over the socket;
 - ``transport`` — in-process and loopback-socket (threaded) submission
-  fronts and the client helpers; ``scale/eventloop`` — the selectors
-  reactor, the default socket engine;
+  fronts and the client helpers; ``scale/`` — the selectors reactor (the
+  default socket engine), the sharded ingest over reactor threads or
+  SO_REUSEPORT worker processes with their shared-memory table ring, and
+  the load generator;
 - ``assembler`` — cohorts that close at W-of-N arrivals (or the async
   buffer size); payload rounds collect the validated table stack, and
   async ones the stragglers' tables;
@@ -34,47 +36,57 @@ announce|sketch``, ``--serve_quorum``, ``--serve_deadline``,
 ``--serve_port``, ``--serve_max_conns``, ``--serve_transport
 eventloop|threaded``, ``--serve_pipeline``, ``--serve_async`` with
 ``--serve_buffer``, ``--serve_staleness`` and ``--serve_stale_rounds``, and
-``--serve_fastpath`` with ``--serve_gauntlet_workers``.
+``--serve_fastpath`` with ``--serve_gauntlet_workers``, and
+``--serve_shards`` with ``--serve_shard_mode thread|process``.
+
+The names below resolve on first access (PEP 562): a shard worker process
+imports ``serve.ingest``, ``serve.transport`` and ``serve.scale`` through
+this package, and must not import torch (``service``, ``ring`` and
+``pipeline`` do).
 """
 
-from .assembler import ClosedRound, CohortAssembler
-from .gauntlet import GauntletPool
-from .ingest import IngestQueue, PayloadPolicy, Submission, screen_block, validate_payload
-from .metrics import FASTPATH_METRICS, MetricsServer, register_fastpath
-from .pipeline import RoundPipeline
-from .ring import RingBlock, RingSlot, TableRing
-from .service import (AggregationService, ServeConfig, ServedSource, ServeFollower,
-                      service_from_args)
-from .traffic import TraceConfig, TrafficGenerator
-from .transport import (InProcessTransport, SocketTransport, abort_over_socket,
-                        submit_over_socket, submit_with_retries)
+_EXPORTS = {
+    "ClosedRound": "assembler",
+    "CohortAssembler": "assembler",
+    "GauntletPool": "gauntlet",
+    "IngestQueue": "ingest",
+    "PayloadPolicy": "ingest",
+    "Submission": "ingest",
+    "screen_block": "ingest",
+    "validate_payload": "ingest",
+    "FASTPATH_METRICS": "metrics",
+    "MetricsServer": "metrics",
+    "register_fastpath": "metrics",
+    "RoundPipeline": "pipeline",
+    "RingBlock": "ring",
+    "RingSlot": "slots",
+    "TableRing": "ring",
+    "AggregationService": "service",
+    "ServeConfig": "service",
+    "ServedSource": "service",
+    "ServeFollower": "service",
+    "service_from_args": "service",
+    "TraceConfig": "traffic",
+    "TrafficGenerator": "traffic",
+    "InProcessTransport": "transport",
+    "SocketTransport": "transport",
+    "abort_over_socket": "transport",
+    "submit_over_socket": "transport",
+    "submit_with_retries": "transport",
+}
 
-__all__ = [
-    "AggregationService",
-    "ClosedRound",
-    "CohortAssembler",
-    "FASTPATH_METRICS",
-    "GauntletPool",
-    "InProcessTransport",
-    "IngestQueue",
-    "MetricsServer",
-    "PayloadPolicy",
-    "RingBlock",
-    "RingSlot",
-    "RoundPipeline",
-    "ServeConfig",
-    "ServeFollower",
-    "ServedSource",
-    "SocketTransport",
-    "Submission",
-    "TableRing",
-    "TraceConfig",
-    "TrafficGenerator",
-    "abort_over_socket",
-    "register_fastpath",
-    "screen_block",
-    "service_from_args",
-    "submit_over_socket",
-    "submit_with_retries",
-    "validate_payload",
-]
+
+def __getattr__(name):
+    mod = _EXPORTS.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    return getattr(importlib.import_module(f".{mod}", __name__), name)
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS))
+
+
+__all__ = sorted(_EXPORTS)

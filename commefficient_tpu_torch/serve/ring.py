@@ -15,7 +15,9 @@ sized by the cohort:
   tensor, pinned once, when the pool makes it: a pinning failure raises,
   nothing falls back to pageable memory. On the CPU it is a plain tensor.
 - ``RingBlock`` is one round's landing zone: the [capacity, r, c] float32
-  tables (``tables``, the numpy view of ``host``) and each slot's state.
+  tables (``tables``, the numpy view of ``host``) and each slot's state
+  (the slot protocol, ``serve/slots.py``, which the shared-memory block of
+  the process shards, ``serve/scale/shmring.py``, speaks too).
   A decode ``acquire``s a slot and writes the table into it
   (``RingSlot.write``, the fast path's one copy of a table); the admission
   then ``commit``s the slot at the client's cohort position or
@@ -42,42 +44,18 @@ import threading
 import numpy as np
 import torch
 
-from ..obs import registry as obreg
+from .slots import RingSlot, SlotBlock  # noqa: F401 - RingSlot is this module's name too
 
 
-class RingSlot:
-    """One acquired slot of a RingBlock, where one submission's decoded
-    table lands."""
-
-    __slots__ = ("block", "index")
-
-    def __init__(self, block: "RingBlock", index: int):
-        self.block = block
-        self.index = index
-
-    def write(self, arr) -> np.ndarray:
-        """Copy a decoded [r, c] table into this slot (the assignment casts
-        the wire's little-endian float32 to float32 bit for bit) and return
-        the slot's view: downstream holds the view, never a table of its
-        own."""
-        self.block.tables[self.index][...] = arr
-        return self.block.tables[self.index]
-
-
-class RingBlock:
-    """One round's landing zone (module docstring). Thread-safe: decodes
-    acquire, commit and reject from transport or gauntlet threads, the
-    uploader polls ``final_prefix``, the close waits in ``wait_final``. The
-    block's lock is a leaf: the ingest queue's lock may be held while it is
-    taken, never the reverse."""
+class RingBlock(SlotBlock):
+    """One round's landing zone in process (module docstring; the slot
+    protocol is ``serve/slots.py``'s)."""
 
     def __init__(self, rows: int, cols: int, capacity: int,
                  device: torch.device | str = "cpu"):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
-        self.rows, self.cols = int(rows), int(cols)
-        self.capacity = int(capacity)
-        shape = (self.capacity, self.rows, self.cols)
+        shape = (int(capacity), int(rows), int(cols))
         if torch.device(device).type == "cuda":
             # pinned once, for the block's life; torch raises if it cannot
             self.host = torch.empty(shape, dtype=torch.float32, pin_memory=True)
@@ -85,95 +63,8 @@ class RingBlock:
                 raise RuntimeError("the table ring could not pin its host block")
         else:
             self.host = torch.zeros(shape, dtype=torch.float32)
-        self.tables = self.host.numpy()
-        # the cohort position of each committed slot (-1: not committed)
-        self.positions = np.full(self.capacity, -1, np.int32)
-        # a slot holds an admitted table (commit); False: rejected or in flight
-        self.valid = np.zeros(self.capacity, bool)
-        # a slot's bytes are final (commit or reject): the uploader ships
-        # finalized slots only
-        self._final = np.zeros(self.capacity, bool)
-        self.rnd = -1
-        self.count = 0  # slots acquired (frozen once the round closes)
-        self.extras: list[tuple[int, np.ndarray]] = []
-        self._watermark = 0  # the finalized prefix found so far
-        # the CUDA event after the block's last host-to-device copy; reset
-        # waits on it before it rewrites the pinned bytes
-        self.upload_done = None
-        self._cv = threading.Condition()
-
-    def reset(self, rnd: int) -> None:
-        """Re-arm a pooled block for round ``rnd``: wait out its last copy
-        to the device, zero it (the exact +0.0 every untouched slot must
-        read as) and clear its state."""
-        if self.upload_done is not None:
-            self.upload_done.synchronize()
-            self.upload_done = None
-        with self._cv:
-            self.tables[...] = 0.0
-            self.positions[...] = -1
-            self.valid[...] = False
-            self._final[...] = False
-            self.rnd = int(rnd)
-            self.count = 0
-            self.extras = []
-            self._watermark = 0
-
-    def acquire(self) -> RingSlot | None:
-        """The next free slot; None when the block is full (counted)."""
-        with self._cv:
-            if self.count >= self.capacity:
-                obreg.default().counter("serve_ring_overflow_total").inc()
-                return None
-            self.count += 1
-            return RingSlot(self, self.count - 1)
-
-    def commit(self, slot: RingSlot, position: int) -> None:
-        """Finalize an admitted slot at its cohort position."""
-        with self._cv:
-            self.positions[slot.index] = int(position)
-            self.valid[slot.index] = True
-            self._final[slot.index] = True
-            self._cv.notify_all()
-
-    def reject(self, slot: RingSlot) -> None:
-        """Finalize a rejected (or stale-admitted, copied out) slot, zeroed
-        back."""
-        with self._cv:
-            self.tables[slot.index][...] = 0.0
-            self.valid[slot.index] = False
-            self._final[slot.index] = True
-            self._cv.notify_all()
-
-    def add_extra(self, position: int, table: np.ndarray) -> None:
-        """Register an admitted table the ring had no slot for, so the close
-        still lands it."""
-        with self._cv:
-            self.extras.append((int(position), table))
-
-    def final_prefix(self) -> int:
-        """The length of the finalized prefix of the slots: what the
-        uploader may ship now."""
-        with self._cv:
-            w = self._watermark
-            while w < self.count and self._final[w]:
-                w += 1
-            self._watermark = w
-            return w
-
-    def wait_final(self, timeout_s: float) -> bool:
-        """Wait until every acquired slot is finalized (the close's barrier:
-        acquires stop when the window closes, so this waits on the decodes
-        in flight). False on timeout."""
-        with self._cv:
-            return self._cv.wait_for(lambda: bool(self._final[:self.count].all()),
-                                     timeout=timeout_s)
-
-    def snapshot(self) -> tuple[int, np.ndarray, np.ndarray, list]:
-        """(count, positions, valid, extras), copied under the lock: what
-        the close's scatter reads after ``wait_final``."""
-        with self._cv:
-            return self.count, self.positions.copy(), self.valid.copy(), list(self.extras)
+        self._bind(self.host.numpy(), np.full(shape[0], -1, np.int32), np.zeros(shape[0], bool),
+                   np.zeros(shape[0], bool), np.zeros(1, np.int64))
 
 
 class TableRing:

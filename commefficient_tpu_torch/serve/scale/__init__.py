@@ -1,4 +1,15 @@
-"""The scale-out socket engine: ``eventloop``, the selectors reactor (the
-default ``--serve_transport``). The reference's sharded ingest, process
-shards, shared-memory ring, load generator and edge tree are not ported
-(ROADMAP Queue 1 item 9b)."""
+"""The scale-out socket ingest (the port's copy of the JAX package's
+``serve/scale/``, but for the edge tree, ROADMAP Queue 1 item 9b):
+
+- ``eventloop`` — the selectors reactor, the default ``--serve_transport``;
+- ``shard``     — ``--serve_shards N``: N reactor threads over the one
+  admission queue, clients routed by client-id hash (``shard_for``);
+- ``procshard`` and ``procshard_worker`` — ``--serve_shard_mode process``:
+  N SO_REUSEPORT worker processes, each owning its clients' admission
+  state; ``shmring``, the shared-memory table ring they hand validated
+  tables over in; ``spawn``, how they start (never importing torch);
+- ``loadgen``   — the multi-process closed-loop load generator.
+
+Nothing is imported here: a worker process's import chain passes through
+this package and stays numpy and standard library only.
+"""

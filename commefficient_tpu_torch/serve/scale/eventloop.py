@@ -24,15 +24,29 @@ One reactor thread multiplexes every connection through
   callback that parks its verdict on a locked list and wakes the selector
   through the self-pipe; the reactor moves parked verdicts onto their
   connections' out-buffers at its next wakeup, so it never waits on a
-  batch.
+  batch. A shard worker process's misrouted frames (``procshard_worker.py``)
+  defer the same way, with the owner's verdict.
 
-Nothing reachable from the loop blocks beyond the selector wait. The
-reference's sharded reactors are not ported.
+As one shard of a sharded ingest (``shard_id``, ``shard.py`` and the
+worker processes of ``procshard.py``) a reactor publishes per-shard series
+in the process registry: the ``serve_shard<k>_submissions_total``,
+``_shed_total``, ``_conn_refused_total`` and ``_misrouted_total`` counters,
+the ``serve_shard<k>_conns`` gauge, and the ``serve_shard<k>_retry_after_s``
+gauge, the load-scaled SHEDDING hint it last handed out (the base hint
+stretched by its connections over its cap), so that an overloaded shard
+can be told from an overloaded server. A standalone reactor publishes none.
+``reuse_port`` binds with SO_REUSEPORT, so that the worker processes'
+reactors listen on one port and the kernel spreads connections among them.
+``start`` raises the process's RLIMIT_NOFILE soft limit toward the hard one
+as far as ``max_conns`` needs.
+
+Nothing reachable from the loop blocks beyond the selector wait.
 """
 
 from __future__ import annotations
 
 import json
+import resource
 import selectors
 import socket
 import sys
@@ -41,7 +55,7 @@ import time
 
 from ...obs import registry as obreg
 from ...obs import trace as obtrace
-from ..ingest import IngestQueue
+from ..ingest import SHEDDING, IngestQueue
 from ..transport import DEFAULT_MAX_FRAME_BYTES, LineProtocol, _malformed, submit_over_socket
 
 # connection cap of one reactor (each connection is one fd and a buffer)
@@ -49,6 +63,36 @@ DEFAULT_MAX_CONNS_EVENTLOOP = 8192
 # compact a connection's receive buffer once this many consumed bytes
 # accumulate at its head
 _COMPACT_AT = 1 << 16
+# descriptors a process keeps beside its connections (pipes, stdio, the
+# selector, files)
+_FD_HEADROOM = 256
+
+
+class _NoopMetric:
+    """Inert counter and gauge for a standalone reactor's per-shard series."""
+
+    def inc(self, n: float = 1) -> None:
+        pass
+
+    def set(self, v: float) -> None:
+        pass
+
+
+_NOOP_METRIC = _NoopMetric()
+
+
+def raise_nofile(want: int) -> int:
+    """Raise this process's RLIMIT_NOFILE soft limit to ``want`` descriptors,
+    as far as the hard limit allows; returns the soft limit now."""
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    target = want if hard == resource.RLIM_INFINITY else min(want, hard)
+    if target > soft:
+        try:
+            resource.setrlimit(resource.RLIMIT_NOFILE, (target, hard))
+            soft = target
+        except (ValueError, OSError):
+            pass
+    return soft
 
 
 class _Conn:
@@ -74,7 +118,8 @@ class EventLoopTransport(LineProtocol):
     def __init__(self, queue: IngestQueue, host: str = "127.0.0.1", port: int = 0,
                  read_deadline_s: float = 30.0,
                  max_frame_bytes: int = DEFAULT_MAX_FRAME_BYTES,
-                 max_conns: int = DEFAULT_MAX_CONNS_EVENTLOOP):
+                 max_conns: int = DEFAULT_MAX_CONNS_EVENTLOOP,
+                 shard_id: int | None = None, reuse_port: bool = False):
         if read_deadline_s <= 0:
             raise ValueError(f"read_deadline_s must be > 0, got {read_deadline_s}")
         if max_frame_bytes < 1024:
@@ -86,6 +131,13 @@ class EventLoopTransport(LineProtocol):
         self.max_conns = max_conns
         self.read_deadline_s = read_deadline_s
         self._host, self._port = host, port
+        # None: a standalone reactor; k: shard k of a sharded ingest, whose
+        # per-shard series carry k in their names
+        self.shard_id = shard_id
+        # bind with SO_REUSEPORT: the shard worker processes' reactors share
+        # one port (the root holds it with a bound socket that never
+        # listens, so no other process can take it between binds)
+        self.reuse_port = reuse_port
         self._sock: socket.socket | None = None
         self._sel: selectors.BaseSelector | None = None
         self._thread: threading.Thread | None = None
@@ -107,11 +159,18 @@ class EventLoopTransport(LineProtocol):
     def address(self) -> tuple[str, int] | None:
         return self._sock.getsockname() if self._sock is not None else None
 
+    def addr_for(self, client_id: int) -> tuple[str, int] | None:
+        """Where a client connects: the one listener."""
+        return self.address
+
     def start(self) -> None:
         if self._sock is not None:
             return
+        raise_nofile(self.max_conns + _FD_HEADROOM)
         s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        if self.reuse_port:
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
         s.bind((self._host, self._port))
         s.listen(1024)
         s.setblocking(False)
@@ -122,7 +181,8 @@ class EventLoopTransport(LineProtocol):
         self._wake_r.setblocking(False)
         self._sel.register(self._wake_r, selectors.EVENT_READ, "wake")
         self._stop.clear()
-        self._thread = threading.Thread(target=self._loop, name="serve-reactor", daemon=True)
+        name = "serve-reactor" if self.shard_id is None else f"serve-reactor-{self.shard_id}"
+        self._thread = threading.Thread(target=self._loop, name=name, daemon=True)
         self._thread.start()
 
     def stop(self, join_deadline_s: float = 5.0) -> None:
@@ -254,6 +314,7 @@ class EventLoopTransport(LineProtocol):
                 return
             if len(self._conns) >= self.max_conns:
                 obreg.default().counter("serve_conn_refused_total").inc()
+                self._shard_counter("conn_refused").inc()
                 try:
                     sock.close()
                 except OSError:
@@ -263,6 +324,7 @@ class EventLoopTransport(LineProtocol):
             conn = _Conn(sock, time.monotonic() + self.read_deadline_s)
             self._conns[sock] = conn
             self._sel.register(sock, selectors.EVENT_READ, conn)
+            self._shard_gauge("conns").set(len(self._conns))
 
     def _on_readable(self, conn: _Conn) -> None:
         try:
@@ -316,6 +378,14 @@ class EventLoopTransport(LineProtocol):
             conn.off = 0
 
     def _queue_reply(self, conn: _Conn, reply: dict) -> None:
+        if self.shard_id is not None:
+            self._shard_counter("submissions").inc()
+            if reply.get("status") == SHEDDING:
+                # the shard's own shed count and the load-scaled hint it
+                # handed out
+                reply = {**reply, "retry_after_s": self._retry_after_s()}
+                self._shard_counter("shed").inc()
+                self._shard_gauge("retry_after_s").set(float(reply["retry_after_s"]))
         conn.out += json.dumps(reply).encode() + b"\n"
         self._flush_out(conn)
 
@@ -370,3 +440,24 @@ class EventLoopTransport(LineProtocol):
             conn.sock.close()
         except OSError:
             pass
+        self._shard_gauge("conns").set(len(self._conns))
+
+    # -- the per-shard series (none for a standalone reactor) -----------
+
+    def _shard_counter(self, what: str):
+        if self.shard_id is None:
+            return _NOOP_METRIC
+        return obreg.default().counter(f"serve_shard{self.shard_id}_{what}_total")
+
+    def _shard_gauge(self, what: str):
+        if self.shard_id is None:
+            return _NOOP_METRIC
+        return obreg.default().gauge(f"serve_shard{self.shard_id}_{what}")
+
+    def _retry_after_s(self) -> float:
+        """The shard's SHEDDING hint: the queue's base hint stretched by
+        this reactor's connections over its cap (at most 5x), so clients of
+        a hot shard back off longer than those of an idle one (the queue's
+        depth watermark itself is global)."""
+        base = self.queue.shed_retry_after_s
+        return base * (1.0 + min(len(self._conns) / max(self.max_conns, 1), 4.0))

@@ -89,9 +89,25 @@ pool, where its next ``reset`` waits for its last copy. On the CPU the
 "upload" is a copy into a tensor of its own, never a view of the block.
 On a group rank 0 broadcasts the stack it built from the ring.
 
-Not ported (ROADMAP Queue 1 item 9b): sharded ingest and the edge tree.
-``ServeConfig`` has no field for them, and the CLIs refuse their flags by
-name (``utils/config.py``).
+The sharded ingest (``--serve_shards N``, socket eventloop only): with
+``--serve_shard_mode thread`` N reactors (``serve/scale/shard.py``) front
+the one queue; with ``process`` N SO_REUSEPORT worker processes
+(``serve/scale/procshard.py``) each own their ``shard_for`` slice of the
+admission state, the service's queue is the workers' control surface
+(``ProcShardQueue``), the clients submit to their owner's port (a dead
+shard's refused connection is a CONN_FAILED no-show), and ``shard_kill``
+faults fire at the collect's start (``_consume_shard_kills``). With the
+fast path the workers validate into one shared-memory ring block a shard
+(``serve/scale/shmring.py``): the service views each block's tables as a
+tensor, registered with CUDA on the GPU (a failed registration
+raises; a pageable copy would be silently serial), runs one uploader a
+block, and ``_finish_ring_stack`` scatters every block's admitted slots
+into the one zero [N, r, c] stack (ownership makes their rows disjoint).
+The root runs no ring pool and no validation pool of its own then.
+
+Not ported (ROADMAP Queue 1 item 9b): the edge tree. ``ServeConfig`` has
+no field for it, and the CLIs refuse its flag by name
+(``utils/config.py``).
 """
 
 from __future__ import annotations
@@ -212,6 +228,15 @@ class ServeConfig:
     # --serve_gauntlet_workers: the batched validation's threads (socket
     # only; in process the validation runs inline into the ring)
     gauntlet_workers: int = 2
+    # --serve_shards: >= 2 shards the socket ingest over that many reactors
+    # (clients routed by client-id hash; per-shard counters); 0 = one
+    # listener
+    shards: int = 0
+    # --serve_shard_mode: "thread" (N reactor threads over the one queue)
+    # or "process" (N SO_REUSEPORT worker processes, each owning its
+    # clients' admission state; with the fast path, shared-memory ring
+    # blocks). Process shards move bytes and verdicts, never arithmetic
+    shard_mode: str = "thread"
 
     @classmethod
     def from_args(cls, args) -> "ServeConfig":
@@ -223,7 +248,8 @@ class ServeConfig:
             pipeline=args.serve_pipeline, async_mode=args.serve_async,
             buffer_size=args.serve_buffer, staleness_alpha=args.serve_staleness,
             stale_rounds=args.serve_stale_rounds, fastpath=args.serve_fastpath,
-            gauntlet_workers=args.serve_gauntlet_workers)
+            gauntlet_workers=args.serve_gauntlet_workers, shards=args.serve_shards,
+            shard_mode=args.serve_shard_mode)
 
 
 def _check_payload_session(session, cfg: ServeConfig) -> None:
@@ -259,6 +285,74 @@ def _check_payload_session(session, cfg: ServeConfig) -> None:
         raise ValueError("--serve_payload sketch needs a session built with "
                          "wire_payloads=True (the CLIs arm it from the flag): the "
                          "payload round is another step pair, client tables + merge")
+
+
+def _check_shards(cfg: ServeConfig) -> None:
+    """The sharded ingest's compositions, refused with the reference's
+    words."""
+    if cfg.shard_mode not in ("thread", "process"):
+        raise ValueError(f"--serve_shard_mode must be thread|process, got {cfg.shard_mode!r}")
+    if cfg.shards >= 2:
+        if cfg.transport != "socket":
+            raise ValueError("--serve_shards shards the SOCKET ingest across reactors; the "
+                             "inproc transport has no connections to shard - arm --serve socket")
+        if cfg.socket_transport != "eventloop":
+            raise ValueError("--serve_shards runs N event-loop reactors; the "
+                             "thread-per-connection transport has no reactor to shard - arm "
+                             "--serve_transport eventloop")
+        if cfg.shard_mode == "process":
+            # process shards share nothing: the admission state lives in the
+            # workers, so a composition that reaches into the one queue in
+            # the root is refused
+            if cfg.async_mode:
+                raise ValueError("--serve_shard_mode process does not compose with "
+                                 "--serve_async yet (the stale admission band lives in the "
+                                 "worker queues; its cross-process checkpoint/rewind "
+                                 "discipline is a follow-up) - drop one of the flags")
+            if cfg.pipeline:
+                raise ValueError("--serve_shard_mode process does not compose with "
+                                 "--serve_pipeline yet (the pipelined worker's boundary "
+                                 "snapshots assume the in-process queue) - drop one of the flags")
+    elif cfg.shards < 0:
+        raise ValueError(f"--serve_shards must be >= 0, got {cfg.shards}")
+    elif cfg.shard_mode == "process":
+        raise ValueError("--serve_shard_mode process needs --serve_shards >= 2 (one shard IS "
+                         "the plain event-loop transport)")
+
+
+def _shm_host_view(block, device: torch.device) -> None:
+    """Give a process shard's shared-memory block the ``host`` tensor the
+    uploader copies from: its tables, viewed in place. On the GPU the
+    segment is registered with CUDA (page-locked), so the copies
+    to the device are truly asynchronous; a registration that fails raises
+    (a pageable source would make every copy silently synchronous). The
+    view and the registration go before the segment's mapping closes."""
+    host = torch.from_numpy(block.tables)
+    if device.type != "cuda":
+        def release():
+            block.host = None
+    else:
+        cudart = torch.cuda.cudart()
+        # the whole mapping, from its page-aligned base
+        base = block._count.ctypes.data
+        nbytes = -(-block.nbytes // 4096) * 4096
+        rc = cudart.cudaHostRegister(base, nbytes, 0)
+        if int(rc) != 0:
+            raise RuntimeError(f"serve: cudaHostRegister of a {nbytes}-byte shared-memory table "
+                               f"ring segment failed (cudaError {int(rc)})")
+        if not host.is_pinned():
+            cudart.cudaHostUnregister(base)
+            raise RuntimeError("serve: a registered shared-memory table ring segment does not "
+                               "read as pinned memory")
+
+        def release():
+            # no copy may still read the segment when it is unregistered
+            torch.cuda.synchronize(device)
+            block.host = None
+            cudart.cudaHostUnregister(base)
+
+    block.host = host
+    block.before_close.append(release)
 
 
 def _serve_group(session, root: bool):
@@ -299,9 +393,10 @@ class _RingUploader:
     each chunk is a ``non_blocking`` copy from the pinned block on a side
     stream of the uploader's own, timed by CUDA events as ``"h2d_ring"`` in
     the session's ``wire_copy_stats``; on the CPU a copy into a tensor of
-    its own. ``finish`` joins the poller, ships the rest and returns the
-    slots, ordered before the caller's stream by an event; an error of the
-    poller is raised there."""
+    its own. ``finish`` joins the poller, ships the rest of the acquired
+    slots (a process shard's block is mostly empty) and returns the slots,
+    ordered before the caller's stream by an event; an error of the poller
+    is raised there."""
 
     POLL_S = 0.002  # the poller's period
 
@@ -364,15 +459,28 @@ class _RingUploader:
         self._stop.set()
         self._thread.join(timeout=30.0)
 
-    def finish(self) -> torch.Tensor:
-        """Join the poller, ship every chunk left (the caller waited for the
-        slots to finalize) and return the [capacity, r, c] slots."""
+    def abandon(self) -> None:
+        """Stop without finishing, and make the block's next ``reset`` wait
+        for the copies already queued."""
+        self.stop()
+        if self._stream is not None:
+            done = torch.cuda.Event()
+            done.record(self._stream)
+            self.block.upload_done = done
+
+    def finish(self, count: int | None = None) -> torch.Tensor:
+        """Join the poller, ship the chunks left that hold any of the first
+        ``count`` slots (the acquired ones; all by default; the caller
+        waited for them to finalize) and return the [capacity, r, c] slots,
+        of which only those are defined."""
         self.stop()
         if self._thread.is_alive():
             raise RuntimeError("serve: the ring uploader did not stop within 30 s")
         if self._err is not None:
             raise self._err
-        self._ship_through(self._bounds[-1])
+        count = self.block.capacity if count is None else count
+        while self._bi < len(self._bounds) and self._uploaded < count:
+            self._ship_through(self._bounds[self._bi])
         if self._stream is not None:
             done = torch.cuda.Event()
             done.record(self._stream)
@@ -394,6 +502,7 @@ class AggregationService:
         if cfg.transport not in ("inproc", "socket"):
             raise ValueError(f"serve transport must be inproc|socket, got {cfg.transport!r}")
         _check_payload_session(session, cfg)
+        _check_shards(cfg)
         self.group = _serve_group(session, root=True)
         if cfg.socket_transport not in ("threaded", "eventloop"):
             raise ValueError(f"--serve_transport must be threaded|eventloop, got "
@@ -449,9 +558,33 @@ class AggregationService:
         # into the band at the next round's serving; band state like any
         # other
         self._stale_poison_pending: list[tuple[int, int, int, np.ndarray]] = []
+        self._proc = None  # the process shards, when armed
         if cfg.transport == "socket":
             cap = {"max_conns": cfg.max_conns} if cfg.max_conns else {}
-            if cfg.socket_transport == "eventloop":
+            if cfg.shards >= 2 and cfg.shard_mode == "process":
+                from .scale.procshard import ProcShardedIngest
+
+                # the admission state lives in the workers: the service's
+                # queue becomes their control surface, which the assembler
+                # drives as it drives the one queue
+                self.transport = self._proc = ProcShardedIngest(
+                    n_shards=cfg.shards, payload_shape=payload_shape,
+                    payload_policy=payload_policy, port=cfg.port, fastpath=cfg.fastpath,
+                    gauntlet_workers=cfg.gauntlet_workers,
+                    queue_kwargs={"queue_capacity": cfg.queue_capacity,
+                                  "pending_capacity": cfg.pending_capacity,
+                                  "shed_watermark": cfg.shed_watermark,
+                                  "shed_retry_after_s": cfg.shed_retry_after_s}, **cap)
+                self.queue = self.assembler.queue = self.transport.queue
+                if cfg.fastpath:
+                    device = session.device
+                    self._proc.on_block = lambda block: _shm_host_view(block, device)
+            elif cfg.shards >= 2:
+                from .scale.shard import ShardedIngest
+
+                self.transport = ShardedIngest(self.queue, n_shards=cfg.shards, port=cfg.port,
+                                               **cap)
+            elif cfg.socket_transport == "eventloop":
                 from .scale.eventloop import EventLoopTransport
 
                 self.transport = EventLoopTransport(self.queue, port=cfg.port, **cap)
@@ -460,16 +593,21 @@ class AggregationService:
         else:
             self.transport = InProcessTransport(self.queue)
         # the fast path: the ring every payload round lands in, and over the
-        # socket the batched validation's pool the engine hands frames to
+        # socket the batched validation's pool the engines hand frames to
+        # (one pool for every shard's reactor). Process shards run both in
+        # their workers: the root has neither
         self._ring = self._gauntlet = None
-        # round -> (its ring block, its uploader) while the round is served
-        self._ring_blocks: dict[int, tuple] = {}
+        # round -> [(a ring block, its uploader), ...] while the round is
+        # served: one pair, or one a process shard
+        self._ring_blocks: dict[int, list] = {}
         if cfg.fastpath:
             register_fastpath()
-            self._ring = TableRing(payload_shape[0], payload_shape[1], device=session.device)
-            if cfg.transport == "socket":
-                self._gauntlet = GauntletPool(self.queue, workers=cfg.gauntlet_workers)
-                self.transport.gauntlet = self._gauntlet
+            if self._proc is None:
+                self._ring = TableRing(payload_shape[0], payload_shape[1], device=session.device)
+                if cfg.transport == "socket":
+                    self._gauntlet = GauntletPool(self.queue, workers=cfg.gauntlet_workers)
+                    for tr in getattr(self.transport, "shards", (self.transport,)):
+                        tr.gauntlet = self._gauntlet
         self.registry = obreg.default()
         self._rate = self.registry.meter("serve_arrival_rate")
         self._latency = self.registry.histogram("serve_submit_to_merge_ms")
@@ -603,9 +741,11 @@ class AggregationService:
                     ids = self.session.sample_cohort(rnd)
                     self.queue.open_round(rnd, ids)
                 with self._stage("collect", rnd):
+                    self._consume_shard_kills(rnd)
                     if self.traffic is not None:
-                        self.traffic.respond_to_invites(rnd, ids, self.transport.submit,
-                                                        self.cfg.deadline_s)
+                        submit = (self._proc_submit_fns()[0] if self._proc is not None
+                                  else self.transport.submit)
+                        self.traffic.respond_to_invites(rnd, ids, submit, self.cfg.deadline_s)
                         closed = self.assembler.close_virtual(rnd, ids)
                     else:
                         closed = self.assembler.close_wall(rnd, ids)
@@ -618,15 +758,54 @@ class AggregationService:
 
     def _submit_fns(self):
         """(submit, abort) of the payload round's clients. Over the socket
-        every submission round-trips the real wire, and a conn_drop is a
-        real mid-send connection death; a transport failure raises."""
+        every submission round-trips the real wire (to the client's shard,
+        when the ingest is sharded), and a conn_drop is a real mid-send
+        connection death; a transport failure raises. Process shards:
+        ``_proc_submit_fns``."""
+        if self._proc is not None:
+            return self._proc_submit_fns()
         if self.cfg.transport != "socket":
             return self.transport.submit, None
-        addr = self.transport.address
-        if addr is None:
+        tr = self.transport
+        if tr.address is None:
             raise ConnectionError("serve: the socket transport is not listening")
-        return (lambda sub: submit_over_socket(addr, sub),
-                lambda sub: abort_over_socket(addr, sub))
+        route = getattr(tr, "addr_for", lambda cid: tr.address)
+        return (lambda sub: submit_over_socket(route(sub.client_id), sub),
+                lambda sub: abort_over_socket(route(sub.client_id), sub))
+
+    def _proc_submit_fns(self):
+        """(submit, abort) over the process shards: to the owner's direct
+        port, a dead shard's refused connection resolving to a CONN_FAILED
+        verdict (its client is a no-show, and the drop discipline applies)
+        instead of an error of the round."""
+        tr = self._proc
+
+        def submit(sub):
+            try:
+                return submit_over_socket(tr.addr_for(sub.client_id), sub)
+            except (OSError, ValueError):
+                obreg.default().counter("serve_shard_submit_failed_total").inc()
+                return "CONN_FAILED"
+
+        def abort(sub):
+            try:
+                return abort_over_socket(tr.addr_for(sub.client_id), sub)
+            except (OSError, ValueError):
+                return "CONN_FAILED"
+
+        return submit, abort
+
+    def _consume_shard_kills(self, rnd: int) -> None:
+        """Round ``rnd``'s shard_kill faults (process shards only): SIGKILL
+        the scheduled workers at the start of the collect; their clients'
+        submissions fail at the socket, the round closes without them, and
+        the mask and the requeue make the death bitwise a client_drop of the
+        dead shard's clients."""
+        plan = self.session.fault_plan
+        if self._proc is None or plan is None:
+            return
+        for k in plan.shard_kill_plan(rnd):
+            self._proc.kill_shard(int(k))
 
     def _serve_payload_round(self, rnd: int):
         """The wire-payload round: the clients compute before the close (a
@@ -645,7 +824,7 @@ class AggregationService:
             tables, aux = self.session.compute_client_tables(prep0)
         with self._stage("invite", rnd):
             self.queue.open_round(rnd, ids)
-            if self._ring is not None:
+            if self.cfg.fastpath:
                 self._open_ring(rnd, len(ids))
         try:
             return self._collect_payload_round(rnd, ids, prep0, tables, aux)
@@ -656,6 +835,7 @@ class AggregationService:
     def _collect_payload_round(self, rnd: int, ids, prep0, tables, aux):
         """The payload round from its collect on (``_serve_payload_round``)."""
         with self._stage("collect", rnd):
+            self._consume_shard_kills(rnd)
             if self.traffic is not None:
                 plan = self.session.fault_plan
                 wire = plan.wire_plan(rnd, len(ids)) if plan is not None else None
@@ -687,7 +867,7 @@ class AggregationService:
                 stale = self._build_stale_fold(rnd)
                 self._stash_stragglers(closed)
         wire_tables = closed.tables
-        if self._ring is not None:
+        if self.cfg.fastpath:
             with self._stage("prep", rnd):
                 wire_tables = self._finish_ring_stack(rnd, closed)
         self._share_close(closed, rnd, stale, wire_tables)
@@ -698,51 +878,69 @@ class AggregationService:
 
     def _open_ring(self, rnd: int, n: int) -> None:
         """Arm the fast path for round ``rnd``: a ring block of ``n`` slots
-        attached to its window, and an uploader shipping its slots as they
+        attached to its window (with process shards, the shards' blocks the
+        open prepared), and an uploader a block shipping its slots as they
         finalize."""
-        block = self._ring.open_block(rnd, n)
-        self.queue.attach_block(rnd, block)
-        self._ring_blocks[rnd] = (block, _RingUploader(block, self.session).start())
+        if self._proc is not None:
+            blocks = self._proc.ring_blocks()
+        else:
+            blocks = [self._ring.open_block(rnd, n)]
+            self.queue.attach_block(rnd, blocks[0])
+        self._ring_blocks[rnd] = [(b, _RingUploader(b, self.session).start()) for b in blocks]
 
     def _drop_ring(self, rnd: int) -> None:
-        """Forget round ``rnd``'s block without building its stack (the
-        round failed, or the service closed): the uploader stops, and the
-        block, which a copy may still read, does not go back to the pool."""
-        _, uploader = self._ring_blocks.pop(rnd)
-        uploader.stop()
+        """Forget round ``rnd``'s blocks without building its stack (the
+        round failed, or the service closed): the uploaders stop, a pooled
+        block, which a copy may still read, does not go back to the pool,
+        and a shard's block waits for the copies queued before its next
+        reset."""
+        for _, uploader in self._ring_blocks.pop(rnd):
+            uploader.abandon()
 
     def _finish_ring_stack(self, rnd: int, closed: ClosedRound) -> torch.Tensor:
         """The merge's [N, r, c] stack of round ``rnd``, on the session's
-        device, from its ring block: wait for the decodes in flight to
-        finalize their slots, finish the upload the open window overlapped,
+        device, from its ring blocks: wait for the decodes in flight to
+        finalize their slots, finish the uploads the open window overlapped,
         and scatter the admitted slots whose client made the cut into a zero
-        stack at their cohort positions (a table the ring had no slot for
+        stack at their cohort positions (a table a block had no slot for
         lands on its own). Bitwise the assembler's host stack: the copies
-        move bytes, each position is written at most once and every other
-        row is the same +0.0. The block then goes back to the pool."""
-        block, uploader = self._ring_blocks[rnd]
-        if not block.wait_final(timeout_s=30.0):
-            raise RuntimeError(f"serve: round {rnd}'s ring block has slots no decode "
-                               "finalized within 30 s of the close")
-        count, positions, valid, extras = block.snapshot()
-        slots = uploader.finish()
-        del self._ring_blocks[rnd]
-        self.registry.histogram("serve_ring_occupancy").observe(float(count))
+        move bytes, each position is written at most once (a client has one
+        position and one owning shard, so the shards' blocks write disjoint
+        rows) and every other row is the same +0.0. A process shard that died
+        in the round left slots its clients' masks drop. A pooled block then
+        goes back to the pool."""
+        pairs = self._ring_blocks.pop(rnd)
         n = len(closed.invited)
         r, c = self.assembler.payload_shape
-        dev = slots.device
-        stack = torch.zeros((n, r, c), dtype=torch.float32, device=dev)
-        pos = positions[:count]
-        sel = np.flatnonzero(valid[:count] & (pos >= 0))
-        sel = sel[closed.arrived[pos[sel]] == 1.0]
+        stack = total = None
         host = self.session._host  # pinned on the GPU: the copies queue without a sync
-        if len(sel):
-            stack.index_copy_(0, host(pos[sel].astype(np.int64)).to(dev, non_blocking=True),
-                              slots.index_select(0, host(sel).to(dev, non_blocking=True)))
-        for p, table in extras:
-            if 0 <= p < n and closed.arrived[p] == 1.0:
-                stack[p] = host(np.asarray(table, np.float32)).to(dev, non_blocking=True)
-        self._ring.release(block)
+        for k, (block, uploader) in enumerate(pairs):
+            alive = self._proc is None or self._proc.workers[k].alive
+            if alive and not block.wait_final(timeout_s=30.0):
+                for _, up in pairs[k:]:
+                    up.abandon()
+                raise RuntimeError(f"serve: round {rnd}'s ring block has slots no decode "
+                                   "finalized within 30 s of the close")
+            count, positions, valid, extras = block.snapshot()
+            # a shard's block is about 1 / N full: its empty tail stays home
+            slots = uploader.finish(count)
+            dev = slots.device
+            if stack is None:
+                stack = torch.zeros((n, r, c), dtype=torch.float32, device=dev)
+                total = 0
+            total += count
+            pos = positions[:count]
+            sel = np.flatnonzero(valid[:count] & (pos >= 0) & (pos < n))
+            sel = sel[closed.arrived[pos[sel]] == 1.0]
+            if len(sel):
+                stack.index_copy_(0, host(pos[sel].astype(np.int64)).to(dev, non_blocking=True),
+                                  slots.index_select(0, host(sel).to(dev, non_blocking=True)))
+            for p, table in extras:
+                if 0 <= p < n and closed.arrived[p] == 1.0:
+                    stack[p] = host(np.asarray(table, np.float32)).to(dev, non_blocking=True)
+            if self._ring is not None:
+                self._ring.release(block)
+        self.registry.histogram("serve_ring_occupancy").observe(float(total))
         return stack
 
     def _submit_stale_poison(self, rnd: int) -> None:
@@ -951,6 +1149,12 @@ class AggregationService:
             "transport": self.cfg.transport,
             "transport_engine": (self.cfg.socket_transport if self.cfg.transport == "socket"
                                  else None),
+            # the sharded ingest: each shard's counters and load-scaled shed
+            # hint (also in /metrics.prom), its mode, and the worker deaths
+            "shards": (self.transport.counters() if self.cfg.shards >= 2 else None),
+            "shard_mode": self.cfg.shard_mode if self.cfg.shards >= 2 else None,
+            "shard_deaths": (int(self.registry.counter("serve_shard_deaths_total").value)
+                             if self._proc is not None else None),
             "payload": self.cfg.payload,
             # the armed Byzantine defence: the merge (the sum or a robust
             # statistic) and how wide the quarantine screens
@@ -1131,6 +1335,9 @@ def service_from_args(args, session) -> AggregationService | ServeFollower | Non
     print(f"serve: {service.cfg.transport} transport"
           + (f" ({service.cfg.socket_transport})" if service.cfg.transport == "socket" else "")
           + (f" on {addr[0]}:{addr[1]}" if addr else "")
+          + (f", {service.cfg.shards} ingest shards ({service.cfg.shard_mode}"
+             + (" processes, SO_REUSEPORT + shm ring)" if service.cfg.shard_mode == "process"
+                else "s)") if service.cfg.shards >= 2 else "")
           + f", payload {service.cfg.payload}"
           + (", fastpath" if service.cfg.fastpath else "")
           + (", pipelined" if service.cfg.pipeline else "")

@@ -1,6 +1,17 @@
 """Count-Sketch: hashing, the plain PyTorch operations, and the CUDA kernels
-of the rotation family."""
+of the rotation family.
 
-from .csvec import CSVecSpec
+``CSVecSpec`` resolves on first access (PEP 562): ``sketch.payload``, the
+wire codec, is numpy-only, and a shard worker process imports it through
+this package without torch."""
+
+
+def __getattr__(name):
+    if name == "CSVecSpec":
+        from .csvec import CSVecSpec
+
+        return CSVecSpec
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = ["CSVecSpec"]

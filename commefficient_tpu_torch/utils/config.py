@@ -2,7 +2,7 @@
 ``utils/config.py`` parser, with the same names, types, choices and
 defaults, plus ``--device``, so a launch command of the reference parses
 here. The flags of features the port does not run yet (``_UNPORTED``:
-the sharded and edge-tree serving variants, and GPT-2's ring attention,
+the edge-tree serving topology, and GPT-2's ring attention,
 mixture of experts and parallelism) parse at the reference's defaults, and ``resolve_defaults``
 refuses any other value by name, with the ROADMAP Queue 1 item that
 brings the feature: accepted and ignored is never an outcome.
@@ -23,12 +23,9 @@ from ..obs.slo import parse_rules
 # add_argument keywords as in the reference, the values the port runs, why
 # another value is refused, the ROADMAP Queue 1 item that brings it or None
 # when none is queued)
-_SERVE = ("the port runs the one-listener service (sync or --serve_async, serial or "
-          "pipelined, with or without --serve_fastpath) only")
+_SERVE = ("the port runs the flat merge only (one listener or sharded ingest, sync or "
+          "--serve_async, serial or pipelined, with or without --serve_fastpath)")
 _UNPORTED = (
-    ("serve_shards", dict(type=int, default=0), (0,), _SERVE, "9b"),
-    ("serve_shard_mode", dict(default="thread", choices=["thread", "process"]), ("thread",),
-     _SERVE, "9b"),
     ("serve_edges", dict(type=int, default=0), (0,), _SERVE, "9b"),
     ("split_compile", dict(action="store_true"), (False,),
      "the port runs eagerly and compiles no program to split", None),
@@ -271,6 +268,22 @@ def make_parser(task: str = "cv") -> argparse.ArgumentParser:
                    help="--serve_fastpath over the socket: threads draining the batched "
                         "validation (up to 32 queued frames a drain, screened as one numpy "
                         "block); in process the validation runs inline and ignores this")
+    p.add_argument("--serve_shards", type=int, default=0,
+                   help=">= 2 shards the socket ingest that many ways, clients routed by "
+                        "client-id hash: connection handling and the payload validation "
+                        "spread over reactor threads or worker processes "
+                        "(--serve_shard_mode). Per-shard admission and shed counters and "
+                        "load-scaled retry-after hints land in /metrics and /metrics.prom. "
+                        "Requires --serve socket --serve_transport eventloop. 0 = one "
+                        "listener")
+    p.add_argument("--serve_shard_mode", default="thread", choices=["thread", "process"],
+                   help="--serve_shards >= 2: what a shard is. thread (default): N reactor "
+                        "threads over the one admission queue. process: N SO_REUSEPORT "
+                        "worker processes, shared nothing: each owns its clients' admission "
+                        "state, and with --serve_fastpath lands validated tables in a "
+                        "shared-memory ring block the root copies to the device. Bitwise "
+                        "the one-listener run; shard_kill faults SIGKILL workers. Does not "
+                        "compose with --serve_pipeline/--serve_async/--serve_edges yet")
     # observability (obs/): the round tracer, the profiler window, sketch
     # health, the round ledger and the SLO engine
     p.add_argument("--trace", default="",
@@ -405,6 +418,26 @@ def resolve_defaults(args: argparse.Namespace) -> argparse.Namespace:
                            "local_topk": "local"}.get(args.mode, "none")
     if args.mode in ("fedavg", "localSGD") and args.num_local_iters < 1:
         args.num_local_iters = 1
+    # the sharded ingest's launch refusals (before the unported flags, so a
+    # process-shard run asking for --serve_edges hears why it cannot compose)
+    if args.serve_shards:
+        if args.serve_shards < 2:
+            raise SystemExit(f"--serve_shards must be >= 2 (or 0 = one listener), got "
+                             f"{args.serve_shards}")
+        if args.serve != "socket":
+            raise SystemExit("--serve_shards shards the socket ingest; arm --serve socket")
+        if args.serve_transport != "eventloop":
+            raise SystemExit("--serve_shards runs N event-loop reactors; arm --serve_transport "
+                             "eventloop (thread-per-connection has no reactor to shard)")
+    elif args.serve_shard_mode == "process":
+        raise SystemExit("--serve_shard_mode process needs --serve_shards >= 2 (one shard IS "
+                         "the plain event-loop transport)")
+    if args.serve_shard_mode == "process" and (
+            args.serve_pipeline or args.serve_async or args.serve_edges >= 2):
+        raise SystemExit("--serve_shard_mode process does not compose with "
+                         "--serve_pipeline/--serve_async/--serve_edges yet (admission state "
+                         "lives in the worker processes; the cross-process band/boundary/edge "
+                         "disciplines are named follow-ups) - drop one of the flags")
     for flag, _, ok, why, item in _unported("gpt2"):
         if hasattr(args, flag) and getattr(args, flag) not in ok:
             where = (f"ROADMAP Queue 1 item {item}" if item is not None

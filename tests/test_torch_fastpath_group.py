@@ -7,7 +7,10 @@ fast-path run at ``client_shards`` 2 **bitwise**, over 4 rounds: the
 server state, every committed metric and the requeue with its ages, in the
 sync payload round (the clip, a ``wire_corrupt`` client and a no-show) and
 the pipelined buffered-async round (buffer 6 of 8, stragglers folded a
-round later); rank 0's admission counters equal the twin's.
+round later), and the sync payload round over process shards (rank 0
+serves through 2 worker processes and their shared-memory ring blocks, and
+broadcasts the stack it scattered from them); rank 0's admission counters
+equal the twin's.
 
 The rank function lives here at module level (``launch_local`` pickles it
 by name); this module imports no JAX, so the ranks do not."""
@@ -33,6 +36,11 @@ CASES = {
     "payload": (KW, dataclasses.replace(PAYLOAD, fastpath=True)),
     "async_pipelined": (dict(KW, stale_slots=W),
                         dataclasses.replace(ASYNC, fastpath=True, pipeline=True)),
+    # rank 0's ingest: 2 SO_REUSEPORT worker processes over shared-memory
+    # ring blocks (the followers' configuration names them too, and they
+    # start none)
+    "payload_process_shards": (KW, dataclasses.replace(
+        PAYLOAD, fastpath=True, transport="socket", shards=2, shard_mode="process")),
 }
 
 
@@ -62,7 +70,7 @@ def test_group_fastpath_equals_the_one_device_fastpath_run_bitwise(group_run, na
     t = _session(NUM_CLIENTS, SKETCH, client_shards=WORLD, **kw)
     metrics, svc = _serve(t, dataclasses.replace(cfg, pipeline=False))
     svc.close()
-    assert svc._ring.allocated >= 1
+    assert svc._ring.allocated >= 1 if svc._proc is None else svc._proc.shm_bytes == 0
     for r, got in enumerate(group_run):
         _assert_equals_twin(got[name], t, metrics, svc, f"{name} rank {r}")
     if not cfg.pipeline:

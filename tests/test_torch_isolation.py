@@ -1,8 +1,10 @@
 """The PyTorch port stands alone: no module of ``commefficient_tpu_torch``,
 and not ``chip_smoke.py``, imports JAX, flax, optax, orbax, anything of
 the JAX package, ``transformers`` or ``safetensors`` (the GPU machine has
-neither); importing the port pulls none of them in; and its entry
-points run on the GPU unless told otherwise, raising when there is none."""
+neither); importing the port pulls none of them in; a shard worker's and
+a load-generator client's import chains pull in neither torch nor jax;
+and its entry points run on the GPU unless told otherwise, raising when
+there is none."""
 
 import ast
 import os
@@ -55,6 +57,26 @@ def test_importing_the_port_loads_no_jax():
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# what a shard worker process or a load-generator client imports: numpy
+# and the standard library only (never a device runtime)
+TORCH_FREE = ("commefficient_tpu_torch.serve.scale.procshard_worker",
+              "commefficient_tpu_torch.serve.scale.shmring",
+              "commefficient_tpu_torch.serve.scale.loadgen")
+
+
+@pytest.mark.parametrize("module", TORCH_FREE)
+def test_worker_import_chain_loads_no_torch(module):
+    code = (f"import sys, {module}\n"
+            "bad = sorted(m for m in ('torch', 'jax') if m in sys.modules)\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

@@ -95,8 +95,9 @@ def test_aggregate_survivor_mean_matches_reference():
 
 def test_unported_modes_raise():
     """Every mode is ported; what is not (the approximate top-k selections,
-    the edge-kill and shard-kill fault kinds) raises by name, never runs
-    as something else; DP's flags parse."""
+    the edge-kill fault kind) raises by name, never runs as something
+    else; DP's flags parse, and so does a shard kill that names its
+    shards."""
     from commefficient_tpu_torch.resilience import FaultPlan
     from commefficient_tpu_torch.sketch import csvec
     from commefficient_tpu_torch.utils.config import make_parser
@@ -114,6 +115,8 @@ def test_unported_modes_raise():
             csvec.topk_abs(x, 2, impl=impl)
     for flag in ("--dp_noise", "--dp_clip"):
         assert getattr(make_parser().parse_args([flag, "1.0"]), flag[2:]) == 1.0
-    for kind in ("shard_kill", "edge_kill"):
-        with pytest.raises(ValueError, match=kind):
-            FaultPlan.parse(f"{kind}@1")
+    with pytest.raises(ValueError, match="'edge_kill' .* is not ported.*item 9b"):
+        FaultPlan.parse("edge_kill@1")
+    with pytest.raises(ValueError, match="'shard_kill' needs shards="):
+        FaultPlan.parse("shard_kill@1")
+    assert FaultPlan.parse("shard_kill@1:shards=0").shard_kill_plan(1) == (0,)

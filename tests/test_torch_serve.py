@@ -303,20 +303,22 @@ def test_metrics_endpoint_over_http():
 
 # the reference's ServeConfig fields of ROADMAP item 9b, each with a CLI
 # value the port does not run, but for the ported ones (ITEM_9B_PORTED:
-# --serve_pipeline, --serve_async with its three flags, and --serve_fastpath
-# with --serve_gauntlet_workers)
+# --serve_pipeline, --serve_async with its three flags, --serve_fastpath
+# with --serve_gauntlet_workers, and --serve_shards with --serve_shard_mode,
+# which need the socket transport)
 ITEM_9B = {
     "pipeline": ["--serve_pipeline"], "async_mode": ["--serve_async"],
     "buffer_size": ["--serve_buffer", "4", "--serve_async"],
     "staleness_alpha": ["--serve_staleness", "0.9", "--serve_async"],
     "stale_rounds": ["--serve_stale_rounds", "3", "--serve_async"],
-    "shards": ["--serve_shards", "3"],
-    "shard_mode": ["--serve_shard_mode", "process"], "edges": ["--serve_edges", "3"],
+    "shards": ["--serve_shards", "3", "--serve", "socket"],
+    "shard_mode": ["--serve_shard_mode", "process", "--serve_shards", "2", "--serve", "socket"],
+    "edges": ["--serve_edges", "3"],
     "fastpath": ["--serve_fastpath"], "gauntlet_workers": ["--serve_gauntlet_workers", "3"],
 }
 ITEM_9B_PORTED = {"pipeline": True, "async_mode": True, "buffer_size": 4,
                   "staleness_alpha": 0.9, "stale_rounds": 3, "fastpath": True,
-                  "gauntlet_workers": 3}
+                  "gauntlet_workers": 3, "shards": 3, "shard_mode": "process"}
 
 
 @pytest.mark.parametrize("field", list(ITEM_9B))
@@ -324,8 +326,8 @@ def test_service_refuses_item_9b_by_name(field):
     """The service has no field for an item-9b option, and the command line
     that asks for one is refused by the flag's name; the ported ones,
     --serve_pipeline, --serve_async with --serve_buffer, --serve_staleness
-    and --serve_stale_rounds, and --serve_fastpath with
-    --serve_gauntlet_workers, are accepted by both."""
+    and --serve_stale_rounds, --serve_fastpath with --serve_gauntlet_workers,
+    and --serve_shards with --serve_shard_mode, are accepted by both."""
     if field in ITEM_9B_PORTED:
         want = ITEM_9B_PORTED[field]
         assert getattr(tservice.ServeConfig(quorum=2, **{field: want}), field) == want
@@ -418,14 +420,14 @@ def test_cli_served_preempt_resume_bitwise(tiny_cv, tmp_path, payload):  # noqa:
 
 
 def test_cli_refuses_item_9b_serve_flags(tiny_cv):  # noqa: F811
-    """The serving variants still to port are refused by name with their
-    ROADMAP item; the ported fast path's flags only where the reference
-    refuses them, with its launch errors."""
-    for extra in (["--serve_edges", "2"], ["--serve_shards", "2"]):
-        with pytest.raises(SystemExit, match=f"^{extra[0]} .*item 9b"):
-            cv_train.main(_cli("announce", extra))
+    """The serving variant still to port (the edge tree) is refused by name
+    with its ROADMAP item; the ported fast path's and sharded ingest's flags
+    only where the reference refuses them, with its launch errors."""
+    with pytest.raises(SystemExit, match="^--serve_edges .*item 9b"):
+        cv_train.main(_cli("announce", ["--serve_edges", "2"]))
     for extra, why in ((["--serve_gauntlet_workers", "0"], "must be >= 1, got 0"),
-                       (["--serve_fastpath"], "arm --serve_payload sketch")):
+                       (["--serve_fastpath"], "arm --serve_payload sketch"),
+                       (["--serve_shards", "2"], "shards the socket ingest; arm --serve socket")):
         with pytest.raises(SystemExit, match=f"^{extra[0]} .*{why}"):
             cv_train.main(_cli("announce", extra))
     with pytest.raises(ValueError, match="wire kinds"):
