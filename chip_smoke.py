@@ -381,6 +381,31 @@ Phases (any failure raises, and the exit status is non-zero):
    e. one load-generator stage: 2,048 connections from 4 client processes
       for 5 s against the process shards: submissions/s, the verdicts, the
       descriptor cap of a client process, os.cpu_count().
+25. the two-tier edge tree (--serve_edges) on phase 22's served payload
+   cell, 3 rounds a run through the sync loop, each run's launch counts
+   zeroed just before it (W = 8 accumulates and 1 query a round, tree or
+   flat twin); the flat twin is the same edge-armed session served with
+   the tree off (ServeConfig.edges 0), and every pin is bitwise: params,
+   optimizer state, batch-norm statistics, metrics, queue and (in process)
+   the admission counters:
+   a. the tree == its flat twin in process at E = 2 (tree, flat, flat,
+      tree) and E = 4; the root's H2D copy of the E partials ("h2d_edge",
+      E x 10,485,760 B a round) against the twin's of the stack ("h2d",
+      83,886,080 B), and the host fold's ms a round; both kernels == plain
+      on the tree run's params and error table;
+   b. the same with the clip at 3 under a 50x table at round 1 and a NaN
+      table at round 2: the rejected and quarantined counts equal;
+   c. edge_kill@2:edges=1 == client_drop@2 of the positions edge 1 owns in
+      round 2; 1 edge death;
+   d. forward mode: --merge_policy trimmed --merge_trim 1 --serve_edges 2
+      == the flat trimmed run, its NOTE on stderr;
+   e. over the socket (event loop, 4 thread shards) with --serve_edges 4
+      == (a)'s E = 4 tree in process;
+   f. the E = 2 tree with the clip on 4 gloo ranks sharing the card (in
+      phase 21's launch when the whole script runs) == the one-device run
+      at client_shards 4 on every rank (2 accumulates and 1 query a rank a
+      round); rank 0's broadcast bytes and ms a round against 23e's
+      W-table stack.
 
 Prints one JSON line with the kernels' numbers (launches counted over
 phase 8; under "gpt2" each kernel's numbers at the GPT-2 shape, launches
@@ -397,6 +422,7 @@ uninterrupted gloo run, "launches_layerwise" over each run of phase 19,
 group), "launches_async" over each of phase 22's runs (rank 0's on the
 group), "launches_fastpath" over each of phase 23's runs (rank 0's on the
 group), "launches_shards" over each of phase 24's runs (rank 0's on the
+group), "launches_edges" over each of phase 25's runs (rank 0's on the
 group); a
 third row, ``sketch_accumulate_tree``, with a whole ResNet-9 tree's fold
 times and (b)'s layerwise launches),
@@ -411,6 +437,7 @@ as its last line
 ``--async-only`` runs phase 22 right after phase 4 and stops,
 ``--fastpath-only`` runs phase 23 right after phase 4 and stops,
 ``--shards-only`` runs phase 24 right after phase 4 and stops,
+``--edges-only`` runs phase 25 right after phase 4 and stops,
 ``--shard-turns N`` runs phase 24's cell in N turns of the one listener and
 process shards (``shard_turns``) right after phase 4 and stops,
 ``--cohorts N`` sets the number of cohorts phase 7 compares (default 4);
@@ -420,6 +447,7 @@ process shards (``shard_turns``) right after phase 4 and stops,
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -659,6 +687,18 @@ SHARDS = 4
 SHARD_BASE = FAST_BASE + ["--serve", "socket", "--serve_transport", "eventloop"]
 KILL_ROUND, KILL_SHARD = 2, 1
 LOADGEN_CONNS, LOADGEN_PROCS, LOADGEN_S = 2048, 4, 5.0
+# phase 25: the edge tree on phase 22's served payload cell, EDGE_ROUNDS
+# rounds a run through the sync loop: (a) E = 2 in turns and E = 4, tree
+# against the flat twin; (b) with EDGE_CLIP_PLAN and the clip at 3; (c)
+# edge_kill at EDGE_KILL_ROUND of EDGE_KILL against client_drop of its
+# positions; (d) forward mode under trimmed (trim 1); (e) over the socket
+# with 4 thread shards, E = 4; (f) (b)'s tree on ASYNC_GROUP_SHARDS gloo
+# ranks (phase 21's launch in the whole script)
+EDGE_ROUNDS = 3
+EDGE_BASE = ASYNC_BASE + ["--sync_loop", "--num_rounds", str(EDGE_ROUNDS)]
+EDGE_CLIP_PLAN = "client_scale@1:clients=2,factor=50;client_poison@2:clients=3,value=nan"
+EDGE_CLIP = EDGE_BASE + ["--client_update_clip", "3", "--fault_plan", EDGE_CLIP_PLAN]
+EDGE_KILL_ROUND, EDGE_KILL = 2, 1
 # phase 19: the layerwise sketch path. (b) and (d) run LW_ROUNDS rounds of
 # phase 5's flags, (c) LW_GPT2_ROUNDS of phase 11's; LW_PAIRS timed turns a
 # path. LEAF_EDGES (d, c, r, leaf sizes): a leaf that starts mid-slab and
@@ -681,13 +721,17 @@ LW_HOST_CALLS = 20
 def reuse_run_inputs(cv_train) -> None:
     """Most runs of this script build their session from the same synthetic
     CIFAR (or FEMNIST) set and the same initial weights of their seed, each
-    about 1.5-3 s of host time a run, over a hundred runs: build each once a
-    process and hand later runs the same (never mutated) data arrays and a
-    copy of the weights, bitwise the ones the run would have built itself.
-    Idempotent; ``cv_train.main`` is otherwise untouched."""
+    about 1.5-3 s of host time a run, over a hundred runs, and GPT-2 small's
+    initial weights take seconds of host time a build, over 16 builds: build
+    each once a process and hand later runs the same (never mutated) data
+    arrays and a copy of the weights, bitwise the ones the run would have
+    built itself (both inits draw from a generator of their own seed).
+    Idempotent; ``cv_train.main`` and ``gpt2_train.main`` are otherwise
+    untouched."""
     if getattr(cv_train, "_reused_inputs", False):
         return
-    init = cv_train.init_weights
+    from commefficient_tpu_torch import gpt2_train
+
     data, weights = {}, {}
 
     def once(load):
@@ -698,18 +742,21 @@ def reuse_run_inputs(cv_train) -> None:
             return data[key]
         return load_once
 
-    def init_once(model, seed):
-        key = (type(model).__name__, seed,
-               tuple((n, tuple(p.shape), p.dtype) for n, p in model.named_parameters()))
-        if key in weights:
-            model.load_state_dict(weights[key])
-        else:
-            init(model, seed)
-            weights[key] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    def init_once(init):
+        def init_cached(model, seed):
+            key = (type(model).__name__, seed,
+                   tuple((n, tuple(p.shape), p.dtype) for n, p in model.named_parameters()))
+            if key in weights:
+                model.load_state_dict(weights[key])
+            else:
+                init(model, seed)
+                weights[key] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        return init_cached
 
     cv_train.load_cifar_fed = once(cv_train.load_cifar_fed)
     cv_train.load_femnist_fed = once(cv_train.load_femnist_fed)
-    cv_train.init_weights = init_once
+    cv_train.init_weights = init_once(cv_train.init_weights)
+    gpt2_train.init_weights = init_once(gpt2_train.init_weights)
     cv_train._reused_inputs = True
 
 
@@ -4175,12 +4222,14 @@ def _served_runs(out_dir: str, device: str, tags: tuple) -> None:
 
 def served_group_runs() -> dict:
     """The served runs on a group: phase 22f's async run, phase 23e's fast
-    one and phase 24d's fast run over process shards (rank 0's ingest)."""
+    one, phase 24d's fast run over process shards (rank 0's ingest) and
+    phase 25f's edge tree."""
     return {"async": ASYNC_ARGS + ["--num_rounds", str(ASYNC_SHORT), "--sync_loop"],
             "fast": FAST_BASE + ["--serve_fastpath", "--num_rounds", str(FAST_GROUP_ROUNDS)],
             "proc": SHARD_BASE + ["--serve_fastpath", "--serve_shards", str(shard_count()),
                                   "--serve_shard_mode", "process", "--num_rounds",
-                                  str(SHARD_GROUP_ROUNDS)]}
+                                  str(SHARD_GROUP_ROUNDS)],
+            "edge": EDGE_CLIP + ["--serve_edges", "2"]}
 
 
 def launch_served_group(base: str, device: str, tags: tuple, label: str) -> tuple:
@@ -4422,11 +4471,11 @@ def recording_stacks():
     digests = []
     finish = FederatedSession.finish_served_payload
 
-    def finish_rec(self, prep0, arrived, wire_tables, aux, stale=None):
+    def finish_rec(self, prep0, arrived, wire_tables, aux, stale=None, **edge):
         t = wire_tables if torch.is_tensor(wire_tables) else torch.from_numpy(
             np.asarray(wire_tables))
         digests.append(tree_digest({"stack": t}))
-        return finish(self, prep0, arrived, wire_tables, aux, stale=stale)
+        return finish(self, prep0, arrived, wire_tables, aux, stale=stale, **edge)
 
     FederatedSession.finish_served_payload = finish_rec
     try:
@@ -4904,6 +4953,245 @@ def shard_turns(cv_train, kernels, card: str, turns: int) -> None:
         service._RingUploader.POLL_S = poll
 
 
+@contextlib.contextmanager
+def timing_edge_folds():
+    """Inside the block, the host ms of each ``EdgeTree.aggregate_round``
+    (the edges' screens and numpy folds of a round), in rec["ms"]."""
+    from commefficient_tpu_torch.serve.scale.edge import EdgeTree
+
+    rec = {"ms": []}
+    agg = EdgeTree.aggregate_round
+
+    def timed(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = agg(self, *a, **kw)
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    EdgeTree.aggregate_round = timed
+    try:
+        yield rec
+    finally:
+        EdgeTree.aggregate_round = agg
+
+
+@contextlib.contextmanager
+def flat_twin():
+    """Inside the block the CLIs serve with the edge tree off
+    (``ServeConfig.edges`` 0) while their sessions stay edge-armed: every
+    round merges through the grouped flat twin."""
+    from commefficient_tpu_torch.serve import service
+
+    from_args = service.ServeConfig.from_args.__func__
+    service.ServeConfig.from_args = classmethod(
+        lambda cls, args: dataclasses.replace(from_args(cls, args), edges=0))
+    try:
+        yield
+    finally:
+        service.ServeConfig.from_args = classmethod(from_args)
+
+
+def edges_phase(cv_train, engine, csvec, kernels, card: str, group=None) -> dict:
+    """Phase 25: the two-tier edge tree on phase 22's served payload cell at
+    ResNet-9's full width. ``group``: phase 21's launch's (ranks, seconds),
+    where the whole script ran (f)'s run and 23e's; None launches the group
+    here. Returns each kernel's launches over each run (rank 0's for the
+    group's)."""
+    import functools
+    import shutil
+
+    from commefficient_tpu_torch.federated.api import FederatedSession
+    from commefficient_tpu_torch.obs import registry as obreg
+    from commefficient_tpu_torch.serve.scale.edge import assign_edges
+
+    device = "cuda" if "cuda" in SLICE_ARGS else "cpu"
+    base = os.path.join(ROOT, "build", "chip_smoke", "edges")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    reg = obreg.default()
+    W = int(SLICE_ARGS[SLICE_ARGS.index("--num_workers") + 1])
+    table_bytes = 4 * SLICE["r"] * SLICE["c"]
+    runs, kept = {}, {}
+    shared = group is not None
+    group = group or launch_served_group(base, device, ("edge", "fast"), "edges f")
+
+    def run(tag, argv, twin=False, keep=False):
+        mark = reg.mark()
+        with timing_edge_folds() as folds, \
+                (flat_twin() if twin else contextlib.nullcontext()):
+            s = _serve_run(cv_train, kernels, tag, argv, runs, device)
+        r = runs[tag]
+        r["fold_ms"] = folds["ms"]
+        r["deaths"] = mark.delta("serve_edge_deaths_total")
+        r["partials"] = mark.delta("serve_edge_partials_total")
+        r["copies"] = s.wire_copy_stats() if s is not None else {}
+        if keep:
+            kept[tag] = s
+        per_round(tag)
+        return r
+
+    def per_round(tag):
+        want = {"sketch_accumulate": W * EDGE_ROUNDS, "sketch_query": EDGE_ROUNDS}
+        if runs[tag]["launches"] != want:
+            fail(f"edges {tag}: launched {runs[tag]['launches']} in {EDGE_ROUNDS} rounds "
+                 f"(want {want})")
+
+    def same(tag, twin, label, keys=("code", "metrics", "state", "requeue", "counters")):
+        for key in keys:
+            if runs[tag][key] != runs[twin][key]:
+                fail(f"edges {label}: {tag}'s {key} differs from {twin}'s")
+
+    def copies(tag, direction, n_tables):
+        c = runs[tag]["copies"].get(direction, {})
+        if device == "cuda" and (c.get("copies") != EDGE_ROUNDS or c.get("bytes") !=
+                                 EDGE_ROUNDS * n_tables * table_bytes):
+            fail(f"edges {tag}: {direction} copies {c} (want {EDGE_ROUNDS} of {n_tables} "
+                 "tables)")
+        return c
+
+    def tree_run(tag, n_edges, argv, *, keep=False):
+        r = run(tag, argv + ["--serve_edges", str(n_edges)], keep=keep)
+        copies(tag, "h2d_edge", n_edges)
+        # a dead edge forwards no partial for its round
+        if "h2d" in r["copies"] or r["partials"] != n_edges * EDGE_ROUNDS - r["deaths"]:
+            fail(f"edges {tag}: copies {r['copies']}, {r['partials']} partials")
+        return r
+
+    def flat_run(tag, n_edges, argv):
+        r = run(tag, argv + ["--serve_edges", str(n_edges)], twin=True)
+        copies(tag, "h2d", W)
+        if "h2d_edge" in r["copies"] or r["partials"] or r["fold_ms"]:
+            fail(f"edges {tag}: the flat twin ran the tree")
+        return r
+
+    def numbers(tag):
+        r = runs[tag]
+        h2d = r["copies"].get("h2d_edge", r["copies"].get("h2d", {}))
+        fold = (f"host fold ms a round {[round(x, 3) for x in r['fold_ms']]}; "
+                if r["fold_ms"] else "")
+        return (f"{fold}H2D {h2d.get('copies', 0)} copies, {h2d.get('bytes', 0)} bytes, "
+                f"{h2d.get('ms', 0.0):.3f} ms (CUDA events; a run); steady round ms "
+                f"{r['round_ms']:.2f}; host ms a round (prepare, dispatch, drain) "
+                f"{[round(x, 3) for x in r['host_ms']]}")
+
+    # a. the tree against its flat twin, E = 2 in turns, then E = 4
+    tree_run("tree2_1", 2, EDGE_BASE, keep=True)
+    flat_run("flat2_1", 2, EDGE_BASE)
+    flat_run("flat2_2", 2, EDGE_BASE)
+    tree_run("tree2_2", 2, EDGE_BASE)
+    tree_run("tree4", 4, EDGE_BASE)
+    flat_run("flat4", 4, EDGE_BASE)
+    for tag in ("flat2_1", "flat2_2", "tree2_2"):
+        same(tag, "tree2_1", "a")
+    same("flat4", "tree4", "a")
+    s = kept.pop("tree2_1")
+    check_kernels(csvec, s.cfg.mode.sketch_spec, s.state["params"],
+                  s.state["mode_state"]["Verror"])
+    del s
+    print(f"edges a: the tree == its flat twin in process, {EDGE_ROUNDS} rounds, E = 2 (tree, "
+          f"flat, flat, tree) and E = 4, bitwise (params, optimizer state, batch-norm "
+          f"statistics, metrics, queue, admission counters); casualties a round "
+          f"{runs['tree2_1']['closes']}; launches a run {runs['tree2_1']['launches']}; kernels "
+          f"== plain on the E = 2 tree's params and error table [{card}]", flush=True)
+    for tag in ("tree2_1", "flat2_1", "flat2_2", "tree2_2", "tree4", "flat4"):
+        print(f"edges a: {tag}: {numbers(tag)} [{card}]", flush=True)
+
+    # b. the clip under a 50x table and a NaN table
+    tree_run("clip_tree", 2, EDGE_CLIP)
+    flat_run("clip_flat", 2, EDGE_CLIP)
+    same("clip_tree", "clip_flat", "b")
+    c = runs["clip_tree"]["counters"]
+    quarantined = [m.get("clients_quarantined", 0.0) for m in runs["clip_tree"]["metrics"]]
+    if c["rejected_malformed"] + c["rejected_quarantined"] < 2:
+        fail(f"edges b: the chaos never reached the validation: {c}")
+    print(f"edges b: {EDGE_CLIP_PLAN} with the clip at 3, E = 2: the tree == its flat twin "
+          f"bitwise; admission counters {json.dumps(c)} in both; clients_quarantined a round "
+          f"{quarantined} [{card}]", flush=True)
+
+    # c. an edge's death against the drop of its clients
+    kill = list(EDGE_BASE) + ["--fault_plan", f"edge_kill@{EDGE_KILL_ROUND}:edges={EDGE_KILL}"]
+    tree_run("kill", 2, kill)
+    ids = runs["kill"]["invited"][EDGE_KILL_ROUND]
+    doomed = [int(p) for p in np.flatnonzero(assign_edges(ids, 2) == EDGE_KILL)]
+    if not doomed:
+        fail(f"edges c: edge {EDGE_KILL} owns none of round {EDGE_KILL_ROUND}'s cohort {ids}")
+    drop = list(EDGE_BASE) + ["--fault_plan", f"client_drop@{EDGE_KILL_ROUND}:clients="
+                              + "+".join(map(str, doomed))]
+    tree_run("drop", 2, drop)
+    same("kill", "drop", "c", ("code", "metrics", "state", "requeue"))
+    if runs["kill"]["deaths"] != 1 or runs["drop"]["deaths"]:
+        fail(f"edges c: {runs['kill']['deaths']} edge deaths killed, {runs['drop']['deaths']} "
+             "dropped")
+    # (the close's own casualties plus the dead edge's clients)
+    masked = runs["kill"]["metrics"][EDGE_KILL_ROUND]["clients_dropped"]
+    if masked < len(doomed) + len(runs["kill"]["closes"][EDGE_KILL_ROUND]):
+        fail(f"edges c: round {EDGE_KILL_ROUND} masked {masked} clients, edge {EDGE_KILL} owns "
+             f"{doomed}")
+    print(f"edges c: edge_kill@{EDGE_KILL_ROUND}:edges={EDGE_KILL} == client_drop@"
+          f"{EDGE_KILL_ROUND} of its positions {doomed} bitwise (params, optimizer state, "
+          f"batch-norm statistics, metrics, queue {runs['kill']['requeue'][0]}); 1 edge death, "
+          f"{masked:g} clients masked at round {EDGE_KILL_ROUND} [{card}]", flush=True)
+
+    # d. forward mode under a robust policy
+    trimmed = EDGE_BASE + ["--merge_policy", "trimmed", "--merge_trim", "1"]
+    with counting_stderr("FORWARDS its shard's validated tables") as note:
+        run("forward", trimmed + ["--serve_edges", "2"])
+    run("trimmed", trimmed)
+    same("forward", "trimmed", "d")
+    if note["n"] != 1 or "h2d_edge" in runs["forward"]["copies"]:
+        fail(f"edges d: {note['n']} forward-mode notes, copies {runs['forward']['copies']}")
+    print(f"edges d: --merge_policy trimmed --merge_trim 1 --serve_edges 2 runs forward mode "
+          f"(its NOTE printed once) == the flat trimmed run bitwise; launches "
+          f"{runs['forward']['launches']} [{card}]", flush=True)
+
+    # e. over the socket: the event loop with 4 thread shards, E = 4
+    tree_run("socket4", 4, EDGE_BASE + ["--serve", "socket", "--serve_transport", "eventloop",
+                                        "--serve_shards", "4"])
+    same("socket4", "tree4", "e")
+    print(f"edges e: over the socket (event loop, 4 thread shards), E = 4 == (a)'s tree in "
+          f"process bitwise; {numbers('socket4')} [{card}]", flush=True)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # f. on a group of 4 gloo ranks sharing the card
+    S = ASYNC_GROUP_SHARDS
+    out, secs = group
+    ranks = [r["runs"]["edge"] for r in out]
+    orig = cv_train.FederatedSession
+    cv_train.FederatedSession = functools.partial(FederatedSession, client_shards=S)
+    try:
+        twin = run("group_twin", served_group_runs()["edge"])
+    finally:
+        cv_train.FederatedSession = orig
+    want = {"sketch_accumulate": W // S * EDGE_ROUNDS, "sketch_query": EDGE_ROUNDS}
+    for rk, g in enumerate(ranks):
+        for key in ("code", "metrics", "state", "requeue"):
+            if g[key] != twin[key]:
+                fail(f"edges f: rank {rk}'s {key} differs from the one-device run at "
+                     f"client_shards={S}")
+        if g["launches"] != want:
+            fail(f"edges f: rank {rk} launched {g['launches']} (want {want})")
+    if ranks[0]["counters"] != twin["counters"]:
+        fail("edges f: rank 0's serve counters differ from the twin's")
+    # (the closes' broadcasts; a smaller one would be the run's own)
+    sizes = [n for n in out[0]["sizes"]["edge"] if n > 4096]
+    if sizes != [4 * 3 * W + 2 * table_bytes] * EDGE_ROUNDS:
+        fail(f"edges f: rank 0 broadcast {sizes} bytes a round")
+    b, fb = ranks[0]["broadcast"], out[0]["runs"]["fast"]["broadcast"]
+    print(f"edges f: the E = 2 tree with the clip on {S} gloo ranks, {EDGE_ROUNDS} rounds == "
+          f"the one-device run at client_shards={S}, bitwise on every rank; launches a rank "
+          f"{want}; rank 0's broadcast a round {sizes[0]} bytes (the mask, the norms, the "
+          f"assignment and 2 partials), {b['ms'] / max(b['calls'], 1):.3f} ms, against 23e's "
+          f"W-table stack {fb['bytes'] / max(fb['calls'], 1):.0f} bytes, "
+          f"{fb['ms'] / max(fb['calls'], 1):.3f} ms; {secs:.1f} s for the launch"
+          f"{' (shared with phase 21)' if shared else ''} [{card}]", flush=True)
+    print("edges: run s " + ", ".join(f"{k} {v['s']:.1f}" for k, v in runs.items()),
+          flush=True)
+    launches = {k: v["launches"] for k, v in runs.items()}
+    launches["group_edge"] = ranks[0]["launches"]
+    return launches
+
+
 def time_kernels(csvec, kernels, time_ms, spec, gen: torch.Generator) -> dict:
     """Each kernel's median over CUDA-event-timed launches at ``spec``'s
     shape, cold (L2 flushed before each) and warm (its input just
@@ -5054,6 +5342,14 @@ def main(argv: list[str]) -> int:
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
         print("chip_smoke: shards-only run done", flush=True)
         return 0
+    if "--edges-only" in argv:
+        phase("25 (the edge tree)")
+        ed = edges_phase(cv_train, engine, csvec, kernels, card_line())
+        for name in rows:
+            rows[name]["launches_edges"] = {run: n[name] for run, n in ed.items()}
+        print(json.dumps({"kernels": list(rows.values())}), flush=True)
+        print("chip_smoke: edges-only run done", flush=True)
+        return 0
     if "--layerwise-only" in argv:
         phase("19 (layerwise)")
         lw = layerwise_phase(cv_train, engine, csvec, kernels, time_ms, gen, card_line())
@@ -5185,9 +5481,9 @@ def main(argv: list[str]) -> int:
 
     # 21. serving on a group, the serving pipeline
     phase("21 (serving on a group, the pipeline)")
-    # (the same launch runs phases 22f's, 23e's and 24d's group runs)
+    # (the same launch runs phases 22f's, 23e's, 24d's and 25f's group runs)
     served, shared = serve_group_phase(cv_train, engine, csvec, kernels, card,
-                                       extra=("async", "fast", "proc"))
+                                       extra=("async", "fast", "proc", "edge"))
 
     # 22. the buffered-async service
     phase("22 (the buffered-async service)")
@@ -5201,6 +5497,10 @@ def main(argv: list[str]) -> int:
     # 24. the sharded ingest (23b's one-listener runs are its (a)'s)
     phase("24 (the sharded ingest)")
     sh = shards_phase(cv_train, engine, csvec, kernels, card, shared, eventloop=eventloop)
+
+    # 25. the two-tier edge tree
+    phase("25 (the edge tree)")
+    ed = edges_phase(cv_train, engine, csvec, kernels, card, shared)
     phase("end")
 
     for name in rows:
@@ -5222,6 +5522,7 @@ def main(argv: list[str]) -> int:
         rows[name]["launches_async"] = {run: n.get(name, 0) for run, n in asy.items()}
         rows[name]["launches_fastpath"] = {run: n.get(name, 0) for run, n in fp.items()}
         rows[name]["launches_shards"] = {run: n.get(name, 0) for run, n in sh.items()}
+        rows[name]["launches_edges"] = {run: n.get(name, 0) for run, n in ed.items()}
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

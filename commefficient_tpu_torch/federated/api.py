@@ -34,7 +34,12 @@ the host once), the wire, ``finish_served_payload``, then
 the same two steps (``engine.compose_payload``). A session built with
 ``stale_slots`` > 0 (``--serve_async``) also takes late tables into a
 round's merge: ``finish_served_payload(..., stale=...)``, copied to the
-device beside the live stack. On a group of ranks only
+device beside the live stack. A session built with ``serve_edges`` E >= 2
+(``--serve_edges``) merges through the edge tree's two-level fold:
+``finish_served_payload(..., edge=...)`` takes the [W] edge assignment and
+wire norms, and the edges' [E, r, c] partials (the root merge, which
+copies them to the device in place of the stack) or None (the grouped
+flat twin over the stack). On a group of ranks only
 rank 0 copies the tables to the host (its transport ships them), every
 rank finishes the round with rank 0's validated stack, and the client
 step's gather rides the serve cycle's own process group
@@ -213,6 +218,7 @@ class FederatedSession:
         client_shards: int = 0,
         sketch_path: str = "ravel",
         stale_slots: int = 0,
+        serve_edges: int = 0,
     ):
         self.device = resolve_device(device)
         if health_every < 0:
@@ -244,7 +250,12 @@ class FederatedSession:
             sketch_path=sketch_path,
             # --serve_async: the payload merge may fold up to this many late
             # tables a round (0: the sync service)
-            stale_slots=stale_slots)
+            stale_slots=stale_slots,
+            # --serve_edges E >= 2 (the sum): the edge tree's merge variants,
+            # the grouped flat twin and the partials root, beside the plain
+            # merge (a robust policy runs the tree against the plain robust
+            # merge, with serve_edges=0 here; see EngineConfig)
+            serve_edges=serve_edges)
         self._health_every = max(health_every, 1)
         # the per-client-table round serves a real wire (wire_payloads), a
         # robust merge (order statistics need each client's table) and the
@@ -433,6 +444,7 @@ class FederatedSession:
         ``client_chunk``)."""
         loss_fn, cfg, layout = self.train_loss_fn, self.cfg, self.layout
         self._payload_client = self._payload_merge = None
+        self._payload_merge_edge_flat = self._payload_merge_edge_root = None
         if self._table_round:
             # the per-client-table round (--serve_payload sketch, a robust
             # --merge_policy, adversarial fault kinds): per-client tables,
@@ -450,6 +462,14 @@ class FederatedSession:
                 group = distributed.serve_group() or group
             self._payload_client, self._payload_merge = engine.make_payload_round_steps(
                 loss_fn, cfg, layout, group)
+            if cfg.serve_edges >= 2:
+                # the edge tree's merges (serve/scale/edge.py): the grouped
+                # flat twin over the full stack and the root over the edges'
+                # [E, r, c] partials; the same client step
+                self._payload_merge_edge_flat = engine.make_payload_round_steps(
+                    loss_fn, cfg, layout, group, edge_input="tables")[1]
+                self._payload_merge_edge_root = engine.make_payload_round_steps(
+                    loss_fn, cfg, layout, group, edge_input="partials")[1]
             self._step = engine.compose_payload(self._payload_client, self._payload_merge)
             self._multi = None
         else:
@@ -744,7 +764,7 @@ class FederatedSession:
         return float(self._head()["quarantine"]["median"])
 
     def finish_served_payload(self, prep: PreparedRound, arrived, wire_tables,
-                              aux: tuple, stale=None) -> PreparedRound:
+                              aux: tuple, stale=None, edge=None) -> PreparedRound:
         """After a served payload round's close: every invitee whose payload
         missed the merge (no-show, straggler, rejected frame) is counted as
         masked and queued, and the preparation carries the validated table
@@ -759,7 +779,18 @@ class FederatedSession:
         tables, [n] weights), n <= ``stale_slots``, that this round's merge
         folds in; it needs a session built with ``stale_slots`` > 0. None
         (every sync round, and an async round nobody was late for) runs the
-        plain merge."""
+        plain merge.
+
+        ``edge`` (the edge tree, ``serve/scale/edge.py``): {"assign": [W]
+        edges, "norms": [W] wire norms, "partials": the [E, r, c] partials
+        or None}; the merge is the root over the partials (``wire_tables``
+        is then not read and may be None) or, with None, the grouped flat
+        twin over ``wire_tables``. It needs a session built with
+        ``serve_edges`` >= 2."""
+        if edge is not None and self._payload_merge_edge_flat is None:
+            raise ValueError("finish_served_payload got an edge-tree block but the session was "
+                             "built with serve_edges=0 - arm serve_edges (--serve_edges wires "
+                             "it) or drop the edge routing")
         if stale is not None:
             if self.cfg.stale_slots <= 0:
                 raise ValueError("finish_served_payload got a stale-fold stack but the session "
@@ -780,8 +811,8 @@ class FederatedSession:
         return dataclasses.replace(
             prep, masked=masked, requeue=tuple(self._requeue),
             requeue_ages=tuple(self._requeue_enqueued.items()),
-            payload=(wire_tables if torch.is_tensor(wire_tables)
-                     else np.asarray(wire_tables, np.float32), arrived, aux, stale))
+            payload=(wire_tables if wire_tables is None or torch.is_tensor(wire_tables)
+                     else np.asarray(wire_tables, np.float32), arrived, aux, stale, edge))
 
     def _copy_in(self, a: np.ndarray, direction: str) -> tuple[torch.Tensor, torch.Tensor]:
         """(pinned host tensor, its device copy) of a table stack: the copy is
@@ -807,25 +838,36 @@ class FederatedSession:
         served round collected: one pinned host-to-device copy of the
         [W, r, c] stack (a fast-path stack is on the device already and
         passes as it is), and of an async round's late tables and weights,
-        then the merge on the state the client step read."""
-        wire_tables, arrived, aux, stale = prep.payload
+        then the merge on the state the client step read. An edge-tree round
+        copies the [E, r, c] partials ("h2d_edge") in place of the stack and
+        runs the root merge, or the grouped flat twin over the stack."""
+        wire_tables, arrived, aux, stale, edge = prep.payload
         state, nstates, mvals, part, lnorms = aux
-        if torch.is_tensor(wire_tables):
+        merge, kw, hosts = self._payload_merge, {}, {}
+        if edge is not None:
+            merge = self._payload_merge_edge_flat
+            hosts["norms"] = self._host(np.asarray(edge["norms"], np.float32))
+            kw["norms_wire"] = hosts["norms"].to(self.device, non_blocking=True)
+            # the grouped fold adds client by client at positions the host
+            # knows: the assignment stays on the host
+            kw["edge_assign"] = np.asarray(edge["assign"], np.int32)
+        if edge is not None and edge["partials"] is not None:
+            merge = self._payload_merge_edge_root
+            hosts["partials"], tables = self._copy_in(edge["partials"], "h2d_edge")
+        elif torch.is_tensor(wire_tables):
             if wire_tables.device != self.device:
                 raise ValueError(f"a device stack of the payload round on {wire_tables.device}, "
                                  f"the session runs on {self.device}")
-            tables, hosts = wire_tables, {}
+            tables = wire_tables
         else:
-            host, tables = self._copy_in(wire_tables, "h2d")
-            hosts = {"tables": host}
-        kw = {}
+            hosts["tables"], tables = self._copy_in(wire_tables, "h2d")
         if stale is not None:
             # the late tables cross as the live stack does ("h2d_stale")
             hosts["stale_tables"], kw["stale_tables"] = self._copy_in(stale[0], "h2d_stale")
             hosts["stale_weights"] = self._host(stale[1])
             kw["stale_weights"] = hosts["stale_weights"].to(self.device, non_blocking=True)
         lr_host = self._host(np.asarray(lr, np.float32))
-        new_state, metrics = self._payload_merge(
+        new_state, metrics = merge(
             state, tables, nstates, mvals, part,
             self._host(arrived).to(self.device, non_blocking=True),
             lr_host.to(self.device, non_blocking=True), lnorms=lnorms,
@@ -857,7 +899,8 @@ class FederatedSession:
         table-stack copies since the last call, by direction ("d2h": the
         client tables to the host, "h2d": the validated stack back,
         "h2d_ring": the fast path's chunks of ring slots instead,
-        "h2d_stale": an async round's late tables):
+        "h2d_stale": an async round's late tables, "h2d_edge": an edge-tree
+        round's partials):
         {direction: {"copies", "bytes", "ms"}}. Waits for the last copy."""
         self._fold_wire_copies()
         with self._wire_lock:

@@ -252,6 +252,18 @@ class EngineConfig:
     # round with no late table runs the plain merge, which is what keeps an
     # async run where everyone is on time bitwise the sync run. 0 = off
     stale_slots: int = 0
+    # the two-tier edge tree (--serve_edges, serve/scale/edge.py): >= 2 arms
+    # the edge variants of the payload merge (make_payload_round_steps'
+    # edge_input): the grouped flat twin, which folds the full [W, r, c]
+    # stack edge by edge (modes.edge_grouped_sum), and the partials root,
+    # which folds the [E, r, c] partials the edges forwarded
+    # (modes.merge_edge_partials); both screen the quarantine against the
+    # per-client wire norms the serving layer computed. Another float
+    # association than the plain merge: an edge-armed session differs from
+    # serve_edges=0 in the last bits, and its tree is bitwise its flat twin.
+    # A robust policy never arms them (the tree forwards per-client tables
+    # to the plain robust merge). 0 = off
+    serve_edges: int = 0
 
     def generator(self, rnd: int, slot: int, step: int,
                   device: torch.device) -> torch.Generator:
@@ -347,6 +359,32 @@ class EngineConfig:
                 "stale_slots (--serve_async) folds LATE WIRE TABLES into the payload merge; "
                 "without wire_payloads there is no per-client table wire to arrive late - arm "
                 "--serve_payload sketch")
+        if self.serve_edges < 0:
+            raise ValueError(f"serve_edges must be >= 0, got {self.serve_edges}")
+        if self.serve_edges >= 2:
+            if not self.wire_payloads:
+                raise ValueError(
+                    "serve_edges (--serve_edges) is the two-tier edge-aggregation topology "
+                    "over WIRE tables; without wire_payloads there is no per-client table for "
+                    "an edge to sum - arm --serve_payload sketch")
+            if robust_policy(self) is not None:
+                raise ValueError(
+                    f"serve_edges={self.serve_edges} with merge_policy={self.merge_policy!r}: "
+                    "a robust merge runs order statistics over PER-CLIENT tables, which a "
+                    "pre-summed edge partial has destroyed - the serving tree forwards "
+                    "per-client tables instead (set serve_edges=0 on the session; "
+                    "serve/scale/edge.py runs the tree in forward mode against the plain "
+                    "robust program)")
+            if self.stale_slots > 0:
+                raise ValueError(
+                    "serve_edges does not compose with the buffered-async stale fold yet (a "
+                    "stale table's edge assignment is a cross-round question the tree does "
+                    "not answer) - drop --serve_async or --serve_edges")
+            if self.quarantine_scope == "layer":
+                raise ValueError(
+                    "serve_edges with quarantine_scope='layer' is not supported: the per-leaf "
+                    "median rings are root state the edges cannot screen against - use the "
+                    "cohort scope (the wire-side L2 screen still runs per edge)")
         if self.dp_noise > 0 and self.dp_clip <= 0:
             raise ValueError("dp_noise > 0 requires dp_clip > 0 (unbounded sensitivity has no "
                              "meaningful noise scale)")
@@ -1113,7 +1151,8 @@ def _stale_fold(table: torch.Tensor, live_weight: torch.Tensor, stale_tables: to
 
 
 def make_payload_round_steps(loss_fn: Callable, cfg: EngineConfig,
-                             layout: FlatLayout, group=None) -> tuple[Callable, Callable]:
+                             layout: FlatLayout, group=None, *,
+                             edge_input: str = "none") -> tuple[Callable, Callable]:
     """The per-client-table round as two steps, the shape a serving
     deployment has (the reference's ``make_payload_round_steps`` with no
     mesh): the wire-payload round (``wire_payloads``) and the round of a
@@ -1122,7 +1161,9 @@ def make_payload_round_steps(loss_fn: Callable, cfg: EngineConfig,
         client_step(state, batch) -> (tables [W, r, c], nstates, mvals, part,
                                       lnorms)
         merge_step(state, tables, nstates, mvals, part, arrived, lr,
-                   lnorms=None, health_on=False) -> (state', metrics)
+                   lnorms=None, health_on=False, stale_tables=None,
+                   stale_weights=None, norms_wire=None, edge_assign=None)
+            -> (state', metrics)
 
     ``client_step`` is "the clients": the clients' updates
     (``make_client_updates``; ``client_chunk`` does not apply), each row
@@ -1177,12 +1218,28 @@ def make_payload_round_steps(loss_fn: Callable, cfg: EngineConfig,
     them into its order statistics as weighted rows of the union stack
     (``modes.merge_partial_wires``). Either adds ``stale_folded`` and
     ``stale_weight`` to the metrics. A round without them runs exactly the
-    plain merge. The reference's edge variants are not ported (ROADMAP
-    Queue 1 item 9b)."""
+    plain merge.
+
+    ``edge_input`` picks the edge tree's variants of the sum (``--serve_edges``,
+    ``cfg.serve_edges`` E >= 2; ``serve/scale/edge.py``): "tables", the
+    grouped flat twin, takes the [W, r, c] stack and folds it edge by edge
+    (``modes.edge_grouped_sum``); "partials", the root, takes the [E, r, c]
+    partials the edges forwarded in place of ``tables`` and folds them in
+    edge order (``modes.merge_edge_partials``). Both take ``norms_wire``,
+    the [W] per-client wire norms the serving layer computed, in place of
+    the norms of ``tables``, and ``edge_assign``, the [W] edge of each
+    position on the host; everything after the sum is the plain merge's.
+    "none" is the plain merge."""
     mcfg = cfg.mode
     if mcfg.mode != "sketch":
         raise ValueError(f"the per-client-table round requires mode='sketch'; "
                          f"mode={mcfg.mode!r} has no table wire")
+    if edge_input not in ("none", "tables", "partials"):
+        raise ValueError(f"edge_input must be none|tables|partials, got {edge_input!r}")
+    if edge_input != "none" and cfg.serve_edges < 2:
+        raise ValueError(f"edge_input={edge_input!r} needs cfg.serve_edges >= 2, got "
+                         f"{cfg.serve_edges} (the edge partition size is part of the compiled "
+                         "program)")
     updates = make_client_updates(loss_fn, cfg, layout)
     segments = layerwise.leaf_segments(layout)
     quarantine = cfg.client_update_clip > 0
@@ -1236,12 +1293,16 @@ def make_payload_round_steps(loss_fn: Callable, cfg: EngineConfig,
                    part: torch.Tensor, arrived: torch.Tensor, lr,
                    lnorms: torch.Tensor | None = None, health_on: bool = False,
                    stale_tables: torch.Tensor | None = None,
-                   stale_weights: torch.Tensor | None = None):
+                   stale_weights: torch.Tensor | None = None,
+                   norms_wire: torch.Tensor | None = None, edge_assign=None):
         part = part * arrived
         part_eff, norms = part, None
         if quarantine:
             q = state["quarantine"]
-            norms = _table_norms(tables)
+            # the edge variants screen against the wire norms the serving
+            # layer computed (per client, so the grouped twin and the root
+            # read the same values); the plain merge computes them here
+            norms = norms_wire if edge_input != "none" else _table_norms(tables)
             bad = _quarantine_mask(cfg, norms, q["median"])
             if layer_q:
                 bad = bad | _quarantine_layer_mask(cfg, lnorms, q["layer_median"])
@@ -1255,8 +1316,18 @@ def make_payload_round_steps(loss_fn: Callable, cfg: EngineConfig,
         residual, stale = None, {}
         if pol is None:
             # merge_policy="trimmed" with trim 0 runs this branch: the sum
-            wire_sum = modes.merge_partial_wires(
-                mcfg, {"table": modes.mask_rows(part_eff, tables)})
+            if edge_input == "partials":
+                # the edge tree's root: `tables` is the [E, r, c] stack of
+                # partials, already masked by the edges
+                wire_sum = {"table": modes.merge_edge_partials(tables)}
+            elif edge_input == "tables":
+                # the grouped flat twin: the same two-level fold over the
+                # full stack and the same partition
+                wire_sum = {"table": modes.edge_grouped_sum(tables, part_eff, edge_assign,
+                                                            cfg.serve_edges)}
+            else:
+                wire_sum = modes.merge_partial_wires(
+                    mcfg, {"table": modes.mask_rows(part_eff, tables)})
             total_w = part_eff.sum()
             if stale_tables is not None:
                 # the late tables join after the live cohort's ordered sum

@@ -147,6 +147,12 @@ def build(args, fault_plan=None):
         # --serve_async: one cohort's worth of stale slots (the trigger
         # bounds how many straggle a round, the band how long they wait)
         stale_slots=args.num_workers if args.serve_async else 0,
+        # --serve_edges E >= 2 under the sum (or trimmed at trim 0, which is
+        # the sum): the edge tree's merges, the grouped flat twin and the
+        # partials root; a robust policy runs the tree in forward mode
+        # against the plain robust merge, so the session stays at 0 there
+        serve_edges=(args.serve_edges if args.merge_policy == "sum"
+                     or (args.merge_policy == "trimmed" and args.merge_trim == 0) else 0),
         # the sketch-health estimators at the --health_every cadence and,
         # with --ledger, per-round state fingerprints (both read-only:
         # armed == unarmed, bitwise)
@@ -220,13 +226,16 @@ def main(argv=None):
     if session.fault_plan is not None:
         # a client_* or wire_* site at a round the run never reaches, a
         # wire_* site on a run with no payload seam, a stale poison with no
-        # stale band, or a shard kill with no shard worker to kill, is
-        # refused now
+        # stale band, an edge kill with no edge tree, or a shard kill with no
+        # shard worker to kill, is refused now
         session.fault_plan.validate_rounds(total_rounds, distributed.world_size())
         session.fault_plan.validate_wire_context(
             args.serve != "off" and args.serve_payload == "sketch")
         session.fault_plan.validate_stale_context(
             args.serve != "off" and args.serve_payload == "sketch" and args.serve_async)
+        session.fault_plan.validate_edge_context(
+            args.serve != "off" and args.serve_payload == "sketch" and args.serve_edges >= 2,
+            args.serve_edges)
         session.fault_plan.validate_shard_context(
             args.serve == "socket" and args.serve_shards >= 2
             and args.serve_shard_mode == "process", args.serve_shards)

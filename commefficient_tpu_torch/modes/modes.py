@@ -10,6 +10,8 @@
 - ``merge_partial_wires(cfg, stacked, policy=...)``: the ordered sum of
   stacked wires, or the Byzantine-robust trimmed mean or median of
   per-client tables (``_robust_table_merge``).
+- ``edge_grouped_sum`` / ``merge_edge_partials``: the edge tree's two-level
+  fold of per-client tables (``--serve_edges``).
 - ``server_step_sparse(cfg, agg, sstate, lr) -> (delta_wire, sstate')``:
   server momentum and error feedback; ``apply_delta`` subtracts the delta.
 
@@ -368,6 +370,48 @@ def merge_partial_wires(cfg: ModeConfig, stacked: dict, *, policy: str = "sum",
     if cfg.mode == "sketch":
         return {"table": csvec.merge_tables(cfg.sketch_spec, stacked["table"])}
     return {"dense": stacked["dense"].sum(0)}
+
+
+def edge_grouped_sum(tables: torch.Tensor, live: torch.Tensor, assign, n_edges: int
+                     ) -> torch.Tensor:
+    """The two-tier (edge-tree) reduction of the full [W, r, c] stack: each
+    edge's partial accumulated in cohort-position order, then the partials
+    folded in edge order (``merge_edge_partials``), the arithmetic of the
+    serving tree (``serve/scale/edge.py``) in which each edge sums its
+    shard and forwards one partial.
+
+    Both levels are explicit left folds, and client w contributes
+    ``where(live[w] > 0, tables[w], 0)``: a select, never a product, so a
+    lane is a fixed sequence of float32 adds, which an edge's own fold on
+    the host repeats bit for bit. ``assign`` is the [W] edge of each
+    position on the host (a sequence, numpy or CPU tensor): the adds run
+    one client at a time, never through an atomic scatter, whose order on
+    the card is undefined."""
+    if tables.dim() < 1 or n_edges < 1:
+        raise ValueError(f"edge_grouped_sum needs a [W, ...] stack and n_edges >= 1, got "
+                         f"shape {tuple(tables.shape)}, n_edges={n_edges}")
+    assign = [int(e) for e in (assign.tolist() if hasattr(assign, "tolist") else assign)]
+    if len(assign) != tables.shape[0]:
+        raise ValueError(f"{len(assign)} edge assignments for {tables.shape[0]} tables")
+    partials = [torch.zeros(tables.shape[1:], dtype=tables.dtype, device=tables.device)
+                for _ in range(n_edges)]
+    zero = torch.zeros((), dtype=tables.dtype, device=tables.device)
+    for w, e in enumerate(assign):
+        partials[e] = partials[e] + torch.where(live[w] > 0, tables[w], zero)
+    return merge_edge_partials(torch.stack(partials))
+
+
+def merge_edge_partials(partials: torch.Tensor) -> torch.Tensor:
+    """The [E, r, c] edge partials folded into one [r, c] table in edge
+    order, from zeros (a left fold): the root of both the grouped flat twin
+    and the edge-tree root merge, so the two associate alike. A dead edge's
+    partial is a zero row and folds as its shard dropped."""
+    if partials.dim() < 1:
+        raise ValueError(f"expected [E, ...] partials, got {tuple(partials.shape)}")
+    out = torch.zeros(partials.shape[1:], dtype=partials.dtype, device=partials.device)
+    for e in range(partials.shape[0]):
+        out = out + partials[e]
+    return out
 
 
 def server_step_sparse(cfg: ModeConfig, agg: dict, sstate: dict,

@@ -92,6 +92,12 @@ A plan is parsed from a compact CLI string (``--fault_plan``) of
                                 at round 3's open. Needs --serve socket
                                 --serve_shards >= 2 --serve_shard_mode
                                 process (validate_shard_context)
+    edge_kill@2:edges=1         edge aggregator 1 of the two-tier serving
+                                tree dies for round 2: its hash shard of
+                                the cohort forwards nothing (bitwise a
+                                client_drop of its clients, requeued). Needs
+                                --serve_edges >= 2 with --serve_payload
+                                sketch (validate_edge_context)
     host_preempt@3:host=1       SIGTERM as round 3 dispatches, only on the
                                 rank whose index is 1: the preemption
                                 agreement (resilience.preemption.coordinated)
@@ -106,9 +112,9 @@ correctly across checkpoint resume: ``preempt@3`` does not fire again in a
 resumed run that starts at round 4. ``FaultPlan.parse("")`` is None: no
 plan, no change.
 
-The reference's other kind, edge_kill, needs a site the port does not
-have yet. It is refused at parse with a message that names it and the
-ROADMAP item that brings it, never accepted and ignored.
+Every kind of the reference parses here. A kind whose site the port does
+not have yet goes in ``NOT_PORTED`` (empty now), with the ROADMAP item that
+brings it: it is refused at parse by name, never accepted and ignored.
 """
 
 from __future__ import annotations
@@ -162,6 +168,9 @@ KINDS = {
     # SIGKILL shard worker processes of the process-sharded ingest at the
     # round's collect; "+"-separated shard indices
     "shard_kill": ("shards",),
+    # kill edge aggregators of the two-tier serving tree for the round;
+    # "+"-separated edge indices
+    "edge_kill": ("edges",),
 }
 
 # the client_* sites fire inside a round's preparation: scheduled at or past
@@ -183,10 +192,14 @@ STALE_POISON_KINDS = ("client_stale_poison",)
 # validate_shard_context (thread shards share the root process and cannot
 # be killed under it)
 SHARD_KINDS = ("shard_kill",)
+# edge_kill fires at the edge tier of the two-tier serving tree
+# (--serve_edges >= 2): the same schedule validation, and
+# validate_edge_context (with no tree there is nothing to kill)
+EDGE_KINDS = ("edge_kill",)
 
 # the reference's kinds whose sites the port does not have yet, with the
-# ROADMAP Queue 1 item that brings each
-NOT_PORTED = {"edge_kill": "9b"}
+# ROADMAP Queue 1 item that brings each (none now)
+NOT_PORTED: dict[str, str] = {}
 
 
 class InjectedFault(RuntimeError):
@@ -270,6 +283,11 @@ def _parse_entry(entry: str) -> FaultSpec:
                     if not pos or any(p < 0 for p in pos):
                         raise ValueError("expected '+'-separated non-negative shard indices")
                     params[k] = pos
+                elif k == "edges":
+                    pos = tuple(int(p) for p in v.split("+") if p.strip())
+                    if not pos or any(p < 0 for p in pos):
+                        raise ValueError("expected '+'-separated non-negative edge indices")
+                    params[k] = pos
                 elif k == "frac":
                     f = float(v)
                     if not 0.0 < f <= 0.5:
@@ -284,6 +302,9 @@ def _parse_entry(entry: str) -> FaultSpec:
             except ValueError as e:
                 raise ValueError(f"bad value {v!r} for param {k!r} in --fault_plan entry "
                                  f"{entry!r} ({e})") from None
+    if kind == "edge_kill" and "edges" not in params:
+        raise ValueError(f"fault kind 'edge_kill' needs edges=<i>[+<j>...] in --fault_plan "
+                         f"entry {entry!r} (which edge aggregator dies)")
     if kind == "shard_kill" and "shards" not in params:
         raise ValueError(f"fault kind 'shard_kill' needs shards=<i>[+<j>...] in --fault_plan "
                          f"entry {entry!r} (which shard worker dies)")
@@ -345,7 +366,7 @@ class FaultPlan:
         run pass without its fault."""
         for s in self.specs:
             if (s.kind in (CLIENT_KINDS + WIRE_KINDS + ADVERSARIAL_KINDS + STALE_POISON_KINDS
-                           + SHARD_KINDS) or s.kind == "host_preempt") and s.rounds:
+                           + EDGE_KINDS + SHARD_KINDS) or s.kind == "host_preempt") and s.rounds:
                 dead = [r for r in s.rounds if r >= total_rounds]
                 if dead:
                     raise ValueError(
@@ -398,6 +419,25 @@ class FaultPlan:
                 "--serve_async with --serve_payload sketch; on this run the chaos plan would "
                 "pass vacuously")
 
+    def validate_edge_context(self, edge_tree_armed: bool, n_edges: int = 0) -> None:
+        """Launch-time check of edge_kill: it kills edge aggregators of the
+        two-tier serving tree (--serve_edges >= 2), so on a flat run, or
+        naming an edge past the tree's size, it would never fire."""
+        specs = [s for s in self.specs if s.kind in EDGE_KINDS]
+        if not specs:
+            return
+        if not edge_tree_armed:
+            raise ValueError(
+                "--fault_plan: edge_kill can never fire - it kills edge aggregators of the "
+                "two-tier serving topology and needs --serve_edges >= 2 with --serve_payload "
+                "sketch; on this run the chaos plan would pass vacuously")
+        for s in specs:
+            dead = [e for e in s.params.get("edges", ()) if e >= n_edges]
+            if dead:
+                raise ValueError(
+                    f"--fault_plan: edge_kill:edges={'+'.join(map(str, dead))} can never fire "
+                    f"- the tree has {n_edges} edge(s) (0-based indices)")
+
     def validate_shard_context(self, proc_shards_armed: bool, n_shards: int = 0) -> None:
         """Launch-time check of shard_kill: it SIGKILLs worker processes of
         the process-sharded ingest (--serve_shards >= 2 with
@@ -417,6 +457,24 @@ class FaultPlan:
                 raise ValueError(
                     f"--fault_plan: shard_kill:shards={'+'.join(map(str, dead))} can never "
                     f"fire - the ingest has {n_shards} shard worker(s) (0-based indices)")
+
+    def has_edge_kill(self) -> bool:
+        return any(s.kind in EDGE_KINDS for s in self.specs)
+
+    def edge_kill_plan(self, rnd: int) -> tuple:
+        """The edges scheduled to die at round ``rnd`` (sorted, deduplicated;
+        a re-served round after a rewind kills the same ones). An edge is
+        dead for that round's serving and lives again at the next, so a kill
+        costs its shard one round, as client_drop costs a client one. Each
+        kill is a trace instant and counts ``resilience_fault_edge_kill_total``."""
+        out: list[int] = []
+        for s in self.specs_for("edge_kill", rnd):
+            edges = [int(e) for e in s.params["edges"]]
+            out.extend(edges)
+            self._mark("edge_kill", rnd, edges=edges)
+            obreg.default().counter("resilience_fault_edge_kill_total").inc()
+            self._log(f"edge_kill: edge(s) {edges} die at round {rnd}")
+        return tuple(sorted(set(out)))
 
     def has_shard_kill(self) -> bool:
         return any(s.kind in SHARD_KINDS for s in self.specs)

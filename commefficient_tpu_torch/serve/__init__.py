@@ -14,8 +14,8 @@ on one device or a group of ranks).
 - ``transport`` — in-process and loopback-socket (threaded) submission
   fronts and the client helpers; ``scale/`` — the selectors reactor (the
   default socket engine), the sharded ingest over reactor threads or
-  SO_REUSEPORT worker processes with their shared-memory table ring, and
-  the load generator;
+  SO_REUSEPORT worker processes with their shared-memory table ring, the
+  load generator, and the two-tier edge tree (``scale/edge.py``);
 - ``assembler`` — cohorts that close at W-of-N arrivals (or the async
   buffer size); payload rounds collect the validated table stack, and
   async ones the stragglers' tables;
@@ -36,8 +36,9 @@ announce|sketch``, ``--serve_quorum``, ``--serve_deadline``,
 ``--serve_port``, ``--serve_max_conns``, ``--serve_transport
 eventloop|threaded``, ``--serve_pipeline``, ``--serve_async`` with
 ``--serve_buffer``, ``--serve_staleness`` and ``--serve_stale_rounds``, and
-``--serve_fastpath`` with ``--serve_gauntlet_workers``, and
-``--serve_shards`` with ``--serve_shard_mode thread|process``.
+``--serve_fastpath`` with ``--serve_gauntlet_workers``,
+``--serve_shards`` with ``--serve_shard_mode thread|process``, and
+``--serve_edges``.
 
 The names below resolve on first access (PEP 562): a shard worker process
 imports ``serve.ingest``, ``serve.transport`` and ``serve.scale`` through
@@ -58,6 +59,8 @@ _EXPORTS = {
     "MetricsServer": "metrics",
     "register_fastpath": "metrics",
     "RoundPipeline": "pipeline",
+    "EdgeTree": "scale.edge",
+    "assign_edges": "scale.edge",
     "RingBlock": "ring",
     "RingSlot": "slots",
     "TableRing": "ring",

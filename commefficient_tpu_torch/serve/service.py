@@ -105,9 +105,24 @@ block, and ``_finish_ring_stack`` scatters every block's admitted slots
 into the one zero [N, r, c] stack (ownership makes their rows disjoint).
 The root runs no ring pool and no validation pool of its own then.
 
-Not ported (ROADMAP Queue 1 item 9b): the edge tree. ``ServeConfig`` has
-no field for it, and the CLIs refuse its flag by name
-(``utils/config.py``).
+The edge tree (``--serve_edges E``, ``serve/scale/edge.py``): the
+session's ``serve_edges`` arms the edge merges (the grouped flat twin and
+the partials root), and ``ServeConfig.edges`` the topology. At each
+payload close ``_edge_round`` zeroes the arrival of the clients of the
+edges an ``edge_kill`` fault kills this round, then the ``EdgeTree``
+partitions the cohort by client-id hash (``shard_for``), each edge screens
+its shard and sums it in cohort-position order on the host, and the merge
+is the root over the [E, r, c] partials, with the [W] wire norms and
+assignment the edges forward. An edge-armed session served without the
+tree (``edges`` 0) merges the whole stack through the grouped flat twin:
+bitwise the tree. Under a robust ``--merge_policy`` the tree runs in
+forward mode (a NOTE on stderr): the edges forward their shards' tables,
+reassembled into the stack for the plain robust merge. On a group rank 0
+broadcasts what the merge reads: the edge-adjusted mask, the norms, the
+assignment and the partials (the stack in the flat twin and in forward
+mode). The tree does not compose with ``--serve_async``,
+``--serve_pipeline``, ``--serve_fastpath`` or process shards (refused, in
+the reference's words).
 """
 
 from __future__ import annotations
@@ -122,6 +137,7 @@ import time
 import numpy as np
 import torch
 
+from ..federated import engine as fed_engine
 from ..obs import registry as obreg
 from ..obs import trace as obtrace
 from .assembler import ClosedRound, CohortAssembler
@@ -129,6 +145,7 @@ from .gauntlet import GauntletPool
 from .ingest import IngestQueue, PayloadPolicy, Submission
 from .metrics import MetricsServer, register_fastpath
 from .ring import RingBlock, TableRing
+from .scale.edge import EdgeTree, assign_edges, table_norms_host
 from .traffic import TraceConfig, TrafficGenerator
 from .transport import InProcessTransport, SocketTransport, abort_over_socket, submit_over_socket
 
@@ -237,6 +254,11 @@ class ServeConfig:
     # clients' admission state; with the fast path, shared-memory ring
     # blocks). Process shards move bytes and verdicts, never arithmetic
     shard_mode: str = "thread"
+    # --serve_edges: >= 2 arms the two-tier edge tree (serve/scale/edge.py):
+    # each edge sums its hash shard's validated tables and forwards one
+    # [r, c] partial to the root, bitwise the flat merge of the same
+    # edge-armed session; a robust merge policy turns it into forward mode
+    edges: int = 0
 
     @classmethod
     def from_args(cls, args) -> "ServeConfig":
@@ -249,12 +271,23 @@ class ServeConfig:
             buffer_size=args.serve_buffer, staleness_alpha=args.serve_staleness,
             stale_rounds=args.serve_stale_rounds, fastpath=args.serve_fastpath,
             gauntlet_workers=args.serve_gauntlet_workers, shards=args.serve_shards,
-            shard_mode=args.serve_shard_mode)
+            shard_mode=args.serve_shard_mode, edges=args.serve_edges)
 
 
 def _check_payload_session(session, cfg: ServeConfig) -> None:
     if cfg.payload not in ("announce", "sketch"):
         raise ValueError(f"--serve_payload must be announce|sketch, got {cfg.payload!r}")
+    if cfg.edges == 1 or cfg.edges < 0:
+        raise ValueError(f"--serve_edges must be 0 (off) or >= 2, got {cfg.edges} (one edge IS "
+                         "the flat merge)")
+    if cfg.edges >= 2:
+        if cfg.payload != "sketch":
+            raise ValueError("--serve_edges aggregates client TABLES at the edge tier; the "
+                             "announce path has none - arm --serve_payload sketch")
+        if cfg.async_mode or cfg.pipeline:
+            raise ValueError("--serve_edges does not compose with --serve_async/"
+                             "--serve_pipeline yet (a stale table's edge assignment and the "
+                             "worker's edge timing are open follow-ups) - drop one of the flags")
     if cfg.async_mode:
         if cfg.payload != "sketch":
             raise ValueError("--serve_async merges client tables as they arrive; the announce "
@@ -278,6 +311,10 @@ def _check_payload_session(session, cfg: ServeConfig) -> None:
         if cfg.payload != "sketch":
             raise ValueError("--serve_fastpath accelerates the wire-PAYLOAD ingest path; the "
                              "announce path moves no tables - arm --serve_payload sketch")
+        if cfg.edges >= 2 or session.cfg.serve_edges >= 2:
+            raise ValueError("--serve_fastpath does not compose with --serve_edges yet (the "
+                             "edge tier consumes the host table stack the ring replaces) - "
+                             "drop one of the flags")
         if cfg.gauntlet_workers < 1:
             raise ValueError(f"--serve_gauntlet_workers must be >= 1, got "
                              f"{cfg.gauntlet_workers}")
@@ -313,6 +350,11 @@ def _check_shards(cfg: ServeConfig) -> None:
                 raise ValueError("--serve_shard_mode process does not compose with "
                                  "--serve_pipeline yet (the pipelined worker's boundary "
                                  "snapshots assume the in-process queue) - drop one of the flags")
+            if cfg.edges >= 2:
+                raise ValueError("--serve_shard_mode process does not compose with "
+                                 "--serve_edges yet (the edge tier consumes the host table "
+                                 "stack; the process shards hand over shm ring blocks) - drop "
+                                 "one of the flags")
     elif cfg.shards < 0:
         raise ValueError(f"--serve_shards must be >= 0, got {cfg.shards}")
     elif cfg.shard_mode == "process":
@@ -527,6 +569,30 @@ class AggregationService:
                 rows=payload_shape[0], cols=payload_shape[1],
                 clip_multiple=float(session.cfg.client_update_clip),
                 quarantine_median=session.quarantine_median_host)
+        # the edge tree: the session's serve_edges arms the edge merges,
+        # cfg.edges the topology; under a robust policy the tree forwards
+        # per-client tables (the fan-in is forfeited, and the NOTE says so)
+        robust = fed_engine.robust_policy(session.cfg)
+        self._edge_tree = None
+        if cfg.edges >= 2:
+            if robust is not None:
+                if session.cfg.serve_edges:
+                    raise ValueError("robust merge policies run the edge tree in FORWARD mode "
+                                     "against the plain robust program - build the session "
+                                     "with serve_edges=0 (the CLIs do; EngineConfig rejects "
+                                     "the combination too)")
+                print(f"serve: NOTE - --serve_edges {cfg.edges} with merge_policy={robust!r}: "
+                      "order statistics need per-client tables, so each edge FORWARDS its "
+                      "shard's validated tables unsummed (W tables cross the tree, not E "
+                      "partials - the robustness-vs-fanin trade-off; see README 'Scale-out "
+                      "serving')", file=sys.stderr, flush=True)
+            elif session.cfg.serve_edges != cfg.edges:
+                raise ValueError(f"--serve_edges {cfg.edges} needs a session built with "
+                                 f"serve_edges={cfg.edges} (got {session.cfg.serve_edges}): "
+                                 "the edge partition size is part of the compiled merge "
+                                 "variants - the CLIs arm it from the flag")
+            self._edge_tree = EdgeTree(cfg.edges, payload_shape,
+                                       forward_tables=robust is not None)
         self.session = session
         # async: the quorum becomes the buffer-size trigger (the close fires
         # when that many validated tables are in); sync keeps the quorum
@@ -688,14 +754,18 @@ class AggregationService:
             return not stopping
         return _agree(self.group, not stopping)
 
-    def _share_close(self, closed: ClosedRound, rnd: int, stale=None, tables=None) -> None:
+    def _share_close(self, closed: ClosedRound, rnd: int, stale=None, tables=None,
+                     arrived=None, edge=None) -> None:
         """On a group: the close to every rank (the arrival mask, and a
         payload round's validated stack: ``tables``, the close's host stack
         or the fast path's ring-built one), as the followers' ``_receive``
         takes it. Async, a first broadcast carries the mask and the count of
         filled stale slots, a second the stack and those slots' tables and
-        weights (only the filled ones). The bits rank 0 merges are the ones
-        it sent."""
+        weights (only the filled ones). With an edge block (``edge``) the
+        mask is ``arrived``, the edge-adjusted one, and the [W] norms and
+        assignment follow it, then the [E, r, c] partials in place of the
+        stack when the tree ran. The bits rank 0 merges are the ones it
+        sent."""
         if self.group is None:
             return
         from ..parallel import distributed
@@ -707,7 +777,13 @@ class AggregationService:
         elif tables is not None:
             tables = torch.from_numpy(tables)
         with self._stage("broadcast", rnd):
-            parts = [torch.from_numpy(closed.arrived)]
+            parts = [torch.from_numpy(closed.arrived if arrived is None
+                                      else np.asarray(arrived, np.float32))]
+            if edge is not None:
+                parts += [torch.from_numpy(np.asarray(edge["norms"], np.float32)),
+                          torch.from_numpy(np.asarray(edge["assign"], np.int32))]
+                if edge["partials"] is not None:
+                    tables = torch.from_numpy(np.asarray(edge["partials"], np.float32))
             if self.cfg.async_mode:
                 k = 0 if stale is None else len(stale[1])
                 distributed.broadcast_from_root(
@@ -866,15 +942,75 @@ class AggregationService:
                 self._submit_stale_poison(rnd)
                 stale = self._build_stale_fold(rnd)
                 self._stash_stragglers(closed)
-        wire_tables = closed.tables
-        if self.cfg.fastpath:
-            with self._stage("prep", rnd):
-                wire_tables = self._finish_ring_stack(rnd, closed)
-        self._share_close(closed, rnd, stale, wire_tables)
+        arrived, wire_tables, edge = closed.arrived, closed.tables, None
         with self._stage("prep", rnd):
-            prep = self.session.finish_served_payload(prep0, closed.arrived, wire_tables, aux,
-                                                      stale=stale)
+            if self.cfg.fastpath:
+                wire_tables = self._finish_ring_stack(rnd, closed)
+            else:
+                arrived, wire_tables, edge = self._edge_round(rnd, ids, closed, aux)
+        self._share_close(closed, rnd, stale, wire_tables, arrived=arrived, edge=edge)
+        with self._stage("prep", rnd):
+            # (an edge block only where there is one: the call is the plain
+            # round's otherwise)
+            prep = self.session.finish_served_payload(
+                prep0, arrived, wire_tables, aux, stale=stale,
+                **({} if edge is None else {"edge": edge}))
         return prep, closed
+
+    def _edge_round(self, rnd: int, ids, closed: ClosedRound, aux):
+        """The edge tier of a payload round: (arrived, the stack, the edge
+        block or None), the close's own when neither the tree nor an
+        edge-armed session is in play.
+
+        - The edges an ``edge_kill`` fault kills this round zero their
+          clients' arrival first: bitwise those clients dropped, masked and
+          queued.
+        - With the tree, each edge screens and sums its shard, and the block
+          carries the [E, r, c] partials with the [W] norms and assignment;
+          in forward mode the edges' tables are reassembled into the stack
+          and there is no block (the plain robust merge).
+        - An edge-armed session without the tree (the flat twin) gets the
+          norms and assignment of the whole stack, and no partials."""
+        session_edges = self.session.cfg.serve_edges
+        if self._edge_tree is None and session_edges < 2:
+            return closed.arrived, closed.tables, None
+        arrived = np.array(closed.arrived, np.float32, copy=True)
+        if self._edge_tree is None:
+            return arrived, closed.tables, {"assign": assign_edges(ids, session_edges),
+                                            "norms": table_norms_host(closed.tables),
+                                            "partials": None}
+        tree = self._edge_tree
+        plan = self.session.fault_plan
+        if plan is not None:
+            for e in plan.edge_kill_plan(rnd):
+                tree.kill(int(e))
+        dead = tree.dead_positions(ids)
+        if len(dead):
+            arrived[dead] = 0.0
+            print(f"serve: edge(s) {tree.dead_edges} dead at round {rnd}: {len(dead)} shard "
+                  "client(s) dropped + re-queued", file=sys.stderr, flush=True)
+        ecfg = self.session.cfg
+        screen = None
+        if ecfg.client_update_clip > 0 and not tree.forward_tables:
+            # the baseline the merge reads at dispatch, and the gauntlet
+            # screened this round's wire against
+            screen = (float(ecfg.client_update_clip), self.session.quarantine_median_host())
+        # the edges fold with the masks the merge recomputes (participation
+        # times arrival times the screen); the participation mask comes to
+        # the host at the round's one sync point, after the tables
+        base_live = aux[3].cpu().numpy().astype(np.float32) * arrived
+        try:
+            reports, root = tree.aggregate_round(rnd, ids, closed.tables, base_live,
+                                                 screen=screen)
+        finally:
+            tree.revive_all()  # an edge dies for its round only
+        if tree.forward_tables:
+            stack = np.zeros_like(np.asarray(closed.tables, np.float32))
+            for rep in reports:
+                if rep.tables is not None and len(rep.positions):
+                    stack[rep.positions] = rep.tables
+            return arrived, stack, None
+        return arrived, closed.tables, root
 
     def _open_ring(self, rnd: int, n: int) -> None:
         """Arm the fast path for round ``rnd``: a ring block of ``n`` slots
@@ -1155,6 +1291,9 @@ class AggregationService:
             "shard_mode": self.cfg.shard_mode if self.cfg.shards >= 2 else None,
             "shard_deaths": (int(self.registry.counter("serve_shard_deaths_total").value)
                              if self._proc is not None else None),
+            # the edge tier: its size, mode (partial or forward), dead edges
+            # and the deaths and partials counted so far
+            "edge": self._edge_tree.counters() if self._edge_tree is not None else None,
             "payload": self.cfg.payload,
             # the armed Byzantine defence: the merge (the sum or a robust
             # statistic) and how wide the quarantine screens
@@ -1197,16 +1336,38 @@ class ServeFollower:
         """Rank 0's decision, whatever this rank's pipeline wants."""
         return _agree(self.group, False)
 
+    def _edge_layout(self) -> tuple[bool, int | None]:
+        """What rank 0's ``_edge_round`` gives a payload round: (whether
+        there is an edge block, the edge count E whose partials replace the
+        stack or None)."""
+        edges, session_edges = self.cfg.edges, self.session.cfg.serve_edges
+        if edges >= 2 and fed_engine.robust_policy(self.session.cfg) is not None:
+            return False, None  # forward mode: the reassembled stack
+        if edges >= 2:
+            return True, edges
+        return session_edges >= 2, None
+
     def _receive(self, n: int, payload: bool) -> tuple:
         """Rank 0's close as host numpy: (the [n] arrival mask, on a payload
-        round the validated [n, r, c] stack, and async the filled stale
-        slots' ([k, r, c] tables, [k] weights) or None)."""
+        round the validated [n, r, c] stack, async the filled stale slots'
+        ([k, r, c] tables, [k] weights) or None, and the edge block or
+        None; with the tree's partials the stack is None)."""
         from ..parallel import distributed
 
         mask = [torch.empty(n, dtype=torch.float32)]
         if not payload:
-            return distributed.broadcast_from_root(mask, self.group)[0].numpy(), None, None
+            return distributed.broadcast_from_root(mask, self.group)[0].numpy(), None, None, None
         shape = (self.session.cfg.mode.num_rows, self.session.cfg.mode.num_cols)
+        has_edge, n_partials = self._edge_layout()
+        if has_edge:
+            got = distributed.broadcast_from_root(
+                mask + [torch.empty(n, dtype=torch.float32), torch.empty(n, dtype=torch.int32),
+                        torch.empty((n_partials or n,) + shape, dtype=torch.float32)],
+                self.group)
+            arrived, norms, assign, tables = (t.numpy() for t in got)
+            edge = {"assign": assign, "norms": norms,
+                    "partials": tables if n_partials else None}
+            return arrived, None if n_partials else tables, None, edge
         k, parts = 0, mask
         if self.cfg.async_mode:
             arrived, count = distributed.broadcast_from_root(
@@ -1220,7 +1381,7 @@ class ServeFollower:
         if not self.cfg.async_mode:
             arrived = got.pop(0)
         stale = (got[1].numpy(), got[2].numpy()) if k else None
-        return arrived.numpy(), got[0].numpy(), stale
+        return arrived.numpy(), got[0].numpy(), stale, None
 
     def serve_round(self, rnd: int):
         """Rank 0's ``serve_round`` without the transport: (PreparedRound,
@@ -1229,7 +1390,7 @@ class ServeFollower:
         with obtrace.span("assembler", "serve_round", round=rnd):
             ids = s.sample_cohort(rnd)
             if self.cfg.payload != "sketch":
-                arrived, _, _ = self._receive(len(ids), payload=False)
+                arrived = self._receive(len(ids), payload=False)[0]
                 return s.prepare_served_round(rnd, ids, arrived), None
             prep0 = s.prepare_served_round(rnd, ids, np.ones(len(ids), np.float32))
             if self._compute_gate is not None:
@@ -1237,8 +1398,9 @@ class ServeFollower:
             # joins the client step's ordered gather; rank 0 alone copies
             # the stack to the host for its transport
             _, aux = s.compute_client_tables(prep0, to_host=False)
-            arrived, tables, stale = self._receive(len(ids), payload=True)
-            return s.finish_served_payload(prep0, arrived, tables, aux, stale=stale), None
+            arrived, tables, stale, edge = self._receive(len(ids), payload=True)
+            return s.finish_served_payload(prep0, arrived, tables, aux, stale=stale,
+                                           **({} if edge is None else {"edge": edge})), None
 
     def _record_boundary(self, next_round: int) -> None:
         pass
@@ -1338,6 +1500,7 @@ def service_from_args(args, session) -> AggregationService | ServeFollower | Non
           + (f", {service.cfg.shards} ingest shards ({service.cfg.shard_mode}"
              + (" processes, SO_REUSEPORT + shm ring)" if service.cfg.shard_mode == "process"
                 else "s)") if service.cfg.shards >= 2 else "")
+          + (f", {service.cfg.edges}-edge tree" if service.cfg.edges >= 2 else "")
           + f", payload {service.cfg.payload}"
           + (", fastpath" if service.cfg.fastpath else "")
           + (", pipelined" if service.cfg.pipeline else "")

@@ -2,8 +2,8 @@
 ``utils/config.py`` parser, with the same names, types, choices and
 defaults, plus ``--device``, so a launch command of the reference parses
 here. The flags of features the port does not run yet (``_UNPORTED``:
-the edge-tree serving topology, and GPT-2's ring attention,
-mixture of experts and parallelism) parse at the reference's defaults, and ``resolve_defaults``
+``--split_compile``, and GPT-2's ring attention, mixture of experts and
+parallelism) parse at the reference's defaults, and ``resolve_defaults``
 refuses any other value by name, with the ROADMAP Queue 1 item that
 brings the feature: accepted and ignored is never an outcome.
 ``--share_ps_gpu`` and ``--port`` are the reference's own no-ops, and
@@ -23,10 +23,7 @@ from ..obs.slo import parse_rules
 # add_argument keywords as in the reference, the values the port runs, why
 # another value is refused, the ROADMAP Queue 1 item that brings it or None
 # when none is queued)
-_SERVE = ("the port runs the flat merge only (one listener or sharded ingest, sync or "
-          "--serve_async, serial or pipelined, with or without --serve_fastpath)")
 _UNPORTED = (
-    ("serve_edges", dict(type=int, default=0), (0,), _SERVE, "9b"),
     ("split_compile", dict(action="store_true"), (False,),
      "the port runs eagerly and compiles no program to split", None),
 )
@@ -284,6 +281,17 @@ def make_parser(task: str = "cv") -> argparse.ArgumentParser:
                         "shared-memory ring block the root copies to the device. Bitwise "
                         "the one-listener run; shard_kill faults SIGKILL workers. Does not "
                         "compose with --serve_pipeline/--serve_async/--serve_edges yet")
+    p.add_argument("--serve_edges", type=int, default=0,
+                   help=">= 2 arms two-tier edge aggregation (serve/scale/edge.py): the "
+                        "cohort partitions over this many edge aggregators by client-id hash; "
+                        "each edge validates and ordered-sums its shard's tables and forwards "
+                        "ONE r x c partial to the root, which folds the partials in fixed edge "
+                        "order, bitwise the flat merge of the same edge-armed session over the "
+                        "same surviving cohort. An edge dying == its shard dropped and "
+                        "re-queued, bitwise (edge_kill fault kind). A robust --merge_policy "
+                        "forwards per-client tables through the tree (a NOTE says so). "
+                        "Requires --serve_payload sketch; does not compose with "
+                        "--serve_async/--serve_pipeline/--serve_fastpath yet. 0 = flat merge")
     # observability (obs/): the round tracer, the profiler window, sketch
     # health, the round ledger and the SLO engine
     p.add_argument("--trace", default="",
@@ -438,6 +446,24 @@ def resolve_defaults(args: argparse.Namespace) -> argparse.Namespace:
                          "--serve_pipeline/--serve_async/--serve_edges yet (admission state "
                          "lives in the worker processes; the cross-process band/boundary/edge "
                          "disciplines are named follow-ups) - drop one of the flags")
+    if args.serve_edges:
+        if args.serve_edges < 2:
+            raise SystemExit(f"--serve_edges must be >= 2 (or 0 = flat merge), got "
+                             f"{args.serve_edges} (one edge IS the flat merge)")
+        if args.serve == "off":
+            raise SystemExit("--serve_edges is a serving topology; arm --serve inproc|socket")
+        if args.serve_payload != "sketch":
+            raise SystemExit("--serve_edges aggregates client TABLES at the edge tier; the "
+                             "announce path has none - arm --serve_payload sketch")
+        if args.serve_async or args.serve_pipeline:
+            raise SystemExit("--serve_edges does not compose with --serve_async/"
+                             "--serve_pipeline yet (stale-fold edge assignment and the "
+                             "pipelined worker's edge timing are open follow-ups) - drop one "
+                             "of the flags")
+        if args.serve_fastpath:
+            raise SystemExit("--serve_fastpath does not compose with --serve_edges yet (the "
+                             "edge tier consumes the host table stack the ring replaces) - "
+                             "drop one of the flags")
     for flag, _, ok, why, item in _unported("gpt2"):
         if hasattr(args, flag) and getattr(args, flag) not in ok:
             where = (f"ROADMAP Queue 1 item {item}" if item is not None

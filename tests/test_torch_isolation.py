@@ -68,7 +68,8 @@ def test_importing_the_port_loads_no_jax():
 # and the standard library only (never a device runtime)
 TORCH_FREE = ("commefficient_tpu_torch.serve.scale.procshard_worker",
               "commefficient_tpu_torch.serve.scale.shmring",
-              "commefficient_tpu_torch.serve.scale.loadgen")
+              "commefficient_tpu_torch.serve.scale.loadgen",
+              "commefficient_tpu_torch.serve.scale.edge")
 
 
 @pytest.mark.parametrize("module", TORCH_FREE)

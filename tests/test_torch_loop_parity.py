@@ -85,7 +85,8 @@ PLANS = ["preempt@3", "stall@2:secs=1.5", "eval_stall@4:secs=0.5", "data_fail@1,
          "client_signflip@1:clients=0+2;client_scale@2:clients=1,factor=50",
          "seed=7;client_collude@3:frac=0.25;client_normride@2:clients=0,ride=0.9",
          "client_stale_poison@1:clients=0+1,factor=-5",
-         "dist_init:times=2;host_preempt@3:host=1", "shard_kill@2:shards=1+3"]
+         "dist_init:times=2;host_preempt@3:host=1", "shard_kill@2:shards=1+3",
+         "edge_kill@2:edges=1+0;edge_kill@3:edges=2"]
 
 
 @pytest.mark.parametrize("text", PLANS)

@@ -94,10 +94,10 @@ def test_aggregate_survivor_mean_matches_reference():
 
 
 def test_unported_modes_raise():
-    """Every mode is ported; what is not (the approximate top-k selections,
-    the edge-kill fault kind) raises by name, never runs as something
-    else; DP's flags parse, and so does a shard kill that names its
-    shards."""
+    """Every mode is ported; what is not (the approximate top-k selections)
+    raises by name, never runs as something else; DP's flags parse, and so
+    do a shard kill that names its shards and an edge kill that names its
+    edges (without them, each raises the reference's words)."""
     from commefficient_tpu_torch.resilience import FaultPlan
     from commefficient_tpu_torch.sketch import csvec
     from commefficient_tpu_torch.utils.config import make_parser
@@ -115,8 +115,9 @@ def test_unported_modes_raise():
             csvec.topk_abs(x, 2, impl=impl)
     for flag in ("--dp_noise", "--dp_clip"):
         assert getattr(make_parser().parse_args([flag, "1.0"]), flag[2:]) == 1.0
-    with pytest.raises(ValueError, match="'edge_kill' .* is not ported.*item 9b"):
+    with pytest.raises(ValueError, match="'edge_kill' needs edges="):
         FaultPlan.parse("edge_kill@1")
+    assert FaultPlan.parse("edge_kill@1:edges=1+0").edge_kill_plan(1) == (0, 1)
     with pytest.raises(ValueError, match="'shard_kill' needs shards="):
         FaultPlan.parse("shard_kill@1")
     assert FaultPlan.parse("shard_kill@1:shards=0").shard_kill_plan(1) == (0,)

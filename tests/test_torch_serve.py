@@ -302,10 +302,10 @@ def test_metrics_endpoint_over_http():
 
 
 # the reference's ServeConfig fields of ROADMAP item 9b, each with a CLI
-# value the port does not run, but for the ported ones (ITEM_9B_PORTED:
-# --serve_pipeline, --serve_async with its three flags, --serve_fastpath
-# with --serve_gauntlet_workers, and --serve_shards with --serve_shard_mode,
-# which need the socket transport)
+# value; all are ported (ITEM_9B_PORTED: --serve_pipeline, --serve_async
+# with its three flags, --serve_fastpath with --serve_gauntlet_workers,
+# --serve_shards with --serve_shard_mode, which need the socket transport,
+# and --serve_edges)
 ITEM_9B = {
     "pipeline": ["--serve_pipeline"], "async_mode": ["--serve_async"],
     "buffer_size": ["--serve_buffer", "4", "--serve_async"],
@@ -318,29 +318,22 @@ ITEM_9B = {
 }
 ITEM_9B_PORTED = {"pipeline": True, "async_mode": True, "buffer_size": 4,
                   "staleness_alpha": 0.9, "stale_rounds": 3, "fastpath": True,
-                  "gauntlet_workers": 3, "shards": 3, "shard_mode": "process"}
+                  "gauntlet_workers": 3, "shards": 3, "shard_mode": "process", "edges": 3}
 
 
 @pytest.mark.parametrize("field", list(ITEM_9B))
 def test_service_refuses_item_9b_by_name(field):
-    """The service has no field for an item-9b option, and the command line
-    that asks for one is refused by the flag's name; the ported ones,
-    --serve_pipeline, --serve_async with --serve_buffer, --serve_staleness
-    and --serve_stale_rounds, --serve_fastpath with --serve_gauntlet_workers,
-    and --serve_shards with --serve_shard_mode, are accepted by both."""
-    if field in ITEM_9B_PORTED:
-        want = ITEM_9B_PORTED[field]
-        assert getattr(tservice.ServeConfig(quorum=2, **{field: want}), field) == want
-        args = resolve_defaults(make_parser().parse_args(
-            ["--serve", "inproc", "--serve_payload", "sketch", "--mode", "sketch",
-             *ITEM_9B[field]]))
-        assert getattr(tservice.ServeConfig.from_args(args), field) == want
-        return
-    with pytest.raises(TypeError, match=field):
-        tservice.ServeConfig(quorum=2, **{field: 3})
-    argv = ITEM_9B[field]
-    with pytest.raises(SystemExit, match=f"^{argv[0]} .*item 9b"):
-        resolve_defaults(make_parser().parse_args(["--serve", "inproc", *argv]))
+    """Every item-9b option is ported: --serve_pipeline, --serve_async with
+    --serve_buffer, --serve_staleness and --serve_stale_rounds,
+    --serve_fastpath with --serve_gauntlet_workers, --serve_shards with
+    --serve_shard_mode, and --serve_edges; the service's field and the
+    command line both take it."""
+    want = ITEM_9B_PORTED[field]
+    assert getattr(tservice.ServeConfig(quorum=2, **{field: want}), field) == want
+    args = resolve_defaults(make_parser().parse_args(
+        ["--serve", "inproc", "--serve_payload", "sketch", "--mode", "sketch",
+         *ITEM_9B[field]]))
+    assert getattr(tservice.ServeConfig.from_args(args), field) == want
 
 
 def test_stopped_transport_fails_the_round(monkeypatch):
@@ -420,10 +413,11 @@ def test_cli_served_preempt_resume_bitwise(tiny_cv, tmp_path, payload):  # noqa:
 
 
 def test_cli_refuses_item_9b_serve_flags(tiny_cv):  # noqa: F811
-    """The serving variant still to port (the edge tree) is refused by name
-    with its ROADMAP item; the ported fast path's and sharded ingest's flags
-    only where the reference refuses them, with its launch errors."""
-    with pytest.raises(SystemExit, match="^--serve_edges .*item 9b"):
+    """Every serving variant of item 9b is ported: the edge tree's, the fast
+    path's and the sharded ingest's flags are refused only where the
+    reference refuses them, with its launch errors."""
+    with pytest.raises(SystemExit, match="^--serve_edges aggregates client TABLES at the edge "
+                                         "tier; the announce path has none"):
         cv_train.main(_cli("announce", ["--serve_edges", "2"]))
     for extra, why in ((["--serve_gauntlet_workers", "0"], "must be >= 1, got 0"),
                        (["--serve_fastpath"], "arm --serve_payload sketch"),
