@@ -406,6 +406,24 @@ Phases (any failure raises, and the exit status is non-zero):
       at client_shards 4 on every rank (2 accumulates and 1 query a rank a
       round); rank 0's broadcast bytes and ms a round against 23e's
       W-table stack.
+26. GPT-2's mixture of experts at full width: phase 11's flags and corpus
+   with --moe_experts 8 (every second block's MLP a Switch top-1 mixture
+   of 8 experts, float32), d = 283,647,744, past the unsketch's 1 GiB
+   single-shot line; each run's launch counts zeroed just before it:
+   a. 3 rounds through the sync loop: d, finite NLL, each round's
+      moe_aux_sum > 0 and moe_aux_count == 4 (one a client), one launch of
+      each kernel a round, peak device memory;
+   b. both kernels bitwise against their plain versions on the run's
+      params and error table, and timed cold and warm beside their bound;
+   c. the card's single-shot unsketch_topk of the run's error table (the
+      query kernel and one top-k) against the CPU's chunk scan of the same
+      table (one slab at a time, the scan the port runs on a CPU table
+      past the line; on a thread while (b), (d) and (e) run on the card):
+      the same indices and bitwise values; --topk_impl approx and
+      oversample on the card select what exact selects;
+   d. one round at lr 0.1 held against FetchSGD's algebra on the card;
+   e. the async loop over 2 rounds held bitwise against (a)'s state and
+      metrics after its round 2.
 
 Prints one JSON line with the kernels' numbers (launches counted over
 phase 8; under "gpt2" each kernel's numbers at the GPT-2 shape, launches
@@ -423,7 +441,8 @@ group), "launches_async" over each of phase 22's runs (rank 0's on the
 group), "launches_fastpath" over each of phase 23's runs (rank 0's on the
 group), "launches_shards" over each of phase 24's runs (rank 0's on the
 group), "launches_edges" over each of phase 25's runs (rank 0's on the
-group); a
+group), and under "gpt2_moe" each kernel's numbers at phase 26's shape,
+launches counted over phase 26a; a
 third row, ``sketch_accumulate_tree``, with a whole ResNet-9 tree's fold
 times and (b)'s layerwise launches),
 then
@@ -438,6 +457,7 @@ as its last line
 ``--fastpath-only`` runs phase 23 right after phase 4 and stops,
 ``--shards-only`` runs phase 24 right after phase 4 and stops,
 ``--edges-only`` runs phase 25 right after phase 4 and stops,
+``--moe-only`` runs phase 26 right after phase 4 and stops,
 ``--shard-turns N`` runs phase 24's cell in N turns of the one listener and
 process shards (``shard_turns``) right after phase 4 and stops,
 ``--cohorts N`` sets the number of cohorts phase 7 compares (default 4);
@@ -453,6 +473,7 @@ import math
 import os
 import statistics
 import sys
+import threading
 import time
 from collections import Counter
 
@@ -514,6 +535,11 @@ GPT2_ARGS = ["--mode", "sketch", "--hash_family", "rotation", "--num_clients", "
              "--device", "cuda"]
 GPT2_D = 85_453_056
 GPT2_ROUNDS = 4
+# phase 26: phase 11's flags with eight experts in every second block
+MOE_ARGS = GPT2_ARGS + ["--moe_experts", "8"]
+MOE_D = 283_647_744
+MOE_ROUNDS = 3
+MOE_ASYNC_ROUNDS = 2
 RESNET_ARGS = ["--dataset", "cifar10", "--hash_family", "rotation", "--num_clients", "100",
                "--num_workers", "8", "--local_batch_size", "8", "--k", "50000",
                "--device", "cuda"]
@@ -5192,6 +5218,150 @@ def edges_phase(cv_train, engine, csvec, kernels, card: str, group=None) -> dict
     return launches
 
 
+@contextlib.contextmanager
+def recording_moe(at_round: int):
+    """Inside the block, every session records each committed round's host
+    metrics and, as committed after round ``at_round``, a copy of its
+    params and optimizer state."""
+    from commefficient_tpu_torch.federated.api import FederatedSession
+
+    rec = {"metrics": [], "state": None}
+    commit = FederatedSession.commit_rounds
+
+    def commit_rec(self, infls, hosts):
+        out = commit(self, infls, hosts)
+        rec["metrics"].extend(out)
+        if self.round == at_round:
+            rec["state"] = {k: v.clone() for k, v in _state(self).items()}
+        return out
+
+    FederatedSession.commit_rounds = commit_rec
+    try:
+        yield rec
+    finally:
+        FederatedSession.commit_rounds = commit
+
+
+def unsketch_check(csvec, spec, table: torch.Tensor, k: int, scanned: tuple) -> str:
+    """Phase 26c: ``unsketch_topk`` of ``table`` on its own device (for a
+    CUDA table the single shot: the query kernel, then one top-k) against
+    ``scanned``, the same table's unsketch on the CPU by the chunk scan:
+    the same indices and bitwise-equal values; and ``impl`` approx and
+    oversample on the table's device select what exact selects there."""
+    idx, vals = csvec.unsketch_topk(spec, table, k)
+    if not (torch.equal(idx.cpu(), scanned[0]) and torch.equal(vals.cpu(), scanned[1])):
+        same = (idx.cpu() == scanned[0]).float().mean().item()
+        fail(f"unsketch_topk at d={spec.d}: the single shot and the CPU chunk scan differ "
+             f"(index agreement {same:.6f})")
+    for impl in ("approx", "oversample"):
+        i2, v2 = csvec.unsketch_topk(spec, table, k, impl=impl)
+        if not (torch.equal(i2, idx) and torch.equal(v2, vals)):
+            fail(f"unsketch_topk at d={spec.d}: impl {impl} selects other than exact")
+    return (f"unsketch_topk at d={spec.d:,} (k {k}): the {table.device.type} single shot == "
+            f"the CPU chunk scan over {spec.num_slabs} slabs (indices, values bitwise); "
+            "approx == oversample == exact")
+
+
+def moe_phase(kernels, csvec, engine, time_ms, gen: torch.Generator, card: str) -> dict:
+    """Phase 26: GPT-2 small with eight experts through ``gpt2_train.main``
+    at d = 283,647,744; returns the kernels' fields at this shape."""
+    import shutil
+
+    from commefficient_tpu_torch import gpt2_train
+
+    base = os.path.join(ROOT, "build", "chip_smoke", "moe")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    phase_t = time.perf_counter()
+
+    def run(extra: list, label: str, rounds: int):
+        log = os.path.join(base, f"{label}.jsonl")
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with recording_moe(MOE_ASYNC_ROUNDS) as rec:
+            s = gpt2_train.main(MOE_ARGS + ["--num_rounds", str(rounds), "--log_jsonl", log,
+                                            *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ravel_launches(kernels)
+        if any(n != s.run_stats.rounds for n in launches.values()):
+            fail(f"moe {label}: launches {launches} in {s.run_stats.rounds} rounds, expected "
+                 "one of each kernel a round")
+        with open(log) as f:
+            rows = [json.loads(line) for line in f]
+        if not rows or not all(math.isfinite(r[k]) for r in rows
+                               for k in ("train_nll", "val_nll")):
+            fail(f"moe {label}: non-finite or missing NLL in {rows}")
+        aux = [(m["moe_aux_sum"], m["moe_aux_count"]) for m in rec["metrics"]]
+        if len(aux) != rounds or not all(a > 0 and n == s.num_workers for a, n in aux):
+            fail(f"moe {label}: (moe_aux_sum, moe_aux_count) a round {aux}, expected > 0 and "
+                 f"{s.num_workers}")
+        print(f"moe {label}: {s.run_stats.rounds} rounds in {wall:.1f} s (with start-up and "
+              f"eval), launches {launches}, (moe_aux_sum, moe_aux_count) a round {aux}, final "
+              f"row {rows[-1]}, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]", flush=True)
+        print(_times(f"moe {label}", s.run_stats, card), flush=True)
+        return s, launches, rec
+
+    # a. three rounds through the sync loop
+    a, launches, rec_a = run(["--sync_loop"], "sync", MOE_ROUNDS)
+    layout, spec, k = a.layout, a.cfg.mode.sketch_spec, a.cfg.mode.k
+    moe_leaves = [leaf.name for leaf in layout.leaves if ".moe_mlp." in leaf.name]
+    print(f"moe: d={layout.d:,} ({len(layout.leaves)} leaves, {len(moe_leaves)} of them the "
+          f"experts' and routers', first {moe_leaves[0]}), 4d = {4 * layout.d:,} B against the "
+          f"single-shot line {csvec.UNSKETCH_SINGLE_SHOT_BYTES:,} B", flush=True)
+    if layout.d != MOE_D or 4 * layout.d <= csvec.UNSKETCH_SINGLE_SHOT_BYTES:
+        fail(f"moe: d={layout.d}, expected {MOE_D} past the single-shot line")
+
+    # c (started here). the CPU chunk scan of the run's error table, on a
+    # thread while (b), (d) and (e) run on the card
+    table = a.state["mode_state"]["Verror"].clone()
+    scan = {}
+
+    def cpu_scan():
+        t0 = time.perf_counter()
+        try:
+            scan["out"] = csvec.unsketch_topk(spec, table.cpu(), k)
+        except BaseException as e:  # re-raised on the main thread
+            scan["error"] = e
+        scan["s"] = time.perf_counter() - t0
+
+    scanner = threading.Thread(target=cpu_scan, name="moe-cpu-scan")
+    scanner.start()
+
+    # b. both kernels at this shape, bitwise and timed
+    errs = check_kernels(csvec, spec, a.state["params"], a.state["mode_state"]["Verror"])
+    print(f"moe: kernels == plain at d={spec.d:,} c={spec.c} r={spec.r} ({spec.num_slabs} "
+          "slabs) on the run's params and error table", flush=True)
+    times = time_kernels(csvec, kernels, time_ms, spec, gen)
+
+    # d. one round at lr 0.1 against FetchSGD's algebra on the card
+    state_a = rec_a["state"]
+    print("moe: " + check_sketch_round(a, engine, csvec), flush=True)
+    del a
+
+    # e. the async loop over 2 rounds against (a) after its round 2
+    b, _, rec_b = run([], "async", MOE_ASYNC_ROUNDS)
+    if not (_equal(_state(b), state_a)
+            and rec_b["metrics"] == rec_a["metrics"][:MOE_ASYNC_ROUNDS]):
+        fail("moe: the async run differs from the sync run after round 2")
+    print(f"moe: async == sync bitwise over {MOE_ASYNC_ROUNDS} rounds (params, Vvelocity, "
+          "Verror, every round's metrics)", flush=True)
+    del b, state_a
+
+    # c. the single shot on the card against the CPU scan
+    scanner.join()
+    if "error" in scan:
+        raise scan["error"]
+    print(f"moe: {unsketch_check(csvec, spec, table, k, scan['out'])}; the CPU scan took "
+          f"{scan['s']:.1f} s on a thread", flush=True)
+    print(f"moe: phase took {time.perf_counter() - phase_t:.1f} s [{card}]", flush=True)
+    return {name: {**times[name], "launches": launches[name], "max_abs_err": errs[i],
+                   "d": spec.d, "c": spec.c, "r": spec.r}
+            for i, name in enumerate(("sketch_accumulate", "sketch_query"))}
+
+
 def time_kernels(csvec, kernels, time_ms, spec, gen: torch.Generator) -> dict:
     """Each kernel's median over CUDA-event-timed launches at ``spec``'s
     shape, cold (L2 flushed before each) and warm (its input just
@@ -5350,6 +5520,14 @@ def main(argv: list[str]) -> int:
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
         print("chip_smoke: edges-only run done", flush=True)
         return 0
+    if "--moe-only" in argv:
+        phase("26 (mixture of experts)")
+        moe = moe_phase(kernels, csvec, engine, time_ms, gen, card_line())
+        for name in rows:
+            rows[name]["gpt2_moe"] = moe[name]
+        print(json.dumps({"kernels": list(rows.values())}), flush=True)
+        print("chip_smoke: moe-only run done", flush=True)
+        return 0
     if "--layerwise-only" in argv:
         phase("19 (layerwise)")
         lw = layerwise_phase(cv_train, engine, csvec, kernels, time_ms, gen, card_line())
@@ -5501,10 +5679,16 @@ def main(argv: list[str]) -> int:
     # 25. the two-tier edge tree
     phase("25 (the edge tree)")
     ed = edges_phase(cv_train, engine, csvec, kernels, card, shared)
+
+    # 26. GPT-2's mixture of experts past the unsketch's single-shot line
+    phase("26 (mixture of experts)")
+    moe = moe_phase(kernels, csvec, engine, time_ms, gen, card)
     phase("end")
 
     for name in rows:
-        rows[name]["max_abs_err"] = max(errs[name], bf16["gpt2_mc"][name]["max_abs_err"])
+        rows[name]["max_abs_err"] = max(errs[name], bf16["gpt2_mc"][name]["max_abs_err"],
+                                        moe[name]["max_abs_err"])
+        rows[name]["gpt2_moe"] = moe[name]
         rows[name]["gpt2"] = gpt2[name]
         rows[name]["launches_cohort"] = cohort[name]
         rows[name]["gpt2_mc_bf16"] = bf16["gpt2_mc"][name]

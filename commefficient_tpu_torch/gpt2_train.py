@@ -29,9 +29,13 @@ warn|halt the SLO engine; none of them changes a bit of the run.
 The port runs the byte-level tokenizer (vocabulary 261) and, without
 ``personachat_self_original.json`` under --data_root, the deterministic
 synthetic persona-grouped corpus, with GPT-2 randomly initialised from
---seed unless --init_from names a checkpoint. Refused by name:
---attn_impl ring, --model_parallel or --seq_parallel > 1 and
---moe_experts > 0.
+--seed unless --init_from names a checkpoint. --moe_experts E > 0 swaps
+every second block's MLP for a Switch top-1 mixture of E experts (expert
+axis replicated), its load-balancing aux weighted by --moe_aux_coef; GPT-2
+small with eight experts:
+    python -m commefficient_tpu_torch.gpt2_train --mode sketch --num_clients 17500 \
+        --num_workers 4 --k 50000 --num_cols 1000000 --num_rows 5 --moe_experts 8
+Refused by name: --attn_impl ring and --model_parallel or --seq_parallel > 1.
 """
 
 from __future__ import annotations
@@ -90,6 +94,11 @@ def build(args, fault_plan=None):
     if args.mc_coef > 0 and args.num_candidates < 2:
         raise SystemExit("--mc_coef > 0 needs --num_candidates >= 2 (the MC head scores "
                          "a gold reply against at least one distractor)")
+    if args.mc_coef > 0 and args.moe_experts > 0:
+        raise SystemExit("--mc_coef with --moe_experts is not supported yet")
+    if args.init_from and args.moe_experts > 0:
+        raise SystemExit("--moe_experts with --init_from is not supported: HF GPT-2 "
+                         "checkpoints carry no expert weights")
     with_mc_head = args.mc_coef > 0
     if torch.device(args.device).type == "cuda":
         make_reproducible()  # before any CUDA work of the run
@@ -106,7 +115,7 @@ def build(args, fault_plan=None):
         base = TINY if args.model_size == "tiny" else SMALL
         cfg = dataclasses.replace(base, vocab_size=tok.vocab_size,
                                   n_positions=max(args.seq_len, 1), with_mc_head=with_mc_head,
-                                  dtype=args.dtype)
+                                  dtype=args.dtype, moe_experts=args.moe_experts)
         model = GPT2LMHead(cfg)
         init_weights(model, args.seed)
         params, init_note = dict(model.named_parameters()), ""
@@ -119,7 +128,9 @@ def build(args, fault_plan=None):
         train_loss = make_lm_mc_loss(model, True, args.mc_coef, tok.pad_id)
         eval_loss = make_lm_mc_loss(model, False, args.mc_coef, tok.pad_id)
     else:
-        train_loss, eval_loss = make_lm_loss(model, train=True), make_lm_loss(model, train=False)
+        aux = args.moe_aux_coef if args.moe_experts > 0 else 0.0
+        train_loss = make_lm_loss(model, train=True, moe_aux_coef=aux)
+        eval_loss = make_lm_loss(model, train=False, moe_aux_coef=aux)
     session = FederatedSession(
         train_loss_fn=train_loss,
         eval_loss_fn=eval_loss,

@@ -9,13 +9,16 @@ sorted-key order of the flax parameter tree (ResNet-9:
 ..., ``Dense_0``, ``Residual_0``, ``Residual_1``; FEMNIST: ``Conv_0/bias``,
 ``Conv_0/kernel``, ``Conv_1``, ``Dense_0``, ``Dense_1``; GPT-2: ``h_0``,
 ``h_1``, ``h_10``, ``h_11``, ``h_2``, ..., ``ln_f``, then ``mc_head`` when
-the model has the classification head, ``wpe``, ``wte``), each
+the model has the classification head, ``wpe``, ``wte``; within a block
+``attn``, ``ln_1``, ``ln_2``, then ``mlp`` or the mixture of experts'
+``moe_mlp/router``, ``wi``, ``wo``), each
 leaf flattened row-major in flax's layout: conv kernels HWIO, dense kernels
 [in, out]. A wrong order would silently change every top-k. ``FlatLayout``
 holds that order and converts between the flat vector and the port's
 parameters (OIHW convs, [out, in] linear). A leaf's permutation follows from
 the kind of layer that owns it: a raw parameter such as GPT-2's ``wte``
-[vocab, n_embd] has one layout in both packages and is never transposed.
+[vocab, n_embd], or a mixture of experts' ``router``, ``wi`` or ``wo``, has
+one layout in both packages and is never transposed.
 """
 
 from __future__ import annotations
@@ -36,14 +39,15 @@ _MODULE_NAMES = {
     "conv": "Conv_0", "bn": "BatchNorm_0",
     "conv1": "Conv_0", "conv2": "Conv_1", "dense1": "Dense_0", "dense2": "Dense_1",
 }
-_GPT2_MODULES = {"attn", "mlp", "c_attn", "c_proj", "c_fc", "ln_1", "ln_2", "ln_f"}
+_GPT2_MODULES = {"attn", "mlp", "moe_mlp", "c_attn", "c_proj", "c_fc", "ln_1", "ln_2",
+                 "ln_f"}
 _GPT2_BLOCK = re.compile(r"h_\d+")
 # the kind of layer a port module is; a parameter of the model itself (no
 # module) is "raw"
 _KINDS = {"conv": "conv", "conv1": "conv", "conv2": "conv", "bn": "bn",
           "linear": "linear", "dense1": "linear", "dense2": "linear",
           "c_attn": "linear", "c_proj": "linear", "c_fc": "linear",
-          "ln_1": "ln", "ln_2": "ln", "ln_f": "ln"}
+          "ln_1": "ln", "ln_2": "ln", "ln_f": "ln", "moe_mlp": "moe"}
 # (layer kind, port leaf name) -> flax leaf name
 _LEAF_NAMES = {
     ("conv", "weight"): "kernel", ("conv", "bias"): "bias",
@@ -52,6 +56,7 @@ _LEAF_NAMES = {
     ("linear", "weight"): "kernel", ("linear", "bias"): "bias",
     ("ln", "weight"): "scale", ("ln", "bias"): "bias",
     ("raw", "wte"): "wte", ("raw", "wpe"): "wpe", ("raw", "mc_head"): "mc_head",
+    ("moe", "router"): "router", ("moe", "wi"): "wi", ("moe", "wo"): "wo",
 }
 # the axis permutation taking the kernel of a conv or dense layer (flax leaf
 # "kernel") from the port's layout to flax's, by its rank; every other leaf
@@ -70,7 +75,7 @@ def flax_path(name: str) -> tuple[str, ...]:
     """Port parameter/buffer name -> flax path, e.g.
     "res1.a.conv.weight" -> ("Residual_0", "ConvBN_0", "Conv_0", "kernel"),
     "h_3.attn.c_attn.weight" -> ("h_3", "attn", "c_attn", "kernel"),
-    "wte" -> ("wte",)."""
+    "h_1.moe_mlp.wi" -> ("h_1", "moe_mlp", "wi"), "wte" -> ("wte",)."""
     *modules, leaf = name.split(".")
     kind = _KINDS[modules[-1]] if modules else "raw"
     return (*(_module_name(p) for p in modules), _LEAF_NAMES[(kind, leaf)])

@@ -33,8 +33,16 @@ With ``with_mc_head`` the model owns a raw ``mc_head`` [n_embd] parameter;
 given ``mc_positions`` [B] the forward returns ``(lm_logits, scores)``,
 scores[b] the float32 hidden state at mc_positions[b] dotted with it.
 
-Not ported (a config asking for them raises): ring attention, mixture of
-experts and rematerialisation.
+With ``moe_experts`` E > 0 every ``moe_every``-th block (i % moe_every ==
+moe_every - 1) replaces its MLP by ``moe_mlp``, a Switch top-1 mixture of
+experts (``ops/moe.py``) with the reference's raw float32 parameters:
+``router`` [n_embd, E], ``wi`` [E, n_embd, 4 n_embd] and ``wo``
+[E, 4 n_embd, n_embd]. Routing and dispatch run in float32, the expert
+products in the compute dtype. A forward given a list as ``moe_aux``
+appends each MoE layer's load-balancing aux to it, in block order.
+
+Not ported (a config asking for them raises): ring attention and
+rematerialisation.
 """
 
 from __future__ import annotations
@@ -45,6 +53,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops import moe
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,11 +88,16 @@ TINY = GPT2Config(vocab_size=512, n_positions=128, n_embd=64, n_layer=2, n_head=
 SMALL = GPT2Config()  # GPT-2 small: 124M params at the BPE vocabulary
 
 
+def is_moe_block(cfg: GPT2Config, i: int) -> bool:
+    """Whether block i's FFN is the mixture of experts (every
+    ``moe_every``-th block, as the reference places it)."""
+    return cfg.moe_experts > 0 and i % cfg.moe_every == cfg.moe_every - 1
+
+
 def check_ported(cfg: GPT2Config) -> None:
     """Raise for a configuration the port does not run."""
     unported = [what for what, on in (
         ("attn_impl='ring' (ring attention)", cfg.attn_impl != "dense"),
-        ("moe_experts > 0 (mixture of experts)", cfg.moe_experts > 0),
         ("remat (rematerialisation)", cfg.remat),
     ) if on]
     if cfg.dtype not in ("float32", "bfloat16"):
@@ -240,19 +255,58 @@ class MLP(nn.Module):
         return dropout(dense(self.c_proj, h, dt), self.cfg.dropout, gen)
 
 
-class Block(nn.Module):
+class MoEMLP(nn.Module):
+    """Switch top-1 mixture of experts in place of the FFN, the
+    reference's ``MoEMLP``: raw float32 ``router`` [C, E], ``wi`` [E, C, 4C]
+    and ``wo`` [E, 4C, C] (not ``nn.Linear``: the reference's layout, never
+    permuted in the flat vector). Each expert computes gelu(h @ wi) @ wo in
+    the compute dtype; ``moe.moe_ffn`` routes in float32. Returns the
+    output in the compute dtype, after dropout, and the layer's aux."""
+
     def __init__(self, cfg: GPT2Config):
+        super().__init__()
+        self.cfg = cfg
+        C, E = cfg.n_embd, cfg.moe_experts
+        self.router = nn.Parameter(torch.empty(C, E))
+        self.wi = nn.Parameter(torch.empty(E, C, 4 * C))
+        self.wo = nn.Parameter(torch.empty(E, 4 * C, C))
+
+    def forward(self, x: torch.Tensor, gen) -> tuple[torch.Tensor, torch.Tensor]:
+        cfg = self.cfg
+        dt = cfg.compute_dtype
+        B, T, C = x.shape
+
+        def expert_fn(p: dict, h: torch.Tensor) -> torch.Tensor:
+            h = torch.matmul(h.to(dt), p["wi"].to(dt))
+            return torch.matmul(gelu(h), p["wo"].to(dt)).float()
+
+        y, aux = moe.moe_ffn(x.reshape(B * T, C), self.router, {"wi": self.wi, "wo": self.wo},
+                             expert_fn, capacity_factor=cfg.moe_capacity)
+        return dropout(y.reshape(B, T, C).to(dt), cfg.dropout, gen), aux
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: GPT2Config, use_moe: bool = False):
         super().__init__()
         self.ln_1 = nn.LayerNorm(cfg.n_embd, eps=cfg.ln_eps)
         self.attn = Attention(cfg)
         self.ln_2 = nn.LayerNorm(cfg.n_embd, eps=cfg.ln_eps)
-        self.mlp = MLP(cfg)
+        if use_moe:
+            self.moe_mlp = MoEMLP(cfg)
+        else:
+            self.mlp = MLP(cfg)
 
-    def forward(self, x: torch.Tensor, gen) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, gen, moe_aux: list | None = None) -> torch.Tensor:
         # the norms return float32 (flax promotes); the sublayers return the
         # compute dtype, which the residual stream keeps
         x = x + self.attn(layer_norm(self.ln_1, x), gen)
-        return x + self.mlp(layer_norm(self.ln_2, x), gen)
+        h = layer_norm(self.ln_2, x)
+        if not hasattr(self, "moe_mlp"):
+            return x + self.mlp(h, gen)
+        y, aux = self.moe_mlp(h, gen)
+        if moe_aux is not None:
+            moe_aux.append(aux)
+        return x + y
 
 
 class GPT2LMHead(nn.Module):
@@ -266,7 +320,7 @@ class GPT2LMHead(nn.Module):
         self.wte = nn.Parameter(torch.empty(cfg.vocab_size, cfg.n_embd))
         self.wpe = nn.Parameter(torch.empty(cfg.n_positions, cfg.n_embd))
         for i in range(cfg.n_layer):
-            self.add_module(f"h_{i}", Block(cfg))
+            self.add_module(f"h_{i}", Block(cfg, use_moe=is_moe_block(cfg, i)))
         self.ln_f = nn.LayerNorm(cfg.n_embd, eps=cfg.ln_eps)
         if cfg.with_mc_head:
             self.mc_head = nn.Parameter(torch.empty(cfg.n_embd))
@@ -275,13 +329,15 @@ class GPT2LMHead(nn.Module):
                 token_type_ids: torch.Tensor | None = None,
                 logit_positions: torch.Tensor | None = None,
                 gen=None,
-                mc_positions: torch.Tensor | None = None):
+                mc_positions: torch.Tensor | None = None,
+                moe_aux: list | None = None):
         """Logits [B, T, V] (float32), or [B, V] at one position per row
         with ``logit_positions`` [B] (the decode fast path), or with the mc
         head and ``mc_positions`` [B] the pair (logits [B, T, V], scores
         [B]). Dropout runs when ``train`` and draws from ``gen``, which it
         then needs: a generator, or the list of masks ``dropout_masks``
-        drew from one."""
+        drew from one. Given a list, ``moe_aux`` receives each MoE layer's
+        load-balancing aux in block order."""
         cfg = self.cfg
         if train and cfg.dropout > 0 and gen is None:
             raise ValueError("a training forward with dropout needs a generator or its masks")
@@ -294,7 +350,7 @@ class GPT2LMHead(nn.Module):
             x = x + F.embedding(token_type_ids.long(), self.wte)
         x = dropout(x.to(cfg.compute_dtype), cfg.dropout, gen)
         for i in range(cfg.n_layer):
-            x = getattr(self, f"h_{i}")(x, gen)
+            x = getattr(self, f"h_{i}")(x, gen, moe_aux)
         if isinstance(gen, DropoutMasks) and gen.left:
             raise ValueError(f"{gen.left} dropout masks left over after the forward")
         x = layer_norm(self.ln_f, x)
@@ -310,8 +366,9 @@ class GPT2LMHead(nn.Module):
         ``batch_shape`` (B, T) draws from ``gen``, drawn here instead, with
         one ``torch.rand`` per dropout site in the forward's order and at
         its shape (the embedding [B, T, C], then per block the attention
-        probabilities [B, H, T, T], the attention output and the MLP output
-        [B, T, C]): bitwise the masks the forward would draw. Passed as
+        probabilities [B, H, T, T], the attention output and the MLP's or
+        the MoE's output [B, T, C]): bitwise the masks the forward would
+        draw. Passed as
         ``gen`` (a list), the forward reads them in that order. [] with
         dropout off."""
         cfg = self.cfg
@@ -330,13 +387,17 @@ def init_weights(model: GPT2LMHead, seed: int) -> None:
     generator: ``wte`` normal(0.02), ``wpe`` normal(0.01), Dense kernels
     lecun-normal (normal truncated at two standard deviations, variance
     1 / fan_in), biases 0, LayerNorm scales 1, ``mc_head`` normal(0.02)
-    (drawn last, so the head changes no other draw). The distributions
-    match the reference's, not the draws."""
+    (drawn last, so the head changes no other draw), the MoE ``router`` and
+    ``wi`` normal(0.02) and ``wo`` normal(0.02 / sqrt(2 n_layer)). The
+    distributions match the reference's, not the draws."""
     gen = torch.Generator().manual_seed(seed)
+    wo_std = 0.02 / (2 * model.cfg.n_layer) ** 0.5
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name in ("wte", "mc_head"):
                 p.normal_(0.0, 0.02, generator=gen)
+            elif ".moe_mlp." in name:
+                p.normal_(0.0, wo_std if name.endswith(".wo") else 0.02, generator=gen)
             elif name == "wpe":
                 p.normal_(0.0, 0.01, generator=gen)
             elif p.dim() == 2:  # linear [out, in]

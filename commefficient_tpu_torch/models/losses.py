@@ -42,7 +42,7 @@ def make_classification_loss(model: nn.Module, train: bool):
     return loss_fn
 
 
-def make_lm_loss(model: nn.Module, train: bool):
+def make_lm_loss(model: nn.Module, train: bool, moe_aux_coef: float = 0.0):
     """Next-token cross-entropy for a causal LM (``models/gpt2.py``).
 
     batch = {"input_ids": [B, T] int, "labels": [B, T] int with -100 =
@@ -53,12 +53,24 @@ def make_lm_loss(model: nn.Module, train: bool):
     sets. Metrics are sums (loss_sum, count, correct) over the labelled
     tokens, so perplexity is exp(loss_sum / count) across clients and
     batches. There is no model state: ``aux["net_state"]`` is
-    ``net_state``."""
+    ``net_state``.
+
+    ``moe_aux_coef > 0`` (a mixture-of-experts model) adds ``moe_aux_coef``
+    times the Switch load-balancing aux averaged over the MoE layers, and
+    the metrics gain ``moe_aux_sum`` (that average) and ``moe_aux_count``
+    (1.0), a pair that stays a mean when the engine sums metrics over
+    clients and batches. The layers' auxes are added in the order of
+    their block names as strings (h_1, h_11, h_3, ...), the order of the
+    reference's sown tree."""
+    names = [name for name, m in model.named_children() if hasattr(m, "moe_mlp")]
+    order = sorted(range(len(names)), key=names.__getitem__)
 
     def loss_fn(params: dict, net_state: dict, batch: dict, gen=None):
+        auxs = [] if moe_aux_coef > 0 else None
         logits = functional_call(
             model, params, (batch["input_ids"],),
-            {"train": train, "token_type_ids": batch.get("token_type_ids"), "gen": gen})
+            {"train": train, "token_type_ids": batch.get("token_type_ids"), "gen": gen,
+             "moe_aux": auxs})
         logits = logits[:, :-1]
         labels = batch["labels"][:, 1:].long()
         mask = (labels != -100).to(logits.dtype)
@@ -68,10 +80,14 @@ def make_lm_loss(model: nn.Module, train: bool):
         loss_sum = (per_tok * mask).sum()
         loss = loss_sum / mask.sum().clamp_min(1.0)
         correct = ((logits.argmax(-1) == safe_labels).to(mask.dtype) * mask).sum()
-        return loss, {
-            "net_state": net_state,
-            "metrics": {"loss_sum": loss_sum, "count": mask.sum(), "correct": correct},
-        }
+        metrics = {"loss_sum": loss_sum, "count": mask.sum(), "correct": correct}
+        if moe_aux_coef > 0:
+            zero = torch.zeros((), dtype=loss.dtype, device=loss.device)
+            moe_aux = sum((auxs[j] for j in order), zero) / max(len(auxs), 1)
+            loss = loss + moe_aux_coef * moe_aux
+            metrics["moe_aux_sum"] = moe_aux
+            metrics["moe_aux_count"] = zero + 1.0
+        return loss, {"net_state": net_state, "metrics": metrics}
 
     def dropout_masks(batch: dict, gen: torch.Generator) -> list:
         return model.dropout_masks(tuple(batch["input_ids"].shape), gen) if train else []

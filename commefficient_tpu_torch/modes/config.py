@@ -2,9 +2,7 @@
 semantics: the port's copy of the JAX package's ``modes/config.py``.
 
 The whole ``ModeConfig`` is copied, validation included, so a configuration
-means the same thing in both packages; the options the port does not run
-yet (``topk_impl`` approx and oversample) raise where they would be used
-(``csvec.topk_abs``).
+means the same thing in both packages.
 """
 
 from __future__ import annotations
@@ -33,10 +31,10 @@ class ModeConfig:
     # "fedavg: server LR / slowmo optional")
     num_clients: int = 0  # total virtual clients (for local state allocation)
     hash_family: str = "rotation"  # sketch bucket-hash family (see CSVecSpec)
-    topk_impl: str = "exact"  # top-k selection; the port runs "exact" only
-    # ("approx" and "oversample" are accepted here, as in the reference, and
-    # raise in csvec.topk_abs)
+    topk_impl: str = "exact"  # top-k selection: exact | approx | oversample
+    # (csvec.topk_abs)
     topk_recall: float = 0.95  # recall target of the approximate selections
+    # (a TPU PartialReduce's; the selections here are exact and ignore it)
     server_state: str = "dense"  # server optimizer state: dense [d] vectors
     # or r x c Count-Sketch tables for the top-k-release modes; mode=sketch
     # is sketch-state either way (FetchSGD Alg. 1)

@@ -32,8 +32,8 @@ from .config import ModeConfig
 
 def topk_dense(v: torch.Tensor, k: int, impl: str = "exact"
                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(idx[k], vals[k]) of the k largest-|.| coordinates of dense v, in
-    ``lax.top_k``'s order (``csvec.topk_abs``)."""
+    """(idx[k], vals[k]) of the k largest-|.| coordinates of dense v,
+    selected by ``impl`` (``csvec.topk_abs``)."""
     idx = csvec.topk_abs(v, k, impl=impl)
     return idx, v[idx]
 

@@ -288,20 +288,46 @@ def query_all(spec: CSVecSpec, table: torch.Tensor) -> torch.Tensor:
     return torch.cat(blocks)[: spec.d]
 
 
+# impl="oversample" preselects this many x k candidates before the exact
+# refine (the reference's constant)
+TOPK_OVERSAMPLE = 4
+
+
 def topk_abs(x: torch.Tensor, k: int, impl: str = "exact") -> torch.Tensor:
-    """Indices of the k largest-|.| entries, in descending |x| with ties
-    broken toward the lower index, as the reference's ``lax.top_k`` orders
-    them (``torch.topk`` leaves ties unordered, and FetchSGD's first round,
-    at lr 0, selects among d exact zeros). Each entry gets the unique int64
-    key (bits of |x|) * 2**32 + (2**32 - 1 - index): the bits of a
-    non-negative float32 order as the float does. Only the exact selection
-    is ported; "approx" and "oversample" raise."""
-    if impl != "exact":
-        raise NotImplementedError(
-            f"topk_impl={impl!r} is not ported; only 'exact' is")
+    """Indices of the k largest-|.| entries, the reference's ``topk_abs``
+    for every ``impl`` (``ModeConfig.topk_impl``):
+
+    - "exact": ``lax.top_k``'s selection, in descending |x| with ties broken
+      toward the lower index (``torch.topk`` leaves ties unordered, and
+      FetchSGD's first round, at lr 0, selects among d exact zeros). Each
+      entry gets the unique int64 key (bits of |x|) * 2**32 + (2**32 - 1 -
+      index): the bits of a non-negative float32 order as the float does.
+    - "approx": ``lax.approx_max_k``, which is a PartialReduce only on a
+      TPU and elsewhere lowers to an exact selection: this computes that
+      exact selection. For k > 1 it is "exact"'s, index for index; for
+      k = 1 XLA lowers it to a max-reduction that keeps the LAST of tied
+      maxima, so the key's low word is the index itself there. (A NaN
+      among the entries breaks that reduction's order; its pick is not
+      matched.)
+    - "oversample": an "approx" preselect of ``TOPK_OVERSAMPLE * k``
+      candidates, then the exact refine over ``x[cand]``, returning
+      ``cand[sub]``; exact when the candidates would be every entry.
+
+    The reference's ``recall`` is the TPU PartialReduce's target, which the
+    exact lowering does not read, so the port takes none."""
+    if impl not in ("exact", "approx", "oversample"):
+        raise ValueError(f"bad impl {impl!r}")
     if x.numel() >= 1 << 32:
         raise ValueError(f"topk_abs takes fewer than 2**32 entries, got {x.numel()}")
-    return _topk_by_key(x.abs().contiguous().view(torch.int32), k)
+    if impl == "oversample":
+        kk = TOPK_OVERSAMPLE * k
+        if kk >= x.shape[0]:  # the candidates would be everything: exact
+            impl = "exact"
+        else:
+            cand = topk_abs(x, kk, impl="approx")
+            return cand[topk_abs(x[cand], k)]
+    key = x.abs().contiguous().view(torch.int32)
+    return _topk_by_key(key, k, last_tie=impl == "approx" and k == 1)
 
 
 def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -315,30 +341,81 @@ def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return x[idx], idx
 
 
-def _topk_by_key(key: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the k largest int32 keys, ties toward the lower index."""
-    low = (1 << 32) - 1 - torch.arange(key.numel(), dtype=torch.int64, device=key.device)
+def _topk_by_key(key: torch.Tensor, k: int, last_tie: bool = False) -> torch.Tensor:
+    """Indices of the k largest int32 keys, ties toward the lower index (or
+    toward the higher with ``last_tie``)."""
+    low = torch.arange(key.numel(), dtype=torch.int64, device=key.device)
+    if not last_tie:
+        low = (1 << 32) - 1 - low
     return torch.topk((key.to(torch.int64) << 32) | low, k).indices
 
 
-# Single-shot unsketch ceiling: the [d] estimates transient is materialized
-# when it fits in this many bytes (the reference's constant). The chunked
-# slab scan the reference runs above it is not ported.
+# Single-shot unsketch ceiling (the reference's constant): a CPU table
+# whose [d] estimates transient exceeds this many bytes is unsketched by
+# the memory-bounding chunk scan; tests set it to 0 to force the scan.
 UNSKETCH_SINGLE_SHOT_BYTES = 1 << 30
 
 
 def unsketch_topk(spec: CSVecSpec, table: torch.Tensor, k: int,
                   impl: str = "exact") -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k heavy hitters by |estimate|: (idx[k] int64, vals[k])
-    (CSVec.unSketch(k)), single-shot over the materialized estimates."""
+    (CSVec.unSketch(k)), following the reference's routing.
+
+    Rotation family: a CUDA table always takes the single shot, where the
+    ``sketch_query`` kernel materializes the [d] estimates (as the
+    reference's Pallas kernel does, which routes it single-shot at any d),
+    then one ``topk_abs``. A CPU table does too while the estimates fit in
+    ``UNSKETCH_SINGLE_SHOT_BYTES``; past it the d-axis is scanned slab by
+    slab (c coordinates) with a running top-k carry, so the transient is
+    O(r * c). Random family: always that scan, ``block_size`` by
+    ``block_size``, on any device, as the reference routes it (with one
+    block it selects what the single shot would). With ``impl`` approx or oversample each chunk is first
+    preselected to k candidates by that impl; the carry merges exactly
+    (``top_k`` of the valid candidates' |estimate|, an invalid one scoring
+    -1, the carry first, ties toward the earlier candidate). Entries that
+    never filled (k above the valid coordinates) keep idx -1 and value 0."""
     if k > spec.d:
         raise ValueError(f"k={k} > d={spec.d}")
-    if spec.d * 4 > UNSKETCH_SINGLE_SHOT_BYTES:
-        raise NotImplementedError(
-            f"d={spec.d} needs the chunked unsketch scan, which is not ported")
-    est = query_all(spec, table)
-    top_idx = topk_abs(est, k, impl=impl)
-    return top_idx, est[top_idx]
+    if spec.family == "rotation" and (
+            table.is_cuda or spec.d * 4 <= UNSKETCH_SINGLE_SHOT_BYTES):
+        est = query_all(spec, table)
+        top_idx = topk_abs(est, k, impl=impl)
+        return top_idx, est[top_idx]
+    kernels.check_untransformed("table", table)
+    if tuple(table.shape) != spec.table_shape:
+        raise ValueError(f"expected table {spec.table_shape}, got {tuple(table.shape)}")
+    if spec.family == "rotation":
+        _, ks = row_keys(spec.seed, spec.r, table.device)
+        shifts = slab_shifts(spec.seed, spec.r, spec.num_slabs, spec.c).tolist()
+        chunks = ((s * spec.c, _query_slab_rotation(spec, table, s, shifts, ks))
+                  for s in range(spec.num_slabs))
+    else:
+        bs = spec.block_size
+        chunks = ((b * bs, query(spec, table, (b * bs + torch.arange(
+            bs, dtype=torch.int64, device=table.device)).clamp(0, spec.d - 1)))
+            for b in range(spec.num_blocks))
+    run_idx = torch.full((k,), -1, dtype=torch.int64, device=table.device)
+    run_vals = torch.zeros(k, dtype=table.dtype, device=table.device)
+    run_score = torch.full((k,), -1.0, dtype=table.dtype, device=table.device)
+    for start, est in chunks:
+        idx = start + torch.arange(est.shape[0], dtype=torch.int64, device=table.device)
+        valid = idx < spec.d
+        if impl != "exact" and est.shape[0] > k:
+            # the within-chunk preselection, the one approximate pass
+            pre = topk_abs(torch.where(valid, est, 0.0), k, impl=impl)
+            idx, est, valid = idx[pre], est[pre], valid[pre]
+        est = torch.where(valid, est, 0.0)
+        score = torch.where(valid, est.abs(), -1.0)
+        # a chunk entry scoring at most the carry's k-th loses to all k of
+        # the carry (ties go to the earlier candidate): leaving it out of
+        # the merge changes nothing, and the merge sorts k + a few entries
+        # instead of k + c
+        new = score > run_score[-1]
+        idx, est, score = idx[new], est[new], score[new]
+        cand_idx, cand_vals = torch.cat([run_idx, idx]), torch.cat([run_vals, est])
+        run_score, sel = top_k(torch.cat([run_score, score]), k)
+        run_idx, run_vals = cand_idx[sel], cand_vals[sel]
+    return run_idx, torch.where(run_idx >= 0, run_vals, 0.0)
 
 
 def to_dense(d: int, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:

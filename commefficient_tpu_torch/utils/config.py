@@ -2,13 +2,13 @@
 ``utils/config.py`` parser, with the same names, types, choices and
 defaults, plus ``--device``, so a launch command of the reference parses
 here. The flags of features the port does not run yet (``_UNPORTED``:
-``--split_compile``, and GPT-2's ring attention, mixture of experts and
+``--split_compile``, and GPT-2's ring attention and tensor and sequence
 parallelism) parse at the reference's defaults, and ``resolve_defaults``
 refuses any other value by name, with the ROADMAP Queue 1 item that
 brings the feature: accepted and ignored is never an outcome.
 ``--share_ps_gpu`` and ``--port`` are the reference's own no-ops, and
-``--topk_recall`` matters only to the top-k selections the port refuses
-(``--topk_impl approx|oversample``)."""
+``--topk_recall`` is the recall target of a TPU's approximate selection,
+which the port's exact selections do not read."""
 
 from __future__ import annotations
 
@@ -27,15 +27,12 @@ _UNPORTED = (
     ("split_compile", dict(action="store_true"), (False,),
      "the port runs eagerly and compiles no program to split", None),
 )
-_PARALLEL = "tensor, sequence and expert parallelism are not ported"
+_PARALLEL = "tensor and sequence parallelism are not ported"
 _UNPORTED_GPT2 = (
     ("attn_impl", dict(default="dense", choices=["dense", "ring"]), ("dense",),
      "ring attention is not ported", 14),
     ("model_parallel", dict(type=int, default=1), (1,), _PARALLEL, 14),
     ("seq_parallel", dict(type=int, default=1), (1,), _PARALLEL, 14),
-    ("moe_experts", dict(type=int, default=0), (0,), "mixture of experts is not ported", 14),
-    ("moe_aux_coef", dict(type=float, default=0.01), (0.01,),
-     "mixture of experts is not ported", 14),
 )
 
 
@@ -59,11 +56,13 @@ def make_parser(task: str = "cv") -> argparse.ArgumentParser:
     p.add_argument("--num_cols", type=int, default=500000)
     p.add_argument("--num_blocks", type=int, default=1)
     p.add_argument("--topk_impl", default="exact", choices=["exact", "approx", "oversample"],
-                   help="top-k selection; the port runs exact only (approx and "
-                        "oversample raise)")
+                   help="top-k selection: exact, approx (the exact selection off "
+                        "a TPU), or oversample (an approx 4k-candidate preselect and "
+                        "the exact refine)")
     p.add_argument("--topk_recall", type=float, default=0.95,
-                   help="recall target of --topk_impl approx/oversample; accepted "
-                        "at any value (exact top-k does not read it)")
+                   help="recall target of --topk_impl approx/oversample on a TPU; "
+                        "accepted at any value (the exact selections here do not "
+                        "read it)")
     p.add_argument("--sketch_path", default="ravel", choices=["ravel", "layerwise"],
                    help="mode=sketch only: how the round's Count-Sketch table is built. "
                         "ravel (default) concatenates every layer into one flat [d] "
@@ -397,6 +396,11 @@ def make_parser(task: str = "cv") -> argparse.ArgumentParser:
                        help="> 0 enables the next-utterance-classification head: joint "
                             "loss lm + mc_coef * mc over --num_candidates candidate "
                             "replies (transfer-learning-conv-ai double head)")
+        p.add_argument("--moe_experts", type=int, default=0,
+                       help="> 0 swaps every 2nd block's MLP for a Switch-style top-1 "
+                            "MoE with this many experts (the expert axis replicated)")
+        p.add_argument("--moe_aux_coef", type=float, default=0.01,
+                       help="weight of the MoE load-balancing aux loss")
         p.add_argument("--num_candidates", type=int, default=2,
                        help="candidates per example (gold + distractors) when "
                             "--mc_coef > 0")

@@ -133,6 +133,18 @@ def test_sketch_path_layerwise_parses(task):
     assert args.sketch_path == "layerwise"
 
 
+def test_moe_and_topk_impl_flags_parse():
+    """--moe_experts, --moe_aux_coef and --topk_impl approx|oversample are
+    no longer refused (the first two were, naming ROADMAP item 14): they
+    parse at the reference's keywords and the impl reaches the mode config
+    (``--topk_recall`` parses; the port's exact selections read it nowhere)."""
+    assert not {"moe_experts", "moe_aux_coef", "topk_impl"} & set(UNPORTED)
+    args = _parse("gpt2", ["--moe_experts", "8", "--moe_aux_coef", "0.02", "--mode", "sketch",
+                           "--topk_impl", "oversample", "--topk_recall", "0.9"])
+    assert (args.moe_experts, args.moe_aux_coef, args.topk_recall) == (8, 0.02, 0.9)
+    assert tconfig.mode_config_from_args(args, 10_000).topk_impl == "oversample"
+
+
 def test_sketch_path_layerwise_runs(tiny_cv):  # noqa: F811
     """The CV CLI runs --sketch_path layerwise on the CPU to its last round,
     and the session's round takes the layerwise path."""

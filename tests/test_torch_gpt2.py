@@ -240,8 +240,16 @@ def test_training_forward_draws_from_its_generator(models):
 @pytest.mark.parametrize("field,value", [("attn_impl", "ring"), ("moe_experts", 4),
                                          ("remat", True)])
 def test_unported_configs_raise(field, value):
+    """Ring attention and rematerialisation raise; the mixture of experts
+    builds (every second block's FFN is ``moe_mlp``)."""
+    cfg = dataclasses.replace(TCFG, **{field: value})
+    if field == "moe_experts":
+        model = tgpt2.GPT2LMHead(cfg)
+        assert [hasattr(getattr(model, f"h_{i}"), "moe_mlp") for i in range(2)] == [False, True]
+        assert tuple(model.h_1.moe_mlp.wi.shape) == (value, 64, 256)
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
-        tgpt2.GPT2LMHead(dataclasses.replace(TCFG, **{field: value}))
+        tgpt2.GPT2LMHead(cfg)
 
 
 def test_greedy_generate_matches(models):

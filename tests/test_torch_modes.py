@@ -94,10 +94,11 @@ def test_aggregate_survivor_mean_matches_reference():
 
 
 def test_unported_modes_raise():
-    """Every mode is ported; what is not (the approximate top-k selections)
-    raises by name, never runs as something else; DP's flags parse, and so
-    do a shard kill that names its shards and an edge kill that names its
-    edges (without them, each raises the reference's words)."""
+    """Every mode is ported, and so are the approximate top-k selections:
+    approx and oversample select what exact selects (their selections are
+    exact off a TPU); DP's flags parse, and so do a shard kill that names
+    its shards and an edge kill that names its edges (without them, each
+    raises the reference's words)."""
     from commefficient_tpu_torch.resilience import FaultPlan
     from commefficient_tpu_torch.sketch import csvec
     from commefficient_tpu_torch.utils.config import make_parser
@@ -106,13 +107,15 @@ def test_unported_modes_raise():
     for mode in jmodes_config.MODES:
         assert make_parser().parse_args(["--mode", mode]).mode == mode
     x = torch.arange(10, dtype=torch.float32)
+    want = tmodes.server_step_sparse(TModeConfig(mode="true_topk", d=10, k=2), {"dense": x},
+                                     tmodes.init_server_state(TModeConfig(
+                                         mode="true_topk", d=10, k=2), "cpu"), 0.1)[0]
     for impl in ("approx", "oversample"):
         cfg = TModeConfig(mode="true_topk", d=10, k=2, topk_impl=impl)
-        with pytest.raises(NotImplementedError, match=f"topk_impl='{impl}' is not ported"):
-            tmodes.server_step_sparse(cfg, {"dense": x}, tmodes.init_server_state(cfg, "cpu"),
-                                      0.1)
-        with pytest.raises(NotImplementedError, match=impl):
-            csvec.topk_abs(x, 2, impl=impl)
+        got = tmodes.server_step_sparse(cfg, {"dense": x}, tmodes.init_server_state(cfg, "cpu"),
+                                        0.1)[0]
+        assert torch.equal(got["idx"], want["idx"]) and torch.equal(got["vals"], want["vals"])
+        assert torch.equal(csvec.topk_abs(x, 2, impl=impl), csvec.topk_abs(x, 2))
     for flag in ("--dp_noise", "--dp_clip"):
         assert getattr(make_parser().parse_args([flag, "1.0"]), flag[2:]) == 1.0
     with pytest.raises(ValueError, match="'edge_kill' needs edges="):
