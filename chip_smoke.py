@@ -59,7 +59,7 @@ Phases (any failure raises, and the exit status is non-zero):
    b. FEMNIST local_topk with virtual momentum and virtual error (no
       client state: 3,550 writers' state would not fit on one card);
    c. ResNet-9 local_topk with the reference's defaults (local momentum and
-      local error, 100 clients: 5.3 GB of client state), sync and async
+      local error, LOCAL_CLIENTS = 32 clients: 1.7 GB of client state), sync and async
       (with its checkpoint timed) held bitwise, and preempt -> resume
       held bitwise against the uninterrupted run;
    d. ResNet-9 fedavg with 5 local iterations;
@@ -236,7 +236,9 @@ Phases (any failure raises, and the exit status is non-zero):
       same batch, allclose: rel L2 of the params' movement and top-k
       agreement;
    b. a 4-rank gloo group on the one card (``distributed.launch_local``,
-      the ranks sharing cuda:0; NCCL refuses two ranks on one card), each
+      the ranks sharing cuda:0; NCCL refuses two ranks on one card; in the
+      whole script one launch, ``joint_launch``, runs the group runs of
+      18b, 20 and 21 in turn, one process start for all), each
       rank through ``cv_train.main``, async: rank 0's rows, checkpoint
       (params, Vvelocity, Verror, batch-norm statistics) and every rank's
       per-round metrics bitwise (a)'s, every rank's ledger fingerprints
@@ -278,9 +280,9 @@ Phases (any failure raises, and the exit status is non-zero):
       peak memory in turns.
 
 20. the rest of the client mesh on a group: 4 gloo ranks sharing the card
-   (as phase 18b), one launch, 4 rounds a run at ResNet-9's full width:
-   a. local_topk with local error and momentum (phase 10's flags, 100
-      clients): the [100, d] client state padded and split, 25 rows a key
+   (phase 18b's launch), 4 rounds a run at ResNet-9's full width:
+   a. local_topk with local error and momentum (phase 10's flags, 32
+      clients): the [32, d] client state padded and split, 8 rows a key
       on each rank; == the one-device twin (the emulation at S = 4)
       bitwise on every rank, client rows included; each rank's resident
       state a quarter of the twin's; preempted at round 1 on rank 2 and
@@ -294,7 +296,7 @@ Phases (any failure raises, and the exit status is non-zero):
       it), the row moves' ms and bytes (against ``client_row_bytes``) and
       the table gather's, on rank 0 after a barrier.
 21. serving on a group and the serving pipeline: 4 gloo ranks sharing the
-   card (as phase 20), one launch, 4 rounds a run at ResNet-9's full width:
+   card (phase 18b's launch), 4 rounds a run at ResNet-9's full width:
    a. served announce (phase 14a's close) and served payload (phase 14b's,
       with --client_update_clip 3 and a wire_corrupt client), each ==
       the one-device served run at client_shards 4 bitwise on every rank
@@ -418,12 +420,37 @@ Phases (any failure raises, and the exit status is non-zero):
    c. the card's single-shot unsketch_topk of the run's error table (the
       query kernel and one top-k) against the CPU's chunk scan of the same
       table (one slab at a time, the scan the port runs on a CPU table
-      past the line; on a thread while (b), (d) and (e) run on the card):
+      past the line; on a thread while (b), (d) and (e) run, or in the
+      whole script on half the cores beside phase 27's group launch, and
+      checked after it):
       the same indices and bitwise values; --topk_impl approx and
       oversample on the card select what exact selects;
    d. one round at lr 0.1 held against FetchSGD's algebra on the card;
    e. the async loop over 2 rounds held bitwise against (a)'s state and
       metrics after its round 2.
+27. GPT-2's parallelism at full width: phase 11's cell (GPT-2 small,
+   seq_len 256, d = 85,453,056, r = 5, c = 1,000,000, 4 clients of 8 rows
+   a round, FetchSGD LM in float32) through ``gpt2_train.main``, 2 rounds
+   a run through the sync loop, each run's launch counts zeroed just
+   before it and each round timed after a barrier:
+   a. GPT2Config(remat=True) against the plain model on one card: the
+      state and every round's metrics bitwise; peak device memory of a
+      round step and of its client phase, and round ms, of both; where
+      the client phase's peak lay in round 1 (the allocator's memory
+      history replayed, by the port's allocating line);
+   b. --model_parallel 2 on 2 gloo ranks sharing the card (collectives
+      staged through host memory): against (a)'s plain run, the coordinates
+      both moved within rtol 2e-4 / atol 2e-5 and the moved sets agreeing
+      in at least 99 %; the two ranks' states bitwise; one launch of each
+      kernel a rank a round; both kernels bitwise against their plain
+      versions on the run's params and error table; rank 0's collective
+      bytes, calls and ms a round, and the round ms;
+   c. --seq_parallel 2 --attn_impl ring on the same launch, with (b)'s
+      checks, against a dense one-device run with dropout 0;
+   d. ``ops.pipeline.pipeline_apply`` over GPT-2 small's 12 blocks in 2
+      stages on those ranks at 4 microbatches of 2 rows: forward and each
+      stage's gradients of mean(y^2) against the sequential stack within
+      rtol 2e-4 / atol 2e-5; the ms of each.
 
 Prints one JSON line with the kernels' numbers (launches counted over
 phase 8; under "gpt2" each kernel's numbers at the GPT-2 shape, launches
@@ -441,8 +468,9 @@ group), "launches_async" over each of phase 22's runs (rank 0's on the
 group), "launches_fastpath" over each of phase 23's runs (rank 0's on the
 group), "launches_shards" over each of phase 24's runs (rank 0's on the
 group), "launches_edges" over each of phase 25's runs (rank 0's on the
-group), and under "gpt2_moe" each kernel's numbers at phase 26's shape,
-launches counted over phase 26a; a
+group), under "gpt2_moe" each kernel's numbers at phase 26's shape,
+launches counted over phase 26a, and "launches_parallel" over each of
+phase 27's runs (each rank's on the group); a
 third row, ``sketch_accumulate_tree``, with a whole ResNet-9 tree's fold
 times and (b)'s layerwise launches),
 then
@@ -458,6 +486,7 @@ as its last line
 ``--shards-only`` runs phase 24 right after phase 4 and stops,
 ``--edges-only`` runs phase 25 right after phase 4 and stops,
 ``--moe-only`` runs phase 26 right after phase 4 and stops,
+``--parallel-only`` runs phase 27 right after phase 4 and stops,
 ``--shard-turns N`` runs phase 24's cell in N turns of the one listener and
 process shards (``shard_turns``) right after phase 4 and stops,
 ``--cohorts N`` sets the number of cohorts phase 7 compares (default 4);
@@ -468,6 +497,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -540,9 +570,23 @@ MOE_ARGS = GPT2_ARGS + ["--moe_experts", "8"]
 MOE_D = 283_647_744
 MOE_ROUNDS = 3
 MOE_ASYNC_ROUNDS = 2
+# phase 27: phase 11's cell through each parallelism, 2 rounds a run; the
+# group runs on 2 gloo ranks sharing the card
+PAR_ROUNDS = 2
+PAR_ARGS = GPT2_ARGS + ["--num_rounds", str(PAR_ROUNDS), "--sync_loop"]
+PAR_RANKS = 2
+PAR_RTOL, PAR_ATOL = 2e-4, 2e-5
+PAR_TOPK_AGREE = 0.99
+PIPE_MICRO, PIPE_ROWS = 4, 2
 RESNET_ARGS = ["--dataset", "cifar10", "--hash_family", "rotation", "--num_clients", "100",
                "--num_workers", "8", "--local_batch_size", "8", "--k", "50000",
                "--device", "cuda"]
+# local_topk with local error and momentum keeps two [clients, d] rows a
+# client; its runs (phases 10c, 20a, 21c) hold LOCAL_CLIENTS clients' state,
+# 1.68 GB, where 100 clients' 5.26 GB took a minute of checkpoint copies,
+# writes and reads a run of the whole script
+LOCAL_CLIENTS = 32
+LOCAL_ARGS = RESNET_ARGS + ["--mode", "local_topk", "--num_clients", str(LOCAL_CLIENTS)]
 # phase 12: client participation on the main path, runs of COHORT_ROUNDS
 COHORT_ROUNDS = 6
 COHORT_PLAN = ("client_drop@1:clients=0+3;client_straggle@2:clients=1,secs=0.2;"
@@ -623,7 +667,7 @@ MESH_TOPK_AGREE = 0.99
 MESH_REL = 1e-3
 # phase 20: the rest of the client mesh on a group of GROUP_SHARDS gloo
 # ranks sharing the card, GROUP_ROUNDS rounds a run: (a) local_topk with
-# local error and momentum (phase 10's flags, 100 clients: the client state
+# local error and momentum (phase 10's flags, 32 clients: the client state
 # split over the ranks), (b) fedavg with 5 local steps, (c) the table round
 # of a trimmed merge with the clip and a 50x client; GROUP_TURNS timed
 # turns in (d)
@@ -631,7 +675,7 @@ GROUP_SHARDS = 4
 GROUP_ROUNDS = 4
 GROUP_TURNS = 3
 GROUP_RUNS = {
-    "local_topk": RESNET_ARGS + ["--mode", "local_topk"],
+    "local_topk": LOCAL_ARGS,
     "fedavg": RESNET_ARGS + ["--mode", "fedavg", "--num_local_iters", "5"],
     "table": SLICE_ARGS + ["--merge_policy", "trimmed", "--merge_trim", "1",
                            "--client_update_clip", "3", "--fault_plan",
@@ -916,11 +960,16 @@ def profile_rounds(session, rounds: int = 2, top: int = 12, label: str = "",
     operations that took most host time, and returns the busy ms per round
     (0.0: not measured). ``out``, if given, receives "busy_ms", "wall_ms",
     "gemm_ms" (the matrix-product kernels' ms a round, ``_is_gemm``) and
-    "launches" (device kernels a round)."""
+    "launches" (device kernels a round). The host's operations are
+    recorded only for ``host_top``: recording every operator slows the
+    window's host side and multiplies the profiler's post-processing, which
+    takes seconds a round over a per-client loop's tens of thousands of
+    events."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU] if host_top else []
+    with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(rounds):
             session.run_round(0.01)
@@ -1362,7 +1411,7 @@ def baselines_phase(cv_train, engine, csvec, kernels, card: str) -> None:
     checked(s, "femnist_local_topk_virtual")
     del s
 
-    local = RESNET_ARGS + ["--mode", "local_topk"]
+    local = LOCAL_ARGS
     a, row_a = run(local + ["--sync_loop"], "resnet9_local_topk_sync")
     gb = sum(v.numel() * 4 for v in a.client_state.values()) / 1e9
     ck = os.path.join(base, "ck_local")
@@ -2309,8 +2358,10 @@ def timed_pairs(sessions: dict, pairs: int, card: str) -> None:
     """Sync rounds of ``sessions`` in turns (a, b, then b, a, ...), each
     batch prepared first: per label the host ms of the dispatch (the round's
     launches, from the call to its return) and of the round (dispatch to
-    the device's end), then a profiler window of 2 rounds: device busy,
-    matrix products and kernel launches a round; prints them."""
+    the device's end), then a profiler window of 1 round (the profiler's
+    post-processing of a per-client loop's tens of thousands of events takes
+    seconds a round): device busy, matrix products and kernel launches a
+    round; prints them."""
     out = {label: {"dispatch_ms": [], "round_ms": []} for label in sessions}
     order = list(sessions)
     for i in range(pairs):
@@ -2328,7 +2379,7 @@ def timed_pairs(sessions: dict, pairs: int, card: str) -> None:
             out[label]["round_ms"].append((t2 - t0) * 1e3)
     for label, s in sessions.items():
         prof = {}
-        profile_rounds(s, top=0, label=f" {label} [{card}]", out=prof)
+        profile_rounds(s, rounds=1, top=0, label=f" {label} [{card}]", out=prof)
         r = out[label]
         r.update(prof)
         busy, gemm = r.get("busy_ms", 0.0), r.get("gemm_ms", 0.0)
@@ -3351,21 +3402,31 @@ def tree_row(lw: dict) -> dict:
             "replaces": REPLACES["sketch_accumulate"], "library_ms": None, **lw["row"]}
 
 
-def _mesh_rank(argv: list, out_dir: str, tag: str, device: str) -> None:
-    """One rank of phase 18's gloo group: join it (gloo, so four ranks can
-    share one card), run ``cv_train.main`` and write this rank's per-round
-    metrics, launch counts, gather times and exit code to
-    ``out_dir/<tag>_<rank>.json``; exit with the run's code."""
-    sys.path.insert(0, ROOT)
+def _mesh_argv(base: str) -> dict:
+    """Phase 18b's three group runs (uninterrupted, preempted at round 1 on
+    rank 2, resumed), each its flags, in ``base``."""
+    argv = SLICE_ARGS + MESH_ARGS
+    ck, ck2 = os.path.join(base, "ck"), os.path.join(base, "ck2")
+    return {"mesh": argv + ["--checkpoint_dir", ck, "--ledger", os.path.join(base, "mesh.ledger"),
+                            "--log_jsonl", os.path.join(base, "mesh.jsonl")],
+            "preempt": argv + ["--checkpoint_dir", ck2, "--fault_plan", "host_preempt@1:host=2"],
+            "resume": argv + ["--checkpoint_dir", ck2, "--resume"]}
+
+
+def _mesh_runs(out_dir: str, device: str) -> None:
+    """On a rank of the joined group, phase 18b's runs of ``_mesh_argv``
+    through ``cv_train.main``, in order; each writes this rank's per-round
+    metrics, launch counts, gather times, exit code and the checkpoints
+    its directory held before it ran to ``out_dir/<tag>_<rank>.json``."""
     import torch.distributed as dist
 
     from commefficient_tpu_torch import cv_train
     from commefficient_tpu_torch.parallel import distributed
     from commefficient_tpu_torch.sketch import kernels
 
-    distributed.initialize(force=True, backend="gloo", device=device)
     rank = distributed.rank()
-    gathers, gather = [], distributed.all_gather_stacked
+    gather = distributed.all_gather_stacked
+    gathers = []
 
     def timed_gather(tensors, group=None):
         # the shard phase done and every rank at the gather first, so the
@@ -3382,38 +3443,95 @@ def _mesh_rank(argv: list, out_dir: str, tag: str, device: str) -> None:
         return out
 
     distributed.all_gather_stacked = timed_gather
-    kernels.reset_launch_counts()
-    code = 0
-    with recording_rounds() as rec:
-        try:
-            cv_train.main(list(argv))
-        except SystemExit as e:
-            code = e.code if isinstance(e.code, int) else 1
-        finally:
+    try:
+        for tag, argv in _mesh_argv(out_dir).items():
+            # rank 0's round-2 checkpoint is on disk before any rank resumes
+            dist.barrier()
+            ck = argv[argv.index("--checkpoint_dir") + 1]
+            before = sorted(os.listdir(ck)) if os.path.isdir(ck) else []
+            gathers.clear()
+            kernels.reset_launch_counts()
+            code = 0
+            with recording_rounds() as rec:
+                try:
+                    cv_train.main(list(argv))
+                except SystemExit as e:
+                    code = e.code if isinstance(e.code, int) else 1
             with open(os.path.join(out_dir, f"{tag}_{rank}.json"), "w") as f:
                 json.dump({"metrics": rec["metrics"], "launches": ravel_launches(kernels),
-                           "gathers": gathers, "code": code}, f)
-    if code:
-        sys.exit(code)
+                           "gathers": list(gathers), "code": code, "before": before}, f)
+    finally:
+        distributed.all_gather_stacked = gather
 
 
-def mesh_phase(cv_train, engine, kernels, card: str) -> dict:
+def _joint_rank(bases: dict, device: str, parts: tuple, extra: tuple) -> None:
+    """One rank of the gloo group of 4 ranks sharing the card that phases
+    18b, 20 and 21 (and through 21 the group runs of 22f to 25f) share:
+    joined once, then each part's runs in turn: "mesh" (18b), "group" (20),
+    "serve" (21, then the runs ``extra`` of ``served_group_runs()``), each
+    writing into its directory of ``bases``."""
+    sys.path.insert(0, ROOT)
+    import torch.distributed as dist
+
+    from commefficient_tpu_torch import cv_train
+    from commefficient_tpu_torch.parallel import distributed
+
+    # the serve group waits out the served rounds' deadline; no other group
+    # reads it
+    distributed.initialize(force=True, backend="gloo", device=device,
+                           serve_deadline_s=float(SERVE_PAYLOAD[SERVE_PAYLOAD.index(
+                               "--serve_deadline") + 1]))
+    reuse_run_inputs(cv_train)
+    for part in parts:
+        if part == "mesh":
+            _mesh_runs(bases[part], device)
+        elif part == "group":
+            _group_runs(bases[part], device)
+        else:
+            _serve_group_runs(bases[part], device, extra)
+        dist.barrier()
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+
+def joint_launch(parts: tuple, extra: tuple = ()) -> dict:
+    """One launch of ``_joint_rank`` on MESH_SHARDS gloo ranks sharing the
+    card, each part's directory emptied first: {"bases", "codes" (the
+    ranks' exit codes), "secs" (the launch's seconds), "parts"}."""
+    import shutil
+
+    from commefficient_tpu_torch.parallel import distributed
+
+    assert MESH_SHARDS == GROUP_SHARDS == SERVE_GROUP_SHARDS == ASYNC_GROUP_SHARDS
+    device = "cuda" if "cuda" in SLICE_ARGS else "cpu"
+    dirs = {"mesh": "mesh", "group": "group", "serve": "serve_group"}
+    bases = {p: os.path.join(ROOT, "build", "chip_smoke", dirs[p]) for p in parts}
+    for b in bases.values():
+        shutil.rmtree(b, ignore_errors=True)
+        os.makedirs(b)
+    t0 = time.perf_counter()
+    codes = distributed.launch_local(_joint_rank, MESH_SHARDS,
+                                     (bases, device, tuple(parts), tuple(extra)),
+                                     env={"LOCAL_RANK": "0"}, timeout_s=900)
+    return {"bases": bases, "codes": codes, "secs": time.perf_counter() - t0, "parts": parts}
+
+
+def mesh_phase(cv_train, engine, kernels, card: str, joint: dict) -> dict:
     """Phase 18: the sharded round on ResNet-9 FetchSGD at full width, one
-    card: the emulation (a), a 4-rank gloo group (b), a one-rank NCCL group
-    (c) and the times (d). Returns each kernel's launches over (a) and over
-    each rank of (b)'s uninterrupted run."""
+    card: the emulation (a), a 4-rank gloo group (b: the "mesh" part of
+    ``joint``, a ``joint_launch``), a one-rank NCCL group (c) and the times
+    (d). Returns each kernel's launches over (a) and over each rank of (b)'s
+    uninterrupted run."""
     import dataclasses
     import functools
-    import shutil
 
     from commefficient_tpu_torch.federated.api import FederatedSession
     from commefficient_tpu_torch.parallel import distributed
     from commefficient_tpu_torch.parallel.mesh import merge_comm_bytes
 
     device = "cuda" if "cuda" in SLICE_ARGS else "cpu"
-    base = os.path.join(ROOT, "build", "chip_smoke", "mesh")
-    shutil.rmtree(base, ignore_errors=True)
-    os.makedirs(base)
+    base = joint["bases"]["mesh"]
     S, R = MESH_SHARDS, MESH_ROUNDS
     argv = SLICE_ARGS + MESH_ARGS
     launches = {}
@@ -3464,24 +3582,22 @@ def mesh_phase(cv_train, engine, kernels, card: str) -> dict:
     if agree < MESH_TOPK_AGREE or rel > MESH_REL:
         fail(f"mesh a: emulation vs unsharded round: agreement {agree}, rel {rel}")
 
-    # b. four ranks in a gloo group on the one card
-    def launch(tag, extra):
-        t0 = time.perf_counter()
-        codes = distributed.launch_local(_mesh_rank, S, (argv + extra, base, tag, device),
-                                         env={"LOCAL_RANK": "0"}, timeout_s=600)
+    # b. four ranks in a gloo group on the one card, each run's codes as
+    # the ranks recorded them
+    def read(tag):
         ranks = []
         for r in range(S):
             path = os.path.join(base, f"{tag}_{r}.json")
             if not os.path.exists(path):
-                fail(f"mesh b: {tag}: rank {r} wrote nothing (exit codes {codes})")
+                fail(f"mesh b: {tag}: rank {r} wrote nothing (the launch's exit codes "
+                     f"{joint['codes']})")
             with open(path) as f:
                 ranks.append(json.load(f))
-        return codes, ranks, time.perf_counter() - t0
+        return [g["code"] for g in ranks], ranks
 
     ck = os.path.join(base, "ck")
     ledger = os.path.join(base, "mesh.ledger")
-    codes, ranks, secs = launch("mesh", ["--checkpoint_dir", ck, "--ledger", ledger,
-                                         "--log_jsonl", os.path.join(base, "mesh.jsonl")])
+    codes, ranks = read("mesh")
     if codes != [0] * S:
         fail(f"mesh b: rank exit codes {codes}")
     for r, got in enumerate(ranks):
@@ -3505,16 +3621,18 @@ def mesh_phase(cv_train, engine, kernels, card: str) -> dict:
     print(f"mesh b: {S} gloo ranks on one card, {R} async rounds: params, Vvelocity, Verror, "
           f"batch-norm statistics, rows and every per-round metric == the emulation's, bitwise; "
           f"fingerprints equal on every rank every round; launches a rank {ranks[0]['launches']}; "
-          f"{secs:.1f} s for the launch [{card}]", flush=True)
+          f"{joint['secs']:.1f} s for the launch of parts {list(joint['parts'])} [{card}]",
+          flush=True)
     ck2 = os.path.join(base, "ck2")
-    codes, pre, _ = launch("preempt", ["--checkpoint_dir", ck2, "--fault_plan",
-                                       "host_preempt@1:host=2"])
-    if codes != [75] * S or sorted(os.listdir(ck2)) != ["round_00000002"]:
-        fail(f"mesh b: host_preempt@1:host=2: exit codes {codes}, checkpoints "
-             f"{sorted(os.listdir(ck2))}")
+    codes, pre = read("preempt")
+    # what the preempted run left, as every rank found it before the resume
+    _, res = read("resume")
+    left = [g["before"] for g in res]
+    if codes != [75] * S or left != [["round_00000002"]] * S:
+        fail(f"mesh b: host_preempt@1:host=2: exit codes {codes}, checkpoints {left}")
     if any(len(p["metrics"]) != 2 or p["metrics"] != emu_rec["metrics"][:2] for p in pre):
         fail("mesh b: the preempted ranks did not all commit rounds 0 and 1 as the emulation")
-    codes, res, _ = launch("resume", ["--checkpoint_dir", ck2, "--resume"])
+    codes, res = read("resume")
     if codes != [0] * S or not same_tree(ck_state(ck2, R), final):
         fail(f"mesh b: the resume from rank 0's round-2 checkpoint (exit codes {codes}) does "
              "not end on the uninterrupted run's state")
@@ -3630,14 +3748,13 @@ def _twin_session(shards: int):
     return make
 
 
-def _group_rank(out_dir: str, device: str) -> None:
-    """One rank of phase 20's gloo group: the runs of GROUP_RUNS through
+def _group_runs(out_dir: str, device: str) -> None:
+    """On a rank of the joined group, phase 20's runs of GROUP_RUNS through
     ``cv_train.main`` ((a) uninterrupted, preempted at round 1 on rank 2
     and resumed; (b); (c)), then (d)'s timed turns, row moves and table
     gathers. Writes this rank's per-run metrics, launch counts, state and
     client-block digests, resident client-state bytes and times to
     ``out_dir/group_<rank>.json``."""
-    sys.path.insert(0, ROOT)
     import dataclasses
 
     import torch.distributed as dist
@@ -3648,8 +3765,6 @@ def _group_rank(out_dir: str, device: str) -> None:
     from commefficient_tpu_torch.sketch import kernels
     from commefficient_tpu_torch.utils.config import make_parser, resolve_defaults
 
-    distributed.initialize(force=True, backend="gloo", device=device)
-    reuse_run_inputs(cv_train)
     rank, S = distributed.rank(), distributed.world_size()
     out = {"runs": {}}
     ck = os.path.join(out_dir, "ck")
@@ -3751,30 +3866,24 @@ def _group_rank(out_dir: str, device: str) -> None:
     dist.barrier()
 
 
-def group_phase(cv_train, engine, kernels, card: str) -> dict:
+def group_phase(cv_train, engine, kernels, card: str, joint: dict | None = None) -> dict:
     """Phase 20: the rest of the client mesh on 4 gloo ranks sharing the
     card, at ResNet-9's full width: (a) local_topk with the client state
     split over the ranks, against its one-device twin, preempted and
     resumed, its checkpoint resumed on one device; (b) fedavg; (c) the
-    trimmed table round; (d) the times. Returns each kernel's launches on
-    rank 0 over each run."""
+    trimmed table round; (d) the times. The group's runs are the "group"
+    part of ``joint`` (a ``joint_launch``; one of its own when None).
+    Returns each kernel's launches on rank 0 over each run."""
     import functools
     import shutil
 
     from commefficient_tpu_torch.federated.api import FederatedSession
-    from commefficient_tpu_torch.parallel import distributed
     from commefficient_tpu_torch.utils import checkpoint as ckpt
     from commefficient_tpu_torch.utils.config import make_parser, resolve_defaults
 
-    device = "cuda" if "cuda" in SLICE_ARGS else "cpu"
     S, R = GROUP_SHARDS, GROUP_ROUNDS
-    base = os.path.join(ROOT, "build", "chip_smoke", "group")
-    shutil.rmtree(base, ignore_errors=True)
-    os.makedirs(base)
-    t0 = time.perf_counter()
-    codes = distributed.launch_local(_group_rank, S, (base, device), env={"LOCAL_RANK": "0"},
-                                     timeout_s=900)
-    secs = time.perf_counter() - t0
+    joint = joint or joint_launch(("group",))
+    base, codes, secs = joint["bases"]["group"], joint["codes"], joint["secs"]
     ranks = []
     for r in range(S):
         path = os.path.join(base, f"group_{r}.json")
@@ -3826,7 +3935,8 @@ def group_phase(cv_train, engine, kernels, card: str) -> dict:
           f"(the emulation at S={S}), bitwise on every rank: params, batch-norm statistics, "
           f"Vvelocity, Verror, every per-round metric and every client row; resident client "
           f"state a rank {[round(b / 1e9, 4) for b in resident]} GB against "
-          f"{one_bytes / 1e9:.4f} GB on one device; {secs:.1f} s for the launch [{card}]",
+          f"{one_bytes / 1e9:.4f} GB on one device; {secs:.1f} s for the launch of parts "
+          f"{list(joint['parts'])} [{card}]",
           flush=True)
     for r, got in enumerate(ranks):
         pre, res = got["runs"]["preempted"], got["runs"]["resumed"]
@@ -3965,24 +4075,19 @@ def _serve_run(cv_train, kernels, tag: str, argv: list, out: dict, device: str,
     return s
 
 
-def _serve_group_rank(out_dir: str, device: str, extra: tuple = ()) -> None:
-    """One rank of phase 21's gloo group: (a) the served announce and
-    payload runs, (b) the payload run preempted on rank 2 and resumed, (c)
-    local_topk served serially and pipelined, then the close's broadcast
-    timed after a barrier, then (the whole script) the runs ``extra`` of
-    ``served_group_runs()`` for phases 22f and 23e. Writes
+def _serve_group_runs(out_dir: str, device: str, extra: tuple = ()) -> None:
+    """On a rank of the joined group, phase 21's runs: (a) the served
+    announce and payload runs, (b) the payload run preempted on rank 2 and
+    resumed, (c) local_topk served serially and pipelined, then the close's
+    broadcast timed after a barrier, then (the whole script) the runs
+    ``extra`` of ``served_group_runs()`` for phases 22f to 25f. Writes
     ``out_dir/serve_<rank>.json`` (and ``out_dir/served_<rank>.json``)."""
-    sys.path.insert(0, ROOT)
     import torch.distributed as dist
 
     from commefficient_tpu_torch import cv_train
     from commefficient_tpu_torch.parallel import distributed
     from commefficient_tpu_torch.sketch import kernels
 
-    distributed.initialize(force=True, backend="gloo", device=device,
-                           serve_deadline_s=float(SERVE_PAYLOAD[SERVE_PAYLOAD.index(
-                               "--serve_deadline") + 1]))
-    reuse_run_inputs(cv_train)
     rank = distributed.rank()
     out = {"runs": {}}
     runs = out["runs"]
@@ -4020,28 +4125,24 @@ def _serve_group_rank(out_dir: str, device: str, extra: tuple = ()) -> None:
     dist.barrier()
 
 
-def serve_group_phase(cv_train, engine, csvec, kernels, card: str, extra: tuple = ()) -> tuple:
+def serve_group_phase(cv_train, engine, csvec, kernels, card: str, extra: tuple = (),
+                      joint: dict | None = None) -> tuple:
     """Phase 21: serving on a group of 4 gloo ranks sharing the card, and
-    the serving pipeline on one card, at ResNet-9's full width. Returns
-    (each kernel's launches over each run, rank 0's for the group's; with
-    ``extra``, the same launch's (ranks, seconds) of those runs of
-    ``served_group_runs()``, which phases 22f and 23e read, else None)."""
+    the serving pipeline on one card, at ResNet-9's full width. The group's
+    runs are the "serve" part of ``joint`` (a ``joint_launch`` whose extra
+    runs are ``extra``; one of its own when None). Returns (each kernel's
+    launches over each run, rank 0's for the group's; with ``extra``, the
+    same launch's (ranks, seconds) of those runs of ``served_group_runs()``,
+    which phases 22f to 25f read, else None)."""
     import functools
     import shutil
 
     from commefficient_tpu_torch.federated.api import FederatedSession
-    from commefficient_tpu_torch.parallel import distributed
 
     device = "cuda" if "cuda" in SLICE_ARGS else "cpu"
     S, R = SERVE_GROUP_SHARDS, SERVE_GROUP_ROUNDS
-    base = os.path.join(ROOT, "build", "chip_smoke", "serve_group")
-    shutil.rmtree(base, ignore_errors=True)
-    os.makedirs(base)
-    assert S == ASYNC_GROUP_SHARDS
-    t0 = time.perf_counter()
-    codes = distributed.launch_local(_serve_group_rank, S, (base, device, tuple(extra)),
-                                     env={"LOCAL_RANK": "0"}, timeout_s=900)
-    secs = time.perf_counter() - t0
+    joint = joint or joint_launch(("serve",), extra)
+    base, codes, secs = joint["bases"]["serve"], joint["codes"], joint["secs"]
     shared = (read_served_group(base, codes, "serve group"), secs) if extra else None
     ranks = []
     for r in range(S):
@@ -4121,7 +4222,8 @@ def serve_group_phase(cv_train, engine, csvec, kernels, card: str, extra: tuple 
                 fail(f"serve group c: rank {r}'s pipelined local_topk {key} differs from the "
                      "serial run's")
     a, p = ranks[0]["runs"]["local_serial"], ranks[0]["runs"]["local_pipelined"]
-    print(f"serve group c: served local_topk (100 clients, the client state split) on {S} "
+    print(f"serve group c: served local_topk ({LOCAL_CLIENTS} clients, the client state "
+          f"split) on {S} "
           f"gloo ranks, {R} rounds: pipelined == serial bitwise on every rank (params, "
           f"optimizer state, client rows, metrics, queue); rank 0 server_idle_ms mean/max "
           f"serial {[round(x, 3) for x in a['idle_ms']]} pipelined "
@@ -4162,7 +4264,8 @@ def serve_group_phase(cv_train, engine, csvec, kernels, card: str, extra: tuple 
     print("serve d: kernels == plain on the pipelined payload run's params and error table",
           flush=True)
     del sessions, s
-    print(f"serve group: {secs:.1f} s for the launch; run s on rank 0 "
+    print(f"serve group: {secs:.1f} s for the launch of parts {list(joint['parts'])}; run s "
+          f"on rank 0 "
           + ", ".join(f"{k} {v['s']:.1f}" for k, v in ranks[0]["runs"].items())
           + "; one card " + ", ".join(f"{k} {v['s']:.1f}" for k, v in one.items()), flush=True)
     launches = {f"group_{k}": v["launches"] for k, v in ranks[0]["runs"].items()}
@@ -5262,9 +5365,14 @@ def unsketch_check(csvec, spec, table: torch.Tensor, k: int, scanned: tuple) -> 
             "approx == oversample == exact")
 
 
-def moe_phase(kernels, csvec, engine, time_ms, gen: torch.Generator, card: str) -> dict:
+def moe_phase(kernels, csvec, engine, time_ms, gen: torch.Generator, card: str,
+              pending: list | None = None) -> dict:
     """Phase 26: GPT-2 small with eight experts through ``gpt2_train.main``
-    at d = 283,647,744; returns the kernels' fields at this shape."""
+    at d = 283,647,744; returns the kernels' fields at this shape. (c)'s
+    CPU scan runs on a thread while (b), (d) and (e) run; with ``pending``
+    (a list), it runs instead on half the cores when the caller calls
+    ``start`` of the pair (start, finish) appended to it, and ``finish``
+    joins it and checks (c)."""
     import shutil
 
     from commefficient_tpu_torch import gpt2_train
@@ -5315,9 +5423,12 @@ def moe_phase(kernels, csvec, engine, time_ms, gen: torch.Generator, card: str) 
         fail(f"moe: d={layout.d}, expected {MOE_D} past the single-shot line")
 
     # c (started here). the CPU chunk scan of the run's error table, on a
-    # thread while (b), (d) and (e) run on the card
+    # thread while (b), (d) and (e) run on the card, or (with ``pending``)
+    # where the caller starts it, on half the cores, the rest left to the
+    # processes of that phase
     table = a.state["mode_state"]["Verror"].clone()
     scan = {}
+    threads = torch.get_num_threads()
 
     def cpu_scan():
         t0 = time.perf_counter()
@@ -5328,7 +5439,14 @@ def moe_phase(kernels, csvec, engine, time_ms, gen: torch.Generator, card: str) 
         scan["s"] = time.perf_counter() - t0
 
     scanner = threading.Thread(target=cpu_scan, name="moe-cpu-scan")
-    scanner.start()
+
+    def start():
+        if pending is not None:
+            torch.set_num_threads(max(threads // 2, 1))
+        scanner.start()
+
+    if pending is None:
+        start()
 
     # b. both kernels at this shape, bitwise and timed
     errs = check_kernels(csvec, spec, a.state["params"], a.state["mode_state"]["Verror"])
@@ -5351,15 +5469,441 @@ def moe_phase(kernels, csvec, engine, time_ms, gen: torch.Generator, card: str) 
     del b, state_a
 
     # c. the single shot on the card against the CPU scan
-    scanner.join()
-    if "error" in scan:
-        raise scan["error"]
-    print(f"moe: {unsketch_check(csvec, spec, table, k, scan['out'])}; the CPU scan took "
-          f"{scan['s']:.1f} s on a thread", flush=True)
+    def finish():
+        t0 = time.perf_counter()
+        scanner.join()
+        torch.set_num_threads(threads)
+        if "error" in scan:
+            raise scan["error"]
+        print(f"moe: {unsketch_check(csvec, spec, table, k, scan['out'])}; the CPU scan took "
+              f"{scan['s']:.1f} s on a thread, {time.perf_counter() - t0:.1f} s of it "
+              f"waited for [{card}]", flush=True)
+
+    if pending is None:
+        finish()
+    else:
+        pending.append((start, finish))
     print(f"moe: phase took {time.perf_counter() - phase_t:.1f} s [{card}]", flush=True)
     return {name: {**times[name], "launches": launches[name], "max_abs_err": errs[i],
                    "d": spec.d, "c": spec.c, "r": spec.r}
             for i, name in enumerate(("sketch_accumulate", "sketch_query"))}
+
+
+@contextlib.contextmanager
+def gpt2_fields(**changes):
+    """Inside the block, ``gpt2_train`` builds GPT-2 (small and tiny) with
+    these config fields changed (remat, dropout: the CLI has no flag for
+    them)."""
+    from commefficient_tpu_torch import gpt2_train
+
+    orig = gpt2_train.SMALL, gpt2_train.TINY
+    gpt2_train.SMALL, gpt2_train.TINY = (dataclasses.replace(c, **changes) for c in orig)
+    try:
+        yield
+    finally:
+        gpt2_train.SMALL, gpt2_train.TINY = orig
+
+
+def peak_sites(snapshot: dict, base: int, top: int = 8) -> dict:
+    """Where the device memory lay at the peak of a window recorded by
+    ``torch.cuda.memory._record_memory_history``: the allocator's trace
+    replayed (an alloc adds its block, a free takes it away) to its highest
+    point, the blocks live there summed by the innermost frame of the
+    port's code that allocated them. ``base``: the bytes allocated when the
+    window opened (not in the trace). Returns {"peak_gb", "base_gb",
+    "sites": [(site, GB, its three commonest (block bytes, count)), ...]}
+    largest first."""
+    trace = [e for dev in snapshot["device_traces"] for e in dev]
+    live, cur, best, best_at = {}, 0, 0, -1
+    frees = {"free_requested", "free"}
+    for i, e in enumerate(trace):
+        if e["action"] == "alloc":
+            cur += e["size"]
+            if cur > best:
+                best, best_at = cur, i
+        elif e["action"] in frees:
+            cur -= e["size"]
+    for e in trace[:best_at + 1]:
+        if e["action"] == "alloc":
+            live[e["addr"]] = e
+        elif e["action"] in frees:
+            live.pop(e["addr"], None)
+    sites, sizes = Counter(), {}
+    for e in live.values():
+        frame = next((f for f in e.get("frames", ())
+                      if "commefficient_tpu_torch" in f["filename"]), None)
+        where = (f"{os.path.basename(frame['filename'])}:{frame['line']} {frame['name']}"
+                 if frame else "elsewhere")
+        sites[where] += e["size"]
+        sizes.setdefault(where, Counter())[e["size"]] += 1
+    return {"peak_gb": (base + best) / 1e9, "base_gb": base / 1e9,
+            "sites": [(w, round(b / 1e9, 3), sizes[w].most_common(3))
+                      for w, b in sites.most_common(top)]}
+
+
+@contextlib.contextmanager
+def timed_rounds(engine, rec: list, device: str, first: dict):
+    """Inside the block, each round step of a session built there
+    synchronizes, meets the group's other ranks at a barrier, zeroes the
+    collectives' counts (and on the card the peak memory), runs and
+    synchronizes again, and appends its {"round_ms", "peak_gb" (the step's
+    peak device memory), "client_peak_gb" (its client phase's: the vmapped
+    gradients), "coll_bytes", "coll_calls", "coll_ms"} to ``rec``; ``first["p0"]`` is a
+    copy of the params the first round started from, and ``first["peak"]``
+    the peak device bytes of the run up to its last round's end."""
+    import torch.distributed as dist
+
+    from commefficient_tpu_torch.parallel import collectives, distributed
+
+    make, make_updates = engine.make_round_step, engine.make_client_updates
+    seen = {"before": 0, "client": 0}  # this round's peak bytes before the client phase, in it
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def make_updates_peaked(*a, **kw):
+        updates = make_updates(*a, **kw)
+
+        def peaked(*args, **kwargs):
+            if device != "cuda":
+                return updates(*args, **kwargs)
+            seen["before"] = max(seen["before"], torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            traced = first.get("trace_round") == len(rec)
+            if traced:
+                base = torch.cuda.memory_allocated()
+                torch.cuda.memory._record_memory_history(max_entries=2_000_000)
+            out = updates(*args, **kwargs)
+            seen["client"] = max(seen["client"], torch.cuda.max_memory_allocated())
+            if traced:
+                torch.cuda.synchronize()
+                first["peak_sites"] = peak_sites(torch.cuda.memory._snapshot(), base)
+                torch.cuda.memory._record_memory_history(enabled=None)
+            return out
+
+        return peaked
+
+    def make_timed(*a, **kw):
+        step = make(*a, **kw)
+
+        def timed(*args, **kwargs):
+            if not rec:
+                first["p0"] = args[0]["params"].detach().clone()
+            sync()
+            if distributed.is_joined():
+                dist.barrier()
+            collectives.stats.update(calls=0, bytes=0, ms=0.0)
+            if device == "cuda":
+                first["peak"] = max(first.get("peak", 0), torch.cuda.max_memory_allocated())
+                torch.cuda.reset_peak_memory_stats()
+            seen.update(before=0, client=0)
+            t0 = time.perf_counter()
+            out = step(*args, **kwargs)
+            sync()
+            after = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+            peak = max(seen["before"], seen["client"], after)
+            first["peak"] = max(first.get("peak", 0), peak)
+            rec.append({"round_ms": (time.perf_counter() - t0) * 1e3, "peak_gb": peak / 1e9,
+                        "client_peak_gb": seen["client"] / 1e9,
+                        **{f"coll_{k}": v for k, v in collectives.stats.items()}})
+            return out
+
+        return timed
+
+    engine.make_round_step, engine.make_client_updates = make_timed, make_updates_peaked
+    try:
+        yield
+    finally:
+        engine.make_round_step, engine.make_client_updates = make, make_updates
+
+
+def par_run(kernels, engine, label: str, flags: list, changes: dict, device: str,
+            log_dir: str, trace_round: int | None = None) -> dict:
+    """One phase-27 run of ``gpt2_train.main`` (PAR_ARGS + flags, with the
+    GPT-2 fields ``changes``): its session, launches (counted over the run
+    only), per-round timings, logged rows, initial params, and peak device
+    memory over the run (its eval included) and over its round steps; with
+    ``trace_round`` i, where round i's client phase held its peak
+    (``peak_sites``)."""
+    from commefficient_tpu_torch import gpt2_train
+
+    log = os.path.join(log_dir, f"{label}.jsonl")
+    if os.path.exists(log):
+        os.remove(log)
+    rec: list = []
+    first: dict = {"trace_round": trace_round}
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with gpt2_fields(**changes), timed_rounds(engine, rec, device, first):
+        s = gpt2_train.main(PAR_ARGS + ["--log_jsonl", log, *flags])
+    launches = ravel_launches(kernels)
+    rows = []
+    if os.path.exists(log):
+        with open(log) as f:
+            rows = [json.loads(line) for line in f]
+    if any(n != PAR_ROUNDS for n in launches.values()):
+        fail(f"parallel {label}: launches {launches} in {PAR_ROUNDS} rounds, expected one of "
+             "each kernel a round")
+    if len(rec) != PAR_ROUNDS:
+        fail(f"parallel {label}: {len(rec)} timed rounds, expected {PAR_ROUNDS}")
+    peak = max(first["peak"], torch.cuda.max_memory_allocated()) if device == "cuda" else 0
+    return {"session": s, "launches": launches, "rounds": rec, "rows": rows, "p0": first["p0"],
+            "peak_gb": peak / 1e9, "round_peak_gb": max(r["peak_gb"] for r in rec),
+            "peak_sites": first.get("peak_sites")}
+
+
+def par_agreement(state: dict, twin: dict, p0: torch.Tensor) -> dict:
+    """A group run's state against its one-device twin's from the same
+    initial params p0: the share of the twin's moved coordinates the run
+    moved too, whether the coordinates both moved agree within rtol
+    PAR_RTOL / atol PAR_ATOL, and the largest difference there."""
+    agree, rel, swapped = round_agreement(state, twin, p0)
+    both = (state["params"] != p0) & (twin["params"] != p0)
+    a, b = state["params"][both], twin["params"][both]
+    return {"agree": agree, "rel": rel, "swapped": swapped,
+            "close": bool(torch.allclose(a, b, rtol=PAR_RTOL, atol=PAR_ATOL)),
+            "max_abs": (a - b).abs().max().item() if a.numel() else 0.0}
+
+
+def _stack_blocks(cfg, n: int, seed: int, device: str) -> dict:
+    """n GPT-2 blocks' parameters from a seeded generator (Dense kernels
+    normal(0.02), norms 1, biases 0), stacked [n, ...] by the port's
+    names."""
+    from commefficient_tpu_torch.models import gpt2
+
+    gen = torch.Generator().manual_seed(seed)
+    block = gpt2.Block(cfg)
+    layers = []
+    for _ in range(n):
+        layer = {}
+        for name, p in block.named_parameters():
+            if p.dim() == 2:
+                layer[name] = torch.randn(p.shape, generator=gen) * 0.02
+            else:
+                layer[name] = torch.ones(p.shape) if ".weight" in name and "ln_" in name \
+                    else torch.zeros(p.shape)
+        layers.append(layer)
+    return {k: torch.stack([layer[k] for layer in layers]).to(device) for k in layers[0]}
+
+
+def pipeline_check(axis, device: str) -> dict:
+    """Phase 27d on this rank: GPT-2 small's 12 blocks in S stages at
+    PIPE_MICRO microbatches of PIPE_ROWS rows, forward and the stage's
+    gradients of mean(y^2), against the sequential stack on this rank."""
+    import torch.distributed as dist
+    from torch.func import functional_call
+
+    from commefficient_tpu_torch.models import gpt2
+    from commefficient_tpu_torch.ops import pipeline
+
+    cfg = dataclasses.replace(gpt2.SMALL, vocab_size=261, n_positions=256, dropout=0.0)
+    block = gpt2.Block(cfg).to(device)
+    stacked = _stack_blocks(cfg, cfg.n_layer, 27, device)
+    gen = torch.Generator().manual_seed(28)
+    x = torch.randn(PIPE_MICRO, PIPE_ROWS, cfg.n_positions, cfg.n_embd, generator=gen).to(device)
+
+    def layer_fn(p, h):
+        return functional_call(block, p, (h, None))
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+        dist.barrier()
+
+    def piped():
+        staged = pipeline.local_stage(pipeline.stack_stages(stacked, axis.size), axis)
+        staged = {k: v.clone().requires_grad_() for k, v in staged.items()}
+        y = pipeline.pipeline_apply(pipeline.scan_stage(layer_fn), staged, x, axis)
+        torch.mean(y ** 2).backward()
+        return y.detach(), staged
+
+    def sequential():
+        seq = {k: v.clone().requires_grad_() for k, v in stacked.items()}
+        ys = torch.stack([pipeline.scan_stage(layer_fn)(seq, x[m]) for m in range(PIPE_MICRO)])
+        torch.mean(ys ** 2).backward()
+        return ys.detach(), seq
+
+    ms, got = {}, {}
+    for _ in range(2):  # the first turn warms up; the second's times are kept
+        for name, fn in (("pipe", piped), ("seq", sequential)):
+            sync()
+            t0 = time.perf_counter()
+            got[name] = fn()
+            sync()
+            ms[name] = (time.perf_counter() - t0) * 1e3
+    (y, staged), (ys, seq) = got["pipe"], got["seq"]
+    pipe_ms, seq_ms = ms["pipe"], ms["seq"]
+    per = cfg.n_layer // axis.size
+    lo = axis.index * per
+    y_err = (y - ys).abs().max().item()
+    ok = torch.allclose(y, ys, rtol=PAR_RTOL, atol=PAR_ATOL)
+    g_err = 0.0
+    for k, v in staged.items():
+        want = seq[k].grad[lo:lo + per]
+        g_err = max(g_err, (v.grad[0] - want).abs().max().item())
+        ok = ok and torch.allclose(v.grad[0], want, rtol=PAR_RTOL, atol=PAR_ATOL)
+    return {"ok": bool(ok), "y_err": y_err, "grad_err": g_err, "pipe_ms": pipe_ms,
+            "seq_ms": seq_ms}
+
+
+def _parallel_rank(base: str, device: str) -> None:
+    """One rank of phase 27's gloo group: (b) --model_parallel 2 and (c)
+    --seq_parallel 2 --attn_impl ring through ``gpt2_train.main``, each
+    held against its one-device twin's state from ``base``, then (d) the
+    pipeline; writes its readings to ``base/rank<r>.json``."""
+    sys.path.insert(0, ROOT)
+    from commefficient_tpu_torch import cv_train
+    from commefficient_tpu_torch.federated import engine
+    from commefficient_tpu_torch.parallel import collectives, distributed
+    from commefficient_tpu_torch.sketch import csvec, kernels
+
+    reuse_run_inputs(cv_train)
+    distributed.initialize(force=True, backend="gloo", device=device)
+    rank = distributed.rank()
+    out = {}
+    p0 = torch.load(os.path.join(base, "p0.pt"), map_location=device)
+    for tag, flags, changes, twin in (
+            ("tp", ["--model_parallel", "2"], {}, "plain"),
+            ("seq", ["--seq_parallel", "2", "--attn_impl", "ring"], {"dropout": 0.0}, "dense0")):
+        got = par_run(kernels, engine, f"{tag}_rank{rank}", flags, changes, device, base)
+        s = got["session"]
+        st = {k: v for k, v in _state(s).items()}
+        want = torch.load(os.path.join(base, f"{twin}.pt"), map_location=device)
+        errs = check_kernels(csvec, s.cfg.mode.sketch_spec, st["params"], st["Verror"])
+        out[tag] = {"digest": tree_digest(st), "launches": got["launches"],
+                    "rounds": got["rounds"], "rows": got["rows"], "peak_gb": got["peak_gb"],
+                    "round_peak_gb": got["round_peak_gb"],
+                    "kernel_errs": list(errs), "parallel": s.train_loss_fn.parallel is not None,
+                    **par_agreement(st, want, p0)}
+        del s, got, st, want
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    axis = collectives.Axis(torch.distributed.group.WORLD, distributed.world_size(), rank)
+    out["pipe"] = pipeline_check(axis, device)
+    with open(os.path.join(base, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    distributed.shutdown()
+
+
+def parallel_phase(cv_train, engine, csvec, kernels, card: str, device: str = "cuda",
+                   before_group=None) -> dict:
+    """Phase 27: GPT-2's parallelism on phase 11's cell; ``before_group``,
+    if given, is called just before the group's launch (after (a)'s timed
+    runs). Returns each kernel's launches over each run (each rank's on the
+    group)."""
+    import shutil
+
+    from commefficient_tpu_torch.parallel import distributed
+
+    reuse_run_inputs(cv_train)
+    base = os.path.join(ROOT, "build", "chip_smoke", "parallel")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    phase_t = time.perf_counter()
+    launches = {}
+
+    def line(label, got):
+        r = got["rounds"]
+        return (f"{label}: round ms {[round(x['round_ms'], 1) for x in r]}, peak device memory "
+                f"{[round(x['peak_gb'], 2) for x in r]} GB a round step, {got['peak_gb']:.2f} GB "
+                f"over the run, launches {got['launches']}, final row "
+                f"{got['rows'][-1] if got['rows'] else None} [{card}]")
+
+    # a. remat against plain on one card
+    runs = {}
+    for label, changes in (("plain", {}), ("remat", {"remat": True}), ("dense0", {"dropout": 0.0})):
+        # round 1 (the warm-up) records the memory history; round 2 is timed clean
+        runs[label] = par_run(kernels, engine, label, [], changes, device, base,
+                              trace_round=0 if label != "dense0" else None)
+        launches[label] = runs[label]["launches"]
+        print(f"parallel a {line(label, runs[label])}", flush=True)
+    pl, rm = runs["plain"]["session"], runs["remat"]["session"]
+    if not (_equal(_state(pl), _state(rm)) and runs["plain"]["rows"] == [
+            {**r, "time_s": p["time_s"]} for r, p in zip(runs["remat"]["rows"],
+                                                         runs["plain"]["rows"])]):
+        fail("parallel a: the remat run differs from the plain run")
+    pk, rk = runs["plain"]["round_peak_gb"], runs["remat"]["round_peak_gb"]
+    pc, rc = (max(r["client_peak_gb"] for r in runs[k]["rounds"]) for k in ("plain", "remat"))
+    print(f"parallel a: remat == plain bitwise over {PAR_ROUNDS} rounds (params, Vvelocity, "
+          f"Verror, rows); a round step's peak device memory {pk:.2f} GB plain, {rk:.2f} GB "
+          f"remat ({100 * (1 - rk / max(pk, 1e-9)):.1f} % less), its client phase's {pc:.2f} "
+          f"and {rc:.2f} GB ({100 * (1 - rc / max(pc, 1e-9)):.1f} % less); over the run, eval "
+          f"included, {runs['plain']['peak_gb']:.2f} and {runs['remat']['peak_gb']:.2f} GB "
+          f"[{card}]", flush=True)
+    for label in ("plain", "remat"):
+        if runs[label]["peak_sites"]:
+            print(f"parallel a {label}: round 1's client phase at its peak (memory history "
+                  f"replayed): {runs[label]['peak_sites']}", flush=True)
+    if not all(torch.equal(runs[k]["p0"], runs["plain"]["p0"]) for k in runs):
+        fail("parallel a: the runs started from different params")
+    torch.save(runs["plain"]["p0"], os.path.join(base, "p0.pt"))
+    for label in ("plain", "dense0"):
+        torch.save(_state(runs[label]["session"]), os.path.join(base, f"{label}.pt"))
+    del runs, pl, rm
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # b-d. the group
+    if before_group is not None:
+        before_group()
+    t0 = time.perf_counter()
+    codes = distributed.launch_local(_parallel_rank, PAR_RANKS, (base, device),
+                                     env={"LOCAL_RANK": "0"}, timeout_s=900)
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r in range(PAR_RANKS):
+        path = os.path.join(base, f"rank{r}.json")
+        if not os.path.exists(path):
+            fail(f"parallel: rank {r} wrote nothing (exit codes {codes})")
+        with open(path) as f:
+            ranks.append(json.load(f))
+    if codes != [0] * PAR_RANKS:
+        fail(f"parallel: exit codes {codes}")
+    for tag, what in (("tp", "b --model_parallel 2"), ("seq", "c --seq_parallel 2 ring")):
+        first = ranks[0][tag]
+        for r, got in enumerate(ranks):
+            g = got[tag]
+            launches[f"{tag}_rank{r}"] = g["launches"]
+            if not g["parallel"]:
+                fail(f"parallel {what}: rank {r}'s loss computed over no group")
+            if g["digest"] != first["digest"]:
+                fail(f"parallel {what}: rank {r}'s state differs from rank 0's")
+            if any(g["kernel_errs"]):
+                fail(f"parallel {what}: rank {r}'s kernels differ from the plain versions")
+            if not g["close"] or g["agree"] < PAR_TOPK_AGREE:
+                fail(f"parallel {what}: rank {r} against the one-device run: agreement "
+                     f"{g['agree']}, within tolerance {g['close']}, max abs {g['max_abs']}")
+        rounds = first["rounds"]
+        print(f"parallel {what}: ranks bitwise; against the one-device run: moved-set "
+              f"agreement {first['agree']:.6f}, {first['swapped']} coordinates moved by one "
+              f"only, the both-moved coordinates within rtol {PAR_RTOL} / atol {PAR_ATOL} (max "
+              f"abs {first['max_abs']:.3e}, rel L2 {first['rel']:.3e}); kernels == plain on "
+              f"the run's params and error table; launches a rank {first['launches']}; rank "
+              f"0's rounds: ms {[round(x['round_ms'], 1) for x in rounds]}, collective MB "
+              f"{[round(x['coll_bytes'] / 1e6, 1) for x in rounds]}, calls "
+              f"{[x['coll_calls'] for x in rounds]}, host ms in collectives "
+              f"{[round(x['coll_ms'], 1) for x in rounds]} (gloo through host memory, 2 ranks "
+              f"on one card); a rank's peak device memory {first['round_peak_gb']:.2f} GB a "
+              f"round step, {first['peak_gb']:.2f} GB over the run; final row "
+              f"{first['rows'][-1] if first['rows'] else None} [{card}]", flush=True)
+    for r, got in enumerate(ranks):
+        pp = got["pipe"]
+        if not pp["ok"]:
+            fail(f"parallel d: rank {r}'s pipeline differs from the sequential stack "
+                 f"(y {pp['y_err']}, grads {pp['grad_err']})")
+    pp = ranks[0]["pipe"]
+    print(f"parallel d: pipeline_apply over GPT-2 small's 12 blocks in {PAR_RANKS} stages at "
+          f"{PIPE_MICRO} microbatches of {PIPE_ROWS} rows == the sequential stack within rtol "
+          f"{PAR_RTOL} / atol {PAR_ATOL} on every rank (max abs y {pp['y_err']:.3e}, grads "
+          f"{max(g['pipe']['grad_err'] for g in ranks):.3e}); forward + backward "
+          f"{pp['pipe_ms']:.1f} ms pipelined, {pp['seq_ms']:.1f} ms sequential on rank 0, after "
+          "a warm-up turn of each "
+          f"[{card}]", flush=True)
+    print(f"parallel: group launch {wall:.1f} s; phase took {time.perf_counter() - phase_t:.1f} "
+          f"s [{card}]", flush=True)
+    return launches
 
 
 def time_kernels(csvec, kernels, time_ms, spec, gen: torch.Generator) -> dict:
@@ -5528,6 +6072,14 @@ def main(argv: list[str]) -> int:
         print(json.dumps({"kernels": list(rows.values())}), flush=True)
         print("chip_smoke: moe-only run done", flush=True)
         return 0
+    if "--parallel-only" in argv:
+        phase("27 (parallelism)")
+        par = parallel_phase(cv_train, engine, csvec, kernels, card_line())
+        for name in rows:
+            rows[name]["launches_parallel"] = {run: n[name] for run, n in par.items()}
+        print(json.dumps({"kernels": list(rows.values())}), flush=True)
+        print("chip_smoke: parallel-only run done", flush=True)
+        return 0
     if "--layerwise-only" in argv:
         phase("19 (layerwise)")
         lw = layerwise_phase(cv_train, engine, csvec, kernels, time_ms, gen, card_line())
@@ -5645,9 +6197,12 @@ def main(argv: list[str]) -> int:
     phase("17 (robust merges, quarantine)")
     robust = robust_phase(cv_train, engine, csvec, kernels, card)
 
-    # 18. the sharded round
+    # 18. the sharded round; one launch of 4 gloo ranks runs the group runs
+    # of phases 18b, 20 and 21 (and through 21, those of 22f to 25f)
     phase("18 (sharded round)")
-    mesh = mesh_phase(cv_train, engine, kernels, card)
+    served_extra = ("async", "fast", "proc", "edge")
+    joint = joint_launch(("mesh", "group", "serve"), served_extra)
+    mesh = mesh_phase(cv_train, engine, kernels, card, joint)
 
     # 19. the layerwise sketch path
     phase("19 (layerwise)")
@@ -5655,13 +6210,12 @@ def main(argv: list[str]) -> int:
 
     # 20. the rest of the client mesh on a group
     phase("20 (group)")
-    group = group_phase(cv_train, engine, kernels, card)
+    group = group_phase(cv_train, engine, kernels, card, joint)
 
     # 21. serving on a group, the serving pipeline
     phase("21 (serving on a group, the pipeline)")
-    # (the same launch runs phases 22f's, 23e's, 24d's and 25f's group runs)
     served, shared = serve_group_phase(cv_train, engine, csvec, kernels, card,
-                                       extra=("async", "fast", "proc", "edge"))
+                                       extra=served_extra, joint=joint)
 
     # 22. the buffered-async service
     phase("22 (the buffered-async service)")
@@ -5682,7 +6236,18 @@ def main(argv: list[str]) -> int:
 
     # 26. GPT-2's mixture of experts past the unsketch's single-shot line
     phase("26 (mixture of experts)")
-    moe = moe_phase(kernels, csvec, engine, time_ms, gen, card)
+    # (c)'s CPU scan runs beside phase 27's group launch and is checked
+    # after it
+    moe_pending: list = []
+    moe = moe_phase(kernels, csvec, engine, time_ms, gen, card, pending=moe_pending)
+
+    # 27. GPT-2's parallelism: remat, tensor and sequence parallelism, GPipe
+    phase("27 (parallelism)")
+    par = parallel_phase(cv_train, engine, csvec, kernels, card,
+                         before_group=lambda: [start() for start, _ in moe_pending])
+    phase("26c (the MoE unsketch against the CPU scan)")
+    for _, finish in moe_pending:
+        finish()
     phase("end")
 
     for name in rows:
@@ -5707,6 +6272,7 @@ def main(argv: list[str]) -> int:
         rows[name]["launches_fastpath"] = {run: n.get(name, 0) for run, n in fp.items()}
         rows[name]["launches_shards"] = {run: n.get(name, 0) for run, n in sh.items()}
         rows[name]["launches_edges"] = {run: n.get(name, 0) for run, n in ed.items()}
+        rows[name]["launches_parallel"] = {run: n.get(name, 0) for run, n in par.items()}
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -390,16 +390,19 @@ class FederatedSession:
         shards = meshlib.client_shards(mesh) if mesh is not None else max(client_shards, 1)
         if mesh is not None and shards > 1:
             world = distributed.world_size()
-            if world != shards:
+            if world != mesh.ranks:
                 raise ValueError(
-                    f"the {shards}-way client mesh runs one shard per rank, but this process "
-                    f"is in a job of {world} rank(s): launch {shards} ranks (torchrun "
-                    "--nproc_per_node, or --multihost --coordinator_address --num_processes "
-                    "--process_id), or pass client_shards without a mesh for the emulation on "
-                    "one device")
+                    f"the {shards}-way client mesh runs one shard per rank (times "
+                    f"seq={mesh.seq} x model={mesh.model}), but this process is in a job of "
+                    f"{world} rank(s): launch {mesh.ranks} ranks (torchrun --nproc_per_node, "
+                    "or --multihost --coordinator_address --num_processes --process_id), or "
+                    "pass client_shards without a mesh for the emulation on one device")
             import torch.distributed as dist
 
-            self.group = dist.group.WORLD
+            distributed.join_mesh(mesh)
+            # the merge runs over the ranks of this rank's (seq, model)
+            # coordinate: the whole job when the mesh has neither axis
+            self.group = distributed.axis_group("clients") or dist.group.WORLD
         if shards > 1 and self.num_workers % shards:
             # the cohort must split evenly: round it to the nearest viable
             # multiple (loudly), and raise when none exists

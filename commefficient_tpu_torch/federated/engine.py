@@ -123,6 +123,7 @@ from ..models.convert import FlatLayout
 from ..modes import modes
 from ..modes.config import ModeConfig
 from ..obs import health as obhealth
+from ..parallel import collectives
 from ..sketch import csvec, layerwise
 
 # reserved batch key: the [W] 0/1 validity mask of the sampled clients
@@ -598,16 +599,38 @@ def make_client_updates(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout
     step and the metrics summed over the steps. Each forward reads the
     dropout masks of ``cfg.generator(state["round"], slot, step)``, drawn
     before the map (``_draw_masks``). Batch norm computes each client's
-    statistics over that client's own batch under the map."""
+    statistics over that client's own batch under the map.
+
+    A loss whose model computes over seq and model groups (its
+    ``parallel``, ``collectives.ParallelAxes``) gives each rank a partial
+    gradient, which is made whole before anything else reads it, inside
+    the map, after every local step: first summed over the seq group in
+    rank order (each rank's loss is its token block's share), then, on a
+    model group, the ranks' slices of the split leaves are gathered and
+    placed (``tp.TPPlan.gather_full``). Every rank of a (clients, slices)
+    coordinate then holds the same bits."""
     mcfg = cfg.mode
     wd = cfg.weight_decay
+    axes = getattr(loss_fn, "parallel", None)
+    plan = None
+    if axes is not None and axes.model is not None:
+        from ..parallel.tp import TPPlan
+
+        plan = TPPlan(layout)
+
+    def whole(g):
+        if axes is not None and axes.seq is not None:
+            g = collectives.reduce_from_group(g, axes.seq)
+        if plan is not None:
+            g = plan.gather_full(g, axes.model)
+        return g
 
     def grad_one(pflat, net_state, cbatch, masks):
         def loss(leaves):
             return loss_fn(leaves, net_state, cbatch, masks)
 
         grads, aux = torch.func.grad(loss, has_aux=True)(layout.unflatten(pflat))
-        return layout.flatten(grads) + wd * pflat, aux["net_state"], aux["metrics"]
+        return whole(layout.flatten(grads)) + wd * pflat, aux["net_state"], aux["metrics"]
 
     def local_sgd_one(pflat, net_state, cbatch, masks, lr):
         mu = mcfg.momentum if mcfg.momentum_type == "local" else 0.0

@@ -35,7 +35,17 @@ axis replicated), its load-balancing aux weighted by --moe_aux_coef; GPT-2
 small with eight experts:
     python -m commefficient_tpu_torch.gpt2_train --mode sketch --num_clients 17500 \
         --num_workers 4 --k 50000 --num_cols 1000000 --num_rows 5 --moe_experts 8
-Refused by name: --attn_impl ring and --model_parallel or --seq_parallel > 1.
+Tensor parallelism (--model_parallel M: heads, MLP hidden units and
+experts split over M ranks) and sequence parallelism (--seq_parallel S
+--attn_impl ring: each rank carries T / S tokens, attention by ring
+attention) run on a job of clients x S x M ranks (--mesh clients=N
+[,slices=K], or the job's ranks split by the two flags), one card each:
+    torchrun --nproc_per_node 4 -m commefficient_tpu_torch.gpt2_train --mode sketch \
+        --num_clients 17500 --num_workers 4 --k 50000 --num_cols 1000000 \
+        --model_parallel 2 --seq_parallel 2 --attn_impl ring
+Every rank keeps the whole flat parameter vector and server state: the
+split is of compute and activations. --eval_f1 and --serve do not run
+with --model_parallel or --seq_parallel > 1 (refused by name).
 """
 
 from __future__ import annotations
@@ -73,8 +83,8 @@ def _from_checkpoint(args, tok, with_mc_head: bool) -> tuple[GPT2LMHead, dict, s
     a fresh normal(0.02) ``mc_head`` from a generator seeded --seed."""
     params, cfg = load_hf_gpt2(args.init_from, target_vocab_size=tok.vocab_size,
                                n_positions=max(args.seq_len, 1), dtype=args.dtype)
-    cfg = dataclasses.replace(cfg, with_mc_head=with_mc_head)
-    model = GPT2LMHead(cfg)
+    cfg = dataclasses.replace(cfg, with_mc_head=with_mc_head, attn_impl=args.attn_impl)
+    model = GPT2LMHead(cfg, axes=distributed.parallel_axes())
     if with_mc_head:
         gen = torch.Generator().manual_seed(args.seed)
         params["mc_head"] = torch.empty(cfg.n_embd).normal_(0.0, 0.02, generator=gen)
@@ -99,6 +109,19 @@ def build(args, fault_plan=None):
     if args.init_from and args.moe_experts > 0:
         raise SystemExit("--moe_experts with --init_from is not supported: HF GPT-2 "
                          "checkpoints carry no expert weights")
+    if args.attn_impl == "ring" and args.seq_parallel <= 1:
+        raise SystemExit(
+            "--attn_impl ring needs --seq_parallel > 1: without a 'seq' mesh "
+            "axis the model silently runs dense attention, which defeats the "
+            "point of asking for ring (the math is identical; the memory/"
+            "scaling behavior is not)"
+        )
+    if args.model_parallel > 1 or args.seq_parallel > 1:
+        for flag, on in (("--eval_f1", args.eval_f1 > 0), ("--serve", args.serve != "off")):
+            if on:
+                raise SystemExit(
+                    f"{flag} with --model_parallel or --seq_parallel > 1 is not ported "
+                    "(ROADMAP Queue 1 item 14e)")
     with_mc_head = args.mc_coef > 0
     if torch.device(args.device).type == "cuda":
         make_reproducible()  # before any CUDA work of the run
@@ -115,8 +138,9 @@ def build(args, fault_plan=None):
         base = TINY if args.model_size == "tiny" else SMALL
         cfg = dataclasses.replace(base, vocab_size=tok.vocab_size,
                                   n_positions=max(args.seq_len, 1), with_mc_head=with_mc_head,
-                                  dtype=args.dtype, moe_experts=args.moe_experts)
-        model = GPT2LMHead(cfg)
+                                  dtype=args.dtype, moe_experts=args.moe_experts,
+                                  attn_impl=args.attn_impl)
+        model = GPT2LMHead(cfg, axes=distributed.parallel_axes())
         init_weights(model, args.seed)
         params, init_note = dict(model.named_parameters()), ""
     cfg = model.cfg
@@ -179,6 +203,12 @@ def build(args, fault_plan=None):
         mesh=mesh,
         sketch_path=args.sketch_path,
     )
+    if args.attn_impl == "ring" and model.seq_axis is None:
+        raise SystemExit(
+            "--attn_impl ring: the session has no seq mesh, which would "
+            "silently degrade ring attention to dense; check --seq_parallel "
+            "and the device count"
+        )
     return session, valid_set, {"model": model, "tok": tok}
 
 

@@ -41,8 +41,28 @@ experts (``ops/moe.py``) with the reference's raw float32 parameters:
 products in the compute dtype. A forward given a list as ``moe_aux``
 appends each MoE layer's load-balancing aux to it, in block order.
 
-Not ported (a config asking for them raises): ring attention and
-rematerialisation.
+``remat`` recomputes each block's forward in the backward (``_Remat``,
+the reference's ``nn.remat(Block)``): the block's activations are not
+kept, its dropout masks are taken (or drawn) before the call and passed
+in, and the result is bitwise the plain forward's and backward's.
+
+Given ``axes`` (``parallel.collectives.ParallelAxes``), the model
+computes over a group of ranks. On the ``model`` axis (tensor
+parallelism, ``parallel/tp.py``) each rank takes H / M heads of
+attention, 4C / M hidden units of the MLP and E / M experts of a mixture
+of experts: copy-to-group before the column-parallel products, an
+ordered sum after the row-parallel ones, the bias added once after it;
+the attention-probability dropout mask is drawn whole and sliced by head.
+On the ``seq`` axis (``attn_impl="ring"``) each rank carries its block of
+T / S tokens through the whole model: ``wpe`` offset by the block, the
+dropout masks drawn whole and sliced by token, attention by ring
+attention (``ops/ring_attention.py``, which has no attention-probability
+dropout, as the reference's ring branch has none), and a mixture of
+experts gathering the group's tokens first, so that routing, capacity and
+the aux see all B * T tokens in the reference's order. The logits are the
+block's [B, T / S, V]; the mc head's score comes from the rank that holds
+the position and is summed over the group. Without a seq axis,
+``attn_impl="ring"`` is the one-rank form, ``_dense_causal``.
 """
 
 from __future__ import annotations
@@ -55,6 +75,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import moe
+from ..ops.ring_attention import ring_attention
+from ..parallel import collectives, tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,16 +116,12 @@ def is_moe_block(cfg: GPT2Config, i: int) -> bool:
     return cfg.moe_experts > 0 and i % cfg.moe_every == cfg.moe_every - 1
 
 
-def check_ported(cfg: GPT2Config) -> None:
-    """Raise for a configuration the port does not run."""
-    unported = [what for what, on in (
-        ("attn_impl='ring' (ring attention)", cfg.attn_impl != "dense"),
-        ("remat (rematerialisation)", cfg.remat),
-    ) if on]
+def check_config(cfg: GPT2Config) -> None:
+    """Raise for a configuration the model does not have."""
     if cfg.dtype not in ("float32", "bfloat16"):
         raise ValueError(f"dtype must be 'float32' or 'bfloat16', got {cfg.dtype!r}")
-    if unported:
-        raise NotImplementedError(f"GPT-2 {', '.join(unported)}: not ported")
+    if cfg.attn_impl not in ("dense", "ring"):
+        raise ValueError(f"attn_impl must be 'dense' or 'ring', got {cfg.attn_impl!r}")
 
 
 class DropoutMasks:
@@ -120,18 +138,24 @@ class DropoutMasks:
         return next(self._masks)
 
 
-def dropout(x: torch.Tensor, rate: float, gen) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, gen, full: tuple | None = None,
+            cut=None) -> torch.Tensor:
     """Inverted dropout, as flax's ``nn.Dropout``: kept values are scaled by
     1 / (1 - rate), dropped ones are exact zeros. The keep mask is drawn
     from ``gen`` (a ``torch.Generator``) or, for ``DropoutMasks``, is its
-    next mask. No generator (eval) or rate 0: identity."""
+    next mask. No generator (eval) or rate 0: identity. A rank that holds
+    a slice of the site's tensor draws the ``full`` shape and applies
+    ``cut`` (its slice) to the mask."""
     if gen is None or rate == 0.0:
         return x
     keep = 1.0 - rate
     if isinstance(gen, DropoutMasks):
         mask = gen.take()
     else:
-        mask = torch.rand(x.shape, generator=gen, device=x.device, dtype=torch.float32) < keep
+        mask = torch.rand(full or x.shape, generator=gen, device=x.device,
+                          dtype=torch.float32) < keep
+    if cut is not None:
+        mask = cut(mask)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -148,10 +172,26 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
     ``dtype``, the product returned in ``dtype``. In bfloat16 the product
     is rounded before the bias is added, as flax adds it (a bias fused into
     the GEMM rounds once, and then differs in about 3 elements of 10)."""
-    w, b = layer.weight.to(dtype), layer.bias.to(dtype)
+    return dense_wb(layer.weight, layer.bias, x, dtype)
+
+
+def dense_wb(weight: torch.Tensor, bias: torch.Tensor | None, x: torch.Tensor,
+             dtype: torch.dtype) -> torch.Tensor:
+    """``dense`` of a weight [out, in] and a bias [out] (None: no bias)."""
+    w = weight.to(dtype)
+    if bias is None:
+        return F.linear(x.to(dtype), w)
+    b = bias.to(dtype)
     if dtype == torch.float32:
         return F.linear(x, w, b)
     return F.linear(x.to(dtype), w) + b
+
+
+def row_parallel(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype, axis) -> torch.Tensor:
+    """A row-parallel ``dense``: this rank's input units' product, the
+    ordered sum over the model group, then the bias, once."""
+    y = collectives.reduce_from_group(dense_wb(tp.rows(layer.weight, axis), None, x, dtype), axis)
+    return y + layer.bias.to(dtype)
 
 
 def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -219,40 +259,68 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: GPT2Config):
+    def __init__(self, cfg: GPT2Config, axes=None):
         super().__init__()
         self.cfg = cfg
+        self.axes = axes
         self.c_attn = nn.Linear(cfg.n_embd, 3 * cfg.n_embd)
         self.c_proj = nn.Linear(cfg.n_embd, cfg.n_embd)
 
-    def forward(self, x: torch.Tensor, gen) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, gen, seq_cut=None) -> torch.Tensor:
         cfg = self.cfg
         dt = cfg.compute_dtype
         B, T, C = x.shape
-        q, k, v = dense(self.c_attn, x, dt).split(C, dim=-1)
-        q, k, v = (t.reshape(B, T, cfg.n_head, cfg.head_dim).transpose(1, 2) for t in (q, k, v))
-        # 1 / sqrt(head_dim) rounded in the compute dtype, as the reference
-        # computes it; a Python float of that value scales without a copy
-        scale = (1.0 / torch.sqrt(torch.tensor(float(cfg.head_dim), dtype=dt))).item()
-        att = torch.matmul(q, k.transpose(-1, -2)) * scale
-        causal = torch.ones((T, T), dtype=torch.bool, device=x.device).tril()
-        att = att.masked_fill(~causal, torch.finfo(att.dtype).min)
-        att = dropout(torch.softmax(att.float(), dim=-1).to(dt), cfg.dropout, gen)
-        y = torch.matmul(att, v).transpose(1, 2).reshape(B, T, C)
-        return dropout(dense(self.c_proj, y, dt), cfg.dropout, gen)
+        mp = self.axes.model if self.axes is not None else None
+        sq = self.axes.seq if self.axes is not None else None
+        H, hd = cfg.n_head, cfg.head_dim
+        if mp is not None:
+            H //= mp.size
+            qkv = dense_wb(tp.columns(self.c_attn.weight, mp, 3),
+                           tp.columns(self.c_attn.bias, mp, 3),
+                           collectives.copy_to_group(x, mp), dt)
+        else:
+            qkv = dense(self.c_attn, x, dt)
+        q, k, v = (t.reshape(B, T, H, hd) for t in qkv.split(H * hd, dim=-1))
+        if cfg.attn_impl == "ring":
+            # no attention-probability dropout, as the reference's ring branch
+            y = ring_attention(q, k, v, sq).reshape(B, T, H * hd)
+        else:
+            q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+            # 1 / sqrt(head_dim) rounded in the compute dtype, as the
+            # reference computes it; a Python float of that value scales
+            # without a copy
+            scale = (1.0 / torch.sqrt(torch.tensor(float(hd), dtype=dt))).item()
+            att = torch.matmul(q, k.transpose(-1, -2)) * scale
+            causal = torch.ones((T, T), dtype=torch.bool, device=x.device).tril()
+            att = att.masked_fill(~causal, torch.finfo(att.dtype).min)
+            heads = None
+            if mp is not None:  # the mask of every head, sliced to this rank's
+                heads = lambda m: m.narrow(-3, mp.index * H, H)  # noqa: E731
+            att = dropout(torch.softmax(att.float(), dim=-1).to(dt), cfg.dropout, gen,
+                          full=(B, cfg.n_head, T, T), cut=heads)
+            y = torch.matmul(att, v).transpose(1, 2).reshape(B, T, H * hd)
+        y = row_parallel(self.c_proj, y, dt, mp) if mp is not None else dense(self.c_proj, y, dt)
+        return dropout(y, cfg.dropout, gen, *(seq_cut or ()))
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: GPT2Config):
+    def __init__(self, cfg: GPT2Config, axes=None):
         super().__init__()
         self.cfg = cfg
+        self.axes = axes
         self.c_fc = nn.Linear(cfg.n_embd, 4 * cfg.n_embd)
         self.c_proj = nn.Linear(4 * cfg.n_embd, cfg.n_embd)
 
-    def forward(self, x: torch.Tensor, gen) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, gen, seq_cut=None) -> torch.Tensor:
         dt = self.cfg.compute_dtype
-        h = gelu(dense(self.c_fc, x, dt))
-        return dropout(dense(self.c_proj, h, dt), self.cfg.dropout, gen)
+        mp = self.axes.model if self.axes is not None else None
+        if mp is None:
+            y = dense(self.c_proj, gelu(dense(self.c_fc, x, dt)), dt)
+        else:
+            h = dense_wb(tp.columns(self.c_fc.weight, mp), tp.columns(self.c_fc.bias, mp),
+                         collectives.copy_to_group(x, mp), dt)
+            y = row_parallel(self.c_proj, gelu(h), dt, mp)
+        return dropout(y, self.cfg.dropout, gen, *(seq_cut or ()))
 
 
 class MoEMLP(nn.Module):
@@ -263,17 +331,23 @@ class MoEMLP(nn.Module):
     the compute dtype; ``moe.moe_ffn`` routes in float32. Returns the
     output in the compute dtype, after dropout, and the layer's aux."""
 
-    def __init__(self, cfg: GPT2Config):
+    def __init__(self, cfg: GPT2Config, axes=None):
         super().__init__()
         self.cfg = cfg
+        self.axes = axes
         C, E = cfg.n_embd, cfg.moe_experts
         self.router = nn.Parameter(torch.empty(C, E))
         self.wi = nn.Parameter(torch.empty(E, C, 4 * C))
         self.wo = nn.Parameter(torch.empty(E, 4 * C, C))
 
-    def forward(self, x: torch.Tensor, gen) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, gen, seq_cut=None) -> tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
         dt = cfg.compute_dtype
+        mp = self.axes.model if self.axes is not None else None
+        sq = self.axes.seq if self.axes is not None and cfg.attn_impl == "ring" else None
+        if sq is not None:
+            # routing and capacity see the group's tokens in arrival order
+            x = collectives.all_gather(x, sq, 1)
         B, T, C = x.shape
 
         def expert_fn(p: dict, h: torch.Tensor) -> torch.Tensor:
@@ -281,49 +355,125 @@ class MoEMLP(nn.Module):
             return torch.matmul(gelu(h), p["wo"].to(dt)).float()
 
         y, aux = moe.moe_ffn(x.reshape(B * T, C), self.router, {"wi": self.wi, "wo": self.wo},
-                             expert_fn, capacity_factor=cfg.moe_capacity)
-        return dropout(y.reshape(B, T, C).to(dt), cfg.dropout, gen), aux
+                             expert_fn, capacity_factor=cfg.moe_capacity, axis=mp)
+        y = y.reshape(B, T, C)
+        if sq is not None:
+            y = y.narrow(1, sq.index * (T // sq.size), T // sq.size)
+        return dropout(y.to(dt), cfg.dropout, gen, *(seq_cut or ())), aux
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: GPT2Config, use_moe: bool = False):
+    def __init__(self, cfg: GPT2Config, use_moe: bool = False, axes=None):
         super().__init__()
         self.ln_1 = nn.LayerNorm(cfg.n_embd, eps=cfg.ln_eps)
-        self.attn = Attention(cfg)
+        self.attn = Attention(cfg, axes)
         self.ln_2 = nn.LayerNorm(cfg.n_embd, eps=cfg.ln_eps)
         if use_moe:
-            self.moe_mlp = MoEMLP(cfg)
+            self.moe_mlp = MoEMLP(cfg, axes)
         else:
-            self.mlp = MLP(cfg)
+            self.mlp = MLP(cfg, axes)
 
-    def forward(self, x: torch.Tensor, gen, moe_aux: list | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, gen, moe_aux: list | None = None,
+                seq_cut=None) -> torch.Tensor:
         # the norms return float32 (flax promotes); the sublayers return the
         # compute dtype, which the residual stream keeps
-        x = x + self.attn(layer_norm(self.ln_1, x), gen)
+        x = x + self.attn(layer_norm(self.ln_1, x), gen, seq_cut)
         h = layer_norm(self.ln_2, x)
         if not hasattr(self, "moe_mlp"):
-            return x + self.mlp(h, gen)
-        y, aux = self.moe_mlp(h, gen)
+            return x + self.mlp(h, gen, seq_cut)
+        y, aux = self.moe_mlp(h, gen, seq_cut)
         if moe_aux is not None:
             moe_aux.append(aux)
         return x + y
 
 
+class _Remat(torch.autograd.Function):
+    """``fn(*args)`` whose backward recomputes it: the forward keeps only
+    its inputs, and the backward runs ``fn`` again under ``torch.func.vjp``
+    for the cotangents of the first ``n_diff`` inputs (the rest, dropout
+    masks, are constants). The same operations on the same inputs, so the
+    values and gradients are bitwise the plain call's. Built from
+    operations that ``torch.func`` transforms, so vmap's rule is generated
+    and it runs under the engine's ``vmap(grad(...))``. The backward is not
+    itself differentiable."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, n_diff, *args):
+        return fn(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        fn, n_diff, *args = inputs
+        ctx.fn, ctx.n_diff = fn, n_diff
+        ctx.save_for_backward(*args)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        # detached: ``torch.func.grad`` differentiates with create_graph,
+        # which would record the recompute and keep its activations alive
+        # to the end of the backward (first-order gradients only)
+        args = [a.detach() for a in ctx.saved_tensors]
+        diff, rest = args[:ctx.n_diff], args[ctx.n_diff:]
+        _, vjp_fn = torch.func.vjp(lambda *d: ctx.fn(*d, *rest), *diff)
+        grads = vjp_fn(tuple(g.detach() for g in gs))
+        return (None, None, *grads, *([None] * len(rest)))
+
+
+def _remat_block(block: Block, x: torch.Tensor, gen, moe_aux, seq_cut, n_masks: int):
+    """``block(x, ...)`` under ``_Remat``: the block's parameters and x are
+    the differentiated inputs; its ``n_masks`` dropout masks are taken (or
+    drawn, bitwise as the plain forward would draw them) before the call
+    and passed in, so the recompute reads the same ones. ``gen`` is a
+    ``DropoutMasks`` or None."""
+    masks = [gen.take() for _ in range(n_masks)] if gen is not None else []
+    names = [n for n, _ in block.named_parameters()]
+    params = [p for _, p in block.named_parameters()]
+    has_moe = hasattr(block, "moe_mlp")
+
+    def fn(h, *rest):
+        p = dict(zip(names, rest[:len(names)]))
+        m = DropoutMasks(list(rest[len(names):])) if gen is not None else None
+        auxs = [] if has_moe else None
+        out = torch.func.functional_call(block, p, (h, m, auxs, seq_cut))
+        return (out, auxs[0]) if has_moe else (out,)
+
+    out = _Remat.apply(fn, 1 + len(params), x, *params, *masks)
+    if has_moe and moe_aux is not None:
+        moe_aux.append(out[1])
+    return out[0]
+
+
 class GPT2LMHead(nn.Module):
     """Causal LM with tied input/output embeddings; optional
-    next-utterance-classification head (``cfg.with_mc_head``)."""
+    next-utterance-classification head (``cfg.with_mc_head``). ``axes``
+    (``parallel.collectives.ParallelAxes``) are the seq and model groups
+    it computes over (module docstring); None: one rank."""
 
-    def __init__(self, cfg: GPT2Config):
+    def __init__(self, cfg: GPT2Config, axes=None):
         super().__init__()
-        check_ported(cfg)
+        check_config(cfg)
         self.cfg = cfg
+        if axes is not None and axes.model is not None:
+            tp.check_divides(cfg, axes.model.size)
+        if axes is not None and axes.seq is not None and cfg.attn_impl != "ring":
+            # the reference's seq axis splits only ring attention's blocks:
+            # with dense attention its ranks compute the whole sequence
+            axes = dataclasses.replace(axes, seq=None)
+        self.axes = axes if axes is not None and (axes.seq or axes.model) else None
         self.wte = nn.Parameter(torch.empty(cfg.vocab_size, cfg.n_embd))
         self.wpe = nn.Parameter(torch.empty(cfg.n_positions, cfg.n_embd))
         for i in range(cfg.n_layer):
-            self.add_module(f"h_{i}", Block(cfg, use_moe=is_moe_block(cfg, i)))
+            self.add_module(f"h_{i}", Block(cfg, use_moe=is_moe_block(cfg, i), axes=self.axes))
         self.ln_f = nn.LayerNorm(cfg.n_embd, eps=cfg.ln_eps)
         if cfg.with_mc_head:
             self.mc_head = nn.Parameter(torch.empty(cfg.n_embd))
+
+    @property
+    def seq_axis(self):
+        """The seq group's axis (None: the model sees whole sequences)."""
+        return self.axes.seq if self.axes is not None else None
 
     def forward(self, input_ids: torch.Tensor, train: bool = True,
                 token_type_ids: torch.Tensor | None = None,
@@ -337,20 +487,45 @@ class GPT2LMHead(nn.Module):
         [B]). Dropout runs when ``train`` and draws from ``gen``, which it
         then needs: a generator, or the list of masks ``dropout_masks``
         drew from one. Given a list, ``moe_aux`` receives each MoE layer's
-        load-balancing aux in block order."""
+        load-balancing aux in block order. On a seq group ``input_ids`` is
+        the whole [B, T] row and the logits are this rank's block
+        [B, T / S, V]."""
         cfg = self.cfg
         if train and cfg.dropout > 0 and gen is None:
             raise ValueError("a training forward with dropout needs a generator or its masks")
-        gen = gen if train else None
+        gen = gen if train and cfg.dropout > 0 else None
+        if isinstance(gen, torch.Generator) and cfg.remat:
+            # a rematerialised block must read the same masks twice
+            gen = self.dropout_masks(tuple(input_ids.shape), gen)
         if isinstance(gen, (list, tuple)):
             gen = DropoutMasks(gen)
-        T = input_ids.shape[1]
-        x = F.embedding(input_ids.long(), self.wte) + self.wpe[:T][None]
+        B, T = input_ids.shape
+        C = cfg.n_embd
+        sq = self.seq_axis
+        lo, seq_cut = 0, None
+        if sq is not None:
+            if T % sq.size:
+                raise ValueError(f"seq_len {T} is not divisible by the {sq.size}-way seq group")
+            if logit_positions is not None:
+                raise NotImplementedError("the decode fast path does not run on a seq group")
+            Tl = T // sq.size
+            lo = sq.index * Tl
+            input_ids = input_ids.narrow(1, lo, Tl)
+            if token_type_ids is not None:
+                token_type_ids = token_type_ids.narrow(1, lo, Tl)
+            seq_cut = ((B, T, C), lambda m: m.narrow(-2, lo, Tl))
+        Tl = input_ids.shape[1]
+        x = F.embedding(input_ids.long(), self.wte) + self.wpe.narrow(0, lo, Tl)[None]
         if token_type_ids is not None:
             x = x + F.embedding(token_type_ids.long(), self.wte)
-        x = dropout(x.to(cfg.compute_dtype), cfg.dropout, gen)
+        x = dropout(x.to(cfg.compute_dtype), cfg.dropout, gen, *(seq_cut or ()))
+        n_masks = 2 if cfg.attn_impl == "ring" else 3
         for i in range(cfg.n_layer):
-            x = getattr(self, f"h_{i}")(x, gen, moe_aux)
+            block = getattr(self, f"h_{i}")
+            if cfg.remat:
+                x = _remat_block(block, x, gen, moe_aux, seq_cut, n_masks)
+            else:
+                x = block(x, gen, moe_aux, seq_cut)
         if isinstance(gen, DropoutMasks) and gen.left:
             raise ValueError(f"{gen.left} dropout masks left over after the forward")
         x = layer_norm(self.ln_f, x)
@@ -359,24 +534,31 @@ class GPT2LMHead(nn.Module):
         lm_logits = torch.matmul(x, self.wte.t())
         if not cfg.with_mc_head or mc_positions is None:
             return lm_logits
-        return lm_logits, gather_at(x, mc_positions) @ self.mc_head
+        if sq is None:
+            return lm_logits, gather_at(x, mc_positions) @ self.mc_head
+        # the rank that holds a position scores it; the others add zero
+        local = mc_positions.long() - lo
+        mine = (local >= 0) & (local < Tl)
+        score = gather_at(x, local.clamp(0, Tl - 1)) @ self.mc_head
+        return lm_logits, collectives.sum_partial(torch.where(mine, score, 0.0), sq)
 
     def dropout_masks(self, batch_shape: tuple, gen: torch.Generator) -> list[torch.Tensor]:
         """The keep masks a training forward over ``input_ids`` of shape
         ``batch_shape`` (B, T) draws from ``gen``, drawn here instead, with
         one ``torch.rand`` per dropout site in the forward's order and at
         its shape (the embedding [B, T, C], then per block the attention
-        probabilities [B, H, T, T], the attention output and the MLP's or
-        the MoE's output [B, T, C]): bitwise the masks the forward would
-        draw. Passed as
+        probabilities [B, H, T, T] (not under ring attention, which has no
+        such dropout), the attention output and the MLP's or the MoE's
+        output [B, T, C]): bitwise the masks the forward would draw, whole
+        on every rank of a group (each rank slices its own). Passed as
         ``gen`` (a list), the forward reads them in that order. [] with
         dropout off."""
         cfg = self.cfg
         if cfg.dropout == 0.0:
             return []
         B, T = batch_shape
-        shapes = [(B, T, cfg.n_embd)] + [(B, cfg.n_head, T, T), (B, T, cfg.n_embd),
-                                         (B, T, cfg.n_embd)] * cfg.n_layer
+        probs = [] if cfg.attn_impl == "ring" else [(B, cfg.n_head, T, T)]
+        shapes = [(B, T, cfg.n_embd)] + (probs + [(B, T, cfg.n_embd)] * 2) * cfg.n_layer
         keep = 1.0 - cfg.dropout
         return [torch.rand(s, generator=gen, device=gen.device, dtype=torch.float32) < keep
                 for s in shapes]

@@ -15,6 +15,38 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
+from ..parallel import collectives
+
+
+def _shifted_labels(labels: torch.Tensor, sq) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the labels the logits at t predict, the whole row's labelled-token
+    count) of [..., T] ``labels``: ``labels[..., 1:]``, or on the seq group
+    ``sq`` the row's labels shifted by one (-100 past the end) cut to this
+    rank's block of the logits."""
+    labels = labels.long()
+    if sq is None:
+        shifted = labels[..., 1:]
+        return shifted, (shifted != -100).sum()
+    pad = torch.full_like(labels[..., :1], -100)
+    shifted = torch.cat([labels[..., 1:], pad], -1)
+    Tl = labels.shape[-1] // sq.size
+    return shifted.narrow(-1, sq.index * Tl, Tl), (shifted != -100).sum()
+
+
+def _group_sums(metrics: dict, keys: tuple, sq) -> dict:
+    """``metrics`` with the ``keys`` summed over the seq group (one ordered
+    sum of their stack; values only, no gradient)."""
+    if sq is None:
+        return metrics
+    summed = collectives.sum_partial(torch.stack([metrics[k].detach() for k in keys]), sq)
+    return {**metrics, **dict(zip(keys, summed.unbind()))}
+
+
+def _first_rank(term: torch.Tensor, sq) -> torch.Tensor:
+    """A term every rank of the seq group computes alike, counted once: on
+    the group's first rank (times 0 elsewhere, so the ranks' graphs keep
+    one shape)."""
+    return term if sq is None or sq.index == 0 else term * 0.0
 
 def make_classification_loss(model: nn.Module, train: bool):
     """Masked softmax cross-entropy for image classifiers with batch-norm
@@ -71,28 +103,33 @@ def make_lm_loss(model: nn.Module, train: bool, moe_aux_coef: float = 0.0):
             model, params, (batch["input_ids"],),
             {"train": train, "token_type_ids": batch.get("token_type_ids"), "gen": gen,
              "moe_aux": auxs})
-        logits = logits[:, :-1]
-        labels = batch["labels"][:, 1:].long()
+        sq = getattr(model, "seq_axis", None)
+        if sq is None:
+            logits = logits[:, :-1]
+        labels, count = _shifted_labels(batch["labels"], sq)
         mask = (labels != -100).to(logits.dtype)
         safe_labels = labels.clamp_min(0)
         logp = F.log_softmax(logits, dim=-1)
         per_tok = -logp.gather(-1, safe_labels[..., None])[..., 0]
         loss_sum = (per_tok * mask).sum()
-        loss = loss_sum / mask.sum().clamp_min(1.0)
+        count = count.to(logits.dtype) if sq is not None else mask.sum()
+        loss = loss_sum / count.clamp_min(1.0)
         correct = ((logits.argmax(-1) == safe_labels).to(mask.dtype) * mask).sum()
-        metrics = {"loss_sum": loss_sum, "count": mask.sum(), "correct": correct}
+        metrics = {"loss_sum": loss_sum, "count": count, "correct": correct}
         if moe_aux_coef > 0:
             zero = torch.zeros((), dtype=loss.dtype, device=loss.device)
             moe_aux = sum((auxs[j] for j in order), zero) / max(len(auxs), 1)
-            loss = loss + moe_aux_coef * moe_aux
+            loss = loss + _first_rank(moe_aux_coef * moe_aux, sq)
             metrics["moe_aux_sum"] = moe_aux
             metrics["moe_aux_count"] = zero + 1.0
+        metrics = _group_sums(metrics, ("loss_sum", "correct"), sq)
         return loss, {"net_state": net_state, "metrics": metrics}
 
     def dropout_masks(batch: dict, gen: torch.Generator) -> list:
         return model.dropout_masks(tuple(batch["input_ids"].shape), gen) if train else []
 
     loss_fn.dropout_masks = dropout_masks
+    loss_fn.parallel = getattr(model, "axes", None)
     return loss_fn
 
 
@@ -124,17 +161,21 @@ def make_lm_mc_loss(model: nn.Module, train: bool, mc_coef: float = 1.0, pad_id:
              "gen": gen, "mc_positions": lengths - 1})
         mc_label = batch["mc_label"].long()
         gold = mc_label.clamp_min(0)  # padded examples read candidate 0, masked below
-        V = lm_logits.shape[-1]
-        lm_lgt = lm_logits.reshape(B, C, T, V).gather(
-            1, gold.reshape(B, 1, 1, 1).expand(B, 1, T, V))[:, 0, :-1]
-        labels = batch["labels"].long().gather(
-            1, gold.reshape(B, 1, 1).expand(B, 1, T))[:, 0, 1:]
+        sq = getattr(model, "seq_axis", None)
+        Tl, V = lm_logits.shape[-2:]
+        lm_lgt = lm_logits.reshape(B, C, Tl, V).gather(
+            1, gold.reshape(B, 1, 1, 1).expand(B, 1, Tl, V))[:, 0]
+        if sq is None:
+            lm_lgt = lm_lgt[:, :-1]
+        labels, count = _shifted_labels(batch["labels"].long().gather(
+            1, gold.reshape(B, 1, 1).expand(B, 1, T))[:, 0], sq)
         mask = (labels != -100).to(lm_lgt.dtype)
         safe = labels.clamp_min(0)
         logp = F.log_softmax(lm_lgt, dim=-1)
         per_tok = -logp.gather(-1, safe[..., None])[..., 0]
         loss_sum = (per_tok * mask).sum()
-        lm_loss = loss_sum / mask.sum().clamp_min(1.0)
+        count = count.to(lm_lgt.dtype) if sq is not None else mask.sum()
+        lm_loss = loss_sum / count.clamp_min(1.0)
         correct = ((lm_lgt.argmax(-1) == safe).to(mask.dtype) * mask).sum()
 
         scores = mc_logits.reshape(B, C)
@@ -143,11 +184,12 @@ def make_lm_mc_loss(model: nn.Module, train: bool, mc_coef: float = 1.0, pad_id:
         mc_loss_sum = (per_ex * mc_mask).sum()
         mc_loss = mc_loss_sum / mc_mask.sum().clamp_min(1.0)
         mc_correct = ((scores.argmax(-1) == gold).to(mc_mask.dtype) * mc_mask).sum()
-        return lm_loss + mc_coef * mc_loss, {
+        metrics = {"loss_sum": loss_sum, "count": count, "correct": correct,
+                   "mc_loss_sum": mc_loss_sum, "mc_count": mc_mask.sum(),
+                   "mc_correct": mc_correct}
+        return lm_loss + _first_rank(mc_coef * mc_loss, sq), {
             "net_state": net_state,
-            "metrics": {"loss_sum": loss_sum, "count": mask.sum(), "correct": correct,
-                        "mc_loss_sum": mc_loss_sum, "mc_count": mc_mask.sum(),
-                        "mc_correct": mc_correct},
+            "metrics": _group_sums(metrics, ("loss_sum", "correct"), sq),
         }
 
     def dropout_masks(batch: dict, gen: torch.Generator) -> list:
@@ -156,4 +198,5 @@ def make_lm_mc_loss(model: nn.Module, train: bool, mc_coef: float = 1.0, pad_id:
         return model.dropout_masks((B * C, T), gen) if train else []
 
     loss_fn.dropout_masks = dropout_masks
+    loss_fn.parallel = getattr(model, "axes", None)
     return loss_fn

@@ -23,8 +23,14 @@ tokens the dense dispatch alone would be 86 GB. Nothing has a
 data-dependent shape, and every operation (integer cumsum, sort, gather
 and its scatter-add backward) has a deterministic CUDA kernel, so the
 block runs under ``torch.func.vmap`` over a cohort and under
-``torch.use_deterministic_algorithms``. The expert axis is replicated (no
-expert parallelism).
+``torch.use_deterministic_algorithms``.
+
+Given the ``model`` axis of a group of M ranks, the experts split over it
+(expert parallelism, the reference's ``P("model", None, None)`` on the
+[E, ...] leaves): routing is replicated, each rank runs its E / M experts'
+queues, and the experts' outputs are summed over the group (each rank's
+rows of the others' experts are zeros). The expert inputs pass through
+copy-to-group, so their gradient sums the ranks' shares.
 """
 
 from __future__ import annotations
@@ -33,6 +39,8 @@ import math
 from typing import Callable
 
 import torch
+
+from ..parallel import collectives
 
 
 def _route(router_logits: torch.Tensor, capacity: int):
@@ -73,14 +81,15 @@ def capacity_of(tokens: int, experts: int, capacity_factor: float) -> int:
 
 
 def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, expert_params: dict,
-            expert_fn: Callable, *, capacity_factor: float = 1.25
+            expert_fn: Callable, *, capacity_factor: float = 1.25, axis=None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-1 MoE FFN over tokens x [T, D]: (y [T, D] in x's dtype, aux).
     ``expert_params`` holds tensors with a leading expert axis [E, ...];
     ``expert_fn(params, h [E, C, D]) -> [E, C, D]`` applies every expert to
     its own queue (a batched product over E, the reference's vmap over
     experts). Routing, dispatch and combine run in float32, as the
-    reference's dense products, by gathers (module docstring)."""
+    reference's dense products, by gathers (module docstring). ``axis``,
+    the model group's, splits the experts over its ranks."""
     T, D = x.shape
     E = next(iter(expert_params.values())).shape[0]
     C = capacity_of(T, E, capacity_factor)
@@ -95,8 +104,17 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, expert_params: dict,
     slots = torch.arange(C, device=x.device)
     filled = slots[None, :] < count[:, None]  # [E, C]
     src = order[(start[:, None] + slots[None, :]).clamp(max=T - 1)].reshape(-1, 1)
-    h = torch.where(filled.reshape(-1, 1), xf.gather(0, src.expand(-1, D)), 0.0)
-    y = expert_fn(expert_params, h.reshape(E, C, D)).float().reshape(E * C, D)
+    xe = xf if axis is None else collectives.copy_to_group(xf, axis)
+    h = torch.where(filled.reshape(-1, 1), xe.gather(0, src.expand(-1, D)), 0.0)
+    if axis is None:
+        y = expert_fn(expert_params, h.reshape(E, C, D)).float().reshape(E * C, D)
+    else:
+        k = E // axis.size
+        lo = axis.index * k
+        mine = {n: t.narrow(0, lo, k) for n, t in expert_params.items()}
+        y = expert_fn(mine, h.reshape(E, C, D).narrow(0, lo, k)).float()
+        y = torch.cat([y.new_zeros((lo, C, D)), y, y.new_zeros((E - lo - k, C, D))])
+        y = collectives.reduce_from_group(y, axis).reshape(E * C, D)
     # each kept token's output, gate-weighted; routed = the gate mass that landed
     at = (expert * C + pos.clamp(max=C - 1))[:, None].expand(-1, D)
     gate = torch.where(kept, probs.gather(1, expert[:, None])[:, 0], 0.0)

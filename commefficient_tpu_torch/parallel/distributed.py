@@ -37,6 +37,13 @@ environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
   and the ranks that run their cohort slots, and back, with one
   ``all_to_all_single`` each way (gloo and NCCL both have it);
   ``gather_rows`` collects the blocks on rank 0 for a checkpoint.
+- ``join_mesh`` makes the process groups of the mesh's axes once the
+  mesh is known: every rank makes every group, in one order (the client
+  axis's groups, then the seq groups, then the model groups), and keeps
+  its own. ``axis_group`` returns this rank's group of an axis and
+  ``parallel_axes`` the ``seq`` and ``model`` axes a model computes over
+  (``collectives.ParallelAxes``). A mesh without seq or model ranks makes
+  none: its client axis is the whole job.
 - ``launch_local`` starts N ranks of a function on this host, with the
   environment torchrun would give them.
 """
@@ -57,6 +64,12 @@ import torch.distributed as dist
 _HOST_GROUP = None
 # the serve cycle's own group (serve_group), beside the default group
 _SERVE_GROUP = None
+# the mesh join_mesh made groups for, this rank's process group along each
+# of its axes, and the gloo group of its client axis on the host
+# (gather_rows), when the mesh has seq or model ranks
+_MESH = None
+_AXIS_GROUPS: dict = {}
+_CLIENT_HOST_GROUP = None
 # how long a rank waits for the others in the join and in a collective
 TIMEOUT_S = 600.0
 
@@ -192,10 +205,56 @@ def initialize(force: bool = False, fault_plan=None, retry_policy=None,
 
 def shutdown() -> None:
     """Leave the process group (and the groups beside it), if joined."""
-    global _HOST_GROUP, _SERVE_GROUP
+    global _HOST_GROUP, _SERVE_GROUP, _CLIENT_HOST_GROUP, _MESH
     if is_joined():
         dist.destroy_process_group()
-    _HOST_GROUP = _SERVE_GROUP = None
+    _HOST_GROUP = _SERVE_GROUP = _CLIENT_HOST_GROUP = _MESH = None
+    _AXIS_GROUPS.clear()
+
+
+def join_mesh(mesh) -> None:
+    """Make the process groups of ``mesh``'s axes (a collective: every rank
+    of the job calls it, with the same mesh). Each rank keeps its group on
+    the client axis (the ranks of its (seq, model) coordinate: the sharded
+    round's merge), on the seq axis and on the model axis, and a gloo
+    group of its client axis on the host. A mesh without seq or model
+    ranks makes none. Idempotent for one mesh."""
+    global _CLIENT_HOST_GROUP, _MESH
+    if mesh is None or mesh.seq * mesh.model == 1 or mesh == _MESH:
+        return
+    if world_size() != mesh.ranks:
+        raise ValueError(f"the mesh {mesh.shape} needs {mesh.ranks} ranks; this job has "
+                         f"{world_size()}")
+    me = rank()
+    for axis in ("clients", "seq", "model"):
+        for ranks in mesh.axis_ranks(axis):
+            g = dist.new_group(ranks)
+            if me in ranks:
+                _AXIS_GROUPS[axis] = g
+    for ranks in mesh.axis_ranks("clients"):
+        g = dist.new_group(ranks, backend="gloo")
+        if me in ranks:
+            _CLIENT_HOST_GROUP = g
+    _MESH = mesh
+
+
+def axis_group(axis: str):
+    """This rank's process group along ``axis`` of the joined mesh, or None
+    when ``join_mesh`` made none (no seq or model ranks)."""
+    return _AXIS_GROUPS.get(axis)
+
+
+def parallel_axes():
+    """The ``seq`` and ``model`` axes of the joined mesh as this rank sees
+    them (``collectives.ParallelAxes``), an axis of size 1 None; None when
+    the mesh has neither."""
+    from .collectives import Axis, ParallelAxes
+
+    if _MESH is None:
+        return None
+    c = _MESH.coords(rank())
+    return ParallelAxes(**{a: Axis(_AXIS_GROUPS[a], getattr(_MESH, a), c[a])
+                           for a in ("seq", "model") if getattr(_MESH, a) > 1})
 
 
 def serve_group():
@@ -250,6 +309,7 @@ def cli_mesh(args):
 
     mesh = meshlib.mesh_from_args(args, world_size())
     if mesh is not None:
+        join_mesh(mesh)
         print(f"mesh: {mesh_info(mesh)}", flush=True)
     return mesh
 
@@ -409,21 +469,25 @@ class RowMoves:
 
 def gather_rows(blocks: dict, num_rows: int) -> dict | None:
     """The whole client state on rank 0: every rank's host ``blocks``
-    ({key: [B, d]}, rank r's rows [r * B, (r + 1) * B) of the padded
-    state), gathered over the host group in rank order with the pad rows
-    cut, {key: [num_rows, d]}; None on every other rank. A collective:
-    every rank calls it, in the same order."""
-    S, r = world_size(), rank()
+    ({key: [B, d]}, shard s's rows [s * B, (s + 1) * B) of the padded
+    state), gathered over the host group of the client axis in shard order
+    with the pad rows cut, {key: [num_rows, d]}; None on every other rank
+    (on a mesh with seq or model ranks each client axis gathers to its
+    first rank, and only rank 0 keeps the rows: the others' are the same).
+    A collective: every rank calls it, in the same order."""
+    group = _CLIENT_HOST_GROUP or _HOST_GROUP
+    S, r = dist.get_world_size(group), dist.get_rank(group)
     out = {}
     for k in sorted(blocks):
         t = blocks[k].contiguous()
         parts = [torch.empty_like(t) for _ in range(S)] if r == 0 else None
-        dist.gather(t, parts, dst=0, group=_HOST_GROUP)
+        dist.gather(t, parts, dst=dist.get_global_rank(group, 0) if group is not None else 0,
+                    group=group)
         if r == 0:
             B = t.shape[0]
             out[k] = torch.cat([p[:max(0, min(B, num_rows - s * B))]
                                 for s, p in enumerate(parts)])
-    return out if r == 0 else None
+    return out if rank() == 0 else None
 
 
 def mesh_info(mesh) -> dict:

@@ -1,18 +1,21 @@
-"""The client mesh of the port's sharded round: the PyTorch twin of the JAX
+"""The mesh of the port's sharded runs: the PyTorch twin of the JAX
 package's ``parallel/mesh.py``, for one rank per card.
 
 In the JAX package a mesh is a grid of devices driven by one program and
 the sampled-client axis is sharded over it. In the port a rank is one
 process with one card, joined to the others by ``torch.distributed``
-(``parallel/distributed.py``), so the mesh is only its shape: ``clients``
-ranks inside a slice, times ``slices`` slices. Shard s of the cohort is the
-contiguous slice ``[s * W / S, (s + 1) * W / S)``, and rank r holds shard
-``shard_index(r)``, row-major over (slices, clients): the order the
-reference's ``_shard_index`` gives its devices and ``all_gather`` stacks
-the partial wires in. The batch of a shard is a slice of the cohort's
-batch, not a device placement, so the reference's sharding helpers
-(``client_sharding``, ``replicated``, ``shard_client_batch``) have no
-counterpart here.
+(``parallel/distributed.py``), so the mesh is only its shape, outermost
+first: ``slices`` x ``clients`` x ``seq`` x ``model``, the reference's axis
+order. A rank's coordinates are row-major over those four axes, with
+``model`` innermost. The cohort splits over the ``shards`` = slices x
+clients coordinates: shard s is the contiguous slice ``[s * W / S, (s + 1)
+* W / S)``, and every rank of one (slices, clients) coordinate holds the
+same shard, which its ``seq`` ranks split by token block (ring attention)
+and its ``model`` ranks by heads, hidden units and experts (tensor
+parallelism, ``parallel/tp.py``). The batch of a shard is a slice of the
+cohort's batch, not a device placement, so the reference's sharding
+helpers (``client_sharding``, ``replicated``, ``shard_client_batch``)
+have no counterpart here.
 """
 
 from __future__ import annotations
@@ -21,18 +24,24 @@ import dataclasses
 
 DCN_AXIS = "slices"  # ranks on other hosts or slices
 CLIENT_AXIS = "clients"  # ranks inside a slice
+SEQ_AXIS = "seq"  # sequence-parallel ranks (ring attention)
+MODEL_AXIS = "model"  # tensor-parallel ranks (the GPT-2 path)
+AXES = (DCN_AXIS, CLIENT_AXIS, SEQ_AXIS, MODEL_AXIS)  # outermost first
 
 
 @dataclasses.dataclass(frozen=True)
 class ClientMesh:
-    """``slices`` x ``clients`` ranks, one card each; ``shards`` of them
-    split the sampled cohort."""
+    """``slices`` x ``clients`` x ``seq`` x ``model`` ranks, one card
+    each; the ``shards`` = slices x clients coordinates split the sampled
+    cohort."""
 
     clients: int
     slices: int = 1
+    seq: int = 1
+    model: int = 1
 
     def __post_init__(self):
-        for axis in (CLIENT_AXIS, DCN_AXIS):
+        for axis in AXES:
             size = getattr(self, axis)
             if not isinstance(size, int) or size <= 0:
                 raise ValueError(f"the client mesh's {axis} must be a positive int, got {size!r}")
@@ -42,17 +51,45 @@ class ClientMesh:
         return self.clients * self.slices
 
     @property
+    def ranks(self) -> int:
+        """The job's ranks: shards x seq x model."""
+        return self.shards * self.seq * self.model
+
+    @property
     def shape(self) -> dict:
         """The axes and their sizes, outermost first; an axis of size 1 is
-        left out, as the reference's ``make_mesh`` leaves it out."""
-        return ({DCN_AXIS: self.slices} if self.slices > 1 else {}) | {CLIENT_AXIS: self.clients}
+        left out (but ``clients``), as the reference's ``make_mesh`` leaves
+        it out."""
+        return {a: getattr(self, a) for a in AXES
+                if a == CLIENT_AXIS or getattr(self, a) > 1}
+
+    def coords(self, rank: int) -> dict:
+        """Rank ``rank``'s coordinate on each axis: row-major over (slices,
+        clients, seq, model), model innermost."""
+        if not 0 <= rank < self.ranks:
+            raise ValueError(f"rank {rank} is outside the {self.ranks}-rank mesh")
+        out = {}
+        for axis in reversed(AXES):
+            rank, out[axis] = divmod(rank, getattr(self, axis))
+        return out
+
+    def axis_ranks(self, axis: str) -> list[list[int]]:
+        """The groups of ranks along ``axis`` ("clients" takes the slices
+        too: the cohort's shards), each in rank order, every rank in one
+        group; the groups in the order of the first rank of each."""
+        along = (DCN_AXIS, CLIENT_AXIS) if axis == CLIENT_AXIS else (axis,)
+        groups: dict = {}
+        for r in range(self.ranks):
+            c = self.coords(r)
+            key = tuple(v for a, v in c.items() if a not in along)
+            groups.setdefault(key, []).append(r)
+        return sorted(groups.values())
 
     def shard_index(self, rank: int) -> int:
-        """The cohort shard rank ``rank`` holds: row-major over (slices,
-        clients), slice ``rank // clients``, client ``rank % clients``."""
-        if not 0 <= rank < self.shards:
-            raise ValueError(f"rank {rank} is outside the {self.shards}-rank client mesh")
-        return (rank // self.clients) * self.clients + rank % self.clients
+        """The cohort shard rank ``rank`` holds: its (slices, clients)
+        coordinate, row-major."""
+        c = self.coords(rank)
+        return c[DCN_AXIS] * self.clients + c[CLIENT_AXIS]
 
 
 def client_shards(mesh: ClientMesh) -> int:
@@ -99,17 +136,20 @@ def parse_mesh_spec(spec: str) -> dict:
     return out
 
 
-def mesh_from_spec(spec: str, world_size: int) -> ClientMesh:
-    """The mesh a ``--mesh`` spec asks for, in a job of ``world_size``
-    ranks (one card each). A spec that needs another number of ranks
-    raises, as the reference's ``make_mesh_from_spec`` raises when the host
-    shows too few devices: an operator who typed a topology wants that
-    topology or a loud failure."""
+def mesh_from_spec(spec: str, world_size: int, model_parallel: int = 1,
+                   seq_parallel: int = 1) -> ClientMesh:
+    """The mesh a ``--mesh`` spec asks for, times ``seq_parallel`` x
+    ``model_parallel``, in a job of ``world_size`` ranks (one card each).
+    A spec that needs another number of ranks raises, as the reference's
+    ``make_mesh_from_spec`` raises when the host shows too few devices: an
+    operator who typed a topology wants that topology or a loud failure."""
     sizes = parse_mesh_spec(spec)
-    mesh = ClientMesh(clients=sizes["clients"], slices=sizes["slices"])
-    if mesh.shards != world_size:
+    mesh = ClientMesh(clients=sizes["clients"], slices=sizes["slices"], seq=seq_parallel,
+                      model=model_parallel)
+    if mesh.ranks != world_size:
         raise ValueError(
-            f"--mesh {spec!r} needs {mesh.shards} ranks (one card each); this job has "
+            f"--mesh {spec!r} (x model_parallel={model_parallel} x seq_parallel="
+            f"{seq_parallel}) needs {mesh.ranks} ranks (one card each); this job has "
             f"{world_size} (launch one rank per card: torchrun --nproc_per_node, or "
             "--multihost --coordinator_address --num_processes --process_id)")
     return mesh
@@ -171,15 +211,24 @@ def client_row_bytes(ids, num_clients: int, n_shards: int, d: int, n_keys: int,
 
 
 def mesh_from_args(args, world_size: int) -> ClientMesh | None:
-    """The CLIs' mesh: ``--mesh``'s, or one shard per rank of a job of
-    ``world_size`` ranks (the reference shards over every visible device
-    by default), or None for a single process. ``--num_devices`` other
-    than 0 must equal the rank count: a rank is one card."""
+    """The CLIs' mesh: ``--mesh``'s, or the job's ``world_size`` ranks
+    split into ``--seq_parallel`` x ``--model_parallel`` (GPT-2's flags,
+    1 elsewhere) and one cohort shard per remaining coordinate (the
+    reference shards over every visible device by default), or None for a
+    single process. ``--num_devices`` other than 0 must equal the rank
+    count: a rank is one card."""
+    mp, sp = getattr(args, "model_parallel", 1), getattr(args, "seq_parallel", 1)
     if args.mesh:
-        return mesh_from_spec(args.mesh, world_size)
+        return mesh_from_spec(args.mesh, world_size, model_parallel=mp, seq_parallel=sp)
     if args.num_devices and args.num_devices != world_size:
         raise ValueError(
             f"--num_devices {args.num_devices} disagrees with this job's {world_size} rank(s): "
             "the port runs one rank per card, so launch that many ranks (or leave "
             "--num_devices at 0)")
-    return ClientMesh(clients=world_size) if world_size > 1 else None
+    if world_size % (mp * sp):
+        raise ValueError(
+            f"{world_size} devices not divisible by num_slices=1 x seq_parallel={sp} x "
+            f"model_parallel={mp}")
+    if world_size == 1:
+        return None
+    return ClientMesh(clients=world_size // (mp * sp), seq=sp, model=mp)

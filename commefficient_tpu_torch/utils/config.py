@@ -1,14 +1,13 @@
 """The port's command-line flags: every option of the JAX package's
 ``utils/config.py`` parser, with the same names, types, choices and
 defaults, plus ``--device``, so a launch command of the reference parses
-here. The flags of features the port does not run yet (``_UNPORTED``:
-``--split_compile``, and GPT-2's ring attention and tensor and sequence
-parallelism) parse at the reference's defaults, and ``resolve_defaults``
-refuses any other value by name, with the ROADMAP Queue 1 item that
-brings the feature: accepted and ignored is never an outcome.
-``--share_ps_gpu`` and ``--port`` are the reference's own no-ops, and
-``--topk_recall`` is the recall target of a TPU's approximate selection,
-which the port's exact selections do not read."""
+here. The flags of features the port does not run (``_UNPORTED``:
+``--split_compile``) parse at the reference's defaults, and
+``resolve_defaults`` refuses any other value by name: accepted and
+ignored is never an outcome. ``--share_ps_gpu`` and ``--port`` are the
+reference's own no-ops, and ``--topk_recall`` is the recall target of a
+TPU's approximate selection, which the port's exact selections do not
+read."""
 
 from __future__ import annotations
 
@@ -27,17 +26,10 @@ _UNPORTED = (
     ("split_compile", dict(action="store_true"), (False,),
      "the port runs eagerly and compiles no program to split", None),
 )
-_PARALLEL = "tensor and sequence parallelism are not ported"
-_UNPORTED_GPT2 = (
-    ("attn_impl", dict(default="dense", choices=["dense", "ring"]), ("dense",),
-     "ring attention is not ported", 14),
-    ("model_parallel", dict(type=int, default=1), (1,), _PARALLEL, 14),
-    ("seq_parallel", dict(type=int, default=1), (1,), _PARALLEL, 14),
-)
 
 
 def _unported(task: str) -> tuple:
-    return _UNPORTED + (_UNPORTED_GPT2 if task == "gpt2" else ())
+    return _UNPORTED
 
 
 def make_parser(task: str = "cv") -> argparse.ArgumentParser:
@@ -392,6 +384,14 @@ def make_parser(task: str = "cv") -> argparse.ArgumentParser:
                        help="HF GPT-2 checkpoint dir (config.json + pytorch_model.bin "
                             "or model.safetensors) to fine-tune from; the wte is grown "
                             "for the dialog special tokens")
+        p.add_argument("--model_parallel", type=int, default=1,
+                       help="tensor-parallel ways for the GPT-2 path")
+        p.add_argument("--attn_impl", default="dense", choices=["dense", "ring"],
+                       help="ring = sequence-parallel ring attention (needs "
+                            "--seq_parallel > 1; K/V blocks rotate over ICI)")
+        p.add_argument("--seq_parallel", type=int, default=1,
+                       help="sequence-parallel ways (mesh 'seq' axis) for "
+                            "--attn_impl ring")
         p.add_argument("--mc_coef", type=float, default=0.0,
                        help="> 0 enables the next-utterance-classification head: joint "
                             "loss lm + mc_coef * mc over --num_candidates candidate "

@@ -159,3 +159,41 @@ def test_sketch_path_layerwise_runs(tiny_cv):  # noqa: F811
     session = cv_train.main(argv)
     assert session.round == 2 and session.cfg.sketch_path == "layerwise"
     assert np.isfinite(session.state["params"].numpy()).all()
+
+
+def test_parallelism_flags_parse():
+    """--model_parallel, --seq_parallel and --attn_impl ring are no longer
+    refused (they were, naming ROADMAP item 14): they parse at the
+    reference's keywords and resolve."""
+    assert not {"model_parallel", "seq_parallel", "attn_impl"} & set(UNPORTED)
+    args = _parse("gpt2", ["--model_parallel", "2", "--seq_parallel", "4", "--attn_impl",
+                           "ring"])
+    assert (args.model_parallel, args.seq_parallel, args.attn_impl) == (2, 4, "ring")
+
+
+GPT2_BASE = ["--device", "cpu", "--model_size", "tiny", "--seq_len", "32", "--num_clients", "4",
+             "--num_workers", "2", "--num_rounds", "1", "--data_root", "/nonexistent"]
+RING_NEEDS_SEQ = ("--attn_impl ring needs --seq_parallel > 1: without a 'seq' mesh axis the "
+                  "model silently runs dense attention")
+
+
+@pytest.mark.parametrize("argv,error,match", [
+    # the reference's own refusals, in its words
+    (["--attn_impl", "ring"], SystemExit, RING_NEEDS_SEQ),
+    (["--attn_impl", "ring", "--seq_parallel", "1", "--model_parallel", "2"], SystemExit,
+     RING_NEEDS_SEQ),
+    (["--model_parallel", "2"], ValueError,
+     "1 devices not divisible by num_slices=1 x seq_parallel=1 x model_parallel=2"),
+    (["--seq_parallel", "2", "--attn_impl", "ring"], ValueError,
+     "1 devices not divisible by num_slices=1 x seq_parallel=2 x model_parallel=1"),
+    # the combinations the port does not run, by name and ROADMAP item
+    (["--model_parallel", "2", "--eval_f1", "2"], SystemExit,
+     "--eval_f1 with --model_parallel or --seq_parallel > 1 is not ported .*item 14e"),
+    (["--seq_parallel", "2", "--attn_impl", "ring", "--serve", "inproc"], SystemExit,
+     "--serve with --model_parallel or --seq_parallel > 1 is not ported .*item 14e"),
+])
+def test_parallelism_refusals(argv, error, match):
+    from commefficient_tpu_torch import gpt2_train
+
+    with pytest.raises(error, match=match):
+        gpt2_train.main(GPT2_BASE + argv)

@@ -240,16 +240,66 @@ def test_training_forward_draws_from_its_generator(models):
 @pytest.mark.parametrize("field,value", [("attn_impl", "ring"), ("moe_experts", 4),
                                          ("remat", True)])
 def test_unported_configs_raise(field, value):
-    """Ring attention and rematerialisation raise; the mixture of experts
-    builds (every second block's FFN is ``moe_mlp``)."""
+    """Ring attention, the mixture of experts and rematerialisation build.
+    Without a seq group the
+    ring form's forward is the reference's ``_dense_causal`` (no attention
+    dropout), within atol 1e-5 of the dense one; remat's forward is the
+    plain one's, bitwise; every second block's FFN is ``moe_mlp``. A model
+    axis that does not divide the heads is refused by name."""
+    from commefficient_tpu_torch.parallel.collectives import Axis, ParallelAxes
+
     cfg = dataclasses.replace(TCFG, **{field: value})
+    model = tgpt2.GPT2LMHead(cfg)
     if field == "moe_experts":
-        model = tgpt2.GPT2LMHead(cfg)
         assert [hasattr(getattr(model, f"h_{i}"), "moe_mlp") for i in range(2)] == [False, True]
         assert tuple(model.h_1.moe_mlp.wi.shape) == (value, 64, 256)
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tgpt2.GPT2LMHead(cfg)
+    tgpt2.init_weights(model, 0)
+    plain = tgpt2.GPT2LMHead(TCFG)
+    plain.load_state_dict(model.state_dict())
+    ids = torch.from_numpy(_inputs()[0])
+    got, want = model(ids, train=False), plain(ids, train=False)
+    if field == "remat":
+        assert torch.equal(got, want)
+    else:
+        np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(), atol=1e-5)
+    with pytest.raises(ValueError, match="does not divide GPT-2's n_head"):
+        tgpt2.GPT2LMHead(cfg, axes=ParallelAxes(model=Axis(None, 4, 0)))
+
+
+@pytest.mark.parametrize("extra", [{}, {"moe_experts": 4}, {"with_mc_head": True}])
+def test_tp_plan_matches_partition_specs(extra):
+    """The port's tensor-parallel plan leaf for leaf against the reference's
+    ``gpt2_partition_specs`` (flax layouts: a torch weight is [out, in]):
+    column-parallel splits the kernel's out axis and the bias,
+    row-parallel the kernel's in axis, expert-split the experts' axis,
+    everything else replicated; ``TPPlan`` splits those axes of the flat
+    vector."""
+    from jax.sharding import PartitionSpec as P
+
+    from commefficient_tpu.parallel import tp as jtp
+    from commefficient_tpu_torch.parallel import tp as ttp
+
+    jmodel = jgpt2.GPT2LMHead(dataclasses.replace(JCFG, **extra))
+    shapes = jax.eval_shape(lambda: jmodel.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, T), jnp.int32), train=False))["params"]
+    specs = jtp.gpt2_partition_specs(shapes)
+    tmodel = tgpt2.GPT2LMHead(dataclasses.replace(TCFG, **extra))
+    plan = ttp.gpt2_plan(tmodel)
+    want = {ttp.COLUMN: {2: P(None, "model"), 1: P("model")}, ttp.ROW: {2: P("model", None)},
+            ttp.EXPERT: {3: P("model", None, None)}}
+    layout = convert.FlatLayout(tmodel)
+    splits = {s.offset: s for s in ttp.TPPlan(layout).splits}
+    for leaf in layout.leaves:
+        spec = specs
+        for key in convert.flax_path(leaf.name):
+            spec = spec[key]
+        kind = plan[leaf.name]
+        assert spec == want.get(kind, {}).get(len(leaf.shape), P()), leaf.name
+        split = splits.get(leaf.offset)
+        assert (split is None) == (kind == ttp.REPLICATED), leaf.name
+        if split is not None:  # the flax axis the spec shards
+            assert spec[split.dim] == "model", leaf.name
 
 
 def test_greedy_generate_matches(models):

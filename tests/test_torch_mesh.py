@@ -2,11 +2,14 @@
 against the JAX package's ``parallel/mesh.py``: ``parse_mesh_spec`` and
 ``merge_comm_bytes`` are value-equal to the reference's over a grid, with
 every one of its error messages (exact); the shard order is row-major over
-(slices, clients) as the reference's ``_shard_index``; the CLIs' mesh
-agrees with the job's rank count or raises."""
+(slices, clients) as the reference's ``_shard_index``, and a rank's
+coordinates over (slices, clients, seq, model) are where the reference's
+``make_mesh`` puts that device; the CLIs' mesh agrees with the job's rank
+count or raises."""
 
 import argparse
 
+import jax
 import pytest
 
 from commefficient_tpu.parallel import mesh as jmesh
@@ -98,3 +101,47 @@ def test_cli_mesh_disagreeing_with_the_ranks_raises(args, world):
     visible."""
     with pytest.raises(ValueError, match="rank"):
         tmesh.mesh_from_args(args, world)
+
+
+@pytest.mark.parametrize("sizes", [dict(clients=2, seq=2, model=2), dict(clients=1, model=2),
+                                   dict(clients=2, slices=2, seq=2),
+                                   dict(clients=1, seq=4, model=2)])
+def test_seq_and_model_axes_follow_the_reference(sizes):
+    """Axes outermost first (slices, clients, seq, model), a rank's
+    coordinates row-major with model innermost, as the reference's
+    ``make_mesh`` lays its devices out; the cohort splits over slices x
+    clients; every axis group holds the ranks that differ only along it;
+    the start-up line's keys equal the reference's ``mesh_info``."""
+    from commefficient_tpu.parallel.distributed import mesh_info as jmesh_info
+
+    m = tmesh.ClientMesh(**sizes)
+    ref = jmesh.make_mesh(m.ranks, model_parallel=m.model, num_slices=m.slices,
+                          seq_parallel=m.seq)
+    assert distributed.mesh_info(m) == jmesh_info(ref)
+    assert m.ranks == ref.devices.size and m.shards == jmesh.client_shards(ref)
+    for r in range(m.ranks):
+        c = m.coords(r)
+        # the reference puts its r-th device at these coordinates
+        assert ref.devices[tuple(c[a] for a in ref.axis_names)] == jax.devices()[r]
+        assert m.shard_index(r) == c["slices"] * m.clients + c["clients"]
+    for axis in ("clients", "seq", "model"):
+        groups = m.axis_ranks(axis)
+        assert sorted(r for g in groups for r in g) == list(range(m.ranks))
+        along = ("slices", "clients") if axis == "clients" else (axis,)
+        for g in groups:
+            cs = [m.coords(r) for r in g]
+            assert all({a: v for a, v in c.items() if a not in along}
+                       == {a: v for a, v in cs[0].items() if a not in along} for c in cs)
+
+
+def test_seq_and_model_flags_size_the_mesh():
+    args = argparse.Namespace(mesh="", num_devices=0, model_parallel=2, seq_parallel=2)
+    assert tmesh.mesh_from_args(args, 8) == tmesh.ClientMesh(clients=2, seq=2, model=2)
+    args.mesh = "clients=1,slices=2"
+    assert tmesh.mesh_from_args(args, 8) == tmesh.ClientMesh(clients=1, slices=2, seq=2,
+                                                             model=2)
+    with pytest.raises(ValueError, match=r"x model_parallel=2 x seq_parallel=2\) needs 8"):
+        tmesh.mesh_from_args(args, 4)
+    args.mesh = ""
+    with pytest.raises(ValueError, match="6 devices not divisible"):
+        tmesh.mesh_from_args(args, 6)
