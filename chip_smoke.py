@@ -450,7 +450,22 @@ Phases (any failure raises, and the exit status is non-zero):
    d. ``ops.pipeline.pipeline_apply`` over GPT-2 small's 12 blocks in 2
       stages on those ranks at 4 microbatches of 2 rows: forward and each
       stage's gradients of mean(y^2) against the sequential stack within
-      rtol 2e-4 / atol 2e-5; the ms of each.
+      rtol 2e-4 / atol 2e-5; the ms of each;
+   e. runs (a)-(c) with --eval_f1 4 (greedy, 32 new tokens): every rank
+      decodes at the eval boundary; the ranks' ids and lengths bitwise;
+      (b)'s and (c)'s ids against (a)'s plain and dense runs', any
+      differing token printed with its step's top-2 logit gap (a gap above
+      1e-3 fails); each run's val_f1, decode ms and collective bytes and
+      ms;
+   f. --serve inproc --serve_payload sketch --serve_pipeline on
+      --model_parallel 2, 2 rounds, on the same launch (the worker's client
+      step on the serve cycle's own groups), against a one-card served
+      twin of the same seed: (b)'s checks (ranks bitwise, the moved set
+      and values, both kernels against their plain versions on every
+      rank, launches a round), the served rounds' ms and each client
+      step's ms and collective bytes and ms;
+   g. the same on --seq_parallel 2 --attn_impl ring with dropout 0,
+      against a one-card dense served twin with dropout 0.
 
 Prints one JSON line with the kernels' numbers (launches counted over
 phase 8; under "gpt2" each kernel's numbers at the GPT-2 shape, launches
@@ -578,6 +593,14 @@ PAR_RANKS = 2
 PAR_RTOL, PAR_ATOL = 2e-4, 2e-5
 PAR_TOPK_AGREE = 0.99
 PIPE_MICRO, PIPE_ROWS = 4, 2
+# phase 27e: runs (a)-(c) decode --eval_f1 4 dialogs (greedy, the default
+# 32 new tokens); a group's token may differ from the one card's only at a
+# step whose top-2 logits lie within F1_GAP
+PAR_F1 = ["--eval_f1", "4"]
+F1_GAP = 1e-3
+# phases 27f, 27g: the served payload round, pipelined, on the model and
+# the seq group, each beside a one-card served twin
+PAR_SERVE = ["--serve", "inproc", "--serve_payload", "sketch", "--serve_pipeline"]
 RESNET_ARGS = ["--dataset", "cifar10", "--hash_family", "rotation", "--num_clients", "100",
                "--num_workers", "8", "--local_batch_size", "8", "--k", "50000",
                "--device", "cuda"]
@@ -5618,25 +5641,89 @@ def timed_rounds(engine, rec: list, device: str, first: dict):
         engine.make_round_step, engine.make_client_updates = make, make_updates
 
 
+def _coll_delta(before: dict) -> dict:
+    from commefficient_tpu_torch.parallel import collectives
+
+    return {f"coll_{k}": collectives.stats[k] - before[k] for k in before}
+
+
+@contextlib.contextmanager
+def recording_decodes(rec: list, device: str):
+    """Inside the block, each ``F1Eval.decode`` (--eval_f1) appends to
+    ``rec`` its ids [B, T] and lengths [B], the prompt lengths, each
+    step's top-2 logit gap a row ([steps][B], read off the logits the step
+    picked from), its host ms between two device syncs and the collectives'
+    bytes, calls and ms over it."""
+    from commefficient_tpu_torch import gpt2_train
+    from commefficient_tpu_torch.models import generate
+    from commefficient_tpu_torch.parallel import collectives
+
+    decode, pick = gpt2_train.F1Eval.decode, generate._nucleus_pick
+    gaps: list = []
+
+    def picking(logits, *args):
+        top = logits.float().topk(2, dim=-1).values
+        gaps.append(top[:, 0] - top[:, 1])  # on the device: no sync a step
+        return pick(logits, *args)
+
+    def recorded(self, params, rnd):
+        gaps.clear()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        before = dict(collectives.stats)
+        t0 = time.perf_counter()
+        ids, lengths = decode(self, params, rnd)  # ends in a copy to the host
+        ms = (time.perf_counter() - t0) * 1e3
+        rec.append({"ids": ids.tolist(), "lengths": lengths.tolist(),
+                    "plen": self.prompt_len.tolist(),
+                    "gaps": torch.stack(gaps).tolist(), "ms": ms, **_coll_delta(before)})
+        return ids, lengths
+
+    gpt2_train.F1Eval.decode, generate._nucleus_pick = recorded, picking
+    try:
+        yield
+    finally:
+        gpt2_train.F1Eval.decode, generate._nucleus_pick = decode, pick
+
+
+def decode_diffs(have: dict, want: dict) -> list:
+    """Where the decode ``have`` departs from ``want`` (two records of
+    ``recording_decodes``): for each row, its first differing token as
+    (row, step, have's token, want's token, have's top-2 gap at that step,
+    want's), or its length where only that differs."""
+    out = []
+    for b, (h, w) in enumerate(zip(have["ids"], want["ids"])):
+        at = next((t for t, (x, y) in enumerate(zip(h, w)) if x != y), None)
+        if at is not None:
+            step = at - have["plen"][b]
+            gap = (lambda g: g[step][b] if 0 <= step < len(g) else math.inf)
+            out.append((b, step, h[at], w[at], gap(have["gaps"]), gap(want["gaps"])))
+        elif have["lengths"][b] != want["lengths"][b]:
+            out.append((b, None, have["lengths"][b], want["lengths"][b], math.inf, math.inf))
+    return out
+
+
 def par_run(kernels, engine, label: str, flags: list, changes: dict, device: str,
             log_dir: str, trace_round: int | None = None) -> dict:
     """One phase-27 run of ``gpt2_train.main`` (PAR_ARGS + flags, with the
     GPT-2 fields ``changes``): its session, launches (counted over the run
-    only), per-round timings, logged rows, initial params, and peak device
-    memory over the run (its eval included) and over its round steps; with
-    ``trace_round`` i, where round i's client phase held its peak
-    (``peak_sites``)."""
+    only), per-round timings, logged rows, initial params, peak device
+    memory over the run (its eval included) and over its round steps, and
+    its F1 decodes (``recording_decodes``); with ``trace_round`` i, where
+    round i's client phase held its peak (``peak_sites``)."""
     from commefficient_tpu_torch import gpt2_train
 
     log = os.path.join(log_dir, f"{label}.jsonl")
     if os.path.exists(log):
         os.remove(log)
     rec: list = []
+    decodes: list = []
     first: dict = {"trace_round": trace_round}
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    with gpt2_fields(**changes), timed_rounds(engine, rec, device, first):
+    with gpt2_fields(**changes), timed_rounds(engine, rec, device, first), \
+            recording_decodes(decodes, device):
         s = gpt2_train.main(PAR_ARGS + ["--log_jsonl", log, *flags])
     launches = ravel_launches(kernels)
     rows = []
@@ -5651,7 +5738,82 @@ def par_run(kernels, engine, label: str, flags: list, changes: dict, device: str
     peak = max(first["peak"], torch.cuda.max_memory_allocated()) if device == "cuda" else 0
     return {"session": s, "launches": launches, "rounds": rec, "rows": rows, "p0": first["p0"],
             "peak_gb": peak / 1e9, "round_peak_gb": max(r["peak_gb"] for r in rec),
-            "peak_sites": first.get("peak_sites")}
+            "peak_sites": first.get("peak_sites"), "decodes": decodes}
+
+
+def decode_line(run: dict) -> str:
+    """A run's F1 decode for a printed line: its val_f1 and its last
+    decode's shape, ms and collectives."""
+    d = run["decodes"][-1]
+    f1 = run["rows"][-1].get("val_f1") if run["rows"] else None
+    return (f"val_f1 {f1}, {len(d['ids'])} dialogs x {len(d['gaps'])} steps decoded in "
+            f"{d['ms']:.1f} ms, collectives {d['coll_bytes'] / 1e6:.1f} MB in "
+            f"{d['coll_calls']} calls, {d['coll_ms']:.1f} ms; smallest top-2 logit gap "
+            f"{min(min(g) for g in d['gaps']):.3e}")
+
+
+def served_line(run: dict) -> str:
+    """A served run for a printed line: round ms, client steps, launches,
+    final row."""
+    return (f"round ms {[round(x, 1) for x in run['round_ms']]}, client step ms "
+            f"{[round(x['ms'], 1) for x in run['steps']]}, its collectives MB "
+            f"{[round(x['coll_bytes'] / 1e6, 1) for x in run['steps']]} in "
+            f"{[x['coll_calls'] for x in run['steps']]} calls, "
+            f"{[round(x['coll_ms'], 1) for x in run['steps']]} ms; launches "
+            f"{run['launches']}; final row {run['rows'][-1] if run['rows'] else None}")
+
+
+def served_par_run(kernels, label: str, flags: list, changes: dict, device: str,
+                   log_dir: str) -> dict:
+    """One served run of phases 27f/27g (``gpt2_train.main`` of PAR_ARGS +
+    PAR_SERVE + flags, with the GPT-2 fields ``changes``): its session,
+    launches over the run (one accumulate a client a round, one query a
+    round; the pipelined worker may sketch one round past the last before
+    its stop), rows, the sync loop's round ms, and each payload client
+    step's host ms between two device syncs with the collectives' bytes,
+    calls and ms over it."""
+    from commefficient_tpu_torch import gpt2_train
+    from commefficient_tpu_torch.federated.api import FederatedSession
+    from commefficient_tpu_torch.parallel import collectives
+
+    log = os.path.join(log_dir, f"{label}.jsonl")
+    if os.path.exists(log):
+        os.remove(log)
+    steps: list = []
+    compute = FederatedSession.compute_client_tables
+
+    def timed(self, prep, *args, **kw):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        before = dict(collectives.stats)
+        t0 = time.perf_counter()
+        out = compute(self, prep, *args, **kw)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        steps.append({"ms": (time.perf_counter() - t0) * 1e3, **_coll_delta(before)})
+        return out
+
+    kernels.reset_launch_counts()
+    FederatedSession.compute_client_tables = timed
+    try:
+        with gpt2_fields(**changes):
+            s = gpt2_train.main(PAR_ARGS + PAR_SERVE + ["--log_jsonl", log, *flags])
+    finally:
+        FederatedSession.compute_client_tables = compute
+    launches = ravel_launches(kernels)
+    W = s.num_workers
+    acc, qry = launches["sketch_accumulate"], launches["sketch_query"]
+    if qry != PAR_ROUNDS or acc not in (W * PAR_ROUNDS, W * (PAR_ROUNDS + 1)):
+        fail(f"served {label}: launches {launches} in {PAR_ROUNDS} payload rounds of {W} "
+             "clients, expected one accumulate a client a round and one query a round")
+    rows = []
+    if os.path.exists(log):
+        with open(log) as f:
+            rows = [json.loads(line) for line in f]
+    if s.round != PAR_ROUNDS:
+        fail(f"served {label}: the run ended at round {s.round}, expected {PAR_ROUNDS}")
+    return {"session": s, "launches": launches, "rows": rows,
+            "round_ms": list(s.run_stats.round_ms), "steps": steps[:PAR_ROUNDS]}
 
 
 def par_agreement(state: dict, twin: dict, p0: torch.Tensor) -> dict:
@@ -5750,9 +5912,10 @@ def pipeline_check(axis, device: str) -> dict:
 
 def _parallel_rank(base: str, device: str) -> None:
     """One rank of phase 27's gloo group: (b) --model_parallel 2 and (c)
-    --seq_parallel 2 --attn_impl ring through ``gpt2_train.main``, each
-    held against its one-device twin's state from ``base``, then (d) the
-    pipeline; writes its readings to ``base/rank<r>.json``."""
+    --seq_parallel 2 --attn_impl ring through ``gpt2_train.main`` with
+    (e)'s F1 decode, each held against its one-device twin's state from
+    ``base``, then the served runs (f) and (g) against theirs, then (d)
+    the pipeline; writes its readings to ``base/rank<r>.json``."""
     sys.path.insert(0, ROOT)
     from commefficient_tpu_torch import cv_train
     from commefficient_tpu_torch.federated import engine
@@ -5764,19 +5927,29 @@ def _parallel_rank(base: str, device: str) -> None:
     rank = distributed.rank()
     out = {}
     p0 = torch.load(os.path.join(base, "p0.pt"), map_location=device)
-    for tag, flags, changes, twin in (
-            ("tp", ["--model_parallel", "2"], {}, "plain"),
-            ("seq", ["--seq_parallel", "2", "--attn_impl", "ring"], {"dropout": 0.0}, "dense0")):
-        got = par_run(kernels, engine, f"{tag}_rank{rank}", flags, changes, device, base)
+    tp, seq = ["--model_parallel", "2"], ["--seq_parallel", "2", "--attn_impl", "ring"]
+    for tag, flags, changes, twin in (("tp", tp + PAR_F1, {}, "plain"),
+                                      ("seq", seq + PAR_F1, {"dropout": 0.0}, "dense0"),
+                                      ("serve_tp", tp, {}, "serve_plain"),
+                                      ("serve_seq", seq, {"dropout": 0.0}, "serve_dense0")):
+        served = tag.startswith("serve")
+        if served:
+            got = served_par_run(kernels, f"{tag}_rank{rank}", flags, changes, device, base)
+        else:
+            got = par_run(kernels, engine, f"{tag}_rank{rank}", flags, changes, device, base)
         s = got["session"]
         st = {k: v for k, v in _state(s).items()}
         want = torch.load(os.path.join(base, f"{twin}.pt"), map_location=device)
         errs = check_kernels(csvec, s.cfg.mode.sketch_spec, st["params"], st["Verror"])
-        out[tag] = {"digest": tree_digest(st), "launches": got["launches"],
-                    "rounds": got["rounds"], "rows": got["rows"], "peak_gb": got["peak_gb"],
-                    "round_peak_gb": got["round_peak_gb"],
+        out[tag] = {"digest": tree_digest(st), "launches": got["launches"], "rows": got["rows"],
                     "kernel_errs": list(errs), "parallel": s.train_loss_fn.parallel is not None,
                     **par_agreement(st, want, p0)}
+        if served:
+            out[tag].update(round_ms=got["round_ms"], steps=got["steps"],
+                            serve_parallel=s.serve_train_loss_fn.parallel is not None)
+        else:
+            out[tag].update(rounds=got["rounds"], peak_gb=got["peak_gb"],
+                            round_peak_gb=got["round_peak_gb"], decodes=got["decodes"])
         del s, got, st, want
         if device == "cuda":
             torch.cuda.empty_cache()
@@ -5785,6 +5958,25 @@ def _parallel_rank(base: str, device: str) -> None:
     with open(os.path.join(base, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     distributed.shutdown()
+
+
+def check_decodes(what: str, ranks: list, one_card: dict, card: str) -> None:
+    """Phase 27e on a group run: every rank's decode bitwise rank 0's, and
+    rank 0's against the one-card run's, each differing token printed with
+    its step's top-2 logit gaps; one at a gap above F1_GAP fails."""
+    for r, d in enumerate(ranks[1:], 1):
+        if d["ids"] != ranks[0]["ids"] or d["lengths"] != ranks[0]["lengths"]:
+            fail(f"parallel e ({what}): rank {r}'s decoded ids differ from rank 0's")
+    diffs = decode_diffs(ranks[0], one_card)
+    for b, step, have, want, gap, gap_one in diffs:
+        print(f"parallel e ({what}): row {b} departs from the one-card decode at step {step}: "
+              f"token {have} against {want}, top-2 logit gap {gap:.3e} here, {gap_one:.3e} on "
+              f"the one card [{card}]", flush=True)
+    if any(gap > F1_GAP for *_, gap, _ in diffs):
+        fail(f"parallel e ({what}): a decoded token differs from the one-card decode at a "
+             f"top-2 logit gap above {F1_GAP}")
+    print(f"parallel e ({what}): the ranks' ids and lengths bitwise; {len(diffs)} of "
+          f"{len(ranks[0]['ids'])} rows depart from the one-card decode [{card}]", flush=True)
 
 
 def parallel_phase(cv_train, engine, csvec, kernels, card: str, device: str = "cuda",
@@ -5811,14 +6003,17 @@ def parallel_phase(cv_train, engine, csvec, kernels, card: str, device: str = "c
                 f"over the run, launches {got['launches']}, final row "
                 f"{got['rows'][-1] if got['rows'] else None} [{card}]")
 
-    # a. remat against plain on one card
+    # a. remat against plain on one card, each with (e)'s F1 decode
     runs = {}
     for label, changes in (("plain", {}), ("remat", {"remat": True}), ("dense0", {"dropout": 0.0})):
         # round 1 (the warm-up) records the memory history; round 2 is timed clean
-        runs[label] = par_run(kernels, engine, label, [], changes, device, base,
+        runs[label] = par_run(kernels, engine, label, PAR_F1, changes, device, base,
                               trace_round=0 if label != "dense0" else None)
         launches[label] = runs[label]["launches"]
         print(f"parallel a {line(label, runs[label])}", flush=True)
+    one_card = {label: runs[label]["decodes"][-1] for label in ("plain", "dense0")}
+    for label in runs:
+        print(f"parallel e (a) {label}: {decode_line(runs[label])} [{card}]", flush=True)
     pl, rm = runs["plain"]["session"], runs["remat"]["session"]
     if not (_equal(_state(pl), _state(rm)) and runs["plain"]["rows"] == [
             {**r, "time_s": p["time_s"]} for r, p in zip(runs["remat"]["rows"],
@@ -5844,6 +6039,16 @@ def parallel_phase(cv_train, engine, csvec, kernels, card: str, device: str = "c
     del runs, pl, rm
     if device == "cuda":
         torch.cuda.empty_cache()
+    # f, g: the served runs' one-card twins
+    for label, changes in (("serve_plain", {}), ("serve_dense0", {"dropout": 0.0})):
+        got = served_par_run(kernels, label, [], changes, device, base)
+        launches[label] = got["launches"]
+        torch.save(_state(got["session"]), os.path.join(base, f"{label}.pt"))
+        print(f"parallel {'f' if label == 'serve_plain' else 'g'} twin {label}: "
+              f"{served_line(got)} [{card}]", flush=True)
+        del got
+        if device == "cuda":
+            torch.cuda.empty_cache()
 
     # b-d. the group
     if before_group is not None:
@@ -5861,12 +6066,14 @@ def parallel_phase(cv_train, engine, csvec, kernels, card: str, device: str = "c
             ranks.append(json.load(f))
     if codes != [0] * PAR_RANKS:
         fail(f"parallel: exit codes {codes}")
-    for tag, what in (("tp", "b --model_parallel 2"), ("seq", "c --seq_parallel 2 ring")):
+    for tag, what in (("tp", "b --model_parallel 2"), ("seq", "c --seq_parallel 2 ring"),
+                      ("serve_tp", "f served --model_parallel 2"),
+                      ("serve_seq", "g served --seq_parallel 2 ring")):
         first = ranks[0][tag]
         for r, got in enumerate(ranks):
             g = got[tag]
             launches[f"{tag}_rank{r}"] = g["launches"]
-            if not g["parallel"]:
+            if not g["parallel"] or not g.get("serve_parallel", True):
                 fail(f"parallel {what}: rank {r}'s loss computed over no group")
             if g["digest"] != first["digest"]:
                 fail(f"parallel {what}: rank {r}'s state differs from rank 0's")
@@ -5875,6 +6082,17 @@ def parallel_phase(cv_train, engine, csvec, kernels, card: str, device: str = "c
             if not g["close"] or g["agree"] < PAR_TOPK_AGREE:
                 fail(f"parallel {what}: rank {r} against the one-device run: agreement "
                      f"{g['agree']}, within tolerance {g['close']}, max abs {g['max_abs']}")
+        if tag.startswith("serve"):
+            print(f"parallel {what}: ranks bitwise; against the one-card served twin: moved-set "
+                  f"agreement {first['agree']:.6f}, {first['swapped']} coordinates moved by one "
+                  f"only, the both-moved coordinates within rtol {PAR_RTOL} / atol {PAR_ATOL} "
+                  f"(max abs {first['max_abs']:.3e}, rel L2 {first['rel']:.3e}); kernels == "
+                  f"plain on every rank; rank 0's {served_line(first)} (gloo through host "
+                  f"memory, 2 ranks on one card) [{card}]", flush=True)
+            continue
+        check_decodes(what, [got[tag]["decodes"][-1] for got in ranks],
+                      one_card["plain" if tag == "tp" else "dense0"], card)
+        print(f"parallel e ({what[0]}): rank 0's {decode_line(first)} [{card}]", flush=True)
         rounds = first["rounds"]
         print(f"parallel {what}: ranks bitwise; against the one-device run: moved-set "
               f"agreement {first['agree']:.6f}, {first['swapped']} coordinates moved by one "

@@ -42,9 +42,14 @@ copies them to the device in place of the stack) or None (the grouped
 flat twin over the stack). On a group of ranks only
 rank 0 copies the tables to the host (its transport ships them), every
 rank finishes the round with rank 0's validated stack, and the client
-step's gather rides the serve cycle's own process group
-(``parallel.distributed.serve_group``), which a pipelined service's worker
-thread uses beside the main thread's collectives. A robust ``merge_policy``
+step's collectives ride the serve cycle's own process groups, which a
+pipelined service's worker thread uses beside the main thread's
+collectives: its gather the client axis's
+(``parallel.distributed.serve_axis_group("clients")``, the whole job's
+``serve_group`` on a mesh without seq or model ranks), and on a mesh with
+them its model the serve cycle's seq and model groups, through
+``serve_train_loss_fn`` (the same loss over a model built on
+``distributed.serve_parallel_axes()``). A robust ``merge_policy``
 and a fault plan that names an adversarial kind run that round too, and
 such a plan's ``_adv_*`` keys ride every round's batch (the identity off
 schedule). With ``client_update_clip`` the server state carries the
@@ -219,6 +224,7 @@ class FederatedSession:
         sketch_path: str = "ravel",
         stale_slots: int = 0,
         serve_edges: int = 0,
+        serve_train_loss_fn: Callable | None = None,
     ):
         self.device = resolve_device(device)
         if health_every < 0:
@@ -300,6 +306,7 @@ class FederatedSession:
             self.cfg = dataclasses.replace(self.cfg, client_chunk=viable)
         self.layout = layout
         self.train_loss_fn = train_loss_fn
+        self.serve_train_loss_fn = serve_train_loss_fn
         self._build_steps()
         pflat = layout.flatten({k: v.detach().to(self.device) for k, v in params.items()})
         self.state = engine.init_server_state(
@@ -382,6 +389,10 @@ class FederatedSession:
         from ..parallel import mesh as meshlib
 
         self.group, self._rows, self.client_block = None, None, None
+        # whether the session spans a job of ranks (a served run's rank 0
+        # serves and the others follow), also where its client axis has one
+        # rank and the others are seq or model ranks (group None)
+        self.spans_ranks = mesh is not None and mesh.ranks > 1
         if client_shards >= 1 and mesh is not None and client_shards != mesh.shards:
             # including client_shards=1 ("unsharded"), which the mesh's
             # S-way program would drop without notice
@@ -456,13 +467,17 @@ class FederatedSession:
             # (compute_client_tables, then dispatch_round of a payload
             # preparation)
             group = self.group
-            if cfg.wire_payloads and group is not None:
+            if cfg.wire_payloads:
                 # a served payload round's client step runs in the serve
                 # cycle (on the pipeline's worker when pipelined): its
-                # gather rides the serve cycle's own group
+                # gather and its model's collectives ride the serve cycle's
+                # own groups, which no collective of the main thread uses
                 from ..parallel import distributed
 
-                group = distributed.serve_group() or group
+                if group is not None:
+                    group = (distributed.serve_axis_group("clients")
+                             or distributed.serve_group() or group)
+                loss_fn = self.serve_train_loss_fn or loss_fn
             self._payload_client, self._payload_merge = engine.make_payload_round_steps(
                 loss_fn, cfg, layout, group)
             if cfg.serve_edges >= 2:

@@ -44,8 +44,14 @@ attention) run on a job of clients x S x M ranks (--mesh clients=N
         --num_clients 17500 --num_workers 4 --k 50000 --num_cols 1000000 \
         --model_parallel 2 --seq_parallel 2 --attn_impl ring
 Every rank keeps the whole flat parameter vector and server state: the
-split is of compute and activations. --eval_f1 and --serve do not run
-with --model_parallel or --seq_parallel > 1 (refused by name).
+split is of compute and activations. --eval_f1 decodes on every rank at
+each eval boundary, in lockstep (on a seq group each rank decodes whole
+rows, the reference's decode form; on a model group the ranks step the
+tensor-parallel forward together), and rank 0 logs the score. --serve
+runs rank 0's service with every other rank following it; the served
+client step computes on the serve cycle's own seq, model and client-axis
+groups (``parallel/distributed.py``), so a pipelined worker never shares
+a group with the main thread's eval and decode.
 """
 
 from __future__ import annotations
@@ -116,12 +122,6 @@ def build(args, fault_plan=None):
             "point of asking for ring (the math is identical; the memory/"
             "scaling behavior is not)"
         )
-    if args.model_parallel > 1 or args.seq_parallel > 1:
-        for flag, on in (("--eval_f1", args.eval_f1 > 0), ("--serve", args.serve != "off")):
-            if on:
-                raise SystemExit(
-                    f"{flag} with --model_parallel or --seq_parallel > 1 is not ported "
-                    "(ROADMAP Queue 1 item 14e)")
     with_mc_head = args.mc_coef > 0
     if torch.device(args.device).type == "cuda":
         make_reproducible()  # before any CUDA work of the run
@@ -148,13 +148,24 @@ def build(args, fault_plan=None):
     print(f"model: GPT2({args.model_size})  d={layout.d:,}  vocab={cfg.vocab_size}  "
           f"clients={train_set.num_clients}  mode={args.mode}  dtype={cfg.dtype}  "
           f"device={device}{init_note}", flush=True)
-    if with_mc_head:
-        train_loss = make_lm_mc_loss(model, True, args.mc_coef, tok.pad_id)
-        eval_loss = make_lm_mc_loss(model, False, args.mc_coef, tok.pad_id)
-    else:
-        aux = args.moe_aux_coef if args.moe_experts > 0 else 0.0
-        train_loss = make_lm_loss(model, train=True, moe_aux_coef=aux)
-        eval_loss = make_lm_loss(model, train=False, moe_aux_coef=aux)
+    aux = args.moe_aux_coef if args.moe_experts > 0 else 0.0
+
+    def losses(m):
+        if with_mc_head:
+            return (make_lm_mc_loss(m, True, args.mc_coef, tok.pad_id),
+                    make_lm_mc_loss(m, False, args.mc_coef, tok.pad_id))
+        return (make_lm_loss(m, train=True, moe_aux_coef=aux),
+                make_lm_loss(m, train=False, moe_aux_coef=aux))
+
+    train_loss, eval_loss = losses(model)
+    serve_loss = None
+    serve_axes = distributed.serve_parallel_axes()
+    if args.serve != "off" and args.serve_payload == "sketch" and serve_axes is not None:
+        # the served client step's model: the same parameters (given through
+        # functional_call), computing over the serve cycle's seq and model
+        # groups
+        with torch.device("meta"):
+            serve_loss = losses(GPT2LMHead(cfg, axes=serve_axes))[0]
     session = FederatedSession(
         train_loss_fn=train_loss,
         eval_loss_fn=eval_loss,
@@ -202,6 +213,7 @@ def build(args, fault_plan=None):
         robust_residual=args.robust_residual == "on",
         mesh=mesh,
         sketch_path=args.sketch_path,
+        serve_train_loss_fn=serve_loss,
     )
     if args.attn_impl == "ring" and model.seq_axis is None:
         raise SystemExit(
@@ -215,7 +227,10 @@ def build(args, fault_plan=None):
 class F1Eval:
     """The generation/F1 evaluator of --eval_f1: decodes the first --eval_f1
     validation dialogs from their packed prompts (the gold reply blanked to
-    <pad>) and scores word-level F1 against the gold replies."""
+    <pad>) and scores word-level F1 against the gold replies. On a job of
+    seq or model ranks every rank calls it at the same eval boundary with
+    the same parameters: the decode runs a fixed number of steps, so the
+    ranks of a model group step its collectives together."""
 
     def __init__(self, args, model, tok, valid_set, device: torch.device):
         ids, types, labels = (np.asarray(a) for a in valid_set.decode_examples(args.eval_f1))
@@ -313,8 +328,15 @@ def main(argv=None):
             row["mc_acc"] = totals.get("mc_correct", 0.0) / max(totals.get("mc_count", 0.0), 1)
             row["val_mc_acc"] = ev.get("mc_correct", 0.0) / max(ev.get("mc_count", 0.0), 1)
         if f1_eval is not None:
-            row["val_f1"] = f1_eval(model.params, rnd)
+            row["val_f1"] = ev["val_f1"]
         return row
+
+    def eval_fn():
+        # every rank evaluates (and decodes) at each boundary; rank 0 logs
+        ev = model.eval(valid_set, args.eval_batch_size)
+        if f1_eval is not None:
+            ev["val_f1"] = f1_eval(model.params, session.round)
+        return ev
 
     # --health_every, --slo, --ledger: attached after the restore, so the
     # ledger's resume truncation keys off the restored round
@@ -331,7 +353,7 @@ def main(argv=None):
             run_loop(session, opt,
                      RunnerConfig.from_args(args, total_rounds,
                                             args.eval_every or min(rounds_per_epoch, 200)),
-                     eval_fn=lambda: model.eval(valid_set, args.eval_batch_size),
+                     eval_fn=eval_fn,
                      build_row=build_row, logger=logger,
                      source=service.source() if service is not None else None,
                      slo=wiring.slo_engine, postmortem=wiring.postmortem)

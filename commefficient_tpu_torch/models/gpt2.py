@@ -62,7 +62,11 @@ experts gathering the group's tokens first, so that routing, capacity and
 the aux see all B * T tokens in the reference's order. The logits are the
 block's [B, T / S, V]; the mc head's score comes from the rank that holds
 the position and is summed over the group. Without a seq axis,
-``attn_impl="ring"`` is the one-rank form, ``_dense_causal``.
+``attn_impl="ring"`` is the one-rank form, ``_dense_causal``. The decode
+fast path (``logit_positions``) on a seq group is the reference's decode
+form, which runs outside its mesh: every rank computes whole rows through
+``decode_view``, the model with the seq axis off (ring attention as
+``_dense_causal``) and the model axis on.
 """
 
 from __future__ import annotations
@@ -475,6 +479,18 @@ class GPT2LMHead(nn.Module):
         """The seq group's axis (None: the model sees whole sequences)."""
         return self.axes.seq if self.axes is not None else None
 
+    def decode_view(self) -> "GPT2LMHead":
+        """This model with the seq axis off and the model axis kept: the
+        same parameter names, built once on the meta device (it holds no
+        weights of its own; a forward gives it this model's through
+        ``functional_call``) and kept outside the module tree."""
+        view = self.__dict__.get("_decode_view")
+        if view is None:
+            with torch.device("meta"):
+                view = GPT2LMHead(self.cfg, dataclasses.replace(self.axes, seq=None))
+            self.__dict__["_decode_view"] = view
+        return view
+
     def forward(self, input_ids: torch.Tensor, train: bool = True,
                 token_type_ids: torch.Tensor | None = None,
                 logit_positions: torch.Tensor | None = None,
@@ -489,7 +505,8 @@ class GPT2LMHead(nn.Module):
         drew from one. Given a list, ``moe_aux`` receives each MoE layer's
         load-balancing aux in block order. On a seq group ``input_ids`` is
         the whole [B, T] row and the logits are this rank's block
-        [B, T / S, V]."""
+        [B, T / S, V], but with ``logit_positions`` every rank computes the
+        whole rows (``decode_view``) and returns the [B, V] logits."""
         cfg = self.cfg
         if train and cfg.dropout > 0 and gen is None:
             raise ValueError("a training forward with dropout needs a generator or its masks")
@@ -503,11 +520,16 @@ class GPT2LMHead(nn.Module):
         C = cfg.n_embd
         sq = self.seq_axis
         lo, seq_cut = 0, None
+        if sq is not None and logit_positions is not None:
+            # the reference decodes outside its mesh: whole rows, ring
+            # attention's one-rank form, on every rank alike
+            return torch.func.functional_call(
+                self.decode_view(), dict(self.named_parameters()), (input_ids,),
+                {"train": train, "token_type_ids": token_type_ids,
+                 "logit_positions": logit_positions, "gen": gen, "moe_aux": moe_aux})
         if sq is not None:
             if T % sq.size:
                 raise ValueError(f"seq_len {T} is not divisible by the {sq.size}-way seq group")
-            if logit_positions is not None:
-                raise NotImplementedError("the decode fast path does not run on a seq group")
             Tl = T // sq.size
             lo = sq.index * Tl
             input_ids = input_ids.narrow(1, lo, Tl)

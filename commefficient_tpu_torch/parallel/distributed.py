@@ -43,7 +43,15 @@ environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
   its own. ``axis_group`` returns this rank's group of an axis and
   ``parallel_axes`` the ``seq`` and ``model`` axes a model computes over
   (``collectives.ParallelAxes``). A mesh without seq or model ranks makes
-  none: its client axis is the whole job.
+  none: its client axis is the whole job. A mesh with them also gets the
+  serve cycle's own group on each axis, made after the others in the
+  same order and with the serve group's timeout: ``serve_axis_group`` and
+  ``serve_parallel_axes`` are what a served client step gathers and
+  computes over, on the pipeline's worker when pipelined, so that none of
+  its collectives can pair with one of the main thread's (the round's
+  merge, the eval, the F1 decode), which stay on the groups above. The
+  whole job's ``serve_group`` still carries the close's broadcast and the
+  go/stop flag: every rank keeps the whole flat state.
 - ``launch_local`` starts N ranks of a function on this host, with the
   environment torchrun would give them.
 """
@@ -70,6 +78,11 @@ _SERVE_GROUP = None
 _MESH = None
 _AXIS_GROUPS: dict = {}
 _CLIENT_HOST_GROUP = None
+# this rank's serve cycle group along each axis of the joined mesh (when it
+# has seq or model ranks), and how much longer than TIMEOUT_S the serve
+# cycle's groups wait
+_SERVE_AXIS_GROUPS: dict = {}
+_SERVE_EXTRA_S = 0.0
 # how long a rank waits for the others in the join and in a collective
 TIMEOUT_S = 600.0
 
@@ -145,7 +158,7 @@ def initialize(force: bool = False, fault_plan=None, retry_policy=None,
     group waits ``serve_deadline_s`` longer than the others: the other
     ranks sit in its broadcast while rank 0's wall-clock close waits up to
     the served round's deadline."""
-    global _HOST_GROUP, _SERVE_GROUP
+    global _HOST_GROUP, _SERVE_GROUP, _SERVE_EXTRA_S
     if is_joined():
         return True
     if not (force or detected()):
@@ -196,6 +209,7 @@ def initialize(force: bool = False, fault_plan=None, retry_policy=None,
     # the preemption agreement is host data: a gloo group keeps it off the
     # card's stream (every rank makes it, in the same order)
     _HOST_GROUP = None if backend == "gloo" else dist.new_group(backend="gloo")
+    _SERVE_EXTRA_S = float(serve_deadline_s)
     _SERVE_GROUP = dist.new_group(
         backend=backend, timeout=datetime.timedelta(seconds=TIMEOUT_S + serve_deadline_s))
     if torch.device(device).type == "cuda":
@@ -205,11 +219,13 @@ def initialize(force: bool = False, fault_plan=None, retry_policy=None,
 
 def shutdown() -> None:
     """Leave the process group (and the groups beside it), if joined."""
-    global _HOST_GROUP, _SERVE_GROUP, _CLIENT_HOST_GROUP, _MESH
+    global _HOST_GROUP, _SERVE_GROUP, _CLIENT_HOST_GROUP, _MESH, _SERVE_EXTRA_S
     if is_joined():
         dist.destroy_process_group()
     _HOST_GROUP = _SERVE_GROUP = _CLIENT_HOST_GROUP = _MESH = None
+    _SERVE_EXTRA_S = 0.0
     _AXIS_GROUPS.clear()
+    _SERVE_AXIS_GROUPS.clear()
 
 
 def join_mesh(mesh) -> None:
@@ -218,9 +234,17 @@ def join_mesh(mesh) -> None:
     the client axis (the ranks of its (seq, model) coordinate: the sharded
     round's merge), on the seq axis and on the model axis, and a gloo
     group of its client axis on the host. A mesh without seq or model
-    ranks makes none. Idempotent for one mesh."""
+    ranks makes none. Then, in the same order, the serve cycle's groups
+    of the three axes (``serve_axis_group``), which wait as long as the
+    serve group does. Idempotent for one mesh."""
     global _CLIENT_HOST_GROUP, _MESH
-    if mesh is None or mesh.seq * mesh.model == 1 or mesh == _MESH:
+    if mesh is None or mesh == _MESH:
+        return
+    if mesh.seq * mesh.model == 1:
+        # an earlier mesh's axes must not outlive it in this process
+        _MESH = _CLIENT_HOST_GROUP = None
+        _AXIS_GROUPS.clear()
+        _SERVE_AXIS_GROUPS.clear()
         return
     if world_size() != mesh.ranks:
         raise ValueError(f"the mesh {mesh.shape} needs {mesh.ranks} ranks; this job has "
@@ -235,6 +259,12 @@ def join_mesh(mesh) -> None:
         g = dist.new_group(ranks, backend="gloo")
         if me in ranks:
             _CLIENT_HOST_GROUP = g
+    serve_timeout = datetime.timedelta(seconds=TIMEOUT_S + _SERVE_EXTRA_S)
+    for axis in ("clients", "seq", "model"):
+        for ranks in mesh.axis_ranks(axis):
+            g = dist.new_group(ranks, timeout=serve_timeout)
+            if me in ranks:
+                _SERVE_AXIS_GROUPS[axis] = g
     _MESH = mesh
 
 
@@ -244,23 +274,42 @@ def axis_group(axis: str):
     return _AXIS_GROUPS.get(axis)
 
 
-def parallel_axes():
-    """The ``seq`` and ``model`` axes of the joined mesh as this rank sees
-    them (``collectives.ParallelAxes``), an axis of size 1 None; None when
-    the mesh has neither."""
+def _axes_of(groups: dict):
     from .collectives import Axis, ParallelAxes
 
     if _MESH is None:
         return None
     c = _MESH.coords(rank())
-    return ParallelAxes(**{a: Axis(_AXIS_GROUPS[a], getattr(_MESH, a), c[a])
+    return ParallelAxes(**{a: Axis(groups[a], getattr(_MESH, a), c[a])
                            for a in ("seq", "model") if getattr(_MESH, a) > 1})
 
 
+def parallel_axes():
+    """The ``seq`` and ``model`` axes of the joined mesh as this rank sees
+    them (``collectives.ParallelAxes``), an axis of size 1 None; None when
+    the mesh has neither."""
+    return _axes_of(_AXIS_GROUPS)
+
+
 def serve_group():
-    """The group of the serve cycle's collectives (None when no group was
+    """The group of the serve cycle's collectives over the whole job (the
+    close's broadcast, the pipeline's go/stop flag; None when no group was
     joined)."""
     return _SERVE_GROUP
+
+
+def serve_axis_group(axis: str):
+    """This rank's serve cycle group along ``axis`` of the joined mesh (a
+    served client step's gather on "clients"), or None when ``join_mesh``
+    made none: then the client axis is the whole job (``serve_group``)."""
+    return _SERVE_AXIS_GROUPS.get(axis)
+
+
+def serve_parallel_axes():
+    """``parallel_axes`` on the serve cycle's groups: the axes a served
+    client step's model computes over (None when the mesh has no seq or
+    model ranks)."""
+    return _axes_of(_SERVE_AXIS_GROUPS)
 
 
 def initialize_from_args(args, fault_plan=None, retry_policy=None) -> bool:

@@ -33,9 +33,17 @@ Why it stays bitwise the serial source:
   host RNG, the requeue and the pending buffer.
 
 On a group of ranks every rank runs a pipeline: rank 0's worker serves
-the service's rounds, the others' their follower's. Their collectives go
-on the serve cycle's own group (``parallel.distributed.serve_group``), so
-they never pair with the main thread's. The stop is agreed: before each
+the service's rounds, the others' their follower's. Every collective the
+worker issues goes on the serve cycle's own groups, and every collective
+the main thread issues (the dispatch and its merges, the eval, the F1
+decode, the checkpoint's gathers) on the original ones, so no collective
+of one thread can pair with one of the other's: the go/stop flag and the
+close's broadcast on the whole job's serve group
+(``parallel.distributed.serve_group``), and the payload client step's
+gather on the serve cycle's client-axis group and, on a mesh with seq or
+model ranks, its model's collectives on the serve cycle's seq and model
+groups (``distributed.serve_axis_group``, ``serve_parallel_axes``). The
+stop is agreed: before each
 round, before any other collective of it, rank 0's worker broadcasts
 whether the round is served (``agree_round``); a stopping rank 0 says no,
 and every worker ends at that round. A worker whose own rank is stopping

@@ -44,7 +44,13 @@ assembler. Right after each close rank 0 broadcasts it
 [W] arrival mask, and on a payload round the validated [W, r, c] stack.
 Every rank then prepares and merges exactly the bytes that crossed rank
 0's wire, so a group's run is bitwise its one-device served twin (the
-emulation at ``client_shards`` S), under the wire fault kinds too.
+emulation at ``client_shards`` S), under the wire fault kinds too. The
+same holds where the ranks also differ in their seq and model
+coordinates (``--seq_parallel``, ``--model_parallel``), the client axis
+down to one rank included: every rank keeps the whole flat state, so the
+close goes to the whole job, while the payload client step computes over
+the serve cycle's own seq and model groups and gathers over its client
+axis's (``FederatedSession`` module docstring).
 
 The buffered-async service (``--serve_async``, FedBuff-shaped): a round
 closes at ``--serve_buffer`` validated tables instead of the quorum, and a
@@ -398,10 +404,11 @@ def _shm_host_view(block, device: torch.device) -> None:
 
 
 def _serve_group(session, root: bool):
-    """The serve cycle's group of a session sharded over a group of ranks
-    (None on one device), checked against where the caller runs: the
-    service on rank 0, the followers elsewhere."""
-    if session.group is None:
+    """The serve cycle's group of a session that spans a job of ranks
+    (None on one device): the whole job's, whichever axes its ranks differ
+    on. Checked against where the caller runs: the service on rank 0, the
+    followers elsewhere."""
+    if not session.spans_ranks:
         return None
     from ..parallel import distributed
 
@@ -1304,7 +1311,7 @@ class AggregationService:
 
 
 class ServeFollower:
-    """The service's part on ranks 1..S-1 of a served group: the session
+    """The service's part on every rank but 0 of a served job: the session
     calls rank 0's service makes, in the same order, with the close taken
     from rank 0's broadcast instead of a transport, an ingest queue and an
     assembler. So every rank draws the same host RNG, queues the same
@@ -1317,7 +1324,7 @@ class ServeFollower:
         self.group = _serve_group(session, root=False)
         if self.group is None:
             raise ValueError("a ServeFollower follows rank 0's service over a group of ranks; "
-                             "this session is not sharded over one")
+                             "this session does not span one")
         self.session = session
         self.cfg = cfg
         self._compute_gate = None
@@ -1478,9 +1485,9 @@ def service_from_args(args, session) -> AggregationService | ServeFollower | Non
     to --seed unless the spec pins them."""
     if args.serve == "off":
         return None
-    if session.group is not None:
-        from ..parallel import distributed
+    from ..parallel import distributed
 
+    if session.spans_ranks:
         if distributed.rank() != 0:
             return ServeFollower(session, ServeConfig.from_args(args)).start()
     spec = args.serve_trace
@@ -1506,7 +1513,7 @@ def service_from_args(args, session) -> AggregationService | ServeFollower | Non
           + (", pipelined" if service.cfg.pipeline else "")
           + (f", async (alpha={service.cfg.staleness_alpha:g}, band={service.cfg.stale_rounds})"
              if service.cfg.async_mode else "")
-          + (f", on rank 0 of {session.cfg.client_shards}" if service.group is not None else "")
+          + (f", on rank 0 of {distributed.world_size()}" if service.group is not None else "")
           + (f", buffer {service.cfg.buffer_size}/" if service.cfg.async_mode
              else f", quorum {service.cfg.quorum}/")
           + f"{session.num_workers}, deadline {service.cfg.deadline_s}s, trace {trace}"

@@ -186,14 +186,32 @@ RING_NEEDS_SEQ = ("--attn_impl ring needs --seq_parallel > 1: without a 'seq' me
      "1 devices not divisible by num_slices=1 x seq_parallel=1 x model_parallel=2"),
     (["--seq_parallel", "2", "--attn_impl", "ring"], ValueError,
      "1 devices not divisible by num_slices=1 x seq_parallel=2 x model_parallel=1"),
-    # the combinations the port does not run, by name and ROADMAP item
-    (["--model_parallel", "2", "--eval_f1", "2"], SystemExit,
-     "--eval_f1 with --model_parallel or --seq_parallel > 1 is not ported .*item 14e"),
-    (["--seq_parallel", "2", "--attn_impl", "ring", "--serve", "inproc"], SystemExit,
-     "--serve with --model_parallel or --seq_parallel > 1 is not ported .*item 14e"),
 ])
 def test_parallelism_refusals(argv, error, match):
     from commefficient_tpu_torch import gpt2_train
 
     with pytest.raises(error, match=match):
         gpt2_train.main(GPT2_BASE + argv)
+
+
+@pytest.mark.parametrize("argv,model,seq", [
+    (["--model_parallel", "2", "--eval_f1", "2"], 2, 1),
+    (["--seq_parallel", "2", "--attn_impl", "ring", "--eval_f1", "2"], 1, 2),
+    (["--model_parallel", "2", "--serve", "inproc", "--serve_payload", "sketch"], 2, 1),
+    (["--seq_parallel", "2", "--attn_impl", "ring", "--serve", "inproc"], 1, 2),
+])
+def test_parallel_eval_f1_and_serve_parse_and_build(argv, model, seq):
+    """--eval_f1 and --serve with --model_parallel or --seq_parallel > 1
+    (once refused by name) parse, and ``build`` takes
+    them past every check of its own to the mesh, which in one process
+    refuses the job's single rank in the reference's words, as it does
+    without them. Their runs on two ranks are in
+    tests/test_torch_parallel_2rank.py."""
+    from commefficient_tpu_torch import gpt2_train
+
+    args = _parse("gpt2", GPT2_BASE + argv)
+    assert (args.model_parallel, args.seq_parallel) == (model, seq)
+    assert args.eval_f1 > 0 or args.serve == "inproc"
+    with pytest.raises(ValueError, match=f"1 devices not divisible by num_slices=1 x "
+                                         f"seq_parallel={seq} x model_parallel={model}"):
+        gpt2_train.build(args)

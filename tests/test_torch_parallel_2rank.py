@@ -22,7 +22,23 @@ the JAX package and against the port's one-device runs:
 - the GPipe op at S = 2 against the reference's pipeline;
 - ``gpt2_train.main`` with ``--model_parallel 2`` and with
   ``--seq_parallel 2 --attn_impl ring``: rows within rtol 1e-4 of the
-  one-device CLI's, the ranks' params bitwise."""
+  one-device CLI's, the ranks' params bitwise;
+- ``--eval_f1`` on model = 2 (greedy): the decode of the run's final
+  params against the reference's ``make_f1_eval`` on the CPU mesh with
+  model = 2 (its inputs and ids exact, the step logits within rtol 2e-4 /
+  atol 2e-5, the score equal to the logged ``val_f1``), the ranks
+  bitwise; on seq = 2 bitwise the port's one-device ring-form decode and
+  against the reference's unsharded ``make_f1_eval`` with ring attention
+  (its ``_dense_causal``): ids exact, logits within 1e-5;
+- ``--serve inproc`` with the sketch and the announce payload, serial and
+  ``--serve_pipeline``, on model = 2 and on seq = 2, and the buffered-async
+  service, the fast path, the edge tree and process shards behind the
+  socket on model = 2, from the reference's initial params: the ranks and
+  pipelined and serial bitwise, the params within
+  rtol 2e-4 / atol 2e-5 of the port's one-device served run and, on
+  model = 2, of the reference's served CLI run on its CPU mesh;
+- a pipelined served run on model = 2 with an eval and an F1 decode at
+  every round ends, bitwise its serial twin."""
 
 import dataclasses
 import json
@@ -36,7 +52,10 @@ import torch
 from jax.flatten_util import ravel_pytree
 from jax.sharding import Mesh
 
+import gpt2_train as jg2
+from commefficient_tpu.data import personachat as jpc
 from commefficient_tpu.federated import engine as jengine
+from commefficient_tpu.models import generate as jgen
 from commefficient_tpu.models import gpt2 as jgpt2
 from commefficient_tpu.models.losses import make_lm_loss as jloss
 from commefficient_tpu.modes.config import ModeConfig as JModeConfig
@@ -79,9 +98,65 @@ def ref_inputs():
     cfg_ring = dataclasses.replace(jgpt2.TINY, n_positions=T)
     ring_params = tree_np(jgpt2.GPT2LMHead(cfg_ring).init(
         jax.random.PRNGKey(1), jnp.zeros((1, T), jnp.int32), train=False)["params"])
+    # the reference CLI's initial GPT-2 at R.CLI_ARGS (its seed 42, the
+    # byte tokenizer's vocabulary)
+    cfg_cli = dataclasses.replace(jgpt2.TINY, vocab_size=R.OWN_V, n_positions=32)
+    cli_params = tree_np(jgpt2.GPT2LMHead(cfg_cli).init(
+        jax.random.PRNGKey(42), jnp.zeros((1, 32), jnp.int32), train=False)["params"])
     return {"qkv": qkv, "qkv_w": qkv_w, "layers": layers, "pipe_x": pipe_x,
             "tp_params": tp_params, "tp_ids": tp_ids, "ring_batch": ring_batch,
-            "ring_params": ring_params}
+            "ring_params": ring_params, "cli_params": cli_params}
+
+
+def ref_argv(flags):
+    """R.CLI_ARGS and ``flags`` for the reference's CLI (which has no
+    --device)."""
+    i = R.CLI_ARGS.index("--device")
+    return R.CLI_ARGS[:i] + R.CLI_ARGS[i + 2:] + flags
+
+
+def ref_decode(ref, flat, flags, model_parallel, final):
+    """The reference's F1 decode of the port's flat params (unravelled in
+    ``ravel_pytree`` order, sharded by ``tp.shard_params`` on a clients=1 x
+    model=2 CPU mesh when ``model_parallel``): ``make_f1_eval``'s score at
+    round 2, the inputs, ids and lengths its generate saw and returned
+    (recorded), and the logits of the port's ``final`` buffers at each
+    step's position."""
+    args = jg2.resolve_defaults(jg2.make_parser("gpt2").parse_args(ref_argv(flags)))
+    _, valid, tok = jpc.load_personachat_fed(args.data_root, args.num_clients, args.seq_len,
+                                             args.seed)
+    cfg = dataclasses.replace(jgpt2.TINY, vocab_size=tok.vocab_size, n_positions=args.seq_len,
+                              attn_impl=args.attn_impl)
+    model = jgpt2.GPT2LMHead(cfg)
+    params = ravel_pytree(ref["cli_params"])[1](jnp.asarray(flat.numpy()))
+    if model_parallel:
+        params = jtp.shard_params(jmesh.make_mesh(2, model_parallel=2), params)
+    seen, real = {}, jgen.make_generate
+
+    def recording(*a, **kw):
+        generate = real(*a, **kw)
+
+        def run(*args):
+            seen["inputs"] = [np.asarray(x) for x in args[1:4]]
+            seen["out"] = [np.asarray(x) for x in generate(*args)]
+            return seen["out"]
+
+        return run
+
+    jgen.make_generate = recording
+    try:
+        f1 = jg2.make_f1_eval(args, model, tok, valid)(params, 2)
+    finally:
+        jgen.make_generate = real
+    step = jax.jit(lambda p, i, t, pos: model.apply(
+        {"params": p}, i, train=False, token_type_ids=t, logit_positions=pos))
+    ids, types = (jnp.asarray(final[k].numpy()) for k in ("ids", "types"))
+    T = ids.shape[1]
+    plen = seen["inputs"][2]
+    logits = np.stack([np.asarray(step(params, ids, types, np.minimum(plen - 1 + s, T - 1)))
+                       for s in range(args.decode_max_new)], 1)
+    return {"f1": f1, "inputs": seen["inputs"], "ids": seen["out"][0],
+            "lengths": seen["out"][1], "logits": logits}
 
 
 def ref_ring_op(ref, n):
@@ -267,3 +342,108 @@ def test_cli_runs_each_flag(run, name, flags, tmp_path):
     for k, v in want[0].items():
         if k != "time_s":
             _close(have[0][k], v, 1e-4, 1e-6, k)
+
+
+@pytest.fixture(scope="module")
+def twins(run):
+    """The port's one-device served runs of R.SERVED and R.SERVED_TP from
+    the reference's initial params (dense attention: the seq runs' twin
+    too)."""
+    ref = run[0]
+    return {name: R.served_cli(R.CLI_ARGS + flags, ref["cli_params"])["params"]
+            for name, flags in {**R.SERVED, **R.SERVED_TP}.items() if not name.endswith("_pipe")}
+
+
+def _rows(out, name):
+    return [json.loads(x) for x in open(os.path.join(out, f"{name}.jsonl"))]
+
+
+def _same_decode(a, b):
+    for k in ("ids", "lengths", "types", "logits"):
+        assert torch.equal(a[k], b[k]), k
+
+
+def _against_reference(have, want, logit_rtol, logit_atol):
+    for h, w in zip(have["inputs"], want["inputs"]):
+        np.testing.assert_array_equal(np.asarray(h), w)
+    np.testing.assert_array_equal(have["group"]["ids"].numpy(), want["ids"])
+    np.testing.assert_array_equal(have["group"]["lengths"].numpy(), want["lengths"])
+    _close(have["group"]["logits"], want["logits"], logit_rtol, logit_atol)
+    assert have["f1"] == want["f1"]
+
+
+def test_f1_decode_on_model_group_matches_reference(run):
+    """(i): every rank decodes in lockstep, bitwise alike; the logged
+    val_f1 is the decode's score; the reference on its model = 2 mesh
+    decodes the same ids from the same inputs."""
+    ref, got, out = run
+    have = got[0]["f1_tp"]
+    _same_decode(have["group"], got[1]["f1_tp"]["group"])
+    assert have["f1"] == got[1]["f1_tp"]["f1"] == _rows(out, "f1_tp")[-1]["val_f1"]
+    assert (have["group"]["lengths"] > torch.from_numpy(have["inputs"][2])).any()
+    want = ref_decode(ref, have["params"], R.TP_FLAGS + R.F1_FLAGS, True, have["group"])
+    _against_reference(have, want, 2e-4, 2e-5)
+
+
+def test_f1_decode_on_seq_group_matches_one_device_and_reference(run):
+    """(ii): on seq = 2 each rank decodes whole rows, bitwise the
+    one-device ring form (``_dense_causal``) and the other rank; the
+    reference's unsharded decode with ring attention within 1e-5."""
+    ref, got, out = run
+    have = got[0]["f1_seq"]
+    _same_decode(have["group"], got[1]["f1_seq"]["group"])
+    _same_decode(have["group"], have["one"])
+    assert have["f1"] == _rows(out, "f1_seq")[-1]["val_f1"]
+    want = ref_decode(ref, have["params"], R.SEQ_FLAGS + R.F1_FLAGS, False, have["group"])
+    _against_reference(have, want, 1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("payload", ["sketch", "announce"])
+@pytest.mark.parametrize("mesh", ["tp", "seq"])
+def test_served_group_matches_one_device(run, twins, mesh, payload):
+    """(iii): a served run on a model or seq group: the ranks, and
+    pipelined and serial, bitwise; the one-device served run within rtol
+    2e-4 / atol 2e-5."""
+    _, got, _ = run
+    serial, piped = f"serve_{mesh}_{payload}", f"serve_{mesh}_{payload}_pipe"
+    want = got[0][serial]["params"]
+    for g in got:
+        assert g[serial]["round"] == g[piped]["round"] == 2
+        assert torch.equal(g[serial]["params"], want)
+        assert torch.equal(g[piped]["params"], want)
+    _close(want, twins[payload], 2e-4, 2e-5)
+
+
+def test_served_model_group_matches_reference(run):
+    """(iii): the payload round on model = 2 against the reference's
+    served CLI on its clients=1 x model=2 CPU mesh, from the same initial
+    params."""
+    _, got, _ = run
+    s = jg2.main(ref_argv(R.TP_FLAGS + ["--num_devices", "2"] + R.SKETCH_SERVE))
+    _close(got[0]["serve_tp_sketch"]["params"],
+           np.asarray(ravel_pytree(jax.device_get(s.state["params"]))[0]), 2e-4, 2e-5)
+
+
+def test_pipelined_served_eval_every_round_finishes(run):
+    """(iv): the worker's client step on the serve cycle's groups beside
+    the main thread's eval and F1 decode at every round: the run ends with
+    a row a round, bitwise its serial twin (an eval changes no state)."""
+    _, got, out = run
+    rows = _rows(out, "overlap")
+    assert [r["round"] for r in rows] == [1, 2] and all("val_f1" in r for r in rows)
+    for g in got:
+        assert g["serve_tp_overlap"]["round"] == 2
+        assert torch.equal(g["serve_tp_overlap"]["params"], got[0]["serve_tp_sketch"]["params"])
+
+
+@pytest.mark.parametrize("name", sorted(R.SERVED_TP))
+def test_served_variants_on_model_group(run, twins, name):
+    """The buffered-async service, the fast path (its ring upload), the
+    edge tree (its partials in rank 0's broadcast) and process shards
+    (rank 0's ingest) on model = 2, the same client step: the ranks
+    bitwise, the one-device twin within rtol 2e-4 / atol 2e-5."""
+    _, got, _ = run
+    key = f"serve_tp_{name}"
+    assert got[0][key]["round"] == 2
+    assert torch.equal(got[0][key]["params"], got[1][key]["params"])
+    _close(got[0][key]["params"], twins[name], 2e-4, 2e-5)

@@ -20,7 +20,12 @@
 - ``gpt2_train.main`` in local_topk (client state) on ``--mesh clients=2
   --model_parallel 2``: every rank's params bitwise, each model pair's
   client rows bitwise, the params within rtol 1e-4 of the one-device
-  CLI's, and rank 0's checkpoint holding every client's rows."""
+  CLI's, and rank 0's checkpoint holding every client's rows;
+- ``--serve inproc --serve_payload sketch`` on ``--mesh clients=2
+  --model_parallel 2`` (the client step's gather on the serve cycle's
+  client-axis group, its model on the serve cycle's model groups): every
+  rank's params bitwise, within rtol 2e-4 / atol 2e-5 of the one-device
+  served run."""
 
 import dataclasses
 import os
@@ -194,3 +199,15 @@ def test_cli_local_topk_on_clients_by_model(run, tmp_path):
         for shard, rank in ((0, 0), (1, 2)):
             assert torch.equal(rows[shard * B:(shard + 1) * B], cli[rank]["rows"][k][:len(
                 rows[shard * B:(shard + 1) * B])])
+
+
+def test_served_clients_by_model_matches_one_device(run):
+    """(v): the payload round's tables gathered over the serve cycle's
+    client-axis group of each model coordinate."""
+    _, got, _ = run
+    have = got[0]["serve_clients_tp"]
+    for g in got:
+        assert g["serve_clients_tp"]["round"] == 2
+        assert torch.equal(g["serve_clients_tp"]["params"], have["params"])
+    one = R.served_cli(R.CLI_ARGS + R.SKETCH_SERVE)
+    _close(have["params"], one["params"], 2e-4, 2e-5)

@@ -1,6 +1,7 @@
 """Rank functions and cases of the port's parallelism tests (the
 collectives, tensor parallelism on the ``model`` axis, ring attention
-and GPT-2 on a ``seq`` axis, the GPipe op), started by
+and GPT-2 on a ``seq`` axis, the GPipe op, and ``--eval_f1`` and
+``--serve`` on seq and model groups), started by
 ``distributed.launch_local`` from tests/test_torch_parallel_2rank.py and
 tests/test_torch_parallel_4rank.py. Every spawned rank imports this
 module, so it imports no JAX: the reference's numbers are computed in the
@@ -10,6 +11,7 @@ Each rank function saves what its rank computed to ``out_dir``; the test
 files hold it against the reference, against the port's one-device runs
 and across the ranks."""
 
+import contextlib
 import dataclasses
 import os
 
@@ -21,6 +23,7 @@ from torch.func import functional_call
 from commefficient_tpu_torch import gpt2_train
 from commefficient_tpu_torch.federated import engine
 from commefficient_tpu_torch.models import convert
+from commefficient_tpu_torch.models.generate import make_generate
 from commefficient_tpu_torch.models import gpt2 as tgpt2
 from commefficient_tpu_torch.models.losses import make_lm_loss, make_lm_mc_loss
 from commefficient_tpu_torch.modes.config import ModeConfig
@@ -56,6 +59,28 @@ CLI_ARGS = ["--device", "cpu", "--model_size", "tiny", "--seq_len", "32", "--num
             "sketch", "--k", "500", "--num_cols", "4096", "--num_rows", "3", "--eval_every",
             "2", "--data_root", "/nonexistent", "--sync_loop"]
 LOCAL_TOPK = ["--mode", "local_topk", "--num_workers", "4", "--k", "300"]
+# --eval_f1 and --serve on seq and model groups: the mesh flags, the
+# decode's flags (greedy), and the served runs by name
+TP_FLAGS = ["--model_parallel", "2"]
+SEQ_FLAGS = ["--seq_parallel", "2", "--attn_impl", "ring"]
+F1_NEW = 6
+F1_FLAGS = ["--eval_f1", "2", "--decode_max_new", str(F1_NEW)]
+SKETCH_SERVE = ["--serve", "inproc", "--serve_payload", "sketch"]
+SERVED = {"sketch": SKETCH_SERVE,
+          "sketch_pipe": SKETCH_SERVE + ["--serve_pipeline"],
+          "announce": ["--serve", "inproc"],
+          "announce_pipe": ["--serve", "inproc", "--serve_pipeline"]}
+# served variants run on the model group only: the buffered-async service,
+# the fast path, the edge tree, and process shards behind the socket
+SERVED_TP = {"async": SKETCH_SERVE + ["--serve_async"],
+             "fastpath": SKETCH_SERVE + ["--serve_fastpath"],
+             "edges": SKETCH_SERVE + ["--serve_edges", "2"],
+             "procshards": ["--serve", "socket", "--serve_transport", "eventloop",
+                            "--serve_payload", "sketch", "--serve_shards", "2",
+                            "--serve_shard_mode", "process"]}
+# the pipelined payload run whose worker computes beside an eval and an F1
+# decode at every round
+OVERLAP_FLAGS = SKETCH_SERVE + ["--serve_pipeline", "--eval_every", "1"] + F1_FLAGS
 
 
 def _t(a):
@@ -145,6 +170,77 @@ def own_round(name, axes=None, mesh=None, rounds=2):
         state, _, m = step(state, b, {}, torch.tensor(lr))
     return {"params": state["params"], "Verror": state["mode_state"]["Verror"],
             "metrics": {k: float(v) for k, v in m.items()}}
+
+
+@contextlib.contextmanager
+def reference_init(flax_params):
+    """Inside the block, ``gpt2_train``'s random init gives GPT-2 the
+    parameters the reference's CLI initialises from its seed
+    (``flax_params``, numpy), carried across with ``models/convert.py``."""
+    orig = gpt2_train.init_weights
+
+    def init(model, seed):
+        tparams, _ = convert.params_from_flax(model, flax_params, {})
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_(tparams[name])
+
+    gpt2_train.init_weights = init
+    try:
+        yield
+    finally:
+        gpt2_train.init_weights = orig
+
+
+def served_cli(argv, flax_params=None) -> dict:
+    """The final params and rows of ``gpt2_train.main(argv)`` (from the
+    reference's initial params when given)."""
+    ctx = reference_init(flax_params) if flax_params is not None else contextlib.nullcontext()
+    with ctx:
+        s = gpt2_train.main(argv)
+    return {"params": s.state["params"].clone(), "round": s.round}
+
+
+def f1_decode(argv, flat, one_device: bool = False) -> dict:
+    """What ``F1Eval`` of the CLI ``argv`` decodes from the flat params
+    ``flat`` on this rank (greedy): its inputs, the decoded ids and lengths,
+    its score, and the logits of the final buffers at each step's position
+    [B, max_new, V] (what a causal model read at each step); with
+    ``one_device`` also the ids, lengths and logits of the one-device model
+    on the same params (for a seq group, the ring form)."""
+    from commefficient_tpu_torch.utils.config import make_parser, resolve_defaults
+
+    args = resolve_defaults(make_parser("gpt2").parse_args(argv))
+    _, valid_set, extras = gpt2_train.build(args)
+    tok = extras["tok"]
+    f1 = gpt2_train.F1Eval(args, extras["model"], tok, valid_set, torch.device("cpu"))
+    params = convert.FlatLayout(extras["model"]).unflatten(flat)
+    T = f1.ids.shape[1]
+    steps = torch.arange(args.decode_max_new)
+    pos = (f1.plen[:, None] - 1 + steps[None]).clamp(max=T - 1)
+    out = {"inputs": (f1.ids.numpy(), f1.types.numpy(), f1.prompt_len), "f1": f1(params, 0)}
+    models = {"group": (extras["model"], f1.generate)}
+    if one_device:
+        one = tgpt2.GPT2LMHead(extras["model"].cfg)
+        models["one"] = (one, make_generate(one, eos_id=tok.eos_id, pad_id=tok.pad_id,
+                                            reply_type_id=tok.speaker2_id,
+                                            max_new=args.decode_max_new))
+    for key, (model, generate) in models.items():
+        with torch.no_grad():
+            ids, lengths = generate(params, f1.ids, f1.types, f1.plen)
+        # the final cursor: past a written <eos>, else at the length
+        at = lengths.clamp(max=T - 1)
+        ended = (lengths < T) & (ids[torch.arange(len(ids)), at] == tok.eos_id)
+        cur = lengths + ended.long()
+        cols = torch.arange(T)[None]
+        types = torch.where((cols >= f1.plen[:, None]) & (cols < cur[:, None]),
+                            torch.full_like(f1.types, tok.speaker2_id), f1.types)
+        with torch.no_grad():
+            logits = torch.stack([functional_call(
+                model, params, (ids,), {"train": False, "token_type_ids": types,
+                                        "logit_positions": pos[:, s]}) for s in steps], 1)
+        out[key] = {"ids": ids, "lengths": lengths, "types": types, "logits": logits}
+    return out
 
 
 def _gather_blocks(x, axis, dim):
@@ -302,8 +398,32 @@ def ranks_2(out_dir, ref):
         rows = os.path.join(out_dir, f"{name}.jsonl")
         s = gpt2_train.main(CLI_ARGS + flags + ["--log_jsonl", rows])
         got[name] = {"params": s.state["params"], "axes": s.train_loss_fn.parallel is not None}
+    got.update(eval_and_serve_runs(out_dir, ref))
     torch.save(got, os.path.join(out_dir, f"rank{rank}.pt"))
     distributed.shutdown()
+
+
+def eval_and_serve_runs(out_dir, ref) -> dict:
+    """--eval_f1 and --serve on model = 2 and on seq = 2: the CLI's F1 run
+    on each group and its decode of the final params (the seq group's
+    beside the one-device ring form), the served runs of ``SERVED`` on
+    each group and of ``SERVED_TP`` on the model group, and the pipelined
+    run with an eval and a decode at every round, all from the
+    reference's initial params."""
+    got = {}
+    for mesh, flags in (("tp", TP_FLAGS), ("seq", SEQ_FLAGS)):
+        rows = os.path.join(out_dir, f"f1_{mesh}.jsonl")
+        s = gpt2_train.main(CLI_ARGS + flags + F1_FLAGS + ["--log_jsonl", rows])
+        got[f"f1_{mesh}"] = {"params": s.state["params"].clone(), **f1_decode(
+            CLI_ARGS + flags + F1_FLAGS, s.state["params"], one_device=mesh == "seq")}
+        served = dict(SERVED, **SERVED_TP) if mesh == "tp" else SERVED
+        for name, serve in served.items():
+            got[f"serve_{mesh}_{name}"] = served_cli(CLI_ARGS + flags + serve, ref["cli_params"])
+    got["serve_tp_overlap"] = served_cli(
+        CLI_ARGS + TP_FLAGS + OVERLAP_FLAGS + ["--log_jsonl",
+                                               os.path.join(out_dir, "overlap.jsonl")],
+        ref["cli_params"])
+    return got
 
 
 def ranks_4(out_dir, ref):
@@ -333,5 +453,9 @@ def ranks_4(out_dir, ref):
         os.path.join(out_dir, "ckpt"), "--log_jsonl", os.path.join(out_dir, "local_topk.jsonl")])
     got["cli_local_topk"] = {"params": s.state["params"], "client_block": s.client_block,
                              "rows": {k: v.clone() for k, v in s.client_state.items()}}
+    # the served payload round on clients=2 x model=2: the client step's
+    # gather on the serve cycle's client-axis group
+    got["serve_clients_tp"] = served_cli(CLI_ARGS + SKETCH_SERVE + [
+        "--mesh", "clients=2", "--model_parallel", "2"])
     torch.save(got, os.path.join(out_dir, f"rank{rank}.pt"))
     distributed.shutdown()
