@@ -85,7 +85,16 @@ sketch-health block (``_health_metrics``) on the rounds whose batch carries
 an armed ``HEALTH_KEY`` flag, a host value, and with ``ledger_fingerprint``
 order-fixed fingerprints of the committed state (``_ledger_fingerprints``),
 under the reserved "health/" and "ledger/" metric prefixes. Both only read
-round state, so an armed round is bitwise an unarmed one.
+round state, so an armed round is bitwise an unarmed one. The round's
+phases are spans on the tracer's ``federated`` track (``obs/trace.py``;
+mirrored into an open ``torch.profiler`` capture): ``round.step`` around
+every round-step closure built here (the payload pair's client and merge
+steps each), ``round.client`` around the client phase (a shard's in the
+sharded round; the whole client step of the payload pair), ``round.server``
+around ``modes.server_step_sparse``, and the sketch leaves
+``sketch.accumulate``, ``sketch.query`` and ``sketch.topk`` wherever they
+run. A span reads no device value: its round is the runner's enclosing
+``dispatch`` span's.
 
 Randomness: a training forward that draws (GPT-2's dropout) reads keep
 masks drawn from a ``torch.Generator`` per (round, client slot, local
@@ -123,6 +132,7 @@ from ..models.convert import FlatLayout
 from ..modes import modes
 from ..modes.config import ModeConfig
 from ..obs import health as obhealth
+from ..obs import trace as obtrace
 from ..parallel import collectives
 from ..sketch import csvec, layerwise
 
@@ -896,6 +906,7 @@ def _client_reduce(updates: Callable, cfg: EngineConfig, state: dict, batch: dic
             torch.cat(lnorms) if layer_q else None, new_rows)
 
 
+@obtrace.spanned("federated", "round.client")
 def _client_phase(updates: Callable, cfg: EngineConfig, state: dict, batch: dict,
                   client_rows: dict, lr, segments: tuple = ()):
     """The client phase of a round: the clients' updates (clipped to
@@ -1030,6 +1041,7 @@ def make_round_step(loss_fn: Callable, cfg: EngineConfig, layout: FlatLayout) ->
     segments = layerwise.leaf_segments(layout)
     plan = _block_plan(cfg, layout)
 
+    @obtrace.spanned("federated", "round.step")
     def step(state: dict, batch: dict, client_rows: dict, lr):
         pflat = state["params"]
         batch, health_on = split_health(batch)
@@ -1286,6 +1298,8 @@ def make_payload_round_steps(loss_fn: Callable, cfg: EngineConfig,
                                 for w in range(u.shape[0])])
         return out
 
+    @obtrace.spanned("federated", "round.step")
+    @obtrace.spanned("federated", "round.client")
     def client_step(state: dict, batch: dict):
         batch, _ = split_health(batch)  # the merge computes health
         batch, adv = split_adv(batch)
@@ -1312,6 +1326,7 @@ def make_payload_round_steps(loss_fn: Callable, cfg: EngineConfig,
         mvals = {k[2:]: v for k, v in out.items() if k.startswith("m/")}
         return tables, nstates, mvals, part, out.get("lnorms")
 
+    @obtrace.spanned("federated", "round.step")
     def merge_step(state: dict, tables: torch.Tensor, nstates: dict, mvals: dict,
                    part: torch.Tensor, arrived: torch.Tensor, lr,
                    lnorms: torch.Tensor | None = None, health_on: bool = False,
@@ -1607,6 +1622,7 @@ def make_sharded_round_step(loss_fn: Callable, cfg: EngineConfig, layout: FlatLa
     quarantine = cfg.client_update_clip > 0
     linear = modes.is_linear(mcfg)
 
+    @obtrace.spanned("federated", "round.client")
     def shard_outputs(state: dict, batch_l: dict, rows_l: dict, lo: int, W: int, lr):
         """One shard's client phase over cohort slots [lo, lo + W / S):
         (its outputs for the merge, its clients' new rows)."""
@@ -1625,6 +1641,7 @@ def make_sharded_round_step(loss_fn: Callable, cfg: EngineConfig, layout: FlatLa
             out["rows_ok"] = _all_finite(new_rows.values())
         return out, new_rows
 
+    @obtrace.spanned("federated", "round.step")
     def step(state: dict, batch: dict, client_rows: dict, lr):
         batch, health_on = split_health(batch)
         lr_t = lr if torch.is_tensor(lr) else torch.tensor(lr, dtype=torch.float32,

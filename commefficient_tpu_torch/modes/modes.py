@@ -26,10 +26,12 @@ from __future__ import annotations
 
 import torch
 
+from ..obs import trace as obtrace
 from ..sketch import csvec
 from .config import ModeConfig
 
 
+@obtrace.spanned("federated", "sketch.topk")
 def topk_dense(v: torch.Tensor, k: int, impl: str = "exact"
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """(idx[k], vals[k]) of the k largest-|.| coordinates of dense v,
@@ -414,6 +416,7 @@ def merge_edge_partials(partials: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@obtrace.spanned("federated", "round.server")
 def server_step_sparse(cfg: ModeConfig, agg: dict, sstate: dict,
                        lr: torch.Tensor | float) -> tuple[dict, dict]:
     """Server momentum + error feedback; returns (delta_wire, new_state).

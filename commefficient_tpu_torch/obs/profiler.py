@@ -17,6 +17,10 @@ whose work was launched inside it (a dispatch block that overlaps the
 window is taken whole, and the async loop may dispatch past END before the
 drain that commits END).
 
+While a capture is open the tracer mirrors its spans into it as
+``record_function`` ranges, armed or not (``trace.Tracer.mirror``), so the
+capture holds the run loop's and the round step's phases on its own clock.
+
 Where the profiler raises (a second profiler already open, a build without
 profiling support), the window degrades to a LOUD no-op: one stderr line,
 and the run continues untouched — observability must never take down the
@@ -28,6 +32,8 @@ from __future__ import annotations
 import contextlib
 import os
 import sys
+
+from . import trace
 
 
 def _profile(cuda: bool):
@@ -48,9 +54,11 @@ def whole_run(log_dir: str, cuda: bool = False):
         return
     prof = _profile(cuda)
     prof.start()
+    trace.get().mirror(True)
     try:
         yield
     finally:
+        trace.get().mirror(False)
         prof.stop()
         os.makedirs(log_dir, exist_ok=True)
         path = os.path.join(log_dir, "run.pt.trace.json")
@@ -146,6 +154,7 @@ class ProfileWindow:
                 "no-op and the run continues unprofiled")
             self._done = True
             return
+        trace.get().mirror(True)
         self._prof = prof
         self._active = True
         self.covered = (rnd, rnd + rounds - 1)
@@ -180,6 +189,7 @@ class ProfileWindow:
 
     def _stop(self, why: str) -> None:
         first, last = self.covered
+        trace.get().mirror(False)
         try:
             self._prof.stop()
             os.makedirs(self.log_dir, exist_ok=True)

@@ -6,19 +6,31 @@ Host-side spans (`span`, a context manager), point events (`instant`), and
 DEFERRED spans (`complete`, emitted after the fact with an explicit start
 timestamp) on named tracks — runner, device, writer, serve-ingest,
 assembler, federated, resilience. The run loop uses `complete` for the
-device phase: a dispatch records only a host timestamp, and the span is
-emitted at the loop's existing drain boundary when the in-flight rounds
-commit — tracing never adds a host synchronization to the round path and
-never touches RNG or device state, which is why a traced run is pinned
-bitwise equal to an untraced one (tests/test_torch_obs.py).
+device phase: a dispatch records its start and end (CUDA timing events on
+a card, host timestamps on the CPU), and the span is emitted at the loop's
+existing drain boundary when the in-flight rounds commit (the round
+step's own phases are `federated` spans: `federated/engine.py`) — tracing
+never adds a host synchronization to the round path and never touches RNG
+or device values, which is why a traced run is pinned bitwise equal to an
+untraced one (tests/test_torch_obs.py).
 
 Disabled (the default) the tracer is a near-zero-cost no-op: one attribute
 check per call site. `configure(trace_path=..., jsonl_path=...)` arms it —
-the CLIs do this from `--trace` / `--trace_events`. Buffered events are
-written as ONE Chrome-trace/Perfetto JSON file at `flush()` (exit path,
-never the dispatch path); the optional JSONL sink streams one
-schema-versioned object per event through a line-buffered handle opened
-once at configure time, the same whole-lines discipline as
+the CLIs do this from `--trace` / `--trace_events`.
+
+One clock with the device trace: while a `torch.profiler` capture is open
+on a thread, every span that thread enters also enters a
+`torch.profiler.record_function` range of the same name, nested as the
+spans nest, so the capture holds the program's phases beside the kernels
+they launched. The armed tracer asks the profiler at each span; a disarmed
+one does so only while `mirror(True)` is on (the `--profile_rounds`
+window). Torch is reached only when it is already imported: this module
+stays importable without it (the shard worker processes import `obs`).
+
+Buffered events are written as ONE Chrome-trace/Perfetto JSON file at
+`flush()` (exit path, never the dispatch path); the optional JSONL sink
+streams one schema-versioned object per event through a line-buffered
+handle opened once at configure time, the same whole-lines discipline as
 `utils.logging.TableLogger` (no `open()` ever runs on the dispatch thread).
 
 Memory is bounded: past `max_events` (default 1<<20) new events are
@@ -29,6 +41,7 @@ dropped and counted (`dropped_events`), loudly noted in the flushed trace
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import sys
 import threading
@@ -61,6 +74,10 @@ class Tracer:
         self.max_events = max_events
         self.dropped_events = 0
         self.enabled = False
+        self._mirror = False
+        # armed or mirroring: the one attribute a span checks before doing
+        # anything
+        self.live = False
 
     # -- lifecycle -------------------------------------------------------------
 
@@ -85,6 +102,13 @@ class Tracer:
             if jsonl_path:
                 self._jsonl = open(jsonl_path, "a", buffering=1)
             self.enabled = bool(trace_path or jsonl_path)
+            self.live = self.enabled or self._mirror
+
+    def mirror(self, on: bool) -> None:
+        """Mirror spans into an open ``torch.profiler`` capture even while
+        disarmed (the armed tracer always does); nothing is buffered."""
+        self._mirror = on
+        self.live = self.enabled or on
 
     def flush(self) -> str | None:
         """Write the buffered events as one Chrome-trace JSON file (the
@@ -170,16 +194,25 @@ class Tracer:
 
     @contextlib.contextmanager
     def span(self, track: str, name: str, **args):
-        """Host-side duration span. No-op (still yields) when disarmed."""
-        if not self.enabled:
+        """Host-side duration span, and a ``record_function`` range of the
+        same name while a profiler capture is open on this thread. No-op
+        (still yields) when disarmed and not mirroring."""
+        if not self.live:
             yield
             return
+        armed = self.enabled
+        rng = _capture_range(name)
+        if rng is not None:
+            rng.__enter__()
         t0 = self.now_us()
         try:
             yield
         finally:
             now = self.now_us()
-            self._emit("X", track, name, t0, now - t0, args)
+            if rng is not None:
+                rng.__exit__(None, None, None)
+            if armed:
+                self._emit("X", track, name, t0, now - t0, args)
 
     def complete(self, track: str, name: str, ts_us: float, dur_us: float,
                  **args) -> None:
@@ -209,6 +242,16 @@ class Tracer:
         self._emit("i", track, name, self.now_us(), None, args, sink=False)
 
 
+def _capture_range(name: str):
+    """A ``record_function`` range named ``name`` when a ``torch.profiler``
+    capture is open on this thread (the profiler's flag is per thread),
+    else None. Reaches torch only when it is already imported."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return None
+    return torch.profiler.record_function(name)
+
+
 _GLOBAL = Tracer()
 
 
@@ -223,6 +266,21 @@ def configure(trace_path: str | None = None,
 
 def span(track: str, name: str, **args):
     return _GLOBAL.span(track, name, **args)
+
+
+def spanned(track: str, name: str):
+    """Decorator: every call of the function runs inside ``span(track,
+    name)`` of the process-wide tracer. Disarmed and not mirroring, a call
+    costs one attribute check."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*a, **kw):
+            if not _GLOBAL.live:
+                return fn(*a, **kw)
+            with _GLOBAL.span(track, name):
+                return fn(*a, **kw)
+        return call
+    return wrap
 
 
 def complete(track: str, name: str, ts_us: float, dur_us: float, **args):

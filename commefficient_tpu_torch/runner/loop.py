@@ -44,12 +44,14 @@ which is why the tests pin them bitwise equal.
 
 Observability (``obs/``): the loop's phases are spans on the tracer's
 ``runner`` track (prepare, dispatch, drain, commit, checkpoint_sync, eval),
-with a ``commit_round`` instant per committed round. Each dispatch records
-only a host timestamp; the drain that commits it closes a deferred
-``device`` span from that timestamp to the drain's, so tracing adds no host
-sync. ``--profile_rounds`` opens a ``torch.profiler`` window
-(``obs.profiler.ProfileWindow``) at the dispatch of its first round and
-closes it after the drain that commits its last. An SLO engine in ``halt``
+with a ``commit_round`` instant per committed round. Each dispatch's
+deferred ``device`` span is closed by the drain that commits it
+(``DeviceSpans``): on a card, from CUDA timing events recorded at the
+dispatch's start and end, put on the tracer's clock after the drain's sync;
+on the CPU, where a dispatch runs to its end, from the host timestamps.
+Tracing adds no host sync. ``--profile_rounds`` opens a ``torch.profiler``
+window (``obs.profiler.ProfileWindow``) at the dispatch of its first round
+and closes it after the drain that commits its last. An SLO engine in ``halt``
 mode that latched at a commit ends the run at the drain boundary through
 the non-finite halt's clean exit, and the ``postmortem`` hook writes the
 crash bundle on the watchdog abort and the preemption exit.
@@ -181,10 +183,8 @@ class RunStats:
     # write_ms, verify_ms (utils.checkpoint.save)
     checkpoints: list = dataclasses.field(default_factory=list)
     # cohort degradation: clients the validity mask killed (dropped or a
-    # degraded load), summed over the run, and the deepest the
-    # dropped-client queue ran at a round's preparation
+    # degraded load), summed over the run
     clients_dropped: int = 0
-    requeue_depth_max: int = 0
     # clients the sketch-space quarantine rejected, summed over the run
     # (also the cohort_clients_quarantined_total counter), and the
     # adversarial attacks the fault plan injected while it ran (the
@@ -201,6 +201,80 @@ class RunStats:
     # runner_idle_ms histogram
     server_idle_ms: float = 0.0
     server_idle_ms_max: float = 0.0
+
+
+class DeviceSpans:
+    """The run loop's deferred spans on the tracer's ``device`` track, one
+    per dispatch, emitted once the drain that commits the dispatch has
+    synced.
+
+    On a card with the tracer armed, a dispatch records a CUDA timing event
+    at its start and one at its end, so its span runs from when the card
+    reached the dispatch's work to when it finished it (a host timestamp
+    would count the queue ahead of the dispatch as its work). The drain
+    records an anchor event just after its sync, beside ``tracer.now_us()``,
+    and each event's time before the anchor puts it on the tracer's clock.
+    An anchor is read once it has completed: at the end of its drain if
+    ``query`` says so, else at the next drain's sync, or at the loop's end
+    (``flush(wait=True)``), where the last drain left nothing queued ahead
+    of it. On
+    the CPU, where a dispatch runs to its end, a span runs from the
+    dispatch's host timestamp to the drain's."""
+
+    def __init__(self, tracer, cuda: bool, sketch_path: str):
+        self.tracer, self.cuda, self.sketch_path = tracer, cuda, sketch_path
+        self._open: collections.deque = collections.deque()  # (ts_us, first, n, events)
+        self._anchored: list = []  # (anchor, its trace us, [(first, n, events)])
+
+    def event(self):
+        """A timing event recorded now on a card with the tracer armed,
+        else None."""
+        if not (self.cuda and self.tracer.enabled):
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def dispatched(self, ts_us: float, first: int, n: int, start) -> None:
+        """A dispatch of n rounds from ``first`` returned; ``ts_us`` and
+        ``start`` (``event()``'s) were taken before it launched."""
+        self._open.append((ts_us, first, n, None if start is None else (start, self.event())))
+
+    def drained(self) -> None:
+        """Every open dispatch's rounds are done: the drain has synced."""
+        self.flush()  # an earlier drain's anchor is complete by now
+        end_us = self.tracer.now_us()
+        timed = []
+        while self._open:
+            ts_us, first, n, events = self._open.popleft()
+            if events is None:
+                self._emit(first, n, ts_us, end_us)
+            else:
+                timed.append((first, n, events))
+        if timed:
+            anchor = torch.cuda.Event(enable_timing=True)
+            anchor.record()
+            self._anchored.append((anchor, self.tracer.now_us(), timed))
+
+    def flush(self, wait: bool = False) -> None:
+        """Emit the spans whose anchor has completed (every one with
+        ``wait``)."""
+        keep = []
+        for anchor, anchor_us, timed in self._anchored:
+            if wait:
+                anchor.synchronize()
+            elif not anchor.query():
+                keep.append((anchor, anchor_us, timed))
+                continue
+            for first, n, (start, end) in timed:
+                self._emit(first, n, anchor_us - start.elapsed_time(anchor) * 1e3,
+                           anchor_us - end.elapsed_time(anchor) * 1e3)
+        self._anchored = keep
+
+    def _emit(self, first: int, n: int, start_us: float, end_us: float) -> None:
+        self.tracer.complete("device", f"rounds {first}..{first + n - 1}", start_us,
+                             end_us - start_us, round_first=first, rounds=n,
+                             sketch_path=self.sketch_path)
 
 
 def make_save_ckpt(session: FederatedSession, checkpoint_dir: str, timings: list | None = None):
@@ -272,7 +346,7 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
     mark = reg.mark()
     tracer = obtrace.get()
     # the deferred device spans name the round variant the session runs
-    sketch_path = session.cfg.sketch_path
+    device_spans = DeviceSpans(tracer, session.device.type == "cuda", session.cfg.sketch_path)
     if save_ckpt is None and cfg.checkpoint_dir:
         save_ckpt = make_save_ckpt(session, cfg.checkpoint_dir, stats.checkpoints)
     # in a group of ranks a local SIGTERM must not cut the schedule short
@@ -339,9 +413,6 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
 
     pending: collections.deque = collections.deque()  # in-flight dispatches
     pending_rounds = 0
-    # per dispatch (trace timestamp, first round, round count): the deferred
-    # device spans, closed by the drain that commits them
-    dispatch_marks: collections.deque = collections.deque()
     totals: collections.defaultdict = collections.defaultdict(float)
     last_m: dict | None = None
     nonfinite_total = 0
@@ -370,21 +441,13 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
                 hosts = session.fetch_metrics(list(pending))
         t_c0 = time.perf_counter()
         phase_hist["drain"].observe((t_c0 - t_d0) * 1e3)
-        # the deferred device spans: each dispatch recorded a host timestamp;
-        # its rounds are known done here
-        end_us = tracer.now_us()
-        while dispatch_marks:
-            ts_us, d_first, d_n = dispatch_marks.popleft()
-            tracer.complete("device", f"rounds {d_first}..{d_first + d_n - 1}", ts_us,
-                            end_us - ts_us, round_first=d_first, rounds=d_n,
-                            sketch_path=sketch_path)
+        # the deferred device spans: the dispatches' rounds are known done here
+        device_spans.drained()
         with tracer.span("runner", "commit", round_first=first, rounds=committed):
             for i, m in enumerate(session.commit_rounds(list(pending), hosts)):
                 last_m = m
                 nonfinite_total += int(m.get("nonfinite_rounds", 0))
                 stats.clients_dropped += int(m.get("clients_dropped", 0))
-                stats.requeue_depth_max = max(stats.requeue_depth_max,
-                                              int(m.get("requeue_depth", 0)))
                 quarantined = int(m.get("clients_quarantined", 0))
                 stats.clients_quarantined += quarantined
                 reg.counter("cohort_clients_quarantined_total").inc(quarantined)
@@ -395,6 +458,7 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
                 for k, v in m.items():
                     if isinstance(v, (int, float)):
                         totals[k] += v
+        device_spans.flush()
         pending.clear()
         pending_rounds = 0
         stats.drains += 1
@@ -444,11 +508,12 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
             idle_gauge.set(gap)
             idle_ms.append(gap)
         t_mark = tracer.now_us()
+        start = device_spans.event()
         with tracer.span("runner", "dispatch", round=rnd, rounds=n):
             infl = fn()
         # marked only after the dispatch returned: a raising dispatch must
         # not leave a mark the next drain would close into a phantom span
-        dispatch_marks.append((t_mark, rnd, n))
+        device_spans.dispatched(t_mark, rnd, n, start)
         pending.append(infl)
         if on_dispatched is not None:
             on_dispatched(rnd + n - 1)
@@ -477,6 +542,7 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
 
     def exit_saving(code, message: str | None = None, reason: str | None = None):
         shutdown()
+        device_spans.flush(wait=True)
         path = save_ckpt() if save_ckpt else None
         if ranks > 1:
             # every rank reaches this exit at the same agreed round; none
@@ -572,6 +638,7 @@ def run_loop(session: FederatedSession, opt: FedOptimizer, cfg: RunnerConfig, *,
     # a stored async-save failure must not block the final save below,
     # the corrective action (with its own retries)
     shutdown()
+    device_spans.flush(wait=True)
     if save_ckpt:
         save_ckpt()  # final checkpoint, synchronous: durable before return
         stats.sync_checkpoints += 1

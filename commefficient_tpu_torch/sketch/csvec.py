@@ -24,6 +24,7 @@ import math
 
 import torch
 
+from ..obs import trace as obtrace
 from . import kernels
 from .hashing import bucket_hash, row_keys, sign_hash, slab_shifts
 
@@ -204,6 +205,7 @@ def _check_vec(spec: CSVecSpec, v: torch.Tensor) -> None:
         raise ValueError(f"expected shape ({spec.d},), got {tuple(v.shape)}")
 
 
+@obtrace.spanned("federated", "sketch.accumulate")
 def sketch_vec(spec: CSVecSpec, v: torch.Tensor) -> torch.Tensor:
     """Sketch a dense [d] vector into an [r, c] table (CSVec.accumulateVec).
     Rotation family: the CUDA kernel for a CUDA tensor, else the plain fold."""
@@ -267,6 +269,7 @@ def merge_tables(spec: CSVecSpec, tables: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@obtrace.spanned("federated", "sketch.query")
 def query_all(spec: CSVecSpec, table: torch.Tensor) -> torch.Tensor:
     """Dense [d] vector of estimates for every coordinate. Rotation family:
     the CUDA kernel for a CUDA tensor, else the plain per-slab query."""
@@ -293,6 +296,7 @@ def query_all(spec: CSVecSpec, table: torch.Tensor) -> torch.Tensor:
 TOPK_OVERSAMPLE = 4
 
 
+@obtrace.spanned("federated", "sketch.topk")
 def topk_abs(x: torch.Tensor, k: int, impl: str = "exact") -> torch.Tensor:
     """Indices of the k largest-|.| entries, the reference's ``topk_abs``
     for every ``impl`` (``ModeConfig.topk_impl``):

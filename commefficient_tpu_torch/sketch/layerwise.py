@@ -63,6 +63,7 @@ from typing import Iterable
 import torch
 
 from ..models.convert import FlatLayout
+from ..obs import trace as obtrace
 from . import kernels
 from .csvec import CSVecSpec, _block_hashes, _rotation_keys, scatter_add_ordered, zero_table
 from .hashing import row_keys, sign_hash, slab_shifts
@@ -194,6 +195,7 @@ def accumulate_leaf(spec: CSVecSpec, table: torch.Tensor, leaf: torch.Tensor,
     return _accumulate(spec, table, v, _leaf_block(spec, offset, n))
 
 
+@obtrace.spanned("federated", "sketch.accumulate")
 def sketch_tree(spec: CSVecSpec, leaves: Iterable[torch.Tensor],
                 plan: BlockPlan | None = None) -> torch.Tensor:
     """Sketch a model's leaves, given in ravel order (any shape each, read

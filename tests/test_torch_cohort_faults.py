@@ -37,6 +37,7 @@ from commefficient_tpu_torch.models import convert
 from commefficient_tpu_torch.models.losses import make_classification_loss as tloss
 from commefficient_tpu_torch.models.resnet9 import ResNet9, init_weights
 from commefficient_tpu_torch.modes.config import ModeConfig as TModeConfig
+from commefficient_tpu_torch.obs import ledger
 from commefficient_tpu_torch.resilience import EXIT_RESUMABLE
 from commefficient_tpu_torch.resilience import FaultPlan as TFaultPlan
 from commefficient_tpu_torch.utils import checkpoint as ckpt
@@ -394,8 +395,10 @@ COHORT = ("--num_workers", "4", "--max_retries", "0", "--fault_plan", PLAN)
 def test_async_loop_bit_identical_to_sync_with_cohort_faults(tiny_cv, tmp_path, extra):
     argv = (*COHORT, "--num_rounds", "6", "--mode", "sketch", "--k", "100", "--num_cols",
             "2000", "--num_rows", "3", *extra)
-    a = tcv.main(_argv((*argv, "--sync_loop", "--log_jsonl", str(tmp_path / "a.jsonl"))))
-    b = tcv.main(_argv((*argv, "--log_jsonl", str(tmp_path / "b.jsonl"))))
+    a = tcv.main(_argv((*argv, "--sync_loop", "--log_jsonl", str(tmp_path / "a.jsonl"),
+                        "--ledger", str(tmp_path / "a.ledger"))))
+    b = tcv.main(_argv((*argv, "--log_jsonl", str(tmp_path / "b.jsonl"),
+                        "--ledger", str(tmp_path / "b.ledger"))))
     _assert_state_equal(a, b)
     ra, rb = _rows(tmp_path / "a.jsonl"), _rows(tmp_path / "b.jsonl")
     assert [{k: v for k, v in r.items() if k != "time_s"} for r in ra] == \
@@ -405,7 +408,10 @@ def test_async_loop_bit_identical_to_sync_with_cohort_faults(tiny_cv, tmp_path, 
     assert a._requeue_committed == b._requeue_committed
     assert a._requeue_ages_committed == b._requeue_ages_committed
     assert a.run_stats.clients_dropped == b.run_stats.clients_dropped >= 2 + 4 + 1
-    assert a.run_stats.requeue_depth_max == b.run_stats.requeue_depth_max == 4
+    # the dropped-client queue's depth at each round's preparation
+    depths = [[r["metrics"]["requeue_depth"] for r in ledger.round_records(str(p))]
+              for p in (tmp_path / "a.ledger", tmp_path / "b.ledger")]
+    assert depths[0] == depths[1] and max(depths[0]) == 4
 
 
 @pytest.mark.parametrize("policy", ["fifo", "aged"])

@@ -171,21 +171,71 @@ def test_instant_signal_safe_skips_the_sink(tmp_path):
 # --------------------------------------------- a traced run is a plain run
 
 
+ROUND_PHASES = ("round.step", "round.client", "round.server")
+SKETCH_LEAVES = ("sketch.accumulate", "sketch.query", "sketch.topk")
+
+
+def _inside(inner: dict, outer: dict, eps: float = 0.01) -> bool:
+    """``inner``'s interval lies in ``outer``'s (the exporter rounds each
+    timestamp and duration to 1 ns)."""
+    return (outer["ts"] - eps <= inner["ts"]
+            and inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"] + eps)
+
+
+def _rounds_of_steps(evs: list) -> list:
+    """(round, [the spans inside it]) of every ``round.step`` span, in
+    order: each span of the round step (the federated track's other span,
+    ``prepare_round``, runs in ``prepare``) belongs to the one ``dispatch`` span whose
+    interval contains it, and the i-th ``round.step`` of a dispatch is the
+    dispatch's round + i (a payload round has two: its client and merge
+    steps, so they share a round through their position)."""
+    disp = sorted((e for e in evs if e["cat"] == "runner" and e["name"] == "dispatch"),
+                  key=lambda e: e["ts"])
+    fed = sorted((e for e in evs if e["cat"] == "federated" and e["ph"] == "X"
+                  and e["name"] in ROUND_PHASES + SKETCH_LEAVES), key=lambda e: e["ts"])
+    owned = {id(f): [d for d in disp if _inside(f, d)] for f in fed}
+    assert all(len(v) == 1 for v in owned.values())
+    out = []
+    for d in disp:
+        kids = [f for f in fed if owned[id(f)][0] is d]
+        steps = [f for f in kids if f["name"] == "round.step"]
+        per = len(steps) // d["args"]["rounds"]
+        assert per * d["args"]["rounds"] == len(steps) and per >= 1
+        for i, step in enumerate(steps):
+            inner = [f for f in kids if f is not step and _inside(f, step)]
+            out.append((d["args"]["round"] + i // per, inner))
+        # nothing of the dispatch runs outside its round steps
+        assert all(any(_inside(f, st) for st in steps) for f in kids)
+    return out
+
+
+def _capture_ranges(path) -> list:
+    return [e for e in json.load(open(path))["traceEvents"]
+            if e.get("cat") == "user_annotation" and e.get("ph") == "X"]
+
+
 @pytest.mark.parametrize("loop", [["--sync_loop"], [], ["--rounds_per_dispatch", "3"]],
                          ids=["sync", "async", "blocks"])
 def test_traced_cli_run_bitwise_equal_to_untraced(tiny_cv, tmp_path, loop):  # noqa: F811
     """6 sketch rounds through the CLI, traced (Chrome trace and JSONL)
-    and not: params, server state and every row (but time_s) bitwise
-    equal. The trace holds the runner's phase spans, a commit_round
-    instant per round and one device span per drained dispatch, which
-    together cover every round once."""
+    and not, and traced under a ``--profile_rounds`` capture: params,
+    server state and every row (but time_s) bitwise equal. The trace holds
+    the runner's phase spans, a commit_round instant per round and one
+    device span per drained dispatch, which together cover every round
+    once; on the federated track one round.step, round.client and
+    round.server per round, each round.step inside its dispatch and
+    holding the round's sketch accumulate, query and top-k. The capture
+    holds a round.step range per round it covered."""
     base = _argv(("--num_rounds", "6", "--eval_every", "3", *loop), "sketch")
-    la, lb = str(tmp_path / "a.jsonl"), str(tmp_path / "b.jsonl")
+    la, lb, lc = (str(tmp_path / f"{x}.jsonl") for x in "abc")
     trace, events = str(tmp_path / "t.json"), str(tmp_path / "ev.jsonl")
     a = cv_train.main(base + ["--log_jsonl", la])
     b = cv_train.main(base + ["--log_jsonl", lb, "--trace", trace, "--trace_events", events])
+    c = cv_train.main(base + ["--log_jsonl", lc, "--trace", str(tmp_path / "tc.json"),
+                              "--profile_rounds", "1:4", "--profile_dir", str(tmp_path / "p")])
     _assert_state_equal(a, b)
-    assert _rows(la) == _rows(lb)
+    _assert_state_equal(a, c)
+    assert _rows(la) == _rows(lb) == _rows(lc)
     evs = [e for e in json.load(open(trace))["traceEvents"] if e["ph"] != "M"]
     names = Counter((e["cat"], e["name"]) for e in evs)
     for phase in ("prepare", "dispatch", "drain", "commit", "eval"):
@@ -197,8 +247,205 @@ def test_traced_cli_run_bitwise_equal_to_untraced(tiny_cv, tmp_path, loop):  # n
     assert [r for first, n in device for r in range(first, first + n)] == list(range(6))
     assert len(device) == names[("runner", "dispatch")]
     assert all(e["dur"] >= 0 for e in evs if e["cat"] == "device")
+    for phase in ROUND_PHASES:
+        assert names[("federated", phase)] == 6, phase
+    steps = _rounds_of_steps(evs)
+    assert [r for r, _ in steps] == list(range(6))
+    for _, inner in steps:
+        got = Counter(f["name"] for f in inner)
+        assert got["round.client"] == got["round.server"] == 1
+        assert all(got[leaf] >= 1 for leaf in SKETCH_LEAVES), got
     rows = [json.loads(line) for line in open(events)]
     assert len(rows) == len(evs)
+    (cap,) = (tmp_path / "p").iterdir()
+    first, last = map(int, cap.name.split(".")[0].split("_")[1:])
+    got = Counter(e["name"] for e in _capture_ranges(cap))
+    assert got["round.step"] == got["round.client"] == got["round.server"] == last - first + 1
+
+
+LOCAL_TOPK = ["--mode", "local_topk", "--k", "100", "--num_workers", "3"]
+TABLE_ROUND = ["--mode", "sketch", "--k", "100", "--num_cols", "2000", "--num_rows", "3",
+               "--num_workers", "4", "--merge_policy", "trimmed", "--merge_trim", "1"]
+
+
+@pytest.mark.parametrize("path", [LOCAL_TOPK, TABLE_ROUND], ids=["local_topk", "table_round"])
+def test_traced_client_side_compression_bitwise_equal(tiny_cv, tmp_path, path):  # noqa: F811
+    """The rounds that compress on the client side: local_topk (each
+    client's top-k against its rows of the client state) and the
+    per-client-table round (each client's own sketch, then the payload
+    pair's merge step). Traced under a capture against untraced, async:
+    bitwise equal; the client side's sketch ranges lie inside round.client,
+    the server step's inside round.server."""
+    base = _argv(path + ["--num_rounds", "4", "--eval_every", "2"])
+    la, lb = str(tmp_path / "a.jsonl"), str(tmp_path / "b.jsonl")
+    trace = str(tmp_path / "t.json")
+    a = cv_train.main(base + ["--log_jsonl", la])
+    b = cv_train.main(base + ["--log_jsonl", lb, "--trace", trace,
+                              "--profile_rounds", "0:3", "--profile_dir", str(tmp_path / "p")])
+    _assert_state_equal(a, b)
+    if path is LOCAL_TOPK:
+        assert torch.equal(a.client_state["error"], b.client_state["error"])
+    assert _rows(la) == _rows(lb)
+    evs = [e for e in json.load(open(trace))["traceEvents"] if e["ph"] != "M"]
+    steps = _rounds_of_steps(evs)
+    clients = [e for e in evs if e["cat"] == "federated" and e["name"] == "round.client"]
+    servers = [e for e in evs if e["cat"] == "federated" and e["name"] == "round.server"]
+    assert len(clients) == len(servers) == 4
+    leaves = [e for e in evs if e["cat"] == "federated" and e["name"].startswith("sketch.")]
+    for leaf in leaves:
+        assert any(_inside(leaf, p) for p in clients + servers), leaf["name"]
+    client_leaves = Counter(e["name"] for e in leaves if any(_inside(e, c) for c in clients))
+    if path is LOCAL_TOPK:
+        assert [r for r, _ in steps] == [0, 1, 2, 3]
+        assert client_leaves["sketch.topk"] >= 3 * 4  # a top-k a client, nested in the dense one
+    else:
+        # the payload pair: a client step and a merge step a round
+        assert [r for r, _ in steps] == [0, 0, 1, 1, 2, 2, 3, 3]
+        assert client_leaves == Counter({"sketch.accumulate": 4 * 4})  # a table a client
+        server = Counter(e["name"] for e in leaves if any(_inside(e, s) for s in servers))
+        assert server["sketch.query"] == server["sketch.topk"] == 4
+    (cap,) = (tmp_path / "p").iterdir()
+    assert Counter(e["name"] for e in _capture_ranges(cap))["round.client"] == 4
+
+
+def test_capture_holds_the_spans_nested_with_the_tracer_disarmed(tiny_cv, tmp_path):  # noqa: F811
+    """A ``--profile_rounds`` capture on the CPU with the tracer disarmed:
+    the tracer buffers nothing, but the capture holds the runner's and the
+    round step's spans as ``user_annotation`` ranges on the loop's thread,
+    nested as the spans nest."""
+    cv_train.main(_argv(("--num_rounds", "4", "--sync_loop", "--profile_rounds", "1:2",
+                         "--profile_dir", str(tmp_path / "p")), "sketch"))
+    assert ttrace.get().event_count() == 0 and not ttrace.get().live
+    (path,) = (tmp_path / "p").iterdir()
+    ranges = _capture_ranges(path)
+    by_name: dict = {}
+    for e in ranges:
+        by_name.setdefault(e["name"], []).append(e)
+    assert len(by_name["dispatch"]) == len(by_name["round.step"]) == 2
+    assert {e["tid"] for e in ranges if e["name"] in ROUND_PHASES + SKETCH_LEAVES} == \
+        {by_name["dispatch"][0]["tid"]}
+
+    def parent(e, names):
+        return [p for n in names for p in by_name.get(n, ())
+                if p is not e and p["tid"] == e["tid"] and _inside(e, p)]
+
+    for step in by_name["round.step"]:
+        assert len(parent(step, ["dispatch"])) == 1
+    for name in ("round.client", "round.server"):
+        assert len(by_name[name]) == 2
+        assert all(len(parent(e, ["round.step"])) == 1 for e in by_name[name])
+    for name in ("sketch.query", "sketch.topk"):
+        assert by_name[name] and all(parent(e, ["round.server"]) for e in by_name[name])
+    assert all(parent(e, ["round.step"]) and not parent(e, ["round.client"])
+               for e in by_name["sketch.accumulate"])  # the compress-once shortcut
+    for name in ("drain", "commit", "prepare"):
+        assert len(by_name[name]) >= 2
+
+
+def test_disarmed_tracer_enters_no_record_function(tiny_cv, monkeypatch):  # noqa: F811
+    """With the tracer disarmed and no capture open a span costs one
+    attribute check: ``record_function`` is never entered. Armed under an
+    open capture, every span enters it once."""
+    import torch.profiler
+
+    entered: list = []
+
+    class Counting:
+        def __init__(self, name):
+            self.name = name
+
+        def __enter__(self):
+            entered.append(self.name)
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch.profiler, "record_function", Counting)
+    argv = _argv(("--num_rounds", "2", "--sync_loop"), "sketch")
+    cv_train.main(argv)
+    ours = set(ROUND_PHASES + SKETCH_LEAVES + ("dispatch", "drain", "commit", "prepare"))
+    assert not [n for n in entered if n in ours]
+    tracer = ttrace.get()
+    tracer.configure(trace_path="unused")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with tracer.span("runner", "dispatch"):
+            with tracer.span("federated", "round.step"):
+                pass
+    tracer.configure()
+    assert entered == ["dispatch", "round.step"]
+
+
+class _FakeEvent:
+    """A stand-in for ``torch.cuda.Event``: ``record`` reads a device clock
+    the test advances (ms)."""
+
+    clock = [0.0]
+    pending: list = []
+
+    def __init__(self, enable_timing=False):
+        self.t = None
+
+    def record(self):
+        self.t = None
+        _FakeEvent.pending.append(self)
+
+    def query(self):
+        return self.t is not None
+
+    def synchronize(self):
+        _FakeEvent.run()
+
+    def elapsed_time(self, other):
+        return other.t - self.t
+
+    @classmethod
+    def run(cls, to_ms: float | None = None):
+        """The device reaches every recorded event (at ``to_ms``)."""
+        if to_ms is not None:
+            cls.clock[0] = to_ms
+        for ev in cls.pending:
+            ev.t = cls.clock[0]
+        cls.pending.clear()
+
+
+def test_device_spans_run_on_the_card_clock(monkeypatch):
+    """On a card the device span runs from when the card reached the
+    dispatch's work to when it finished it, put on the tracer's clock at
+    the drain: queue wait ahead of the dispatch is not the dispatch's."""
+    from commefficient_tpu_torch.runner.loop import DeviceSpans
+
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    _FakeEvent.clock, _FakeEvent.pending = [0.0], []
+    tracer = ttrace.Tracer()
+    tracer.configure(trace_path="unused")
+    spans = DeviceSpans(tracer, cuda=True, sketch_path="ravel")
+    start = spans.event()
+    spans.dispatched(0.0, 3, 2, start)
+    _FakeEvent.pending[0].t = 40.0  # the card reaches the dispatch 40 ms in
+    _FakeEvent.pending[1].t = 55.0  # and finishes it 15 ms later
+    _FakeEvent.pending.clear()
+    spans.drained()  # the anchor is recorded but the card has not run it
+    assert tracer.events() == []
+    _FakeEvent.run(to_ms=60.0)
+    anchor_us = spans._anchored[0][1]
+    spans.flush()
+    (ev,) = tracer.events()
+    assert ev["cat"] == "device" and ev["args"] == {"round_first": 3, "rounds": 2,
+                                                    "sketch_path": "ravel"}
+    assert ev["dur"] == pytest.approx(15e3)
+    assert ev["ts"] == pytest.approx(anchor_us - 20e3, abs=1e-3)
+    # disarmed: no event is recorded and no span emitted; the CPU keeps
+    # the host timestamps
+    tracer.configure()
+    assert spans.event() is None
+    cpu = DeviceSpans(ttrace.Tracer(), cuda=False, sketch_path="ravel")
+    cpu.tracer.configure(trace_path="unused")
+    assert cpu.event() is None
+    t0 = cpu.tracer.now_us()
+    cpu.dispatched(t0, 0, 1, None)
+    cpu.drained()
+    (ev,) = cpu.tracer.events()
+    assert ev["ts"] == round(t0, 3) and ev["dur"] > 0
 
 
 # ---------------------------------------------------- the profiler window
